@@ -1,0 +1,61 @@
+"""HF Llama checkpoint → parameter tree (port of the JAX package's
+``io/loaders.py`` ``load_params``, HF names only).
+
+Linear weights are transposed from the checkpoint's ``[out, in]`` to
+``[in, out]`` and stacked over layers, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.device import resolve_device
+from metalchat_tpu_torch.io.safetensors import SafetensorsDocument
+from metalchat_tpu_torch.models.transformer import Params, make_rope_tables
+
+
+def load_params(doc: SafetensorsDocument, config: ModelConfig, *,
+                dtype=torch.bfloat16, max_seq_len: Optional[int] = None,
+                device=None) -> Params:
+    """Build the parameter tree from an HF-named Llama safetensors document."""
+    dev = resolve_device(device)
+
+    def get(name: str) -> torch.Tensor:
+        return doc.torch_tensor(name).to(dtype)
+
+    def linear(name: str) -> torch.Tensor:
+        return get(name).T.contiguous()  # [out, in] → [in, out]
+
+    def stack(template: str, fn) -> torch.Tensor:
+        return torch.stack([fn(template.format(i=i))
+                            for i in range(config.num_layers)]).to(dev)
+
+    pre = "model.layers.{i}."
+    layers: Dict[str, torch.Tensor] = {
+        "attn_norm": stack(pre + "input_layernorm.weight", get),
+        "wq": stack(pre + "self_attn.q_proj.weight", linear),
+        "wk": stack(pre + "self_attn.k_proj.weight", linear),
+        "wv": stack(pre + "self_attn.v_proj.weight", linear),
+        "wo": stack(pre + "self_attn.o_proj.weight", linear),
+        "ffn_norm": stack(pre + "post_attention_layernorm.weight", get),
+        "w1": stack(pre + "mlp.gate_proj.weight", linear),
+        "w3": stack(pre + "mlp.up_proj.weight", linear),
+        "w2": stack(pre + "mlp.down_proj.weight", linear),
+    }
+    embed = get("model.embed_tokens.weight")
+    if "lm_head.weight" in doc:
+        lm_head = linear("lm_head.weight")
+    elif config.tie_word_embeddings:
+        lm_head = embed.T.contiguous()
+    else:
+        raise KeyError("checkpoint has no lm_head.weight and embeddings are not tied")
+    return {
+        "embed": embed.to(dev),
+        "layers": layers,
+        "final_norm": get("model.norm.weight").to(dev),
+        "lm_head": lm_head.to(dev),
+        "rope": make_rope_tables(config, max_seq_len, device=dev),
+    }

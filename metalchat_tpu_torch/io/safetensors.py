@@ -1,0 +1,157 @@
+"""Zero-copy safetensors reader (a trimmed copy of the JAX package's
+``io/safetensors.py``: read side only, no native fast path).
+
+Tensors come back as numpy views of the mmap; ``torch_tensor`` gives a CPU
+torch tensor with the checkpoint's dtype (bf16 is read as raw 16-bit words
+and reinterpreted, so numpy needs no bf16 type).
+"""
+
+from __future__ import annotations
+
+import json
+import mmap
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+# safetensors dtype tag → numpy storage dtype (BF16 as raw int16 words).
+_DTYPES: Dict[str, np.dtype] = {
+    "BOOL": np.dtype(np.bool_),
+    "I8": np.dtype(np.int8),
+    "U8": np.dtype(np.uint8),
+    "I16": np.dtype(np.int16),
+    "F16": np.dtype(np.float16),
+    "BF16": np.dtype(np.int16),
+    "I32": np.dtype(np.int32),
+    "F32": np.dtype(np.float32),
+    "F64": np.dtype(np.float64),
+    "I64": np.dtype(np.int64),
+}
+
+_MAX_HEADER_BYTES = 100 * 1024 * 1024
+
+
+@dataclass(frozen=True)
+class TensorEntry:
+    name: str
+    dtype: str            # safetensors tag, e.g. "BF16"
+    shape: Tuple[int, ...]
+    data_offsets: Tuple[int, int]
+
+    @property
+    def nbytes(self) -> int:
+        return self.data_offsets[1] - self.data_offsets[0]
+
+    @property
+    def np_dtype(self) -> np.dtype:
+        try:
+            return _DTYPES[self.dtype]
+        except KeyError:
+            raise ValueError(f"unsupported safetensors dtype {self.dtype!r}") from None
+
+
+def parse_header(blob) -> Tuple[Dict[str, Any], list]:
+    """8-byte LE length + JSON header → (metadata, entries by file offset)."""
+    if len(blob) < 8:
+        raise ValueError("safetensors: file shorter than header length field")
+    header_len = int.from_bytes(bytes(blob[:8]), "little")
+    if header_len > _MAX_HEADER_BYTES or 8 + header_len > len(blob):
+        raise ValueError(f"safetensors: implausible header length {header_len}")
+    header = json.loads(bytes(blob[8:8 + header_len]).decode("utf-8"))
+    metadata = header.pop("__metadata__", {})
+    entries = [
+        TensorEntry(name=name, dtype=info["dtype"],
+                    shape=tuple(int(s) for s in info["shape"]),
+                    data_offsets=(int(info["data_offsets"][0]),
+                                  int(info["data_offsets"][1])))
+        for name, info in header.items()
+    ]
+    entries.sort(key=lambda e: e.data_offsets[0])
+    for e in entries:
+        expect = int(np.prod(e.shape, dtype=np.int64)) * e.np_dtype.itemsize
+        if expect != e.nbytes:
+            raise ValueError(f"safetensors: tensor {e.name!r} byte span {e.nbytes} "
+                             f"!= shape/dtype implies {expect}")
+    return metadata, entries
+
+
+class SafetensorsDocument:
+    """A read-only view over one safetensors file."""
+
+    def __init__(self, entries: Sequence[TensorEntry], data: memoryview,
+                 metadata: Optional[Mapping[str, Any]] = None, *, _owner: Any = None):
+        self._entries: Dict[str, TensorEntry] = {e.name: e for e in entries}
+        self._data = data
+        self.metadata: Dict[str, Any] = dict(metadata or {})
+        self._owner = _owner  # keeps the mmap/file alive
+
+    @classmethod
+    def open(cls, path: str | Path) -> "SafetensorsDocument":
+        with Path(path).open("rb") as f:
+            mapped = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        view = memoryview(mapped)
+        metadata, entries = parse_header(view)
+        header_len = int.from_bytes(bytes(view[:8]), "little")
+        return cls(entries, view[8 + header_len:], metadata, _owner=mapped)
+
+    def keys(self) -> Iterator[str]:
+        yield from self._entries
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
+    def entry(self, name: str) -> TensorEntry:
+        return self._entries[name]
+
+    def tensor(self, name: str) -> np.ndarray:
+        """Zero-copy numpy view (BF16 as int16 words)."""
+        e = self.entry(name)
+        begin, end = e.data_offsets
+        return np.frombuffer(self._data[begin:end], dtype=e.np_dtype).reshape(e.shape)
+
+    __getitem__ = tensor
+
+    def torch_tensor(self, name: str) -> torch.Tensor:
+        """A CPU tensor (a copy) with the checkpoint's dtype."""
+        t = torch.from_numpy(self.tensor(name).copy())
+        return t.view(torch.bfloat16) if self.entry(name).dtype == "BF16" else t
+
+
+class ShardedSafetensorsDocument(SafetensorsDocument):
+    """Consolidated view over ``model.safetensors.index.json`` shards."""
+
+    def __init__(self, index_path: str | Path):
+        index_path = Path(index_path)
+        index = json.loads(index_path.read_text())
+        self._shards: Dict[str, SafetensorsDocument] = {}
+        self._where: Dict[str, str] = {}
+        for name, shard in index["weight_map"].items():
+            if shard not in self._shards:
+                self._shards[shard] = SafetensorsDocument.open(index_path.parent / shard)
+            self._where[name] = shard
+        entries = [self._shards[s].entry(n) for n, s in self._where.items()]
+        super().__init__(entries, memoryview(b""), index.get("metadata", {}))
+
+    def tensor(self, name: str) -> np.ndarray:
+        return self._shards[self._where[name]].tensor(name)
+
+    __getitem__ = tensor
+
+
+def open_safetensors(path: str | Path) -> SafetensorsDocument:
+    """Open a single file, a sharded index, or a directory holding either."""
+    path = Path(path)
+    if path.is_dir():
+        index = path / "model.safetensors.index.json"
+        if index.exists():
+            return ShardedSafetensorsDocument(index)
+        single = path / "model.safetensors"
+        if single.exists():
+            return SafetensorsDocument.open(single)
+        raise FileNotFoundError(f"no safetensors checkpoint under {path}")
+    if path.name.endswith(".index.json"):
+        return ShardedSafetensorsDocument(path)
+    return SafetensorsDocument.open(path)

@@ -1,0 +1,144 @@
+"""Decode path: windows of 1 to 16 tokens (port of the JAX package's
+``models/decode.py``, Llama only).
+
+* Every act8 per-channel linear runs through the stacked matvec kernel
+  (``ops.a8_matvec``) with the window's rows flattened to ``[B·S]``; wqkv
+  and w13 take the rmsnorm prologue inside the kernel. lm_head rides the
+  same kernel through a unit layer axis.
+* S == 1 with an int8 cache: one fused kernel per layer quantizes the new
+  K/V row, writes it in place and attends (``ops.decode_attention``).
+* 1 < S ≤ 16, or a dense cache: the cache is updated in place and the
+  reference attention runs over the layer's dequantized cache with a
+  causal window mask.
+
+Dense linear leaves take a plain product. The TPU-only gates of the JAX
+path (Mosaic head-dim rules, block choice, lane alignment) do not apply.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from metalchat_tpu_torch.cache import (
+    QuantizedKVCache,
+    dequantize_kv,
+    update_stacked_layer_cache,
+    update_stacked_layer_cache_quantized,
+)
+from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.models.transformer import (
+    embed_tokens,
+    layer_leaf,
+    silu_gate,
+)
+from metalchat_tpu_torch.ops import reference as ops
+from metalchat_tpu_torch.ops.a8_matvec import MAX_ROWS, quant_matvec_stacked_fused
+from metalchat_tpu_torch.ops.decode_attention import (
+    decode_attention_update_quantized_stacked,
+)
+from metalchat_tpu_torch.quant.quantize import QuantizedTensor, linear
+
+
+def _kernel_ok(leaf: Any, rows: int) -> bool:
+    """The matvec kernel covers act8 per-channel transposed storage, up to
+    16 rows, with in-features a multiple of 32."""
+    return (isinstance(leaf, QuantizedTensor) and leaf.act_bits == 8
+            and leaf.transposed and leaf.group_size == leaf.in_features
+            and rows <= MAX_ROWS and leaf.in_features % 32 == 0)
+
+
+def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
+                config: ModelConfig):
+    """One decode window ``tokens [B, S]`` (S ≤ 16) at ``start_pos`` (int or
+    ``[B]``); same contract as `forward`. The cache is updated in place."""
+    b, s = tokens.shape
+    dev = tokens.device
+    if torch.is_tensor(start_pos) and start_pos.ndim == 1:
+        offsets = start_pos.to(device=dev, dtype=torch.int64)
+    else:
+        start_pos = int(start_pos)
+        offsets = torch.full((b,), start_pos, dtype=torch.int64, device=dev)
+    positions = offsets[:, None] + torch.arange(s, device=dev)[None, :]
+    lengths = (offsets + s).to(torch.int32)
+
+    layers = params["layers"]
+    nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    eps = config.rms_norm_eps
+    scale = hd ** -0.5
+    rows = b * s
+    quantized = isinstance(cache, QuantizedKVCache)
+    kv_len = cache.k.shape[3]
+
+    x = embed_tokens(params, tokens).reshape(rows, -1)
+    cos = params["rope"]["cos"][positions]  # [B, S, hd/2], once per step
+    sin = params["rope"]["sin"][positions]
+
+    def norm_linear(x_res, name: str, norm_name: str, l: int, normed: dict):
+        """layers[name] @ rmsnorm(x_res): inside the kernel when it applies,
+        else one normed activation shared by the layer's projections."""
+        leaf = layers[name]
+        norm = layers[norm_name]
+        if _kernel_ok(leaf, rows) and norm.dtype == x_res.dtype:
+            return quant_matvec_stacked_fused(x_res, leaf.q, leaf.scales, l,
+                                              bits=leaf.bits, norm_stack=norm,
+                                              norm_eps=eps)
+        if norm_name not in normed:
+            normed[norm_name] = ops.rms_norm(x_res, norm[l], eps=eps)
+        return linear_l(normed[norm_name], name, l)
+
+    def linear_l(h, name: str, l: int):
+        leaf = layers[name]
+        if _kernel_ok(leaf, rows):
+            return quant_matvec_stacked_fused(h, leaf.q, leaf.scales, l, bits=leaf.bits)
+        return linear(h, layer_leaf(leaf, l))
+
+    for l in range(config.num_layers):
+        normed: dict = {}
+        if "wqkv" in layers:
+            q, k, v = norm_linear(x, "wqkv", "attn_norm", l, normed).split(
+                [nh * hd, nkv * hd, nkv * hd], dim=-1)
+        else:
+            q, k, v = (norm_linear(x, n, "attn_norm", l, normed)
+                       for n in ("wq", "wk", "wv"))
+        q = ops.apply_rope_rows(q.reshape(b, s, nh, hd), cos, sin)
+        k = ops.apply_rope_rows(k.reshape(b, s, nkv, hd), cos, sin)
+        v = v.reshape(b, s, nkv, hd)
+
+        if quantized and s == 1:
+            attn, *_ = decode_attention_update_quantized_stacked(
+                q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
+                cache.k, cache.v, cache.k_scale, cache.v_scale, l, lengths,
+                scale=scale)
+        else:
+            if quantized:
+                update_stacked_layer_cache_quantized(
+                    cache.k, cache.v, cache.k_scale, cache.v_scale, k, v, l, start_pos)
+                keys = dequantize_kv(cache.k[l], cache.k_scale[l], x.dtype)
+                values = dequantize_kv(cache.v[l], cache.v_scale[l], x.dtype)
+            else:
+                update_stacked_layer_cache(cache.k, cache.v, k, v, l, start_pos)
+                keys, values = cache.k[l], cache.v[l]
+            mask = ops.causal_mask(positions, kv_len, lengths[:, None, None])
+            attn = ops.attention(q, keys, values, mask, scale=scale)
+        x = x + linear_l(attn.reshape(rows, nh * hd), "wo", l)
+
+        normed = {}
+        if "w13" in layers:
+            ffn = linear_l(silu_gate(norm_linear(x, "w13", "ffn_norm", l, normed)),
+                           "w2", l)
+        else:
+            gate = torch.nn.functional.silu(norm_linear(x, "w1", "ffn_norm", l, normed))
+            ffn = linear_l(gate * norm_linear(x, "w3", "ffn_norm", l, normed), "w2", l)
+        x = x + ffn
+
+    x = ops.rms_norm(x, params["final_norm"], eps=eps)
+    lm_head = params["lm_head"]
+    if isinstance(lm_head, QuantizedTensor) and lm_head.q.ndim == 2 \
+            and _kernel_ok(lm_head, rows):
+        logits = quant_matvec_stacked_fused(x, lm_head.q[None], lm_head.scales[None],
+                                            0, bits=lm_head.bits)
+    else:
+        logits = linear(x, lm_head)
+    return logits.float().reshape(b, s, -1), cache

@@ -1,0 +1,66 @@
+"""Projection fusion: wq/wk/wv → ``wqkv`` and w1/w3 → ``w13`` (port of the
+JAX package's ``models/fuse.py``, plain concatenation only: ``fuse_tp=1``).
+
+Concatenating along out-features is exact: for quantized leaves the packed
+bytes and per-channel scales concatenate unchanged (groups run along
+in-features). Fewer, wider matvecs mean fewer kernel launches per layer.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import torch
+
+from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+
+
+def fused_segments(name: str, config: ModelConfig) -> tuple:
+    """Logical out-axis segment widths of a fused projection leaf."""
+    if name == "wqkv":
+        hd = config.head_dim
+        return (config.num_heads * hd, config.num_kv_heads * hd,
+                config.num_kv_heads * hd)
+    if name == "w13":
+        return (config.intermediate_size, config.intermediate_size)
+    raise ValueError(f"not a fused leaf: {name}")
+
+
+def split_fused(y: torch.Tensor, segments: Sequence[int]):
+    """Split a fused projection output back into its segments (views)."""
+    return torch.split(y, list(segments), dim=-1)
+
+
+def _concat_linears(leaves) -> Any:
+    """Concat linear leaves along out-features (dense or quantized)."""
+    if all(isinstance(w, QuantizedTensor) for w in leaves):
+        first = leaves[0]
+        layout = {(w.bits, w.group_size, w.act_bits, w.in_features, w.transposed)
+                  for w in leaves}
+        if len(layout) != 1:
+            raise ValueError("quantized projections disagree on layout")
+        per_channel = first.group_size == first.in_features
+        q_dim = -2 if first.transposed else -1
+        s_dim = -2 if first.transposed and not per_channel else -1
+        return QuantizedTensor(
+            q=torch.cat([w.q for w in leaves], dim=q_dim),
+            scales=torch.cat([w.scales for w in leaves], dim=s_dim),
+            bits=first.bits, group_size=first.group_size,
+            transposed=first.transposed, act_bits=first.act_bits)
+    if any(isinstance(w, QuantizedTensor) for w in leaves):
+        raise ValueError("cannot fuse mixed dense/quantized projections")
+    return torch.cat(leaves, dim=-1)
+
+
+def fuse_projections(params: Dict[str, Any], config: ModelConfig) -> Dict[str, Any]:
+    """Return a tree with wq/wk/wv fused to ``wqkv`` and w1/w3 to ``w13``."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for names, fused in ((("wq", "wk", "wv"), "wqkv"), (("w1", "w3"), "w13")):
+        if all(n in layers for n in names):
+            layers[fused] = _concat_linears([layers[n] for n in names])
+            for n in names:
+                del layers[n]
+    out["layers"] = layers
+    return out

@@ -1,0 +1,147 @@
+"""Decoder-only Llama transformer: the prefill path (port of the JAX
+package's ``models/transformer.py``, Llama only).
+
+Parameter tree (same keys and layouts as the JAX package; per-layer leaves
+stacked on a leading layer axis):
+
+  params = {
+    "embed": [V, H],
+    "layers": {"attn_norm": [L, H], "wqkv" | "wq"/"wk"/"wv", "wo",
+               "ffn_norm": [L, H], "w13" | "w1"/"w3", "w2"},
+    "final_norm": [H], "lm_head": [H, V] or QuantizedTensor,
+    "rope": {"cos", "sin": [S_max, hd/2]},
+  }
+
+Dense linear leaves are ``[L, in, out]``; quantized ones are
+``QuantizedTensor`` (act8: ``q [L, out, in/2]``, scales ``[L, 1, out]``).
+The layer loop is a Python loop over views of the stacked leaves.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from metalchat_tpu_torch.cache import (
+    KVCache,
+    QuantizedKVCache,
+    dequantize_kv,
+    update_layer_cache,
+    update_layer_cache_quantized,
+)
+from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.ops import reference as ops
+from metalchat_tpu_torch.ops.flash_attention import flash_attention
+from metalchat_tpu_torch.quant.quantize import (
+    QuantizedTensor,
+    linear,
+    lookup_embedding,
+)
+
+Params = Dict[str, Any]
+Cache = Union[KVCache, QuantizedKVCache]
+
+# Windows of at most this many tokens take the decode path (as in the JAX
+# package: weights are read once per window through the matvec kernel).
+DECODE_MAX_TOKENS = 16
+
+
+def layer_leaf(leaf, l: int):
+    """Layer ``l`` of a stacked linear leaf (a view, no copy)."""
+    return leaf.layer(l) if isinstance(leaf, QuantizedTensor) else leaf[l]
+
+
+def make_rope_tables(config: ModelConfig, max_seq_len: Optional[int] = None,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Precompute rope cos/sin ``[S_max, hd/2]`` (f32)."""
+    s = max_seq_len or config.max_seq_len
+    cos, sin = ops.precompute_rope(config.head_dim, s, config.rope_theta,
+                                   config.rope_scaling, device=device)
+    return {"cos": cos, "sin": sin}
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding in the activation dtype (that of ``final_norm``)."""
+    return lookup_embedding(tokens, params["embed"]).to(params["final_norm"].dtype)
+
+
+def final_logits(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """Final norm + lm head → f32 logits."""
+    x = ops.rms_norm(x, params["final_norm"], eps=config.rms_norm_eps)
+    return linear(x, params["lm_head"]).float()
+
+
+def silu_gate(fused: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` of a fused w13 output ``[.., 2F]``."""
+    gate, up = fused.chunk(2, dim=-1)
+    return torch.nn.functional.silu(gate) * up
+
+
+def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
+                rope, positions, start_pos, kv_end: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    eps = config.rms_norm_eps
+
+    h = ops.rms_norm(x, layers["attn_norm"][l], eps=eps)
+    if "wqkv" in layers:
+        q, k, v = linear(h, layer_leaf(layers["wqkv"], l)).split(
+            [nh * hd, nkv * hd, nkv * hd], dim=-1)
+    else:
+        q, k, v = (linear(h, layer_leaf(layers[n], l)) for n in ("wq", "wk", "wv"))
+    q = ops.apply_rope(q.reshape(b, s, nh, hd), rope["cos"], rope["sin"], positions)
+    k = ops.apply_rope(k.reshape(b, s, nkv, hd), rope["cos"], rope["sin"], positions)
+    v = v.reshape(b, s, nkv, hd)
+
+    if isinstance(cache, QuantizedKVCache):
+        ck, cv, sk, sv = update_layer_cache_quantized(
+            cache.k[l], cache.v[l], cache.k_scale[l], cache.v_scale[l], k, v,
+            start_pos)
+        # Prefill attends over the cache dequantized to the activation dtype.
+        keys = dequantize_kv(ck[:, :, :kv_end], sk[:, :, :kv_end], x.dtype)
+        values = dequantize_kv(cv[:, :, :kv_end], sv[:, :, :kv_end], x.dtype)
+    else:
+        ck, cv = update_layer_cache(cache.k[l], cache.v[l], k, v, start_pos)
+        keys, values = ck[:, :, :kv_end].contiguous(), cv[:, :, :kv_end].contiguous()
+    attn = flash_attention(q.contiguous(), keys, values, start_pos, scale=hd ** -0.5)
+    x = x + linear(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l))
+
+    h = ops.rms_norm(x, layers["ffn_norm"][l], eps=eps)
+    if "w13" in layers:
+        ffn = linear(silu_gate(linear(h, layer_leaf(layers["w13"], l))),
+                     layer_leaf(layers["w2"], l))
+    else:
+        ffn = ops.swiglu(h, layer_leaf(layers["w1"], l), layer_leaf(layers["w3"], l),
+                         layer_leaf(layers["w2"], l), "silu", matmul=linear)
+    return x + ffn
+
+
+def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
+            config: ModelConfig):
+    """One model step: tokens int ``[B, S]`` written at ``start_pos`` (an int,
+    or an int32 ``[B]`` of per-row offsets). Returns (f32 logits
+    ``[B, S, V]``, cache), the cache updated in place.
+
+    Windows of up to 16 tokens take `decode_step` (the matvec kernel path),
+    as in the JAX package; longer ones are the prefill path below, with
+    flash attention over the dequantized cache."""
+    b, s = tokens.shape
+    if s <= DECODE_MAX_TOKENS:
+        from metalchat_tpu_torch.models.decode import decode_step
+
+        return decode_step(params, cache, tokens, start_pos, config)
+    if torch.is_tensor(start_pos) and start_pos.ndim == 1:
+        offsets = start_pos.to(device=tokens.device, dtype=torch.int64)
+        kv_end = int(offsets.max()) + s
+    else:
+        start_pos = int(start_pos)
+        offsets = torch.full((b,), start_pos, dtype=torch.int64, device=tokens.device)
+        kv_end = start_pos + s
+    positions = offsets[:, None] + torch.arange(s, device=tokens.device)[None, :]
+
+    x = embed_tokens(params, tokens)
+    for l in range(config.num_layers):
+        x = _layer_step(x, params["layers"], l, cache, config, params["rope"],
+                        positions, start_pos, kv_end)
+    return final_logits(params, x, config), cache

@@ -1,0 +1,39 @@
+"""Op layer: plain PyTorch reference ops and the hand-written CUDA kernels.
+
+Each kernel wrapper dispatches on its tensors' device: CPU tensors take the
+kernel's plain PyTorch version (the oracle the kernel is held against),
+CUDA tensors launch the kernel, and anything else raises. There is no
+fallback from the kernel to the plain version and no switch to force one.
+
+| kernel (``csrc/``)       | wrapper                                       | TPU kernel it replaces |
+| ``a8_matvec.cu``         | ``quant_matvec_stacked_fused`` / ``_stacked`` | ``ops/a8_matvec_pallas.py`` |
+| ``decode_attention.cu``  | ``decode_attention_update_quantized_stacked`` | ``ops/decode_attention_pallas.py`` |
+| ``flash_attention.cu``   | ``flash_attention``                           | ``ops/flash_attention_pallas.py`` |
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from metalchat_tpu_torch.ops._build import LAUNCHES, build_all, reset_launch_counts
+from metalchat_tpu_torch.ops.a8_matvec import (  # noqa: F401
+    quant_matvec_stacked,
+    quant_matvec_stacked_fused,
+)
+from metalchat_tpu_torch.ops.decode_attention import (  # noqa: F401
+    decode_attention_update_quantized_stacked,
+)
+from metalchat_tpu_torch.ops.flash_attention import flash_attention  # noqa: F401
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last `reset_launch_counts` (plain-version
+    calls on CPU tensors are not launches and are not counted)."""
+    return dict(LAUNCHES)
+
+
+__all__ = [
+    "build_all", "decode_attention_update_quantized_stacked", "flash_attention",
+    "launch_counts", "quant_matvec_stacked", "quant_matvec_stacked_fused",
+    "reset_launch_counts",
+]

@@ -1,0 +1,188 @@
+"""Stacked W4A8/W8A8 decode matvec: CUDA kernel ``csrc/a8_matvec.cu`` and
+its plain PyTorch version.
+
+Replaces ``metalchat_tpu/ops/a8_matvec_pallas.py``
+(``quant_matvec_stacked_fused`` and ``quant_matvec_stacked``). On the H100
+the kernel is bound by the HBM stream of the packed weights (out·in/2 bytes
+for int4); see the note at the top of the CUDA source for its design.
+
+Layouts as in the JAX package: weights ``[L, out, in/2]`` (int4, half-split
+with an offset-binary low nibble) or ``[L, out, in]`` (int8); per-channel
+scales ``[L, 1, out]`` in f32 or bf16; norm weights ``[L, in]``. ``layer``
+is a Python int. CPU tensors take the plain version; CUDA tensors launch
+the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from metalchat_tpu_torch.ops import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+MAX_ROWS = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("a8_matvec")
+    lib.a8_matvec_fused.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _F, _F, _P]
+    lib.a8_matvec_fused.restype = _I
+    lib.a8_matvec_raw.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    lib.a8_matvec_raw.restype = _I
+    return lib
+
+
+# -- plain version ------------------------------------------------------------
+
+def act_quantize(x: torch.Tensor):
+    """Per-token dynamic symmetric int8: x ≈ xq * sx, sx ``[..., 1]`` f32.
+
+    Same ops and order as the reference ``_act_quantize``: absmax, ``sx = 1``
+    where it is 0, then true divisions and round-half-to-even. (The divisor
+    127 is a tensor on x's device: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which rounds differently.)"""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.where(absmax == 0.0, torch.ones_like(absmax),
+                     absmax / absmax.new_full((), 127.0))
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``a [M, K] · b [N, K]ᵀ`` of int8 operands (plain: int32
+    product on the CPU, float64 on a GPU, where every partial sum of int8
+    products is exact)."""
+    if a.device.type == "cpu":
+        return a.int() @ b.int().T
+    out = torch.empty(a.shape[0], b.shape[0], dtype=torch.int32, device=a.device)
+    ad = a.double()
+    for i in range(0, b.shape[0], 8192):
+        out[:, i:i + 8192] = (ad @ b[i:i + 8192].double().T).to(torch.int32)
+    return out
+
+
+def int_acc(xq: torch.Tensor, p: torch.Tensor, bits: int) -> torch.Tensor:
+    """Integer accumulator of int8 rows xq ``[B, in]`` against one layer of
+    packed weights ``[out, k]`` (the nibble identities of ``_int_acc_w4``)."""
+    if bits == 8:
+        return int_dot(xq, p)
+    half = xq.shape[1] // 2
+    acc_lo = int_dot(xq[:, :half], p & 15)
+    acc_hi = int_dot(xq[:, half:], p & -16)
+    corr = 8 * xq[:, :half].sum(dim=1, keepdim=True, dtype=torch.int32)
+    return (acc_lo - corr) + (acc_hi >> 4)
+
+
+def quant_matvec_stacked_plain(xq, p_stack, layer: int, *, bits: int):
+    return int_acc(xq, p_stack[layer], bits)
+
+
+def prologue(x, norm_w=None, norm_eps=None, norm_offset: float = 0.0):
+    """The fused kernel's prologue: optional rmsnorm (f32 statistics, scale
+    ``offset + w``, rounded to x's dtype), then `act_quantize`."""
+    xf = x.float()
+    if norm_w is not None:
+        var = xf.square().mean(dim=1, keepdim=True)
+        normed = xf * torch.rsqrt(var + norm_eps)
+        xf = (normed * (norm_offset + norm_w.float().reshape(1, -1))).to(x.dtype).float()
+    return act_quantize(xf)
+
+
+def quant_matvec_stacked_fused_plain(x, p_stack, s_stack, layer: int, *, bits: int,
+                                     norm_stack=None, norm_eps=None,
+                                     norm_offset: float = 0.0):
+    norm_w = None if norm_stack is None else norm_stack[layer]
+    xq, sx = prologue(x, norm_w, norm_eps, norm_offset)
+    acc = int_acc(xq, p_stack[layer], bits)
+    s_col = s_stack[layer].reshape(1, -1).float()
+    return (acc.float() * sx * s_col).to(x.dtype)
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+def _check_shapes(x, p_stack, layer: int, bits: int) -> None:
+    L, out_f, k = p_stack.shape
+    b, in_f = x.shape
+    if p_stack.dtype != torch.int8 or bits not in (4, 8):
+        raise ValueError(f"a8_matvec: int8 weights and bits in (4, 8), got "
+                         f"{p_stack.dtype}, {bits}")
+    if k * (2 if bits == 4 else 1) != in_f:
+        raise ValueError(f"a8_matvec: x {tuple(x.shape)} vs weights "
+                         f"{tuple(p_stack.shape)} at bits={bits}")
+    if not 0 <= layer < L:
+        raise IndexError(f"a8_matvec: layer {layer} of {L}")
+    if not 1 <= b <= MAX_ROWS or in_f % 32:
+        raise ValueError(f"a8_matvec kernel: 1 <= rows <= {MAX_ROWS} and "
+                         f"in % 32 == 0, got {tuple(x.shape)}")
+
+
+def quant_matvec_stacked(xq: torch.Tensor, p_stack: torch.Tensor, layer: int, *,
+                         bits: int) -> torch.Tensor:
+    """Raw int32 ``[B, out]`` accumulator of pre-quantized int8 rows against
+    layer ``layer`` of a stacked weight (bit-exact test surface)."""
+    if xq.device.type == "cpu":
+        return quant_matvec_stacked_plain(xq, p_stack, layer, bits=bits)
+    _build.require_cuda("a8_matvec", xq, p_stack)
+    _check_shapes(xq, p_stack, layer, bits)
+    if xq.dtype != torch.int8:
+        raise ValueError(f"a8_matvec raw mode takes int8 rows, got {xq.dtype}")
+    b, in_f = xq.shape
+    out_f = p_stack.shape[1]
+    out = torch.empty(b, out_f, dtype=torch.int32, device=xq.device)
+    rc = _lib().a8_matvec_raw(xq.data_ptr(), p_stack[layer].data_ptr(),
+                              out.data_ptr(), b, in_f, out_f, bits,
+                              _build.stream_ptr(xq))
+    _build.check(rc, "a8_matvec_raw")
+    _build.count_launch("a8_matvec")
+    return out
+
+
+def quant_matvec_stacked_fused(x: torch.Tensor, p_stack: torch.Tensor,
+                               s_stack: torch.Tensor, layer: int, *, bits: int,
+                               norm_stack: Optional[torch.Tensor] = None,
+                               norm_eps: Optional[float] = None,
+                               norm_offset: float = 0.0) -> torch.Tensor:
+    """bf16/f32 rows ``[B, in]`` → ``[B, out]`` in x's dtype: optional rmsnorm
+    prologue (``norm_stack [L, in]``), per-token int8 act-quant, s8×s8→s32
+    against layer ``layer``, then ``acc·sx·s_col``."""
+    if x.device.type == "cpu":
+        return quant_matvec_stacked_fused_plain(
+            x, p_stack, s_stack, layer, bits=bits, norm_stack=norm_stack,
+            norm_eps=norm_eps, norm_offset=norm_offset)
+    tensors = [x, p_stack, s_stack] + ([norm_stack] if norm_stack is not None else [])
+    _build.require_cuda("a8_matvec", *tensors)
+    _check_shapes(x, p_stack, layer, bits)
+    L, out_f, _ = p_stack.shape
+    b, in_f = x.shape
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"a8_matvec: activations bf16 or f32, got {x.dtype}")
+    if s_stack.shape != (L, 1, out_f) or s_stack.dtype not in (torch.bfloat16,
+                                                               torch.float32):
+        raise ValueError(f"a8_matvec: scales [L, 1, out] f32/bf16, got "
+                         f"{tuple(s_stack.shape)} {s_stack.dtype}")
+    nw_ptr = None
+    if norm_stack is not None:
+        if norm_stack.shape != (L, in_f) or norm_stack.dtype != x.dtype:
+            raise ValueError(f"a8_matvec: norm weights [L, in] in x's dtype, got "
+                             f"{tuple(norm_stack.shape)} {norm_stack.dtype}")
+        if norm_eps is None:
+            raise ValueError("a8_matvec: norm_eps is required with norm_stack")
+        nw_ptr = norm_stack[layer].data_ptr()
+    out = torch.empty(b, out_f, dtype=x.dtype, device=x.device)
+    rc = _lib().a8_matvec_fused(
+        x.data_ptr(), p_stack[layer].data_ptr(), s_stack[layer].data_ptr(),
+        nw_ptr, out.data_ptr(), b, in_f, out_f, bits,
+        int(x.dtype == torch.bfloat16), int(s_stack.dtype == torch.bfloat16),
+        float(norm_eps or 0.0), float(norm_offset), _build.stream_ptr(x))
+    _build.check(rc, "a8_matvec_fused")
+    _build.count_launch("a8_matvec")
+    return out

@@ -1,0 +1,131 @@
+"""Fused int8-KV decode attention: CUDA kernel ``csrc/decode_attention.cu``
+and its plain PyTorch version.
+
+Replaces ``metalchat_tpu/ops/decode_attention_pallas.py``
+``decode_attention_update_quantized_stacked``: quantize the new K/V row,
+write it and its scale into layer ``layer`` of the stacked int8 cache at
+``pos = length - 1`` (IN PLACE), then single-token GQA attention over
+``[window_lo, length)``. On the H100 it is bound by the bytes of the int8
+K/V rows it reads; see the CUDA source for its design.
+
+Layouts: q ``[B, nh, hd]`` (heads kv-major), new rows ``[B, n_kv, hd]``,
+cache ``[L, B, n_kv, T, hd]`` int8 with scales ``[L, B, n_kv, T]`` f32,
+lengths int32 ``[B]`` including the new token, each in ``[1, T]``, window
+``None`` or an int (``-1`` = global). Returns ``(attn, k, v, k_scale, v_scale)``, the cache
+tensors being the ones passed in.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from metalchat_tpu_torch.cache import quantize_kv
+from metalchat_tpu_torch.ops import _build
+from metalchat_tpu_torch.ops.reference import MASK_VALUE
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("decode_attention")
+    lib.decode_attention_update.argtypes = [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P]
+    lib.decode_attention_update.restype = _I
+    return lib
+
+
+def _window(window: Optional[int]) -> int:
+    return -1 if window is None else int(window)
+
+
+def decode_attention_update_plain(q, k_new, v_new, k, v, k_scale, v_scale,
+                                  layer: int, lengths, *, scale: float,
+                                  window: Optional[int] = None):
+    b, nh, hd = q.shape
+    nkv, t_max = k.shape[2], k.shape[3]
+    groups = nh // nkv
+    if bool(((lengths < 1) | (lengths > t_max)).any()):
+        raise ValueError(f"decode_attention_update: lengths must lie in [1, {t_max}]")
+    rows = torch.arange(b, device=q.device)
+    pos = lengths.long() - 1
+    qk, sk = quantize_kv(k_new)
+    qv, sv = quantize_kv(v_new)
+    k[layer][rows, :, pos] = qk
+    v[layer][rows, :, pos] = qv
+    k_scale[layer][rows, :, pos] = sk
+    v_scale[layer][rows, :, pos] = sv
+
+    qg = q.float().reshape(b, nkv, groups, hd)
+    s = torch.einsum("bkgd,bktd->bkgt", qg, k[layer].float()) * scale
+    s = s * k_scale[layer][:, :, None, :]
+    t = torch.arange(t_max, device=q.device)[None, :]
+    length = lengths.long()[:, None]
+    ok = t < length
+    w = _window(window)
+    if w >= 0:
+        ok &= t > length - 1 - w
+    s = torch.where(ok[:, None, None, :], s, MASK_VALUE)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(ok[:, None, None, :], p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p * v_scale[layer][:, :, None, :]
+    o = torch.einsum("bkgt,bktd->bkgd", p, v[layer].float())
+    o = o * torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
+    return o.reshape(b, nh, hd).to(q.dtype), k, v, k_scale, v_scale
+
+
+def check_args(q, k_new, v_new, k, v, k_scale, v_scale, layer: int, lengths) -> None:
+    """The kernel's preconditions on shapes and dtypes (it indexes every
+    cache tensor with k's strides and writes into them in place). Lengths
+    are data on the card and are not checked here: the kernel leaves the
+    cache untouched and returns NaN for a row whose length is outside
+    ``[1, t_max]``."""
+    b, nh, hd = q.shape
+    L, _, nkv, t_max, _ = k.shape
+    if (k.dtype != torch.int8 or v.dtype != torch.int8
+            or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise ValueError("decode_attention_update: int8 cache with f32 scales")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k_new.dtype != q.dtype \
+            or v_new.dtype != q.dtype:
+        raise ValueError("decode_attention_update: q/k_new/v_new bf16 or f32, same dtype")
+    if (k_new.shape != (b, nkv, hd) or v_new.shape != k_new.shape
+            or k.shape != (L, b, nkv, t_max, hd) or v.shape != k.shape
+            or k_scale.shape != (L, b, nkv, t_max) or v_scale.shape != k_scale.shape
+            or nh % nkv or lengths.shape != (b,) or lengths.dtype != torch.int32):
+        raise ValueError("decode_attention_update: shape mismatch")
+    if hd not in (64, 128) or nh // nkv > 32 or not 0 <= layer < L:
+        raise ValueError(f"decode_attention_update: hd in (64, 128), groups <= 32 and "
+                         f"0 <= layer < {L}, got hd={hd}, groups={nh // nkv}, "
+                         f"layer={layer}")
+
+
+def decode_attention_update_quantized_stacked(q, k_new, v_new, k, v, k_scale, v_scale,
+                                              layer: int, lengths, *, scale: float,
+                                              window: Optional[int] = None):
+    """Quantize + write the new row into layer ``layer`` in place, then attend.
+
+    Returns ``(attn [B, nh, hd], k, v, k_scale, v_scale)``."""
+    if q.device.type == "cpu":
+        return decode_attention_update_plain(
+            q, k_new, v_new, k, v, k_scale, v_scale, layer, lengths,
+            scale=scale, window=window)
+    _build.require_cuda("decode_attention_update", q, k_new, v_new, k, v,
+                        k_scale, v_scale, lengths)
+    check_args(q, k_new, v_new, k, v, k_scale, v_scale, layer, lengths)
+    b, nh, hd = q.shape
+    nkv, t_max = k.shape[2], k.shape[3]
+    out = torch.empty_like(q)
+    rc = _lib().decode_attention_update(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k[layer].data_ptr(),
+        v[layer].data_ptr(), k_scale[layer].data_ptr(), v_scale[layer].data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), b, nh, nkv, t_max, hd, float(scale),
+        _window(window), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+    _build.check(rc, "decode_attention_update")
+    _build.count_launch("decode_attention_update")
+    return out, k, v, k_scale, v_scale

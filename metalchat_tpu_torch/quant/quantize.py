@@ -1,0 +1,277 @@
+"""Weight quantization and the W4A8/W8A8 linear (port of the JAX package's
+``quant/quantize.py``).
+
+Packing and scales are computed with the same numpy arithmetic as the JAX
+package, so both produce the same bytes from the same weights:
+
+* int4 is packed half-split along in-features with an offset-binary low
+  nibble: byte ``r`` holds ``w[r] + 8`` (low) and ``w[r + in/2]`` (high,
+  two's complement);
+* ``transposed=True`` stores ``q [(L,) out, in(/2)]``; per-channel scales
+  stay ``[(L,) 1, out]`` in both orientations.
+
+``act_bits=8`` with per-channel scales is the execution scheme of this
+slice: activations are quantized per token to int8 and the product runs as
+s8×s8→s32 with one post-scale. `linear` serves the prefill (more than 16
+rows) with an exact integer matrix product (``torch._int_mm`` on the card);
+decode windows call the CUDA matvec kernel from ``models/decode.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from metalchat_tpu_torch.device import resolve_device
+from metalchat_tpu_torch.ops.a8_matvec import act_quantize, int_dot
+
+
+@dataclass
+class QuantizedTensor:
+    """Groupwise-quantized 2-D weight; leaves may carry a leading stacked
+    layer axis ``[L, ...]``."""
+
+    q: torch.Tensor
+    scales: torch.Tensor
+    bits: int = 8
+    group_size: int = 32
+    transposed: bool = False
+    act_bits: Optional[int] = None
+
+    @property
+    def in_features(self) -> int:
+        n = self.q.shape[-1] if self.transposed else self.q.shape[-2]
+        return n * 2 if self.bits == 4 else n
+
+    @property
+    def out_features(self) -> int:
+        return self.q.shape[-2] if self.transposed else self.q.shape[-1]
+
+    def layer(self, l: int) -> "QuantizedTensor":
+        """Layer ``l`` of a stacked leaf (views, no copy)."""
+        return QuantizedTensor(self.q[l], self.scales[l], self.bits,
+                               self.group_size, self.transposed, self.act_bits)
+
+
+def _pack_int4(w4: np.ndarray) -> np.ndarray:
+    """Pack int4 values [-8, 7] along the in axis (-2), two per byte,
+    half-split with an offset-binary low nibble."""
+    half = w4.shape[-2] // 2
+    lo = (w4[..., :half, :] + 8) & 0x0F
+    hi = (w4[..., half:, :] & 0x0F) << 4
+    return (lo | hi).astype(np.int8)
+
+
+def quantize(w, bits: int = 8, group_size: Optional[int] = 32,
+             scales_dtype=torch.float32, transposed: bool = False,
+             act_bits: Optional[int] = None, device=None) -> QuantizedTensor:
+    """Symmetric groupwise quantization of an ``[(L,) in, out]`` weight.
+
+    ``group_size=None`` gives per-output-channel scales, which the
+    ``act_bits=8`` scheme requires."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if act_bits not in (None, 8):
+        raise ValueError(f"act_bits must be None or 8, got {act_bits}")
+    if torch.is_tensor(w):
+        w = w.detach().float().cpu().numpy()
+    w = np.asarray(w, np.float32)
+    in_features, out_features = w.shape[-2:]
+    if group_size is None:
+        group_size = in_features
+    if act_bits is not None and group_size != in_features:
+        raise ValueError("act_bits=8 needs per-channel scales (group_size=None)")
+    if in_features % group_size:
+        raise ValueError(f"in_features={in_features} not divisible by group={group_size}")
+    if bits == 4 and group_size != in_features and (in_features // 2) % group_size:
+        raise ValueError("int4 needs in_features/2 divisible by the group size")
+    g = w.reshape(*w.shape[:-2], in_features // group_size, group_size, out_features)
+    qmax = 127.0 if bits == 8 else 7.0
+    scales = np.abs(g).max(axis=-2, keepdims=True) / qmax
+    with np.errstate(divide="ignore"):  # all-zero groups: inv 0, codes 0
+        inv = np.where(scales == 0.0, 0.0, 1.0 / scales)
+    q = np.clip(np.round(g * inv), -qmax, qmax).astype(np.int8).reshape(w.shape)
+    if bits == 4:
+        q = _pack_int4(q)
+    sc = scales.squeeze(-2)
+    if transposed:
+        q = np.ascontiguousarray(np.swapaxes(q, -1, -2))
+        if group_size != in_features:
+            sc = np.ascontiguousarray(np.swapaxes(sc, -1, -2))
+    dev = resolve_device(device)
+    return QuantizedTensor(
+        q=torch.from_numpy(np.ascontiguousarray(q)).to(dev),
+        scales=torch.from_numpy(np.ascontiguousarray(sc, np.float32)).to(
+            device=dev, dtype=scales_dtype),
+        bits=bits, group_size=group_size, transposed=transposed,
+        act_bits=act_bits)
+
+
+def _unpack_int4(packed: torch.Tensor, dim: int) -> torch.Tensor:
+    """Signed nibble values, the packed axis ``dim`` doubled (lo then hi)."""
+    lo = (packed & 15) - 8
+    hi = packed >> 4  # arithmetic: the high nibble is two's complement
+    return torch.cat([lo, hi], dim=dim)
+
+
+def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """The dense ``[(L,) in, out]`` weight."""
+    q = qt.q.transpose(-1, -2) if qt.transposed else qt.q
+    if qt.bits == 4:
+        q = _unpack_int4(q, -2)
+    per_channel = qt.group_size == qt.in_features
+    s = qt.scales if per_channel or not qt.transposed else qt.scales.transpose(-1, -2)
+    shape = q.shape
+    grouped = q.reshape(*shape[:-2], shape[-2] // qt.group_size, qt.group_size,
+                        shape[-1]).float()
+    return (grouped * s.float()[..., :, None, :]).reshape(shape).to(dtype)
+
+
+def _int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``a [M, K] · w [N, K]ᵀ`` for int8 operands. On the card
+    ``torch._int_mm`` (it needs M > 16: shorter inputs are zero-padded)."""
+    if a.device.type != "cuda":
+        return int_dot(a, w)
+    m = a.shape[0]
+    if m <= 16:
+        a = torch.cat([a, a.new_zeros(17 - m, a.shape[1])])
+    return torch._int_mm(a, w.t())[:m]
+
+
+def _matmul_a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """W8A8 / W4A8: per-token int8 activations, s8×s8→s32, one post-scale.
+
+    Float combination as the reference: ``acc_lo + acc_hi * 0.0625`` for
+    int4, where acc_hi = Σ x_hi · (16·hi)."""
+    dtype = x.dtype
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    n_out = qt.out_features
+    xq, sx = act_quantize(x2)
+    s_col = qt.scales.reshape(n_out).float()
+    p = qt.q if qt.transposed else qt.q.t()  # [out, k]
+    if qt.bits == 8:
+        acc = _int_mm(xq, p).float()
+    else:
+        half = qt.in_features // 2
+        acc_lo = _int_mm(xq[:, :half].contiguous(), (p & 15) - 8)
+        acc_hi = _int_mm(xq[:, half:].contiguous(), p & -16)
+        acc = acc_lo.float() + acc_hi.float() * 0.0625
+    return (acc * sx * s_col).to(dtype).reshape(*lead, n_out)
+
+
+def quant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """``x [..., in] @ dequant(qt) [in, out]`` for the act8 per-channel scheme."""
+    if qt.act_bits == 8 and qt.group_size == qt.in_features and qt.q.ndim == 2:
+        return _matmul_a8(x, qt)
+    raise NotImplementedError(
+        "only the act_bits=8 per-channel scheme is ported; weight-only "
+        "group quantization is later work")
+
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """Linear dispatch on the leaf type: dense ``[in, out]`` or quantized."""
+    if isinstance(w, QuantizedTensor):
+        return quant_matmul(x, w)
+    return x @ w
+
+
+def lookup_embedding(tokens: torch.Tensor, embed) -> torch.Tensor:
+    """Dense embedding lookup ``embed [V, H]`` at ``tokens``."""
+    if isinstance(embed, QuantizedTensor):
+        raise NotImplementedError("quantized embeddings are later work")
+    return embed[tokens]
+
+
+def init_random_quantized_params(config, *, bits: int = 4,
+                                 group_size: Optional[int] = 32, seed: int = 0,
+                                 scales_dtype=torch.bfloat16,
+                                 max_seq_len: Optional[int] = None,
+                                 act_bits: Optional[int] = None,
+                                 dtype=torch.bfloat16, device=None):
+    """Random quantized parameter tree made directly on the device: random
+    packed bytes and small positive scales have the layout and cost of a real
+    quantized checkpoint. Same layouts and scale dtype as the JAX package;
+    the numbers come from a ``torch.Generator`` seeded with ``seed``."""
+    from metalchat_tpu_torch.models.transformer import make_rope_tables
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h, f = config.hidden_size, config.intermediate_size
+    nh, nkv, hd, L = (config.num_heads, config.num_kv_heads, config.head_dim,
+                      config.num_layers)
+    pack = 2 if bits == 4 else 1
+
+    def rand_q(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def rand_s(shape):
+        return (torch.rand(shape, generator=gen, device=dev) * 0.01
+                + 0.001).to(scales_dtype)
+
+    def qlin(in_f, out_f, stack=True):
+        lead = (L,) if stack else ()
+        g = in_f if group_size is None else group_size
+        transposed = act_bits == 8 or out_f > in_f
+        if transposed:
+            q = rand_q(lead + (out_f, in_f // pack))
+            s = rand_s(lead + ((1, out_f) if g == in_f else (out_f, in_f // g)))
+        else:
+            q = rand_q(lead + (in_f // pack, out_f))
+            s = rand_s(lead + (in_f // g, out_f))
+        return QuantizedTensor(q=q, scales=s, bits=bits, group_size=g,
+                               transposed=transposed, act_bits=act_bits)
+
+    layers = {
+        "attn_norm": torch.ones((L, h), dtype=dtype, device=dev),
+        "ffn_norm": torch.ones((L, h), dtype=dtype, device=dev),
+        "wq": qlin(h, nh * hd),
+        "wk": qlin(h, nkv * hd),
+        "wv": qlin(h, nkv * hd),
+        "wo": qlin(nh * hd, h),
+        "w1": qlin(h, f),
+        "w3": qlin(h, f),
+        "w2": qlin(f, h),
+    }
+    embed = (torch.randn((config.vocab_size, h), generator=gen, device=dev)
+             * 0.02).to(dtype)
+    return {
+        "embed": embed,
+        "layers": layers,
+        "final_norm": torch.ones((h,), dtype=dtype, device=dev),
+        "lm_head": qlin(h, config.vocab_size, stack=False),
+        "rope": make_rope_tables(config, max_seq_len, device=dev),
+    }
+
+
+_DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+
+
+def quantize_params(params: Dict[str, Any], *, bits: int = 8,
+                    group_size: Optional[int] = 32, targets=_DEFAULT_TARGETS,
+                    quantize_lm_head: bool = False, scales_dtype=torch.float32,
+                    act_bits: Optional[int] = None) -> Dict[str, Any]:
+    """Quantize selected dense ``[(L,) in, out]`` leaves of a parameter tree.
+
+    Storage orientation as the reference's ``auto_orient``: act8 tensors and
+    wide-output tensors are stored transposed."""
+    def q(w):
+        in_f, out_f = w.shape[-2:]
+        return quantize(w, bits=bits, group_size=group_size,
+                        scales_dtype=scales_dtype, act_bits=act_bits,
+                        transposed=act_bits == 8 or out_f > in_f,
+                        device=w.device)
+
+    out = dict(params)
+    out["layers"] = dict(params["layers"])
+    for name in targets:
+        if name in out["layers"]:
+            out["layers"][name] = q(out["layers"][name])
+    if quantize_lm_head:
+        out["lm_head"] = q(params["lm_head"])
+    return out

@@ -1,0 +1,48 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips (with the reason) where there is no CUDA
+device. Run on a machine with an H100 from the repository root:
+``python -m pytest -m cuda tests/test_torch_cuda.py -q``. The same checks run
+at the main path's full shapes in ``chip_smoke.py``; these use the
+fixture's small shapes (hd=64), in bf16 and in f32 activations.
+"""
+
+import pytest
+import torch
+
+import chip_smoke
+
+pytestmark = pytest.mark.cuda
+DTYPES = pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return chip_smoke.Smoke(torch), gen, torch.device("cuda")
+
+
+@DTYPES
+def test_a8_matvec_kernel(card, dtype):
+    sm, gen, dev = card
+    dt = getattr(torch, dtype)
+    chip_smoke.check_a8(sm, [("wqkv", 768, 384, 4, True), ("w2", 384, 1024, 8, False)],
+                        1, gen, dev, dt)
+    chip_smoke.check_a8(sm, [("w13", 2048, 384, 4, True)], 7, gen, dev, dt)
+
+
+@DTYPES
+def test_decode_attention_update_kernel(card, dtype):
+    sm, gen, dev = card
+    chip_smoke.check_decode(sm, 3, 6, 3, 256, 64, chip_smoke.DECODE_CASES_FIXTURE, gen, dev,
+                            getattr(torch, dtype))
+
+
+@DTYPES
+def test_flash_attention_kernel(card, dtype):
+    sm, gen, dev = card
+    chip_smoke.check_flash(sm, 3, 48, 6, 3, 256, 64, chip_smoke.FLASH_CASES_FIXTURE, gen, dev,
+                           getattr(torch, dtype))

@@ -1,0 +1,76 @@
+"""Structural rules of the PyTorch port.
+
+* No file of `metalchat_tpu_torch/` nor `chip_smoke.py` imports jax or the
+  JAX package `metalchat_tpu`.
+* An entry point asked for the card without one raises, and a kernel
+  wrapper given a tensor that is not on the CPU or a card raises: neither
+  falls back to the plain version.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "metalchat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "metalchat_tpu"), f"{path} imports {mod}"
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.config import LlamaConfig
+    from metalchat_tpu_torch.quant.quantize import init_random_quantized_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LlamaConfig(vocab_size=64, hidden_size=64, intermediate_size=96,
+                      num_layers=1, num_heads=4, num_kv_heads=2, head_dim=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_random_quantized_params(cfg, group_size=None, act_bits=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        QuantizedKVCache.create(cfg, 1, 32, device="cuda")
+    QuantizedKVCache.create(cfg, 1, 32, device="cpu")  # the CPU only on request
+
+
+def test_wrappers_do_not_fall_back():
+    from metalchat_tpu_torch.ops import (
+        decode_attention_update_quantized_stacked,
+        flash_attention,
+        quant_matvec_stacked,
+        quant_matvec_stacked_fused,
+    )
+
+    meta = dict(device="meta")
+    x = torch.empty(1, 64, dtype=torch.bfloat16, **meta)
+    p = torch.empty(1, 32, 32, dtype=torch.int8, **meta)
+    s = torch.empty(1, 1, 32, **meta)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        quant_matvec_stacked_fused(x, p, s, 0, bits=4)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        quant_matvec_stacked(torch.empty(1, 64, dtype=torch.int8, **meta), p, 0, bits=4)
+    q = torch.empty(1, 2, 1, 32, **meta)
+    kv = torch.empty(1, 1, 8, 32, **meta)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        flash_attention(q, kv, kv, 0, scale=1.0)
+    cache = torch.empty(1, 1, 1, 8, 32, dtype=torch.int8, **meta)
+    sc = torch.empty(1, 1, 1, 8, **meta)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        decode_attention_update_quantized_stacked(
+            q[:, 0], kv[:, :, 0], kv[:, :, 0], cache, cache, sc, sc, 0,
+            torch.ones(1, dtype=torch.int32, **meta), scale=1.0)

@@ -1,0 +1,116 @@
+"""Port quantization (metalchat_tpu_torch/quant/quantize.py, models/fuse.py)
+vs the JAX package's quant/quantize.py and models/fuse.py, on the CPU.
+
+Packed bytes and scales must be identical; the integer stages of the
+W4A8/W8A8 linear are exact, so its f32 output must be too.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from metalchat_tpu_torch.quant import quantize as tq
+
+# The suite runs test files in parallel workers on shared cores: one torch
+# thread per worker keeps these small ops from crowding the others.
+torch.set_num_threads(1)
+
+# The JAX package's quant/__init__ exports a function named `quantize`,
+# which shadows the module as an attribute.
+jq = importlib.import_module("metalchat_tpu.quant.quantize")
+
+
+@pytest.mark.parametrize("bits,group_size,transposed,act_bits", [
+    (4, None, True, 8), (8, None, True, 8), (4, 32, False, None), (8, 32, True, None),
+])
+def test_quantize_bytes_and_scales_identical(bits, group_size, transposed, act_bits):
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal((2, 128, 96)) * 0.05).astype(np.float32)
+    w[0, :, 3] = 0.0  # an all-zero channel: scale 0, codes 0
+    jt = jq.quantize(w, bits=bits, group_size=group_size, transposed=transposed,
+                     act_bits=act_bits)
+    want_q, want_s = np.asarray(jt.q), np.asarray(jt.scales)
+
+    tt = tq.quantize(w, bits=bits, group_size=group_size, transposed=transposed,
+                     act_bits=act_bits, device="cpu")
+    np.testing.assert_array_equal(tt.q.numpy(), want_q)
+    np.testing.assert_array_equal(tt.scales.numpy(), want_s)
+    assert (tt.in_features, tt.out_features) == (jt.in_features, jt.out_features)
+    np.testing.assert_array_equal(tq._pack_int4(np.clip(
+        np.round(w * 40), -8, 7).astype(np.int8)), jq._pack_int4(np.clip(
+            np.round(w * 40), -8, 7).astype(np.int8)))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_dequantize_matches(bits):
+    rng = np.random.default_rng(1)
+    w = (rng.standard_normal((64, 48)) * 0.05).astype(np.float32)
+    want = np.asarray(jq.dequantize(jq.quantize(w, bits=bits, group_size=32), jnp.float32))
+    got = tq.dequantize(tq.quantize(w, bits=bits, group_size=32, device="cpu"), torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_act_quantize_bit_exact():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((5, 256)).astype(np.float32)
+    x[1] = 0.0                        # absmax 0 → sx = 1
+    x[2, :4] = [0.5, 1.5, -2.5, 2.5]  # exact .5 ties → round half to even
+    x[2] *= 127.0 / np.abs(x[2]).max()
+    xq, sx = jq._act_quantize(jnp.asarray(x))
+    want_q, want_s = np.asarray(xq), np.asarray(sx)
+
+    got_q, got_s = tq.act_quantize(torch.from_numpy(x))
+    np.testing.assert_array_equal(got_q.numpy(), want_q)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("rows", [3, 40, 200])
+def test_matmul_a8_matches(bits, rows):
+    """Both `_matmul_a8` forms (3-dot below 128 rows, 2-dot above) against
+    the port's exact integer product: identical f32 outputs."""
+    rng = np.random.default_rng(3)
+    w = (rng.standard_normal((256, 192)) * 0.05).astype(np.float32)
+    x = rng.standard_normal((rows, 256)).astype(np.float32)
+    jt = jq.quantize(w, bits=bits, group_size=None, act_bits=8, transposed=True)
+    want = np.asarray(jq.quant_matmul(jnp.asarray(x), jt))
+
+    tt = tq.quantize(w, bits=bits, group_size=None, act_bits=8, transposed=True,
+                     device="cpu")
+    got = tq.linear(torch.from_numpy(x), tt)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+
+
+def test_fuse_projections_bytes_identical():
+    from metalchat_tpu.config import LlamaConfig as JLlama
+    from metalchat_tpu.models.fuse import fuse_projections as jfuse
+    from metalchat_tpu_torch.config import LlamaConfig
+    from metalchat_tpu_torch.convert import params_from_numpy
+    from metalchat_tpu_torch.models.fuse import fuse_projections, split_fused
+    from torch_port_util import jax_tree_to_numpy
+
+    kw = dict(vocab_size=64, hidden_size=64, intermediate_size=96, num_layers=2,
+              num_heads=4, num_kv_heads=2, head_dim=16)
+    rng = np.random.default_rng(4)
+    outs = {"wq": 64, "wk": 32, "wv": 32, "w1": 96, "w3": 96}
+    unfused = {"layers": {
+        n: jq.quantize((rng.standard_normal((2, 64, o)) * 0.05).astype(np.float32),
+                       bits=4, group_size=None, act_bits=8, transposed=True,
+                       scales_dtype=jnp.bfloat16)
+        for n, o in outs.items()}}
+    want = jax_tree_to_numpy(jfuse(unfused, JLlama(**kw))["layers"])
+    tree = jax_tree_to_numpy(unfused)
+
+    got = fuse_projections(params_from_numpy(tree, "cpu"), LlamaConfig(**kw))["layers"]
+    assert set(got) == set(want) == {"wqkv", "w13"}
+    for name in ("wqkv", "w13"):
+        np.testing.assert_array_equal(got[name].q.numpy(), want[name]["q"])
+        np.testing.assert_array_equal(got[name].scales.float().numpy(),
+                                      want[name]["scales"].astype(np.float32))
+        assert got[name].transposed and want[name]["transposed"]
+    q, k, v = split_fused(torch.arange(64 + 32 + 32), (64, 32, 32))
+    assert (q[-1], k[0], v[-1]) == (63, 64, 127)
