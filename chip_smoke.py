@@ -14,7 +14,15 @@ Phases (any failure makes the script exit non-zero without a result line):
    elementwise within one bf16 rounding step of the plain version's (see
    ``RTOL``), the fused matvec with its norm prologue within 1e-2 abs; lengths
    at block edges, length 1, windows, and a zeroed cache whose output comes
-   from the new row alone.
+   from the new row alone. The serve path's shapes too: the matvec at 8
+   rows of the 8B widths, decode attention (write and read-only, bf16 and
+   int8 caches) at 8 rows of per-row lengths up to 1024, flash over
+   256-token chunks of 8 rows at per-row offsets.
+   The paged kernel (both modes) at the 8B serving shape (8 rows, pages of
+   256, 4 pages a row, 32 + 1 pages) and the fixture's (pages of 16), page
+   tables shuffled with one free row at the sentinel: outputs of the rows
+   whose write page is live within ``RTOL``, pages and scales exact except
+   the shared garbage page.
 4. The trained fixture end to end, W4A8 + int8 KV, 3 requests through
    ``generate``: kernels on the card against the plain path on the CPU; the
    first 16 greedy tokens of each request must agree.
@@ -23,12 +31,29 @@ Phases (any failure makes the script exit non-zero without a result line):
    context 1024), a 512-token prompt then 64 greedy decode steps through
    ``generate``, with launch counts read around that run only; then
    ``torch.profiler`` over one prefill and 8 decode steps (the device's
-   busy share and device time by kernel); then each kernel timed with CUDA
-   events at the main path's shapes beside its bound, its plain version and
-   one PyTorch library call as a yardstick.
+   busy share and device time by kernel).
+6. serve-fixture: the fixture through ``ContinuousBatchingEngine`` (6 greedy
+   requests, 3 slots, chunks of 32, bursts of 4, f32 activations) in paged
+   (pages of 16), dense int8 and dense activation-dtype mode, on the card
+   and on the CPU plain path: the first 16 tokens of each request agree
+   card vs CPU, and paged vs dense int8 on the card.
+7. serve: ``8b-w4a8`` behind ``ContinuousBatchingEngine`` with the workload
+   of ``bench.py --mode serve`` (24 requests at once, prompts of 48-640
+   tokens, 96 greedy tokens each, 8 slots, bursts of 32, chunks of 256),
+   paged (pages of 256) then dense int8, each after a 2-request warm-up:
+   tok/s, TTFT and service TTFT p50/p99, the share of the full-slot decode
+   roofline, and launch counts held exactly to the engine's counters and
+   prompt-chunk shapes; then ``torch.profiler``
+   over one paged decode dispatch (8 steps) with all 8 slots decoding.
+8. http: the fixture behind ``InferenceServer`` on 127.0.0.1 (paged, on the
+   card): a blocking completion, its SSE stream (same text), a chat
+   completion, ``/health`` and ``/metrics``.
+9. Each kernel timed with CUDA events at its path's shapes beside its bound,
+   its plain version and one PyTorch library call as a yardstick: timing at
+   the generate path's shapes, timing-serve at the serve path's (8 rows).
 
-The last lines are the kernel table as one JSON object and
-``{"ok": true, "device": {...}}``.
+The last lines are the kernel table as one JSON object, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,6 +77,8 @@ ATOL_OF_MAX = 1e-4
 # at these scales (the CPU tests hold the codes themselves).
 MAX_ABS_ERR = 1e-2
 HBM_BYTES_PER_S = {"NVIDIA H100 80GB HBM3": 3.35e12}  # H100 SXM
+# The kernels `generate` runs with an int8 dense cache.
+GENERATE_KERNELS = ("a8_matvec", "decode_attention_update", "flash_attention")
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # dense, 700 W
 
 
@@ -74,7 +101,8 @@ class Smoke:
         self.torch = torch
         self.failures = []
         self.err = {"a8_matvec": 0.0, "decode_attention_update": 0.0,
-                    "flash_attention": 0.0}
+                    "decode_attention": 0.0, "flash_attention": 0.0,
+                    "paged_decode_attention_update": 0.0, "paged_decode_attention": 0.0}
         self.share = dict.fromkeys(self.err, 0.0)  # worst error / its limit
 
     def phase(self, name, fn):
@@ -243,6 +271,40 @@ def check_decode(sm: Smoke, B, nh, nkv, T, hd, cases, gen, dev, dtype=None):
             torch.cuda.synchronize()
 
 
+def check_decode_read(sm: Smoke, B, nh, nkv, T, hd, cases, gen, dev, dtype=None,
+                      kv="act"):
+    """The read-only mode over layer 1 of a 2-layer dense cache: in the
+    activation dtype (``kv="act"``, random values) or int8 with scales.
+    Each case is (lengths, window)."""
+    torch = sm.torch
+    dtype = dtype or torch.bfloat16
+    from metalchat_tpu_torch.ops import decode_attention as m
+
+    for lengths, window in cases:
+        if kv == "act":
+            k, v = (torch.randn((2, B, nkv, T, hd), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            ks = vs = None
+        else:
+            k, v = (torch.randint(-127, 128, (2, B, nkv, T, hd), generator=gen, device=dev,
+                                  dtype=torch.int8) for _ in range(2))
+            ks, vs = (torch.rand((2, B, nkv, T), generator=gen, device=dev) * 0.01
+                      for _ in range(2))
+        q = torch.randn((B, nh, hd), generator=gen, device=dev).to(dtype)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = dict(scale=hd ** -0.5, window=window)
+        if kv == "act":
+            got = m.decode_attention_stacked(q, k, v, 1, lens, **kw)
+        else:
+            got = m.decode_attention_quantized_stacked(q, k, v, ks, vs, 1, lens, **kw)
+        sm.close("decode_attention", got,
+                 m.decode_attention_stacked_plain(q, k, v, ks, vs, 1, lens, **kw),
+                 f"decode_attention hd={hd} {kv} cache lengths={lengths} window={window} "
+                 f"{dtype}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+
 def check_flash(sm: Smoke, B, S, nh, nkv, T, hd, cases, gen, dev, dtype=None):
     torch = sm.torch
     dtype = dtype or torch.bfloat16
@@ -261,6 +323,73 @@ def check_flash(sm: Smoke, B, S, nh, nkv, T, hd, cases, gen, dev, dtype=None):
             torch.cuda.synchronize()
 
 
+def paged_table(torch, B, mp, psize, n_pages, lengths, gen, dev):
+    """A page table as the engine builds it: each live row owns the pages
+    its length needs, drawn from a shuffled pool so that they are not
+    contiguous; the rest, and the whole last (free) row, at the sentinel."""
+    order = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+    table = torch.full((B, mp), n_pages, dtype=torch.int32, device=dev)
+    for b, n in enumerate(lengths[:-1]):
+        need = -(-n // psize)
+        table[b, :need] = order[b * mp:b * mp + need]
+    return table
+
+
+def check_paged(sm: Smoke, B, nh, nkv, hd, psize, mp, cases, gen, dev, dtype=None):
+    """Both modes of the paged kernel against the plain version, on layer 1
+    of a 2-layer pool of B·mp + 1 pages. Each case is (lengths, window); the
+    last row is a free row at the sentinel with length 1. Outputs are held
+    on the rows whose write page is live (rows that write the shared garbage
+    page race there and get an undefined output), pages and scales exactly
+    on every page but the garbage page."""
+    torch = sm.torch
+    dtype = dtype or torch.bfloat16
+    from metalchat_tpu_torch.ops import paged_attention as m
+
+    n_pages = B * mp
+    for lengths, window in cases:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        table = paged_table(torch, B, mp, psize, n_pages, lengths, gen, dev)
+        pages = [torch.randint(-127, 128, (2, nkv, n_pages + 1, psize, hd), generator=gen,
+                               device=dev, dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand((2, n_pages + 1, nkv, psize), generator=gen, device=dev) * 0.01
+                  for _ in range(2)]
+        q, kn, vn = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((B, nh, hd), (B, nkv, hd), (B, nkv, hd)))
+        what = (f"paged hd={hd} psize={psize} mp={mp} lengths={lengths} window={window} "
+                f"{dtype}")
+        live = table[torch.arange(B, device=dev), (lens.long() - 1) // psize] != n_pages
+        cache = [t.clone() for t in pages + scales]
+        ref = m.paged_decode_attention_update_plain(
+            q, kn, vn, *cache, table, lens, 1, scale=hd ** -0.5, window=window)
+        got = m.paged_decode_attention_update_stacked(
+            q, kn, vn, *pages, *scales, table, lens, 1, scale=hd ** -0.5, window=window)
+        sm.close("paged_decode_attention_update", got[0][live], ref[0][live],
+                 f"{what} update")
+        for a, b, nm in zip(got[1:], ref[1:], ("k", "v", "k_scale", "v_scale")):
+            live_pages = (slice(None), slice(None), slice(0, n_pages)) if a.ndim == 5 else (
+                slice(None), slice(0, n_pages))
+            sm.exact(a[live_pages], b[live_pages], f"{what} update {nm}")
+        sm.close("paged_decode_attention",
+                 m.paged_decode_attention_stacked(q, *pages, *scales, table, lens, 0,
+                                                  scale=hd ** -0.5, window=window),
+                 m.paged_decode_attention_plain(q, *pages, *scales, table, lens, 0,
+                                                scale=hd ** -0.5, window=window),
+                 f"{what} read-only")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+
+# Lengths per row (the last row free): 1, a page edge and one past it, the
+# table's last position, the serve run's range, and windows down to the new
+# row alone.
+PAGED_CASES_8B = [([1, 256, 257, 1024, 700, 513, 64, 1], None),
+                  ([1024, 300, 257, 1, 256, 900, 5, 1], 100),
+                  ([513, 1024, 2, 768, 129, 255, 1000, 1], 1)]
+PAGED_CASES_FIXTURE = [([1, 16, 17, 1], None), ([128, 33, 5, 1], None),
+                       ([40, 128, 12, 1], 10), ([17, 2, 128, 1], 1)]
+
+
 # Lengths at block edges (64-position tiles), length 1, the main path's
 # lengths (513-576), the full context, windows down to the new row alone,
 # and zeroed caches.
@@ -272,6 +401,17 @@ DECODE_CASES_FIXTURE = [([1, 64, 65], None, "random"), ([200, 17, 256], 50, "ran
                         ([2, 64, 130], None, "zeros"), ([65, 128, 256], 1, "random")]
 # Flash: (start_pos, window); a list is one start per batch row.
 FLASH_CASES_FIXTURE = [(0, None), ([0, 17, 64], None), (0, 20), ([63, 1, 0], 1)]
+# The serve path's shapes: 8 rows at per-row lengths up to the context (1024),
+# one free row at length 1; flash over 256-token chunks at per-row offsets.
+DECODE_CASES_SERVE = [([1, 64, 65, 300, 577, 1024, 700, 129], None, "random"),
+                      ([1024, 256, 257, 1, 900, 513, 64, 1], 100, "random"),
+                      ([600, 1024, 2, 768, 129, 255, 1000, 1], None, "zeros")]
+READ_CASES_SERVE = [([1, 64, 65, 300, 577, 1024, 700, 129], None),
+                    ([1024, 256, 257, 1, 900, 513, 64, 1], 100),
+                    ([600, 1024, 2, 768, 129, 255, 1000, 1], 1)]
+READ_CASES_FIXTURE = [([1, 64, 65], None), ([200, 17, 256], 50), ([65, 128, 256], 1)]
+FLASH_CASES_SERVE = [([0, 256, 512, 768, 100, 37, 640, 0], None),
+                     ([768, 0, 300, 1, 512, 700, 256, 64], None)]
 
 
 def phase_kernels(sm: Smoke):
@@ -283,14 +423,26 @@ def phase_kernels(sm: Smoke):
     check_a8(sm, [("wqkv", 6144, h, 4, True), ("wo", h, h, 4, False),
                   ("w13", 2 * f, h, 4, True), ("w2", h, f, 4, False),
                   ("lm_head", v, h, 4, False), ("wo", h, h, 8, False)], 1, gen, dev)
+    # The serve decode step: 8 rows through the MAXB=16 instance, whose
+    # shared memory (8 rows of 14336 for w2) needs the opt-in above 48 KiB.
+    check_a8(sm, [("wqkv", 6144, h, 4, True), ("wo", h, h, 4, False),
+                  ("w13", 2 * f, h, 4, True), ("w2", h, f, 4, False),
+                  ("lm_head", v, h, 4, False)], 8, gen, dev)
     check_a8(sm, [("wqkv", 768, 384, 4, True), ("wo", 384, 384, 4, False),
                   ("w13", 2048, 384, 4, True), ("w2", 384, 1024, 4, False),
                   ("lm_head", 384, 384, 8, False)], 3, gen, dev)
     check_decode(sm, 1, 32, 8, 1024, 128, DECODE_CASES_8B, gen, dev)
+    check_decode(sm, 8, 32, 8, 1024, 128, DECODE_CASES_SERVE, gen, dev)
     check_decode(sm, 3, 6, 3, 256, 64, DECODE_CASES_FIXTURE, gen, dev)
+    check_decode_read(sm, 8, 32, 8, 1024, 128, READ_CASES_SERVE, gen, dev)
+    check_decode_read(sm, 8, 32, 8, 1024, 128, READ_CASES_SERVE, gen, dev, kv="int8")
+    check_decode_read(sm, 3, 6, 3, 256, 64, READ_CASES_FIXTURE, gen, dev, torch.float32)
     check_flash(sm, 1, 512, 32, 8, 1024, 128, [(0, None), (100, None), (0, 128), (64, 1)],
                 gen, dev)
+    check_flash(sm, 8, 256, 32, 8, 1024, 128, FLASH_CASES_SERVE, gen, dev)
     check_flash(sm, 3, 48, 6, 3, 256, 64, FLASH_CASES_FIXTURE, gen, dev)
+    check_paged(sm, 8, 32, 8, 128, 256, 4, PAGED_CASES_8B, gen, dev)
+    check_paged(sm, 4, 6, 3, 64, 16, 8, PAGED_CASES_FIXTURE, gen, dev)
     print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact): "
           + ", ".join(f"{k} {v:.3g} ({sm.share[k]:.3g} of its limit)"
                       for k, v in sm.err.items()))
@@ -300,28 +452,16 @@ def phase_kernels(sm: Smoke):
 
 def phase_fixture(sm: Smoke):
     torch = sm.torch
-    from pathlib import Path
-
     import numpy as np
 
-    from metalchat_tpu_torch.config import load_config
     from metalchat_tpu_torch.engine.generate import generate
-    from metalchat_tpu_torch.io.loaders import load_params
-    from metalchat_tpu_torch.io.safetensors import open_safetensors
-    from metalchat_tpu_torch.models.fuse import fuse_projections
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
-    from metalchat_tpu_torch.quant.quantize import quantize_params
 
-    fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / "pyllama_10m"
-    cfg = load_config(fixture / "config.json")
-    prompts = torch.from_numpy(
-        np.load(fixture / "eval_tokens.npy")[:3 * 48].astype(np.int64).reshape(3, 48))
     outs = {}
     for device in ("cuda", "cpu"):
-        params = load_params(open_safetensors(fixture), cfg, dtype=torch.bfloat16,
-                             max_seq_len=256, device=device)
-        params = fuse_projections(
-            quantize_params(params, bits=4, group_size=None, act_bits=8), cfg)
+        params, cfg, fixture = fixture_params(torch, device)
+        prompts = torch.from_numpy(
+            np.load(fixture / "eval_tokens.npy")[:3 * 48].astype(np.int64).reshape(3, 48))
         reset_launch_counts()
         outs[device] = generate(params, cfg, prompts, max_new_tokens=64,
                                 quantized_kv=True).cpu()
@@ -332,7 +472,8 @@ def phase_fixture(sm: Smoke):
     print(f"fixture w4a8+int8kv, 3 requests x 64 tokens: card vs CPU plain "
           f"agreement {agree:.4f}, first 16 identical: {first16}, launches {counts}")
     sm.expect(first16, "fixture: first 16 greedy tokens differ between card and CPU")
-    sm.expect(all(n > 0 for n in counts.values()), f"fixture: a kernel never ran {counts}")
+    sm.expect(all(counts[k] > 0 for k in GENERATE_KERNELS),
+              f"fixture: a kernel never ran {counts}")
 
 
 # -- phase 5: 8b-w4a8 at full width --------------------------------------------
@@ -403,12 +544,276 @@ def phase_main(sm: Smoke, dev_name: str):
     print(f"8b-w4a8 main path: decode {tok_s:.2f} tok/s, TTFT {1e3 * ttft:.2f} ms "
           f"(prompt {prompt_len}), {bpt / 1e9:.4f} GB/token, "
           f"{tok_s * bpt / rate:.4f} of {rate / 1e12:.2f} TB/s HBM, launches {counts}")
-    sm.expect(all(counts[k] > 0 for k in counts), f"8b: a kernel never ran {counts}")
+    sm.expect(all(counts[k] > 0 for k in GENERATE_KERNELS), f"8b: a kernel never ran {counts}")
     sm.expect(counts["a8_matvec"] == want["a8_matvec"]
               and counts["decode_attention_update"] == want["decode_attention_update"]
               and counts["flash_attention"] == want["flash_attention"],
               f"8b: launches {counts} != expected {want}")
     return cfg, params, cache, counts, prompt_len + new, prompt
+
+
+# -- phases 6-8: serving ------------------------------------------------------
+
+def fixture_params(torch, device, dtype=None):
+    """The trained fixture, W4A8 (per-channel int4, int8 activations), fused,
+    activations in ``dtype`` (bf16 by default)."""
+    from pathlib import Path
+
+    from metalchat_tpu_torch.config import load_config
+    from metalchat_tpu_torch.io.loaders import load_params
+    from metalchat_tpu_torch.io.safetensors import open_safetensors
+    from metalchat_tpu_torch.models.fuse import fuse_projections
+    from metalchat_tpu_torch.quant.quantize import quantize_params
+
+    fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / "pyllama_10m"
+    cfg = load_config(fixture / "config.json")
+    params = load_params(open_safetensors(fixture), cfg, dtype=dtype or torch.bfloat16,
+                         max_seq_len=256, device=device)
+    return fuse_projections(quantize_params(params, bits=4, group_size=None, act_bits=8),
+                            cfg), cfg, fixture
+
+
+SERVE_FIXTURE = dict(max_slots=3, max_seq_len=256, prefill_chunk=32, decode_burst=4)
+SERVE_FIXTURE_MODES = {"paged": dict(cache_mode="paged", page_size=16),
+                       "dense": dict(quantized_kv=True),
+                       "dense-act": dict()}  # KV in the activation dtype
+
+
+def phase_serve_fixture(sm: Smoke):
+    """6 greedy requests of mixed lengths through the engine, paged, dense
+    int8 and dense in the activation dtype, on the card and on the CPU plain
+    path, at f32 activations:
+    the comparison holds the engine and the kernels' f32 instances. (In
+    bf16 the 70-token request meets a near tie at its 15th token: on the
+    card token 61 scores 6.6875 over token 41's 6.59375, on the CPU token
+    41 scores 6.625 over token 61's 6.59375, paged and dense alike.)"""
+    torch = sm.torch
+    import numpy as np
+
+    from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tokens = None
+    out, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        params, cfg, fixture = fixture_params(torch, device, torch.float32)
+        if tokens is None:
+            tokens = np.load(fixture / "eval_tokens.npy").astype(np.int64)
+        prompts = [tokens[1000 + 100 * i:1000 + 100 * i + n].tolist()
+                   for i, n in enumerate((5, 70, 35, 15, 48, 120))]
+        for mode, kw in SERVE_FIXTURE_MODES.items():
+            engine = ContinuousBatchingEngine(params, cfg, **SERVE_FIXTURE, **kw)
+            reset_launch_counts()
+            done = engine.run([Request(prompt=p, max_new_tokens=16) for p in prompts])
+            counts[device, mode] = launch_counts()
+            out[device, mode] = [c.tokens for c in done.values()]
+            sm.expect(all(c.finish_reason == "length" for c in done.values()),
+                      f"serve-fixture {device} {mode}: {[c.finish_reason for c in done.values()]}")
+
+    def first16(a, b):
+        return all(x[:16] == y[:16] for x, y in zip(out[a], out[b]))
+
+    def first_diff(a, b):
+        return [next((i for i, (s, t) in enumerate(zip(x, y)) if s != t), None)
+                for x, y in zip(out[a], out[b])]
+
+    def agree(a, b):
+        pairs = [(s, t) for x, y in zip(out[a], out[b]) for s, t in zip(x, y)]
+        return sum(s == t for s, t in pairs) / len(pairs)
+
+    for mode in SERVE_FIXTURE_MODES:
+        print(f"serve-fixture {mode}: card vs CPU plain agreement "
+              f"{agree(('cuda', mode), ('cpu', mode)):.4f}, first 16 identical: "
+              f"{first16(('cuda', mode), ('cpu', mode))} (first difference per request "
+              f"{first_diff(('cuda', mode), ('cpu', mode))}), launches {counts['cuda', mode]}")
+        sm.expect(first16(("cuda", mode), ("cpu", mode)),
+                  f"serve-fixture {mode}: first 16 greedy tokens differ card vs CPU")
+    print(f"serve-fixture paged vs dense on the card: agreement "
+          f"{agree(('cuda', 'paged'), ('cuda', 'dense')):.4f}")
+    sm.expect(first16(("cuda", "paged"), ("cuda", "dense")),
+              "serve-fixture: paged and dense differ on the card")
+    for mode, attn in (("paged", "paged_decode_attention_update"),
+                       ("dense", "decode_attention_update"), ("dense-act", "decode_attention")):
+        c = counts["cuda", mode]
+        sm.expect(c[attn] > 0 and c["a8_matvec"] > 0 and c["flash_attention"] > 0,
+                  f"serve-fixture {mode}: a kernel never ran {c}")
+    return {mode: counts["cuda", mode] for mode in SERVE_FIXTURE_MODES}
+
+
+def serve_workload(cfg, n: int = 24, new: int = 96):
+    """`bench.py --mode serve`'s requests: prompt lengths from
+    random.Random(0).randint(48, 640), prompt [1 + i % 100] * n, greedy."""
+    import random
+
+    from metalchat_tpu_torch.engine import Request
+
+    rng = random.Random(0)
+    hi = min(640, cfg.max_seq_len - new - 8)
+    lengths = [rng.randint(min(48, hi), hi) for _ in range(n)]
+    return [Request(prompt=[1 + (i % 100)] * k, max_new_tokens=new)
+            for i, k in enumerate(lengths)]
+
+
+def serve_bytes_per_token(cfg, params, slots: int) -> float:
+    """bench.py's bytes_per_token for an int8 cache: weights but the
+    embedding table, one embedding row, and each row's KV payload and
+    scales at the average fill max_seq_len / 2."""
+    kv_row = 2 * cfg.num_layers * cfg.num_kv_heads * (cfg.max_seq_len / 2) * (cfg.head_dim + 4)
+    return weight_bytes(params) + cfg.hidden_size * 2 + slots * kv_row
+
+
+def phase_serve(sm: Smoke, main, rate: float):
+    """8b-w4a8 behind the engine with bench.py's serve workload, paged then
+    dense int8. Launch counts read around the measured run only."""
+    torch = sm.torch
+    from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.utils.profiling import Meter
+
+    cfg, params = main[0], main[1]
+    L = cfg.num_layers
+    slots, new = 8, 96
+    requests = serve_workload(cfg, new=new)
+    bpt = serve_bytes_per_token(cfg, params, slots)
+    roof = rate / bpt * slots
+    runs = {}
+    for mode, kw in (("paged", dict(cache_mode="paged", page_size=256)),
+                     ("dense", dict(quantized_kv=True))):
+        engine = ContinuousBatchingEngine(params, cfg, max_slots=slots, max_seq_len=1024,
+                                          decode_burst=32, prefill_chunk=256, **kw)
+        engine.run([Request(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens)
+                    for r in requests[:2]])  # warm-up
+        engine.meter = Meter()
+        engine.counters = dict.fromkeys(engine.counters, 0)
+        engine.prefill_shapes.clear()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        engine.meter.start()
+        t0 = time.perf_counter()
+        done = engine.run([Request(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens)
+                           for r in requests])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        m = engine.metrics()
+        total = sum(len(c.tokens) for c in done.values())
+        tok_s = total / wall
+        steps = m["decode_steps"]
+        # Prompt chunks by shape: windows of <= 16 tokens take the decode
+        # path (the matvec kernel when B*S <= 16 rows; the attention kernel
+        # when S == 1), longer ones flash attention.
+        shapes = engine.prefill_shapes
+        short = sum(n for (b, s), n in shapes.items() if s <= 16 and b * s <= 16)
+        single = sum(n for (b, s), n in shapes.items() if s == 1)
+        long_ = sum(n for (b, s), n in shapes.items() if s > 16)
+        attn = "paged_decode_attention_update" if mode == "paged" else "decode_attention_update"
+        want = {"a8_matvec": (4 * L + 1) * (steps + short), attn: L * (steps + single),
+                "flash_attention": L * long_}
+        print(f"serve 8b-w4a8 {mode}: {len(done)} requests, {total} tokens in {wall:.3f} s = "
+              f"{tok_s:.2f} tok/s, {tok_s / roof:.4f} of the full-slot decode roofline "
+              f"({roof:.1f} tok/s at {bpt / 1e9:.4f} GB a step, {rate / 1e12:.2f} TB/s); "
+              f"TTFT p50 {1e3 * m['ttft_p50']:.1f} ms p99 {1e3 * m['ttft_p99']:.1f} ms, "
+              f"service TTFT p50 {1e3 * m['service_ttft_p50']:.1f} ms p99 "
+              f"{1e3 * m['service_ttft_p99']:.1f} ms; counters "
+              f"{ {k: m[k] for k in engine.counters} }; prompt chunks by shape "
+              f"{dict(shapes)} ({short} short, {long_} long); launches {counts}",
+              flush=True)
+        sm.expect(all(c.error is None and c.finish_reason == "length"
+                      and len(c.tokens) == new for c in done.values())
+                  and len(done) == len(requests),
+                  f"serve {mode}: {[(c.finish_reason, len(c.tokens)) for c in done.values()]}")
+        sm.expect(sum(shapes.values()) == m["prefill_dispatches"] + m["combined_dispatches"],
+                  f"serve {mode}: prompt chunks {dict(shapes)} vs counters {m}")
+        sm.expect(all(counts[k] == v for k, v in want.items()),
+                  f"serve {mode}: launches {counts} != expected {want}")
+        if mode == "paged":
+            sm.expect(engine.allocator.free_pages == engine.num_pages,
+                      f"serve paged: {engine.num_pages - engine.allocator.free_pages} "
+                      "pages never freed")
+        if mode == "paged":  # one decode dispatch (8 steps), every slot decoding
+            fill_slots(engine, requests, slots)
+            engine.decode_burst = 8
+            profile_window(torch, f"serve {mode}, one decode dispatch of {slots} rows",
+                           engine.step)
+            for rid in list(engine._completions):
+                engine.cancel(rid)
+        runs[mode] = dict(engine=engine, counts=counts, tok_s=tok_s, metrics=m)
+    return runs
+
+
+def fill_slots(engine, requests, slots: int) -> None:
+    """Admit and prefill one request per slot, up to their first token."""
+    from metalchat_tpu_torch.engine import Request
+
+    for r in requests[:slots]:
+        engine.submit(Request(prompt=list(r.prompt), max_new_tokens=64))
+    for _ in range(100):
+        if len(engine._slots) == slots and all(s.decoding for s in engine._slots.values()):
+            return
+        engine.step()
+    raise AssertionError("serve: the slots did not fill")
+
+
+class ByteTokenizer:
+    """Byte-level tokenizer: ids are bytes (the fixture was trained on them)."""
+
+    def encode(self, text, allow_special=False):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids):
+        return bytes(int(i) % 256 for i in ids).decode("utf-8", "replace")
+
+    def token_bytes(self, token_id):
+        return bytes([int(token_id) % 256])
+
+
+def phase_http(sm: Smoke):
+    """The fixture (paged, on the card) behind InferenceServer on 127.0.0.1."""
+    torch = sm.torch
+    import urllib.request
+
+    from metalchat_tpu_torch.engine import ContinuousBatchingEngine
+    from metalchat_tpu_torch.engine.http import InferenceServer
+
+    params, cfg, _ = fixture_params(torch, "cuda")
+    engine = ContinuousBatchingEngine(params, cfg, **SERVE_FIXTURE,
+                                      **SERVE_FIXTURE_MODES["paged"])
+    server = InferenceServer(engine, ByteTokenizer(), model_name="fixture")
+    port = server.start()
+    base = f"http://127.0.0.1:{port}"
+
+    def post(path, payload):
+        req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=60)
+
+    try:
+        payload = {"prompt": "The history of the ", "max_tokens": 16}
+        with post("/v1/completions", payload) as r:
+            text = json.loads(r.read())["choices"][0]["text"]
+        chunks = []
+        with post("/v1/completions", {**payload, "stream": True}) as r:
+            for line in r:
+                line = line.decode().strip()
+                if line == "data: [DONE]":
+                    break
+                if line.startswith("data: "):
+                    chunks.append(json.loads(line[6:])["choices"][0]["text"])
+        with post("/v1/chat/completions", {"messages": [{"role": "user", "content": "Hi"}],
+                                           "max_tokens": 8}) as r:
+            chat = json.loads(r.read())
+        with urllib.request.urlopen(base + "/health", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = json.loads(r.read())
+    finally:
+        server.stop()
+    print(f"http: blocking {text!r}, SSE equal: {''.join(chunks) == text}, chat "
+          f"{chat['choices'][0]['message']['content']!r}, health {health}, metrics "
+          f"requests {metrics.get('requests')}, decode_steps {metrics.get('decode_steps')}")
+    sm.expect(len(text) > 0 and "".join(chunks) == text, "http: SSE text != blocking text")
+    sm.expect(chat["object"] == "chat.completion" and health == {"status": "ok"}
+              and metrics.get("requests") == 3.0, f"http: {chat} {health} {metrics}")
 
 
 def _busy_us(intervals) -> float:
@@ -421,14 +826,44 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def profile_window(torch, name: str, fn) -> None:
+    """torch.profiler over ``fn()``: the device's busy share of the host's
+    wall time and device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    # Device events but the ranges of `record_function` annotations (the
+    # engine's "prefill" / "decode burst"), which span whole calls.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        print(f"  profile {name}: device busy share not measured "
+              "(the profiler recorded no device activity)")
+        return
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    by_name = {}
+    for e in kernels:
+        key = next((k for k in ("a8_matvec", "decode_kernel", "flash", "paged_kernel")
+                    if k in e.name), e.name[:48])
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  profile {name}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms ({busy / wall_us:.4f} of wall), {len(kernels)} "
+          "kernels; device ms by kernel: "
+          + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in top))
+
+
 def phase_profile(sm: Smoke, main):
     """Where the main path's time goes: torch.profiler over one 512-token
     prefill and 8 decode steps of the 8B model, the device's busy share of
     the host's wall time and device time by kernel."""
     torch = sm.torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from metalchat_tpu_torch.cache import QuantizedKVCache
     from metalchat_tpu_torch.models.transformer import forward
 
@@ -436,32 +871,33 @@ def phase_profile(sm: Smoke, main):
     dev = torch.device("cuda")
     cache = QuantizedKVCache.create(cfg, 1, 1024, device=dev)
     s = prompt.shape[1]
-    steps = {"prefill": lambda: forward(params, cache, prompt, 0, cfg),
-             "decode x8": lambda: [forward(params, cache, prompt[:, i:i + 1], s + i, cfg)
-                                   for i in range(8)]}
-    for name, fn in steps.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not kernels:
-            print(f"  profile {name}: device busy share not measured "
-                  "(the profiler recorded no device activity)")
-            continue
-        busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
-        by_name = {}
-        for e in kernels:
-            key = next((k for k in ("a8_matvec", "decode_update", "flash") if k in e.name),
-                       e.name[:48])
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"  profile {name}: wall {wall_us / 1e3:.3f} ms, device busy "
-              f"{busy / 1e3:.3f} ms ({busy / wall_us:.4f} of wall), {len(kernels)} "
-              "kernels; device ms by kernel: "
-              + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in top))
+    profile_window(torch, "prefill", lambda: forward(params, cache, prompt, 0, cfg))
+    profile_window(torch, "decode x8", lambda: [
+        forward(params, cache, prompt[:, i:i + 1], s + i, cfg) for i in range(8)])
+
+
+def a8_calls(torch, cfg, params, rows: int, gen):
+    """One decode step's matvec calls at ``rows`` rows: (name, packed
+    weights, scales, input, norm stack or None, calls a step)."""
+    dev = torch.device("cuda")
+    layers, lm, L = params["layers"], params["lm_head"], cfg.num_layers
+    x = torch.randn((rows, cfg.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+    x2 = torch.randn((rows, cfg.intermediate_size), generator=gen, device=dev).to(torch.bfloat16)
+    return [("wqkv", layers["wqkv"].q, layers["wqkv"].scales, x, layers["attn_norm"], L),
+            ("wo", layers["wo"].q, layers["wo"].scales, x, None, L),
+            ("w13", layers["w13"].q, layers["w13"].scales, x, layers["ffn_norm"], L),
+            ("w2", layers["w2"].q, layers["w2"].scales, x2, None, L),
+            ("lm_head", lm.q[None], lm.scales[None], x, None, 1)]
+
+
+def a8_bound(pq, norm, rows: int, rate: float):
+    """Least time of one fused matvec call: the packed weights and scales
+    read once, the bf16 rows in and out (and the norm weights)."""
+    _, out_f, k = pq.shape
+    in_f = 2 * k
+    nbytes = (out_f * k + out_f * 2 + rows * (in_f + out_f) * 2
+              + (in_f * 2 if norm is not None else 0))
+    return bound(nbytes, 2 * rows * in_f * out_f, "int8", rate)
 
 
 def phase_timing(sm: Smoke, main, rate: float):
@@ -478,22 +914,14 @@ def phase_timing(sm: Smoke, main, rate: float):
 
     cfg, params, cache, counts, length, _ = main
     dev = torch.device("cuda")
-    L, h = cfg.num_layers, cfg.hidden_size
+    L = cfg.num_layers
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    layers = params["layers"]
     rows = []
 
     # a8_matvec: one decode step's calls (4 per layer + lm_head).
-    x = torch.randn((1, h), generator=gen, device=dev).to(torch.bfloat16)
-    x2 = torch.randn((1, cfg.intermediate_size), generator=gen, device=dev).to(torch.bfloat16)
-    lm = params["lm_head"]
-    a8 = [("wqkv", layers["wqkv"].q, layers["wqkv"].scales, x, layers["attn_norm"], L),
-          ("wo", layers["wo"].q, layers["wo"].scales, x, None, L),
-          ("w13", layers["w13"].q, layers["w13"].scales, x, layers["ffn_norm"], L),
-          ("w2", layers["w2"].q, layers["w2"].scales, x2, None, L),
-          ("lm_head", lm.q[None], lm.scales[None], x, None, 1)]
+    a8 = a8_calls(torch, cfg, params, 1, gen)
     step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     raw_step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     for name, pq, ps, xin, norm, per_step in a8:
@@ -522,8 +950,7 @@ def phase_timing(sm: Smoke, main, rate: float):
         raw_bound, _ = bound(out_f * k + in_f + out_f * 4, 2 * in_f * out_f, "int8", rate)
         for key, val in (("ms", raw_ms), ("plain_ms", raw_plain), ("bound_ms", raw_bound)):
             raw_step[key] += per_step * val
-        nbytes = out_f * k + out_f * 2 + in_f * 2 + out_f * 2 + (in_f * 2 if norm is not None else 0)
-        b_ms, b_by = bound(nbytes, 2 * in_f * out_f, "int8", rate)
+        b_ms, b_by = a8_bound(pq, norm, 1, rate)
         print(f"  a8_matvec {name} [{out_f}x{in_f} w4]: {ms * 1e3:.2f} us "
               f"(bound {b_ms * 1e3:.2f} us, {b_by}; plain {plain * 1e3:.1f} us; "
               f"_int_mm M=17 int8 {lib * 1e3:.2f} us) x{per_step}/token")
@@ -597,6 +1024,115 @@ def phase_timing(sm: Smoke, main, rate: float):
     return rows
 
 
+def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, rate: float):
+    """The serve path's attention kernels at its shapes, one decode step
+    (one call per layer) of 8 rows with lengths spread 128..1024. The paged
+    kernel over the serve run's pool: write mode (row 8) and read-only on
+    the stacked pool (row 9; row 7 is the same launch on a one-layer view).
+    The dense kernel's read-only mode over a bf16 cache of 8 rows of 1024
+    (row 5, the engine's default dense mode). Library yardstick: SDPA over
+    the same K/V in bf16 (pages gathered and dequantized), heads repeated, a
+    length mask. Then the matvecs of one decode step at 8 rows."""
+    torch = sm.torch
+    import torch.nn.functional as F
+
+    from metalchat_tpu_torch.cache import dequantize_kv, gather_page_scales, gather_pages_dense
+    from metalchat_tpu_torch.ops import a8_matvec as am
+    from metalchat_tpu_torch.ops import decode_attention as dm
+    from metalchat_tpu_torch.ops import paged_attention as pm
+
+    cfg = main[0]
+    engine = serve["paged"]["engine"]
+    c = engine.cache
+    dev = torch.device("cuda")
+    L, nh, nkv, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, mp, psize = c.page_table.shape[0], c.page_table.shape[1], c.page_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    lengths = [(i + 1) * mp * psize // B for i in range(B)]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    table = torch.randperm(B * mp, generator=gen, device=dev).to(torch.int32).reshape(B, mp)
+    q = torch.randn((B, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((B, nkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    pool = (c.k_pages, c.v_pages, c.k_scale, c.v_scale)
+    scale = hd ** -0.5
+    visited = sum(lengths)
+    # Bytes: the visited K/V rows and their scales, q in, out, the table and
+    # lengths; write mode adds the new rows in and their codes and scales out.
+    read_bytes = (visited * nkv * 2 * (hd + 4) + 2 * B * nh * hd * 2 + B * mp * 4 + B * 4)
+    write_bytes = 2 * B * nkv * hd * 2 + 2 * B * nkv * (hd + 4)
+    ops = 4 * nh * hd * visited
+
+    kd = dequantize_kv(gather_pages_dense(c.k_pages[0], table), gather_page_scales(c.k_scale[0], table))
+    vd = dequantize_kv(gather_pages_dense(c.v_pages[0], table), gather_page_scales(c.v_scale[0], table))
+    kd, vd = (t.repeat_interleave(nh // nkv, dim=1) for t in (kd, vd))
+    mask = (torch.arange(mp * psize, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    lib = L * sm.device_ms(lambda i: F.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask), 32)
+    del kd, vd
+
+    # Row 5: a bf16 cache [L, 8, n_kv, 1024, hd] of random values; bytes of
+    # the visited rows (2 bytes an element, no scales), q in and out.
+    T = mp * psize
+    kc, vc = (torch.randn((L, B, nkv, T, hd), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    dense_bytes = visited * nkv * 2 * hd * 2 + 2 * B * nh * hd * 2 + B * 4
+    kr, vr = (t[0].repeat_interleave(nh // nkv, dim=1) for t in (kc, vc))
+    lib_dense = L * sm.device_ms(lambda i: F.scaled_dot_product_attention(
+        q[:, :, None, :], kr, vr, attn_mask=mask), 32)
+    del kr, vr
+    cases = [
+        ("paged_decode_attention_update", "paged_decode_attention_update",
+         "metalchat_tpu_torch/csrc/paged_attention.cu",
+         "metalchat_tpu/ops/paged_attention_pallas.py:410", "write mode, paged",
+         lambda i: pm.paged_decode_attention_update_stacked(
+             q, kn, kn, *pool, table, lens, i % L, scale=scale),
+         lambda i: pm.paged_decode_attention_update_plain(
+             q, kn, kn, *pool, table, lens, i % L, scale=scale), read_bytes + write_bytes,
+         lib, serve["paged"]["counts"]),
+        ("paged_decode_attention_stacked", "paged_decode_attention",
+         "metalchat_tpu_torch/csrc/paged_attention.cu",
+         "metalchat_tpu/ops/paged_attention_pallas.py:491", "read-only, paged",
+         lambda i: pm.paged_decode_attention_stacked(q, *pool, table, lens, i % L,
+                                                     scale=scale),
+         lambda i: pm.paged_decode_attention_plain(q, *pool, table, lens, i % L, scale=scale),
+         read_bytes, lib, serve["paged"]["counts"]),
+        ("decode_attention", "decode_attention",
+         "metalchat_tpu_torch/csrc/decode_attention.cu",
+         "metalchat_tpu/ops/decode_attention_pallas.py:323", "read-only, dense bf16 cache",
+         lambda i: dm.decode_attention_stacked(q, kc, vc, i % L, lens, scale=scale),
+         lambda i: dm.decode_attention_stacked_plain(q, kc, vc, None, None, i % L, lens,
+                                                     scale=scale),
+         dense_bytes, lib_dense, fixture_counts["dense-act"]),
+    ]
+    # The matvecs of one serve decode step (8 rows), kernel and bound only.
+    a8_ms = a8_bound_ms = 0.0
+    for _, pq, ps, xin, norm, per_step in a8_calls(torch, cfg, main[1], B, gen):
+        kw = dict(bits=4) if norm is None else dict(
+            bits=4, norm_stack=norm, norm_eps=cfg.rms_norm_eps)
+        a8_ms += per_step * sm.device_ms(lambda i: am.quant_matvec_stacked_fused(
+            xin, pq, ps, i % pq.shape[0], **kw), 64)
+        a8_bound_ms += per_step * a8_bound(pq, norm, B, rate)[0]
+    print(f"  a8_matvec at {B} rows, one serve decode step ({4 * L + 1} calls): "
+          f"{a8_ms:.4f} ms (bound {a8_bound_ms:.4f} ms, bytes)")
+
+    rows = []
+    for name, counter, source, replaces, mode, kernel, plain, nbytes, lib_ms, path in cases:
+        ms = L * sm.device_ms(kernel, 64)
+        plain_ms = L * sm.eager_ms(plain, 3)
+        b_ms, b_by = bound(L * nbytes, L * ops, "f32", rate)
+        print(f"  {name} [{mode}; 8 rows, lengths {lengths[0]}..{lengths[-1]}, T {T}]: "
+              f"{ms:.4f} ms a step (bound {b_ms:.5f} ms, {b_by}; plain {plain_ms:.3f} ms; "
+              f"sdpa bf16 {lib_ms:.4f} ms) for {L} calls")
+        rows.append(dict(
+            name=name, source=source, replaces=replaces, route="cuda", ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=sm.err[counter], launches=path[counter], counter=counter,
+            unit=f"one decode step ({L} calls, 8 rows, lengths {lengths[0]}..{lengths[-1]})"))
+    del kc, vc
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -630,13 +1166,29 @@ def main() -> int:
         rows = None
         if main_run is not None:
             sm.phase("profile", lambda: phase_profile(sm, main_run))
+        fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
+        serve = None
+        if main_run is not None:
+            serve = sm.phase("serve", lambda: phase_serve(sm, main_run, hbm_rate(dev_name)))
+        sm.phase("http", lambda: phase_http(sm))
+        if main_run is not None:
             rows = sm.phase("timing", lambda: phase_timing(sm, main_run, hbm_rate(dev_name)))
+        if serve is not None and fixture_counts is not None and rows is not None:
+            serve_rows = sm.phase("timing-serve", lambda: phase_timing_serve(
+                sm, main_run, serve, fixture_counts, hbm_rate(dev_name)))
+            rows = None if serve_rows is None else rows + serve_rows
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    if sm.failures or not smi:
+    if sm.failures or not smi or rows is None:
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
+    by_path = {"generate": main_run[3], "serve paged": serve["paged"]["counts"],
+               "serve dense": serve["dense"]["counts"],
+               "serve-fixture dense-act": fixture_counts["dense-act"]}
+    for r in rows:
+        counter = r.get("counter", r["name"])
+        r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "unit")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "unit", "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

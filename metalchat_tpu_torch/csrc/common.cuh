@@ -92,3 +92,19 @@ __device__ __forceinline__ int block_sum_int(int v, int* scratch) {
 __device__ __forceinline__ int8_t quant_code(float q) {
   return (int8_t)fminf(fmaxf(rintf(q), -127.f), 127.f);
 }
+
+// Quantize one head's new K or V row (hd values) with the op order of
+// cache.quantize_kv: scale = absmax/127, inv = 1/scale (0 when scale is 0),
+// code = clip(round(x * inv)). Writes the codes to dst and the scale to
+// *dst_scale. Every thread of the block calls it (block_max syncs).
+template <typename T>
+__device__ void quantize_into(const T* __restrict__ x, int hd, int8_t* dst,
+                              float* dst_scale, float* scratch) {
+  float amax = 0.f;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) amax = fmaxf(amax, fabsf(to_f32<T>(x[d])));
+  amax = block_max(amax, scratch);
+  const float scale = amax / 127.f;
+  const float inv = scale == 0.f ? 0.f : 1.f / scale;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) dst[d] = quant_code(to_f32<T>(x[d]) * inv);
+  if (threadIdx.x == 0) *dst_scale = scale;
+}

@@ -1,0 +1,625 @@
+"""Continuous-batching serving engine (port of the JAX package's
+``engine/serving.py``).
+
+A slot-based scheduler that mixes prefill and decode on one card:
+
+* the KV cache holds ``max_slots`` sequences: dense stripes (int8 or the
+  activation dtype) or int8 pages shared through a page table (paged mode);
+  each request is assigned a slot, prefilled in chunks, then joins the
+  batched decode step;
+* one decode step advances every slot with per-row positions and
+  per-request sampler settings (`sampling.sample_batched`);
+* a request that fails validation, or finds no KV pages, is completed with
+  an error without touching the other slots;
+* per-request metrics: TTFT (with and without queue wait) and tokens/s.
+
+The JAX package compiles one program per model step. Here a "dispatch" is
+one model call on the card: a prompt chunk for one or several slots, a
+burst of decode steps (a Python loop of `forward` calls with the tokens kept
+on the card), or both. The sampled tokens are read back once per dispatch.
+Every CUDA call of an engine happens on the thread that calls `step`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from collections import Counter, deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from metalchat_tpu_torch.cache import KVCache, PagedKVCache, QuantizedKVCache
+from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.engine.paged import PageAllocator
+from metalchat_tpu_torch.models.transformer import Params, forward
+from metalchat_tpu_torch.sampling import SamplerConfig, sample_batched
+from metalchat_tpu_torch.utils.profiling import Meter, trace
+
+
+@dataclass
+class Request:
+    prompt: Sequence[int]
+    max_new_tokens: int = 128
+    sampler: SamplerConfig = SamplerConfig.greedy()
+    eos_ids: Tuple[int, ...] = ()
+    request_id: Optional[int] = None
+
+
+@dataclass
+class Completion:
+    request_id: int
+    tokens: List[int] = field(default_factory=list)
+    finished: bool = False
+    finish_reason: str = ""
+    error: Optional[str] = None
+    # metrics
+    submitted_at: float = 0.0
+    admitted_at: Optional[float] = None
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+
+    @property
+    def ttft(self) -> Optional[float]:
+        if self.first_token_at is None:
+            return None
+        return self.first_token_at - self.submitted_at
+
+    @property
+    def service_ttft(self) -> Optional[float]:
+        """TTFT without the queue wait (admission → first token). Under
+        all-upfront load, `ttft` is mostly queue time."""
+        if self.first_token_at is None or self.admitted_at is None:
+            return None
+        return self.first_token_at - self.admitted_at
+
+    @property
+    def decode_tokens_per_sec(self) -> Optional[float]:
+        if self.finished_at is None or self.first_token_at is None:
+            return None
+        dt = self.finished_at - self.first_token_at
+        n = len(self.tokens) - 1
+        return n / dt if dt > 0 and n > 0 else None
+
+
+@dataclass
+class _Slot:
+    request: Request
+    completion: Completion
+    pos: int = 0                 # prefilled/generated length in the cache
+    prefill_cursor: int = 0      # how much of the prompt is consumed
+    last_token: int = 0          # token to feed at the next decode step
+    decoding: bool = False
+    pages: List[int] = field(default_factory=list)  # paged mode
+
+
+class ContinuousBatchingEngine:
+    def __init__(
+        self,
+        params: Params,
+        config: ModelConfig,
+        *,
+        max_slots: int = 8,
+        max_seq_len: Optional[int] = None,
+        quantized_kv: bool = False,
+        prefill_chunk: int = 256,
+        cache_mode: str = "dense",        # "dense" | "paged"
+        page_size: int = 256,
+        num_pages: Optional[int] = None,
+        seed: int = 0,
+        decode_burst: int = 1,
+        prefill_interleave: int = 4,
+    ):
+        self.params = params
+        self.config = config
+        self.max_slots = max_slots
+        self.max_seq_len = max_seq_len or config.max_seq_len
+        self.prefill_chunk = prefill_chunk
+        # Decode burst: when the admission queue is drained, advance all
+        # decoding slots up to `decode_burst` tokens per dispatch. Tokens a
+        # row generates past its own EOS within a burst are dropped here.
+        self.decode_burst = max(1, decode_burst)
+        # Fairness: at most `prefill_interleave` consecutive prompt chunks
+        # before decoding slots get a step.
+        self.prefill_interleave = max(1, prefill_interleave)
+        self._prefill_streak = 0
+        self.paged = cache_mode == "paged"
+        # The cache lives on the params' device.
+        self.device = params["final_norm"].device
+        if self.paged:
+            self.page_size = page_size
+            mps = -(-self.max_seq_len // page_size)
+            self.num_pages = num_pages or (max_slots * mps)
+            self.allocator = PageAllocator(self.num_pages)
+            self._sentinel = self.num_pages
+            self._host_pt = np.full((max_slots, mps), self._sentinel, np.int32)
+            self.cache = PagedKVCache.create(
+                config, num_pages=self.num_pages, page_size=page_size,
+                max_slots=max_slots, max_pages_per_seq=mps, device=self.device)
+            self._pt_dirty = True
+        elif quantized_kv:
+            self.cache = QuantizedKVCache.create(config, max_slots, self.max_seq_len,
+                                                 device=self.device)
+        else:
+            # KV dtype follows the activation dtype (params' final norm).
+            self.cache = KVCache.create(config, max_slots, self.max_seq_len,
+                                        dtype=params["final_norm"].dtype, device=self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self._queue: Deque[Request] = deque()
+        self._slots: Dict[int, _Slot] = {}
+        self._free: List[int] = list(range(max_slots))
+        self._ids = itertools.count()
+        self._completions: Dict[int, Completion] = {}
+        self.meter = Meter()
+        self.meter.start()
+        # One dispatch is one model call with one read-back of its tokens:
+        # the host cost per dispatch sets the pace of serving.
+        self.counters = {"prefill_dispatches": 0, "decode_dispatches": 0,
+                         "combined_dispatches": 0,
+                         "decode_steps": 0, "decode_row_steps": 0}
+        # Prompt-chunk model calls by token shape (B, S): windows of at most
+        # 16 tokens take the decode path, longer ones the prefill path, so
+        # the shapes say which kernels each call launched.
+        self.prefill_shapes: Counter = Counter()
+
+    # -- public API --------------------------------------------------------
+
+    def submit(self, request: Request) -> int:
+        rid = request.request_id if request.request_id is not None else next(self._ids)
+        request.request_id = rid
+        completion = Completion(request_id=rid, submitted_at=time.perf_counter())
+        self._completions[rid] = completion
+        if not request.prompt:
+            completion.finished = True
+            completion.error = "empty prompt"
+            completion.finish_reason = "error"
+            return rid
+        if len(request.prompt) + request.max_new_tokens > self.max_seq_len:
+            completion.finished = True
+            completion.error = (
+                f"prompt+max_new_tokens exceeds max_seq_len={self.max_seq_len}"
+            )
+            completion.finish_reason = "error"
+            return rid
+        self._queue.append(request)
+        return rid
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._queue or self._slots)
+
+    def step(self) -> List[Tuple[int, int]]:
+        """Advance the engine one scheduling step.
+
+        Prefill gets priority (keeps TTFT bounded) but never starves decode:
+        after `prefill_interleave` consecutive prompt chunks, the decoding
+        slots get a turn even while prompts are still arriving, and the
+        pending prompts' next chunk rides in the same dispatch. Returns
+        newly emitted (request_id, token) pairs.
+        """
+        if self._queue and self._free:
+            if self._admit(self._queue[0]):
+                self._queue.popleft()
+                return []
+            if not self._slots:
+                # Nothing running to free pages: the request can never fit.
+                request = self._queue.popleft()
+                completion = self._completions[request.request_id]
+                completion.finished = True
+                completion.error = "insufficient KV pages for prompt"
+                completion.finish_reason = "kv_oom"
+                return []
+        any_decoding = any(s.decoding for s in self._slots.values())
+        pending = [(i, s) for i, s in self._slots.items() if not s.decoding]
+        if pending and (not any_decoding
+                        or self._prefill_streak < self.prefill_interleave):
+            self._prefill_streak += 1
+            batch = self._prefill_batch_candidates(pending)
+            return self._prefill_batch(batch if len(batch) > 1 else [pending[0][0]])
+        self._prefill_streak = 0
+        if any_decoding:
+            if pending:
+                batch = self._prefill_batch_candidates(pending, min_k=1)
+                if batch:
+                    return self._combined(batch)
+            return self._decode_all()
+        return []
+
+    def run(self, requests: Sequence[Request]) -> Dict[int, Completion]:
+        ids = [self.submit(r) for r in requests]
+        while self.has_work:
+            self.step()
+        return {rid: self._completions[rid] for rid in ids}
+
+    def metrics(self) -> Dict[str, float]:
+        """Aggregate serving metrics (tokens/s, TTFT p50/p99) and counters."""
+        self.meter.stop()
+        out = self.meter.summary()
+        self.meter.start()
+        out.update(self.counters)
+        return out
+
+    def completion(self, request_id: int) -> Completion:
+        return self._completions[request_id]
+
+    def cancel(self, request_id: int, reason: str = "cancelled") -> bool:
+        """Abort a request (client disconnect / timeout): drop it from the
+        queue or release its slot so other requests keep their capacity.
+        Returns False if unknown or already finished."""
+        completion = self._completions.get(request_id)
+        if completion is None or completion.finished:
+            return False
+        for i, req in enumerate(self._queue):
+            if req.request_id == request_id:
+                del self._queue[i]
+                break
+        else:
+            for slot_id, slot in list(self._slots.items()):
+                if slot.request.request_id == request_id:
+                    self._release(slot_id)
+                    break
+        self._finish(completion, reason)
+        return True
+
+    # -- model calls -------------------------------------------------------
+
+    def _forward(self, cache, tokens: torch.Tensor, start_pos) -> torch.Tensor:
+        """One model call → f32 logits ``[B, S, V]``; the cache is updated
+        in place."""
+        return forward(self.params, cache, tokens, start_pos, self.config)[0]
+
+    def _flush_page_table(self) -> None:
+        """Upload the page table at most once per model call."""
+        if self.paged and self._pt_dirty:
+            self.cache.page_table.copy_(torch.from_numpy(self._host_pt))
+            self._pt_dirty = False
+
+    @torch.no_grad()
+    def _run_prefill(self, slot_ids: List[int], toks, starts, lasts) -> torch.Tensor:
+        """One padded prompt chunk for each slot in ONE model call; returns
+        the logits at each row's last real position, ``[k, V]`` on the card.
+        One slot writes at an int offset, several at per-row offsets."""
+        dev = self.device
+        rows = torch.tensor(slot_ids, device=dev)
+        tokens = torch.tensor(toks, dtype=torch.long, device=dev)
+        start = starts[0] if len(slot_ids) == 1 else torch.tensor(
+            starts, dtype=torch.int32, device=dev)
+        self.prefill_shapes[tuple(tokens.shape)] += 1
+        with trace("prefill"):
+            if self.paged:
+                # Pages are shared: only the slots' table rows take part.
+                sub = dataclasses.replace(self.cache, page_table=self.cache.page_table[rows])
+                logits = self._forward(sub, tokens, start)
+            else:
+                # The slots' stripes, gathered and written back.
+                names = [f.name for f in dataclasses.fields(self.cache)]
+                sub = type(self.cache)(**{n: getattr(self.cache, n)[:, rows] for n in names})
+                logits = self._forward(sub, tokens, start)
+                for n in names:
+                    getattr(self.cache, n)[:, rows] = getattr(sub, n)
+        return logits[torch.arange(len(slot_ids), device=dev),
+                      torch.tensor(lasts, device=dev)]
+
+    @torch.no_grad()
+    def _run_burst(self, tokens, positions, advance, temps, ks, ps,
+                   steps: int) -> torch.Tensor:
+        """`steps` decode steps for all rows, on the card → tokens ``[steps,
+        B]``. Inactive rows ride along pinned at their position (`advance`
+        0): their writes land at a position every future reader's own
+        prefill re-writes first."""
+        dev = self.device
+        tok = torch.from_numpy(tokens).to(dev, torch.long)
+        pos = torch.from_numpy(positions).to(dev)
+        adv = torch.from_numpy(advance).to(dev)
+        out = []
+        with trace("decode burst"):
+            for _ in range(steps):
+                logits = self._forward(self.cache, tok[:, None], pos)
+                tok = sample_batched(logits[:, 0], self._gen, temps, ks, ps)
+                pos = pos + adv
+                out.append(tok)
+        return torch.stack(out)
+
+    # -- internals ---------------------------------------------------------
+
+    def _admit(self, request: Request) -> bool:
+        """Assign a slot (and, in paged mode, the prompt's pages plus one).
+        Returns False when KV pages are exhausted: the request stays queued
+        until running requests complete and free pages."""
+        slot_id = self._free[-1]
+        slot = _Slot(request=request, completion=self._completions[request.request_id])
+        if self.paged:
+            needed = -(-len(request.prompt) // self.page_size) + 1
+            if not self.allocator.can_allocate(needed):
+                return False
+            slot.pages = self.allocator.allocate(slot_id, needed)
+            self._host_pt[slot_id, : len(slot.pages)] = slot.pages
+            self._pt_dirty = True
+        self._free.pop()
+        self._slots[slot_id] = slot
+        slot.completion.admitted_at = time.perf_counter()
+        return True
+
+    def _grow_slot(self, slot_id: int, slot: _Slot) -> bool:
+        """Ensure a physical page exists for slot.pos (decode growth)."""
+        needed = slot.pos // self.page_size + 1
+        if needed <= len(slot.pages):
+            return True
+        if not self.allocator.can_allocate(1):
+            return False
+        page = self.allocator.allocate(slot_id, 1)[0]
+        slot.pages.append(page)
+        self._host_pt[slot_id, len(slot.pages) - 1] = page
+        self._pt_dirty = True
+        return True
+
+    def _bucket_chunk(self, chunk: List[int], slot: _Slot) -> List[int]:
+        """End-pad a short (final) prompt chunk to a power-of-two bucket
+        (≥ 32), as the JAX package does to bound its compiled programs; the
+        pad lands at positions ≥ the prompt length, hidden by causal masks
+        and per-row lengths and overwritten by decode. The bucket is clamped
+        to the slot's write room (cache tail / allocated pages) so padded KV
+        writes never reach past the slot's own rows or pages."""
+        n = len(chunk)
+        if n >= self.prefill_chunk:
+            return chunk
+        bucket = 32
+        while bucket < n:
+            bucket *= 2
+        bucket = min(bucket, self.prefill_chunk)
+        if self.paged:
+            room = len(slot.pages) * self.page_size - slot.pos
+        else:
+            room = self.max_seq_len - slot.pos
+        bucket = max(n, min(bucket, room))
+        return chunk + [0] * (bucket - n)
+
+    def _next_chunk(self, slot: _Slot) -> Tuple[List[int], List[int]]:
+        """(chunk, padded_chunk) a slot's next prefill dispatch would run."""
+        prompt = list(slot.request.prompt)
+        chunk = prompt[slot.prefill_cursor : slot.prefill_cursor + self.prefill_chunk]
+        return chunk, self._bucket_chunk(chunk, slot)
+
+    def _prefill_batch_candidates(self, pending, min_k: int = 2) -> List[int]:
+        """Largest group of pending slots whose next chunks share one padded
+        length (k capped at 8 and rounded down to a power of two). min_k=1
+        admits single-slot groups (the combined dispatch wants any prefill
+        work it can fold in)."""
+        groups: Dict[int, List[int]] = {}
+        for slot_id, slot in pending:
+            _, padded = self._next_chunk(slot)
+            groups.setdefault(len(padded), []).append(slot_id)
+        if not groups:
+            return []
+        best = max(groups.values(), key=len)
+        k = 1
+        while k * 2 <= min(len(best), 8):
+            k *= 2
+        return best[:k] if k >= min_k else []
+
+    def _prefill_args(self, slot_ids: List[int]):
+        """(tokens, starts, lasts, chunk_lens) for one chunk per slot."""
+        toks, starts, lasts, chunk_lens = [], [], [], []
+        for sid in slot_ids:
+            slot = self._slots[sid]
+            chunk, padded = self._next_chunk(slot)
+            toks.append(padded)
+            starts.append(slot.pos)
+            lasts.append(len(chunk) - 1)
+            chunk_lens.append(len(chunk))
+        return toks, starts, lasts, chunk_lens
+
+    def _sample_first(self, slot_ids: List[int], chunk_lens: List[int],
+                      logits: torch.Tensor) -> Optional[torch.Tensor]:
+        """First tokens ``[k]`` (on the card) for the rows whose prompt
+        completes with this chunk, each with its request's sampler; None
+        when no prompt completes. Other rows' samples are discarded."""
+        temps = np.zeros(len(slot_ids), np.float32)
+        ks = np.zeros(len(slot_ids), np.int32)
+        ps = np.ones(len(slot_ids), np.float32)
+        done = False
+        for row, sid in enumerate(slot_ids):
+            slot = self._slots[sid]
+            if slot.prefill_cursor + chunk_lens[row] >= len(slot.request.prompt):
+                cfg = slot.request.sampler
+                temps[row], ks[row], ps[row] = cfg.temperature, cfg.top_k, cfg.top_p
+                done = True
+        return sample_batched(logits, self._gen, temps, ks, ps) if done else None
+
+    def _prefill_batch(self, slot_ids: List[int]) -> List[Tuple[int, int]]:
+        """Run one prompt chunk for every slot in `slot_ids` in ONE dispatch."""
+        self.counters["prefill_dispatches"] += 1
+        self._flush_page_table()
+        toks, starts, lasts, chunk_lens = self._prefill_args(slot_ids)
+        logits = self._run_prefill(slot_ids, toks, starts, lasts)
+        first = self._sample_first(slot_ids, chunk_lens, logits)
+        return self._apply_prefill(slot_ids, chunk_lens,
+                                   None if first is None else first.tolist())
+
+    def _apply_prefill(self, slot_ids: List[int], chunk_lens: List[int],
+                       first: Optional[List[int]]) -> List[Tuple[int, int]]:
+        """Advance prefill cursors; emit the first tokens of slots whose
+        prompt completed with this chunk."""
+        emitted: List[Tuple[int, int]] = []
+        for row, sid in enumerate(slot_ids):
+            slot = self._slots[sid]
+            slot.pos += chunk_lens[row]
+            slot.prefill_cursor += chunk_lens[row]
+            if slot.prefill_cursor >= len(slot.request.prompt):
+                slot.decoding = True
+                slot.last_token = first[row]
+                emitted.extend(self._emit(sid, slot, first[row]))
+        return emitted
+
+    def _decode_args(self, frontier: Optional[Dict[int, int]] = None):
+        """Build the batched decode-step row vectors.
+
+        Rows not decoding still run through the batched step and write one
+        garbage KV row. Free rows sit at position 0 (re-written by the next
+        occupant's first prefill chunk before any read); rows that are
+        MID-PREFILL sit at their prefill frontier (re-written by their own
+        next chunk before that chunk attends): position 0 would corrupt
+        prompt KV they already wrote. `frontier` overrides those rows'
+        positions (the combined dispatch pins them at their POST-chunk
+        frontier, since its prefill part advances them first)."""
+        b = self.max_slots
+        tokens = np.zeros(b, np.int32)
+        positions = np.zeros(b, np.int32)
+        advance = np.zeros(b, np.int32)
+        for slot_id, slot in self._slots.items():
+            if not slot.decoding:
+                positions[slot_id] = slot.pos
+        if frontier:
+            for slot_id, pos in frontier.items():
+                positions[slot_id] = pos
+        temps = np.zeros(b, np.float32)
+        ks = np.zeros(b, np.int32)
+        ps = np.ones(b, np.float32)
+        active = []
+        for slot_id, slot in list(self._slots.items()):
+            if not slot.decoding:
+                continue
+            if self.paged and not self._grow_slot(slot_id, slot):
+                self._finish(slot.completion, "kv_oom")
+                self._release(slot_id)
+                continue
+            active.append(slot_id)
+            tokens[slot_id] = slot.last_token
+            positions[slot_id] = slot.pos
+            advance[slot_id] = 1
+            temps[slot_id] = slot.request.sampler.temperature
+            ks[slot_id] = slot.request.sampler.top_k
+            ps[slot_id] = slot.request.sampler.top_p
+        return active, tokens, positions, advance, temps, ks, ps
+
+    def _apply_burst(self, toks: np.ndarray,
+                     active: List[int]) -> List[Tuple[int, int]]:
+        emitted: List[Tuple[int, int]] = []
+        for k in range(toks.shape[0]):
+            for slot_id in active:
+                slot = self._slots.get(slot_id)
+                if slot is None:  # finished (EOS/limit) at an earlier burst step
+                    continue
+                slot.pos += 1
+                token = int(toks[k, slot_id])
+                slot.last_token = token
+                emitted.extend(self._emit(slot_id, slot, token))
+        return emitted
+
+    def _decode_all(self) -> List[Tuple[int, int]]:
+        active, tokens, positions, advance, temps, ks, ps = self._decode_args()
+        if not active:
+            return []
+        steps = self._burst_steps(active)
+        self.counters["decode_dispatches"] += 1
+        self.counters["decode_steps"] += steps
+        self.counters["decode_row_steps"] += steps * len(active)
+        self._flush_page_table()
+        burst = self._run_burst(tokens, positions, advance, temps, ks, ps, steps)
+        return self._apply_burst(burst.cpu().numpy(), active)
+
+    def _combined(self, prefill_ids: List[int]) -> List[Tuple[int, int]]:
+        """One prompt chunk for `prefill_ids` + a decode burst for the
+        decoding slots in ONE dispatch, with one read-back. The burst pins
+        the just-prefilled rows at their POST-chunk frontier (advance 0), so
+        the ride-along invariant is unchanged."""
+        p_toks, p_starts, p_lasts, chunk_lens = self._prefill_args(prefill_ids)
+        frontier = {sid: self._slots[sid].pos + chunk_lens[row]
+                    for row, sid in enumerate(prefill_ids)}
+        active, tokens, positions, advance, temps, ks, ps = \
+            self._decode_args(frontier)
+        if not active:
+            # Decoders all finished during arg building (paged kv_oom).
+            return self._prefill_batch(prefill_ids)
+        steps = self._burst_steps(active)
+        self.counters["combined_dispatches"] += 1
+        self.counters["decode_steps"] += steps
+        self.counters["decode_row_steps"] += steps * len(active)
+        self._flush_page_table()
+        logits = self._run_prefill(prefill_ids, p_toks, p_starts, p_lasts)
+        first = self._sample_first(prefill_ids, chunk_lens, logits)
+        burst = self._run_burst(tokens, positions, advance, temps, ks, ps, steps)
+        if first is None:
+            toks, first_host = burst.cpu().numpy(), None
+        else:  # one read-back for the first tokens and the burst
+            flat = torch.cat([burst.reshape(-1), first]).cpu().numpy()
+            toks = flat[:burst.numel()].reshape(burst.shape)
+            first_host = flat[burst.numel():].tolist()
+        emitted = self._apply_prefill(prefill_ids, chunk_lens, first_host)
+        return emitted + self._apply_burst(toks, active)
+
+    def _burst_steps(self, active: List[int]) -> int:
+        """How many decode steps to run in one dispatch.
+
+        Bounded by cache room (no out-of-range writes), by the largest
+        remaining generation budget of the rows, and, in paged mode, by the
+        pages that can be pre-allocated; rounded down to a power of two as
+        in the JAX package. A row at its budget finishes mid-burst like an
+        EOS row: the host drops its surplus tokens, and its surplus KV
+        writes stay inside its own slot, masked by per-row lengths."""
+        limit = self.decode_burst
+        if limit <= 1:
+            return 1
+        for slot_id in active:
+            slot = self._slots[slot_id]
+            limit = min(limit, self.max_seq_len - slot.pos)
+        max_budget = max(
+            self._slots[s].request.max_new_tokens
+            - len(self._slots[s].completion.tokens)
+            for s in active
+        )
+        limit = min(limit, max_budget)
+        if self.paged:
+            mps = self._host_pt.shape[1]
+            for slot_id in active:
+                slot = self._slots[slot_id]
+                covered = len(slot.pages) * self.page_size - slot.pos
+                while (covered < limit and len(slot.pages) < mps
+                       and self.allocator.can_allocate(1)):
+                    page = self.allocator.allocate(slot_id, 1)[0]
+                    slot.pages.append(page)
+                    self._host_pt[slot_id, len(slot.pages) - 1] = page
+                    self._pt_dirty = True
+                    covered += self.page_size
+                limit = min(limit, covered)
+        steps = 1
+        while steps * 2 <= limit:
+            steps *= 2
+        return steps
+
+    def _finish(self, completion: Completion, reason: str) -> None:
+        """Mark finished and record metering for ANY completion that produced
+        a first token, cancelled and kv_oom ones included, so the TTFT
+        percentiles have no survivorship bias under load shedding."""
+        completion.finished = True
+        completion.finished_at = time.perf_counter()
+        completion.finish_reason = reason
+        if completion.first_token_at is not None:
+            self.meter.record_request(completion.ttft, len(completion.tokens),
+                                      completion.service_ttft)
+
+    def _emit(self, slot_id: int, slot: _Slot, token: int) -> List[Tuple[int, int]]:
+        completion = slot.completion
+        now = time.perf_counter()
+        if completion.first_token_at is None:
+            completion.first_token_at = now
+        completion.tokens.append(token)
+        done_eos = token in slot.request.eos_ids
+        done_len = len(completion.tokens) >= slot.request.max_new_tokens
+        if done_eos or done_len or slot.pos + 1 >= self.max_seq_len:
+            self._finish(completion, "eos" if done_eos
+                         else ("length" if done_len else "cache_full"))
+            self._release(slot_id)
+        return [(slot.request.request_id, token)]
+
+    def _release(self, slot_id: int) -> None:
+        del self._slots[slot_id]
+        self._free.append(slot_id)
+        if self.paged:
+            self.allocator.free_slot(slot_id)
+            self._host_pt[slot_id, :] = self._sentinel
+            self._pt_dirty = True

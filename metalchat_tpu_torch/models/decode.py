@@ -6,10 +6,15 @@
   and w13 take the rmsnorm prologue inside the kernel. lm_head rides the
   same kernel through a unit layer axis.
 * S == 1 with an int8 cache: one fused kernel per layer quantizes the new
-  K/V row, writes it in place and attends (``ops.decode_attention``).
-* 1 < S ≤ 16, or a dense cache: the cache is updated in place and the
-  reference attention runs over the layer's dequantized cache with a
-  causal window mask.
+  K/V row, writes it in place and attends (``ops.decode_attention``); with
+  a paged cache, the paged kernel does the same through the page table
+  (``ops.paged_attention``), with ``lengths = offsets + 1``; with a cache in
+  the activation dtype, an indexed write of the new row, then the same
+  kernel's read-only mode (``decode_attention_stacked``).
+* 1 < S ≤ 16: the cache is updated in place and the
+  reference attention runs over the layer's dequantized cache (a paged
+  cache: each row's gathered pages) with a causal window mask, the
+  semantics of the JAX package's scan path for paged windows.
 
 Dense linear leaves take a plain product. The TPU-only gates of the JAX
 path (Mosaic head-dim rules, block choice, lane alignment) do not apply.
@@ -22,8 +27,10 @@ from typing import Any, Dict
 import torch
 
 from metalchat_tpu_torch.cache import (
+    PagedKVCache,
     QuantizedKVCache,
     dequantize_kv,
+    positions_to_pages,
     update_stacked_layer_cache,
     update_stacked_layer_cache_quantized,
 )
@@ -31,13 +38,16 @@ from metalchat_tpu_torch.config import ModelConfig
 from metalchat_tpu_torch.models.transformer import (
     embed_tokens,
     layer_leaf,
+    paged_layer_kv,
     silu_gate,
 )
 from metalchat_tpu_torch.ops import reference as ops
 from metalchat_tpu_torch.ops.a8_matvec import MAX_ROWS, quant_matvec_stacked_fused
 from metalchat_tpu_torch.ops.decode_attention import (
+    decode_attention_stacked,
     decode_attention_update_quantized_stacked,
 )
+from metalchat_tpu_torch.ops.paged_attention import paged_decode_attention_update_stacked
 from metalchat_tpu_torch.quant.quantize import QuantizedTensor, linear
 
 
@@ -69,7 +79,13 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
     scale = hd ** -0.5
     rows = b * s
     quantized = isinstance(cache, QuantizedKVCache)
-    kv_len = cache.k.shape[3]
+    paged = isinstance(cache, PagedKVCache)
+    if paged:
+        kv_len = cache.page_table.shape[1] * cache.page_size
+        paged_at = positions_to_pages(cache.page_table, positions, cache.page_size) \
+            if s > 1 else None
+    else:
+        kv_len = cache.k.shape[3]
 
     x = embed_tokens(params, tokens).reshape(rows, -1)
     cos = params["rope"]["cos"][positions]  # [B, S, hd/2], once per step
@@ -106,13 +122,27 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
         k = ops.apply_rope_rows(k.reshape(b, s, nkv, hd), cos, sin)
         v = v.reshape(b, s, nkv, hd)
 
-        if quantized and s == 1:
+        if paged and s == 1:
+            attn, *_ = paged_decode_attention_update_stacked(
+                q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
+                cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
+                cache.page_table, lengths, l, scale=scale)
+        elif quantized and s == 1:
             attn, *_ = decode_attention_update_quantized_stacked(
                 q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
                 cache.k, cache.v, cache.k_scale, cache.v_scale, l, lengths,
                 scale=scale)
+        elif s == 1:
+            # Per-row positions as tensor indices: no host sync.
+            batch = torch.arange(b, device=dev)
+            cache.k[l][batch, :, offsets] = k[:, 0].to(cache.k.dtype)
+            cache.v[l][batch, :, offsets] = v[:, 0].to(cache.v.dtype)
+            attn = decode_attention_stacked(q[:, 0].contiguous(), cache.k, cache.v, l,
+                                            lengths, scale=scale)
         else:
-            if quantized:
+            if paged:
+                keys, values = paged_layer_kv(cache, l, k, v, *paged_at, x.dtype)
+            elif quantized:
                 update_stacked_layer_cache_quantized(
                     cache.k, cache.v, cache.k_scale, cache.v_scale, k, v, l, start_pos)
                 keys = dequantize_kv(cache.k[l], cache.k_scale[l], x.dtype)

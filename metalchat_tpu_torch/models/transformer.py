@@ -25,10 +25,15 @@ import torch
 
 from metalchat_tpu_torch.cache import (
     KVCache,
+    PagedKVCache,
     QuantizedKVCache,
     dequantize_kv,
+    gather_page_scales,
+    gather_pages_dense,
+    positions_to_pages,
     update_layer_cache,
     update_layer_cache_quantized,
+    write_paged_layer,
 )
 from metalchat_tpu_torch.config import ModelConfig
 from metalchat_tpu_torch.ops import reference as ops
@@ -40,7 +45,7 @@ from metalchat_tpu_torch.quant.quantize import (
 )
 
 Params = Dict[str, Any]
-Cache = Union[KVCache, QuantizedKVCache]
+Cache = Union[KVCache, QuantizedKVCache, PagedKVCache]
 
 # Windows of at most this many tokens take the decode path (as in the JAX
 # package: weights are read once per window through the matvec kernel).
@@ -78,8 +83,20 @@ def silu_gate(fused: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(gate) * up
 
 
+def paged_layer_kv(cache: PagedKVCache, l: int, k, v, pages, offsets, dtype):
+    """Write k/v ``[B, S, n_kv, hd]`` into layer ``l``'s pages in place, then
+    each row's pages gathered and dequantized to ``dtype`` → keys, values
+    ``[B, n_kv, MP·psize, hd]``."""
+    kp, vp, ksc, vsc = (t[l] for t in (cache.k_pages, cache.v_pages, cache.k_scale,
+                                       cache.v_scale))
+    write_paged_layer(kp, vp, ksc, vsc, k, v, pages, offsets)
+    pt = cache.page_table
+    return (dequantize_kv(gather_pages_dense(kp, pt), gather_page_scales(ksc, pt), dtype),
+            dequantize_kv(gather_pages_dense(vp, pt), gather_page_scales(vsc, pt), dtype))
+
+
 def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
-                rope, positions, start_pos, kv_end: int) -> torch.Tensor:
+                rope, positions, start_pos, kv_end: int, paged_at=None) -> torch.Tensor:
     b, s, _ = x.shape
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
     eps = config.rms_norm_eps
@@ -94,7 +111,10 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
     k = ops.apply_rope(k.reshape(b, s, nkv, hd), rope["cos"], rope["sin"], positions)
     v = v.reshape(b, s, nkv, hd)
 
-    if isinstance(cache, QuantizedKVCache):
+    if isinstance(cache, PagedKVCache):
+        # Prefill attends over the row's whole page table, dequantized.
+        keys, values = paged_layer_kv(cache, l, k, v, *paged_at, x.dtype)
+    elif isinstance(cache, QuantizedKVCache):
         ck, cv, sk, sv = update_layer_cache_quantized(
             cache.k[l], cache.v[l], cache.k_scale[l], cache.v_scale[l], k, v,
             start_pos)
@@ -125,23 +145,28 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
 
     Windows of up to 16 tokens take `decode_step` (the matvec kernel path),
     as in the JAX package; longer ones are the prefill path below, with
-    flash attention over the dequantized cache."""
+    flash attention over the dequantized cache (a paged cache: over each
+    row's gathered pages)."""
     b, s = tokens.shape
     if s <= DECODE_MAX_TOKENS:
         from metalchat_tpu_torch.models.decode import decode_step
 
         return decode_step(params, cache, tokens, start_pos, config)
+    paged = isinstance(cache, PagedKVCache)
     if torch.is_tensor(start_pos) and start_pos.ndim == 1:
         offsets = start_pos.to(device=tokens.device, dtype=torch.int64)
-        kv_end = int(offsets.max()) + s
+        # A paged prefill reads whole page tables: no host read of the ends.
+        kv_end = 0 if paged else int(offsets.max()) + s
     else:
         start_pos = int(start_pos)
         offsets = torch.full((b,), start_pos, dtype=torch.int64, device=tokens.device)
         kv_end = start_pos + s
     positions = offsets[:, None] + torch.arange(s, device=tokens.device)[None, :]
+    paged_at = positions_to_pages(cache.page_table, positions, cache.page_size) \
+        if paged else None
 
     x = embed_tokens(params, tokens)
     for l in range(config.num_layers):
         x = _layer_step(x, params["layers"], l, cache, config, params["rope"],
-                        positions, start_pos, kv_end)
+                        positions, start_pos, kv_end, paged_at)
     return final_logits(params, x, config), cache

@@ -7,8 +7,9 @@ fallback from the kernel to the plain version and no switch to force one.
 
 | kernel (``csrc/``)       | wrapper                                       | TPU kernel it replaces |
 | ``a8_matvec.cu``         | ``quant_matvec_stacked_fused`` / ``_stacked`` | ``ops/a8_matvec_pallas.py`` |
-| ``decode_attention.cu``  | ``decode_attention_update_quantized_stacked`` | ``ops/decode_attention_pallas.py`` |
+| ``decode_attention.cu``  | ``decode_attention_update_quantized_stacked`` (write mode), ``decode_attention_stacked`` / ``decode_attention_quantized_stacked`` (read-only; the module's ``decode_attention`` / ``decode_attention_quantized`` take one layer) | ``ops/decode_attention_pallas.py`` |
 | ``flash_attention.cu``   | ``flash_attention``                           | ``ops/flash_attention_pallas.py`` |
+| ``paged_attention.cu``   | ``paged_decode_attention_update_stacked`` (write mode), ``paged_decode_attention_stacked`` / ``paged_decode_attention`` (read-only) | ``ops/paged_attention_pallas.py`` |
 """
 
 from __future__ import annotations
@@ -21,9 +22,16 @@ from metalchat_tpu_torch.ops.a8_matvec import (  # noqa: F401
     quant_matvec_stacked_fused,
 )
 from metalchat_tpu_torch.ops.decode_attention import (  # noqa: F401
+    decode_attention_quantized_stacked,
+    decode_attention_stacked,
     decode_attention_update_quantized_stacked,
 )
 from metalchat_tpu_torch.ops.flash_attention import flash_attention  # noqa: F401
+from metalchat_tpu_torch.ops.paged_attention import (  # noqa: F401
+    paged_decode_attention,
+    paged_decode_attention_stacked,
+    paged_decode_attention_update_stacked,
+)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -33,7 +41,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 __all__ = [
-    "build_all", "decode_attention_update_quantized_stacked", "flash_attention",
-    "launch_counts", "quant_matvec_stacked", "quant_matvec_stacked_fused",
-    "reset_launch_counts",
+    "build_all", "decode_attention_quantized_stacked", "decode_attention_stacked",
+    "decode_attention_update_quantized_stacked", "flash_attention",
+    "launch_counts", "paged_decode_attention", "paged_decode_attention_stacked",
+    "paged_decode_attention_update_stacked", "quant_matvec_stacked",
+    "quant_matvec_stacked_fused", "reset_launch_counts",
 ]

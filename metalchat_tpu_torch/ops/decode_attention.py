@@ -1,18 +1,26 @@
-"""Fused int8-KV decode attention: CUDA kernel ``csrc/decode_attention.cu``
-and its plain PyTorch version.
+"""Decode attention over a dense stacked KV cache: CUDA kernel
+``csrc/decode_attention.cu`` and its plain PyTorch versions.
 
-Replaces ``metalchat_tpu/ops/decode_attention_pallas.py``
-``decode_attention_update_quantized_stacked``: quantize the new K/V row,
-write it and its scale into layer ``layer`` of the stacked int8 cache at
-``pos = length - 1`` (IN PLACE), then single-token GQA attention over
-``[window_lo, length)``. On the H100 it is bound by the bytes of the int8
-K/V rows it reads; see the CUDA source for its design.
+Replaces ``metalchat_tpu/ops/decode_attention_pallas.py``:
+
+* ``decode_attention_update_quantized_stacked`` (write mode): quantize the
+  new K/V row, write it and its scale into layer ``layer`` of the stacked
+  int8 cache at ``pos = length - 1`` (IN PLACE), then single-token GQA
+  attention over ``[window_lo, length)``;
+* ``decode_attention_stacked`` / ``decode_attention_quantized_stacked``
+  (read-only mode): the same attention over a cache the caller has already
+  updated, in the activation dtype or int8; ``decode_attention`` /
+  ``decode_attention_quantized`` are the same call on an unstacked layer.
+
+On the H100 it is bound by the bytes of the K/V rows it reads; see the CUDA
+source for its design.
 
 Layouts: q ``[B, nh, hd]`` (heads kv-major), new rows ``[B, n_kv, hd]``,
-cache ``[L, B, n_kv, T, hd]`` int8 with scales ``[L, B, n_kv, T]`` f32,
-lengths int32 ``[B]`` including the new token, each in ``[1, T]``, window
-``None`` or an int (``-1`` = global). Returns ``(attn, k, v, k_scale, v_scale)``, the cache
-tensors being the ones passed in.
+cache ``[L, B, n_kv, T, hd]`` (int8 with scales ``[L, B, n_kv, T]`` f32, or
+q's dtype), lengths int32 ``[B]`` including the new token, each in ``[1,
+T]``, window ``None`` or an int (``-1`` = global). The write mode returns
+``(attn, k, v, k_scale, v_scale)``, the cache tensors being the ones passed
+in; the read-only mode returns ``attn``.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("decode_attention")
     lib.decode_attention_update.argtypes = [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P]
     lib.decode_attention_update.restype = _I
+    lib.decode_attention.argtypes = [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _P]
+    lib.decode_attention.restype = _I
     return lib
 
 
@@ -44,26 +54,18 @@ def _window(window: Optional[int]) -> int:
     return -1 if window is None else int(window)
 
 
-def decode_attention_update_plain(q, k_new, v_new, k, v, k_scale, v_scale,
-                                  layer: int, lengths, *, scale: float,
-                                  window: Optional[int] = None):
+def attention_plain(q, k, v, k_scale, v_scale, lengths, *, scale: float,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Single-token GQA attention over a cache ``k, v [B, n_kv, T, hd]``
+    (int8 with scales ``[B, n_kv, T]``, or unscaled with scales None),
+    positions ``[window_lo, length)``: the k-scale on the scores, the
+    v-scale on the probabilities, f32."""
     b, nh, hd = q.shape
-    nkv, t_max = k.shape[2], k.shape[3]
-    groups = nh // nkv
-    if bool(((lengths < 1) | (lengths > t_max)).any()):
-        raise ValueError(f"decode_attention_update: lengths must lie in [1, {t_max}]")
-    rows = torch.arange(b, device=q.device)
-    pos = lengths.long() - 1
-    qk, sk = quantize_kv(k_new)
-    qv, sv = quantize_kv(v_new)
-    k[layer][rows, :, pos] = qk
-    v[layer][rows, :, pos] = qv
-    k_scale[layer][rows, :, pos] = sk
-    v_scale[layer][rows, :, pos] = sv
-
-    qg = q.float().reshape(b, nkv, groups, hd)
-    s = torch.einsum("bkgd,bktd->bkgt", qg, k[layer].float()) * scale
-    s = s * k_scale[layer][:, :, None, :]
+    nkv, t_max = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, nkv, nh // nkv, hd)
+    s = torch.einsum("bkgd,bktd->bkgt", qg, k.float()) * scale
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
     t = torch.arange(t_max, device=q.device)[None, :]
     length = lengths.long()[:, None]
     ok = t < length
@@ -74,10 +76,45 @@ def decode_attention_update_plain(q, k_new, v_new, k, v, k_scale, v_scale,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = torch.where(ok[:, None, None, :], p, 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    p = p * v_scale[layer][:, :, None, :]
-    o = torch.einsum("bkgt,bktd->bkgd", p, v[layer].float())
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+    o = torch.einsum("bkgt,bktd->bkgd", p, v.float())
     o = o * torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
-    return o.reshape(b, nh, hd).to(q.dtype), k, v, k_scale, v_scale
+    return o.reshape(b, nh, hd).to(q.dtype)
+
+
+def _check_lengths(lengths, t_max: int, what: str) -> None:
+    if bool(((lengths < 1) | (lengths > t_max)).any()):
+        raise ValueError(f"{what}: lengths must lie in [1, {t_max}]")
+
+
+def decode_attention_update_plain(q, k_new, v_new, k, v, k_scale, v_scale,
+                                  layer: int, lengths, *, scale: float,
+                                  window: Optional[int] = None):
+    b = q.shape[0]
+    _check_lengths(lengths, k.shape[3], "decode_attention_update")
+    rows = torch.arange(b, device=q.device)
+    pos = lengths.long() - 1
+    qk, sk = quantize_kv(k_new)
+    qv, sv = quantize_kv(v_new)
+    k[layer][rows, :, pos] = qk
+    v[layer][rows, :, pos] = qv
+    k_scale[layer][rows, :, pos] = sk
+    v_scale[layer][rows, :, pos] = sv
+    out = attention_plain(q, k[layer], v[layer], k_scale[layer], v_scale[layer], lengths,
+                          scale=scale, window=window)
+    return out, k, v, k_scale, v_scale
+
+
+def decode_attention_stacked_plain(q, k, v, k_scale, v_scale, layer: int, lengths, *,
+                                   scale: float, window: Optional[int] = None):
+    """Read-only attention over layer ``layer``; scales None for a cache in
+    the activation dtype."""
+    _check_lengths(lengths, k.shape[3], "decode_attention")
+    return attention_plain(q, k[layer], v[layer],
+                           None if k_scale is None else k_scale[layer],
+                           None if v_scale is None else v_scale[layer], lengths,
+                           scale=scale, window=window)
 
 
 def check_args(q, k_new, v_new, k, v, k_scale, v_scale, layer: int, lengths) -> None:
@@ -129,3 +166,75 @@ def decode_attention_update_quantized_stacked(q, k_new, v_new, k, v, k_scale, v_
     _build.check(rc, "decode_attention_update")
     _build.count_launch("decode_attention_update")
     return out, k, v, k_scale, v_scale
+
+
+def check_read_args(q, k, v, k_scale, v_scale, layer: int, lengths) -> None:
+    """The read-only kernel's preconditions: an int8 cache with f32 scales,
+    or a cache in q's dtype without scales, all indexed with k's strides."""
+    b, nh, hd = q.shape
+    L, _, nkv, t_max, _ = k.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("decode_attention: q bf16 or f32")
+    if k_scale is None:
+        if k.dtype != q.dtype or v.dtype != q.dtype or v_scale is not None:
+            raise ValueError("decode_attention: an unscaled cache has q's dtype")
+    elif (k.dtype != torch.int8 or v.dtype != torch.int8 or v_scale is None
+          or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+          or k_scale.shape != (L, b, nkv, t_max) or v_scale.shape != k_scale.shape):
+        raise ValueError("decode_attention: int8 cache with f32 scales [L, B, n_kv, T]")
+    if (k.shape != (L, b, nkv, t_max, hd) or v.shape != k.shape or nh % nkv
+            or lengths.shape != (b,) or lengths.dtype != torch.int32):
+        raise ValueError("decode_attention: shape mismatch")
+    if hd not in (64, 128) or nh // nkv > 32 or not 0 <= layer < L:
+        raise ValueError(f"decode_attention: hd in (64, 128), groups <= 32 and "
+                         f"0 <= layer < {L}, got hd={hd}, groups={nh // nkv}, "
+                         f"layer={layer}")
+
+
+def _read(q, k, v, k_scale, v_scale, layer: int, lengths, scale: float,
+          window: Optional[int]) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return decode_attention_stacked_plain(q, k, v, k_scale, v_scale, layer, lengths,
+                                              scale=scale, window=window)
+    scales = () if k_scale is None else (k_scale, v_scale)
+    _build.require_cuda("decode_attention", q, k, v, *scales, lengths)
+    check_read_args(q, k, v, k_scale, v_scale, layer, lengths)
+    b, nh, hd = q.shape
+    nkv, t_max = k.shape[2], k.shape[3]
+    out = torch.empty_like(q)
+    rc = _lib().decode_attention(
+        q.data_ptr(), k[layer].data_ptr(), v[layer].data_ptr(),
+        None if k_scale is None else k_scale[layer].data_ptr(),
+        None if v_scale is None else v_scale[layer].data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), b, nh, nkv, t_max, hd, float(scale),
+        _window(window), int(q.dtype == torch.bfloat16), int(k_scale is not None),
+        _build.stream_ptr(q))
+    _build.check(rc, "decode_attention")
+    _build.count_launch("decode_attention")
+    return out
+
+
+def decode_attention_stacked(q, k, v, layer: int, lengths, *, scale: float,
+                             window: Optional[int] = None) -> torch.Tensor:
+    """Attention over layer ``layer`` of a stacked cache in q's dtype."""
+    return _read(q, k, v, None, None, layer, lengths, scale, window)
+
+
+def decode_attention_quantized_stacked(q, k, v, k_scale, v_scale, layer: int, lengths, *,
+                                       scale: float,
+                                       window: Optional[int] = None) -> torch.Tensor:
+    """Attention over layer ``layer`` of a stacked int8 cache."""
+    return _read(q, k, v, k_scale, v_scale, layer, lengths, scale, window)
+
+
+def decode_attention(q, k, v, lengths, *, scale: float,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """`decode_attention_stacked` on one layer ``k, v [B, n_kv, T, hd]``."""
+    return _read(q, k[None], v[None], None, None, 0, lengths, scale, window)
+
+
+def decode_attention_quantized(q, k, v, k_scale, v_scale, lengths, *, scale: float,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """`decode_attention_quantized_stacked` on one layer."""
+    return _read(q, k[None], v[None], k_scale[None], v_scale[None], 0, lengths, scale,
+                 window)

@@ -2,7 +2,8 @@
 
 Temperature, top-k, nucleus (top-p) and min-p masks, then a categorical
 draw from an explicit ``torch.Generator``. Greedy is ``argmax`` (first index
-on ties, as ``jnp.argmax``).
+on ties, as ``jnp.argmax``). `sample_batched` takes per-row settings, as the
+serving engine mixes requests in one decode step.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 _NEG = float("-inf")
@@ -75,3 +77,60 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
         raise ValueError("stochastic sampling requires a torch.Generator")
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def truncation_keep(scaled: torch.Tensor, top_k: torch.Tensor,
+                    top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row top-k / top-p keep mask of temperature-scaled logits ``[B,
+    V]``, sort-free: each truncation is a value threshold found by a 30-step
+    bisection over the row's range. top-k keeps x while fewer than k values
+    lie above it; top-p keeps x while the probability mass strictly above it
+    is below p (``top_k`` 0 and ``top_p`` ≥ 1 disable). The argmax is always
+    kept."""
+    b, v = scaled.shape
+    probs = torch.softmax(scaled, dim=-1)
+    lo_k = lo_p = scaled.amin(dim=-1) - 1.0
+    hi_k = hi_p = scaled.amax(dim=-1)
+    k = torch.where(top_k <= 0, v, top_k)
+    p = top_p.clamp(max=1.0)
+    for _ in range(30):
+        mid_k = 0.5 * (lo_k + hi_k)
+        mid_p = 0.5 * (lo_p + hi_p)
+        above_k = (scaled > mid_k[:, None]).sum(dim=-1)
+        mass_p = torch.where(scaled > mid_p[:, None], probs, 0.0).sum(dim=-1)
+        lo_k, hi_k = (torch.where(above_k < k, lo_k, mid_k),
+                      torch.where(above_k < k, mid_k, hi_k))
+        lo_p, hi_p = (torch.where(mass_p < p, lo_p, mid_p),
+                      torch.where(mass_p < p, mid_p, hi_p))
+    keep = scaled > lo_k[:, None]
+    keep &= torch.where((p < 1.0)[:, None], scaled > lo_p[:, None], True)
+    keep[torch.arange(b, device=scaled.device), scaled.argmax(dim=-1)] = True
+    return keep
+
+
+def sample_batched(logits: torch.Tensor, generator: Optional[torch.Generator],
+                   temperature, top_k, top_p) -> torch.Tensor:
+    """Next-token ids ``[B]`` with per-row settings: host sequences of
+    temperature (≤ 0 means greedy for that row), top-k (0 disables) and
+    top-p (≥ 1 disables). The settings are known on the host, so the rows
+    that are all greedy, or need no truncation, skip that work by ordinary
+    branches. Draws are Gumbel-max from ``generator`` on the logits' device."""
+    logits = logits.float()
+    argmax = torch.argmax(logits, dim=-1)
+    temps = np.asarray(temperature, np.float32)
+    ks = np.asarray(top_k, np.int64)
+    ps = np.asarray(top_p, np.float32)
+    greedy = temps <= 0.0
+    if greedy.all():
+        return argmax
+    if generator is None:
+        raise ValueError("stochastic sampling requires a torch.Generator")
+    dev = logits.device
+    scaled = logits / torch.from_numpy(np.where(greedy, 1.0, temps)).to(dev)[:, None]
+    if np.any(~greedy & ((ks > 0) | (ps < 1.0))):
+        keep = truncation_keep(scaled, torch.from_numpy(ks).to(dev),
+                               torch.from_numpy(ps).to(dev))
+        scaled = torch.where(keep, scaled, _NEG)
+    u = torch.rand(scaled.shape, generator=generator, device=dev)
+    drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(torch.from_numpy(greedy).to(dev), argmax, drawn)

@@ -3,7 +3,10 @@
 On the CPU each kernel wrapper is its plain version, so the checks compare
 the plain version with itself. Here the wrapper is replaced by a faulty
 one: the new row left out of the attention, a causal or window edge one
-position off, or one position's v-scale wrong. Each must fail the check.
+position off, or one position's v-scale wrong (for the read-only decode
+mode, the last cache position left out); for the paged kernel also
+the new row written into the neighbouring page and a page-table lookup off
+by one. Each must fail the check.
 A wrapper that differs from the plain version only by f32 rounding noise
 must pass. The shapes are the fixture's (hd=64).
 """
@@ -90,6 +93,42 @@ def test_decode_check_fails_a_one_row_fault(monkeypatch, fault, case):
         _run_decode(monkeypatch, fault, case)
 
 
+def _faulty_read(fault):
+    def read(q, k, v, *rest, scale, window=None):
+        ks, vs, layer, lengths = rest if len(rest) == 4 else (None, None, *rest)
+        scales = [None if t is None else t[layer] for t in (ks, vs)]
+        if fault == "noise":
+            out = decode_mod.attention_plain(q.float(), k[layer], v[layer], *scales, lengths,
+                                             scale=scale, window=window)
+            return _noisy(out, q.dtype)
+        return decode_mod.attention_plain(q, k[layer], v[layer], *scales, lengths - 1,
+                                          scale=scale, window=window)
+
+    return read
+
+
+def _run_read(monkeypatch, fault, kv, case):
+    for name in ("decode_attention_stacked", "decode_attention_quantized_stacked"):
+        monkeypatch.setattr(decode_mod, name, _faulty_read(fault))
+    sm = chip_smoke.Smoke(torch)
+    chip_smoke.check_decode_read(sm, 3, 6, 3, 256, 64, [case],
+                                 torch.Generator().manual_seed(1), CPU, kv=kv)
+    return sm
+
+
+@pytest.mark.parametrize("kv", ["act", "int8"])
+@pytest.mark.parametrize("case", chip_smoke.READ_CASES_FIXTURE, ids=str)
+def test_decode_read_check_passes_rounding_noise(monkeypatch, kv, case):
+    assert _run_read(monkeypatch, "noise", kv, case).share["decode_attention"] <= 1.0
+
+
+@pytest.mark.parametrize("kv", ["act", "int8"])
+@pytest.mark.parametrize("case", chip_smoke.READ_CASES_FIXTURE, ids=str)
+def test_decode_read_check_fails_a_dropped_last_row(monkeypatch, kv, case):
+    with pytest.raises(AssertionError, match="beyond the limit"):
+        _run_read(monkeypatch, "drop_last", kv, case)
+
+
 def _faulty_flash(fault):
     plain = flash_mod.flash_attention_plain
 
@@ -122,3 +161,86 @@ def test_flash_check_passes_rounding_noise(monkeypatch, case):
 def test_flash_check_fails_an_edge_fault(monkeypatch, case):
     with pytest.raises(AssertionError, match="beyond the limit"):
         _run_flash(monkeypatch, "edge", case)
+
+
+paged_mod = importlib.import_module("metalchat_tpu_torch.ops.paged_attention")
+
+
+def _faulty_paged(fault):
+    """Paged wrappers with one planted fault: the new row written into the
+    neighbouring page, logical page i read through table entry i + 1, the
+    window's lower edge one position early, or position length - 2 read
+    with a wrong v-scale. Each mode keeps the right write unless the fault
+    is the write."""
+    update_plain = paged_mod.paged_decode_attention_update_plain
+    read_plain = paged_mod.paged_decode_attention_plain
+
+    def read(q, kp, vp, ks, vs, table, lengths, layer, *, scale, window=None):
+        if fault == "noise":
+            return _noisy(read_plain(q.float(), kp, vp, ks, vs, table, lengths, layer,
+                                     scale=scale, window=window), q.dtype)
+        if fault == "lookup":
+            table = torch.cat([table[:, 1:], table[:, -1:]], dim=1)
+        if fault == "window_edge":
+            window += 1
+        if fault == "v_scale":
+            vs = vs.clone()
+            psize, last = kp.shape[3], kp.shape[2] - 1
+            pos = (lengths.long() - 2).clamp(min=0)
+            page = table.long().gather(1, (pos // psize)[:, None])[:, 0].clamp(max=last)
+            vs[layer][page, :, pos % psize] = 1.0 / 127
+        return read_plain(q, kp, vp, ks, vs, table, lengths, layer, scale=scale,
+                          window=window)
+
+    def update(q, kn, vn, kp, vp, ks, vs, table, lengths, layer, *, scale, window=None):
+        before = [t[layer].clone() for t in (kp, vp, ks, vs)]
+        out, *cache = update_plain(q, kn, vn, kp, vp, ks, vs, table, lengths, layer,
+                                   scale=scale, window=window)
+        if fault == "neighbour_page":
+            psize, last = kp.shape[3], kp.shape[2] - 1
+            pos = lengths.long() - 1
+            page = table.long().gather(1, (pos // psize)[:, None])[:, 0]
+            live = page < last
+            page, off = page[live], (pos % psize)[live]
+            for t, old in zip((kp, vp), before[:2]):
+                row = t[layer][:, page, off].clone()
+                t[layer][:, page, off] = old[:, page, off]
+                t[layer][:, page + 1, off] = row
+            for t, old in zip((ks, vs), before[2:]):
+                row = t[layer][page, :, off].clone()
+                t[layer][page, :, off] = old[page, :, off]
+                t[layer][page + 1, :, off] = row
+            return out, *cache
+        return read(q, kp, vp, ks, vs, table, lengths, layer, scale=scale,
+                    window=window), *cache
+
+    return update, read
+
+
+def _run_paged(monkeypatch, fault, case):
+    update, read = _faulty_paged(fault)
+    monkeypatch.setattr(paged_mod, "paged_decode_attention_update_stacked", update)
+    monkeypatch.setattr(paged_mod, "paged_decode_attention_stacked", read)
+    sm = chip_smoke.Smoke(torch)
+    chip_smoke.check_paged(sm, 4, 6, 3, 64, 16, 8, [case], torch.Generator().manual_seed(1),
+                           CPU)
+    return sm
+
+
+@pytest.mark.parametrize("case", chip_smoke.PAGED_CASES_FIXTURE, ids=str)
+def test_paged_check_passes_rounding_noise(monkeypatch, case):
+    sm = _run_paged(monkeypatch, "noise", case)
+    assert sm.share["paged_decode_attention_update"] <= 1.0
+    assert sm.share["paged_decode_attention"] <= 1.0
+
+
+# window_edge: only the cases with a window; v_scale: position length - 2
+# lies inside the attended range in the first three cases.
+@pytest.mark.parametrize("fault,case", [
+    *(("neighbour_page", c) for c in chip_smoke.PAGED_CASES_FIXTURE),
+    *(("lookup", c) for c in chip_smoke.PAGED_CASES_FIXTURE),
+    *(("window_edge", c) for c in chip_smoke.PAGED_CASES_FIXTURE[2:]),
+    *(("v_scale", c) for c in chip_smoke.PAGED_CASES_FIXTURE[:3])], ids=str)
+def test_paged_check_fails_a_planted_fault(monkeypatch, fault, case):
+    with pytest.raises(AssertionError, match="beyond the limit|not bit-exact"):
+        _run_paged(monkeypatch, fault, case)

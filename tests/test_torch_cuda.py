@@ -42,7 +42,22 @@ def test_decode_attention_update_kernel(card, dtype):
 
 
 @DTYPES
+@pytest.mark.parametrize("kv", ["act", "int8"])
+def test_decode_attention_read_kernel(card, dtype, kv):
+    sm, gen, dev = card
+    chip_smoke.check_decode_read(sm, 3, 6, 3, 256, 64, chip_smoke.READ_CASES_FIXTURE, gen,
+                                 dev, getattr(torch, dtype), kv)
+
+
+@DTYPES
 def test_flash_attention_kernel(card, dtype):
     sm, gen, dev = card
     chip_smoke.check_flash(sm, 3, 48, 6, 3, 256, 64, chip_smoke.FLASH_CASES_FIXTURE, gen, dev,
+                           getattr(torch, dtype))
+
+
+@DTYPES
+def test_paged_attention_kernel(card, dtype):
+    sm, gen, dev = card
+    chip_smoke.check_paged(sm, 4, 6, 3, 64, 16, 8, chip_smoke.PAGED_CASES_FIXTURE, gen, dev,
                            getattr(torch, dtype))

@@ -52,6 +52,9 @@ def test_wrappers_do_not_fall_back():
     from metalchat_tpu_torch.ops import (
         decode_attention_update_quantized_stacked,
         flash_attention,
+        paged_decode_attention,
+        paged_decode_attention_stacked,
+        paged_decode_attention_update_stacked,
         quant_matvec_stacked,
         quant_matvec_stacked_fused,
     )
@@ -74,3 +77,43 @@ def test_wrappers_do_not_fall_back():
         decode_attention_update_quantized_stacked(
             q[:, 0], kv[:, :, 0], kv[:, :, 0], cache, cache, sc, sc, 0,
             torch.ones(1, dtype=torch.int32, **meta), scale=1.0)
+    pages = torch.empty(1, 1, 3, 8, 32, dtype=torch.int8, **meta)
+    pscales = torch.empty(1, 3, 1, 8, **meta)
+    table = torch.zeros(1, 2, dtype=torch.int32, **meta)
+    lengths = torch.ones(1, dtype=torch.int32, **meta)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        paged_decode_attention_update_stacked(
+            q[:, 0], kv[:, :, 0], kv[:, :, 0], pages, pages, pscales, pscales, table,
+            lengths, 0, scale=1.0)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        paged_decode_attention_stacked(q[:, 0], pages, pages, pscales, pscales, table,
+                                       lengths, 0, scale=1.0)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        paged_decode_attention(q[:, 0], pages[0], pages[0], pscales[0], pscales[0], table,
+                               lengths, scale=1.0)
+    from metalchat_tpu_torch.ops import decode_attention as dm
+
+    dense = torch.empty(1, 1, 1, 8, 32, **meta)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        dm.decode_attention_stacked(q[:, 0], dense, dense, 0, lengths, scale=1.0)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        dm.decode_attention_quantized_stacked(q[:, 0], cache, cache, sc, sc, 0, lengths,
+                                              scale=1.0)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        dm.decode_attention(q[:, 0], dense[0], dense[0], lengths, scale=1.0)
+
+
+@pytest.mark.parametrize("module", [
+    "metalchat_tpu_torch.cache", "metalchat_tpu_torch.engine",
+    "metalchat_tpu_torch.engine.http", "metalchat_tpu_torch.engine.paged",
+    "metalchat_tpu_torch.engine.serving", "metalchat_tpu_torch.ops.paged_attention",
+    "metalchat_tpu_torch.text.tokenizer", "metalchat_tpu_torch.utils.profiling"])
+def test_serving_modules_import_without_a_card(module):
+    """Importing a module of the serving slice builds and loads no kernel,
+    so it needs neither nvcc nor a card."""
+    import importlib
+
+    from metalchat_tpu_torch.ops import _build
+
+    importlib.import_module(module)
+    assert _build._LIBS == {}

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's three CUDA kernels vs the JAX
+"""Plain PyTorch versions of the port's CUDA kernels vs the JAX
 package's Pallas kernels (interpret mode), f32 on the CPU.
 
 On the CPU every wrapper takes its kernel's plain version, so these tests
@@ -13,6 +13,8 @@ pin down the function each CUDA kernel must compute. Tolerances:
   rounding boundary, and rows whose codes agree give identical outputs;
 * decode update: cache bytes and scales bit-exact, attention rtol = atol =
   1e-5 (online vs one-pass softmax, summation order);
+* decode attention, read-only (f32 or int8 cache, stacked and one layer):
+  rtol = atol = 1e-5 (same reasons);
 * flash attention: rtol = atol = 1e-5 (same reasons).
 """
 
@@ -28,11 +30,13 @@ from metalchat_tpu.ops.a8_matvec_pallas import (
     quant_matvec_stacked as j_raw,
     quant_matvec_stacked_fused as j_fused,
 )
+from metalchat_tpu.ops import decode_attention_pallas as jdecode
 from metalchat_tpu.ops.decode_attention_pallas import (
     decode_attention_update_quantized_stacked as j_decode_update,
 )
 from metalchat_tpu.ops.flash_attention_pallas import flash_attention as j_flash
 from metalchat_tpu_torch.ops import a8_matvec as tm
+from metalchat_tpu_torch.ops import decode_attention as tdecode
 from metalchat_tpu_torch.ops.decode_attention import (
     decode_attention_update_quantized_stacked,
 )
@@ -149,6 +153,36 @@ def test_decode_attention_update_matches(window):
     np.testing.assert_allclose(attn.numpy(), want[0], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("window", [None, 9])
+def test_decode_attention_read_only_matches(quantized, window):
+    """Read-only mode, stacked (layer 1) and on one layer, against the JAX
+    kernels over the same cache: int8 with scales, or its f32 values."""
+    q, _, _, k, v, ks, vs = _decode_inputs(seed=6)
+    if not quantized:
+        k, v = ((c * s[..., None]).astype(np.float32) for c, s in ((k, ks), (v, vs)))
+    lengths = np.array([1, 16, 17], np.int32)
+    scale = 32 ** -0.5
+    j = [jnp.asarray(a) for a in (q, k, v, ks, vs, lengths)]
+    kw = dict(scale=scale, window=window, block_t=16, interpret=True)
+    t = [torch.from_numpy(a) for a in (q, k, v, ks, vs, lengths)]
+    tkw = dict(scale=scale, window=window)
+    if quantized:
+        want = jdecode.decode_attention_quantized_stacked(*j[:5], 1, j[5], **kw)
+        want_one = jdecode.decode_attention_quantized(j[0], *(a[1] for a in j[1:5]), j[5],
+                                                      **kw)
+        got = tdecode.decode_attention_quantized_stacked(*t[:5], 1, t[5], **tkw)
+        got_one = tdecode.decode_attention_quantized(t[0], *(a[1] for a in t[1:5]), t[5],
+                                                     **tkw)
+    else:
+        want = jdecode.decode_attention_stacked(*j[:3], 1, j[5], **kw)
+        want_one = jdecode.decode_attention(j[0], j[1][1], j[2][1], j[5], **kw)
+        got = tdecode.decode_attention_stacked(*t[:3], 1, t[5], **tkw)
+        got_one = tdecode.decode_attention(t[0], t[1][1], t[2][1], t[5], **tkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_one.numpy(), np.asarray(want_one), rtol=1e-5, atol=1e-5)
+
+
 def test_quantize_kv_matches():
     _, kn, *_ = _decode_inputs(seed=4)
     want_q, want_s = (np.asarray(a) for a in jquantize_kv(jnp.asarray(kn)))
@@ -214,6 +248,32 @@ def test_decode_update_kernel_gate_rejects(bad):
         check_args(*_update_args(bad=bad))
 
 
+def _read_args(bad=None):
+    """Operands of the read-only kernel on the meta device: an int8 cache
+    with scales, a bf16 cache without (``bad="bf16"``: bf16 scales given),
+    or one operand made wrong by ``bad``."""
+    q, _, _, k, v, ks, vs, layer, lengths = _update_args(hd=128)
+    if bad in ("bf16", "f32_cache", "bf16_ok"):
+        k = torch.empty(k.shape, dtype=torch.float32 if bad == "f32_cache"
+                        else torch.bfloat16, device="meta")
+        v = torch.empty(v.shape, dtype=torch.bfloat16, device="meta")
+        if bad != "bf16":
+            ks = vs = None
+    elif bad == "v_scale":
+        vs = vs[..., :-1]
+    elif bad == "layer":
+        layer = 2
+    return q, k, v, ks, vs, layer, lengths
+
+
+def test_decode_read_kernel_gate():
+    tdecode.check_read_args(*_read_args())
+    tdecode.check_read_args(*_read_args("bf16_ok"))
+    for bad in ("bf16", "f32_cache", "v_scale", "layer"):
+        with pytest.raises(ValueError, match="decode_attention"):
+            tdecode.check_read_args(*_read_args(bad))
+
+
 @pytest.mark.parametrize("lengths", [[0, 5], [5, 65]])
 def test_decode_update_lengths_outside_cache_raise(lengths):
     q, kn, vn, k, v, ks, vs = (torch.from_numpy(a) for a in _decode_inputs(T=64))
@@ -221,3 +281,11 @@ def test_decode_update_lengths_outside_cache_raise(lengths):
         decode_attention_update_quantized_stacked(
             q, kn, vn, k, v, ks, vs, 1, torch.tensor(lengths + [1], dtype=torch.int32),
             scale=0.2)
+
+
+@pytest.mark.parametrize("lengths", [[0, 5], [5, 65]])
+def test_decode_read_lengths_outside_cache_raise(lengths):
+    q, _, _, k, v, ks, vs = (torch.from_numpy(a) for a in _decode_inputs(T=64))
+    with pytest.raises(ValueError, match=r"lengths must lie in \[1, 64\]"):
+        tdecode.decode_attention_quantized_stacked(
+            q, k, v, ks, vs, 1, torch.tensor(lengths + [1], dtype=torch.int32), scale=0.2)

@@ -74,3 +74,73 @@ def test_llama_configs_match():
                                  LlamaConfig.llama32_1b(), LlamaConfig.from_hf_config(raw),
                                  LlamaConfig.from_hf_config(hf_8b))]
     assert got == want
+
+
+# sample_batched: per-row settings (temperature, top-k, top-p); row 0 and
+# row 3 are greedy, the others restricted by k, by p or by both.
+BATCH_LOGITS = np.random.default_rng(1).standard_normal((6, 97)).astype(np.float32) * 2
+TEMPS = np.array([0.0, 0.7, 1.0, -1.0, 1.3, 0.9], np.float32)
+TOP_K = np.array([0, 5, 0, 3, 12, 0], np.int32)
+TOP_P = np.array([1.0, 1.0, 0.8, 0.5, 0.6, 1.0], np.float32)
+
+
+def _exact_keep(row: int) -> np.ndarray:
+    """The kept set the bisection approximates: fewer than k values above x,
+    and probability mass strictly above x below p (f64), plus the argmax."""
+    x = BATCH_LOGITS[row].astype(np.float64) / TEMPS[row]
+    probs = np.exp(x - x.max())
+    probs /= probs.sum()
+    above = x[None, :] > x[:, None]                    # [i, j]: x_j > x_i
+    keep = np.ones(x.shape, bool)
+    if TOP_K[row] > 0:
+        keep &= above.sum(axis=1) < TOP_K[row]
+    if TOP_P[row] < 1.0:
+        mass = (above * probs[None, :]).sum(axis=1)
+        assert np.abs(mass - TOP_P[row]).min() > 1e-4  # no element near the edge
+        keep &= mass < TOP_P[row]
+    keep[x.argmax()] = True
+    return keep
+
+
+def test_sample_batched_greedy_rows_match_jax():
+    import jax
+
+    want = np.asarray(jsampling.sample_batched(
+        jnp.asarray(BATCH_LOGITS), jax.random.PRNGKey(0), jnp.asarray(TEMPS),
+        jnp.asarray(TOP_K), jnp.asarray(TOP_P)))
+
+    gen = torch.Generator().manual_seed(0)
+    got = sampling.sample_batched(torch.from_numpy(BATCH_LOGITS), gen, TEMPS, TOP_K,
+                                  TOP_P).numpy()
+    greedy = TEMPS <= 0
+    np.testing.assert_array_equal(got[greedy], want[greedy])
+    np.testing.assert_array_equal(got[greedy], BATCH_LOGITS[greedy].argmax(-1))
+    all_greedy = sampling.sample_batched(torch.from_numpy(BATCH_LOGITS), None,
+                                         np.zeros(6), TOP_K, TOP_P)
+    np.testing.assert_array_equal(all_greedy.numpy(), BATCH_LOGITS.argmax(-1))
+
+
+def test_sample_batched_kept_sets_are_exact():
+    """The port's bisection keeps exactly the set it approximates, on
+    tie-free logits; the port's draws and JAX's (16 keys) fall inside it."""
+    import jax
+
+    restricted = [r for r in range(6) if TEMPS[r] > 0 and (TOP_K[r] > 0 or TOP_P[r] < 1)]
+    assert restricted == [1, 2, 4]
+    safe_t = np.where(TEMPS <= 0, 1.0, TEMPS).astype(np.float32)
+    scaled = torch.from_numpy(BATCH_LOGITS) / torch.from_numpy(safe_t)[:, None]
+    keep = sampling.truncation_keep(scaled, torch.from_numpy(TOP_K).long(),
+                                    torch.from_numpy(TOP_P)).numpy()
+    exact = {r: _exact_keep(r) for r in restricted}
+    for r in restricted:
+        np.testing.assert_array_equal(keep[r], exact[r])
+        assert 1 < exact[r].sum() < 97
+    gen = torch.Generator().manual_seed(3)
+    logits = torch.from_numpy(BATCH_LOGITS)
+    for i in range(16):
+        got = sampling.sample_batched(logits, gen, TEMPS, TOP_K, TOP_P).numpy()
+        drawn = np.asarray(jsampling.sample_batched(
+            jnp.asarray(BATCH_LOGITS), jax.random.PRNGKey(i), jnp.asarray(TEMPS),
+            jnp.asarray(TOP_K), jnp.asarray(TOP_P)))
+        for r in restricted:
+            assert exact[r][got[r]] and exact[r][drawn[r]]
