@@ -22,16 +22,23 @@ Phases (any failure makes the script exit non-zero without a result line):
    256, 4 pages a row, 32 + 1 pages) and the fixture's (pages of 16), page
    tables shuffled with one free row at the sentinel: outputs of the rows
    whose write page is live within ``RTOL``, pages and scales exact except
-   the shared garbage page.
+   the shared garbage page. The dequant matmul (row 11) at the 8b-int4 and
+   1b-int8 shapes, 1, 8 and 32 rows, within ``RTOL``; the merged FFN block
+   (row 10) at 8B widths, 1 and 8 rows, phase by phase (see ``ACT_SLOPE``).
 4. The trained fixture end to end, W4A8 + int8 KV, 3 requests through
    ``generate``: kernels on the card against the plain path on the CPU; the
-   first 16 greedy tokens of each request must agree.
+   first 16 greedy tokens of each request must agree. fixture-int: the same
+   for the fixture quantized weight-only (int4 and int8, group 32) and for
+   W4A8 with ``ffn_block=True``, in bf16.
 5. The main path at full width: ``8b-w4a8`` (Llama-3.1-8B geometry, all 32
    layers, random int4 weights from a seeded ``torch.Generator``, int8 KV,
    context 1024), a 512-token prompt then 64 greedy decode steps through
-   ``generate``, with launch counts read around that run only; then
+   ``generate``, every kernel's launches held exactly around that run; then
    ``torch.profiler`` over one prefill and 8 decode steps (the device's
-   busy share and device time by kernel).
+   busy share and device time by kernel). main-ffn-block: the same params
+   with ``ffn_block=True`` (32 ffn_block and 33 a8_matvec launches a step),
+   then both routes in turns. main-int4: ``8b-int4`` (weight-only int4,
+   group 32), 129 dequant-matmul launches a step, and its profile.
 6. serve-fixture: the fixture through ``ContinuousBatchingEngine`` (6 greedy
    requests, 3 slots, chunks of 32, bursts of 4, f32 activations) in paged
    (pages of 16), dense int8 and dense activation-dtype mode, on the card
@@ -50,10 +57,12 @@ Phases (any failure makes the script exit non-zero without a result line):
    completion, ``/health`` and ``/metrics``.
 9. Each kernel timed with CUDA events at its path's shapes beside its bound,
    its plain version and one PyTorch library call as a yardstick: timing at
-   the generate path's shapes, timing-serve at the serve path's (8 rows).
+   the generate path's shapes, timing-serve at the serve path's (8 rows),
+   timing-ffn (row 10 beside the unmerged route) and timing-int4 (row 11).
 
-The last lines are the kernel table as one JSON object, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the kernel table as one JSON object (rows 1-11 of the
+JAX package's TPU kernels), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -76,6 +85,19 @@ ATOL_OF_MAX = 1e-4
 # another order and move one int8 code by a quantum, a change far below 1e-2
 # at these scales (the CPU tests hold the codes themselves).
 MAX_ABS_ERR = 1e-2
+# The merged FFN block (row 10) is held phase by phase through its own
+# scratch (x2, h), so that every phase reads the kernel's own input. Phases A
+# (x2 = x + wo(attn)) and C (out = x2 + w2(h)) then compute the plain
+# version's int8 codes exactly and meet the one-step limit above. In phase B
+# the kernel's f32 norm statistics (block order, 1/sqrtf) and expf may differ
+# from the plain version's by an ulp, which can move one int8 code of the
+# normed x2 by a quantum at a rounding boundary. That shifts gate[j] by at
+# most sx_n * s_gate[j] * QMAX (up likewise), so h[j] moves by at most
+# ACT_SLOPE*|up|*dg + |act(gate)|*du + ACT_SLOPE*dg*du: phase B's limit adds
+# that to the one-step limit. A code of h that moves in phase B moves in both
+# versions of phase C alike, since phase C starts from the kernel's h.
+ACT_SLOPE = 1.13  # sup |act'|: silu 1.0998, gelu_tanh 1.1289
+QMAX = {4: 8, 8: 127}  # largest |weight code|: int4 nibble, int8
 HBM_BYTES_PER_S = {"NVIDIA H100 80GB HBM3": 3.35e12}  # H100 SXM
 # The kernels `generate` runs with an int8 dense cache.
 GENERATE_KERNELS = ("a8_matvec", "decode_attention_update", "flash_attention")
@@ -102,8 +124,10 @@ class Smoke:
         self.failures = []
         self.err = {"a8_matvec": 0.0, "decode_attention_update": 0.0,
                     "decode_attention": 0.0, "flash_attention": 0.0,
-                    "paged_decode_attention_update": 0.0, "paged_decode_attention": 0.0}
+                    "paged_decode_attention_update": 0.0, "paged_decode_attention": 0.0,
+                    "quant_matmul": 0.0, "ffn_block": 0.0}
         self.share = dict.fromkeys(self.err, 0.0)  # worst error / its limit
+        self.tok_s = {}  # decode tok/s by run
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -121,7 +145,9 @@ class Smoke:
         if not cond:
             raise AssertionError(what)
 
-    def close(self, kernel: str, got, want, what: str, loose: bool = False):
+    def close(self, kernel: str, got, want, what: str, loose: bool = False, extra=None):
+        """Elementwise within the limit; ``extra`` (a tensor of the output's
+        shape) widens it where a stated cause may move a value further."""
         dtype = str(got.dtype).removeprefix("torch.")
         got, want = got.float(), want.float()
         diff = (got - want).abs()
@@ -129,6 +155,8 @@ class Smoke:
             limit = self.torch.full_like(diff, MAX_ABS_ERR)
         else:
             limit = RTOL[dtype] * want.abs() + ATOL_OF_MAX * want.abs().max()
+        if extra is not None:
+            limit = limit + extra
         err = diff.max().item()
         share = (diff / limit).max().item()
         self.err[kernel] = max(self.err[kernel], err)
@@ -380,6 +408,106 @@ def check_paged(sm: Smoke, B, nh, nkv, hd, psize, mp, cases, gen, dev, dtype=Non
             torch.cuda.synchronize()
 
 
+def check_qmm(sm: Smoke, shapes, rows: int, gen, dev, dtype=None, scales_dtype=None):
+    """The dequant-matmul kernel (row 11) against its plain version. Each
+    shape is (name, out, in, bits, group, transposed); random packed bytes,
+    positive scales in ``scales_dtype`` (bf16 by default), x in ``dtype``."""
+    torch = sm.torch
+    dtype = dtype or torch.bfloat16
+    scales_dtype = scales_dtype or torch.bfloat16
+    from metalchat_tpu_torch.ops import quant_matmul as m
+
+    for name, out_f, in_f, bits, group, transposed in shapes:
+        k = in_f // 2 if bits == 4 else in_f
+        q = torch.randint(-128, 128, (out_f, k) if transposed else (k, out_f), generator=gen,
+                          device=dev, dtype=torch.int8)
+        n_groups = in_f // group
+        s_shape = (1, out_f) if n_groups == 1 else (
+            (out_f, n_groups) if transposed else (n_groups, out_f))
+        s = (torch.rand(s_shape, generator=gen, device=dev) * 0.01 + 0.001).to(scales_dtype)
+        x = torch.randn((rows, in_f), generator=gen, device=dev).to(dtype)
+        kw = dict(bits=bits, group_size=group, transposed=transposed)
+        sm.close("quant_matmul", m.dequant_matmul(x, q, s, **kw),
+                 m.dequant_matmul_plain(x, q, s, **kw),
+                 f"quant_matmul {name} {out_f}x{in_f} w{bits} g{group} "
+                 f"{'transposed' if transposed else 'natural'} B={rows} {dtype} "
+                 f"scales {scales_dtype}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+
+def ffn_weights(torch, L, H, F, bits, gen, dev, dtype, scales_dtype=None):
+    """Random act8 weights of the merged block, as check_a8 draws them."""
+    k = 2 if bits == 4 else 1
+
+    def q(o, i):
+        return torch.randint(-128, 128, (L, o, i // k), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def s(o):
+        return (torch.rand((L, 1, o), generator=gen, device=dev) * 0.0015 + 0.0005).to(
+            scales_dtype or torch.bfloat16)
+
+    return dict(wo_q=q(H, H), wo_s=s(H),
+                norm_w=(torch.rand((L, H), generator=gen, device=dev) + 0.5).to(dtype),
+                w13_q=q(2 * F, H), w13_s=s(2 * F), w2_q=q(H, F), w2_s=s(H))
+
+
+def check_ffn_block(sm: Smoke, H, F, rows: int, cases, gen, dev, dtype=None, L=2):
+    """The merged FFN block (row 10) against its plain version phase by
+    phase, through the kernel's scratch (see ACT_SLOPE). Each case is (bits,
+    act, offset, layer)."""
+    torch = sm.torch
+    dtype = dtype or torch.bfloat16
+    from metalchat_tpu_torch.ops import ffn_block as m
+
+    weights = {}
+    for bits, act, offset, layer in cases:
+        if bits not in weights:
+            weights[bits] = ffn_weights(torch, L, H, F, bits, gen, dev, dtype)
+        w = weights[bits]
+        attn, x = (torch.randn((rows, H), generator=gen, device=dev).to(dtype)
+                   for _ in range(2))
+        scratch = {}
+        got = m.ffn_block_stacked(attn, x, *w.values(), layer, bits=bits, act=act, eps=1e-5,
+                                  offset=offset, scratch=scratch)
+        x2, h = scratch["x2"], scratch["h"]
+        what = (f"ffn_block H={H} F={F} w{bits} B={rows} {act} offset={offset} "
+                f"layer={layer} {dtype}")
+        sm.close("ffn_block", x2, m.wo_stage(attn, x, w["wo_q"][layer], w["wo_s"][layer],
+                                             bits=bits), what + " phase A (x2)")
+        h_ref, gate, up, sx_n = m.w13_stage(
+            x2, w["norm_w"][layer], w["w13_q"][layer], w["w13_s"][layer], bits=bits, act=act,
+            eps=1e-5, offset=offset)
+        s13 = w["w13_s"][layer].reshape(-1).float()
+        dg, du = (sx_n * s13[None, sl] * QMAX[bits] for sl in (slice(0, F), slice(F, None)))
+        one_code = (ACT_SLOPE * up.abs() * dg + m.activation(gate, act).abs() * du
+                    + ACT_SLOPE * dg * du)
+        sm.close("ffn_block", h, h_ref, what + " phase B (h)", extra=one_code)
+        sm.close("ffn_block", got, m.w2_stage(h, x2, w["w2_q"][layer], w["w2_s"][layer],
+                                              bits=bits)[0], what + " phase C (out)")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+
+# Row 11 at the 8b-int4 shapes (bench.py --config 8b-int4: group 32, the fused
+# wqkv, w13 and lm_head transposed, wo and w2 not) and the 1b-int8 shapes
+# (Llama-3.2-1B widths, int8, group 32).
+QMM_8B_INT4 = [("wqkv", 6144, 4096, 4, 32, True), ("wo", 4096, 4096, 4, 32, False),
+               ("w13", 28672, 4096, 4, 32, True), ("w2", 4096, 14336, 4, 32, False),
+               ("lm_head", 128256, 4096, 4, 32, True)]
+QMM_1B_INT8 = [("wqkv", 3072, 2048, 8, 32, True), ("wo", 2048, 2048, 8, 32, False),
+               ("w13", 16384, 2048, 8, 32, True), ("w2", 2048, 8192, 8, 32, False),
+               ("lm_head", 128256, 2048, 8, 32, True)]
+# The fixture's widths, per-channel and group scales, both orientations.
+QMM_FIXTURE = [("wqkv", 768, 384, 4, 32, True), ("wo", 384, 384, 4, 32, False),
+               ("w13", 2048, 384, 8, 32, True), ("w2", 384, 1024, 8, 32, False),
+               ("wo", 384, 384, 4, 384, False), ("w13", 2048, 384, 8, 384, True)]
+# Row 10: (bits, act, offset, layer), layers 0 and L-1 of 2.
+FFN_CASES = [(4, "silu", 0.0, 0), (4, "gelu_tanh", 1.0, 1), (8, "silu", 1.0, 1),
+             (8, "gelu_tanh", 0.0, 0)]
+
+
 # Lengths per row (the last row free): 1, a page edge and one past it, the
 # table's last position, the serve run's range, and windows down to the new
 # row alone.
@@ -443,6 +571,12 @@ def phase_kernels(sm: Smoke):
     check_flash(sm, 3, 48, 6, 3, 256, 64, FLASH_CASES_FIXTURE, gen, dev)
     check_paged(sm, 8, 32, 8, 128, 256, 4, PAGED_CASES_8B, gen, dev)
     check_paged(sm, 4, 6, 3, 64, 16, 8, PAGED_CASES_FIXTURE, gen, dev)
+    for rows in (1, 8, 32):
+        check_qmm(sm, QMM_8B_INT4, rows, gen, dev)
+        check_qmm(sm, QMM_1B_INT8, rows, gen, dev)
+    check_qmm(sm, QMM_FIXTURE, 3, gen, dev, torch.float32, torch.float32)
+    for rows in (1, 8):
+        check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
     print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact): "
           + ", ".join(f"{k} {v:.3g} ({sm.share[k]:.3g} of its limit)"
                       for k, v in sm.err.items()))
@@ -493,25 +627,20 @@ def weight_bytes(params) -> int:
     return nbytes(params) - nbytes(params["rope"]) - nbytes(params["embed"])
 
 
-def phase_main(sm: Smoke, dev_name: str):
+def drive_generate(sm: Smoke, dev_name: str, label: str, cfg, params, per_step,
+                   ffn_block: bool = False, ctx: int = 1024, prompt_len: int = 512,
+                   new: int = 64):
+    """One user's request through `generate` at full width: int8 KV, batch
+    1, a random 512-token prompt, then 64 greedy decode steps. Prints decode
+    tok/s, TTFT, bytes a token and the HBM share (bench.py's accounting).
+    Launches are read around the timed runs and held exactly: ``per_step``
+    a decode step, flash once a layer a prefill, every other kernel never."""
     torch = sm.torch
     from metalchat_tpu_torch.cache import QuantizedKVCache
-    from metalchat_tpu_torch.config import LlamaConfig
     from metalchat_tpu_torch.engine.generate import generate
-    from metalchat_tpu_torch.models.fuse import fuse_projections
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
-    from metalchat_tpu_torch.quant.quantize import init_random_quantized_params
 
     dev = torch.device("cuda")
-    ctx, prompt_len, new = 1024, 512, 64
-    cfg = LlamaConfig.llama31_8b(max_seq_len=ctx)
-    t0 = time.perf_counter()
-    params = fuse_projections(init_random_quantized_params(
-        cfg, bits=4, group_size=None, act_bits=8, max_seq_len=ctx, seed=0,
-        device=dev), cfg)
-    torch.cuda.synchronize()
-    print(f"8b-w4a8 params: {weight_bytes(params) / 1e9:.3f} GB of weights, "
-          f"made in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev)
@@ -520,7 +649,8 @@ def phase_main(sm: Smoke, dev_name: str):
         cache = QuantizedKVCache.create(cfg, 1, ctx, device=dev)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = generate(params, cfg, prompt, max_new_tokens=n_new, cache=cache)
+        out = generate(params, cfg, prompt, max_new_tokens=n_new, cache=cache,
+                       ffn_block=ffn_block)
         torch.cuda.synchronize()
         return time.perf_counter() - t, out, cache
 
@@ -535,28 +665,103 @@ def phase_main(sm: Smoke, dev_name: str):
     bpt = weight_bytes(params) + cfg.hidden_size * 2 + kv_bytes
     rate = hbm_rate(dev_name)
     sm.expect(out.shape == (1, new + 1) and bool((out >= 0).all())
-              and bool((out < cfg.vocab_size).all()), f"8b: bad tokens {out.shape}")
-    per_step = {"a8_matvec": 4 * cfg.num_layers + 1,
-                "decode_attention_update": cfg.num_layers}
-    want = {"a8_matvec": per_step["a8_matvec"] * new,
-            "decode_attention_update": per_step["decode_attention_update"] * new,
-            "flash_attention": 2 * cfg.num_layers}
-    print(f"8b-w4a8 main path: decode {tok_s:.2f} tok/s, TTFT {1e3 * ttft:.2f} ms "
-          f"(prompt {prompt_len}), {bpt / 1e9:.4f} GB/token, "
-          f"{tok_s * bpt / rate:.4f} of {rate / 1e12:.2f} TB/s HBM, launches {counts}")
-    sm.expect(all(counts[k] > 0 for k in GENERATE_KERNELS), f"8b: a kernel never ran {counts}")
-    sm.expect(counts["a8_matvec"] == want["a8_matvec"]
-              and counts["decode_attention_update"] == want["decode_attention_update"]
-              and counts["flash_attention"] == want["flash_attention"],
-              f"8b: launches {counts} != expected {want}")
+              and bool((out < cfg.vocab_size).all()), f"{label}: bad tokens {out.shape}")
+    want = dict.fromkeys(counts, 0)
+    want.update({k: n * new for k, n in per_step.items()})
+    want["flash_attention"] = 2 * cfg.num_layers
+    sm.tok_s[label] = tok_s
+    print(f"{label}: decode {tok_s:.2f} tok/s, TTFT {1e3 * ttft:.2f} ms "
+          f"(prompt {prompt_len}), {bpt / 1e9:.4f} GB/token (bound "
+          f"{1e3 * bpt / rate:.4f} ms a step), {tok_s * bpt / rate:.4f} of "
+          f"{rate / 1e12:.2f} TB/s HBM, launches {counts}")
+    sm.expect(counts == want, f"{label}: launches {counts} != expected {want}")
     return cfg, params, cache, counts, prompt_len + new, prompt
+
+
+def make_8b(sm: Smoke, label: str, **quant):
+    """Llama-3.1-8B geometry at full width, context 1024, random quantized
+    weights from a seeded torch.Generator, wqkv and w13 fused."""
+    torch = sm.torch
+    from metalchat_tpu_torch.config import LlamaConfig
+    from metalchat_tpu_torch.models.fuse import fuse_projections
+    from metalchat_tpu_torch.quant.quantize import init_random_quantized_params
+
+    cfg = LlamaConfig.llama31_8b(max_seq_len=1024)
+    t0 = time.perf_counter()
+    params = fuse_projections(init_random_quantized_params(
+        cfg, max_seq_len=1024, seed=0, device=torch.device("cuda"), **quant), cfg)
+    torch.cuda.synchronize()
+    print(f"{label} params: {weight_bytes(params) / 1e9:.3f} GB of weights, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def phase_main(sm: Smoke, dev_name: str):
+    """8b-w4a8 (bench.py:78-84): per-channel int4, int8 activations."""
+    cfg, params = make_8b(sm, "8b-w4a8", bits=4, group_size=None, act_bits=8)
+    L = cfg.num_layers
+    return drive_generate(sm, dev_name, "8b-w4a8 main path", cfg, params,
+                          {"a8_matvec": 4 * L + 1, "decode_attention_update": L})
+
+
+def phase_main_int4(sm: Smoke, dev_name: str):
+    """8b-int4 (bench.py:73-77): weight-only int4, group 32. Every decode
+    linear is the dequant-matmul kernel (4 a layer and lm_head); the prompt
+    takes the dequantized weights and torch.matmul."""
+    cfg, params = make_8b(sm, "8b-int4", bits=4, group_size=32)
+    L = cfg.num_layers
+    layout = {n: (tuple(w.q.shape), w.transposed) for n, w in
+              [*params["layers"].items(), ("lm_head", params["lm_head"])]
+              if hasattr(w, "q")}
+    print(f"8b-int4 layouts (q shape, transposed): {layout}")
+    return drive_generate(sm, dev_name, "8b-int4", cfg, params,
+                          {"quant_matmul": 4 * L + 1, "decode_attention_update": L})
+
+
+def phase_main_ffn_block(sm: Smoke, main, dev_name: str):
+    """Phase main's 8b-w4a8 params with the merged FFN block: one ffn_block
+    launch a layer, a8_matvec for wqkv and lm_head."""
+    cfg, params = main[0], main[1]
+    L = cfg.num_layers
+    run = drive_generate(sm, dev_name, "8b-w4a8 ffn_block", cfg, params,
+                         {"ffn_block": L, "a8_matvec": L + 1, "decode_attention_update": L},
+                         ffn_block=True)
+    print(f"8b-w4a8 decode: ffn_block {sm.tok_s['8b-w4a8 ffn_block']:.2f} tok/s beside "
+          f"unmerged {sm.tok_s['8b-w4a8 main path']:.2f} tok/s (one run each, the same "
+          "params and prompt)")
+    # The two routes in turns (unmerged, merged, merged, unmerged), 64 decode
+    # steps each after the same prefill: the host's pace drifts between runs.
+    torch = sm.torch
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.engine.generate import generate
+
+    prompt = run[5]
+    turns = []
+    for merged in (False, True, True, False):
+        times = []
+        for n_new in (1, 65):
+            cache = QuantizedKVCache.create(cfg, 1, 1024, device=torch.device("cuda"))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            generate(params, cfg, prompt, max_new_tokens=n_new, cache=cache, ffn_block=merged)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        turns.append((merged, 64 / (times[1] - times[0])))
+    print("8b-w4a8 decode tok/s in turns: " + ", ".join(
+        f"{'ffn_block' if m else 'unmerged'} {v:.2f}" for m, v in turns))
+    phase_profile(sm, run, "8b-w4a8 ffn_block", ffn_block=True, prefill=False)
+    return run
 
 
 # -- phases 6-8: serving ------------------------------------------------------
 
-def fixture_params(torch, device, dtype=None):
-    """The trained fixture, W4A8 (per-channel int4, int8 activations), fused,
-    activations in ``dtype`` (bf16 by default)."""
+W4A8 = dict(bits=4, group_size=None, act_bits=8)
+
+
+def fixture_params(torch, device, dtype=None, quant=None):
+    """The trained fixture quantized by ``quant`` (W4A8 by default: per-channel
+    int4, int8 activations), fused, activations in ``dtype`` (bf16 by
+    default)."""
     from pathlib import Path
 
     from metalchat_tpu_torch.config import load_config
@@ -569,8 +774,54 @@ def fixture_params(torch, device, dtype=None):
     cfg = load_config(fixture / "config.json")
     params = load_params(open_safetensors(fixture), cfg, dtype=dtype or torch.bfloat16,
                          max_seq_len=256, device=device)
-    return fuse_projections(quantize_params(params, bits=4, group_size=None, act_bits=8),
-                            cfg), cfg, fixture
+    return fuse_projections(quantize_params(params, **(quant or W4A8)), cfg), cfg, fixture
+
+
+# fixture-int runs in bf16, the activation dtype of the main paths.
+FIXTURE_INT_DTYPE = "bfloat16"
+# fixture-int: the modes, as (quantization, generate's ffn_block). Weight-only
+# group-32 leaves take the dequant-matmul kernel at decode (3 rows) and a
+# dense product for the 144-row prompt; lm_head is quantized too.
+FIXTURE_INT_MODES = {
+    "w4 g32": (dict(bits=4, group_size=32, quantize_lm_head=True), False),
+    "w8 g32": (dict(bits=8, group_size=32, quantize_lm_head=True), False),
+    "w4a8 ffn_block": (W4A8, True),
+}
+
+
+def phase_fixture_int(sm: Smoke, dtype_name: str):
+    """The fixture through `generate` in each FIXTURE_INT_MODES mode, the
+    kernels on the card against the plain path on the CPU: 3 requests of 48
+    tokens, 64 greedy tokens; the first 16 of each request must agree."""
+    torch = sm.torch
+    import numpy as np
+
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dtype = getattr(torch, dtype_name)
+    results = {}
+    for mode, (quant, ffn_block) in FIXTURE_INT_MODES.items():
+        outs = {}
+        for device in ("cuda", "cpu"):
+            params, cfg, fixture = fixture_params(torch, device, dtype, quant)
+            prompts = torch.from_numpy(np.load(fixture / "eval_tokens.npy")[:3 * 48]
+                                       .astype(np.int64).reshape(3, 48))
+            reset_launch_counts()
+            outs[device] = generate(params, cfg, prompts, max_new_tokens=64,
+                                    quantized_kv=True, ffn_block=ffn_block).cpu()
+            if device == "cuda":
+                counts = launch_counts()
+        agree = (outs["cuda"] == outs["cpu"]).float().mean().item()
+        first16 = bool(torch.equal(outs["cuda"][:, :16], outs["cpu"][:, :16]))
+        print(f"fixture-int {mode} {dtype_name}: card vs CPU plain agreement {agree:.4f}, "
+              f"first 16 identical: {first16}, launches {counts}")
+        sm.expect(first16, f"fixture-int {mode}: first 16 greedy tokens differ card vs CPU")
+        kernel = "ffn_block" if ffn_block else "quant_matmul"
+        sm.expect(counts[kernel] > 0 and counts["decode_attention_update"] > 0,
+                  f"fixture-int {mode}: a kernel never ran {counts}")
+        results[mode] = counts
+    return results
 
 
 SERVE_FIXTURE = dict(max_slots=3, max_seq_len=256, prefill_chunk=32, decode_burst=4)
@@ -849,8 +1100,8 @@ def profile_window(torch, name: str, fn) -> None:
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     by_name = {}
     for e in kernels:
-        key = next((k for k in ("a8_matvec", "decode_kernel", "flash", "paged_kernel")
-                    if k in e.name), e.name[:48])
+        key = next((k for k in ("a8_matvec", "decode_kernel", "flash", "paged_kernel",
+                                "qmm_", "ffn_block") if k in e.name), e.name[:48])
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"  profile {name}: wall {wall_us / 1e3:.3f} ms, device busy "
@@ -859,8 +1110,9 @@ def profile_window(torch, name: str, fn) -> None:
           + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in top))
 
 
-def phase_profile(sm: Smoke, main):
-    """Where the main path's time goes: torch.profiler over one 512-token
+def phase_profile(sm: Smoke, main, label: str = "8b-w4a8", ffn_block: bool = False,
+                  prefill: bool = True):
+    """Where a generate run's time goes: torch.profiler over one 512-token
     prefill and 8 decode steps of the 8B model, the device's busy share of
     the host's wall time and device time by kernel."""
     torch = sm.torch
@@ -871,9 +1123,14 @@ def phase_profile(sm: Smoke, main):
     dev = torch.device("cuda")
     cache = QuantizedKVCache.create(cfg, 1, 1024, device=dev)
     s = prompt.shape[1]
-    profile_window(torch, "prefill", lambda: forward(params, cache, prompt, 0, cfg))
-    profile_window(torch, "decode x8", lambda: [
-        forward(params, cache, prompt[:, i:i + 1], s + i, cfg) for i in range(8)])
+    step = lambda: forward(params, cache, prompt, 0, cfg)  # noqa: E731
+    if prefill:
+        profile_window(torch, f"{label} prefill", step)
+    else:
+        step()
+    profile_window(torch, f"{label} decode x8", lambda: [
+        forward(params, cache, prompt[:, i:i + 1], s + i, cfg, ffn_block=ffn_block)
+        for i in range(8)])
 
 
 def a8_calls(torch, cfg, params, rows: int, gen):
@@ -910,7 +1167,7 @@ def phase_timing(sm: Smoke, main, rate: float):
     from metalchat_tpu_torch.ops import a8_matvec as am
     from metalchat_tpu_torch.ops import decode_attention as dm
     from metalchat_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-    from metalchat_tpu_torch.quant.quantize import _unpack_int4
+    from metalchat_tpu_torch.ops.quant_matmul import unpack_int4
 
     cfg, params, cache, counts, length, _ = main
     dev = torch.device("cuda")
@@ -936,7 +1193,7 @@ def phase_timing(sm: Smoke, main, rate: float):
         # Library yardstick: cuBLAS int8 GEMM on the unpacked int8 weights at
         # its smallest row count (17); enough layers to exceed the L2 cache.
         n_lib = max(1, min(n_layers, math.ceil(120e6 / (out_f * in_f))))
-        unpacked = [_unpack_int4(pq[i], -1).contiguous() for i in range(n_lib)]
+        unpacked = [unpack_int4(pq[i], -1).contiguous() for i in range(n_lib)]
         xq17 = torch.randint(-127, 128, (17, in_f), generator=gen, device=dev,
                              dtype=torch.int8)
         lib = sm.device_ms(lambda i: torch._int_mm(xq17, unpacked[i % n_lib].t()), 32)
@@ -960,10 +1217,16 @@ def phase_timing(sm: Smoke, main, rate: float):
     print(f"  a8_matvec raw mode (not on the main path), one decode step's {4 * L + 1} "
           f"shapes: {raw_step['ms']:.4f} ms (bound {raw_step['bound_ms']:.4f} ms, bytes; "
           f"plain {raw_step['plain_ms']:.3f} ms)")
-    rows.append(dict(name="a8_matvec", source="metalchat_tpu_torch/csrc/a8_matvec.cu",
+    rows.append(dict(row=1, name="a8_matvec", source="metalchat_tpu_torch/csrc/a8_matvec.cu",
                      replaces="metalchat_tpu/ops/a8_matvec_pallas.py:262",
                      bound_by="bytes", unit=f"one decode step ({4 * L + 1} calls)",
                      **step))
+    rows.append(dict(row=2, name="a8_matvec_raw", counter="a8_matvec_raw",
+                     source="metalchat_tpu_torch/csrc/a8_matvec.cu",
+                     replaces="metalchat_tpu/ops/a8_matvec_pallas.py:187", bound_by="bytes",
+                     library_ms=step["library_ms"], max_abs_err=0.0,
+                     unit=f"one decode step's {4 * L + 1} shapes, int8 rows in, int32 out "
+                          "(raw mode, on no driven path; library as row 1)", **raw_step))
 
     # decode_attention_update: one decode step (one call per layer) at the
     # main path's last length.
@@ -988,7 +1251,7 @@ def phase_timing(sm: Smoke, main, rate: float):
     print(f"  decode_attention_update [length {length}, T {cache.k.shape[3]}]: "
           f"{ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, {b_by}; plain "
           f"{plain * 1e3:.1f} us; sdpa bf16 {lib * 1e3:.2f} us) x{L}/token")
-    rows.append(dict(name="decode_attention_update",
+    rows.append(dict(row=3, name="decode_attention_update",
                      source="metalchat_tpu_torch/csrc/decode_attention.cu",
                      replaces="metalchat_tpu/ops/decode_attention_pallas.py:598",
                      ms=L * ms, plain_ms=L * plain, library_ms=L * lib,
@@ -1012,16 +1275,21 @@ def phase_timing(sm: Smoke, main, rate: float):
     print(f"  flash_attention [S {S}, kv {S}]: {ms * 1e3:.1f} us (bound "
           f"{b_ms * 1e3:.2f} us, {b_by}; plain {plain * 1e3:.1f} us; sdpa causal "
           f"{lib * 1e3:.1f} us) x{L}/prefill")
-    rows.append(dict(name="flash_attention",
+    rows.append(dict(row=4, name="flash_attention",
                      source="metalchat_tpu_torch/csrc/flash_attention.cu",
                      replaces="metalchat_tpu/ops/flash_attention_pallas.py:136",
                      ms=L * ms, plain_ms=L * plain, library_ms=L * lib,
                      bound_ms=L * b_ms, bound_by=b_by,
                      unit=f"one {S}-token prefill ({L} calls)"))
     for r in rows:
-        r.update(route="cuda", launches=counts[r["name"]],
-                 max_abs_err=sm.err[r["name"]])
+        counter = r.get("counter", r["name"])
+        r.setdefault("max_abs_err", sm.err.get(counter))
+        r.update(route="cuda", launches=counts[counter])
     return rows
+
+
+SERVE_ROWS = {"paged_decode_attention_update": 8, "paged_decode_attention_stacked": 9,
+              "decode_attention": 5}
 
 
 def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, rate: float):
@@ -1125,12 +1393,136 @@ def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, rate: float):
               f"{ms:.4f} ms a step (bound {b_ms:.5f} ms, {b_by}; plain {plain_ms:.3f} ms; "
               f"sdpa bf16 {lib_ms:.4f} ms) for {L} calls")
         rows.append(dict(
-            name=name, source=source, replaces=replaces, route="cuda", ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            row=SERVE_ROWS[name], name=name, source=source, replaces=replaces, route="cuda",
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
             max_abs_err=sm.err[counter], launches=path[counter], counter=counter,
             unit=f"one decode step ({L} calls, 8 rows, lengths {lengths[0]}..{lengths[-1]})"))
     del kc, vc
+    # Rows 6 and 7 are rows 5 and 9's launches on a one-layer view of the
+    # cache: the same kernel and numbers; no driven path calls those wrappers.
+    for row, name, like, replaces in (
+            (6, "decode_attention_one_layer", "decode_attention",
+             "metalchat_tpu/ops/decode_attention_pallas.py:229"),
+            (7, "paged_decode_attention_one_layer", "paged_decode_attention_stacked",
+             "metalchat_tpu/ops/paged_attention_pallas.py:167")):
+        base = next(r for r in rows if r["name"] == like)
+        rows.append(dict(base, row=row, name=name, replaces=replaces, launches=0,
+                         counter=None, unit=f"as row {base['row']}: {base['unit']}; the "
+                         "one-layer wrapper is on no driven path"))
     return rows
+
+
+def phase_timing_int4(sm: Smoke, run, rate: float):
+    """Row 11 at 8b-int4's decode step (1 row): the 129 calls of one step,
+    kernel (CUDA graph replay), plain version (eager), and as the library
+    yardstick one torch.matmul of x against the weights already dequantized
+    to bf16 (it leaves out the dequantization). Bound: the packed weights,
+    the group scales, x in and out once."""
+    torch = sm.torch
+    from metalchat_tpu_torch.ops import quant_matmul as qm
+
+    cfg, params, counts = run[0], run[1], run[3]
+    L = cfg.num_layers
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    layers, lm = params["layers"], params["lm_head"]
+    x = torch.randn((1, cfg.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+    xf = torch.randn((1, cfg.intermediate_size), generator=gen, device=dev).to(torch.bfloat16)
+    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for name, leaf, xin, per_step in (("wqkv", layers["wqkv"], x, L), ("wo", layers["wo"], x, L),
+                                      ("w13", layers["w13"], x, L), ("w2", layers["w2"], xf, L),
+                                      ("lm_head", lm, x, 1)):
+        n = leaf.q.shape[0] if leaf.q.ndim == 3 else 1
+        at = (lambda i: leaf.layer(i % n)) if leaf.q.ndim == 3 else (lambda i: leaf)
+        kw = dict(bits=leaf.bits, group_size=leaf.group_size, transposed=leaf.transposed)
+        ms = sm.device_ms(lambda i: qm.dequant_matmul(xin, at(i).q, at(i).scales, **kw), 64)
+        plain = sm.eager_ms(lambda i: qm.dequant_matmul_plain(xin, at(i).q, at(i).scales,
+                                                              **kw), 3)
+        one = at(0)
+        n_lib = max(1, min(n, math.ceil(120e6 / (2 * one.in_features * one.out_features))))
+        dense = [qm.dequant_weight(at(i).q, at(i).scales, dtype=torch.bfloat16, **kw)
+                 for i in range(n_lib)]
+        lib = sm.device_ms(lambda i: torch.matmul(xin, dense[i % n_lib]), 32)
+        del dense
+        nbytes = (one.q.numel() + one.scales.numel() * one.scales.element_size()
+                  + 2 * (one.in_features + one.out_features))
+        b_ms, b_by = bound(nbytes, 2 * one.in_features * one.out_features, "bf16", rate)
+        print(f"  quant_matmul {name} [{one.out_features}x{one.in_features} w{leaf.bits} "
+              f"g{leaf.group_size} {'transposed' if leaf.transposed else 'natural'}]: "
+              f"{ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us, {b_by}; plain {plain * 1e3:.1f} "
+              f"us; matmul on bf16 weights {lib * 1e3:.2f} us) x{per_step}/token")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", b_ms)):
+            step[key] += per_step * val
+    return [dict(row=11, name="quant_matmul", source="metalchat_tpu_torch/csrc/quant_matmul.cu",
+                 replaces="metalchat_tpu/ops/quant_matmul_pallas.py:145", route="cuda",
+                 bound_by="bytes", launches=counts["quant_matmul"],
+                 max_abs_err=sm.err["quant_matmul"],
+                 unit=f"one 8b-int4 decode step ({4 * L + 1} calls, 1 row); library_ms is "
+                      "torch.matmul on weights dequantized to bf16 beforehand", **step)]
+
+
+def phase_timing_ffn(sm: Smoke, main, ffn_run, rate: float):
+    """Row 10 at 8b-w4a8's decode step, 1 and 8 rows: the kernel (one
+    cooperative launch a layer) and the unmerged route of the same step (3
+    a8_matvec launches and the glue a layer), both by CUDA graph replay, the
+    plain version (eager), and the bound: wo,
+    w13 and w2 packed bytes and scales, the norm weights, rows in and out.
+    No single PyTorch call computes the block: library_ms is null."""
+    torch = sm.torch
+    from metalchat_tpu_torch.models.transformer import silu_gate
+    from metalchat_tpu_torch.ops import a8_matvec as am
+    from metalchat_tpu_torch.ops import ffn_block as fb
+
+    cfg, params = main[0], main[1]
+    L, H = cfg.num_layers, cfg.hidden_size
+    eps = cfg.rms_norm_eps
+    lay = params["layers"]
+    wo, w13, w2, nw = lay["wo"], lay["w13"], lay["w2"], lay["ffn_norm"]
+    args = (wo.q, wo.scales, nw, w13.q, w13.scales, w2.q, w2.scales)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    out = []
+    for rows in (1, 8):
+        attn, x = (torch.randn((rows, H), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(2))
+
+        def merged(i):
+            return fb.ffn_block_stacked(attn, x, *args, i % L, bits=4, act="silu", eps=eps)
+
+        def unmerged(i):
+            l = i % L
+            x2 = x + am.quant_matvec_stacked_fused(attn, wo.q, wo.scales, l, bits=4)
+            g = silu_gate(am.quant_matvec_stacked_fused(x2, w13.q, w13.scales, l, bits=4,
+                                                        norm_stack=nw, norm_eps=eps))
+            return x2 + am.quant_matvec_stacked_fused(g, w2.q, w2.scales, l, bits=4)
+
+        ms = L * sm.device_ms(merged, 64)
+        unmerged_ms = L * sm.device_ms(unmerged, 64)
+        plain = L * sm.eager_ms(lambda i: fb.ffn_block_plain(
+            attn, x, *args, i % L, bits=4, act="silu", eps=eps), 3)
+        nbytes = sum(t[0].numel() * t.element_size() for t in args) + 2 * 2 * rows * H
+        ops = 2 * rows * (wo.q.shape[1] * wo.in_features + w13.q.shape[1] * w13.in_features
+                          + w2.q.shape[1] * w2.in_features)
+        b_ms, b_by = bound(L * nbytes, L * ops, "int8", rate)
+        print(f"  ffn_block [{rows} row(s), H {H}, F {cfg.intermediate_size}, w4]: "
+              f"{ms:.4f} ms a step (bound {b_ms:.4f} ms, {b_by}; unmerged route "
+              f"{unmerged_ms:.4f} ms; plain {plain:.3f} ms) for {L} launches")
+        if rows == 1:
+            out.append(dict(row=10, name="ffn_block", source="metalchat_tpu_torch/csrc/ffn_block.cu",
+                            replaces="metalchat_tpu/ops/ffn_block_pallas.py:271", route="cuda",
+                            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None, unmerged_ms=unmerged_ms,
+                            launches=ffn_run[3]["ffn_block"], max_abs_err=sm.err["ffn_block"],
+                            unit=f"one 8b-w4a8 decode step ({L} launches, 1 row); "
+                                 "library_ms null: no single PyTorch call computes the block"))
+        else:
+            out[0]["unit"] += (f"; at {rows} rows {ms:.4f} ms (bound {b_ms:.4f}, unmerged "
+                               f"{unmerged_ms:.4f}, plain {plain:.3f})")
+    return out
+
 
 
 def main() -> int:
@@ -1155,6 +1547,7 @@ def main() -> int:
 
     sm = Smoke(torch)
     t_start = time.perf_counter()
+    ffn_run = int4_run = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -1162,10 +1555,16 @@ def main() -> int:
     if sm.phase("build", phase_build) is not None:
         sm.phase("kernels", lambda: phase_kernels(sm))
         sm.phase("fixture", lambda: phase_fixture(sm))
+        sm.phase("fixture-int", lambda: phase_fixture_int(sm, FIXTURE_INT_DTYPE))
         main_run = sm.phase("main", lambda: phase_main(sm, dev_name))
         rows = None
         if main_run is not None:
             sm.phase("profile", lambda: phase_profile(sm, main_run))
+            ffn_run = sm.phase("main-ffn-block",
+                               lambda: phase_main_ffn_block(sm, main_run, dev_name))
+        int4_run = sm.phase("main-int4", lambda: phase_main_int4(sm, dev_name))
+        if int4_run is not None:
+            sm.phase("profile-int4", lambda: phase_profile(sm, int4_run, "8b-int4"))
         fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
         serve = None
         if main_run is not None:
@@ -1177,17 +1576,28 @@ def main() -> int:
             serve_rows = sm.phase("timing-serve", lambda: phase_timing_serve(
                 sm, main_run, serve, fixture_counts, hbm_rate(dev_name)))
             rows = None if serve_rows is None else rows + serve_rows
+        if rows is not None and ffn_run is not None:
+            more = sm.phase("timing-ffn", lambda: phase_timing_ffn(
+                sm, main_run, ffn_run, hbm_rate(dev_name)))
+            rows = None if more is None else rows + more
+        if rows is not None and int4_run is not None:
+            more = sm.phase("timing-int4", lambda: phase_timing_int4(
+                sm, int4_run, hbm_rate(dev_name)))
+            rows = None if more is None else rows + more
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if sm.failures or not smi or rows is None:
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
-    by_path = {"generate": main_run[3], "serve paged": serve["paged"]["counts"],
+    by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
+               "generate 8b-int4": int4_run[3], "serve paged": serve["paged"]["counts"],
                "serve dense": serve["dense"]["counts"],
                "serve-fixture dense-act": fixture_counts["dense-act"]}
     for r in rows:
         counter = r.get("counter", r["name"])
-        r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        r["launches_by_path"] = {path: c[counter] if counter else 0
+                                 for path, c in by_path.items()}
+    rows.sort(key=lambda r: r["row"])
+    keys = ("row", "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "unit", "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi.splitlines()[0])

@@ -15,11 +15,9 @@
 // out*k bytes. Design: each block quantizes x once into shared memory (B*in
 // bytes, tiny next to the weights); each warp then owns whole output rows
 // and streams a row with 16-byte loads, neighbouring lanes on neighbouring
-// addresses. The int4 nibbles never get unpacked: dp4a on (p & 0x0F0F0F0F)
-// gives sum x_lo*(lo+8) and on (p & 0xF0F0F0F0) gives 16*sum x_hi*hi, both
-// exact; the +8 bias is removed with 8*sum(x_lo) and the 16 with an
-// arithmetic >> 4, the same identities as the TPU kernel. Integer sums are
-// order-free, so the raw mode is bit-exact against any reference.
+// addresses. The int4 nibbles never get unpacked (warp_row_dot in
+// common.cuh: dp4a on masked bytes, the TPU kernel's identities). Integer
+// sums are order-free, so the raw mode is bit-exact against any reference.
 #include "common.cuh"
 
 namespace {
@@ -28,36 +26,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
 enum Mode { kRaw = 0, kFused = 1, kFusedNorm = 2 };
-
-// Prologue: one activation row into shared memory as int8 codes.
-// Same op order as the reference `_act_quantize` (and, with the norm, as
-// ops.rms_norm -> round to the activation dtype -> _act_quantize).
-template <typename T, int MODE>
-__device__ void quantize_row(const T* __restrict__ x, const T* __restrict__ nw,
-                             int in_f, float eps, float offset, int8_t* xq_row,
-                             float* sx_out, float* scratch) {
-  float r = 0.f;
-  if (MODE == kFusedNorm) {
-    float ss = 0.f;
-    for (int i = threadIdx.x; i < in_f; i += blockDim.x) {
-      const float v = to_f32<T>(x[i]);
-      ss += v * v;
-    }
-    const float var = block_sum(ss, scratch) / (float)in_f;
-    r = 1.0f / sqrtf(var + eps);
-  }
-  auto value = [&](int i) -> float {
-    const float v = to_f32<T>(x[i]);
-    if (MODE != kFusedNorm) return v;
-    return round_through<T>((v * r) * (offset + to_f32<T>(nw[i])));
-  };
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < in_f; i += blockDim.x) amax = fmaxf(amax, fabsf(value(i)));
-  amax = block_max(amax, scratch);
-  const float sx = amax == 0.f ? 1.f : amax / 127.f;
-  for (int i = threadIdx.x; i < in_f; i += blockDim.x) xq_row[i] = quant_code(value(i) / sx);
-  if (threadIdx.x == 0) *sx_out = sx;
-}
 
 template <int MAXB, int BITS, int MODE, typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
@@ -71,8 +39,7 @@ a8_matvec_kernel(const void* __restrict__ x_, const int8_t* __restrict__ p,
   __shared__ float scratch[kWarps];
   __shared__ int iscratch[kWarps];
 
-  const int half = in_f / 2;
-  const int k = BITS == 4 ? half : in_f;  // packed bytes per weight row
+  const int k = BITS == 4 ? in_f / 2 : in_f;  // packed bytes per weight row
 
   for (int b = 0; b < B; ++b) {
     int8_t* row = xq + (size_t)b * in_f;
@@ -81,70 +48,25 @@ a8_matvec_kernel(const void* __restrict__ x_, const int8_t* __restrict__ p,
       for (int i = threadIdx.x; i < in_f; i += blockDim.x) row[i] = xin[i];
     } else {
       const T* xin = static_cast<const T*>(x_) + (size_t)b * in_f;
-      const T* nrow = nw;
-      quantize_row<T, MODE>(xin, nrow, in_f, eps, offset, row, &sx[b], scratch);
+      quantize_row<T, MODE == kFusedNorm>(xin, nw, in_f, eps, offset, row, &sx[b], scratch);
     }
     __syncthreads();
-    if (BITS == 4) {
-      int part = 0;
-      for (int i = threadIdx.x; i < half; i += blockDim.x) part += row[i];
-      const int total = block_sum_int(part, iscratch);
-      if (threadIdx.x == 0) corr[b] = 8 * total;
-    }
+    if (BITS == 4) int4_correction(row, in_f, &corr[b], iscratch);
   }
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int o = blockIdx.x * kWarps + warp; o < out_f; o += gridDim.x * kWarps) {
-    const int8_t* wrow = p + (size_t)o * k;
-    int acc_lo[MAXB], acc_hi[MAXB];
-#pragma unroll
-    for (int b = 0; b < MAXB; ++b) acc_lo[b] = acc_hi[b] = 0;
-
-#pragma unroll 4
-    for (int c = lane * 16; c < k; c += 32 * 16) {
-      const int4 w = *reinterpret_cast<const int4*>(wrow + c);
-#pragma unroll
-      for (int b = 0; b < MAXB; ++b) {
-        if (b >= B) break;
-        const int8_t* xrow = xq + (size_t)b * in_f;
-        if (BITS == 4) {
-          const int4 xl = *reinterpret_cast<const int4*>(xrow + c);
-          const int4 xh = *reinterpret_cast<const int4*>(xrow + half + c);
-          const int ml = 0x0F0F0F0F, mh = (int)0xF0F0F0F0u;
-          acc_lo[b] = __dp4a(w.x & ml, xl.x, acc_lo[b]);
-          acc_lo[b] = __dp4a(w.y & ml, xl.y, acc_lo[b]);
-          acc_lo[b] = __dp4a(w.z & ml, xl.z, acc_lo[b]);
-          acc_lo[b] = __dp4a(w.w & ml, xl.w, acc_lo[b]);
-          acc_hi[b] = __dp4a(w.x & mh, xh.x, acc_hi[b]);
-          acc_hi[b] = __dp4a(w.y & mh, xh.y, acc_hi[b]);
-          acc_hi[b] = __dp4a(w.z & mh, xh.z, acc_hi[b]);
-          acc_hi[b] = __dp4a(w.w & mh, xh.w, acc_hi[b]);
-        } else {
-          const int4 xv = *reinterpret_cast<const int4*>(xrow + c);
-          acc_lo[b] = __dp4a(w.x, xv.x, acc_lo[b]);
-          acc_lo[b] = __dp4a(w.y, xv.y, acc_lo[b]);
-          acc_lo[b] = __dp4a(w.z, xv.z, acc_lo[b]);
-          acc_lo[b] = __dp4a(w.w, xv.w, acc_lo[b]);
-        }
+    warp_row_dot<MAXB, BITS>(p + (size_t)o * k, xq, in_f, B, corr, [&](int b, int total) {
+      if (lane != 0) return;
+      if (MODE == kRaw) {
+        static_cast<int32_t*>(out_)[(size_t)b * out_f + o] = total;
+      } else {
+        const float y = ((float)total * sx[b]) * to_f32<S>(s_col[o]);
+        static_cast<T*>(out_)[(size_t)b * out_f + o] = from_f32<T>(y);
       }
-    }
-
-#pragma unroll
-    for (int b = 0; b < MAXB; ++b) {
-      if (b >= B) break;
-      int total = warp_sum_int(acc_lo[b]);
-      if (BITS == 4) total = (total - corr[b]) + (warp_sum_int(acc_hi[b]) >> 4);
-      if (lane == 0) {
-        if (MODE == kRaw) {
-          static_cast<int32_t*>(out_)[(size_t)b * out_f + o] = total;
-        } else {
-          const float y = ((float)total * sx[b]) * to_f32<S>(s_col[o]);
-          static_cast<T*>(out_)[(size_t)b * out_f + o] = from_f32<T>(y);
-        }
-      }
-    }
+    });
   }
 }
 

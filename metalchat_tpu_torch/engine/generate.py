@@ -30,13 +30,15 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
              max_new_tokens: int, sampler: SamplerConfig = SamplerConfig.greedy(),
              eos_ids: Tuple[int, ...] = (), seed: int = 0,
              cache: Optional[Cache] = None, quantized_kv: bool = False,
-             max_seq_len: Optional[int] = None) -> torch.Tensor:
+             max_seq_len: Optional[int] = None, ffn_block: bool = False) -> torch.Tensor:
     """Prompt ``[B, S]`` → generated ids ``[B, max_new_tokens]`` (int64).
 
     Same token semantics as the JAX package: the first token comes from the
     prefill logits; a row that hits an EOS id repeats it from then on. Runs
     on the device of the parameters; the default cache holds the prompt
-    and the new tokens, dense in the activation dtype or int8."""
+    and the new tokens, dense in the activation dtype or int8.
+    ``ffn_block`` merges each decode step's post-attention block into one
+    kernel launch a layer (`decode_step`)."""
     device = params["final_norm"].device
     prompt = prompt.to(device)
     b, s = prompt.shape
@@ -50,12 +52,13 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
-    logits, cache = forward(params, cache, prompt, 0, config)
+    logits, cache = forward(params, cache, prompt, 0, config, ffn_block=ffn_block)
     tok = sample(logits[:, -1], gen, sampler)
     done = _eos_hit(tok, eos_ids)
     out = [tok]
     for i in range(max_new_tokens - 1):
-        logits, cache = forward(params, cache, tok[:, None], s + i, config)
+        logits, cache = forward(params, cache, tok[:, None], s + i, config,
+                                ffn_block=ffn_block)
         nxt = sample(logits[:, -1], gen, sampler)
         hit = done | _eos_hit(nxt, eos_ids)
         tok = torch.where(done, tok, nxt)

@@ -112,9 +112,12 @@ class ContinuousBatchingEngine:
         seed: int = 0,
         decode_burst: int = 1,
         prefill_interleave: int = 4,
+        ffn_block: bool = False,
     ):
         self.params = params
         self.config = config
+        # The merged post-attention kernel on decode windows (`decode_step`).
+        self.ffn_block = ffn_block
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len or config.max_seq_len
         self.prefill_chunk = prefill_chunk
@@ -270,7 +273,8 @@ class ContinuousBatchingEngine:
     def _forward(self, cache, tokens: torch.Tensor, start_pos) -> torch.Tensor:
         """One model call → f32 logits ``[B, S, V]``; the cache is updated
         in place."""
-        return forward(self.params, cache, tokens, start_pos, self.config)[0]
+        return forward(self.params, cache, tokens, start_pos, self.config,
+                       ffn_block=self.ffn_block)[0]
 
     def _flush_page_table(self) -> None:
         """Upload the page table at most once per model call."""

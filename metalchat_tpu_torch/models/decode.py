@@ -15,6 +15,11 @@
   reference attention runs over the layer's dequantized cache (a paged
   cache: each row's gathered pages) with a causal window mask, the
   semantics of the JAX package's scan path for paged windows.
+* ``ffn_block=True`` (off by default, as in the JAX package): each layer's
+  post-attention block (wo → residual → ffn-norm → w13 → act → w2 →
+  residual) is one ``ops.ffn_block`` launch when the layer qualifies.
+* Weight-only leaves go through `linear`: up to 32 rows take the
+  dequant-matmul kernel (``ops.quant_matmul``).
 
 Dense linear leaves take a plain product. The TPU-only gates of the JAX
 path (Mosaic head-dim rules, block choice, lane alignment) do not apply.
@@ -41,6 +46,7 @@ from metalchat_tpu_torch.models.transformer import (
     paged_layer_kv,
     silu_gate,
 )
+from metalchat_tpu_torch.ops import ffn_block as fb
 from metalchat_tpu_torch.ops import reference as ops
 from metalchat_tpu_torch.ops.a8_matvec import MAX_ROWS, quant_matvec_stacked_fused
 from metalchat_tpu_torch.ops.decode_attention import (
@@ -59,10 +65,28 @@ def _kernel_ok(leaf: Any, rows: int) -> bool:
             and rows <= MAX_ROWS and leaf.in_features % 32 == 0)
 
 
+def _ffn_block_ok(layers: Dict[str, Any], rows: int, dtype, config: ModelConfig) -> bool:
+    """The merged block's gate (the JAX package's, without the Mosaic block
+    rules): act8 per-channel transposed wo, w13 (fused) and w2 of one
+    ``bits``, an ffn norm in the activation dtype, wo's input as wide as
+    the hidden state, and shapes the kernel takes."""
+    leaves = [layers.get(n) for n in ("wo", "w13", "w2")]
+    if not all(isinstance(w, QuantizedTensor) and w.q.ndim == 3 and _kernel_ok(w, rows)
+               for w in leaves):
+        return False
+    wo, w13, _ = leaves
+    norm = layers["ffn_norm"]
+    return (len({w.bits for w in leaves}) == 1 and norm.dtype == dtype
+            and wo.in_features == config.hidden_size
+            and fb.supported(rows, config.hidden_size, w13.out_features // 2))
+
+
 def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
-                config: ModelConfig):
+                config: ModelConfig, *, ffn_block: bool = False):
     """One decode window ``tokens [B, S]`` (S ≤ 16) at ``start_pos`` (int or
-    ``[B]``); same contract as `forward`. The cache is updated in place."""
+    ``[B]``); same contract as `forward`. The cache is updated in place.
+    ``ffn_block`` merges each layer's post-attention block into one kernel
+    launch where `_ffn_block_ok` holds."""
     b, s = tokens.shape
     dev = tokens.device
     if torch.is_tensor(start_pos) and start_pos.ndim == 1:
@@ -88,6 +112,7 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
         kv_len = cache.k.shape[3]
 
     x = embed_tokens(params, tokens).reshape(rows, -1)
+    merged = ffn_block and _ffn_block_ok(layers, rows, x.dtype, config)
     cos = params["rope"]["cos"][positions]  # [B, S, hd/2], once per step
     sin = params["rope"]["sin"][positions]
 
@@ -152,7 +177,14 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
                 keys, values = cache.k[l], cache.v[l]
             mask = ops.causal_mask(positions, kv_len, lengths[:, None, None])
             attn = ops.attention(q, keys, values, mask, scale=scale)
-        x = x + linear_l(attn.reshape(rows, nh * hd), "wo", l)
+        attn = attn.reshape(rows, nh * hd)
+        if merged:
+            x = fb.ffn_block_stacked(
+                attn.contiguous(), x, layers["wo"].q, layers["wo"].scales, layers["ffn_norm"],
+                layers["w13"].q, layers["w13"].scales, layers["w2"].q, layers["w2"].scales,
+                l, bits=layers["wo"].bits, act="silu", eps=eps)
+            continue
+        x = x + linear_l(attn, "wo", l)
 
         normed = {}
         if "w13" in layers:

@@ -2,8 +2,8 @@
 JAX package's ``models/fuse.py``, plain concatenation only: ``fuse_tp=1``).
 
 Concatenating along out-features is exact: for quantized leaves the packed
-bytes and per-channel scales concatenate unchanged (groups run along
-in-features). Fewer, wider matvecs mean fewer kernel launches per layer.
+bytes and scales concatenate unchanged (groups run along in-features). Fewer,
+wider matvecs mean fewer kernel launches per layer.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Any, Dict, Sequence
 import torch
 
 from metalchat_tpu_torch.config import ModelConfig
-from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+from metalchat_tpu_torch.quant.quantize import QuantizedTensor, auto_orient, with_orientation
 
 
 def fused_segments(name: str, config: ModelConfig) -> tuple:
@@ -33,21 +33,22 @@ def split_fused(y: torch.Tensor, segments: Sequence[int]):
 
 
 def _concat_linears(leaves) -> Any:
-    """Concat linear leaves along out-features (dense or quantized)."""
+    """Concat linear leaves along out-features (dense or quantized).
+
+    Quantized leaves are concatenated in the non-transposed layout (q
+    ``[.., in(/2), out]``, scales ``[.., in/g, out]`` or ``[.., 1, out]``),
+    then stored by `auto_orient`, as the JAX package does: a fused leaf is
+    wider than its parts, so its orientation may differ from theirs."""
     if all(isinstance(w, QuantizedTensor) for w in leaves):
-        first = leaves[0]
-        layout = {(w.bits, w.group_size, w.act_bits, w.in_features, w.transposed)
-                  for w in leaves}
+        qs = [with_orientation(w, False) for w in leaves]
+        layout = {(w.bits, w.group_size, w.act_bits, w.in_features) for w in qs}
         if len(layout) != 1:
             raise ValueError("quantized projections disagree on layout")
-        per_channel = first.group_size == first.in_features
-        q_dim = -2 if first.transposed else -1
-        s_dim = -2 if first.transposed and not per_channel else -1
-        return QuantizedTensor(
-            q=torch.cat([w.q for w in leaves], dim=q_dim),
-            scales=torch.cat([w.scales for w in leaves], dim=s_dim),
-            bits=first.bits, group_size=first.group_size,
-            transposed=first.transposed, act_bits=first.act_bits)
+        first = qs[0]
+        return auto_orient(QuantizedTensor(
+            q=torch.cat([w.q for w in qs], dim=-1),
+            scales=torch.cat([w.scales for w in qs], dim=-1),
+            bits=first.bits, group_size=first.group_size, act_bits=first.act_bits))
     if any(isinstance(w, QuantizedTensor) for w in leaves):
         raise ValueError("cannot fuse mixed dense/quantized projections")
     return torch.cat(leaves, dim=-1)

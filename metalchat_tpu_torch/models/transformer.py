@@ -13,7 +13,8 @@ stacked on a leading layer axis):
   }
 
 Dense linear leaves are ``[L, in, out]``; quantized ones are
-``QuantizedTensor`` (act8: ``q [L, out, in/2]``, scales ``[L, 1, out]``).
+``QuantizedTensor`` (act8: ``q [L, out, in/2]``, scales ``[L, 1, out]``;
+weight-only: either orientation, group scales).
 The layer loop is a Python loop over views of the stacked leaves.
 """
 
@@ -138,7 +139,7 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
 
 
 def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
-            config: ModelConfig):
+            config: ModelConfig, *, ffn_block: bool = False):
     """One model step: tokens int ``[B, S]`` written at ``start_pos`` (an int,
     or an int32 ``[B]`` of per-row offsets). Returns (f32 logits
     ``[B, S, V]``, cache), the cache updated in place.
@@ -146,12 +147,13 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     Windows of up to 16 tokens take `decode_step` (the matvec kernel path),
     as in the JAX package; longer ones are the prefill path below, with
     flash attention over the dequantized cache (a paged cache: over each
-    row's gathered pages)."""
+    row's gathered pages). ``ffn_block`` is `decode_step`'s: the merged
+    post-attention kernel on decode windows (prefill is not affected)."""
     b, s = tokens.shape
     if s <= DECODE_MAX_TOKENS:
         from metalchat_tpu_torch.models.decode import decode_step
 
-        return decode_step(params, cache, tokens, start_pos, config)
+        return decode_step(params, cache, tokens, start_pos, config, ffn_block=ffn_block)
     paged = isinstance(cache, PagedKVCache)
     if torch.is_tensor(start_pos) and start_pos.ndim == 1:
         offsets = start_pos.to(device=tokens.device, dtype=torch.int64)

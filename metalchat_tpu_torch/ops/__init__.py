@@ -10,6 +10,8 @@ fallback from the kernel to the plain version and no switch to force one.
 | ``decode_attention.cu``  | ``decode_attention_update_quantized_stacked`` (write mode), ``decode_attention_stacked`` / ``decode_attention_quantized_stacked`` (read-only; the module's ``decode_attention`` / ``decode_attention_quantized`` take one layer) | ``ops/decode_attention_pallas.py`` |
 | ``flash_attention.cu``   | ``flash_attention``                           | ``ops/flash_attention_pallas.py`` |
 | ``paged_attention.cu``   | ``paged_decode_attention_update_stacked`` (write mode), ``paged_decode_attention_stacked`` / ``paged_decode_attention`` (read-only) | ``ops/paged_attention_pallas.py`` |
+| ``quant_matmul.cu``      | ``dequant_matmul`` (weight-only int8/int4, group or per-channel scales, ≤ 32 rows) | ``ops/quant_matmul_pallas.py`` |
+| ``ffn_block.cu``         | ``ffn_block_stacked`` (wo → residual → norm → w13 → act → w2 → residual, one cooperative launch) | ``ops/ffn_block_pallas.py`` |
 """
 
 from __future__ import annotations
@@ -26,12 +28,14 @@ from metalchat_tpu_torch.ops.decode_attention import (  # noqa: F401
     decode_attention_stacked,
     decode_attention_update_quantized_stacked,
 )
+from metalchat_tpu_torch.ops.ffn_block import ffn_block_stacked  # noqa: F401
 from metalchat_tpu_torch.ops.flash_attention import flash_attention  # noqa: F401
 from metalchat_tpu_torch.ops.paged_attention import (  # noqa: F401
     paged_decode_attention,
     paged_decode_attention_stacked,
     paged_decode_attention_update_stacked,
 )
+from metalchat_tpu_torch.ops.quant_matmul import dequant_matmul  # noqa: F401
 
 
 def launch_counts() -> Dict[str, int]:
@@ -42,7 +46,8 @@ def launch_counts() -> Dict[str, int]:
 
 __all__ = [
     "build_all", "decode_attention_quantized_stacked", "decode_attention_stacked",
-    "decode_attention_update_quantized_stacked", "flash_attention",
+    "decode_attention_update_quantized_stacked", "dequant_matmul", "ffn_block_stacked",
+    "flash_attention",
     "launch_counts", "paged_decode_attention", "paged_decode_attention_stacked",
     "paged_decode_attention_update_stacked", "quant_matvec_stacked",
     "quant_matvec_stacked_fused", "reset_launch_counts",

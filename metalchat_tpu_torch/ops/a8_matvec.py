@@ -142,7 +142,7 @@ def quant_matvec_stacked(xq: torch.Tensor, p_stack: torch.Tensor, layer: int, *,
                               out.data_ptr(), b, in_f, out_f, bits,
                               _build.stream_ptr(xq))
     _build.check(rc, "a8_matvec_raw")
-    _build.count_launch("a8_matvec")
+    _build.count_launch("a8_matvec_raw")
     return out
 
 

@@ -1,4 +1,4 @@
-"""Weight quantization and the W4A8/W8A8 linear (port of the JAX package's
+"""Weight quantization and the quantized linear (port of the JAX package's
 ``quant/quantize.py``).
 
 Packing and scales are computed with the same numpy arithmetic as the JAX
@@ -7,19 +7,27 @@ package, so both produce the same bytes from the same weights:
 * int4 is packed half-split along in-features with an offset-binary low
   nibble: byte ``r`` holds ``w[r] + 8`` (low) and ``w[r + in/2]`` (high,
   two's complement);
-* ``transposed=True`` stores ``q [(L,) out, in(/2)]``; per-channel scales
-  stay ``[(L,) 1, out]`` in both orientations.
+* ``transposed=False`` stores ``q [(L,) in(/2), out]``, scales
+  ``[(L,) in/g, out]``; ``transposed=True`` stores ``q [(L,) out, in(/2)]``,
+  scales ``[(L,) out, in/g]``; per-channel scales stay ``[(L,) 1, out]`` in
+  both orientations.
 
-``act_bits=8`` with per-channel scales is the execution scheme of this
-slice: activations are quantized per token to int8 and the product runs as
-s8×s8→s32 with one post-scale. `linear` serves the prefill (more than 16
-rows) with an exact integer matrix product (``torch._int_mm`` on the card);
-decode windows call the CUDA matvec kernel from ``models/decode.py``.
+Two execution schemes:
+
+* ``act_bits=8`` with per-channel scales: activations are quantized per
+  token to int8 and the product runs as s8×s8→s32 with one post-scale.
+  `linear` serves more than 16 rows with an exact integer matrix product
+  (``torch._int_mm`` on the card); decode windows call the CUDA matvec
+  kernel from ``models/decode.py``.
+* weight-only (``act_bits=None``), group-wise or per-channel: `linear`
+  sends up to 32 rows to the dequant-matmul kernel (``ops/quant_matmul.py``)
+  and more rows to the weight dequantized in the activation dtype and
+  ``torch.matmul`` (the JAX package leaves that large product to XLA).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -27,6 +35,11 @@ import torch
 
 from metalchat_tpu_torch.device import resolve_device
 from metalchat_tpu_torch.ops.a8_matvec import act_quantize, int_dot
+from metalchat_tpu_torch.ops.quant_matmul import (
+    dequant_matmul,
+    dequant_weight,
+    supported as dequant_kernel_supported,
+)
 
 
 @dataclass
@@ -52,8 +65,7 @@ class QuantizedTensor:
 
     def layer(self, l: int) -> "QuantizedTensor":
         """Layer ``l`` of a stacked leaf (views, no copy)."""
-        return QuantizedTensor(self.q[l], self.scales[l], self.bits,
-                               self.group_size, self.transposed, self.act_bits)
+        return replace(self, q=self.q[l], scales=self.scales[l])
 
 
 def _pack_int4(w4: np.ndarray) -> np.ndarray:
@@ -110,24 +122,30 @@ def quantize(w, bits: int = 8, group_size: Optional[int] = 32,
         act_bits=act_bits)
 
 
-def _unpack_int4(packed: torch.Tensor, dim: int) -> torch.Tensor:
-    """Signed nibble values, the packed axis ``dim`` doubled (lo then hi)."""
-    lo = (packed & 15) - 8
-    hi = packed >> 4  # arithmetic: the high nibble is two's complement
-    return torch.cat([lo, hi], dim=dim)
-
-
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """The dense ``[(L,) in, out]`` weight."""
-    q = qt.q.transpose(-1, -2) if qt.transposed else qt.q
-    if qt.bits == 4:
-        q = _unpack_int4(q, -2)
+    """The dense ``[(L,) in, out]`` weight (f32 products, one rounding)."""
+    return dequant_weight(qt.q, qt.scales, bits=qt.bits, group_size=qt.group_size,
+                          transposed=qt.transposed, dtype=torch.float32
+                          ).to(dtype).contiguous()
+
+
+def with_orientation(qt: QuantizedTensor, transposed: bool) -> QuantizedTensor:
+    """The same weight in the other storage orientation (no numeric change;
+    per-channel scales ``[.., 1, out]`` stay as they are). The bytes are
+    copied into the new layout."""
+    if qt.transposed == transposed:
+        return qt
     per_channel = qt.group_size == qt.in_features
-    s = qt.scales if per_channel or not qt.transposed else qt.scales.transpose(-1, -2)
-    shape = q.shape
-    grouped = q.reshape(*shape[:-2], shape[-2] // qt.group_size, qt.group_size,
-                        shape[-1]).float()
-    return (grouped * s.float()[..., :, None, :]).reshape(shape).to(dtype)
+    return replace(qt, q=qt.q.transpose(-1, -2).contiguous(),
+                   scales=qt.scales if per_channel
+                   else qt.scales.transpose(-1, -2).contiguous(),
+                   transposed=transposed)
+
+
+def auto_orient(qt: QuantizedTensor) -> QuantizedTensor:
+    """The reference's storage rule: act8 leaves and wide-output leaves
+    (out > in) are stored transposed."""
+    return with_orientation(qt, qt.act_bits == 8 or qt.out_features > qt.in_features)
 
 
 def _int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -163,20 +181,49 @@ def _matmul_a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return (acc * sx * s_col).to(dtype).reshape(*lead, n_out)
 
 
+def requantize_per_channel(qt: QuantizedTensor, bits: int = 8,
+                           scales_dtype=torch.float32,
+                           act_bits: Optional[int] = 8) -> QuantizedTensor:
+    """Re-quantize a group-wise leaf onto per-channel scales (the layout the
+    act8 scheme needs): the group-exact f32 values re-rounded, in the
+    orientation `auto_orient` picks."""
+    w = dequantize(qt, torch.float32)
+    return auto_orient(quantize(w, bits=bits, group_size=None, scales_dtype=scales_dtype,
+                                transposed=qt.transposed, act_bits=act_bits,
+                                device=qt.q.device))
+
+
 def quant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """``x [..., in] @ dequant(qt) [in, out]`` for the act8 per-channel scheme."""
+    """``x [..., in] @ dequant(qt) [in, out]``, the plain formulation.
+
+    act8 per-channel leaves: `_matmul_a8`. Weight-only leaves: the weight in
+    x's dtype (``q.to(T) * scales.to(T)``, int4 nibbles unpacked) and one
+    matrix product in x's dtype, the JAX package's ``quant_matmul`` and
+    ``_quant_matmul_transposed``."""
     if qt.act_bits == 8 and qt.group_size == qt.in_features and qt.q.ndim == 2:
         return _matmul_a8(x, qt)
-    raise NotImplementedError(
-        "only the act_bits=8 per-channel scheme is ported; weight-only "
-        "group quantization is later work")
+    if qt.act_bits is not None:
+        raise ValueError("act_bits=8 needs a 2-D per-channel leaf")
+    w = dequant_weight(qt.q, qt.scales, bits=qt.bits, group_size=qt.group_size,
+                       transposed=qt.transposed, dtype=x.dtype)
+    return torch.matmul(x, w)
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
-    """Linear dispatch on the leaf type: dense ``[in, out]`` or quantized."""
-    if isinstance(w, QuantizedTensor):
-        return quant_matmul(x, w)
-    return x @ w
+    """Linear dispatch on the leaf type: dense ``[in, out]`` or quantized.
+
+    A weight-only 2-D leaf with at most 32 rows of x (leading dims
+    flattened) goes to the dequant-matmul kernel, as the JAX package's
+    `_maybe_pallas` routes it; more rows take `quant_matmul`."""
+    if not isinstance(w, QuantizedTensor):
+        return x @ w
+    rows = x.numel() // x.shape[-1]
+    if w.act_bits is None and w.q.ndim == 2 \
+            and dequant_kernel_supported(rows, w.in_features, w.group_size):
+        y = dequant_matmul(x.reshape(rows, x.shape[-1]).contiguous(), w.q, w.scales,
+                           bits=w.bits, group_size=w.group_size, transposed=w.transposed)
+        return y.reshape(*x.shape[:-1], w.out_features)
+    return quant_matmul(x, w)
 
 
 def lookup_embedding(tokens: torch.Tensor, embed) -> torch.Tensor:

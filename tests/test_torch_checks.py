@@ -6,7 +6,9 @@ one: the new row left out of the attention, a causal or window edge one
 position off, or one position's v-scale wrong (for the read-only decode
 mode, the last cache position left out); for the paged kernel also
 the new row written into the neighbouring page and a page-table lookup off
-by one. Each must fail the check.
+by one; for the dequant matmul a wrong group index and swapped nibble
+halves; for the merged FFN block a missing residual and one output tile
+off by one column. Each must fail the check.
 A wrapper that differs from the plain version only by f32 rounding noise
 must pass. The shapes are the fixture's (hd=64).
 """
@@ -244,3 +246,99 @@ def test_paged_check_passes_rounding_noise(monkeypatch, case):
 def test_paged_check_fails_a_planted_fault(monkeypatch, fault, case):
     with pytest.raises(AssertionError, match="beyond the limit|not bit-exact"):
         _run_paged(monkeypatch, fault, case)
+
+
+qmm_mod = importlib.import_module("metalchat_tpu_torch.ops.quant_matmul")
+
+
+def _faulty_qmm(fault):
+    plain = qmm_mod.dequant_matmul_plain
+
+    def qmm(x, q, s, *, bits, group_size, transposed):
+        if fault == "noise":  # the weight in x's dtype, noise on the f32 sums
+            w = qmm_mod.dequant_weight(q, s, bits=bits, group_size=group_size,
+                                       transposed=transposed, dtype=x.dtype)
+            return _noisy(x.float() @ w.float(), x.dtype)
+        if fault == "group":  # each group reads its neighbour's scale
+            s = s.roll(1, dims=1 if transposed else 0)
+        if fault == "nibbles":  # input r reads the high nibble, r + in/2 the low
+            lo, hi = (q & 15) - 8, q >> 4
+            q = (((hi + 8) & 15) | ((lo & 15) << 4)).to(torch.int8)
+        return plain(x, q, s, bits=bits, group_size=group_size, transposed=transposed)
+
+    return qmm
+
+
+def _run_qmm(monkeypatch, fault, shapes, dtype):
+    monkeypatch.setattr(qmm_mod, "dequant_matmul", _faulty_qmm(fault))
+    sm = chip_smoke.Smoke(torch)
+    chip_smoke.check_qmm(sm, shapes, 3, torch.Generator().manual_seed(1), CPU,
+                         getattr(torch, dtype))
+    return sm
+
+
+GROUPED = [c for c in chip_smoke.QMM_FIXTURE if c[4] < c[2]]
+INT4 = [c for c in chip_smoke.QMM_FIXTURE if c[3] == 4]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", chip_smoke.QMM_FIXTURE, ids=str)
+def test_qmm_check_passes_rounding_noise(monkeypatch, case, dtype):
+    assert _run_qmm(monkeypatch, "noise", [case], dtype).share["quant_matmul"] <= 1.0
+
+
+@pytest.mark.parametrize("fault,case", [*(("group", c) for c in GROUPED),
+                                        *(("nibbles", c) for c in INT4)], ids=str)
+def test_qmm_check_fails_a_planted_fault(monkeypatch, fault, case):
+    with pytest.raises(AssertionError, match="beyond the limit"):
+        _run_qmm(monkeypatch, fault, [case], "bfloat16")
+
+
+ffn_mod = importlib.import_module("metalchat_tpu_torch.ops.ffn_block")
+
+
+def _faulty_ffn(fault):
+    plain = ffn_mod.ffn_block_plain
+
+    def ffn(attn, x, wo_q, wo_s, norm_w, w13_q, w13_s, w2_q, w2_s, layer, *, bits, act,
+            eps, offset=0.0, scratch=None):
+        if fault == "noise":  # the dtype's roundings kept, noise on f32 values
+            x2 = ffn_mod.wo_stage(attn, x, wo_q[layer], wo_s[layer], bits=bits)
+            _, gate, up, _ = ffn_mod.w13_stage(x2, norm_w[layer], w13_q[layer],
+                                               w13_s[layer], bits=bits, act=act, eps=eps,
+                                               offset=offset)
+            h = _noisy(ffn_mod.activation(gate, act) * up, x.dtype)
+            w2_out = ffn_mod.w2_stage(h, torch.zeros_like(x2), w2_q[layer], w2_s[layer],
+                                      bits=bits)[0]
+            scratch.update(x2=x2, h=h)
+            return _noisy(x2.float() + w2_out.float(), x.dtype)
+        out = plain(attn, x, wo_q, wo_s, norm_w, w13_q, w13_s, w2_q, w2_s, layer, bits=bits,
+                    act=act, eps=eps, offset=offset, scratch=scratch)
+        if fault == "residual":  # out = w2(h), x2 never added
+            return out - scratch["x2"]
+        out = out.clone()  # "tile": columns 32..63 read one column late
+        out[:, 32:64] = out[:, 33:65]
+        return out
+
+    return ffn
+
+
+def _run_ffn(monkeypatch, fault, case, dtype):
+    monkeypatch.setattr(ffn_mod, "ffn_block_stacked", _faulty_ffn(fault))
+    sm = chip_smoke.Smoke(torch)
+    chip_smoke.check_ffn_block(sm, 384, 1024, 3, [case], torch.Generator().manual_seed(1),
+                               CPU, getattr(torch, dtype))
+    return sm
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", chip_smoke.FFN_CASES, ids=str)
+def test_ffn_check_passes_rounding_noise(monkeypatch, case, dtype):
+    assert _run_ffn(monkeypatch, "noise", case, dtype).share["ffn_block"] <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["residual", "tile"])
+@pytest.mark.parametrize("case", chip_smoke.FFN_CASES, ids=str)
+def test_ffn_check_fails_a_planted_fault(monkeypatch, fault, case):
+    with pytest.raises(AssertionError, match="beyond the limit"):
+        _run_ffn(monkeypatch, fault, case, "bfloat16")

@@ -61,3 +61,20 @@ def test_paged_attention_kernel(card, dtype):
     sm, gen, dev = card
     chip_smoke.check_paged(sm, 4, 6, 3, 64, 16, 8, chip_smoke.PAGED_CASES_FIXTURE, gen, dev,
                            getattr(torch, dtype))
+
+
+@DTYPES
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_quant_matmul_kernel(card, dtype, rows):
+    sm, gen, dev = card
+    for scales in ("bfloat16", "float32"):
+        chip_smoke.check_qmm(sm, chip_smoke.QMM_FIXTURE, rows, gen, dev, getattr(torch, dtype),
+                             getattr(torch, scales))
+
+
+@DTYPES
+@pytest.mark.parametrize("rows", [1, 5, 16])
+def test_ffn_block_kernel(card, dtype, rows):
+    sm, gen, dev = card
+    chip_smoke.check_ffn_block(sm, 384, 1024, rows, chip_smoke.FFN_CASES, gen, dev,
+                               getattr(torch, dtype))

@@ -101,12 +101,26 @@ def test_wrappers_do_not_fall_back():
                                               scale=1.0)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         dm.decode_attention(q[:, 0], dense[0], dense[0], lengths, scale=1.0)
+    from metalchat_tpu_torch.ops import dequant_matmul, ffn_block_stacked
+
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        dequant_matmul(x, p[0], torch.empty(32, 2, **meta), bits=4, group_size=32,
+                       transposed=True)
+    w = torch.empty(1, 64, 32, dtype=torch.int8, **meta)
+    sc = torch.empty(1, 1, 64, **meta)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        ffn_block_stacked(x, x, w, sc, torch.empty(1, 64, dtype=torch.bfloat16, **meta),
+                          torch.empty(1, 128, 32, dtype=torch.int8, **meta),
+                          torch.empty(1, 1, 128, **meta), w, sc, 0, bits=4, act="silu",
+                          eps=1e-5)
 
 
 @pytest.mark.parametrize("module", [
     "metalchat_tpu_torch.cache", "metalchat_tpu_torch.engine",
     "metalchat_tpu_torch.engine.http", "metalchat_tpu_torch.engine.paged",
     "metalchat_tpu_torch.engine.serving", "metalchat_tpu_torch.ops.paged_attention",
+    "metalchat_tpu_torch.ops.quant_matmul", "metalchat_tpu_torch.ops.ffn_block",
+    "metalchat_tpu_torch.models.decode",
     "metalchat_tpu_torch.text.tokenizer", "metalchat_tpu_torch.utils.profiling"])
 def test_serving_modules_import_without_a_card(module):
     """Importing a module of the serving slice builds and loads no kernel,

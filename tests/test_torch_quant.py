@@ -2,7 +2,9 @@
 vs the JAX package's quant/quantize.py and models/fuse.py, on the CPU.
 
 Packed bytes and scales must be identical; the integer stages of the
-W4A8/W8A8 linear are exact, so its f32 output must be too.
+W4A8/W8A8 linear are exact, so its f32 output must be too. Quantized and
+fused leaves keep the JAX package's storage orientation for every scheme,
+weight-only included.
 """
 
 import importlib
@@ -14,6 +16,7 @@ import jax.numpy as jnp
 import torch
 
 from metalchat_tpu_torch.quant import quantize as tq
+from torch_port_util import jax_tree_to_numpy
 
 # The suite runs test files in parallel workers on shared cores: one torch
 # thread per worker keeps these small ops from crowding the others.
@@ -91,7 +94,6 @@ def test_fuse_projections_bytes_identical():
     from metalchat_tpu_torch.config import LlamaConfig
     from metalchat_tpu_torch.convert import params_from_numpy
     from metalchat_tpu_torch.models.fuse import fuse_projections, split_fused
-    from torch_port_util import jax_tree_to_numpy
 
     kw = dict(vocab_size=64, hidden_size=64, intermediate_size=96, num_layers=2,
               num_heads=4, num_kv_heads=2, head_dim=16)
@@ -114,3 +116,90 @@ def test_fuse_projections_bytes_identical():
         assert got[name].transposed and want[name]["transposed"]
     q, k, v = split_fused(torch.arange(64 + 32 + 32), (64, 32, 32))
     assert (q[-1], k[0], v[-1]) == (63, 64, 127)
+
+
+DIMS = dict(vocab_size=64, hidden_size=128, intermediate_size=192, num_layers=2,
+            num_heads=4, num_kv_heads=2, head_dim=32)
+
+
+def _dense_tree(seed=0):
+    rng = np.random.default_rng(seed)
+    h, f = DIMS["hidden_size"], DIMS["intermediate_size"]
+    outs = {"wq": (h, 128), "wk": (h, 64), "wv": (h, 64), "wo": (128, h), "w1": (h, f),
+            "w3": (h, f), "w2": (f, h)}
+    layers = {n: (rng.standard_normal((2, i, o)) * 0.05).astype(np.float32)
+              for n, (i, o) in outs.items()}
+    return {"layers": layers,
+            "lm_head": (rng.standard_normal((h, DIMS["vocab_size"])) * 0.05).astype(np.float32)}
+
+
+def _same_leaf(got, want, name):
+    """A port leaf against a `jax_tree_to_numpy` leaf: the same orientation,
+    scheme, packed bytes and scales."""
+    assert isinstance(got, tq.QuantizedTensor), name
+    assert got.transposed == want["transposed"], name
+    assert (got.bits, got.group_size, got.act_bits) == (
+        want["bits"], want["group_size"], want["act_bits"]), name
+    np.testing.assert_array_equal(got.q.numpy(), want["q"], err_msg=name)
+    np.testing.assert_array_equal(got.scales.float().numpy(),
+                                  want["scales"].astype(np.float32), err_msg=name)
+
+
+QUANT_SCHEMES = [(4, 32, None), (8, 32, None), (4, None, None), (8, None, None),
+                 (4, None, 8), (8, None, 8)]
+
+
+@pytest.mark.parametrize("bits,group_size,act_bits", QUANT_SCHEMES, ids=str)
+def test_quantize_and_fuse_match_jax(bits, group_size, act_bits):
+    """Every unfused leaf (`quantize_params`) and every fused one
+    (`fuse_projections`) has the JAX package's orientation, bytes and
+    scales: weight-only fused leaves wider than their parts are stored
+    transposed, as `auto_orient` stores them."""
+    dense = _dense_tree()
+    kw = dict(bits=bits, group_size=group_size, act_bits=act_bits, quantize_lm_head=True)
+    from metalchat_tpu.config import LlamaConfig as JLlama
+    from metalchat_tpu.models.fuse import fuse_projections as jfuse
+    from metalchat_tpu_torch.config import LlamaConfig
+    from metalchat_tpu_torch.convert import params_from_numpy
+    from metalchat_tpu_torch.models.fuse import fuse_projections
+
+    jtree = jq.quantize_params({n: jnp.asarray(v) if n == "lm_head" else
+                                {k: jnp.asarray(w) for k, w in v.items()}
+                                for n, v in dense.items()}, **kw)
+    want = jax_tree_to_numpy(jtree)
+    want_fused = jax_tree_to_numpy(jfuse(jtree, JLlama(**DIMS)))
+
+    got = tq.quantize_params(params_from_numpy(dense, "cpu"), **kw)
+    for name, leaf in want["layers"].items():
+        _same_leaf(got["layers"][name], leaf, name)
+    _same_leaf(got["lm_head"], want["lm_head"], "lm_head")
+    got_fused = fuse_projections(got, LlamaConfig(**DIMS))
+    assert set(got_fused["layers"]) == set(want_fused["layers"]) == {"wqkv", "wo", "w13", "w2"}
+    for name, leaf in want_fused["layers"].items():
+        _same_leaf(got_fused["layers"][name], leaf, name)
+
+
+@pytest.mark.parametrize("bits,group_size", [(4, 32), (8, 32), (8, None)], ids=str)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_orientation_utilities_match(bits, group_size, transposed):
+    """`with_orientation` and `auto_orient`: the JAX package's bytes."""
+    rng = np.random.default_rng(1)
+    w = (rng.standard_normal((2, 64, 96)) * 0.05).astype(np.float32)
+    jt = jq.quantize(w, bits=bits, group_size=group_size, transposed=transposed)
+    tt = tq.quantize(w, bits=bits, group_size=group_size, transposed=transposed,
+                     device="cpu")
+    for target in (False, True):
+        want = jax_tree_to_numpy(jq.with_orientation(jt, target))
+        _same_leaf(tq.with_orientation(tt, target), want, f"to {target}")
+    _same_leaf(tq.auto_orient(tt), jax_tree_to_numpy(jq.auto_orient(jt)), "auto")
+
+
+@pytest.mark.parametrize("bits,act_bits", [(8, 8), (4, 8), (8, None)], ids=str)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_requantize_per_channel_matches(bits, act_bits, transposed):
+    rng = np.random.default_rng(2)
+    w = (rng.standard_normal((128, 96)) * 0.05).astype(np.float32)
+    jt = jq.quantize(w, bits=4, group_size=32, transposed=transposed)
+    tt = tq.quantize(w, bits=4, group_size=32, transposed=transposed, device="cpu")
+    want = jax_tree_to_numpy(jq.requantize_per_channel(jt, bits=bits, act_bits=act_bits))
+    _same_leaf(tq.requantize_per_channel(tt, bits=bits, act_bits=act_bits), want, "requant")
