@@ -7,7 +7,8 @@ Phases (any failure makes the script exit non-zero without a result line):
 
 1. The card's name and power limit (``nvidia-smi``).
 2. Build every CUDA kernel from ``metalchat_tpu_torch/csrc`` (one ``nvcc``
-   per source, all at once) and print the build time.
+   per source, all at once) and print the build time, registers and
+   spills (each instance of the two attention kernels on a line).
 3. Hold each kernel against its plain PyTorch version on the card, at the
    Llama-3.1-8B shapes of the main path and at the fixture's (hd=64):
    a8_matvec raw mode int32-exact; cache bytes exact; every other output
@@ -17,7 +18,13 @@ Phases (any failure makes the script exit non-zero without a result line):
    from the new row alone. The serve path's shapes too: the matvec at 8
    rows of the 8B widths, decode attention (write and read-only, bf16 and
    int8 caches) at 8 rows of per-row lengths up to 1024, flash over
-   256-token chunks of 8 rows at per-row offsets.
+   256-token chunks of 8 rows at per-row offsets. Decode lengths at the
+   edges of the kernel's 32-position chunks (``SPLIT_CHUNK``), windows
+   starting inside a chunk, a batch that leaves most chunks dead; flash over
+   a ragged 137-token chunk from unaligned starts; each attention wrapper
+   called twice inside one CUDA graph, replayed twice: outputs equal bit for
+   bit across replays (the decode merge's order is fixed and its arrival
+   counters reset) and within the limit of the plain version.
    The paged kernel (both modes) at the 8B serving shape (8 rows, pages of
    256, 4 pages a row, 32 + 1 pages) and the fixture's (pages of 16), page
    tables shuffled with one free row at the sentinel: outputs of the rows
@@ -57,7 +64,8 @@ Phases (any failure makes the script exit non-zero without a result line):
    completion, ``/health`` and ``/metrics``.
 9. Each kernel timed with CUDA events at its path's shapes beside its bound,
    its plain version and one PyTorch library call as a yardstick: timing at
-   the generate path's shapes, timing-serve at the serve path's (8 rows),
+   the generate path's shapes (and row 3 at lengths 64 and 1024, row 4 at
+   hd=64, kernel and yardstick only), timing-serve at the serve path's (8 rows),
    timing-ffn (row 10 beside the unmerged route) and timing-int4 (row 11).
 
 The last lines are the kernel table as one JSON object (rows 1-11 of the
@@ -228,7 +236,35 @@ def phase_build():
         spills = [l.strip() for l in log if "spill" in l and " 0 bytes spill stores" not in l]
         print(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers; spills: {spills or 'none'}")
+    # The instances redesigned last, one line each.
+    for name in ("flash_attention", "decode_attention"):
+        for fn, regs, spill in entry_functions(_build.build_log(name)):
+            print(f"    {name} {fn}: {regs} registers, spill stores/loads {spill} bytes")
     return seconds
+
+
+def entry_functions(log: str):
+    """(demangled name, registers, "stores/loads") of each entry function in
+    an ``nvcc -Xptxas -v`` log."""
+    out, fn, spill = [], None, "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line and fn:
+            words = line.replace(",", "").split()
+            spill = f"{words[words.index('spill') - 2]}/{words[words.index('loads') - 3]}"
+        elif "Used " in line and fn:
+            out.append((fn, int(line.split("Used ")[1].split(" ")[0]), spill))
+            fn, spill = None, "?"
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(f for f, _, _ in out),
+                               capture_output=True, text=True, timeout=30).stdout.split("\n")
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) >= len(out):
+        out = [(n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0],
+                r, sp) for n, (_, r, sp) in zip(names, out)]
+    return out
 
 
 # -- phase 3: kernels vs plain versions on the card ---------------------------
@@ -349,6 +385,71 @@ def check_flash(sm: Smoke, B, S, nh, nkv, T, hd, cases, gen, dev, dtype=None):
                  f"flash_attention hd={hd} S={S} start={start} window={window} {dtype}")
         if dev.type == "cuda":
             torch.cuda.synchronize()
+
+
+def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
+    """Two calls of each attention wrapper captured in one CUDA graph, the
+    graph replayed twice. The second call can merge only if the first left
+    the decode kernel's arrival counters at 0; its output must be equal bit
+    for bit across the two replays (the merge order is fixed) and within
+    the limit of the plain version. Rows at very different lengths, one in
+    a window that starts inside a chunk."""
+    torch = sm.torch
+    dtype = dtype or torch.bfloat16
+    from metalchat_tpu_torch.ops import decode_attention as dm
+    from metalchat_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    lengths = [T - 1 - 17 * b for b in range(B)]
+    lengths[-1] = SPLIT_CHUNK + 1
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    window = 3 * SPLIT_CHUNK + 5
+    k, v = (torch.randint(-127, 128, (2, B, nkv, T, hd), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((2, B, nkv, T), generator=gen, device=dev) * 0.01 for _ in range(2))
+    kc, vc = (torch.randn((2, B, nkv, T, hd), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    q, kn, vn = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, nh, hd), (B, nkv, hd), (B, nkv, hd)))
+    S = min(256, T // 2)
+    qf, kf, vf = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for shape in ((B, S, nh, hd), (B, nkv, T, hd), (B, nkv, T, hd)))
+    starts = torch.tensor([T - S - 3 * b for b in range(B)], dtype=torch.int32, device=dev)
+    kw = dict(scale=hd ** -0.5)
+    ref_cache = [t.clone() for t in (k, v, ks, vs)]
+    cases = {
+        "decode_attention_update": (
+            lambda: dm.decode_attention_update_quantized_stacked(
+                q, kn, vn, k, v, ks, vs, 1, lens, window=window, **kw)[0],
+            dm.decode_attention_update_plain(q, kn, vn, *ref_cache, 1, lens, window=window,
+                                             **kw)[0]),
+        "decode_attention": (
+            lambda: dm.decode_attention_stacked(q, kc, vc, 1, lens, **kw),
+            dm.decode_attention_stacked_plain(q, kc, vc, None, None, 1, lens, **kw)),
+        "flash_attention": (
+            lambda: flash_attention(qf, kf, vf, starts, **kw),
+            flash_attention_plain(qf, kf, vf, starts, **kw)),
+    }
+    for name, (kernel, want) in cases.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernel()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            kernel()
+            out = kernel()
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(out.clone())
+        what = f"{name} lengths={lengths} second call in a CUDA graph"
+        sm.exact(replays[0], replays[1], f"{what}: two replays")
+        sm.close(name, replays[1], want, what)
+    for a, b, nm in zip((k, v, ks, vs), ref_cache, ("k", "v", "k_scale", "v_scale")):
+        sm.exact(a, b, f"decode_attention_update in a CUDA graph: cache {nm}")
 
 
 def paged_table(torch, B, mp, psize, n_pages, lengths, gen, dev):
@@ -518,12 +619,21 @@ PAGED_CASES_FIXTURE = [([1, 16, 17, 1], None), ([128, 33, 5, 1], None),
                        ([40, 128, 12, 1], 10), ([17, 2, 128, 1], 1)]
 
 
-# Lengths at block edges (64-position tiles), length 1, the main path's
-# lengths (513-576), the full context, windows down to the new row alone,
-# and zeroed caches.
-DECODE_CASES_8B = [([1], None, "random"), ([64], None, "random"), ([65], None, "random"),
+# The decode kernel's chunk of positions a block
+# (metalchat_tpu_torch.ops.decode_attention.SPLIT_CHUNK; phase kernels checks
+# that they agree).
+SPLIT_CHUNK = 32
+C = SPLIT_CHUNK
+# Lengths at chunk edges (C - 1, C, C + 1, 2C + 1) and at the 64-position
+# edges, length 1, the main path's lengths (513-576), the full context,
+# windows down to the new row alone and windows whose lower edge lies inside
+# a chunk, and zeroed caches.
+DECODE_CASES_8B = [([1], None, "random"), ([C - 1], None, "random"), ([C], None, "random"),
+                   ([C + 1], None, "random"), ([2 * C + 1], None, "random"),
+                   ([64], None, "random"), ([65], None, "random"),
                    ([576], None, "random"), ([1024], None, "random"),
-                   ([700], 100, "random"), ([576], 1, "random"), ([577], 2, "random"),
+                   ([700], 100, "random"), ([577], 3 * C - 7, "random"),
+                   ([576], 1, "random"), ([577], 2, "random"),
                    ([576], None, "zeros"), ([1024], None, "zeros")]
 DECODE_CASES_FIXTURE = [([1, 64, 65], None, "random"), ([200, 17, 256], 50, "random"),
                         ([2, 64, 130], None, "zeros"), ([65, 128, 256], 1, "random")]
@@ -531,19 +641,30 @@ DECODE_CASES_FIXTURE = [([1, 64, 65], None, "random"), ([200, 17, 256], 50, "ran
 FLASH_CASES_FIXTURE = [(0, None), ([0, 17, 64], None), (0, 20), ([63, 1, 0], 1)]
 # The serve path's shapes: 8 rows at per-row lengths up to the context (1024),
 # one free row at length 1; flash over 256-token chunks at per-row offsets.
+# The last case leaves most of the 32 chunks of every row dead.
 DECODE_CASES_SERVE = [([1, 64, 65, 300, 577, 1024, 700, 129], None, "random"),
                       ([1024, 256, 257, 1, 900, 513, 64, 1], 100, "random"),
-                      ([600, 1024, 2, 768, 129, 255, 1000, 1], None, "zeros")]
+                      ([600, 1024, 2, 768, 129, 255, 1000, 1], None, "zeros"),
+                      ([1, C, C + 1, 3, 2 * C + 1, 1, C - 1, 5], None, "random")]
 READ_CASES_SERVE = [([1, 64, 65, 300, 577, 1024, 700, 129], None),
                     ([1024, 256, 257, 1, 900, 513, 64, 1], 100),
                     ([600, 1024, 2, 768, 129, 255, 1000, 1], 1)]
 READ_CASES_FIXTURE = [([1, 64, 65], None), ([200, 17, 256], 50), ([65, 128, 256], 1)]
 FLASH_CASES_SERVE = [([0, 256, 512, 768, 100, 37, 640, 0], None),
                      ([768, 0, 300, 1, 512, 700, 256, 64], None)]
+# Flash at the 8B shapes: 512 tokens from 0 and from an unaligned start,
+# windows; then a ragged S (the serve path's last chunk) from unaligned starts.
+FLASH_CASES_8B = [(0, None), (100, None), (0, 128), (64, 1)]
+FLASH_RAGGED_S = 137
+FLASH_CASES_RAGGED = [(100, None), (37, 70), (0, 1)]
 
 
 def phase_kernels(sm: Smoke):
     torch = sm.torch
+    from metalchat_tpu_torch.ops.decode_attention import SPLIT_CHUNK as kernel_chunk
+
+    sm.expect(kernel_chunk == SPLIT_CHUNK,
+              f"decode chunk {kernel_chunk} != chip_smoke.SPLIT_CHUNK {SPLIT_CHUNK}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -565,8 +686,8 @@ def phase_kernels(sm: Smoke):
     check_decode_read(sm, 8, 32, 8, 1024, 128, READ_CASES_SERVE, gen, dev)
     check_decode_read(sm, 8, 32, 8, 1024, 128, READ_CASES_SERVE, gen, dev, kv="int8")
     check_decode_read(sm, 3, 6, 3, 256, 64, READ_CASES_FIXTURE, gen, dev, torch.float32)
-    check_flash(sm, 1, 512, 32, 8, 1024, 128, [(0, None), (100, None), (0, 128), (64, 1)],
-                gen, dev)
+    check_flash(sm, 1, 512, 32, 8, 1024, 128, FLASH_CASES_8B, gen, dev)
+    check_flash(sm, 1, FLASH_RAGGED_S, 32, 8, 1024, 128, FLASH_CASES_RAGGED, gen, dev)
     check_flash(sm, 8, 256, 32, 8, 1024, 128, FLASH_CASES_SERVE, gen, dev)
     check_flash(sm, 3, 48, 6, 3, 256, 64, FLASH_CASES_FIXTURE, gen, dev)
     check_paged(sm, 8, 32, 8, 128, 256, 4, PAGED_CASES_8B, gen, dev)
@@ -577,6 +698,7 @@ def phase_kernels(sm: Smoke):
     check_qmm(sm, QMM_FIXTURE, 3, gen, dev, torch.float32, torch.float32)
     for rows in (1, 8):
         check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
+    check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
     print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact): "
           + ", ".join(f"{k} {v:.3g} ({sm.share[k]:.3g} of its limit)"
                       for k, v in sm.err.items()))
@@ -1229,25 +1351,36 @@ def phase_timing(sm: Smoke, main, rate: float):
                           "(raw mode, on no driven path; library as row 1)", **raw_step))
 
     # decode_attention_update: one decode step (one call per layer) at the
-    # main path's last length.
-    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    # main path's last length; first at lengths 64 and 1024, the kernel and
+    # its yardstick only (the cache past the main path's length is zeros).
     q = torch.randn((1, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
     kn = torch.randn((1, nkv, hd), generator=gen, device=dev).to(torch.bfloat16)
     args = (cache.k, cache.v, cache.k_scale, cache.v_scale)
-    ms = sm.device_ms(lambda i: dm.decode_attention_update_quantized_stacked(
-        q, kn, kn, *args, i % L, lens, scale=hd ** -0.5), 64)
+
+    def decode_update(n: int):
+        lens = torch.tensor([n], dtype=torch.int32, device=dev)
+        ms = sm.device_ms(lambda i: dm.decode_attention_update_quantized_stacked(
+            q, kn, kn, *args, i % L, lens, scale=hd ** -0.5), 64)
+        kd = dequantize_kv(cache.k[0, :, :, :n], cache.k_scale[0, :, :, :n])
+        vd = dequantize_kv(cache.v[0, :, :, :n], cache.v_scale[0, :, :, :n])
+        # Library yardstick: SDPA over the dequantized bf16 K/V of one layer,
+        # its KV heads repeated to the query heads outside the timed call.
+        kd, vd = (t.repeat_interleave(nh // nkv, dim=1) for t in (kd, vd))
+        lib = sm.device_ms(lambda i: F.scaled_dot_product_attention(
+            q[:, :, None, :], kd, vd), 64)
+        nbytes = (2 * nkv * n * (hd + 4) + 2 * nh * hd * 2 + 2 * nkv * hd * 2
+                  + 2 * nkv * (hd + 4))
+        return (ms, lib, *bound(nbytes, 4 * nh * hd * n, "f32", rate), lens)
+
+    for n in (64, 1024):
+        ms, lib, b_ms, b_by, _ = decode_update(n)
+        print(f"  decode_attention_update [length {n}, T {cache.k.shape[3]}]: "
+              f"{ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, {b_by}; sdpa bf16 "
+              f"{lib * 1e3:.2f} us) x{L}/token: {L * ms:.5f} ms a step, sdpa "
+              f"{L * lib:.5f}")
+    ms, lib, b_ms, b_by, lens = decode_update(length)
     plain = sm.eager_ms(lambda i: dm.decode_attention_update_plain(
         q, kn, kn, *args, i % L, lens, scale=hd ** -0.5), 5)
-    kd = dequantize_kv(cache.k[0, :, :, :length], cache.k_scale[0, :, :, :length])
-    vd = dequantize_kv(cache.v[0, :, :, :length], cache.v_scale[0, :, :, :length])
-    # Library yardstick: SDPA over the dequantized bf16 K/V of one layer, its
-    # KV heads repeated to the query heads outside the timed call.
-    q4 = q[:, :, None, :]
-    kd, vd = (t.repeat_interleave(nh // nkv, dim=1) for t in (kd, vd))
-    lib = sm.device_ms(lambda i: F.scaled_dot_product_attention(q4, kd, vd), 64)
-    nbytes = (2 * nkv * length * (hd + 4) + 2 * nh * hd * 2 + 2 * nkv * hd * 2
-              + 2 * nkv * (hd + 4))
-    b_ms, b_by = bound(nbytes, 4 * nh * hd * length, "f32", rate)
     print(f"  decode_attention_update [length {length}, T {cache.k.shape[3]}]: "
           f"{ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, {b_by}; plain "
           f"{plain * 1e3:.1f} us; sdpa bf16 {lib * 1e3:.2f} us) x{L}/token")
@@ -1258,8 +1391,24 @@ def phase_timing(sm: Smoke, main, rate: float):
                      bound_ms=L * b_ms, bound_by=b_by,
                      unit=f"one decode step ({L} calls, length {length})"))
 
-    # flash_attention: one 512-token prefill (one call per layer).
+    # flash_attention at hd=64 (the fixture's and Llama-3.2-1B's head size),
+    # 32 heads over 8 kv heads, random bf16, a 512-token prefill from 0:
+    # the kernel and its yardstick only.
     S = 512
+    q64, k64, v64 = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                     for shape in ((1, S, nh, 64), (1, nkv, S, 64), (1, nkv, S, 64)))
+    ms64 = sm.device_ms(lambda i: flash_attention(q64, k64, v64, 0, scale=0.125), 8)
+    k64, v64 = (t.repeat_interleave(nh // nkv, dim=1) for t in (k64, v64))
+    lib64 = sm.device_ms(lambda i: F.scaled_dot_product_attention(
+        q64.transpose(1, 2), k64, v64, is_causal=True), 8)
+    b64, by64 = bound(2 * (2 * S * nh * 64 + 2 * nkv * S * 64),
+                      4 * 64 * nh * S * (S + 1) / 2, "bf16", rate)
+    print(f"  flash_attention hd=64 [S {S}, kv {S}, {nh} heads]: {ms64 * 1e3:.1f} us "
+          f"(bound {b64 * 1e3:.2f} us, {by64}; sdpa causal {lib64 * 1e3:.1f} us): "
+          f"{L * ms64:.5f} ms for {L} calls, sdpa {L * lib64:.5f}")
+    del q64, k64, v64
+
+    # flash_attention: one 512-token prefill (one call per layer).
     qf = torch.randn((1, S, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
     kf = dequantize_kv(cache.k[0, :, :, :S], cache.k_scale[0, :, :, :S])
     vf = dequantize_kv(cache.v[0, :, :, :S], cache.v_scale[0, :, :, :S])

@@ -198,6 +198,120 @@ __device__ __forceinline__ void warp_row_dot(const int8_t* __restrict__ wrow,
   }
 }
 
+// -- Decode attention split over cache positions (flash-decoding) -----------
+//
+// The positions [lo, length) of one (batch row, kv head) are cut into chunks
+// of `chunk` positions; chunk s covers [s * chunk, (s + 1) * chunk). One
+// block per chunk computes f32 partials (m, l, acc[hd]) for each query head
+// of the group; the last block of the (row, kv head) to arrive merges them.
+// Workspace of one launch (rows = B * nh query heads, n_split chunks each):
+// acc [rows][n_split][hd] f32, then (m, l) [rows][n_split][2] f32.
+
+// The chunks that hold a position of [lo, length) (at least the one of
+// length - 1, which holds the new token).
+struct SplitSpan {
+  int lo, hi;
+};
+__device__ __forceinline__ SplitSpan live_splits(int lo, int length, int chunk) {
+  const int hi = (length - 1) / chunk;
+  return {min(lo / chunk, hi), hi};
+}
+
+// NACC consecutive f32 values (8- or 16-byte aligned) in one access.
+__device__ __forceinline__ void store_f32s(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store_f32s(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void load_f32s_cg(const float* p, float (&v)[2]) {
+  const float2 x = __ldcg(reinterpret_cast<const float2*>(p));
+  v[0] = x.x; v[1] = x.y;
+}
+__device__ __forceinline__ void load_f32s_cg(const float* p, float (&v)[4]) {
+  const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+
+// One warp writes its query head's partial: acc[a] is dim lane * NACC + a.
+template <int NACC>
+__device__ __forceinline__ void write_partial(float* acc_ws, float* ml_ws, size_t idx,
+                                              const float (&acc)[NACC], float m, float l) {
+  const int lane = threadIdx.x & 31;
+  store_f32s(acc_ws + idx * (NACC * 32) + lane * NACC, acc);
+  if (lane == 0) reinterpret_cast<float2*>(ml_ws)[idx] = make_float2(m, l);
+}
+
+// Every thread of the block calls it after writing its partials. True in
+// every thread of the block that arrives last of `expected` on *counter;
+// that block also resets the counter to 0 for the next launch (all the
+// others have arrived, so none touches it again). `flag` is a __shared__ int.
+__device__ __forceinline__ bool arrive_last(int* counter, int expected, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(counter, 1) == expected - 1;
+    if (last) *counter = 0;
+    *flag = last;
+  }
+  __syncthreads();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// One warp merges the partials of query head `row` over the live chunks, in
+// chunk order (so the result does not depend on which block arrived last),
+// and writes out_row[lane * NACC + a]. Chunks are taken kMergeBatch at a
+// time, every load of a batch issued before any is used, with the running
+// max rescaled between batches. A chunk without a position (m = -inf)
+// weighs 0; with none at all the output is 0, as when l == 0.
+constexpr int kMergeBatch = 32;
+
+template <typename T, int NACC>
+__device__ __forceinline__ void combine_partials(const float* acc_ws, const float* ml_ws,
+                                                 size_t row, int n_split, SplitSpan sp,
+                                                 T* out_row) {
+  constexpr int hd = NACC * 32;
+  const int lane = threadIdx.x & 31;
+  const size_t base = row * n_split;
+  const float2* ml = reinterpret_cast<const float2*>(ml_ws) + base;
+  float M = -INFINITY, l = 0.f, acc[NACC];
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) acc[a] = 0.f;
+  for (int s0 = sp.lo; s0 <= sp.hi; s0 += kMergeBatch) {
+    const int n = min(kMergeBatch, sp.hi - s0 + 1);
+    const float2 p = lane < n ? __ldcg(&ml[s0 + lane]) : make_float2(-INFINITY, 0.f);
+    float x[kMergeBatch][NACC];
+#pragma unroll
+    for (int i = 0; i < kMergeBatch; ++i) {
+      if (i < n) {
+        load_f32s_cg(acc_ws + (base + s0 + i) * hd + lane * NACC, x[i]);
+      } else {
+#pragma unroll
+        for (int a = 0; a < NACC; ++a) x[i][a] = 0.f;
+      }
+    }
+    const float m_new = fmaxf(M, warp_max(p.x));
+    if (m_new == -INFINITY) continue;  // no position so far (warp-uniform)
+    const float alpha = expf(M - m_new);
+    const float wgt = p.x == -INFINITY ? 0.f : expf(p.x - m_new);
+    l = alpha * l + warp_sum(wgt * p.y);
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) acc[a] *= alpha;
+#pragma unroll
+    for (int i = 0; i < kMergeBatch; ++i) {
+      const float wi = __shfl_sync(0xffffffffu, wgt, i);
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) acc[a] += wi * x[i][a];
+    }
+    M = m_new;
+  }
+  const float l_inv = l == 0.f ? 1.f : 1.f / l;
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) out_row[lane * NACC + a] = from_f32<T>(acc[a] * l_inv);
+}
+
 // Quantize one head's new K or V row (hd values) with the op order of
 // cache.quantize_kv: scale = absmax/127, inv = 1/scale (0 when scale is 0),
 // code = clip(round(x * inv)). Writes the codes to dst and the scale to

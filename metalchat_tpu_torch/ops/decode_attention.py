@@ -12,8 +12,10 @@ Replaces ``metalchat_tpu/ops/decode_attention_pallas.py``:
   updated, in the activation dtype or int8; ``decode_attention`` /
   ``decode_attention_quantized`` are the same call on an unstacked layer.
 
-On the H100 it is bound by the bytes of the K/V rows it reads; see the CUDA
-source for its design.
+On the H100 it is bound by the bytes of the K/V rows it reads and, at
+batch 1, by latency. The kernel splits the positions over blocks of
+``SPLIT_CHUNK`` positions each and merges their partials in the same
+launch (flash-decoding); see the CUDA source for its design.
 
 Layouts: q ``[B, nh, hd]`` (heads kv-major), new rows ``[B, n_kv, hd]``,
 cache ``[L, B, n_kv, T, hd]`` (int8 with scales ``[L, B, n_kv, T]`` f32, or
@@ -39,15 +41,46 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+# Cache positions per block of the kernel (csrc/decode_attention.cu kChunk;
+# the kernel refuses any other value).
+SPLIT_CHUNK = 32
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("decode_attention")
-    lib.decode_attention_update.argtypes = [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P]
+    lib.decode_attention_update.argtypes = [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P]
     lib.decode_attention_update.restype = _I
-    lib.decode_attention.argtypes = [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _P]
+    lib.decode_attention.argtypes = [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P]
     lib.decode_attention.restype = _I
     return lib
+
+
+# Arrival counters of the kernel's in-launch merge, one int32 per (batch
+# row, kv head), by device. Zeroed once when made; every launch leaves them
+# zero. A grown buffer keeps the old one alive, since a captured CUDA graph
+# may still launch on it. Launches on one device share the counters, so
+# they must not run concurrently on two streams.
+_COUNTERS: dict = {}
+_RETIRED: list = []
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def _workspace(q: torch.Tensor, t_max: int) -> torch.Tensor:
+    """The kernel's f32 partials: ``B * nh * ceil(t_max / SPLIT_CHUNK) * (hd
+    + 2)`` values (acc, then m and l, of every query head and chunk)."""
+    b, nh, hd = q.shape
+    n_split = -(-t_max // SPLIT_CHUNK)
+    return torch.empty(b * nh * n_split * (hd + 2), dtype=torch.float32, device=q.device)
 
 
 def _window(window: Optional[int]) -> int:
@@ -161,8 +194,9 @@ def decode_attention_update_quantized_stacked(q, k_new, v_new, k, v, k_scale, v_
     rc = _lib().decode_attention_update(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k[layer].data_ptr(),
         v[layer].data_ptr(), k_scale[layer].data_ptr(), v_scale[layer].data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, nh, nkv, t_max, hd, float(scale),
-        _window(window), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+        lengths.data_ptr(), out.data_ptr(), _workspace(q, t_max).data_ptr(),
+        _counters(q.device, b * nkv).data_ptr(), b, nh, nkv, t_max, hd, SPLIT_CHUNK,
+        float(scale), _window(window), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(rc, "decode_attention_update")
     _build.count_launch("decode_attention_update")
     return out, k, v, k_scale, v_scale
@@ -206,9 +240,10 @@ def _read(q, k, v, k_scale, v_scale, layer: int, lengths, scale: float,
         q.data_ptr(), k[layer].data_ptr(), v[layer].data_ptr(),
         None if k_scale is None else k_scale[layer].data_ptr(),
         None if v_scale is None else v_scale[layer].data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, nh, nkv, t_max, hd, float(scale),
-        _window(window), int(q.dtype == torch.bfloat16), int(k_scale is not None),
-        _build.stream_ptr(q))
+        lengths.data_ptr(), out.data_ptr(), _workspace(q, t_max).data_ptr(),
+        _counters(q.device, b * nkv).data_ptr(), b, nh, nkv, t_max, hd, SPLIT_CHUNK,
+        float(scale), _window(window), int(q.dtype == torch.bfloat16),
+        int(k_scale is not None), _build.stream_ptr(q))
     _build.check(rc, "decode_attention")
     _build.count_launch("decode_attention")
     return out

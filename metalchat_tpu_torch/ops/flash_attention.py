@@ -4,8 +4,9 @@ its plain PyTorch version.
 Replaces ``metalchat_tpu/ops/flash_attention_pallas.py`` ``flash_attention``:
 S new queries from ``start_pos`` (int or int32 ``[B]``) over the head-major
 cache ``[B, n_kv, T, hd]``, causal, optional sliding window, f32 softmax
-statistics. On the H100 this first kernel is bound by its own CUDA-core
-arithmetic; see the CUDA source.
+statistics. On the H100 the bf16 kernel runs both products on the tensor
+cores (``wgmma``, P split into two bf16 parts), the f32 kernel on CUDA
+cores; see the CUDA source.
 
 q ``[B, S, nh, hd]`` → out ``[B, S, nh, hd]`` in q's dtype.
 """
@@ -29,7 +30,7 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("flash_attention")
-    lib.flash_attention.argtypes = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P]
+    lib.flash_attention.argtypes = [_P] * 4 + [_I, _P] + [_I] * 6 + [_F, _I, _I, _P]
     lib.flash_attention.restype = _I
     return lib
 
@@ -77,10 +78,13 @@ def flash_attention(q, k, v, start_pos, *, scale: float,
         raise ValueError("flash_attention: q, k, v bf16 or f32, same dtype")
     if hd not in (64, 128):
         raise ValueError(f"flash_attention: hd in (64, 128), got {hd}")
-    starts = _starts(start_pos, b, q.device)
+    # An int start goes to the kernel as a scalar: no tensor, no extra launch.
+    starts = _starts(start_pos, b, q.device) if torch.is_tensor(start_pos) else None
     out = torch.empty_like(q)
     rc = _lib().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if starts is None else starts.data_ptr(),
+        0 if starts is not None else int(start_pos), out.data_ptr(),
         b, s, nh, nkv, t_max, hd, float(scale),
         -1 if window is None else int(window), int(q.dtype == torch.bfloat16),
         _build.stream_ptr(q))

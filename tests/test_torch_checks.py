@@ -11,6 +11,13 @@ halves; for the merged FFN block a missing residual and one output tile
 off by one column. Each must fail the check.
 A wrapper that differs from the plain version only by f32 rounding noise
 must pass. The shapes are the fixture's (hd=64).
+
+The redesigned kernels' own rounding is emulated too. Decode attention
+split over chunks of ``SPLIT_CHUNK`` positions and merged in f32 must pass;
+leaving out the chunk that holds the new token must fail. Flash attention
+with P split into two bf16 parts (hi + lo) must pass; with P rounded to one
+bf16, as FlashAttention-2 usually does, it must fail: the check's limit is
+why the kernel splits P.
 """
 
 import importlib
@@ -37,6 +44,58 @@ def _noisy(out, dtype):
     return (out * (1 + 1e-6 * torch.randn(out.shape, generator=gen))).to(dtype)
 
 
+def _split_attention(q, k, v, k_scale, v_scale, lengths, *, scale, window=None,
+                     drop_last=False):
+    """Decode attention as the split kernel computes it: f32 partials (m, l,
+    acc) per chunk of SPLIT_CHUNK positions, merged in chunk order with
+    weights exp(m - max m). ``drop_last`` leaves out the chunk of length - 1."""
+    c = decode_mod.SPLIT_CHUNK
+    b, nh, hd = q.shape
+    nkv, t_max = k.shape[1], k.shape[2]
+    n_split = -(-t_max // c)
+    pad = n_split * c - t_max
+    s = torch.einsum("bkgd,bktd->bkgt", q.float().reshape(b, nkv, nh // nkv, hd),
+                     k.float()) * scale
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
+    t = torch.arange(t_max)[None, :]
+    length = lengths.long()[:, None]
+    ok = t < length
+    if window is not None and window >= 0:
+        ok &= t > length - 1 - window
+    if drop_last:
+        ok &= t // c != (length - 1) // c
+    vsc = torch.ones(b, nkv, t_max) if v_scale is None else v_scale
+    ok, vsc = (torch.nn.functional.pad(x, (0, pad)) for x in (ok, vsc))
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(b, nkv, nh // nkv, n_split, c)
+    okc = ok.reshape(b, 1, 1, n_split, c)
+    m = torch.where(okc, s, -torch.inf).amax(-1)                   # [b, k, g, n_split]
+    p = torch.where(okc, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    pv = p * vsc.reshape(b, nkv, 1, n_split, c)
+    vv = torch.nn.functional.pad(v.float(), (0, 0, 0, pad)).reshape(b, nkv, n_split, c, hd)
+    acc = torch.einsum("bkgsc,bkscd->bkgsd", pv, vv)
+    big = m.amax(-1, keepdim=True)
+    w = torch.where(m == -torch.inf, 0.0, torch.exp(m - big))
+    l = (w * l).sum(-1, keepdim=True)
+    o = (w[..., None] * acc).sum(-2) * torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+    return o.reshape(b, nh, hd).to(q.dtype)
+
+
+def test_split_emulation_is_the_plain_attention():
+    gen = torch.Generator().manual_seed(3)
+    b, nh, nkv, t_max, hd = 3, 6, 3, 100, 64
+    q = torch.randn((b, nh, hd), generator=gen, dtype=torch.float64).float()
+    k, v = (torch.randint(-127, 128, (b, nkv, t_max, hd), generator=gen, dtype=torch.int8)
+            for _ in range(2))
+    ks, vs = (torch.rand((b, nkv, t_max), generator=gen) * 0.01 for _ in range(2))
+    lengths = torch.tensor([1, 33, 100], dtype=torch.int32)
+    for window in (None, 40, 1):
+        want = decode_mod.attention_plain(q, k, v, ks, vs, lengths, scale=0.125, window=window)
+        got = _split_attention(q, k, v, ks, vs, lengths, scale=0.125, window=window)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
 def _faulty_decode(fault):
     plain = decode_mod.decode_attention_update_plain
 
@@ -45,6 +104,10 @@ def _faulty_decode(fault):
                             lengths, scale=scale, window=window)
         if fault == "noise":
             return _noisy(out, q.dtype), *cache
+        if fault in ("split", "split_drop_last"):
+            return _split_attention(q, k[layer], v[layer], ks[layer], vs[layer], lengths,
+                                    scale=scale, window=window,
+                                    drop_last=fault == "split_drop_last"), *cache
         b, nh, hd = q.shape
         nkv, t_max = k.shape[2], k.shape[3]
         s = torch.einsum("bkgd,bktd->bkgt", q.float().reshape(b, nkv, nh // nkv, hd),
@@ -84,12 +147,19 @@ def test_decode_check_passes_rounding_noise(monkeypatch, case):
     assert sm.share["decode_attention_update"] <= 1.0
 
 
+@pytest.mark.parametrize("case", chip_smoke.DECODE_CASES_FIXTURE, ids=str)
+def test_decode_check_passes_the_split_merge(monkeypatch, case):
+    sm = _run_decode(monkeypatch, "split", case)
+    assert sm.share["decode_attention_update"] <= 1.0
+
+
 # v_scale: the wrong position lies inside the attended range only in the
 # first two cases (the others attend a window or a zeroed cache there).
 @pytest.mark.parametrize("fault,case", [
     *(("drop_new", c) for c in chip_smoke.DECODE_CASES_FIXTURE),
     *(("edge", c) for c in chip_smoke.DECODE_CASES_FIXTURE),
-    *(("v_scale", c) for c in chip_smoke.DECODE_CASES_FIXTURE[:2])], ids=str)
+    *(("v_scale", c) for c in chip_smoke.DECODE_CASES_FIXTURE[:2]),
+    *(("split_drop_last", c) for c in chip_smoke.DECODE_CASES_FIXTURE)], ids=str)
 def test_decode_check_fails_a_one_row_fault(monkeypatch, fault, case):
     with pytest.raises(AssertionError, match="beyond the limit"):
         _run_decode(monkeypatch, fault, case)
@@ -103,6 +173,9 @@ def _faulty_read(fault):
             out = decode_mod.attention_plain(q.float(), k[layer], v[layer], *scales, lengths,
                                              scale=scale, window=window)
             return _noisy(out, q.dtype)
+        if fault in ("split", "split_drop_last"):
+            return _split_attention(q, k[layer], v[layer], *scales, lengths, scale=scale,
+                                    window=window, drop_last=fault == "split_drop_last")
         return decode_mod.attention_plain(q, k[layer], v[layer], *scales, lengths - 1,
                                           scale=scale, window=window)
 
@@ -131,6 +204,48 @@ def test_decode_read_check_fails_a_dropped_last_row(monkeypatch, kv, case):
         _run_read(monkeypatch, "drop_last", kv, case)
 
 
+@pytest.mark.parametrize("kv", ["act", "int8"])
+@pytest.mark.parametrize("case", chip_smoke.READ_CASES_FIXTURE, ids=str)
+def test_decode_read_check_passes_the_split_merge(monkeypatch, kv, case):
+    assert _run_read(monkeypatch, "split", kv, case).share["decode_attention"] <= 1.0
+
+
+@pytest.mark.parametrize("kv", ["act", "int8"])
+@pytest.mark.parametrize("case", chip_smoke.READ_CASES_FIXTURE, ids=str)
+def test_decode_read_check_fails_a_dropped_last_chunk(monkeypatch, kv, case):
+    with pytest.raises(AssertionError, match="beyond the limit"):
+        _run_read(monkeypatch, "split_drop_last", kv, case)
+
+
+def test_smoke_chunk_is_the_kernels():
+    assert chip_smoke.SPLIT_CHUNK == decode_mod.SPLIT_CHUNK
+
+
+def _p_rounded_flash(q, k, v, start, *, scale, window=None, split=True):
+    """Flash attention with P rounded for a bf16 PV product: hi = bf16(p),
+    and with ``split`` also lo = bf16(p - hi), each product summed in f32;
+    the row sum from the f32 p (the tensor-core kernel's arithmetic)."""
+    b, s, nh, hd = q.shape
+    nkv, t_max = k.shape[1], k.shape[2]
+    q_pos = flash_mod._starts(start, b, q.device).long()[:, None] + torch.arange(s)[None, :]
+    kv_pos = torch.arange(t_max)[None, None, :]
+    ok = kv_pos <= q_pos[:, :, None]
+    if window is not None and window >= 0:
+        ok &= kv_pos > q_pos[:, :, None] - window
+    scores = torch.einsum("bskgd,bktd->bkgst", q.float().reshape(b, s, nkv, nh // nkv, hd),
+                          k.float()) * scale
+    scores = torch.where(ok[:, None, None], scores, MASK_VALUE)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    hi = p.to(torch.bfloat16).float()
+    o = torch.einsum("bkgst,bktd->bkgsd", hi, v.float())
+    if split:
+        lo = (p - hi).to(torch.bfloat16).float()
+        o = o + torch.einsum("bkgst,bktd->bkgsd", lo, v.float())
+    o = o * torch.where(l == 0.0, torch.ones_like(l), 1.0 / l)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, nh, hd).to(q.dtype)
+
+
 def _faulty_flash(fault):
     plain = flash_mod.flash_attention_plain
 
@@ -138,6 +253,9 @@ def _faulty_flash(fault):
         if fault == "noise":
             out = plain(q.float(), k.float(), v.float(), start, scale=scale, window=window)
             return _noisy(out, q.dtype)
+        if fault in ("p_split", "p_bf16"):
+            return _p_rounded_flash(q, k, v, start, scale=scale, window=window,
+                                    split=fault == "p_split")
         if window is None:  # every query one position early: its causal edge
             return plain(q, k, v, start - 1, scale=scale)
         return plain(q, k, v, start, scale=scale, window=window + 1)
@@ -160,9 +278,23 @@ def test_flash_check_passes_rounding_noise(monkeypatch, case):
 
 
 @pytest.mark.parametrize("case", chip_smoke.FLASH_CASES_FIXTURE, ids=str)
+def test_flash_check_passes_p_split_into_two_bf16_parts(monkeypatch, case):
+    sm = _run_flash(monkeypatch, "p_split", case)
+    assert sm.share["flash_attention"] <= 1.0
+
+
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES_FIXTURE, ids=str)
 def test_flash_check_fails_an_edge_fault(monkeypatch, case):
     with pytest.raises(AssertionError, match="beyond the limit"):
         _run_flash(monkeypatch, "edge", case)
+
+
+# Every case but the last, whose window of 1 leaves p = 1 alone in each row,
+# exact in bf16.
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES_FIXTURE[:3], ids=str)
+def test_flash_check_fails_p_rounded_to_bf16(monkeypatch, case):
+    with pytest.raises(AssertionError, match="beyond the limit"):
+        _run_flash(monkeypatch, "p_bf16", case)
 
 
 paged_mod = importlib.import_module("metalchat_tpu_torch.ops.paged_attention")

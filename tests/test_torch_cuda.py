@@ -56,6 +56,38 @@ def test_flash_attention_kernel(card, dtype):
                            getattr(torch, dtype))
 
 
+# The redesigned kernels at their new edges, at the 8B shapes: decode lengths
+# around the chunk of SPLIT_CHUNK positions, windows starting inside a chunk,
+# a serve batch that leaves most chunks dead; flash over a ragged S from
+# unaligned starts.
+def test_decode_attention_chunk_edges_8b(card):
+    sm, gen, dev = card
+    chip_smoke.check_decode(sm, 1, 32, 8, 1024, 128, chip_smoke.DECODE_CASES_8B, gen, dev)
+    chip_smoke.check_decode(sm, 8, 32, 8, 1024, 128, chip_smoke.DECODE_CASES_SERVE[-1:], gen,
+                            dev)
+
+
+@pytest.mark.parametrize("kv", ["act", "int8"])
+def test_decode_attention_read_dead_chunks_8b(card, kv):
+    sm, gen, dev = card
+    lengths = chip_smoke.DECODE_CASES_SERVE[-1][0]
+    chip_smoke.check_decode_read(sm, 8, 32, 8, 1024, 128,
+                                 [(lengths, None), (lengths, chip_smoke.SPLIT_CHUNK + 3)], gen,
+                                 dev, kv=kv)
+
+
+def test_flash_attention_ragged_8b(card):
+    sm, gen, dev = card
+    chip_smoke.check_flash(sm, 1, chip_smoke.FLASH_RAGGED_S, 32, 8, 1024, 128,
+                           chip_smoke.FLASH_CASES_RAGGED, gen, dev)
+
+
+def test_attention_kernels_in_a_cuda_graph(card):
+    sm, gen, dev = card
+    chip_smoke.check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
+    chip_smoke.check_graph_replay(sm, 3, 6, 3, 256, 64, gen, dev)
+
+
 @DTYPES
 def test_paged_attention_kernel(card, dtype):
     sm, gen, dev = card
