@@ -15,16 +15,19 @@ Phases (any failure makes the script exit non-zero without a result line):
    elementwise within one bf16 rounding step of the plain version's (see
    ``RTOL``), the fused matvec with its norm prologue within 1e-2 abs; lengths
    at block edges, length 1, windows, and a zeroed cache whose output comes
-   from the new row alone. The serve path's shapes too: the matvec at 8
-   rows of the 8B widths, decode attention (write and read-only, bf16 and
+   from the new row alone. The matvec at 1, 2, 3, 5, 8 and 16 rows of the
+   8B widths (int8 at 1 and 8), with a8_quantize (2-16 rows) held to the
+   plain prologue's codes. The serve path's shapes too: decode attention
+   (write and read-only, bf16 and
    int8 caches) at 8 rows of per-row lengths up to 1024, flash over
    256-token chunks of 8 rows at per-row offsets. Decode lengths at the
    edges of the kernel's 32-position chunks (``SPLIT_CHUNK``), windows
    starting inside a chunk, a batch that leaves most chunks dead; flash over
    a ragged 137-token chunk from unaligned starts; each attention wrapper
-   called twice inside one CUDA graph, replayed twice: outputs equal bit for
-   bit across replays (the decode merge's order is fixed and its arrival
-   counters reset) and within the limit of the plain version.
+   and the matvec at 2 rows (fused: two launches; raw) called twice inside
+   one CUDA graph, replayed twice: outputs equal bit for bit across replays
+   (the decode merge's order is fixed and its arrival counters reset) and
+   within the limit of the plain version (raw exact).
    The paged kernel (both modes) at the 8B serving shape (8 rows, pages of
    256, 4 pages a row, 32 + 1 pages) and the fixture's (pages of 16), page
    tables shuffled with one free row at the sentinel: outputs of the rows
@@ -57,7 +60,8 @@ Phases (any failure makes the script exit non-zero without a result line):
    paged (pages of 256) then dense int8, each after a 2-request warm-up:
    tok/s, TTFT and service TTFT p50/p99, the share of the full-slot decode
    roofline, and launch counts held exactly to the engine's counters and
-   prompt-chunk shapes; then ``torch.profiler``
+   prompt-chunk shapes (a8_quantize once per matvec call of 2-16 rows, 0 in
+   the batch-1 generate phases); then ``torch.profiler``
    over one paged decode dispatch (8 steps) with all 8 slots decoding.
 8. http: the fixture behind ``InferenceServer`` on 127.0.0.1 (paged, on the
    card): a blocking completion, its SSE stream (same text), a chat
@@ -65,8 +69,9 @@ Phases (any failure makes the script exit non-zero without a result line):
 9. Each kernel timed with CUDA events at its path's shapes beside its bound,
    its plain version and one PyTorch library call as a yardstick: timing at
    the generate path's shapes (and row 3 at lengths 64 and 1024, row 4 at
-   hd=64, kernel and yardstick only), timing-serve at the serve path's (8 rows),
-   timing-ffn (row 10 beside the unmerged route) and timing-int4 (row 11).
+   hd=64, kernel and yardstick only), timing-serve at the serve path's (8 rows;
+   rows 1-2 per matrix with a8_quantize alone, and their step at 2 and 16
+   rows), timing-ffn (row 10 beside the unmerged route) and timing-int4 (row 11).
 
 The last lines are the kernel table as one JSON object (rows 1-11 of the
 JAX package's TPU kernels), the card's name and power limit, and
@@ -130,12 +135,13 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.failures = []
-        self.err = {"a8_matvec": 0.0, "decode_attention_update": 0.0,
+        self.err = {"a8_matvec": 0.0, "a8_quantize": 0.0, "decode_attention_update": 0.0,
                     "decode_attention": 0.0, "flash_attention": 0.0,
                     "paged_decode_attention_update": 0.0, "paged_decode_attention": 0.0,
                     "quant_matmul": 0.0, "ffn_block": 0.0}
         self.share = dict.fromkeys(self.err, 0.0)  # worst error / its limit
         self.tok_s = {}  # decode tok/s by run
+        self.a8_library = {}  # torch._int_mm at M=17 per matvec shape (phase timing)
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -237,9 +243,10 @@ def phase_build():
         print(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers; spills: {spills or 'none'}")
     # The instances redesigned last, one line each.
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("a8_matvec", "flash_attention", "decode_attention"):
         for fn, regs, spill in entry_functions(_build.build_log(name)):
-            print(f"    {name} {fn}: {regs} registers, spill stores/loads {spill} bytes")
+            if name != "a8_matvec" or "a8_matvec_kernel" not in fn:
+                print(f"    {name} {fn}: {regs} registers, spill stores/loads {spill} bytes")
     return seconds
 
 
@@ -269,7 +276,36 @@ def entry_functions(log: str):
 
 # -- phase 3: kernels vs plain versions on the card ---------------------------
 
+def check_quantize(sm: Smoke, x, nw, what: str):
+    """a8_quantize (2-16 rows) against the plain prologue: without the norm
+    the codes, sx and corr are exact (same op order); with it the f32
+    statistics may reduce in another order and move a code by one quantum
+    at a rounding boundary (and the largest value by one step of x's dtype),
+    so codes within 1, sx within ``RTOL`` of x's dtype, and corr exact against
+    the kernel's own codes."""
+    torch = sm.torch
+    from metalchat_tpu_torch.ops import a8_matvec as m
+
+    kw = dict(norm_w=nw, norm_eps=None if nw is None else 1e-5)
+    xq, sx, corr = m.quantize_rows(x, **kw)
+    want_q, want_s, want_c = m.quantize_rows_plain(x, **kw)
+    moved = (xq.int() - want_q.int()).abs().max().item()
+    sm.err["a8_quantize"] = max(sm.err["a8_quantize"], moved)
+    sm.share["a8_quantize"] = max(sm.share["a8_quantize"], moved)
+    if nw is None:
+        sm.exact(xq, want_q, what + " codes")
+        sm.exact(sx, want_s, what + " sx")
+        sm.exact(corr, want_c, what + " corr")
+        return
+    sm.expect(moved <= 1, f"{what}: a code moved by {moved} quanta")
+    rtol = RTOL[str(x.dtype).removeprefix("torch.")]
+    sm.expect(bool(((sx - want_s).abs() <= rtol * want_s.abs()).all()), f"{what}: sx")
+    sm.exact(corr, 8 * xq[:, :x.shape[1] // 2].sum(dim=1, dtype=torch.int32), what + " corr")
+
+
 def check_a8(sm: Smoke, shapes, batch: int, gen, dev, dtype=None):
+    """Raw mode int32-exact, fused within RTOL of the plain version (1e-2
+    abs with the norm prologue); at 2-16 rows a8_quantize on its own too."""
     torch = sm.torch
     dtype = dtype or torch.bfloat16
     from metalchat_tpu_torch.ops import a8_matvec as m
@@ -295,6 +331,8 @@ def check_a8(sm: Smoke, shapes, batch: int, gen, dev, dtype=None):
             sm.close("a8_matvec", m.quant_matvec_stacked_fused(x, p, s, 1, **kw),
                      m.quant_matvec_stacked_fused_plain(x, p, s, 1, **kw),
                      what + " fused+norm", loose=True)
+        if batch > 1:
+            check_quantize(sm, x, nw[1] if with_norm else None, what + " a8_quantize")
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
@@ -393,9 +431,13 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
     the decode kernel's arrival counters at 0; its output must be equal bit
     for bit across the two replays (the merge order is fixed) and within
     the limit of the plain version. Rows at very different lengths, one in
-    a window that starts inside a chunk."""
+    a window that starts inside a chunk. The same for the matvec at B rows
+    (wqkv's shape, int4): the fused route's two launches (a8_quantize, then
+    the tensor-core matvec, whose inputs the wrapper allocates on every
+    call) with the norm prologue, and raw mode, exact."""
     torch = sm.torch
     dtype = dtype or torch.bfloat16
+    from metalchat_tpu_torch.ops import a8_matvec as am
     from metalchat_tpu_torch.ops import decode_attention as dm
     from metalchat_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
@@ -416,20 +458,35 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
     starts = torch.tensor([T - S - 3 * b for b in range(B)], dtype=torch.int32, device=dev)
     kw = dict(scale=hd ** -0.5)
     ref_cache = [t.clone() for t in (k, v, ks, vs)]
-    cases = {
+    in_f, out_f = nh * hd, (nh + 2 * nkv) * hd
+    pw = torch.randint(-128, 128, (2, out_f, in_f // 2), generator=gen, device=dev,
+                       dtype=torch.int8)
+    sw = (torch.rand((2, 1, out_f), generator=gen, device=dev) * 0.0015 + 0.0005).to(
+        torch.bfloat16)
+    nw = (torch.rand((2, in_f), generator=gen, device=dev) + 0.5).to(dtype)
+    xa = torch.randn((B, in_f), generator=gen, device=dev).to(dtype)
+    xq = torch.randint(-127, 128, (B, in_f), generator=gen, device=dev, dtype=torch.int8)
+    a8 = dict(bits=4, norm_stack=nw, norm_eps=1e-5)
+    cases = {  # name: (call, plain output, comparison)
         "decode_attention_update": (
             lambda: dm.decode_attention_update_quantized_stacked(
                 q, kn, vn, k, v, ks, vs, 1, lens, window=window, **kw)[0],
             dm.decode_attention_update_plain(q, kn, vn, *ref_cache, 1, lens, window=window,
-                                             **kw)[0]),
+                                             **kw)[0], "close"),
         "decode_attention": (
             lambda: dm.decode_attention_stacked(q, kc, vc, 1, lens, **kw),
-            dm.decode_attention_stacked_plain(q, kc, vc, None, None, 1, lens, **kw)),
+            dm.decode_attention_stacked_plain(q, kc, vc, None, None, 1, lens, **kw), "close"),
         "flash_attention": (
             lambda: flash_attention(qf, kf, vf, starts, **kw),
-            flash_attention_plain(qf, kf, vf, starts, **kw)),
+            flash_attention_plain(qf, kf, vf, starts, **kw), "close"),
+        "a8_matvec": (
+            lambda: am.quant_matvec_stacked_fused(xa, pw, sw, 1, **a8),
+            am.quant_matvec_stacked_fused_plain(xa, pw, sw, 1, **a8), "loose"),
+        "a8_matvec_raw": (
+            lambda: am.quant_matvec_stacked(xq, pw, 1, bits=4),
+            am.quant_matvec_stacked_plain(xq, pw, 1, bits=4), "exact"),
     }
-    for name, (kernel, want) in cases.items():
+    for name, (kernel, want, compare) in cases.items():
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -445,9 +502,12 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
             graph.replay()
             torch.cuda.synchronize()
             replays.append(out.clone())
-        what = f"{name} lengths={lengths} second call in a CUDA graph"
+        what = f"{name} lengths={lengths} B={B} second call in a CUDA graph"
         sm.exact(replays[0], replays[1], f"{what}: two replays")
-        sm.close(name, replays[1], want, what)
+        if compare == "exact":
+            sm.exact(replays[1], want, what)
+        else:
+            sm.close(name, replays[1], want, what, loose=compare == "loose")
     for a, b, nm in zip((k, v, ks, vs), ref_cache, ("k", "v", "k_scale", "v_scale")):
         sm.exact(a, b, f"decode_attention_update in a CUDA graph: cache {nm}")
 
@@ -591,6 +651,17 @@ def check_ffn_block(sm: Smoke, H, F, rows: int, cases, gen, dev, dtype=None, L=2
             torch.cuda.synchronize()
 
 
+# Row 1 at the 8b-w4a8 decode shapes (wqkv and w13 fused, with the norm
+# prologue), int4, at each row count; int8 at two of them.
+A8_8B = [("wqkv", 6144, 4096, 4, True), ("wo", 4096, 4096, 4, False),
+         ("w13", 28672, 4096, 4, True), ("w2", 4096, 14336, 4, False),
+         ("lm_head", 128256, 4096, 4, False)]
+A8_8B_W8 = [("wo", 4096, 4096, 8, False), ("wqkv", 6144, 4096, 8, True)]
+A8_ROWS = (1, 2, 3, 5, 8, 16)
+# The fixture's widths (hidden 384, intermediate 1024), an int8 lm_head.
+A8_FIXTURE = [("wqkv", 768, 384, 4, True), ("wo", 384, 384, 4, False),
+              ("w13", 2048, 384, 4, True), ("w2", 384, 1024, 4, False),
+              ("lm_head", 384, 384, 8, False)]
 # Row 11 at the 8b-int4 shapes (bench.py --config 8b-int4: group 32, the fused
 # wqkv, w13 and lm_head transposed, wo and w2 not) and the 1b-int8 shapes
 # (Llama-3.2-1B widths, int8, group 32).
@@ -668,18 +739,14 @@ def phase_kernels(sm: Smoke):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    h, f, v = 4096, 14336, 128256
-    check_a8(sm, [("wqkv", 6144, h, 4, True), ("wo", h, h, 4, False),
-                  ("w13", 2 * f, h, 4, True), ("w2", h, f, 4, False),
-                  ("lm_head", v, h, 4, False), ("wo", h, h, 8, False)], 1, gen, dev)
-    # The serve decode step: 8 rows through the MAXB=16 instance, whose
-    # shared memory (8 rows of 14336 for w2) needs the opt-in above 48 KiB.
-    check_a8(sm, [("wqkv", 6144, h, 4, True), ("wo", h, h, 4, False),
-                  ("w13", 2 * f, h, 4, True), ("w2", h, f, 4, False),
-                  ("lm_head", v, h, 4, False)], 8, gen, dev)
-    check_a8(sm, [("wqkv", 768, 384, 4, True), ("wo", 384, 384, 4, False),
-                  ("w13", 2048, 384, 4, True), ("w2", 384, 1024, 4, False),
-                  ("lm_head", 384, 384, 8, False)], 3, gen, dev)
+    # One row (the generate path's instance), then 2-16 rows (a8_quantize and
+    # the tensor-core matvec: one n-tile up to 8 rows, two above; the serve
+    # decode step is 8 rows), int4, and int8 at 1 and 8 rows.
+    for rows in A8_ROWS:
+        check_a8(sm, A8_8B, rows, gen, dev)
+    for rows in (1, 8):
+        check_a8(sm, A8_8B_W8, rows, gen, dev)
+    check_a8(sm, A8_FIXTURE, 3, gen, dev)
     check_decode(sm, 1, 32, 8, 1024, 128, DECODE_CASES_8B, gen, dev)
     check_decode(sm, 8, 32, 8, 1024, 128, DECODE_CASES_SERVE, gen, dev)
     check_decode(sm, 3, 6, 3, 256, 64, DECODE_CASES_FIXTURE, gen, dev)
@@ -699,7 +766,8 @@ def phase_kernels(sm: Smoke):
     for rows in (1, 8):
         check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
     check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
-    print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact): "
+    print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact; a8_quantize "
+          "in int8 code quanta): "
           + ", ".join(f"{k} {v:.3g} ({sm.share[k]:.3g} of its limit)"
                       for k, v in sm.err.items()))
 
@@ -730,6 +798,9 @@ def phase_fixture(sm: Smoke):
     sm.expect(first16, "fixture: first 16 greedy tokens differ between card and CPU")
     sm.expect(all(counts[k] > 0 for k in GENERATE_KERNELS),
               f"fixture: a kernel never ran {counts}")
+    # Decode runs 3 rows: every fused matvec call quantizes its rows once.
+    sm.expect(counts["a8_quantize"] == counts["a8_matvec"],
+              f"fixture: a8_quantize {counts['a8_quantize']} != a8_matvec {counts['a8_matvec']}")
 
 
 # -- phase 5: 8b-w4a8 at full width --------------------------------------------
@@ -823,7 +894,8 @@ def phase_main(sm: Smoke, dev_name: str):
     cfg, params = make_8b(sm, "8b-w4a8", bits=4, group_size=None, act_bits=8)
     L = cfg.num_layers
     return drive_generate(sm, dev_name, "8b-w4a8 main path", cfg, params,
-                          {"a8_matvec": 4 * L + 1, "decode_attention_update": L})
+                          {"a8_matvec": 4 * L + 1, "a8_quantize": 0,
+                           "decode_attention_update": L})
 
 
 def phase_main_int4(sm: Smoke, dev_name: str):
@@ -846,7 +918,8 @@ def phase_main_ffn_block(sm: Smoke, main, dev_name: str):
     cfg, params = main[0], main[1]
     L = cfg.num_layers
     run = drive_generate(sm, dev_name, "8b-w4a8 ffn_block", cfg, params,
-                         {"ffn_block": L, "a8_matvec": L + 1, "decode_attention_update": L},
+                         {"ffn_block": L, "a8_matvec": L + 1, "a8_quantize": 0,
+                          "decode_attention_update": L},
                          ffn_block=True)
     print(f"8b-w4a8 decode: ffn_block {sm.tok_s['8b-w4a8 ffn_block']:.2f} tok/s beside "
           f"unmerged {sm.tok_s['8b-w4a8 main path']:.2f} tok/s (one run each, the same "
@@ -1077,10 +1150,14 @@ def phase_serve(sm: Smoke, main, rate: float):
         # when S == 1), longer ones flash attention.
         shapes = engine.prefill_shapes
         short = sum(n for (b, s), n in shapes.items() if s <= 16 and b * s <= 16)
+        short_multi = sum(n for (b, s), n in shapes.items() if s <= 16 and 2 <= b * s <= 16)
         single = sum(n for (b, s), n in shapes.items() if s == 1)
         long_ = sum(n for (b, s), n in shapes.items() if s > 16)
         attn = "paged_decode_attention_update" if mode == "paged" else "decode_attention_update"
-        want = {"a8_matvec": (4 * L + 1) * (steps + short), attn: L * (steps + single),
+        # Every decode step runs all 8 slots' rows: a8_quantize once for
+        # each fused matvec call of 2-16 rows.
+        want = {"a8_matvec": (4 * L + 1) * (steps + short),
+                "a8_quantize": (4 * L + 1) * (steps + short_multi), attn: L * (steps + single),
                 "flash_attention": L * long_}
         print(f"serve 8b-w4a8 {mode}: {len(done)} requests, {total} tokens in {wall:.3f} s = "
               f"{tok_s:.2f} tok/s, {tok_s / roof:.4f} of the full-slot decode roofline "
@@ -1222,10 +1299,11 @@ def profile_window(torch, name: str, fn) -> None:
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     by_name = {}
     for e in kernels:
-        key = next((k for k in ("a8_matvec", "decode_kernel", "flash", "paged_kernel",
-                                "qmm_", "ffn_block") if k in e.name), e.name[:48])
+        key = next((k for k in ("a8_matvec", "a8_mma", "a8_quantize", "decode_kernel",
+                                "flash", "paged_kernel", "qmm_", "ffn_block") if k in e.name),
+                   e.name[:48])
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:7]
     print(f"  profile {name}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms ({busy / wall_us:.4f} of wall), {len(kernels)} "
           "kernels; device ms by kernel: "
@@ -1319,6 +1397,7 @@ def phase_timing(sm: Smoke, main, rate: float):
         xq17 = torch.randint(-127, 128, (17, in_f), generator=gen, device=dev,
                              dtype=torch.int8)
         lib = sm.device_ms(lambda i: torch._int_mm(xq17, unpacked[i % n_lib].t()), 32)
+        sm.a8_library[name] = lib
         del unpacked
         # Raw mode (int8 rows in, int32 out) at the same shapes.
         xq1 = xq17[:1]
@@ -1441,7 +1520,98 @@ SERVE_ROWS = {"paged_decode_attention_update": 8, "paged_decode_attention_stacke
               "decode_attention": 5}
 
 
-def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, rate: float):
+def time_a8_serve(sm: Smoke, cfg, params, one_row, counts, rate: float):
+    """Rows 1 and 2 at the serve decode step's 8 rows, per matrix: the fused
+    call (a8_quantize, then the tensor-core matvec), a8_quantize alone, the
+    plain version, the bound, phase timing's yardstick (torch._int_mm at
+    M=17 on unpacked int8 weights) and raw mode; then the step's totals at 2
+    and 16 rows. ``one_row`` holds phase timing's rows 1 and 2 (one row, the
+    generate path), which go into the unit."""
+    torch = sm.torch
+    from metalchat_tpu_torch.ops import a8_matvec as am
+
+    dev = torch.device("cuda")
+    L, eps = cfg.num_layers, cfg.rms_norm_eps
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    steps = {}
+    for rows in (8, 2, 16):
+        step = dict.fromkeys(("ms", "quantize_ms", "bound_ms", "library_ms", "plain_ms",
+                              "quantize_plain_ms", "quantize_bound_ms", "raw_ms",
+                              "raw_plain_ms", "raw_bound_ms"), 0.0)
+        for name, pq, ps, xin, norm, per_step in a8_calls(torch, cfg, params, rows, gen):
+            n_layers, out_f, k = pq.shape
+            in_f = 2 * k
+            kw = dict(bits=4) if norm is None else dict(bits=4, norm_stack=norm, norm_eps=eps)
+            qkw = {} if norm is None else dict(norm_eps=eps)
+            nw = (lambda i: None) if norm is None else (lambda i: norm[i % n_layers])  # noqa: E731
+            vals = dict(
+                ms=sm.device_ms(lambda i: am.quant_matvec_stacked_fused(
+                    xin, pq, ps, i % n_layers, **kw), 64),
+                quantize_ms=sm.device_ms(lambda i: am.quantize_rows(xin, nw(i), **qkw), 64),
+                bound_ms=a8_bound(pq, norm, rows, rate)[0], library_ms=sm.a8_library[name])
+            if rows == 8:
+                xq = torch.randint(-127, 128, (rows, in_f), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                vals.update(
+                    plain_ms=sm.eager_ms(lambda i: am.quant_matvec_stacked_fused_plain(
+                        xin, pq, ps, i % n_layers, **kw), 3),
+                    quantize_plain_ms=sm.eager_ms(
+                        lambda i: am.quantize_rows_plain(xin, nw(i), **qkw), 3),
+                    # x in, the norm weights, codes, sx and corr out
+                    quantize_bound_ms=bound(rows * in_f * 3 + (0 if norm is None else 2 * in_f)
+                                            + rows * 8, 0, "f32", rate)[0],
+                    raw_ms=sm.device_ms(lambda i: am.quant_matvec_stacked(
+                        xq, pq, i % n_layers, bits=4), 64),
+                    raw_plain_ms=sm.eager_ms(lambda i: am.quant_matvec_stacked_plain(
+                        xq, pq, i % n_layers, bits=4), 3),
+                    raw_bound_ms=bound(out_f * k + rows * in_f + rows * out_f * 4,
+                                       2 * rows * in_f * out_f, "int8", rate)[0])
+                print(f"  a8_matvec {name} [{out_f}x{in_f} w4, {rows} rows]: "
+                      f"{vals['ms'] * 1e3:.2f} us (a8_quantize alone "
+                      f"{vals['quantize_ms'] * 1e3:.2f} us; bound {vals['bound_ms'] * 1e3:.2f} "
+                      f"us, bytes; plain {vals['plain_ms'] * 1e3:.1f} us; _int_mm M=17 int8 "
+                      f"{vals['library_ms'] * 1e3:.2f} us); raw mode {vals['raw_ms'] * 1e3:.2f} "
+                      f"us (bound {vals['raw_bound_ms'] * 1e3:.2f} us) x{per_step}/step")
+            for key, val in vals.items():
+                step[key] += per_step * val
+        steps[rows] = step
+        print(f"  a8_matvec at {rows} rows, one serve decode step ({4 * L + 1} calls): "
+              f"{step['ms']:.4f} ms, a8_quantize alone {step['quantize_ms']:.4f} ms (bound "
+              f"{step['bound_ms']:.4f} ms, bytes; _int_mm M=17 {step['library_ms']:.4f} ms)")
+    s8 = steps[8]
+    at = {r: f"{steps[r]['ms']:.4f} ms (bound {steps[r]['bound_ms']:.4f})" for r in (2, 16)}
+
+    def at_one(r):
+        return (f"at 1 row (generate) {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}, plain "
+                f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, launches {r['launches']}")
+
+    common = dict(source="metalchat_tpu_torch/csrc/a8_matvec.cu", route="cuda", bound_by="bytes")
+    return [
+        dict(common, row=1, name="a8_matvec", counter="a8_matvec",
+             replaces="metalchat_tpu/ops/a8_matvec_pallas.py:262", ms=s8["ms"],
+             plain_ms=s8["plain_ms"], bound_ms=s8["bound_ms"], library_ms=s8["library_ms"],
+             max_abs_err=sm.err["a8_matvec"], launches=counts["a8_matvec"],
+             unit=f"one serve decode step at 8 rows ({4 * L + 1} calls, each a8_quantize and "
+                  f"the tensor-core matvec); 2 rows {at[2]}, 16 rows {at[16]}; "
+                  + at_one(one_row[1])),
+        dict(common, row=1, name="a8_quantize", counter="a8_quantize",
+             replaces="metalchat_tpu/ops/a8_matvec_pallas.py:262", ms=s8["quantize_ms"],
+             plain_ms=s8["quantize_plain_ms"], bound_ms=s8["quantize_bound_ms"],
+             library_ms=None, max_abs_err=sm.err["a8_quantize"], launches=counts["a8_quantize"],
+             unit=f"the act-quant of row 1's {4 * L + 1} calls at 8 rows (inside row 1's "
+                  "time); max_abs_err in int8 code quanta; library_ms null: no single "
+                  "PyTorch call"),
+        dict(common, row=2, name="a8_matvec_raw", counter="a8_matvec_raw",
+             replaces="metalchat_tpu/ops/a8_matvec_pallas.py:187", ms=s8["raw_ms"],
+             plain_ms=s8["raw_plain_ms"], bound_ms=s8["raw_bound_ms"],
+             library_ms=s8["library_ms"], max_abs_err=0.0, launches=counts["a8_matvec_raw"],
+             unit=f"one serve decode step's {4 * L + 1} shapes at 8 rows, int8 rows in, int32 "
+                  "out (raw mode, on no driven path; library as row 1); " + at_one(one_row[2])),
+    ]
+
+
+def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, one_row, rate: float):
     """The serve path's attention kernels at its shapes, one decode step
     (one call per layer) of 8 rows with lengths spread 128..1024. The paged
     kernel over the serve run's pool: write mode (row 8) and read-only on
@@ -1449,12 +1619,11 @@ def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, rate: float):
     The dense kernel's read-only mode over a bf16 cache of 8 rows of 1024
     (row 5, the engine's default dense mode). Library yardstick: SDPA over
     the same K/V in bf16 (pages gathered and dequantized), heads repeated, a
-    length mask. Then the matvecs of one decode step at 8 rows."""
+    length mask. First the matvecs of one decode step (`time_a8_serve`)."""
     torch = sm.torch
     import torch.nn.functional as F
 
     from metalchat_tpu_torch.cache import dequantize_kv, gather_page_scales, gather_pages_dense
-    from metalchat_tpu_torch.ops import a8_matvec as am
     from metalchat_tpu_torch.ops import decode_attention as dm
     from metalchat_tpu_torch.ops import paged_attention as pm
 
@@ -1522,18 +1691,7 @@ def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, rate: float):
                                                      scale=scale),
          dense_bytes, lib_dense, fixture_counts["dense-act"]),
     ]
-    # The matvecs of one serve decode step (8 rows), kernel and bound only.
-    a8_ms = a8_bound_ms = 0.0
-    for _, pq, ps, xin, norm, per_step in a8_calls(torch, cfg, main[1], B, gen):
-        kw = dict(bits=4) if norm is None else dict(
-            bits=4, norm_stack=norm, norm_eps=cfg.rms_norm_eps)
-        a8_ms += per_step * sm.device_ms(lambda i: am.quant_matvec_stacked_fused(
-            xin, pq, ps, i % pq.shape[0], **kw), 64)
-        a8_bound_ms += per_step * a8_bound(pq, norm, B, rate)[0]
-    print(f"  a8_matvec at {B} rows, one serve decode step ({4 * L + 1} calls): "
-          f"{a8_ms:.4f} ms (bound {a8_bound_ms:.4f} ms, bytes)")
-
-    rows = []
+    rows = time_a8_serve(sm, cfg, main[1], one_row, serve["paged"]["counts"], rate)
     for name, counter, source, replaces, mode, kernel, plain, nbytes, lib_ms, path in cases:
         ms = L * sm.device_ms(kernel, 64)
         plain_ms = L * sm.eager_ms(plain, 3)
@@ -1722,9 +1880,12 @@ def main() -> int:
         if main_run is not None:
             rows = sm.phase("timing", lambda: phase_timing(sm, main_run, hbm_rate(dev_name)))
         if serve is not None and fixture_counts is not None and rows is not None:
+            # Rows 1 and 2 at one row move into the unit of their 8-row rows.
+            one_row = {r["row"]: r for r in rows if r["row"] in (1, 2)}
             serve_rows = sm.phase("timing-serve", lambda: phase_timing_serve(
-                sm, main_run, serve, fixture_counts, hbm_rate(dev_name)))
-            rows = None if serve_rows is None else rows + serve_rows
+                sm, main_run, serve, fixture_counts, one_row, hbm_rate(dev_name)))
+            rows = None if serve_rows is None else [
+                r for r in rows if r["row"] not in one_row] + serve_rows
         if rows is not None and ffn_run is not None:
             more = sm.phase("timing-ffn", lambda: phase_timing_ffn(
                 sm, main_run, ffn_run, hbm_rate(dev_name)))

@@ -4,7 +4,11 @@ its plain PyTorch version.
 Replaces ``metalchat_tpu/ops/a8_matvec_pallas.py``
 (``quant_matvec_stacked_fused`` and ``quant_matvec_stacked``). On the H100
 the kernel is bound by the HBM stream of the packed weights (out·in/2 bytes
-for int4); see the note at the top of the CUDA source for its design.
+for int4); see the note at the top of the CUDA source for its design. One
+row takes one launch (counter ``a8_matvec`` or ``a8_matvec_raw``). At 2-16
+rows a fused call is two launches: `quantize_rows` (counter
+``a8_quantize``, act-quant once per call) and the int8 tensor-core matvec
+(counted as ``a8_matvec``, one per call); raw mode is the matvec alone.
 
 Layouts as in the JAX package: weights ``[L, out, in/2]`` (int4, half-split
 with an offset-binary low nibble) or ``[L, out, in]`` (int8); per-channel
@@ -37,6 +41,12 @@ def _lib() -> ctypes.CDLL:
     lib.a8_matvec_fused.restype = _I
     lib.a8_matvec_raw.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
     lib.a8_matvec_raw.restype = _I
+    lib.a8_quantize.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
+    lib.a8_quantize.restype = _I
+    lib.a8_mma.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.a8_mma.restype = _I
+    lib.a8_mma_raw.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    lib.a8_mma_raw.restype = _I
     return lib
 
 
@@ -97,6 +107,13 @@ def prologue(x, norm_w=None, norm_eps=None, norm_offset: float = 0.0):
     return act_quantize(xf)
 
 
+def quantize_rows_plain(x, norm_w=None, norm_eps=None, norm_offset: float = 0.0, *,
+                        corr: bool = True):
+    xq, sx = prologue(x, norm_w, norm_eps, norm_offset)
+    c = (8 * xq[:, :xq.shape[1] // 2].sum(dim=1, dtype=torch.int32)) if corr else None
+    return xq, sx.reshape(-1), c
+
+
 def quant_matvec_stacked_fused_plain(x, p_stack, s_stack, layer: int, *, bits: int,
                                      norm_stack=None, norm_eps=None,
                                      norm_offset: float = 0.0):
@@ -125,6 +142,13 @@ def _check_shapes(x, p_stack, layer: int, bits: int) -> None:
                          f"in % 32 == 0, got {tuple(x.shape)}")
 
 
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    """The 2-16 row kernels read their inputs in 16-byte loads."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("a8_matvec: operands must start 16-byte aligned")
+
+
 def quant_matvec_stacked(xq: torch.Tensor, p_stack: torch.Tensor, layer: int, *,
                          bits: int) -> torch.Tensor:
     """Raw int32 ``[B, out]`` accumulator of pre-quantized int8 rows against
@@ -138,12 +162,54 @@ def quant_matvec_stacked(xq: torch.Tensor, p_stack: torch.Tensor, layer: int, *,
     b, in_f = xq.shape
     out_f = p_stack.shape[1]
     out = torch.empty(b, out_f, dtype=torch.int32, device=xq.device)
-    rc = _lib().a8_matvec_raw(xq.data_ptr(), p_stack[layer].data_ptr(),
-                              out.data_ptr(), b, in_f, out_f, bits,
-                              _build.stream_ptr(xq))
+    if b == 1:
+        rc = _lib().a8_matvec_raw(xq.data_ptr(), p_stack[layer].data_ptr(),
+                                  out.data_ptr(), b, in_f, out_f, bits,
+                                  _build.stream_ptr(xq))
+    else:
+        _check_aligned(xq, p_stack[layer])
+        rc = _lib().a8_mma_raw(xq.data_ptr(), p_stack[layer].data_ptr(), out.data_ptr(),
+                               b, in_f, out_f, bits, _build.stream_ptr(xq))
     _build.check(rc, "a8_matvec_raw")
     _build.count_launch("a8_matvec_raw")
     return out
+
+
+def quantize_rows(x: torch.Tensor, norm_w: Optional[torch.Tensor] = None,
+                  norm_eps: Optional[float] = None, norm_offset: float = 0.0, *,
+                  corr: bool = True):
+    """The fused matvec's prologue for B rows, once: ``xq [B, in]`` int8,
+    ``sx [B]`` f32 and, with ``corr``, the int4 correction ``8·Σ xq[:, :in/2]``
+    as ``[B]`` int32 (else None). ``norm_w [in]`` in x's dtype adds the
+    rmsnorm. One block a row on the card (kernel ``a8_quantize``)."""
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x, norm_w, norm_eps, norm_offset, corr=corr)
+    tensors = [x] + ([norm_w] if norm_w is not None else [])
+    _build.require_cuda("a8_quantize", *tensors)
+    b, in_f = x.shape
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"a8_quantize: activations bf16 or f32, got {x.dtype}")
+    if not 1 <= b <= MAX_ROWS or in_f % 32:
+        raise ValueError(f"a8_quantize: 1 <= rows <= {MAX_ROWS} and in % 32 == 0, "
+                         f"got {tuple(x.shape)}")
+    if norm_w is not None:
+        if norm_w.shape != (in_f,) or norm_w.dtype != x.dtype:
+            raise ValueError(f"a8_quantize: norm weights [in] in x's dtype, got "
+                             f"{tuple(norm_w.shape)} {norm_w.dtype}")
+        if norm_eps is None:
+            raise ValueError("a8_quantize: norm_eps is required with norm weights")
+    _check_aligned(x)
+    xq = torch.empty(b, in_f, dtype=torch.int8, device=x.device)
+    sx = torch.empty(b, dtype=torch.float32, device=x.device)
+    c = torch.empty(b, dtype=torch.int32, device=x.device) if corr else None
+    rc = _lib().a8_quantize(
+        x.data_ptr(), None if norm_w is None else norm_w.data_ptr(), xq.data_ptr(),
+        sx.data_ptr(), None if c is None else c.data_ptr(), b, in_f,
+        int(x.dtype == torch.bfloat16), float(norm_eps or 0.0), float(norm_offset),
+        _build.stream_ptr(x))
+    _build.check(rc, "a8_quantize")
+    _build.count_launch("a8_quantize")
+    return xq, sx, c
 
 
 def quant_matvec_stacked_fused(x: torch.Tensor, p_stack: torch.Tensor,
@@ -169,20 +235,30 @@ def quant_matvec_stacked_fused(x: torch.Tensor, p_stack: torch.Tensor,
                                                                torch.float32):
         raise ValueError(f"a8_matvec: scales [L, 1, out] f32/bf16, got "
                          f"{tuple(s_stack.shape)} {s_stack.dtype}")
-    nw_ptr = None
+    norm_w = None
     if norm_stack is not None:
         if norm_stack.shape != (L, in_f) or norm_stack.dtype != x.dtype:
             raise ValueError(f"a8_matvec: norm weights [L, in] in x's dtype, got "
                              f"{tuple(norm_stack.shape)} {norm_stack.dtype}")
         if norm_eps is None:
             raise ValueError("a8_matvec: norm_eps is required with norm_stack")
-        nw_ptr = norm_stack[layer].data_ptr()
+        norm_w = norm_stack[layer]
     out = torch.empty(b, out_f, dtype=x.dtype, device=x.device)
-    rc = _lib().a8_matvec_fused(
-        x.data_ptr(), p_stack[layer].data_ptr(), s_stack[layer].data_ptr(),
-        nw_ptr, out.data_ptr(), b, in_f, out_f, bits,
-        int(x.dtype == torch.bfloat16), int(s_stack.dtype == torch.bfloat16),
-        float(norm_eps or 0.0), float(norm_offset), _build.stream_ptr(x))
+    s_bf16 = int(s_stack.dtype == torch.bfloat16)
+    if b == 1:
+        rc = _lib().a8_matvec_fused(
+            x.data_ptr(), p_stack[layer].data_ptr(), s_stack[layer].data_ptr(),
+            None if norm_w is None else norm_w.data_ptr(), out.data_ptr(), b, in_f, out_f,
+            bits, int(x.dtype == torch.bfloat16), s_bf16, float(norm_eps or 0.0),
+            float(norm_offset), _build.stream_ptr(x))
+    else:
+        _check_aligned(p_stack[layer])
+        xq, sx, corr = quantize_rows(x, norm_w, norm_eps, norm_offset, corr=bits == 4)
+        rc = _lib().a8_mma(
+            xq.data_ptr(), p_stack[layer].data_ptr(), s_stack[layer].data_ptr(),
+            sx.data_ptr(), None if corr is None else corr.data_ptr(), out.data_ptr(), b,
+            in_f, out_f, bits, int(x.dtype == torch.bfloat16), s_bf16,
+            _build.stream_ptr(x))
     _build.check(rc, "a8_matvec_fused")
     _build.count_launch("a8_matvec")
     return out

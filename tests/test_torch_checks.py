@@ -8,7 +8,10 @@ mode, the last cache position left out); for the paged kernel also
 the new row written into the neighbouring page and a page-table lookup off
 by one; for the dequant matmul a wrong group index and swapped nibble
 halves; for the merged FFN block a missing residual and one output tile
-off by one column. Each must fail the check.
+off by one column; for the matvec's raw mode (the int8 tensor-core
+schedule of 2-16 rows, emulated) a dropped k step, the int4 correction left
+out, and a padded code column stored into row B - 1. Each must fail the
+check.
 A wrapper that differs from the plain version only by f32 rounding noise
 must pass. The shapes are the fixture's (hd=64).
 
@@ -27,6 +30,7 @@ import torch
 
 import chip_smoke
 from metalchat_tpu_torch.ops.reference import MASK_VALUE
+from torch_port_util import a8_mma_emulate
 
 # The suite runs test files in parallel workers on shared cores: one torch
 # thread per worker keeps these small ops from crowding the others.
@@ -474,3 +478,38 @@ def test_ffn_check_passes_rounding_noise(monkeypatch, case, dtype):
 def test_ffn_check_fails_a_planted_fault(monkeypatch, fault, case):
     with pytest.raises(AssertionError, match="beyond the limit"):
         _run_ffn(monkeypatch, fault, case, "bfloat16")
+
+
+a8_mod = importlib.import_module("metalchat_tpu_torch.ops.a8_matvec")
+
+
+def _run_a8(monkeypatch, fault, case, rows):
+    """check_a8 with raw mode replaced by the tensor-core schedule's
+    emulation (``torch_port_util.a8_mma_emulate``), one planted fault."""
+    def raw(xq, p_stack, layer, *, bits):
+        return a8_mma_emulate(xq, p_stack[layer], bits, fault=fault)
+
+    monkeypatch.setattr(a8_mod, "quant_matvec_stacked", raw)
+    sm = chip_smoke.Smoke(torch)
+    chip_smoke.check_a8(sm, [case], rows, torch.Generator().manual_seed(1), CPU)
+    return sm
+
+
+@pytest.mark.parametrize("rows", [2, 5, 9, 16])
+@pytest.mark.parametrize("case", chip_smoke.A8_FIXTURE, ids=str)
+def test_a8_check_passes_the_mma_schedule(monkeypatch, case, rows):
+    _run_a8(monkeypatch, None, case, rows)
+
+
+# no_corr: int4 only; pad_leak: row counts that leave padded code columns
+# (5 in one n-tile, 9 in two).
+A8_INT4 = [c for c in chip_smoke.A8_FIXTURE if c[3] == 4]
+
+
+@pytest.mark.parametrize("fault,case,rows", [
+    *(("drop_step", c, 5) for c in chip_smoke.A8_FIXTURE),
+    *(("no_corr", c, 5) for c in A8_INT4),
+    *(("pad_leak", c, r) for c in chip_smoke.A8_FIXTURE for r in (5, 9))], ids=str)
+def test_a8_check_fails_a_planted_fault(monkeypatch, fault, case, rows):
+    with pytest.raises(AssertionError, match="not bit-exact"):
+        _run_a8(monkeypatch, fault, case, rows)

@@ -34,6 +34,15 @@ def test_a8_matvec_kernel(card, dtype):
     chip_smoke.check_a8(sm, [("w13", 2048, 384, 4, True)], 7, gen, dev, dt)
 
 
+# 2-16 rows: a8_quantize and the int8 tensor-core matvec, one n-tile (2, 8)
+# and two (16): raw mode exact, fused within the limit of the plain version.
+@DTYPES
+@pytest.mark.parametrize("rows", [2, 8, 16])
+def test_a8_matvec_mma_route(card, dtype, rows):
+    sm, gen, dev = card
+    chip_smoke.check_a8(sm, chip_smoke.A8_FIXTURE, rows, gen, dev, getattr(torch, dtype))
+
+
 @DTYPES
 def test_decode_attention_update_kernel(card, dtype):
     sm, gen, dev = card
