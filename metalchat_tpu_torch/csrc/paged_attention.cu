@@ -8,213 +8,144 @@
 //     (_paged_kernel): read-only mode. The one-layer form is the stacked
 //     form on a one-layer view.
 // The TPU kernel walks a (row, page) grid in order and folds the new token
-// in at score level, flushing the page it aliases at the row's end. Here a
-// block writes the row first and, after __syncthreads(), reads the updated
-// pages, as the dense kernel in decode_attention.cu does.
+// in at score level, flushing the page it aliases at the row's end. Here
+// the block whose chunk holds the new position writes the quantized row to
+// its page and into its own tiles, as the dense kernel in decode_attention.cu
+// does; the JAX docstring states both orders give the same result.
 //
 // What bounds it on the H100: bytes. A call reads each row's int8 K and V
 // rows in [window_lo, length), found through the page table, and their f32
 // scales once; the arithmetic (2*groups*hd flops per position and operand)
-// is far below the card's rate. Design (simple first): one block per (batch
-// row, kv head), one warp per query head of its GQA group. Positions are
-// staged in tiles of up to 64 that never cross a page, so each tile is one
-// contiguous run of rows in one physical page, loaded 16 bytes a thread.
-// Online softmax in f32, k-scale on the scores and v-scale on the
-// probabilities, 1/l guarded at l == 0, as in the TPU kernel. B*n_kv blocks
-// (64 at Llama-8B with 8 slots) cannot fill the card; splitting the pages
-// across blocks and moving the dots onto tensor cores is later work.
+// is far below the card's rate. At 8 rows the bytes are a few hundred KB a
+// call, under a microsecond at HBM rate, so what a call costs is how many
+// SMs load at once and how many dependent round trips each block takes.
+//
+// Design (flash-decoding, as decode_attention.cu): the positions are split
+// over blocks. The grid is (n_split, n_kv, B) with n_split = ceil(MP * psize
+// / kChunk); the block of chunk s covers positions [s * kChunk, (s + 1) *
+// kChunk) and returns at once if none of them lies in [window_lo, length)
+// (live_splits). A chunk may cross pages (pages of 4, 8, 16 or 48 positions
+// as well as 256): every staged row finds its physical page through the
+// table by its position, and the block loads the table entries of its
+// chunk beside the length, so they cost no round trip of their own. Rows
+// are staged with 16-byte loads inside one row of a page. The query heads of
+// the GQA group share the chunk, each taken by one of the block's 4 warps
+// with one position per lane, the k-scale on the scores and the v-scale on
+// the probabilities as in the TPU kernel. Each head's f32 partials (m, l,
+// acc[hd]) go to a workspace; the last block of a (row, kv head) to arrive,
+// counted by an atomic counter that it then resets, merges them in chunk
+// order (common.cuh: live_splits, write_partial, arrive_last,
+// combine_partials): one launch per call, reproducible run to run, and
+// capturable in a CUDA graph. In write mode only the block whose chunk
+// holds length - 1 quantizes the new row (warp 0 K, warp 1 V,
+// cache.quantize_kv's op order) and writes it to its page and to its own
+// tiles; no other block reads that position. The chunk body is
+// decode_chunk.cuh's, shared with the dense kernel: PagedRows gives it the
+// address of each position's row.
 //
 // The garbage page is shared: every row whose table entry at its write
 // position is the sentinel writes there in the same launch, and the blocks
 // race. Such a row's output is undefined (the engine discards it); live
 // rows never share a page, so their pages and outputs are exact.
-#include "common.cuh"
+#include "decode_chunk.cuh"
 
 namespace {
-
-constexpr int kTile = 64;
 
 // Physical page of logical page `i` of a row: table entries are clamped
 // into the pool, so the sentinel (the last page) stays in bounds.
 __device__ __forceinline__ int physical_page(const int32_t* __restrict__ pt_row, int i,
                                              int num_pages) {
-  return min(max(pt_row[i], 0), num_pages - 1);
+  return min(max(__ldg(pt_row + i), 0), num_pages - 1);
 }
 
+// Position t of (batch row b, kv head h) in one layer of the pool: K/V rows
+// [n_kv, num_pages, psize, hd], scales [num_pages, n_kv, psize], on page
+// pt[b, t / psize] at t % psize. The table entries of this thread's staged
+// rows and of its scale row are loaded when it is made, beside the length.
+template <int kVecs, int kRowBytes>
+struct PagedRows {
+  const int32_t* pt_row;
+  int h, nkv, num_pages, psize, c0;
+  int page[kVecs];  // the page of each of this thread's 16-byte pieces
+  int spage;        // the page of its scale row (threadIdx.x < kChunk)
+  __device__ PagedRows(const int32_t* pt_row_, int h_, int nkv_, int num_pages_, int psize_,
+                       int mp, int c0_)
+      : pt_row(pt_row_), h(h_), nkv(nkv_), num_pages(num_pages_), psize(psize_), c0(c0_) {
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int t = c0 + 16 * ((int)threadIdx.x + i * kThreads) / kRowBytes;
+      page[i] = physical_page(pt_row, min(t / psize, mp - 1), num_pages);
+    }
+    spage = physical_page(pt_row, min((c0 + (int)threadIdx.x) / psize, mp - 1), num_pages);
+  }
+  __device__ size_t row(int i, int j) const {
+    return ((size_t)h * num_pages + page[i]) * psize + (c0 + j) % psize;
+  }
+  __device__ size_t scale(int j) const {
+    return ((size_t)spage * nkv + h) * psize + (c0 + j) % psize;
+  }
+  __device__ void locate_new(int length, size_t& row, size_t& sc) const {
+    const int pg = physical_page(pt_row, (length - 1) / psize, num_pages);
+    row = ((size_t)h * num_pages + pg) * psize + (length - 1) % psize;
+    sc = ((size_t)pg * nkv + h) * psize + (length - 1) % psize;
+  }
+};
+
 // kp/vp int8 [n_kv, num_pages, psize, hd] and ks/vs f32 [num_pages, n_kv,
-// psize] are one layer of the stacked pool. They carry no __restrict__: the
-// block writes the new row through them and then reads it back.
+// psize] are one layer of the stacked pool, updated in place in write mode.
 template <typename T, int NACC>
-__global__ void paged_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
-    int8_t* kp, int8_t* vp, float* ks, float* vs, const int32_t* __restrict__ pt,
-    const int32_t* __restrict__ lengths, T* __restrict__ out, int nkv, int groups,
-    int num_pages, int psize, int mp, float scale, int window, int write) {
-  constexpr int hd = NACC * 32;
-  constexpr int kStride = hd + 4;  // padded K rows: conflict-free column reads
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);                 // [groups][hd]
-  float* pv = qs + groups * hd;                               // [groups][kTile]
-  float* kst = pv + groups * kTile;                           // [kTile]
-  float* vst = kst + kTile;                                   // [kTile]
-  int8_t* vtile = reinterpret_cast<int8_t*>(vst + kTile);     // [kTile][hd]
-  int8_t* ktile = vtile + kTile * hd;                         // [kTile][kStride]
-  __shared__ float scratch[32];
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int nh = nkv * groups;
+__global__ void __launch_bounds__(kThreads)
+paged_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+             const T* __restrict__ v_new, int8_t* __restrict__ kp, int8_t* __restrict__ vp,
+             float* __restrict__ ks, float* __restrict__ vs, const int32_t* __restrict__ pt,
+             const int32_t* __restrict__ lengths, T* __restrict__ out,
+             float* __restrict__ acc_ws, float* __restrict__ ml_ws, int* __restrict__ counters,
+             int nkv, int groups, int num_pages, int psize, int mp, float scale, int window,
+             int write) {
+  const int b = blockIdx.z;
   const int length = lengths[b];
-  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-  const int32_t* pt_row = pt + (size_t)b * mp;
-  // Heads are kv-major: query head h*groups + g shares kv head h.
-  const T* qh = q + ((size_t)b * nh + (size_t)h * groups) * hd;
-  T* o = out + ((size_t)b * nh + (size_t)h * groups + g) * hd;
-  if (length < 1 || length > mp * psize) {
-    // A length outside [1, mp*psize] is the caller's error. The wrapper
-    // cannot raise on it without a host sync, so the pages are left
-    // untouched and the row's output is NaN (the plain version raises).
-    if (g < groups)
-#pragma unroll
-      for (int a = 0; a < NACC; ++a) o[lane + 32 * a] = from_f32<T>(__int_as_float(0x7fc00000));
-    return;
-  }
-
-  // 1. Write mode: quantize the new row into page pt[b, pos / psize] at
-  //    pos % psize (pos = length - 1), in place, then make it visible.
-  if (write) {
-    const int pos = length - 1;
-    const int page = physical_page(pt_row, pos / psize, num_pages), off = pos % psize;
-    const size_t bh = (size_t)b * nkv + h;
-    const size_t row = ((size_t)h * num_pages + page) * psize + off;
-    const size_t srow = ((size_t)page * nkv + h) * psize + off;
-    quantize_into<T>(k_new + bh * hd, hd, kp + row * hd, ks + srow, scratch);
-    quantize_into<T>(v_new + bh * hd, hd, vp + row * hd, vs + srow, scratch);
-  }
-  for (int i = threadIdx.x; i < groups * hd; i += blockDim.x) qs[i] = to_f32<T>(qh[i]);
-  __syncthreads();
-
-  // 2. Attend over [lo, length): kv_pos > (length - 1) - window.
-  const int lo = window < 0 ? 0 : max(length - window, 0);
-  float m = -INFINITY, l = 0.f, acc[NACC];
-#pragma unroll
-  for (int a = 0; a < NACC; ++a) acc[a] = 0.f;
-
-  for (int t0 = lo; t0 < length;) {
-    const int in_page = t0 % psize;
-    const int n = min(min(kTile, length - t0), psize - in_page);
-    const int page = physical_page(pt_row, t0 / psize, num_pages);
-    const size_t row0 = ((size_t)h * num_pages + page) * psize + in_page;
-    const int8_t* kbase = kp + row0 * hd;
-    const int8_t* vbase = vp + row0 * hd;
-    const float* ksb = ks + ((size_t)page * nkv + h) * psize + in_page;
-    const float* vsb = vs + ((size_t)page * nkv + h) * psize + in_page;
-    // Stage K (padded rows), V and the scales of this tile.
-    const int chunks = n * hd / 16;
-    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
-      const int e = c * 16, r = e / hd, col = e % hd;
-      const int4 kw = *reinterpret_cast<const int4*>(kbase + e);
-      const int4 vw = *reinterpret_cast<const int4*>(vbase + e);
-      int* kd = reinterpret_cast<int*>(ktile + r * kStride + col);
-      kd[0] = kw.x; kd[1] = kw.y; kd[2] = kw.z; kd[3] = kw.w;
-      *reinterpret_cast<int4*>(vtile + e) = vw;
-    }
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      kst[j] = ksb[j];
-      vst[j] = vsb[j];
-    }
-    __syncthreads();
-
-    if (g < groups) {
-      const float* qg = qs + g * hd;
-      float s[2];
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int j = lane + 32 * h2;
-        if (j < n) {
-          const int8_t* krow = ktile + j * kStride;
-          float dot = 0.f;
-#pragma unroll 8
-          for (int d = 0; d < hd; d += 4) {
-            const char4 kv4 = *reinterpret_cast<const char4*>(krow + d);
-            dot += qg[d] * (float)kv4.x;
-            dot += qg[d + 1] * (float)kv4.y;
-            dot += qg[d + 2] * (float)kv4.z;
-            dot += qg[d + 3] * (float)kv4.w;
-          }
-          s[h2] = (dot * scale) * kst[j];
-        } else {
-          s[h2] = MC_MASK_VALUE;
-        }
-      }
-      const float m_next = fmaxf(m, warp_max(fmaxf(s[0], s[1])));
-      const float alpha = expf(m - m_next);
-      const float p0 = lane < n ? expf(s[0] - m_next) : 0.f;
-      const float p1 = lane + 32 < n ? expf(s[1] - m_next) : 0.f;
-      l = alpha * l + warp_sum(p0 + p1);
-      m = m_next;
-      float* pg = pv + g * kTile;
-      pg[lane] = p0 * (lane < n ? vst[lane] : 0.f);
-      pg[lane + 32] = p1 * (lane + 32 < n ? vst[lane + 32] : 0.f);
-      __syncwarp();
-#pragma unroll
-      for (int a = 0; a < NACC; ++a) acc[a] *= alpha;
-      for (int j = 0; j < n; ++j) {
-        const float pj = pg[j];
-        const int8_t* vrow = vtile + j * hd;
-#pragma unroll
-        for (int a = 0; a < NACC; ++a) acc[a] += pj * (float)vrow[lane + 32 * a];
-      }
-    }
-    __syncthreads();
-    t0 += n;
-  }
-
-  if (g < groups) {
-    const float l_inv = l == 0.f ? 1.f : 1.f / l;
-#pragma unroll
-    for (int a = 0; a < NACC; ++a) o[lane + 32 * a] = from_f32<T>(acc[a] * l_inv);
-  }
+  const PagedRows<chunk_vecs<int8_t, NACC>(), NACC * 32> rows(
+      pt + (size_t)b * mp, blockIdx.y, nkv, num_pages, psize, mp, blockIdx.x * kChunk);
+  attend_chunk<T, int8_t, NACC>(rows, length, mp * psize, q, k_new, v_new, kp, vp, ks, vs, out,
+                                acc_ws, ml_ws, counters, nkv, groups, scale, window, write);
 }
 
 template <typename T, int NACC>
 int launch(const void* q, const void* kn, const void* vn, void* kp, void* vp, void* ks,
-           void* vs, const void* pt, const void* lengths, void* out, int B, int nh, int nkv,
-           int num_pages, int psize, int mp, float scale, int window, int write,
-           cudaStream_t st) {
+           void* vs, const void* pt, const void* lengths, void* out, void* ws, void* counters,
+           int B, int nh, int nkv, int num_pages, int psize, int mp, float scale, int window,
+           int write, cudaStream_t st) {
   constexpr int hd = NACC * 32;
   const int groups = nh / nkv;
-  const size_t smem = sizeof(float) * (groups * hd + groups * kTile + 2 * kTile)
-                      + (size_t)kTile * hd + (size_t)kTile * (hd + 4);
+  const int n_split = (mp * psize + kChunk - 1) / kChunk;
+  const size_t smem = chunk_smem<int8_t, NACC>(groups);
   auto kernel = paged_kernel<T, NACC>;
   static size_t configured = 0;
-  if (smem > 48 * 1024 && smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = smem;
-  }
-  dim3 grid(nkv, B);
-  kernel<<<grid, 32 * groups, smem, st>>>(
+  if (const int err = allow_smem(kernel, smem, configured)) return err;
+  float* acc_ws = static_cast<float*>(ws);
+  float* ml_ws = acc_ws + (size_t)B * nh * n_split * hd;
+  dim3 grid(n_split, nkv, B);
+  kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kn), static_cast<const T*>(vn),
       static_cast<int8_t*>(kp), static_cast<int8_t*>(vp), static_cast<float*>(ks),
       static_cast<float*>(vs), static_cast<const int32_t*>(pt),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(out), nkv, groups, num_pages,
-      psize, mp, scale, window, write);
+      static_cast<const int32_t*>(lengths), static_cast<T*>(out), acc_ws, ml_ws,
+      static_cast<int*>(counters), nkv, groups, num_pages, psize, mp, scale, window, write);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int by_head_dim(int hd, const void* q, const void* kn, const void* vn, void* kp, void* vp,
-                void* ks, void* vs, const void* pt, const void* lengths, void* out, int B,
-                int nh, int nkv, int num_pages, int psize, int mp, float scale, int window,
-                int write, cudaStream_t st) {
+                void* ks, void* vs, const void* pt, const void* lengths, void* out, void* ws,
+                void* counters, int B, int nh, int nkv, int num_pages, int psize, int mp,
+                float scale, int window, int write, cudaStream_t st) {
   switch (hd) {
     case 64:
-      return launch<T, 2>(q, kn, vn, kp, vp, ks, vs, pt, lengths, out, B, nh, nkv,
-                          num_pages, psize, mp, scale, window, write, st);
+      return launch<T, 2>(q, kn, vn, kp, vp, ks, vs, pt, lengths, out, ws, counters, B, nh,
+                          nkv, num_pages, psize, mp, scale, window, write, st);
     case 128:
-      return launch<T, 4>(q, kn, vn, kp, vp, ks, vs, pt, lengths, out, B, nh, nkv,
-                          num_pages, psize, mp, scale, window, write, st);
+      return launch<T, 4>(q, kn, vn, kp, vp, ks, vs, pt, lengths, out, ws, counters, B, nh,
+                          nkv, num_pages, psize, mp, scale, window, write, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -227,18 +158,24 @@ extern "C" {
 // and may be null when write is 0); kp/vp int8 [nkv, num_pages, psize, hd]
 // and ks/vs f32 [num_pages, nkv, psize]: one layer of the stacked pool,
 // updated in place when write is 1; pt int32 [B, mp]; lengths int32 [B]
-// include the new token; window < 0 means global; out [B, nh, hd].
+// include the new token; window < 0 means global; out [B, nh, hd]. ws: f32
+// workspace of B * nh * ceil(mp * psize / chunk) * (hd + 2) values;
+// counters: B * nkv int32, zero before the first launch (each launch leaves
+// them zero). chunk must be the kernel's kChunk.
 int paged_attention(const void* q, const void* k_new, const void* v_new, void* kp, void* vp,
-                    void* ks, void* vs, const void* pt, const void* lengths, void* out, int B,
-                    int nh, int nkv, int num_pages, int psize, int mp, int hd, float scale,
-                    int window, int write, int x_bf16, void* stream) {
+                    void* ks, void* vs, const void* pt, const void* lengths, void* out,
+                    void* ws, void* counters, int B, int nh, int nkv, int num_pages, int psize,
+                    int mp, int hd, int chunk, float scale, int window, int write, int x_bf16,
+                    void* stream) {
+  if (chunk != kChunk) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return by_head_dim<__nv_bfloat16>(hd, q, k_new, v_new, kp, vp, ks, vs, pt, lengths, out,
-                                      B, nh, nkv, num_pages, psize, mp, scale, window, write,
-                                      st);
-  return by_head_dim<float>(hd, q, k_new, v_new, kp, vp, ks, vs, pt, lengths, out, B, nh, nkv,
-                            num_pages, psize, mp, scale, window, write, st);
+                                      ws, counters, B, nh, nkv, num_pages, psize, mp, scale,
+                                      window, write, st);
+  return by_head_dim<float>(hd, q, k_new, v_new, kp, vp, ks, vs, pt, lengths, out, ws,
+                            counters, B, nh, nkv, num_pages, psize, mp, scale, window, write,
+                            st);
 }
 
 }  // extern "C"

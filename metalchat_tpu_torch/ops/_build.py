@@ -133,6 +133,26 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# Arrival counters of the kernels' in-launch merges (decode and paged
+# attention, the split-K dequant matmul), int32, by device. Zeroed once when
+# made; every launch leaves the counters it used at zero, so launches on one
+# stream can share them (they must not run concurrently on two streams). A
+# grown buffer keeps the old one alive, since a captured CUDA graph may still
+# launch on it.
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_RETIRED: list = []
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """A wrapper's gate: the plain version serves CPU tensors only, so any
     other device must be CUDA (and all operands on the same card)."""

@@ -56,31 +56,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# Arrival counters of the kernel's in-launch merge, one int32 per (batch
-# row, kv head), by device. Zeroed once when made; every launch leaves them
-# zero. A grown buffer keeps the old one alive, since a captured CUDA graph
-# may still launch on it. Launches on one device share the counters, so
-# they must not run concurrently on two streams.
-_COUNTERS: dict = {}
-_RETIRED: list = []
-
-
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        if buf is not None:
-            _RETIRED.append(buf)
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
-
-
-def _workspace(q: torch.Tensor, t_max: int) -> torch.Tensor:
-    """The kernel's f32 partials: ``B * nh * ceil(t_max / SPLIT_CHUNK) * (hd
-    + 2)`` values (acc, then m and l, of every query head and chunk)."""
+def _merge_buffers(q: torch.Tensor, n_counters: int, t_max: int):
+    """The arrival counters and the kernel's f32 partials, ``B * nh *
+    ceil(t_max / SPLIT_CHUNK) * (hd + 2)`` values (acc, then m and l, of
+    every query head and chunk). The caller holds both until the launch: a
+    workspace freed before it could be handed to counters made in between."""
     b, nh, hd = q.shape
+    counters = _build.arrival_counters(q.device, n_counters)
     n_split = -(-t_max // SPLIT_CHUNK)
-    return torch.empty(b * nh * n_split * (hd + 2), dtype=torch.float32, device=q.device)
+    return counters, torch.empty(b * nh * n_split * (hd + 2), dtype=torch.float32,
+                                 device=q.device)
 
 
 def _window(window: Optional[int]) -> int:
@@ -191,12 +176,13 @@ def decode_attention_update_quantized_stacked(q, k_new, v_new, k, v, k_scale, v_
     b, nh, hd = q.shape
     nkv, t_max = k.shape[2], k.shape[3]
     out = torch.empty_like(q)
+    counters, ws = _merge_buffers(q, b * nkv, t_max)
     rc = _lib().decode_attention_update(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k[layer].data_ptr(),
         v[layer].data_ptr(), k_scale[layer].data_ptr(), v_scale[layer].data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), _workspace(q, t_max).data_ptr(),
-        _counters(q.device, b * nkv).data_ptr(), b, nh, nkv, t_max, hd, SPLIT_CHUNK,
-        float(scale), _window(window), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, nh, nkv,
+        t_max, hd, SPLIT_CHUNK, float(scale), _window(window), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(q))
     _build.check(rc, "decode_attention_update")
     _build.count_launch("decode_attention_update")
     return out, k, v, k_scale, v_scale
@@ -236,13 +222,13 @@ def _read(q, k, v, k_scale, v_scale, layer: int, lengths, scale: float,
     b, nh, hd = q.shape
     nkv, t_max = k.shape[2], k.shape[3]
     out = torch.empty_like(q)
+    counters, ws = _merge_buffers(q, b * nkv, t_max)
     rc = _lib().decode_attention(
         q.data_ptr(), k[layer].data_ptr(), v[layer].data_ptr(),
         None if k_scale is None else k_scale[layer].data_ptr(),
         None if v_scale is None else v_scale[layer].data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), _workspace(q, t_max).data_ptr(),
-        _counters(q.device, b * nkv).data_ptr(), b, nh, nkv, t_max, hd, SPLIT_CHUNK,
-        float(scale), _window(window), int(q.dtype == torch.bfloat16),
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, nh, nkv,
+        t_max, hd, SPLIT_CHUNK, float(scale), _window(window), int(q.dtype == torch.bfloat16),
         int(k_scale is not None), _build.stream_ptr(q))
     _build.check(rc, "decode_attention")
     _build.count_launch("decode_attention")

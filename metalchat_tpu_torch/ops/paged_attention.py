@@ -12,7 +12,10 @@ Replaces ``metalchat_tpu/ops/paged_attention_pallas.py``:
 * ``paged_decode_attention``: the latter on one layer's pool.
 
 One kernel serves all three, with a write flag. On the H100 it is bound by
-the bytes of the int8 K/V rows it visits; see the CUDA source.
+the bytes of the int8 K/V rows it visits and, at few rows, by latency: the
+kernel splits the positions over blocks of ``SPLIT_CHUNK`` positions (a
+chunk may cross pages) and merges their partials in the same launch
+(flash-decoding); see the CUDA source.
 
 Layouts: q ``[B, nh, hd]`` (heads kv-major), new rows ``[B, n_kv, hd]``,
 pages int8 ``[L, n_kv, P+1, psize, hd]``, scales f32 ``[L, P+1, n_kv,
@@ -37,7 +40,7 @@ from metalchat_tpu_torch.cache import (
     update_stacked_paged_cache,
 )
 from metalchat_tpu_torch.ops import _build
-from metalchat_tpu_torch.ops.decode_attention import attention_plain
+from metalchat_tpu_torch.ops.decode_attention import SPLIT_CHUNK, attention_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,7 +50,7 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("paged_attention")
-    lib.paged_attention.argtypes = [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I, _P]
+    lib.paged_attention.argtypes = [_P] * 12 + [_I] * 8 + [_F, _I, _I, _I, _P]
     lib.paged_attention.restype = _I
     return lib
 
@@ -126,14 +129,19 @@ def _launch(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, page_table, len
                k_new, v_new)
     b, nh, hd = q.shape
     _, nkv, num_pages, psize, _ = k_pages.shape
+    mp = page_table.shape[1]
     out = torch.empty_like(q)
+    # The f32 partials of every query head and chunk of SPLIT_CHUNK positions.
+    n_split = -(-mp * psize // SPLIT_CHUNK)
+    ws = torch.empty(b * nh * n_split * (hd + 2), dtype=torch.float32, device=q.device)
     rc = _lib().paged_attention(
         q.data_ptr(), k_new.data_ptr() if write else None,
         v_new.data_ptr() if write else None, k_pages[layer].data_ptr(),
         v_pages[layer].data_ptr(), k_scale[layer].data_ptr(), v_scale[layer].data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, nh, nkv, num_pages,
-        psize, page_table.shape[1], hd, float(scale), -1 if window is None else int(window),
-        int(write), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        _build.arrival_counters(q.device, b * nkv).data_ptr(), b, nh, nkv, num_pages, psize,
+        mp, hd, SPLIT_CHUNK, float(scale), -1 if window is None else int(window), int(write),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(rc, name)
     _build.count_launch(name)
     return out

@@ -40,7 +40,7 @@ MAX_ROWS = 32
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("quant_matmul")
-    lib.quant_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.quant_matmul.argtypes = [_P] * 6 + [_I] * 11 + [_P]
     lib.quant_matmul.restype = _I
     return lib
 
@@ -82,6 +82,38 @@ def dequant_matmul_plain(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
 
 # -- kernel wrapper -----------------------------------------------------------
 
+# The non-transposed kernel's split over k (csrc/quant_matmul.cu qmm_natural):
+# 8 warps a block, each thread ``cols`` output columns (a strip of 32·cols a
+# warp), at least ``NAT_MIN_ROWS`` packed rows a block (so that the f32
+# partials stay small beside the weights), x's slice staged in at most
+# ``NAT_STAGE_BYTES`` of shared memory, about ``NAT_BLOCKS_PER_SM`` blocks an SM
+# (both keyed by the kernel's row bound: 1, 8 or 32 rows).
+NAT_WARPS = 8
+NAT_BLOCKS_PER_SM = {1: 2, 8: 4, 32: 2}
+NAT_MIN_ROWS = {1: 64, 8: 128, 32: 256}
+NAT_STAGE_BYTES = 96 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def natural_plan(rows: int, k: int, out_f: int, sms: int):
+    """``(cols, n_split, per_split)`` of the non-transposed kernel: columns a
+    thread, blocks along the ``k`` packed rows and packed rows a block."""
+    maxb = 1 if rows == 1 else 8 if rows <= 8 else 32
+    cols = {1: 16, 8: 8, 32: 4}[maxb]
+    strips = -(-out_f // (32 * cols))
+    n_split = max(1, min(-(-NAT_BLOCKS_PER_SM[maxb] * sms // strips),
+                         -(-k // NAT_MIN_ROWS[maxb])))
+    per = -(-k // n_split)
+    per = -(-per // 8) * 8
+    per = min(per, max(8, NAT_STAGE_BYTES // (8 * rows) // 8 * 8))
+    return cols, -(-k // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def supported(rows: int, in_f: int, group_size: int) -> bool:
     """The shapes the kernel takes: 1-32 rows, in-features a multiple of 32
     (16-byte loads of int4 rows) and groups a multiple of 16 (a 16-byte load
@@ -122,10 +154,19 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *, bi
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"quant_matmul: activations bf16 or f32, got {x.dtype}")
     out = torch.empty(b, out_f, dtype=x.dtype, device=x.device)
+    cols = n_split = per = 0
+    ws = counters = None
+    if not transposed:
+        cols, n_split, per = natural_plan(b, k, out_f, _sm_count(x.device))
+        if n_split > 1:
+            ws = torch.empty(n_split * b * out_f, dtype=torch.float32, device=x.device)
+            counters = _build.arrival_counters(x.device, -(-out_f // (32 * cols)))
     rc = _lib().quant_matmul(
-        x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(), b, in_f, out_f,
-        group_size, bits, int(transposed), int(x.dtype == torch.bfloat16),
-        int(scales.dtype == torch.bfloat16), _build.stream_ptr(x))
+        x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), b, in_f, out_f, group_size, bits,
+        int(transposed), int(x.dtype == torch.bfloat16), int(scales.dtype == torch.bfloat16),
+        cols, n_split, per, _build.stream_ptr(x))
     _build.check(rc, "quant_matmul")
     _build.count_launch("quant_matmul")
     return out

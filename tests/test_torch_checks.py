@@ -17,7 +17,9 @@ must pass. The shapes are the fixture's (hd=64).
 
 The redesigned kernels' own rounding is emulated too. Decode attention
 split over chunks of ``SPLIT_CHUNK`` positions and merged in f32 must pass;
-leaving out the chunk that holds the new token must fail. Flash attention
+leaving out the chunk that holds the new token must fail. The same for the
+paged kernel at pages of 4, 16, 48 and 256 positions, where a chunk may
+cross pages: reading a chunk's rows all from its first page must fail. Flash attention
 with P split into two bf16 parts (hi + lo) must pass; with P rounded to one
 bf16, as FlashAttention-2 usually does, it must fail: the check's limit is
 why the kernel splits P.
@@ -382,6 +384,76 @@ def test_paged_check_passes_rounding_noise(monkeypatch, case):
 def test_paged_check_fails_a_planted_fault(monkeypatch, fault, case):
     with pytest.raises(AssertionError, match="beyond the limit|not bit-exact"):
         _run_paged(monkeypatch, fault, case)
+
+
+def _split_paged(q, kp, vp, ks, vs, table, lengths, layer, *, scale, window=None,
+                 fault=None):
+    """Paged attention as the split kernel reads it: position t from the
+    page the table gives for t, chunks of SPLIT_CHUNK positions merged in
+    chunk order (``_split_attention``). ``fault``: "first_page" reads every
+    row of a chunk from the page of the chunk's first position, "drop_new"
+    leaves out the chunk of length - 1."""
+    psize, last = kp.shape[3], kp.shape[2] - 1
+    mp = table.shape[1]
+    t = torch.arange(mp * psize)
+    src = t - t % decode_mod.SPLIT_CHUNK if fault == "first_page" else t
+    page = table.long()[:, src // psize].clamp(0, last)             # [B, T]
+    off = t % psize
+    k, v = (x[layer][:, page, off].permute(1, 0, 2, 3) for x in (kp, vp))
+    k_sc, v_sc = (x[layer][page, :, off].permute(0, 2, 1) for x in (ks, vs))
+    return _split_attention(q, k, v, k_sc, v_sc, lengths, scale=scale, window=window,
+                            drop_last=fault == "drop_new")
+
+
+def _run_paged_split(monkeypatch, fault, psize, case):
+    """check_paged with both modes read as the split kernel reads (the
+    write as the plain version makes it)."""
+    update_plain = paged_mod.paged_decode_attention_update_plain
+
+    def read(q, kp, vp, ks, vs, table, lengths, layer, *, scale, window=None):
+        return _split_paged(q, kp, vp, ks, vs, table, lengths, layer, scale=scale,
+                            window=window, fault=fault)
+
+    def update(q, kn, vn, kp, vp, ks, vs, table, lengths, layer, *, scale, window=None):
+        _, *cache = update_plain(q, kn, vn, kp, vp, ks, vs, table, lengths, layer,
+                                 scale=scale, window=window)
+        return read(q, kp, vp, ks, vs, table, lengths, layer, scale=scale,
+                    window=window), *cache
+
+    monkeypatch.setattr(paged_mod, "paged_decode_attention_update_stacked", update)
+    monkeypatch.setattr(paged_mod, "paged_decode_attention_stacked", read)
+    sm = chip_smoke.Smoke(torch)
+    chip_smoke.check_paged(sm, 4, 6, 3, 64, psize, PAGED_SPLIT_MP[psize], [case],
+                           torch.Generator().manual_seed(1), CPU)
+    return sm
+
+
+# Pages of 4 and 16 (several to a chunk), 48 (chunks straddle page edges
+# at changing offsets) and 256 (a page holds 8 chunks), at the fixture's
+# widths: pages a row and cases.
+PAGED_SPLIT_MP = {4: 32, 16: 8, 48: 4, 256: 1}
+PAGED_SPLIT_CASES = {
+    4: chip_smoke.PAGED_CASES_P4, 16: chip_smoke.PAGED_CASES_FIXTURE,
+    48: [([31, 65, 190, 1], None), ([97, 33, 150, 1], 50)],
+    256: [([1, 256, 129, 1], None), ([200, 33, 256, 1], 40)]}
+
+
+@pytest.mark.parametrize("psize,case", [(p, c) for p, cs in PAGED_SPLIT_CASES.items()
+                                        for c in cs], ids=str)
+def test_paged_check_passes_the_split_merge(monkeypatch, psize, case):
+    sm = _run_paged_split(monkeypatch, None, psize, case)
+    assert sm.share["paged_decode_attention_update"] <= 1.0
+    assert sm.share["paged_decode_attention"] <= 1.0
+
+
+# first_page: every case whose live rows have a chunk that crosses a page
+# (pages of 4, 16 and 48; a page of 256 never splits a chunk).
+@pytest.mark.parametrize("fault,psize,case", [
+    *(("first_page", p, c) for p in (4, 16, 48) for c in PAGED_SPLIT_CASES[p]),
+    *(("drop_new", p, c) for p, cs in PAGED_SPLIT_CASES.items() for c in cs)], ids=str)
+def test_paged_check_fails_a_split_fault(monkeypatch, fault, psize, case):
+    with pytest.raises(AssertionError, match="beyond the limit"):
+        _run_paged_split(monkeypatch, fault, psize, case)
 
 
 qmm_mod = importlib.import_module("metalchat_tpu_torch.ops.quant_matmul")

@@ -22,7 +22,9 @@ def card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return chip_smoke.Smoke(torch), gen, torch.device("cuda")
+    sm = chip_smoke.Smoke(torch)
+    yield sm, gen, torch.device("cuda")
+    sm.counters_at_rest("after the test")
 
 
 @DTYPES
@@ -91,6 +93,8 @@ def test_flash_attention_ragged_8b(card):
                            chip_smoke.FLASH_CASES_RAGGED, gen, dev)
 
 
+# Decode, flash and paged attention, the matvec and the dequant matmul
+# (split-K and tensor-core routes) twice in one CUDA graph.
 def test_attention_kernels_in_a_cuda_graph(card):
     sm, gen, dev = card
     chip_smoke.check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
@@ -102,6 +106,21 @@ def test_paged_attention_kernel(card, dtype):
     sm, gen, dev = card
     chip_smoke.check_paged(sm, 4, 6, 3, 64, 16, 8, chip_smoke.PAGED_CASES_FIXTURE, gen, dev,
                            getattr(torch, dtype))
+
+
+# The paged kernel's chunks of 32 positions across pages of 4 (fixture
+# widths), 8 and 48 (8B widths), lengths at the chunk edges.
+@DTYPES
+def test_paged_attention_chunks_cross_pages(card, dtype):
+    sm, gen, dev = card
+    chip_smoke.check_paged(sm, 4, 6, 3, 64, 4, 32, chip_smoke.PAGED_CASES_P4, gen, dev,
+                           getattr(torch, dtype))
+
+
+def test_paged_attention_chunk_edges_8b(card):
+    sm, gen, dev = card
+    chip_smoke.check_paged(sm, 8, 32, 8, 128, 8, 16, chip_smoke.PAGED_CASES_P8, gen, dev)
+    chip_smoke.check_paged(sm, 8, 32, 8, 128, 48, 4, chip_smoke.PAGED_CASES_P48, gen, dev)
 
 
 @DTYPES
@@ -119,3 +138,18 @@ def test_ffn_block_kernel(card, dtype, rows):
     sm, gen, dev = card
     chip_smoke.check_ffn_block(sm, 384, 1024, rows, chip_smoke.FFN_CASES, gen, dev,
                                getattr(torch, dtype))
+
+
+# The first launch on a device makes the arrival counters. Its workspace must
+# be held until the launch: a freed one was once handed to the counters, which
+# then held partials and merged every later launch early. Freed NaN blocks
+# make such a fault show.
+def test_decode_first_launch_keeps_its_workspace(card):
+    sm, gen, dev = card
+    from metalchat_tpu_torch.ops import _build
+
+    _build._RETIRED.extend(_build._COUNTERS.values())
+    _build._COUNTERS.clear()
+    torch.full((1 << 24,), float("nan"), device=dev)
+    chip_smoke.check_decode(sm, 3, 6, 3, 112, 64, [([49, 64, 80], None, "random")], gen, dev)
+    sm.counters_at_rest("decode, first launch")
