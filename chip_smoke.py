@@ -16,17 +16,20 @@ Phases (any failure makes the script exit non-zero without a result line):
    ``RTOL``), the fused matvec with its norm prologue within 1e-2 abs; lengths
    at block edges, length 1, windows, and a zeroed cache whose output comes
    from the new row alone. The matvec at 1, 2, 3, 5, 8 and 16 rows of the
-   8B widths (int8 at 1 and 8), with a8_quantize (2-16 rows) held to the
-   plain prologue's codes. The serve path's shapes too: decode attention
+   8B widths (int8 at 1 and 8), with a8_quantize held to the plain
+   prologue's codes, and at one row at edge widths (``A8_EDGE``: k not a
+   multiple of the 64-byte step, out not a multiple of the 16-row tile,
+   with and without the norm) in bf16 and f32. The serve path's shapes too: decode attention
    (write and read-only, bf16 and
    int8 caches) at 8 rows of per-row lengths up to 1024, flash over
    256-token chunks of 8 rows at per-row offsets. Decode lengths at the
    edges of the kernel's 32-position chunks (``SPLIT_CHUNK``), windows
    starting inside a chunk, a batch that leaves most chunks dead; flash over
    a ragged 137-token chunk from unaligned starts; each attention wrapper
-   the matvec at 2 rows (fused: two launches; raw), the paged kernel in both
-   modes and the dequant matmul (split-K at 1 and 8 rows, tensor cores)
-   called twice inside one CUDA graph, replayed twice: outputs equal bit for bit across replays
+   the matvec at 2 rows (fused: two launches; raw) and at one row, the
+   paged kernel in both modes, the dequant matmul (split-K at 1 and 8 rows,
+   tensor cores) and the merged FFN block at 1 and 2 rows called twice
+   inside one CUDA graph, replayed twice: outputs equal bit for bit across replays
    (the decode merge's order is fixed and its arrival counters reset) and
    within the limit of the plain version (raw exact).
    The paged kernel (both modes) at the 8B serving shape (8 rows, pages of
@@ -37,7 +40,8 @@ Phases (any failure makes the script exit non-zero without a result line):
    4 at the fixture's, where the kernel's chunks of 32 positions cross
    pages, lengths at the chunk edges. The dequant matmul (row 11) at the 8b-int4 and
    1b-int8 shapes, 1, 8 and 32 rows, within ``RTOL``; the merged FFN block
-   (row 10) at 8B widths, 1 and 8 rows, phase by phase (see ``ACT_SLOPE``).
+   (row 10) at 8B widths, 1, 2, 5, 8 and 16 rows, phase by phase (see
+   ``ACT_SLOPE``).
 4. The trained fixture end to end, W4A8 + int8 KV, 3 requests through
    ``generate``: kernels on the card against the plain path on the CPU; the
    first 16 greedy tokens of each request must agree. fixture-int: the same
@@ -65,8 +69,8 @@ Phases (any failure makes the script exit non-zero without a result line):
    paged (pages of 256) then dense int8, each after a 2-request warm-up:
    tok/s, TTFT and service TTFT p50/p99, the share of the full-slot decode
    roofline, and launch counts held exactly to the engine's counters and
-   prompt-chunk shapes (a8_quantize once per matvec call of 2-16 rows, 0 in
-   the batch-1 generate phases); then ``torch.profiler``
+   prompt-chunk shapes (a8_quantize once per fused matvec call, at every
+   row count); then ``torch.profiler``
    over one paged decode dispatch (8 steps) with all 8 slots decoding.
 8. http: the fixture behind ``InferenceServer`` on 127.0.0.1 (paged, on the
    card): a blocking completion, its SSE stream (same text), a chat
@@ -76,8 +80,8 @@ Phases (any failure makes the script exit non-zero without a result line):
    the generate path's shapes (and row 3 at lengths 64 and 1024, row 4 at
    hd=64, kernel and yardstick only), timing-serve at the serve path's (8 rows;
    rows 1-2 per matrix with a8_quantize alone, and their step at 2 and 16
-   rows), timing-ffn (row 10 beside the unmerged route) and timing-int4 (row 11
-   at 1 and 8 rows, per matrix).
+   rows), timing-ffn (row 10 beside the unmerged route, 1 and 8 rows) and
+   timing-int4 (row 11 at 1 and 8 rows, per matrix).
 
 The last lines are the kernel table as one JSON object (rows 1-11 of the
 JAX package's TPU kernels), the card's name and power limit, and
@@ -260,10 +264,9 @@ def phase_build():
               f"registers; spills: {spills or 'none'}")
     # The redesigned kernels' instances, one line each.
     for name in ("a8_matvec", "flash_attention", "decode_attention", "quant_matmul",
-                 "paged_attention"):
+                 "paged_attention", "ffn_block"):
         for fn, regs, spill in entry_functions(_build.build_log(name)):
-            if name != "a8_matvec" or "a8_matvec_kernel" not in fn:
-                print(f"    {name} {fn}: {regs} registers, spill stores/loads {spill} bytes")
+            print(f"    {name} {fn}: {regs} registers, spill stores/loads {spill} bytes")
     return seconds
 
 
@@ -294,7 +297,7 @@ def entry_functions(log: str):
 # -- phase 3: kernels vs plain versions on the card ---------------------------
 
 def check_quantize(sm: Smoke, x, nw, what: str):
-    """a8_quantize (2-16 rows) against the plain prologue: without the norm
+    """a8_quantize against the plain prologue: without the norm
     the codes, sx and corr are exact (same op order); with it the f32
     statistics may reduce in another order and move a code by one quantum
     at a rounding boundary (and the largest value by one step of x's dtype),
@@ -322,7 +325,7 @@ def check_quantize(sm: Smoke, x, nw, what: str):
 
 def check_a8(sm: Smoke, shapes, batch: int, gen, dev, dtype=None):
     """Raw mode int32-exact, fused within RTOL of the plain version (1e-2
-    abs with the norm prologue); at 2-16 rows a8_quantize on its own too."""
+    abs with the norm prologue); a8_quantize on its own too."""
     torch = sm.torch
     dtype = dtype or torch.bfloat16
     from metalchat_tpu_torch.ops import a8_matvec as m
@@ -348,8 +351,7 @@ def check_a8(sm: Smoke, shapes, batch: int, gen, dev, dtype=None):
             sm.close("a8_matvec", m.quant_matvec_stacked_fused(x, p, s, 1, **kw),
                      m.quant_matvec_stacked_fused_plain(x, p, s, 1, **kw),
                      what + " fused+norm", loose=True)
-        if batch > 1:
-            check_quantize(sm, x, nw[1] if with_norm else None, what + " a8_quantize")
+        check_quantize(sm, x, nw[1] if with_norm else None, what + " a8_quantize")
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
@@ -452,9 +454,12 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
     pages of 16, its pool exact after the replays. The same for the matvec at B rows
     (wqkv's shape, int4): the fused route's two launches (a8_quantize, then
     the tensor-core matvec, whose inputs the wrapper allocates on every
-    call) with the norm prologue, and raw mode, exact; and the dequant
-    matmul (row 11): the split-K natural route at 1 and 8 rows, whose
-    last block merges the workspace, and the transposed route at B rows."""
+    call) with the norm prologue, and raw mode, exact; the same at one row;
+    the dequant matmul (row 11): the split-K natural
+    route at 1 and 8 rows, whose last block merges the workspace, and the
+    transposed route at B rows; and the merged FFN block (row 10, int4, F =
+    3.5 H) at 1 and B rows, x2 and out held phase by phase through its
+    scratch."""
     torch = sm.torch
     dtype = dtype or torch.bfloat16
     from metalchat_tpu_torch.ops import a8_matvec as am
@@ -530,6 +535,12 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
         "a8_matvec_raw": (
             lambda: am.quant_matvec_stacked(xq, pw, 1, bits=4),
             am.quant_matvec_stacked_plain(xq, pw, 1, bits=4), "exact"),
+        "a8_matvec one row": (
+            lambda: am.quant_matvec_stacked_fused(xa[:1], pw, sw, 1, **a8),
+            am.quant_matvec_stacked_fused_plain(xa[:1], pw, sw, 1, **a8), "loose"),
+        "a8_matvec_raw one row": (
+            lambda: am.quant_matvec_stacked(xq[:1], pw, 1, bits=4),
+            am.quant_matvec_stacked_plain(xq[:1], pw, 1, bits=4), "exact"),
         "quant_matmul natural 1 row": (
             lambda: qm.dequant_matmul(xr[1], qn, sn, transposed=False, **qk),
             qm.dequant_matmul_plain(xr[1], qn, sn, transposed=False, **qk), "close"),
@@ -548,7 +559,9 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
             lambda: pm.paged_decode_attention_stacked(q, *pool, table, lens, 0, **kw),
             pm.paged_decode_attention_plain(q, *ref_pool, table, lens, 0, **kw), "close"),
     }
-    for name, (kernel, want, compare) in cases.items():
+    def replayed(kernel):
+        """The second call's output after each of two replays of a graph of
+        two calls."""
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -564,12 +577,32 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
             graph.replay()
             torch.cuda.synchronize()
             replays.append(out.clone())
+        return replays
+
+    for name, (kernel, want, compare) in cases.items():
+        replays = replayed(kernel)
         what = f"{name} lengths={lengths} B={B} second call in a CUDA graph"
         sm.exact(replays[0], replays[1], f"{what}: two replays")
         if compare == "exact":
             sm.exact(replays[1], want, what)
         else:
             sm.close(name.split(" ")[0], replays[1], want, what, loose=compare == "loose")
+    from metalchat_tpu_torch.ops import ffn_block as fm
+
+    fw = ffn_weights(torch, 2, in_f, 7 * in_f // 2, 4, gen, dev, dtype)
+    for rows in (1, B):
+        attn_f, x_f = (torch.randn((rows, in_f), generator=gen, device=dev).to(dtype)
+                       for _ in range(2))
+        scratch = {}
+        replays = replayed(lambda: fm.ffn_block_stacked(
+            attn_f, x_f, *fw.values(), 1, bits=4, act="silu", eps=1e-5, scratch=scratch))
+        what = f"ffn_block H={in_f} B={rows} second call in a CUDA graph"
+        sm.exact(replays[0], replays[1], f"{what}: two replays")
+        x2, h = scratch["x2"], scratch["h"]
+        sm.close("ffn_block", x2, fm.wo_stage(attn_f, x_f, fw["wo_q"][1], fw["wo_s"][1], bits=4),
+                 what + " phase A (x2)")
+        sm.close("ffn_block", replays[1], fm.w2_stage(h, x2, fw["w2_q"][1], fw["w2_s"][1],
+                                                      bits=4)[0], what + " phase C (out)")
     for a, b, nm in zip((k, v, ks, vs), ref_cache, ("k", "v", "k_scale", "v_scale")):
         sm.exact(a, b, f"decode_attention_update in a CUDA graph: cache {nm}")
     for a, b, nm in zip(pool, ref_pool, ("k", "v", "k_scale", "v_scale")):
@@ -722,6 +755,14 @@ A8_8B = [("wqkv", 6144, 4096, 4, True), ("wo", 4096, 4096, 4, False),
          ("lm_head", 128256, 4096, 4, False)]
 A8_8B_W8 = [("wo", 4096, 4096, 8, False), ("wqkv", 6144, 4096, 8, True)]
 A8_ROWS = (1, 2, 3, 5, 8, 16)
+# One row at edge widths: k not a multiple of the tile's 64-byte step (4128 /
+# 2 = 2064 bytes, 14368, 96 / 2 = 48), out not a multiple of its 16 rows,
+# with and without the norm, int4 and int8.
+A8_EDGE = [("edge", 1003, 4128, 4, True), ("edge", 77, 14368, 8, True),
+           ("edge", 4100, 96, 4, False), ("edge", 9, 2080, 8, False)]
+# Row 10's row counts: one row (dp4a, each block's own codes), one n-tile
+# of the tensor-core tile (2, 5, 8) and two (16).
+FFN_ROWS = (1, 2, 5, 8, 16)
 # The fixture's widths (hidden 384, intermediate 1024), an int8 lm_head.
 A8_FIXTURE = [("wqkv", 768, 384, 4, True), ("wo", 384, 384, 4, False),
               ("w13", 2048, 384, 4, True), ("w2", 384, 1024, 4, False),
@@ -815,13 +856,15 @@ def phase_kernels(sm: Smoke):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    # One row (the generate path's instance), then 2-16 rows (a8_quantize and
-    # the tensor-core matvec: one n-tile up to 8 rows, two above; the serve
-    # decode step is 8 rows), int4, and int8 at 1 and 8 rows.
+    # One row (the generate path), then 2-16 rows (a8_quantize and the
+    # tensor-core matvec: one n-tile up to 8 rows, two above; the serve decode
+    # step is 8 rows), int4, and int8 at 1 and 8 rows.
     for rows in A8_ROWS:
         check_a8(sm, A8_8B, rows, gen, dev)
     for rows in (1, 8):
         check_a8(sm, A8_8B_W8, rows, gen, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_a8(sm, A8_EDGE, 1, gen, dev, dtype)
     check_a8(sm, A8_FIXTURE, 3, gen, dev)
     check_decode(sm, 1, 32, 8, 1024, 128, DECODE_CASES_8B, gen, dev)
     check_decode(sm, 8, 32, 8, 1024, 128, DECODE_CASES_SERVE, gen, dev)
@@ -842,7 +885,7 @@ def phase_kernels(sm: Smoke):
         check_qmm(sm, QMM_8B_INT4, rows, gen, dev)
         check_qmm(sm, QMM_1B_INT8, rows, gen, dev)
     check_qmm(sm, QMM_FIXTURE, 3, gen, dev, torch.float32, torch.float32)
-    for rows in (1, 8):
+    for rows in FFN_ROWS:
         check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
     check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
     print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact; a8_quantize "
@@ -973,7 +1016,7 @@ def phase_main(sm: Smoke, dev_name: str):
     cfg, params = make_8b(sm, "8b-w4a8", bits=4, group_size=None, act_bits=8)
     L = cfg.num_layers
     return drive_generate(sm, dev_name, "8b-w4a8 main path", cfg, params,
-                          {"a8_matvec": 4 * L + 1, "a8_quantize": 0,
+                          {"a8_matvec": 4 * L + 1, "a8_quantize": 4 * L + 1,
                            "decode_attention_update": L})
 
 
@@ -997,7 +1040,7 @@ def phase_main_ffn_block(sm: Smoke, main, dev_name: str):
     cfg, params = main[0], main[1]
     L = cfg.num_layers
     run = drive_generate(sm, dev_name, "8b-w4a8 ffn_block", cfg, params,
-                         {"ffn_block": L, "a8_matvec": L + 1, "a8_quantize": 0,
+                         {"ffn_block": L, "a8_matvec": L + 1, "a8_quantize": L + 1,
                           "decode_attention_update": L},
                          ffn_block=True)
     print(f"8b-w4a8 decode: ffn_block {sm.tok_s['8b-w4a8 ffn_block']:.2f} tok/s beside "
@@ -1300,14 +1343,12 @@ def phase_serve(sm: Smoke, main, rate: float):
         # when S == 1), longer ones flash attention.
         shapes = engine.prefill_shapes
         short = sum(n for (b, s), n in shapes.items() if s <= 16 and b * s <= 16)
-        short_multi = sum(n for (b, s), n in shapes.items() if s <= 16 and 2 <= b * s <= 16)
         single = sum(n for (b, s), n in shapes.items() if s == 1)
         long_ = sum(n for (b, s), n in shapes.items() if s > 16)
         attn = "paged_decode_attention_update" if mode == "paged" else "decode_attention_update"
-        # Every decode step runs all 8 slots' rows: a8_quantize once for
-        # each fused matvec call of 2-16 rows.
+        # a8_quantize once for each fused matvec call, of any row count.
         want = {"a8_matvec": (4 * L + 1) * (steps + short),
-                "a8_quantize": (4 * L + 1) * (steps + short_multi), attn: L * (steps + single),
+                "a8_quantize": (4 * L + 1) * (steps + short), attn: L * (steps + single),
                 "flash_attention": L * long_}
         print(f"serve 8b-w4a8 {mode}: {len(done)} requests, {total} tokens in {wall:.3f} s = "
               f"{tok_s:.2f} tok/s, {tok_s / roof:.4f} of the full-slot decode roofline "
@@ -1561,10 +1602,14 @@ def phase_timing(sm: Smoke, main, rate: float):
         b_ms, b_by = a8_bound(pq, norm, 1, rate)
         print(f"  a8_matvec {name} [{out_f}x{in_f} w4]: {ms * 1e3:.2f} us "
               f"(bound {b_ms * 1e3:.2f} us, {b_by}; plain {plain * 1e3:.1f} us; "
-              f"_int_mm M=17 int8 {lib * 1e3:.2f} us) x{per_step}/token")
+              f"_int_mm M=17 int8 {lib * 1e3:.2f} us; raw mode {raw_ms * 1e3:.2f} us) "
+              f"x{per_step}/token")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", b_ms)):
             step[key] += per_step * val
+    print(f"  a8_matvec at one row, one decode step ({4 * L + 1} calls, each a8_quantize and "
+          f"the tensor-core matvec): {step['ms']:.4f} ms (bound {step['bound_ms']:.4f} ms, "
+          f"bytes; _int_mm M=17 {step['library_ms']:.4f} ms)")
     print(f"  a8_matvec raw mode (not on the main path), one decode step's {4 * L + 1} "
           f"shapes: {raw_step['ms']:.4f} ms (bound {raw_step['bound_ms']:.4f} ms, bytes; "
           f"plain {raw_step['plain_ms']:.3f} ms)")

@@ -93,33 +93,25 @@ __device__ __forceinline__ int8_t quant_code(float q) {
   return (int8_t)fminf(fmaxf(rintf(q), -127.f), 127.f);
 }
 
-// A load of T from global memory; COHERENT reads through L2 (`ld.global.cg`),
-// for data that other blocks of the same launch wrote (ffn_block's scratch).
-template <typename T, bool COHERENT>
-__device__ __forceinline__ float load_f32(const T* p) {
-  if constexpr (COHERENT) return to_f32<T>(__ldcg(p));
-  return to_f32<T>(*p);
-}
-
 // Prologue of the int8-activation matvecs: one activation row of in_f values
-// into shared memory as int8 codes, with the op order of the reference
-// `_act_quantize` (and, with NORM, of ops.rms_norm -> round to the activation
-// dtype -> _act_quantize). Every thread of the block calls it.
-template <typename T, bool NORM, bool COHERENT = false>
-__device__ void quantize_row(const T* x, const T* __restrict__ nw, int in_f, float eps,
+// (staged in shared memory) into int8 codes, with the op order of the
+// reference `_act_quantize` (and, with NORM, of ops.rms_norm -> round to the
+// activation dtype -> _act_quantize). Every thread of the block calls it.
+template <typename T, bool NORM>
+__device__ void quantize_row(const T* x, const T* nw, int in_f, float eps,
                              float offset, int8_t* xq_row, float* sx_out, float* scratch) {
   float r = 0.f;
   if (NORM) {
     float ss = 0.f;
     for (int i = threadIdx.x; i < in_f; i += blockDim.x) {
-      const float v = load_f32<T, COHERENT>(x + i);
+      const float v = to_f32<T>(x[i]);
       ss += v * v;
     }
     const float var = block_sum(ss, scratch) / (float)in_f;
     r = 1.0f / sqrtf(var + eps);
   }
   auto value = [&](int i) -> float {
-    const float v = load_f32<T, COHERENT>(x + i);
+    const float v = to_f32<T>(x[i]);
     if (!NORM) return v;
     return round_through<T>((v * r) * (offset + to_f32<T>(nw[i])));
   };
@@ -131,7 +123,8 @@ __device__ void quantize_row(const T* x, const T* __restrict__ nw, int in_f, flo
   if (threadIdx.x == 0) *sx_out = sx;
 }
 
-// The int4 correction 8 * sum(x_lo) of one row of codes (see warp_row_dot).
+// The int4 correction 8 * sum(x_lo) of one row of codes (ffn_block.cu's
+// row_dot_chunk, the mma tile below).
 __device__ __forceinline__ void int4_correction(const int8_t* xq_row, int in_f, int* corr,
                                                 int* iscratch) {
   int part = 0;
@@ -140,61 +133,131 @@ __device__ __forceinline__ void int4_correction(const int8_t* xq_row, int in_f, 
   if (threadIdx.x == 0) *corr = 8 * total;
 }
 
-// Integer dot products of one weight row (k = in_f/2 packed int4 bytes,
-// half-split with an offset-binary low nibble, or in_f int8 bytes) with B
-// rows of int8 codes xq [B][in_f] in shared memory; one warp, 16-byte loads,
-// neighbouring lanes on neighbouring addresses. The int4 nibbles are never
-// unpacked: dp4a on (p & 0x0F0F0F0F) gives sum x_lo*(lo+8) and on
-// (p & 0xF0F0F0F0) 16*sum x_hi*hi, both exact; corr[b] = 8*sum(x_lo) and an
-// arithmetic >> 4 finish them (the TPU kernel's identities). Integer sums
-// are order-free, so the totals are exact. epilogue(b, total) runs on every
-// lane for each row b < B, as soon as its total is reduced.
-template <int MAXB, int BITS, typename Epilogue>
-__device__ __forceinline__ void warp_row_dot(const int8_t* __restrict__ wrow,
-                                             const int8_t* xq, int in_f, int B,
-                                             const int* corr, Epilogue&& epilogue) {
-  const int lane = threadIdx.x & 31;
-  const int half = in_f / 2;
-  const int k = BITS == 4 ? half : in_f;
-  int acc_lo[MAXB], acc_hi[MAXB];
-#pragma unroll
-  for (int b = 0; b < MAXB; ++b) acc_lo[b] = acc_hi[b] = 0;
+// The act-quant of one row, as every int8-activation kernel runs it: the row
+// x [in_f] staged into xs (shared memory) with 16-byte loads, all in flight
+// at once (COHERENT: through L2, for a row that other blocks of the launch
+// wrote), and with NORM the norm weights nw [in_f] into nws likewise;
+// quantize_row's passes then read them there (from global memory each pass
+// was a chain of round trips), write the codes to xq_row (shared memory) and
+// the scale to *sx; with corr, the int4 correction to *corr. Every thread
+// of the block calls it; it ends synced.
+template <typename T, bool NORM, bool COHERENT = false>
+__device__ void quantize_staged(const T* x, const T* __restrict__ nw, int in_f, float eps,
+                                float offset, T* xs, T* nws, int8_t* xq_row, float* sx,
+                                int* corr, float* scratch, int* iscratch) {
+  const int4* src = reinterpret_cast<const int4*>(x);
+  const int4* wsrc = reinterpret_cast<const int4*>(nw);
+  const int n16 = in_f * (int)sizeof(T) / 16;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < n16; i += blockDim.x) {
+    reinterpret_cast<int4*>(xs)[i] = COHERENT ? __ldcg(src + i) : src[i];
+    if (NORM) reinterpret_cast<int4*>(nws)[i] = wsrc[i];
+  }
+  __syncthreads();
+  quantize_row<T, NORM>(xs, nws, in_f, eps, offset, xq_row, sx, scratch);
+  __syncthreads();
+  if (corr != nullptr) int4_correction(xq_row, in_f, corr, iscratch);
+  __syncthreads();
+}
 
-#pragma unroll 4
-  for (int c = lane * 16; c < k; c += 32 * 16) {
-    const int4 w = *reinterpret_cast<const int4*>(wrow + c);
+// -- The int8 tensor-core tile (mma.sync m16n8k32 s8.s8.s32) ------------------
+//
+// A tile is 16 weight rows (the mma's M) against up to 16 code rows in NT
+// n-tiles of 8. k is walked in steps of 64 packed bytes a row, kMmaSplit warps
+// splitting the steps. In one step a lane (group g = lane/4, thread t =
+// lane%4) holds the 16 bytes [16t, 16t + 16) of weight rows g and g + 8 and
+// of code row g of each n-tile, and feeds bytes 0-7 to one mma and 8-15 to
+// the next: one permutation of k applied to both operands (an integer sum
+// does not depend on its order), chosen so that every load is 16 contiguous
+// bytes. Int4: (p & 0x0F0F0F0F) against x_lo and (p & 0xF0F0F0F0) against
+// x_hi, both valid s8 operands (lo + 8 in [0, 15], 16 hi in [-128, 112]),
+// into two accumulators; OWN_CORR adds a third against an A of all 8s, which
+// gives 8 sum(x_lo) where no prologue computed it. Every partial is an exact
+// integer (|acc| <= 14336 * 127 * 128 < 2^31).
+constexpr int kMmaRows = 16;
+constexpr int kMmaSplit = 8;
+constexpr int kMmaStep = 64;
+
+__device__ __forceinline__ int word_at(const int4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// c += A (16 x 32, row-major) * B (32 x 8, col-major), s8 in, s32 out. A:
+// a0/a2 row g, a1/a3 row g + 8; a0/a1 k in [4t, 4t + 4), a2/a3 k + 16. B:
+// column g, b0 k in [4t, 4t + 4), b1 k + 16. c0/c1 row g, c2/c3 row g + 8,
+// columns 2t and 2t + 1.
+__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
+                                       int b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Accumulators a lane holds: [n-tile][lo, hi, 8 sum(x_lo)][register].
+template <int BITS, bool OWN_CORR>
+__host__ __device__ constexpr int mma_terms() { return BITS == 8 ? 1 : OWN_CORR ? 3 : 2; }
+
+// One step: wa / wb are the lane's 16 bytes of weight rows g and g + 8, xl /
+// xh its 16 bytes of code row g of each n-tile (xh: the hi half, int4 only).
+template <int BITS, int NT, int NA, bool OWN_CORR>
+__device__ __forceinline__ void mma_step(int (&acc)[NT][NA][4], const int4& wa, const int4& wb,
+                                         const int4 (&xl)[NT], const int4 (&xh)[NT]) {
 #pragma unroll
-    for (int b = 0; b < MAXB; ++b) {
-      if (b >= B) break;
-      const int8_t* xrow = xq + (size_t)b * in_f;
-      if (BITS == 4) {
-        const int4 xl = *reinterpret_cast<const int4*>(xrow + c);
-        const int4 xh = *reinterpret_cast<const int4*>(xrow + half + c);
-        const int ml = 0x0F0F0F0F, mh = (int)0xF0F0F0F0u;
-        acc_lo[b] = __dp4a(w.x & ml, xl.x, acc_lo[b]);
-        acc_lo[b] = __dp4a(w.y & ml, xl.y, acc_lo[b]);
-        acc_lo[b] = __dp4a(w.z & ml, xl.z, acc_lo[b]);
-        acc_lo[b] = __dp4a(w.w & ml, xl.w, acc_lo[b]);
-        acc_hi[b] = __dp4a(w.x & mh, xh.x, acc_hi[b]);
-        acc_hi[b] = __dp4a(w.y & mh, xh.y, acc_hi[b]);
-        acc_hi[b] = __dp4a(w.z & mh, xh.z, acc_hi[b]);
-        acc_hi[b] = __dp4a(w.w & mh, xh.w, acc_hi[b]);
+  for (int m = 0; m < 2; ++m) {  // bytes 8m .. 8m + 7 of each lane's chunk
+    const int a0 = word_at(wa, 2 * m), a1 = word_at(wb, 2 * m);
+    const int a2 = word_at(wa, 2 * m + 1), a3 = word_at(wb, 2 * m + 1);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int b0 = word_at(xl[j], 2 * m), b1 = word_at(xl[j], 2 * m + 1);
+      if (BITS == 8) {
+        mma_s8(acc[j][0], a0, a1, a2, a3, b0, b1);
       } else {
-        const int4 xv = *reinterpret_cast<const int4*>(xrow + c);
-        acc_lo[b] = __dp4a(w.x, xv.x, acc_lo[b]);
-        acc_lo[b] = __dp4a(w.y, xv.y, acc_lo[b]);
-        acc_lo[b] = __dp4a(w.z, xv.z, acc_lo[b]);
-        acc_lo[b] = __dp4a(w.w, xv.w, acc_lo[b]);
+        const int ml = 0x0F0F0F0F, mh = (int)0xF0F0F0F0u;
+        mma_s8(acc[j][0], a0 & ml, a1 & ml, a2 & ml, a3 & ml, b0, b1);
+        mma_s8(acc[j][1], a0 & mh, a1 & mh, a2 & mh, a3 & mh, word_at(xh[j], 2 * m),
+               word_at(xh[j], 2 * m + 1));
+        if (OWN_CORR) {
+          const int eights = 0x08080808;
+          mma_s8(acc[j][NA - 1], eights, eights, eights, eights, b0, b1);
+        }
       }
     }
   }
+}
 
+// The kMmaSplit warps' partials of one tile summed in warp order through
+// red [kMmaSplit][NT * NA * 4][32] (shared memory); then one thread per
+// (n-tile j, register i, lane) calls epilogue(r, b, tot) for its tile row r
+// (0..15) and code row b < B, tot[a] the tile's sums by term. Every thread of
+// the block calls it; it syncs once, after the partials are written.
+template <int NT, int NA, typename Epilogue>
+__device__ __forceinline__ void mma_reduce(const int (&acc)[NT][NA][4], int* red, int B,
+                                           Epilogue&& epilogue) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kRegs = NT * NA * 4;
 #pragma unroll
-  for (int b = 0; b < MAXB; ++b) {
-    if (b >= B) break;
-    int t = warp_sum_int(acc_lo[b]);
-    if (BITS == 4) t = (t - corr[b]) + (warp_sum_int(acc_hi[b]) >> 4);
-    epilogue(b, t);
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[(warp * kRegs + (j * NA + a) * 4 + i) * 32 + lane] = acc[j][a][i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < NT * 4 * 32; e += blockDim.x) {
+    const int ln = e & 31, j = e >> 7, i = (e >> 5) & 3;
+    const int r = (ln >> 2) + (i >= 2 ? 8 : 0);
+    const int b = 8 * j + 2 * (ln & 3) + (i & 1);
+    if (b >= B) continue;
+    int tot[NA];
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      tot[a] = 0;
+#pragma unroll
+      for (int w = 0; w < kMmaSplit; ++w)
+        tot[a] += red[(w * kRegs + (j * NA + a) * 4 + i) * 32 + ln];
+    }
+    epilogue(r, b, tot);
   }
 }
 

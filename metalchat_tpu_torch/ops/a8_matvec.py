@@ -4,11 +4,11 @@ its plain PyTorch version.
 Replaces ``metalchat_tpu/ops/a8_matvec_pallas.py``
 (``quant_matvec_stacked_fused`` and ``quant_matvec_stacked``). On the H100
 the kernel is bound by the HBM stream of the packed weights (out·in/2 bytes
-for int4); see the note at the top of the CUDA source for its design. One
-row takes one launch (counter ``a8_matvec`` or ``a8_matvec_raw``). At 2-16
-rows a fused call is two launches: `quantize_rows` (counter
-``a8_quantize``, act-quant once per call) and the int8 tensor-core matvec
-(counted as ``a8_matvec``, one per call); raw mode is the matvec alone.
+for int4); see the note at the top of the CUDA source for its design. At
+every row count (1-16) a fused call is two launches from one C call: the
+act-quant of `quantize_rows` (counter ``a8_quantize``, once per call) and
+the int8 tensor-core matvec (counted as ``a8_matvec``, one per call); raw
+mode is the matvec alone (counter ``a8_matvec_raw``).
 
 Layouts as in the JAX package: weights ``[L, out, in/2]`` (int4, half-split
 with an offset-binary low nibble) or ``[L, out, in]`` (int8); per-channel
@@ -36,17 +36,12 @@ MAX_ROWS = 16
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("a8_matvec")
-    lib.a8_matvec_fused.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _F, _F, _P]
-    lib.a8_matvec_fused.restype = _I
-    lib.a8_matvec_raw.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
-    lib.a8_matvec_raw.restype = _I
     lib.a8_quantize.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
     lib.a8_quantize.restype = _I
-    lib.a8_mma.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-    lib.a8_mma.restype = _I
     lib.a8_mma_raw.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
     lib.a8_mma_raw.restype = _I
+    lib.a8_quantize_mma.argtypes = [_P] * 6 + [_I] * 6 + [_F, _F, _P]
+    lib.a8_quantize_mma.restype = _I
     return lib
 
 
@@ -143,7 +138,7 @@ def _check_shapes(x, p_stack, layer: int, bits: int) -> None:
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
-    """The 2-16 row kernels read their inputs in 16-byte loads."""
+    """The kernels read their inputs in 16-byte loads and bulk copies."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError("a8_matvec: operands must start 16-byte aligned")
@@ -162,14 +157,9 @@ def quant_matvec_stacked(xq: torch.Tensor, p_stack: torch.Tensor, layer: int, *,
     b, in_f = xq.shape
     out_f = p_stack.shape[1]
     out = torch.empty(b, out_f, dtype=torch.int32, device=xq.device)
-    if b == 1:
-        rc = _lib().a8_matvec_raw(xq.data_ptr(), p_stack[layer].data_ptr(),
-                                  out.data_ptr(), b, in_f, out_f, bits,
-                                  _build.stream_ptr(xq))
-    else:
-        _check_aligned(xq, p_stack[layer])
-        rc = _lib().a8_mma_raw(xq.data_ptr(), p_stack[layer].data_ptr(), out.data_ptr(),
-                               b, in_f, out_f, bits, _build.stream_ptr(xq))
+    _check_aligned(xq, p_stack[layer])
+    rc = _lib().a8_mma_raw(xq.data_ptr(), p_stack[layer].data_ptr(), out.data_ptr(), b, in_f,
+                           out_f, bits, _build.stream_ptr(xq))
     _build.check(rc, "a8_matvec_raw")
     _build.count_launch("a8_matvec_raw")
     return out
@@ -198,10 +188,15 @@ def quantize_rows(x: torch.Tensor, norm_w: Optional[torch.Tensor] = None,
                              f"{tuple(norm_w.shape)} {norm_w.dtype}")
         if norm_eps is None:
             raise ValueError("a8_quantize: norm_eps is required with norm weights")
-    _check_aligned(x)
-    xq = torch.empty(b, in_f, dtype=torch.int8, device=x.device)
-    sx = torch.empty(b, dtype=torch.float32, device=x.device)
-    c = torch.empty(b, dtype=torch.int32, device=x.device) if corr else None
+    _check_aligned(x, *([] if norm_w is None else [norm_w]))
+    # One allocation, laid out as the fused matvec's workspace: the codes
+    # [B, in], then sx [B] f32 and corr [B] int32 (in % 32 == 0 keeps them
+    # aligned).
+    n = b * in_f
+    buf = torch.empty(n + 8 * b, dtype=torch.int8, device=x.device)
+    xq = buf[:n].view(b, in_f)
+    sx = buf[n:n + 4 * b].view(torch.float32)
+    c = buf[n + 4 * b:].view(torch.int32) if corr else None
     rc = _lib().a8_quantize(
         x.data_ptr(), None if norm_w is None else norm_w.data_ptr(), xq.data_ptr(),
         sx.data_ptr(), None if c is None else c.data_ptr(), b, in_f,
@@ -244,21 +239,18 @@ def quant_matvec_stacked_fused(x: torch.Tensor, p_stack: torch.Tensor,
             raise ValueError("a8_matvec: norm_eps is required with norm_stack")
         norm_w = norm_stack[layer]
     out = torch.empty(b, out_f, dtype=x.dtype, device=x.device)
-    s_bf16 = int(s_stack.dtype == torch.bfloat16)
-    if b == 1:
-        rc = _lib().a8_matvec_fused(
-            x.data_ptr(), p_stack[layer].data_ptr(), s_stack[layer].data_ptr(),
-            None if norm_w is None else norm_w.data_ptr(), out.data_ptr(), b, in_f, out_f,
-            bits, int(x.dtype == torch.bfloat16), s_bf16, float(norm_eps or 0.0),
-            float(norm_offset), _build.stream_ptr(x))
-    else:
-        _check_aligned(p_stack[layer])
-        xq, sx, corr = quantize_rows(x, norm_w, norm_eps, norm_offset, corr=bits == 4)
-        rc = _lib().a8_mma(
-            xq.data_ptr(), p_stack[layer].data_ptr(), s_stack[layer].data_ptr(),
-            sx.data_ptr(), None if corr is None else corr.data_ptr(), out.data_ptr(), b,
-            in_f, out_f, bits, int(x.dtype == torch.bfloat16), s_bf16,
-            _build.stream_ptr(x))
+    # quantize_rows' codes, sx and corr in one workspace, held until the
+    # launch; one C call launches a8_quantize and then the matvec (batch-1
+    # decode is host-bound: its wrapper's host time is the step's).
+    ws = torch.empty(b * in_f + 8 * b, dtype=torch.int8, device=x.device)
+    p, s = p_stack[layer], s_stack[layer]
+    _check_aligned(x, p, *([] if norm_w is None else [norm_w]))
+    rc = _lib().a8_quantize_mma(
+        x.data_ptr(), None if norm_w is None else norm_w.data_ptr(), p.data_ptr(), s.data_ptr(),
+        ws.data_ptr(), out.data_ptr(), b, in_f, out_f, bits, int(x.dtype == torch.bfloat16),
+        int(s_stack.dtype == torch.bfloat16), float(norm_eps or 0.0), float(norm_offset),
+        _build.stream_ptr(x))
     _build.check(rc, "a8_matvec_fused")
+    _build.count_launch("a8_quantize")
     _build.count_launch("a8_matvec")
     return out

@@ -28,7 +28,8 @@ from typing import Optional
 import torch
 
 from metalchat_tpu_torch.ops import _build
-from metalchat_tpu_torch.ops.a8_matvec import MAX_ROWS, act_quantize, int_acc, prologue
+from metalchat_tpu_torch.ops.a8_matvec import (MAX_ROWS, _check_aligned, act_quantize, int_acc,
+                                               prologue)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,7 +40,7 @@ ACTS = ("silu", "gelu_tanh")
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("ffn_block")
-    lib.ffn_block.argtypes = [_P] * 12 + [_I] * 7 + [_F, _F, _P]
+    lib.ffn_block.argtypes = [_P] * 15 + [_I] * 7 + [_F, _F, _P]
     lib.ffn_block.restype = _I
     return lib
 
@@ -140,16 +141,24 @@ def ffn_block_stacked(attn: torch.Tensor, x: torch.Tensor, wo_q, wo_s, norm_w, w
     s_dtypes = {wo_s.dtype, w13_s.dtype, w2_s.dtype}
     if len(s_dtypes) != 1 or not s_dtypes <= {torch.bfloat16, torch.float32}:
         raise ValueError(f"ffn_block: scales all f32 or all bf16, got {s_dtypes}")
+    _check_aligned(attn, norm_w[layer], wo_q[layer], w13_q[layer], w2_q[layer])
     x2 = torch.empty_like(x)
     h = torch.empty(b, inter, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    # At 2-16 rows block b quantizes row b for all: each phase's codes
+    # [3][B][max(H, F)], then sx [3][B] f32 and corr [3][B] int32; held until
+    # the launch. At one row every block quantizes the row itself.
+    shared = b > 1
+    n_codes = 3 * b * max(hidden, inter)
+    ws = torch.empty(n_codes + 24 * b, dtype=torch.int8, device=x.device) if shared else None
+    at = (lambda off: ws.data_ptr() + off) if shared else (lambda off: None)  # noqa: E731
     rc = _lib().ffn_block(
         attn.data_ptr(), x.data_ptr(), wo_q[layer].data_ptr(), wo_s[layer].data_ptr(),
         norm_w[layer].data_ptr(), w13_q[layer].data_ptr(), w13_s[layer].data_ptr(),
         w2_q[layer].data_ptr(), w2_s[layer].data_ptr(), x2.data_ptr(), h.data_ptr(),
-        out.data_ptr(), b, hidden, inter, bits, ACTS.index(act),
-        int(x.dtype == torch.bfloat16), int(wo_s.dtype == torch.bfloat16), float(eps),
-        float(offset), _build.stream_ptr(x))
+        out.data_ptr(), at(0), at(n_codes), at(n_codes + 12 * b), b, hidden, inter, bits,
+        ACTS.index(act), int(x.dtype == torch.bfloat16), int(wo_s.dtype == torch.bfloat16),
+        float(eps), float(offset), _build.stream_ptr(x))
     _build.check(rc, "ffn_block")
     _build.count_launch("ffn_block")
     if scratch is not None:

@@ -1,8 +1,9 @@
 """The int8 tensor-core matvec's integer schedule against the reference.
 
-At 2-16 rows the port's W4A8/W8A8 matvec (``csrc/a8_matvec.cu``:
-``a8_quantize`` then ``a8_mma_kernel``) permutes k inside each 64-byte
-step on both operands, pads the code rows to n-tiles of 8 with zeros, splits
+At every row count, one included, the port's W4A8/W8A8 matvec
+(``csrc/a8_matvec.cu``: ``a8_quantize`` then ``a8_mma_kernel``) permutes k
+inside each 64-byte step on both operands, pads the code rows to n-tiles of
+8 with zeros, splits
 k over the warps of a block and sums their int32 partials, then applies the
 int4 nibble identities. ``torch_port_util.a8_mma_emulate`` replays that
 register by register through PTX's mma.m16n8k32 fragment layout. Its int32
@@ -30,7 +31,7 @@ IN_F, OUT_F, L = 320, 40, 2
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("rows", [2, 5, 8, 9, 16])
+@pytest.mark.parametrize("rows", [1, 2, 5, 8, 9, 16])
 def test_mma_schedule_is_exact(rows, bits):
     rng = np.random.default_rng(10 * rows + bits)
     k = IN_F // 2 if bits == 4 else IN_F

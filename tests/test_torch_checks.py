@@ -8,10 +8,12 @@ mode, the last cache position left out); for the paged kernel also
 the new row written into the neighbouring page and a page-table lookup off
 by one; for the dequant matmul a wrong group index and swapped nibble
 halves; for the merged FFN block a missing residual and one output tile
-off by one column; for the matvec's raw mode (the int8 tensor-core
-schedule of 2-16 rows, emulated) a dropped k step, the int4 correction left
-out, and a padded code column stored into row B - 1. Each must fail the
-check.
+off by one column, and in its ring schedule (emulated) phase C on phase B's
+codes, a prefetched w13 tile from the next layer, one row's scale taken
+from its neighbour and a ring slot refilled one stage early; for the
+matvec's raw mode (the int8 tensor-core schedule, emulated) a dropped k
+step, the int4 correction left out, and a padded code column stored into
+row B - 1. Each must fail the check.
 A wrapper that differs from the plain version only by f32 rounding noise
 must pass. The shapes are the fixture's (hd=64).
 
@@ -32,7 +34,7 @@ import torch
 
 import chip_smoke
 from metalchat_tpu_torch.ops.reference import MASK_VALUE
-from torch_port_util import a8_mma_emulate
+from torch_port_util import a8_mma_emulate, ffn_block_emulate
 
 # The suite runs test files in parallel workers on shared cores: one torch
 # thread per worker keeps these small ops from crowding the others.
@@ -552,6 +554,34 @@ def test_ffn_check_fails_a_planted_fault(monkeypatch, fault, case):
         _run_ffn(monkeypatch, fault, case, "bfloat16")
 
 
+def _run_ffn_ring(monkeypatch, fault, case, rows=3):
+    """check_ffn_block with the kernel replaced by its schedule's emulation
+    (``torch_port_util.ffn_block_emulate``: codes once a row a phase, each
+    block's walk of its ring, the tensor-core tile), one planted fault."""
+    def ffn(*args, **kw):
+        return ffn_block_emulate(*args, **kw, fault=fault)
+
+    monkeypatch.setattr(ffn_mod, "ffn_block_stacked", ffn)
+    sm = chip_smoke.Smoke(torch)
+    chip_smoke.check_ffn_block(sm, 384, 1024, rows, [case], torch.Generator().manual_seed(1),
+                               CPU, torch.bfloat16)
+    return sm
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("case", chip_smoke.FFN_CASES, ids=str)
+def test_ffn_check_passes_the_ring_schedule(monkeypatch, case, rows):
+    assert _run_ffn_ring(monkeypatch, None, case, rows).share["ffn_block"] <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["codes_from_b", "wrong_layer", "sx_neighbour",
+                                   "early_reuse"])
+@pytest.mark.parametrize("case", chip_smoke.FFN_CASES, ids=str)
+def test_ffn_check_fails_a_ring_fault(monkeypatch, fault, case):
+    with pytest.raises(AssertionError, match="beyond the limit"):
+        _run_ffn_ring(monkeypatch, fault, case)
+
+
 a8_mod = importlib.import_module("metalchat_tpu_torch.ops.a8_matvec")
 
 
@@ -567,7 +597,7 @@ def _run_a8(monkeypatch, fault, case, rows):
     return sm
 
 
-@pytest.mark.parametrize("rows", [2, 5, 9, 16])
+@pytest.mark.parametrize("rows", [1, 2, 5, 9, 16])
 @pytest.mark.parametrize("case", chip_smoke.A8_FIXTURE, ids=str)
 def test_a8_check_passes_the_mma_schedule(monkeypatch, case, rows):
     _run_a8(monkeypatch, None, case, rows)
@@ -579,7 +609,7 @@ A8_INT4 = [c for c in chip_smoke.A8_FIXTURE if c[3] == 4]
 
 
 @pytest.mark.parametrize("fault,case,rows", [
-    *(("drop_step", c, 5) for c in chip_smoke.A8_FIXTURE),
+    *(("drop_step", c, r) for c in chip_smoke.A8_FIXTURE for r in (1, 5)),
     *(("no_corr", c, 5) for c in A8_INT4),
     *(("pad_leak", c, r) for c in chip_smoke.A8_FIXTURE for r in (5, 9))], ids=str)
 def test_a8_check_fails_a_planted_fault(monkeypatch, fault, case, rows):

@@ -34,6 +34,8 @@ def test_a8_matvec_kernel(card, dtype):
     chip_smoke.check_a8(sm, [("wqkv", 768, 384, 4, True), ("w2", 384, 1024, 8, False)],
                         1, gen, dev, dt)
     chip_smoke.check_a8(sm, [("w13", 2048, 384, 4, True)], 7, gen, dev, dt)
+    # One row at edge widths: a ragged last step, out not a multiple of the tile.
+    chip_smoke.check_a8(sm, chip_smoke.A8_EDGE, 1, gen, dev, dt)
 
 
 # 2-16 rows: a8_quantize and the int8 tensor-core matvec, one n-tile (2, 8)
@@ -133,7 +135,7 @@ def test_quant_matmul_kernel(card, dtype, rows):
 
 
 @DTYPES
-@pytest.mark.parametrize("rows", [1, 5, 16])
+@pytest.mark.parametrize("rows", chip_smoke.FFN_ROWS)
 def test_ffn_block_kernel(card, dtype, rows):
     sm, gen, dev = card
     chip_smoke.check_ffn_block(sm, 384, 1024, rows, chip_smoke.FFN_CASES, gen, dev,

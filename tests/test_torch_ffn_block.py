@@ -31,33 +31,13 @@ import torch
 from metalchat_tpu.ops.ffn_block_pallas import ffn_block_stacked as j_ffn
 from metalchat_tpu_torch.ops import a8_matvec as am
 from metalchat_tpu_torch.ops import ffn_block as fb
+from torch_port_util import ffn_weights_np, near_rounding_boundary
 
 # The suite runs test files in parallel workers on shared cores: one torch
 # thread per worker keeps these small ops from crowding the others.
 torch.set_num_threads(1)
 
 jq = importlib.import_module("metalchat_tpu.quant.quantize")
-
-
-def _make(rng, L, H, F, bits):
-    """tests/test_ffn_block.py's weights, as numpy."""
-    kw = H // 2 if bits == 4 else H
-    k2 = F // 2 if bits == 4 else F
-    return dict(
-        wo_q=rng.integers(-127, 127, (L, H, kw), np.int8),
-        wo_s=rng.random((L, 1, H), np.float32) * 1e-2,
-        norm_w=rng.random((L, H), np.float32),
-        w13_q=rng.integers(-127, 127, (L, 2 * F, kw), np.int8),
-        w13_s=rng.random((L, 1, 2 * F), np.float32) * 1e-2,
-        w2_q=rng.integers(-127, 127, (L, H, k2), np.int8),
-        w2_s=rng.random((L, 1, H), np.float32) * 1e-2)
-
-
-def _near_boundary(values, sx, tol=1e-4):
-    """Rows where some value / sx sits within ``tol`` of a rounding half."""
-    ratio = (values.float() / sx).numpy()
-    frac = np.abs(np.abs(ratio - np.trunc(ratio)) - 0.5)
-    return np.any(frac < tol, axis=1)
 
 
 CASES = [(8, 128, 256, act, batch, 0.0) for act in ("silu", "gelu_tanh") for batch in (1, 8)]
@@ -69,7 +49,7 @@ CASES += [(8, 128, 256, "gelu_tanh", 2, 1.0), (4, 256, 512, "silu", 2, 1.0)]
 def test_ffn_block_plain_matches_pallas(bits, H, F, act, batch, offset):
     rng = np.random.default_rng(42)
     L, eps = 3, 1e-5
-    w = _make(rng, L, H, F, bits)
+    w = ffn_weights_np(rng, L, H, F, bits)
     attn = rng.standard_normal((batch, H)).astype(np.float32)
     x = rng.standard_normal((batch, H)).astype(np.float32)
     jw = dict(w, norm_w=w["norm_w"][:, None, :])
@@ -89,7 +69,7 @@ def test_ffn_block_plain_matches_pallas(bits, H, F, act, batch, offset):
             offset + tw["norm_w"][layer])
         _, sx_n = am.prologue(xf, tw["norm_w"][layer], eps, offset)
         _, sx_h = am.act_quantize(scratch["h"])
-        tie = _near_boundary(normed, sx_n) | _near_boundary(scratch["h"], sx_h)
+        tie = near_rounding_boundary(normed, sx_n) | near_rounding_boundary(scratch["h"], sx_h)
         np.testing.assert_allclose(got[~tie], want[~tie], rtol=1e-5,
                                    atol=1e-6 * np.abs(want).max())
         quanta = 4 * sx_h.numpy() * w["w2_s"][layer].reshape(1, -1) * (8 if bits == 4 else 127)
@@ -100,7 +80,7 @@ def test_ffn_block_scratch_and_phases_compose():
     """The phases (the chip check's units) compose to the block, and the
     scratch holds the block's own x2 and h."""
     rng = np.random.default_rng(1)
-    w = {k: torch.from_numpy(v) for k, v in _make(rng, 2, 128, 256, 4).items()}
+    w = {k: torch.from_numpy(v) for k, v in ffn_weights_np(rng, 2, 128, 256, 4).items()}
     attn, x = (torch.from_numpy(rng.standard_normal((3, 128)).astype(np.float32))
                for _ in range(2))
     scratch = {}

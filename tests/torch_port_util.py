@@ -333,3 +333,115 @@ def qmm_natural_emulate(x, q, scales, *, bits, group_size, sms=132, fault=None, 
         splits.append(red)
     total = _merge_splits(splits, fault)
     return total if raw else total.to(torch.bfloat16)
+
+
+# -- the merged FFN block's schedule (csrc/ffn_block.cu) ------------------------
+
+FFN_STAGES = 3  # kStages: ring slots a block
+
+
+def ffn_weights_np(rng, L, H, F, bits):
+    """Random act8 weights of the merged block (tests/test_ffn_block.py's), as numpy."""
+    kw = H // 2 if bits == 4 else H
+    k2 = F // 2 if bits == 4 else F
+    return dict(
+        wo_q=rng.integers(-127, 127, (L, H, kw), np.int8),
+        wo_s=rng.random((L, 1, H), np.float32) * 1e-2,
+        norm_w=rng.random((L, H), np.float32),
+        w13_q=rng.integers(-127, 127, (L, 2 * F, kw), np.int8),
+        w13_s=rng.random((L, 1, 2 * F), np.float32) * 1e-2,
+        w2_q=rng.integers(-127, 127, (L, H, k2), np.int8),
+        w2_s=rng.random((L, 1, H), np.float32) * 1e-2)
+
+
+def near_rounding_boundary(values, sx, tol=1e-4):
+    """Rows where some value / sx sits within ``tol`` of a rounding half."""
+    ratio = (values.float() / sx).numpy()
+    frac = np.abs(np.abs(ratio - np.trunc(ratio)) - 0.5)
+    return np.any(frac < tol, axis=1)
+
+
+def ring_stages(block, grid, rows, k, subs, sub_stride, tile_rows, chunk):
+    """The stages of one weight matrix that ``block`` walks (common.cuh
+    WeightStream): its tiles block, + grid, ... of ``tile_rows`` rows, each
+    tile's sub-tiles, each cut into chunks of up to ``chunk`` bytes. Each
+    stage is (first row, live rows, first byte, bytes)."""
+    tiles = -(-rows // tile_rows)
+    return [(sub * sub_stride + tile * tile_rows, min(tile_rows, rows - tile * tile_rows),
+             c * chunk, min(chunk, k - c * chunk))
+            for tile in range(block, tiles, grid) for sub in range(subs)
+            for c in range(-(-k // chunk))]
+
+
+def ffn_block_emulate(attn, x, wo_q, wo_s, norm_w, w13_q, w13_s, w2_q, w2_s, layer, *, bits,
+                      act, eps, offset=0.0, scratch=None, grid=3, fault=None):
+    """``[B, H]`` as ffn_block_kernel computes it, with ``grid`` blocks: each
+    block's stages of wo, then w13 (gate and up sub-tiles), then w2, in the
+    order its ring's feed issues them (tiles of 8 rows and 2 KB chunks at one
+    row, 16 rows and 1 KB at 2-16); the codes of each phase once a row
+    (a8_matvec's prologue); the dots on the integer schedule of the route
+    (one row: exact dp4a sums, as int_acc; 2-16 rows: a8_mma_emulate with the
+    prologue's corr); the f32 glue of the kernel's epilogues. ``scratch``
+    receives x2 and h. ``fault``: "codes_from_b" runs phase C on phase B's
+    code buffer (read with phase C's row width) and scales; "wrong_layer"
+    fills the stages of w13 that a block's feed issues before phase B (its
+    first FFN_STAGES) from the next layer; "sx_neighbour" gives row 0 of
+    phase A row 1's scale; "early_reuse" lets block 0's first stage of w13
+    hold the stage FFN_STAGES later in its walk (its slot refilled before it
+    was read)."""
+    import torch
+
+    from metalchat_tpu_torch.ops import a8_matvec as am
+    from metalchat_tpu_torch.ops import ffn_block as fb
+
+    b, hidden = x.shape
+    inter = w13_q.shape[1] // 2
+    pack = 2 if bits == 4 else 1
+    tile_rows, chunk = (8, 2048) if b == 1 else (16, 1024)
+    # What the ring hands the consumers, matrix by matrix.
+    seen = [w[layer].clone() for w in (wo_q, w13_q, w2_q)]
+    specs = [(hidden, hidden // pack, 1, 0), (inter, hidden // pack, 2, inter),
+             (hidden, inter // pack, 1, 0)]
+    for blk in range(grid):
+        walk = [(m, st) for m, spec in enumerate(specs)
+                for st in ring_stages(blk, grid, *spec, tile_rows, chunk)]
+        first_w13 = next((i for i, (m, _) in enumerate(walk) if m == 1), None)
+        if first_w13 is None:
+            continue
+        if fault == "wrong_layer":
+            other = w13_q[(layer + 1) % w13_q.shape[0]]
+            for m, (r0, live, c0, n) in walk[first_w13:first_w13 + FFN_STAGES]:
+                if m == 1:
+                    seen[1][r0:r0 + live, c0:c0 + n] = other[r0:r0 + live, c0:c0 + n]
+        if fault == "early_reuse" and blk == 0 and first_w13 + FFN_STAGES < len(walk):
+            (_, (r0, live, c0, n)), (m2, (s0, live2, d0, n2)) = (
+                walk[first_w13], walk[first_w13 + FFN_STAGES])
+            rr, nn = min(live, live2), min(n, n2)
+            seen[1][r0:r0 + rr, c0:c0 + nn] = seen[m2][s0:s0 + rr, d0:d0 + nn].clone() \
+                if m2 != 1 else w13_q[layer][s0:s0 + rr, d0:d0 + nn]
+
+    def codes(v, nw=None):
+        return am.quantize_rows_plain(v, nw, eps if nw is not None else None,
+                                      offset if nw is not None else 0.0, corr=bits == 4)
+
+    def linear(q, m, s):
+        xq, sx, corr = q
+        acc = am.int_acc(xq, seen[m], bits) if b == 1 else a8_mma_emulate(
+            xq, seen[m], bits, corr=corr)
+        return acc.float() * sx[:, None] * s.reshape(1, -1).float()
+
+    qa = codes(attn)
+    if fault == "sx_neighbour" and b > 1:
+        qa = (qa[0], torch.cat([qa[1][1:2], qa[1][1:]]), qa[2])
+    x2 = x + linear(qa, 0, wo_s[layer]).to(x.dtype)
+    qb = codes(x2, norm_w[layer])
+    gate, up = linear(qb, 1, w13_s[layer]).chunk(2, dim=-1)
+    h = (fb.activation(gate, act) * up).to(x.dtype)
+    qc = codes(h)
+    if fault == "codes_from_b":
+        flat = torch.zeros(b * max(hidden, inter), dtype=torch.int8)
+        flat[:b * hidden] = qb[0].reshape(-1)
+        qc = (flat[:b * inter].reshape(b, inter), qb[1], qb[2])
+    if scratch is not None:
+        scratch.update(x2=x2, h=h)
+    return x2 + linear(qc, 2, w2_s[layer]).to(x.dtype)
