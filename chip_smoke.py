@@ -52,12 +52,24 @@ Phases (any failure makes the script exit non-zero without a result line):
 5. The main path at full width: ``8b-w4a8`` (Llama-3.1-8B geometry, all 32
    layers, random int4 weights from a seeded ``torch.Generator``, int8 KV,
    context 1024), a 512-token prompt then 64 greedy decode steps through
-   ``generate``, every kernel's launches held exactly around that run; then
-   ``torch.profiler`` over one prefill and 8 decode steps (the device's
-   busy share and device time by kernel). main-ffn-block: the same params
-   with ``ffn_block=True`` (32 ffn_block and 33 a8_matvec launches a step),
-   then both routes in turns. main-int4: ``8b-int4`` (weight-only int4,
-   group 32), 129 dequant-matmul launches a step, and its profile.
+   ``generate`` (one eager warm-up step, the capture of one step in a CUDA
+   graph, 63 replays), every kernel's launches held exactly around that
+   run (a replay counts the launches it holds); the ids and the cache
+   equal, bit for bit, those of an eager loop of ``forward`` calls written
+   here (``eager_generate``); decode tok/s of the graph route and the eager
+   loop in turns, the capture time and 63 replays alone. Then
+   ``torch.profiler`` over one prefill, 8 eager decode steps and 8 replays
+   of the captured step (the device's busy share and device time by
+   kernel). main-ffn-block: the same params with ``ffn_block=True`` (32
+   ffn_block and 33 a8_matvec launches a step), the same checks, then the
+   merged and unmerged routes in turns. main-int4: ``8b-int4`` (weight-only
+   int4, group 32), 129 dequant-matmul launches a step, the same checks,
+   and its profile. stream: ``generate_stream`` on the 8b-w4a8 params, a
+   dense bf16 cache of 1024, 4 sink positions, a 960-token prompt and 128
+   tokens, so the cache rolls in place and the graph replays on: ids equal
+   to ``eager_stream``'s, launches exact; the fixture's stream (a 56-position
+   cache that rolls after 7 tokens) card against CPU, the first 16 ids
+   identical.
 6. serve-fixture: the fixture through ``ContinuousBatchingEngine`` (6 greedy
    requests, 3 slots, chunks of 32, bursts of 4, f32 activations) in paged
    (pages of 16), dense int8 and dense activation-dtype mode, on the card
@@ -216,10 +228,10 @@ class Smoke:
                 fn(i)
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for i in range(iters):
-                fn(i)
+        from metalchat_tpu_torch.ops._build import CountedGraph
+
+        graph = CountedGraph()
+        graph.capture(lambda: [fn(i) for i in range(iters)])
         graph.replay()
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -466,6 +478,7 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
     from metalchat_tpu_torch.ops import decode_attention as dm
     from metalchat_tpu_torch.ops import paged_attention as pm
     from metalchat_tpu_torch.ops import quant_matmul as qm
+    from metalchat_tpu_torch.ops._build import CountedGraph
     from metalchat_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     lengths = [T - 1 - 17 * b for b in range(B)]
@@ -568,10 +581,8 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
             kernel()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            kernel()
-            out = kernel()
+        graph = CountedGraph()
+        out = graph.capture(lambda: (kernel(), kernel())[1])
         replays = []
         for _ in range(2):
             graph.replay()
@@ -942,14 +953,60 @@ def weight_bytes(params) -> int:
     return nbytes(params) - nbytes(params["rope"]) - nbytes(params["embed"])
 
 
+def eager_generate(params, cfg, prompt, n_new: int, cache, ffn_block: bool = False):
+    """Greedy decode as a loop of plain `forward` calls, one a token at an
+    int position: the loop `generate` ran before its step was captured,
+    written here as the graph route's reference. Returns the ids ``[B,
+    n_new]`` and the last step's logits."""
+    import torch
+
+    from metalchat_tpu_torch.models.transformer import forward
+
+    s = prompt.shape[1]
+    logits, _ = forward(params, cache, prompt, 0, cfg, ffn_block=ffn_block)
+    tok = logits[:, -1].argmax(-1)
+    out = [tok]
+    for i in range(n_new - 1):
+        logits, _ = forward(params, cache, tok[:, None], s + i, cfg, ffn_block=ffn_block)
+        tok = logits[:, -1].argmax(-1)
+        out.append(tok)
+    return torch.stack(out, dim=1), logits
+
+
+def eager_stream(params, cfg, prompt, n_new: int, cache, sink_tokens: int):
+    """`generate_stream`'s loop (greedy, batch of one, no EOS) as plain
+    `forward` calls at int positions, rolling the cache as it does. Returns
+    the ids and the number of rolls."""
+    import torch
+
+    from metalchat_tpu_torch.cache import roll_kv_cache
+    from metalchat_tpu_torch.models.transformer import forward
+
+    dev = params["final_norm"].device
+    logits, _ = forward(params, cache, torch.tensor([list(prompt)], device=dev), 0, cfg)
+    pos, out, rolls = len(prompt), [], 0
+    for _ in range(n_new):
+        tok = int(logits[0, -1].argmax())
+        out.append(tok)
+        if pos + 1 >= cache.max_seq_len:
+            shift = max(1, (cache.max_seq_len - sink_tokens) // 4)
+            roll_kv_cache(cache, sink_tokens, shift)
+            pos, rolls = pos - shift, rolls + 1
+        logits, _ = forward(params, cache, torch.tensor([[tok]], device=dev), pos, cfg)
+        pos += 1
+    return out, rolls
+
+
 def drive_generate(sm: Smoke, dev_name: str, label: str, cfg, params, per_step,
                    ffn_block: bool = False, ctx: int = 1024, prompt_len: int = 512,
                    new: int = 64):
     """One user's request through `generate` at full width: int8 KV, batch
-    1, a random 512-token prompt, then 64 greedy decode steps. Prints decode
+    1, a random 512-token prompt, then 64 greedy decode steps (one eager
+    warm-up step, the capture, 63 replays of the CUDA graph). Prints decode
     tok/s, TTFT, bytes a token and the HBM share (bench.py's accounting).
     Launches are read around the timed runs and held exactly: ``per_step``
-    a decode step, flash once a layer a prefill, every other kernel never."""
+    a decode step, replays included, flash once a layer a prefill, every
+    other kernel never. Then `graph_vs_eager`."""
     torch = sm.torch
     from metalchat_tpu_torch.cache import QuantizedKVCache
     from metalchat_tpu_torch.engine.generate import generate
@@ -969,7 +1026,7 @@ def drive_generate(sm: Smoke, dev_name: str, label: str, cfg, params, per_step,
         torch.cuda.synchronize()
         return time.perf_counter() - t, out, cache
 
-    run(2)  # warm-up: libraries, cuBLAS handles, first launches
+    run(2)  # warm-up: libraries, cuBLAS handles, first launches, one capture
     reset_launch_counts()
     ttft, _, _ = run(1)
     total, out, cache = run(new + 1)
@@ -985,12 +1042,100 @@ def drive_generate(sm: Smoke, dev_name: str, label: str, cfg, params, per_step,
     want.update({k: n * new for k, n in per_step.items()})
     want["flash_attention"] = 2 * cfg.num_layers
     sm.tok_s[label] = tok_s
-    print(f"{label}: decode {tok_s:.2f} tok/s, TTFT {1e3 * ttft:.2f} ms "
+    print(f"{label}: decode {tok_s:.2f} tok/s through generate (the graph route, its "
+          f"warm-up step and capture included), TTFT {1e3 * ttft:.2f} ms "
           f"(prompt {prompt_len}), {bpt / 1e9:.4f} GB/token (bound "
           f"{1e3 * bpt / rate:.4f} ms a step), {tok_s * bpt / rate:.4f} of "
           f"{rate / 1e12:.2f} TB/s HBM, launches {counts}")
     sm.expect(counts == want, f"{label}: launches {counts} != expected {want}")
+    graph_vs_eager(sm, label, cfg, params, prompt, out, cache, ffn_block, ctx, new)
     return cfg, params, cache, counts, prompt_len + new, prompt
+
+
+def graph_vs_eager(sm: Smoke, label: str, cfg, params, prompt, out, cache, ffn_block: bool,
+                   ctx: int, new: int):
+    """The graph route against `eager_generate` on the card: the same ids
+    and the same cache, bit for bit. Then decode tok/s of the two routes in
+    turns (graph, eager, eager, graph; 64 / (t(65) - t(1)) each, the graph
+    route's warm-up step and capture inside its t(65)), the capture alone
+    (`CountedGraph.capture`, timed), and the decode rate of replays alone:
+    63 replays of a step captured by `make_decode_step`, enqueued with no
+    host read between them."""
+    torch = sm.torch
+    import importlib
+
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.sampling import SamplerConfig
+
+    # The module, not the function `engine.generate` that shadows its name.
+    gm = importlib.import_module("metalchat_tpu_torch.engine.generate")
+    dev = torch.device("cuda")
+
+    def fresh():
+        return QuantizedKVCache.create(cfg, 1, ctx, device=dev)
+
+    eager_cache = fresh()
+    want, _ = eager_generate(params, cfg, prompt, new + 1, eager_cache, ffn_block)
+    sm.exact(out, want, f"{label}: graph route ids against the eager loop")
+    for name in ("k", "v", "k_scale", "v_scale"):
+        sm.exact(getattr(cache, name), getattr(eager_cache, name),
+                 f"{label}: cache {name}, graph route against the eager loop")
+
+    def timed(route, n_new):
+        c = fresh()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if route == "graph":
+            gm.generate(params, cfg, prompt, max_new_tokens=n_new, cache=c,
+                        ffn_block=ffn_block)
+        else:
+            eager_generate(params, cfg, prompt, n_new, c, ffn_block)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    turns = []
+    for route in ("graph", "eager", "eager", "graph"):
+        first = timed(route, 1)
+        total = timed(route, new + 1)
+        turns.append((route, new / (total - first), first, total))
+
+    captures = []
+    base = gm.CountedGraph
+
+    class TimedCapture(base):
+        def capture(self, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = super().capture(fn)
+            torch.cuda.synchronize()
+            captures.append(time.perf_counter() - t)
+            return result
+
+    greedy = SamplerConfig.greedy()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = gm.make_prefill(cfg, greedy, (), ffn_block)(params, fresh(), prompt, 0, gen)
+    step = gm.make_decode_step(cfg, greedy, (), ffn_block)
+    gm.CountedGraph = TimedCapture
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step.advance(params, state)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        gm.CountedGraph = base
+    t = time.perf_counter()
+    for _ in range(new - 1):
+        step.advance(params, state)
+    torch.cuda.synchronize()
+    replay_ms = 1e3 * (time.perf_counter() - t) / (new - 1)
+    print(f"{label}: decode tok/s in turns: "
+          + ", ".join(f"{r} {v:.2f} (t(1) {1e3 * a:.1f} ms, t({new + 1}) {1e3 * b:.1f} ms)"
+                      for r, v, a, b in turns)
+          + f"; capture {1e3 * captures[0]:.3f} ms (first step call {first_ms:.3f} ms: an "
+          f"eager step, then the capture); {new - 1} replays {replay_ms:.4f} ms a step "
+          f"({1e3 / replay_ms:.2f} tok/s); ids and cache equal to the eager loop's")
 
 
 def make_8b(sm: Smoke, label: str, **quant):
@@ -1070,6 +1215,70 @@ def phase_main_ffn_block(sm: Smoke, main, dev_name: str):
     return run
 
 
+def phase_stream(sm: Smoke, main):
+    """`generate_stream` at full width: phase main's 8b-w4a8 params, a dense
+    bf16 cache of 1024 positions, 4 sink positions, a random 960-token
+    prompt and 128 greedy tokens, so the cache rolls (255 positions) and
+    the captured step replays on after it. The ids must equal
+    `eager_stream`'s on the card; launches are held exactly (128 steps,
+    the warm-up step and the replays; one flash prefill). Then the
+    fixture's stream (W4A8, a 56-position cache that rolls after 7 tokens)
+    card against CPU: the first 16 ids identical and not one id repeated."""
+    torch = sm.torch
+    import numpy as np
+
+    from metalchat_tpu_torch.cache import KVCache
+    from metalchat_tpu_torch.engine.generate import generate_stream
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.sampling import SamplerConfig
+
+    cfg, params = main[0], main[1]
+    L, n_new, ctx, sinks = cfg.num_layers, 128, 1024, 4
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (960,), generator=gen, device=dev).tolist()
+    greedy = SamplerConfig.greedy()
+
+    def cache():
+        return KVCache.create(cfg, 1, ctx, dtype=torch.bfloat16, device=dev)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = list(generate_stream(params, cfg, prompt, max_new_tokens=n_new, sampler=greedy,
+                               cache=cache(), sink_tokens=sinks))
+    stream_s = time.perf_counter() - t
+    counts = launch_counts()
+    t = time.perf_counter()
+    want, rolls = eager_stream(params, cfg, prompt, n_new, cache(), sinks)
+    eager_s = time.perf_counter() - t
+    expected = dict.fromkeys(counts, 0)
+    expected.update(a8_matvec=(4 * L + 1) * n_new, a8_quantize=(4 * L + 1) * n_new,
+                    decode_attention=L * n_new, flash_attention=L)
+    print(f"stream 8b-w4a8 (prompt 960, dense bf16 cache {ctx}, {sinks} sinks): "
+          f"{n_new} tokens, {rolls} roll(s); graph route {stream_s:.3f} s, eager loop "
+          f"{eager_s:.3f} s (each with its 960-token prefill); ids equal: {got == want}; "
+          f"launches {counts}")
+    sm.expect(len(got) == n_new and rolls >= 1, f"stream: {len(got)} ids, {rolls} rolls")
+    sm.expect(got == want, "stream: graph route ids differ from the eager loop's")
+    sm.expect(counts == expected, f"stream: launches {counts} != expected {expected}")
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        fparams, fcfg, fixture = fixture_params(torch, device, torch.float32)
+        fprompt = np.load(fixture / "eval_tokens.npy")[STREAM_FIXTURE_PROMPT].tolist()
+        outs[device] = list(generate_stream(fparams, fcfg, fprompt, max_new_tokens=32,
+                                            sampler=greedy, max_seq_len=56, sink_tokens=4))
+    first = outs["cuda"][:16]
+    print(f"stream fixture (W4A8, f32, cache 56, 4 sinks): card {first}, CPU "
+          f"{outs['cpu'][:16]}, all 32 equal: {outs['cuda'] == outs['cpu']}")
+    sm.expect(first == outs["cpu"][:16],
+              "stream fixture: the first 16 ids differ between card and CPU")
+    sm.expect(len(set(first)) > 4, f"stream fixture: a degenerate stream {first}")
+    return counts
+
+
 # -- phases 6-8: serving ------------------------------------------------------
 
 W4A8 = dict(bits=4, group_size=None, act_bits=8)
@@ -1113,6 +1322,11 @@ FIXTURE_INT_PROMPTS = slice(1440, 1584)
 # 0.0051 of the largest beyond one step in "w8 g32" and "w4 g32"; a split
 # dropped from the k-split merge moves them by 0.89.
 FIXTURE_INT_LOGIT_PROMPTS = slice(0, 144)
+# The stream phase's fixture prompt: greedy continuations of the fixture's
+# Python source often settle into runs of one id (spaces after an indent,
+# eval_tokens[1440:1488]); this one varies. It runs in f32, as serve-fixture
+# does, so that no bf16 near tie parts card and CPU.
+STREAM_FIXTURE_PROMPT = slice(200, 248)
 FIXTURE_INT_LOGIT_STEPS = 16
 LOGIT_SHARE = 2 ** -5
 # fixture-int: the modes, as (quantization, generate's ffn_block). Weight-only
@@ -1504,11 +1718,14 @@ def profile_window(torch, name: str, fn) -> None:
 def phase_profile(sm: Smoke, main, label: str = "8b-w4a8", ffn_block: bool = False,
                   prefill: bool = True):
     """Where a generate run's time goes: torch.profiler over one 512-token
-    prefill and 8 decode steps of the 8B model, the device's busy share of
-    the host's wall time and device time by kernel."""
+    prefill, 8 eager decode steps (`forward` calls) and 8 replays of the
+    captured decode step (`make_decode_step`) of the 8B model: the device's
+    busy share of the host's wall time and device time by kernel."""
     torch = sm.torch
     from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.engine.generate import make_decode_step, make_prefill
     from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.sampling import SamplerConfig
 
     cfg, params, _, _, _, prompt = main
     dev = torch.device("cuda")
@@ -1522,6 +1739,16 @@ def phase_profile(sm: Smoke, main, label: str = "8b-w4a8", ffn_block: bool = Fal
     profile_window(torch, f"{label} decode x8", lambda: [
         forward(params, cache, prompt[:, i:i + 1], s + i, cfg, ffn_block=ffn_block)
         for i in range(8)])
+    greedy = SamplerConfig.greedy()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = make_prefill(cfg, greedy, (), ffn_block)(
+        params, QuantizedKVCache.create(cfg, 1, 1024, device=dev), prompt, 0, gen)
+    replayed = make_decode_step(cfg, greedy, (), ffn_block)
+    for _ in range(2):  # the warm-up step and capture, then one replay
+        replayed.advance(params, state)
+    profile_window(torch, f"{label} replayed decode x8",
+                   lambda: [replayed.advance(params, state) for _ in range(8)])
 
 
 def a8_calls(torch, cfg, params, rows: int, gen):
@@ -2063,7 +2290,7 @@ def main() -> int:
 
     sm = Smoke(torch)
     t_start = time.perf_counter()
-    ffn_run = int4_run = None
+    ffn_run = int4_run = stream_counts = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -2081,6 +2308,8 @@ def main() -> int:
         int4_run = sm.phase("main-int4", lambda: phase_main_int4(sm, dev_name))
         if int4_run is not None:
             sm.phase("profile-int4", lambda: phase_profile(sm, int4_run, "8b-int4"))
+        if main_run is not None:
+            stream_counts = sm.phase("stream", lambda: phase_stream(sm, main_run))
         fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
         serve = None
         if main_run is not None:
@@ -2104,13 +2333,14 @@ def main() -> int:
                 sm, int4_run, hbm_rate(dev_name)))
             rows = None if more is None else rows + more
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    if sm.failures or not smi or rows is None:
+    if sm.failures or not smi or rows is None or stream_counts is None:
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
                "generate 8b-int4": int4_run[3], "serve paged": serve["paged"]["counts"],
                "serve dense": serve["dense"]["counts"],
-               "serve-fixture dense-act": fixture_counts["dense-act"]}
+               "serve-fixture dense-act": fixture_counts["dense-act"],
+               "stream 8b-w4a8": stream_counts}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] if counter else 0

@@ -7,12 +7,15 @@ builds the kernels of the path from that checkout's sources, makes one of
 ``chip_smoke.py``'s 8B models (Llama-3.1-8B widths, all 32 layers, random
 weights from seed 0, wqkv and w13 fused, int8 KV, context 1024) and runs
 ``generate`` on a random 512-token prompt: three times 1 then 65 new
-tokens, decode tok/s from the difference (64 steps). ``--scheme int4`` is
+tokens, decode tok/s from the difference (64 steps; in a checkout whose
+``generate`` replays a captured CUDA graph, through that graph). ``--scheme int4`` is
 8b-int4 (weight-only int4, group 32; the linear wrapper timed is the
 dequant matmul's, row 11), ``--scheme w4a8`` is 8b-w4a8 (per-channel int4,
 int8 activations; the fused W4A8 matvec's, row 1). During one extra
-65-token run every call of that wrapper is timed on the host clock, so a
-turn reports how much of a step's wall the wrapper's host work takes. The
+65-token run of the eager loop (a prefill, then one `forward` call a
+token, greedy: the loop ``generate`` ran before it was captured) every call of that
+wrapper is timed on the host clock, so a turn reports how much of an
+eager step's wall the wrapper's host work takes. The
 wall of a step spreads with the host's load, so the turn also replays one
 decode step's wrapper calls (the same arguments, 20 steps back to back, five
 times) and reports the host time a replayed step, least and median: the
@@ -47,6 +50,7 @@ def turn(root: str, scheme: str) -> dict:
     from metalchat_tpu_torch.config import LlamaConfig
     from metalchat_tpu_torch.engine.generate import generate
     from metalchat_tpu_torch.models.fuse import fuse_projections
+    from metalchat_tpu_torch.models.transformer import forward
     from metalchat_tpu_torch.ops import _build, launch_counts, reset_launch_counts
     from metalchat_tpu_torch.quant.quantize import init_random_quantized_params
 
@@ -72,6 +76,17 @@ def turn(root: str, scheme: str) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
+    def eager(n_new):
+        cache = QuantizedKVCache.create(cfg, 1, 1024, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, _ = forward(params, cache, prompt, 0, cfg)
+        for i in range(n_new - 1):
+            tok = logits[:, -1].argmax(-1)
+            logits, _ = forward(params, cache, tok[:, None], prompt.shape[1] + i, cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
     run(2)
     tok_s = []
     for _ in range(3):
@@ -92,9 +107,9 @@ def turn(root: str, scheme: str) -> dict:
     setattr(module, name, timed)
     reset_launch_counts()
     try:
-        first = run(1)
+        first = eager(1)
         n_prefill = len(host)
-        wall = run(65) - first
+        wall = eager(65) - first
     finally:
         setattr(module, name, kernel)
     per_step = 4 * cfg.num_layers + 1

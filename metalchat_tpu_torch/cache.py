@@ -136,6 +136,26 @@ def update_stacked_layer_cache_quantized(cache_k, cache_v, k_scale, v_scale, k, 
     return cache_k, cache_v, k_scale, v_scale
 
 
+def roll_kv_cache(cache, num_sink: int, shift: int):
+    """Attention-sinks eviction, in place: keep positions ``[0, num_sink)``,
+    move the rest left by ``shift`` and zero the last ``shift`` positions
+    (the JAX package's ``roll_kv_cache``). Dense and int8 caches; every
+    tensor keeps its storage, since a decode step captured in a CUDA graph
+    goes on reading it, so the moved slice goes through a temporary copy
+    (source and destination overlap). Returns the same cache."""
+    if isinstance(cache, QuantizedKVCache):
+        tensors = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    elif isinstance(cache, KVCache):
+        tensors = (cache.k, cache.v)
+    else:
+        raise TypeError(f"roll_kv_cache takes a dense or int8 cache, not {type(cache).__name__}")
+    for t in tensors:  # the position axis is 3 in payloads and scales
+        body = t[:, :, :, num_sink + shift:].clone()
+        t[:, :, :, num_sink:num_sink + body.shape[3]] = body
+        t[:, :, :, t.shape[3] - shift:] = 0
+    return cache
+
+
 # ---------------------------------------------------------------- paged KV
 
 @dataclass

@@ -83,17 +83,20 @@ def _ffn_block_ok(layers: Dict[str, Any], rows: int, dtype, config: ModelConfig)
 
 def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
                 config: ModelConfig, *, ffn_block: bool = False):
-    """One decode window ``tokens [B, S]`` (S ≤ 16) at ``start_pos`` (int or
-    ``[B]``); same contract as `forward`. The cache is updated in place.
+    """One decode window ``tokens [B, S]`` (S ≤ 16) at ``start_pos``; same
+    contract as `forward`. The cache is updated in place. ``start_pos`` is
+    an int, or an integer device tensor, 0-d (shared) or ``[B]`` (per row).
+    A tensor is never read back to the host, so a one-token step (S == 1)
+    captured in a CUDA graph reads the position from that tensor at every
+    replay (`engine.generate`); windows of 2-16 tokens may read it.
     ``ffn_block`` merges each layer's post-attention block into one kernel
     launch where `_ffn_block_ok` holds."""
     b, s = tokens.shape
     dev = tokens.device
-    if torch.is_tensor(start_pos) and start_pos.ndim == 1:
-        offsets = start_pos.to(device=dev, dtype=torch.int64)
+    if torch.is_tensor(start_pos):
+        offsets = start_pos.to(device=dev, dtype=torch.int64).reshape(-1).expand(b)
     else:
-        start_pos = int(start_pos)
-        offsets = torch.full((b,), start_pos, dtype=torch.int64, device=dev)
+        offsets = torch.full((b,), int(start_pos), dtype=torch.int64, device=dev)
     positions = offsets[:, None] + torch.arange(s, device=dev)[None, :]
     lengths = (offsets + s).to(torch.int32)
 

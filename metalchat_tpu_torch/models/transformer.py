@@ -141,11 +141,12 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
 def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
             config: ModelConfig, *, ffn_block: bool = False):
     """One model step: tokens int ``[B, S]`` written at ``start_pos`` (an int,
-    or an int32 ``[B]`` of per-row offsets). Returns (f32 logits
-    ``[B, S, V]``, cache), the cache updated in place.
+    or an integer tensor: 0-d, or ``[B]`` per-row offsets). Returns (f32
+    logits ``[B, S, V]``, cache), the cache updated in place.
 
     Windows of up to 16 tokens take `decode_step` (the matvec kernel path),
-    as in the JAX package; longer ones are the prefill path below, with
+    as in the JAX package, which reads a tensor ``start_pos`` on the device
+    only; longer ones are the prefill path below, with
     flash attention over the dequantized cache (a paged cache: over each
     row's gathered pages). ``ffn_block`` is `decode_step`'s: the merged
     post-attention kernel on decode windows (prefill is not affected)."""

@@ -12,7 +12,8 @@ round-half-even (``rintf``) to match the reference's integer codes.
 
 Each wrapper counts its launches in ``LAUNCHES`` (one per kernel launch, and
 nowhere else), so a run can show that its path really went through the
-kernels.
+kernels. A launch made while a `CountedGraph` captures runs nothing: it is
+recorded as that graph's, and each replay of the graph adds them.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -41,15 +42,52 @@ LAUNCHES: Dict[str, int] = {
     "paged_decode_attention": 0, "quant_matmul": 0, "ffn_block": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# The launches of the capture under way (`CountedGraph.capture`), else None.
+_CAPTURED: Optional[Dict[str, int]] = None
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    (LAUNCHES if _CAPTURED is None else _CAPTURED)[name] += 1
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class CountedGraph:
+    """A CUDA graph whose replays count the kernel launches it holds.
+
+    The wrappers called inside `capture` record their launches as the
+    graph's (``launches``) and add nothing to ``LAUNCHES``, since a capture
+    runs nothing; each `replay` adds them once. ``graph`` and ``context``
+    default to a new `torch.cuda.CUDAGraph` and `torch.cuda.graph`; the CPU
+    tests pass stand-ins that run nothing. One capture at a time."""
+
+    def __init__(self, graph=None, context: Optional[Callable] = None):
+        self.graph = torch.cuda.CUDAGraph() if graph is None else graph
+        self._context = torch.cuda.graph if context is None else context
+        self.launches: Dict[str, int] = {}
+
+    def capture(self, fn: Callable):
+        """Capture ``fn()`` into the graph; returns what ``fn`` returned
+        (tensors that each replay overwrites)."""
+        global _CAPTURED
+        if _CAPTURED is not None:
+            raise RuntimeError("a CountedGraph capture is already under way")
+        _CAPTURED = dict.fromkeys(LAUNCHES, 0)
+        try:
+            with self._context(self.graph):
+                out = fn()
+            self.launches = {k: n for k, n in _CAPTURED.items() if n}
+        finally:
+            _CAPTURED = None
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
 
 
 def _nvcc() -> str:
@@ -138,7 +176,8 @@ def stream_ptr(t: torch.Tensor) -> int:
 # made; every launch leaves the counters it used at zero, so launches on one
 # stream can share them (they must not run concurrently on two streams). A
 # grown buffer keeps the old one alive, since a captured CUDA graph may still
-# launch on it.
+# launch on it. A capture cannot make or grow the buffer (its zeros would be
+# written only at replay): run the captured work once eagerly first.
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 _RETIRED: list = []
 
@@ -146,6 +185,9 @@ _RETIRED: list = []
 def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("arrival counters made during a CUDA graph capture: "
+                               "run the captured work once before capturing it")
         if buf is not None:
             _RETIRED.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)

@@ -1,9 +1,12 @@
 """Token samplers (port of the JAX package's ``sampling.py``).
 
-Temperature, top-k, nucleus (top-p) and min-p masks, then a categorical
-draw from an explicit ``torch.Generator``. Greedy is ``argmax`` (first index
-on ties, as ``jnp.argmax``). `sample_batched` takes per-row settings, as the
-serving engine mixes requests in one decode step.
+Repetition, frequency and presence penalties against a token history
+(`apply_penalties`), temperature, top-k, nucleus (top-p) and min-p masks,
+then a categorical draw from an explicit ``torch.Generator``. Greedy is
+``argmax`` (first index on ties, as ``jnp.argmax``). `sample` reads nothing
+back to the host, so a decode step captured in a CUDA graph can call it.
+`sample_batched` takes per-row settings, as the serving engine mixes
+requests in one decode step.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ class SamplerConfig:
     temperature: float = 0.6
     top_k: int = 50
     top_p: float = 0.9
-    min_p: float = 0.0   # keep tokens with p >= min_p * p_max
+    min_p: float = 0.0               # keep tokens with p >= min_p * p_max
+    repetition_penalty: float = 1.0  # > 1 penalizes seen tokens (CTRL-style)
+    frequency_penalty: float = 0.0   # subtracted once per occurrence
+    presence_penalty: float = 0.0    # subtracted once per seen token
 
     @staticmethod
     def greedy() -> "SamplerConfig":
@@ -31,6 +37,11 @@ class SamplerConfig:
     @property
     def is_greedy(self) -> bool:
         return self.temperature <= 0.0
+
+    @property
+    def penalizes(self) -> bool:
+        return (self.repetition_penalty != 1.0 or self.frequency_penalty != 0.0
+                or self.presence_penalty != 0.0)
 
 
 def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -63,10 +74,39 @@ def min_p_mask(logits: torch.Tensor, min_p: float) -> torch.Tensor:
     return torch.where(probs >= cutoff, logits, _NEG)
 
 
+def apply_penalties(logits: torch.Tensor, history: torch.Tensor, config: SamplerConfig,
+                    history_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Repetition (CTRL), frequency and presence penalties: logits ``[B,
+    V]`` against the ids already in each row's context, ``history`` int
+    ``[B, T]``; ``history_mask [B, T]`` (1 for a real token) leaves padding
+    out. Counts are a scatter-add over the vocabulary, on the device."""
+    if not config.penalizes:
+        return logits
+    ones = torch.ones(history.shape, dtype=torch.float32, device=logits.device)
+    if history_mask is not None:
+        ones = ones * history_mask.float()
+    counts = torch.zeros(logits.shape, dtype=torch.float32, device=logits.device)
+    counts.scatter_add_(1, history.long(), ones)
+    seen = counts > 0.0
+    out = logits.float()
+    if config.repetition_penalty != 1.0:
+        r = config.repetition_penalty
+        out = torch.where(seen, torch.where(out > 0, out / r, out * r), out)
+    out = out - counts * config.frequency_penalty
+    return out - seen.float() * config.presence_penalty
+
+
 def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
-           config: SamplerConfig = SamplerConfig()) -> torch.Tensor:
-    """Next-token ids ``[B]`` (int64) from logits ``[B, V]``."""
+           config: SamplerConfig = SamplerConfig(),
+           history: Optional[torch.Tensor] = None,
+           history_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token ids ``[B]`` (int64) from logits ``[B, V]``, penalized
+    against ``history`` first where the config asks for it. The draw is
+    `torch.multinomial`'s own for one sample (``argmax(p / q)``, ``q ~
+    Exp(1)`` from ``generator``), without its host-side checks."""
     logits = logits.float()
+    if history is not None and config.penalizes:
+        logits = apply_penalties(logits, history, config, history_mask)
     if config.is_greedy:
         return torch.argmax(logits, dim=-1)
     logits = logits / config.temperature
@@ -76,7 +116,8 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
     if generator is None:
         raise ValueError("stochastic sampling requires a torch.Generator")
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
 
 
 def truncation_keep(scaled: torch.Tensor, top_k: torch.Tensor,

@@ -1,12 +1,18 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the decode step captured in a CUDA graph against the eager loop.
 
 Marked ``cuda``: each test skips (with the reason) where there is no CUDA
 device. Run on a machine with an H100 from the repository root:
 ``python -m pytest -m cuda tests/test_torch_cuda.py -q``. The same checks run
 at the main path's full shapes in ``chip_smoke.py``; these use the
-fixture's small shapes (hd=64), in bf16 and in f32 activations.
+fixture's small shapes (hd=64), in bf16 and in f32 activations. The graph
+route is held to the eager loop bit for bit: the same kernels in the same
+order, fixed merge orders.
 """
 
+import importlib
+
+import numpy as np
 import pytest
 import torch
 
@@ -155,3 +161,126 @@ def test_decode_first_launch_keeps_its_workspace(card):
     torch.full((1 << 24,), float("nan"), device=dev)
     chip_smoke.check_decode(sm, 3, 6, 3, 112, 64, [([49, 64, 80], None, "random")], gen, dev)
     sm.counters_at_rest("decode, first launch")
+
+
+# -- the decode step as a CUDA graph (engine/generate.py) ----------------------
+
+def fixture_on_card(rows: int = 3):
+    """The fixture (W4A8, bf16) on the card and ``rows`` prompts of 48
+    tokens from chip_smoke's tie-free slice."""
+    params, cfg, fixture = chip_smoke.fixture_params(torch, "cuda")
+    tokens = np.load(fixture / "eval_tokens.npy")[chip_smoke.FIXTURE_INT_PROMPTS]
+    prompts = torch.from_numpy(tokens[:48 * rows].astype(np.int64).reshape(rows, 48))
+    return params, cfg, prompts.cuda()
+
+
+def per_step(params, cfg, steps: int):
+    """Launches of ``steps`` W4A8 decode steps over an int8 cache: four
+    matvec calls a layer, and lm_head's where it is quantized."""
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+
+    calls = (4 * cfg.num_layers + isinstance(params["lm_head"], QuantizedTensor)) * steps
+    return dict(a8_matvec=calls, a8_quantize=calls,
+                decode_attention_update=cfg.num_layers * steps)
+
+
+def test_generate_graph_matches_eager_loop(card, monkeypatch):
+    """generate on the fixture, 3 rows, 24 tokens (a warm-up step, the
+    capture, 22 replays): the ids, the last step's logits and the cache
+    equal the eager loop of `forward` calls bit for bit; launches exact."""
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.engine import generate
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    gm = importlib.import_module("metalchat_tpu_torch.engine.generate")
+    params, cfg, prompts = fixture_on_card()
+    seen = {}  # the last logits of each shape, copied inside the graph too
+
+    def recording(*args, **kwargs):
+        logits, cache = real_forward(*args, **kwargs)
+        seen.setdefault(tuple(logits.shape), torch.empty_like(logits)).copy_(logits)
+        return logits, cache
+
+    real_forward = gm.forward
+    monkeypatch.setattr(gm, "forward", recording)
+    reset_launch_counts()
+    cache = QuantizedKVCache.create(cfg, 3, 128, device="cuda")
+    got = generate(params, cfg, prompts, max_new_tokens=24, cache=cache)
+    counts = launch_counts()
+    monkeypatch.setattr(gm, "forward", real_forward)
+    eager_cache = QuantizedKVCache.create(cfg, 3, 128, device="cuda")
+    want, logits = chip_smoke.eager_generate(params, cfg, prompts, 24, eager_cache)
+    assert torch.equal(got, want)
+    assert torch.equal(seen[tuple(logits.shape)], logits)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(cache, name), getattr(eager_cache, name)), name
+    assert counts == {**dict.fromkeys(counts, 0), **per_step(params, cfg, 23),
+                      "flash_attention": cfg.num_layers}
+
+
+def test_decode_step_replays_count_exactly(card):
+    """make_prefill, then 9 calls of one make_decode_step: the first runs
+    a step eagerly and captures it, the other 8 replay; the emitted ids
+    equal the eager loop's, one graph is held, and each replay counts its
+    launches once."""
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.engine import make_decode_step, make_prefill
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.sampling import SamplerConfig
+
+    params, cfg, prompts = fixture_on_card(2)
+    greedy = SamplerConfig.greedy()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    state = make_prefill(cfg, greedy)(params, QuantizedKVCache.create(cfg, 2, 64, device="cuda"),
+                                      prompts, 0, g)
+    step = make_decode_step(cfg, greedy)
+    reset_launch_counts()
+    emitted = [step(params, state)[1] for _ in range(9)]
+    counts = launch_counts()
+    want, _ = chip_smoke.eager_generate(params, cfg, prompts, 10,
+                                        QuantizedKVCache.create(cfg, 2, 64, device="cuda"))
+    assert torch.equal(torch.stack(emitted, dim=1), want[:, :9])
+    assert torch.equal(state.last_tokens, want[:, 9]) and int(state.pos) == 57
+    assert len(step._graphs) == 1
+    assert counts == {**dict.fromkeys(counts, 0), **per_step(params, cfg, 9)}
+
+
+def test_generate_stream_rolls_twice_and_replays(card):
+    """generate_stream on the fixture with a dense bf16 cache of 56
+    positions, 4 sinks, a 40-token prompt and 48 tokens: the cache rolls
+    three times (13 positions each) under the same graph, and the ids equal
+    the eager loop's on the card."""
+    from metalchat_tpu_torch.cache import KVCache
+    from metalchat_tpu_torch.engine import generate_stream
+    from metalchat_tpu_torch.sampling import SamplerConfig
+
+    params, cfg, fixture = chip_smoke.fixture_params(torch, "cuda")
+    prompt = np.load(fixture / "eval_tokens.npy")[chip_smoke.STREAM_FIXTURE_PROMPT][:40].tolist()
+
+    def cache():
+        return KVCache.create(cfg, 1, 56, dtype=torch.bfloat16, device="cuda")
+
+    got = list(generate_stream(params, cfg, prompt, max_new_tokens=48,
+                               sampler=SamplerConfig.greedy(), cache=cache(), sink_tokens=4))
+    want, rolls = chip_smoke.eager_stream(params, cfg, prompt, 48, cache(), 4)
+    assert rolls >= 2 and len(got) == 48 and len(set(got)) > 4
+    assert got == want
+
+
+def test_stochastic_generate_repeats_with_its_seed(card):
+    """A stochastic sampler (temperature, top-k, top-p) through the graph:
+    the same seed gives the same ids in two calls (the generator is
+    registered with the graph, so each replay draws anew), another seed
+    other ids."""
+    from metalchat_tpu_torch.engine import generate
+    from metalchat_tpu_torch.sampling import SamplerConfig
+
+    params, cfg, prompts = fixture_on_card()
+    sampler = SamplerConfig(temperature=1.0, top_k=40, top_p=0.95)
+    runs = [generate(params, cfg, prompts, max_new_tokens=32, sampler=sampler, seed=seed,
+                     quantized_kv=True) for seed in (5, 5, 6)]
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
+    # Replays draw fresh numbers: the rows do not settle into one repeated id.
+    assert all(len(set(r.tolist())) > 4 for r in runs[0])
