@@ -10,7 +10,9 @@ Phases (any failure makes the script exit non-zero without a result line):
    per source, all at once) and print the build time, registers and
    spills (each instance of the redesigned kernels on a line).
 3. Hold each kernel against its plain PyTorch version on the card, at the
-   Llama-3.1-8B shapes of the main path and at the fixture's (hd=64):
+   Llama-3.1-8B shapes of the main path, at the fixture's (hd=64) and at
+   Gemma-3-1B's (hd=256, windows of 512 that drop positions; row 1 at its
+   widths with the norm prologue at offset 1):
    a8_matvec raw mode int32-exact; cache bytes exact; every other output
    elementwise within one bf16 rounding step of the plain version's (see
    ``RTOL``), the fused matvec with its norm prologue within 1e-2 abs; lengths
@@ -70,6 +72,15 @@ Phases (any failure makes the script exit non-zero without a result line):
    to ``eager_stream``'s, launches exact; the fixture's stream (a 56-position
    cache that rolls after 7 tokens) card against CPU, the first 16 ids
    identical.
+   gemma: Gemma-3-1B W8A8 (``Gemma3Config.gemma3_1b``, all 26 layers, hd
+   256, window 512 on 5 layers of 6, random int8 weights, int8 KV, context
+   1024) through ``generate``: a 640-token prompt, 64 greedy tokens, 105
+   a8_matvec and 26 decode_attention_update launches a step and 26 flash a
+   prefill, the graph route equal to the eager loop, its profile, and the
+   window check (logits differ against windows of 1024 and none).
+   gemma-fixture: Gemma-3-1B's widths cut to 2 layers, window 64, one
+   sliding and one global layer, bf16: card against the CPU's plain path,
+   each of 16 steps' logits within ``check_logits``'s limit.
 6. serve-fixture: the fixture through ``ContinuousBatchingEngine`` (6 greedy
    requests, 3 slots, chunks of 32, bursts of 4, f32 activations) in paged
    (pages of 16), dense int8 and dense activation-dtype mode, on the card
@@ -84,6 +95,8 @@ Phases (any failure makes the script exit non-zero without a result line):
    prompt-chunk shapes (a8_quantize once per fused matvec call, at every
    row count); then ``torch.profiler``
    over one paged decode dispatch (8 steps) with all 8 slots decoding.
+   serve-gemma: the gemma phase's model behind the engine with the same
+   workload, all 24 requests, paged only, the same checks.
 8. http: the fixture behind ``InferenceServer`` on 127.0.0.1 (paged, on the
    card): a blocking completion, its SSE stream (same text), a chat
    completion, ``/health`` and ``/metrics``.
@@ -93,7 +106,8 @@ Phases (any failure makes the script exit non-zero without a result line):
    hd=64, kernel and yardstick only), timing-serve at the serve path's (8 rows;
    rows 1-2 per matrix with a8_quantize alone, and their step at 2 and 16
    rows), timing-ffn (row 10 beside the unmerged route, 1 and 8 rows) and
-   timing-int4 (row 11 at 1 and 8 rows, per matrix).
+   timing-int4 (row 11 at 1 and 8 rows, per matrix) and timing-gemma (rows
+   3, 4, 5 and 8 at hd 256, each layer with its window).
 
 The last lines are the kernel table as one JSON object (rows 1-11 of the
 JAX package's TPU kernels), the card's name and power limit, and
@@ -308,7 +322,7 @@ def entry_functions(log: str):
 
 # -- phase 3: kernels vs plain versions on the card ---------------------------
 
-def check_quantize(sm: Smoke, x, nw, what: str):
+def check_quantize(sm: Smoke, x, nw, what: str, norm_offset: float = 0.0):
     """a8_quantize against the plain prologue: without the norm
     the codes, sx and corr are exact (same op order); with it the f32
     statistics may reduce in another order and move a code by one quantum
@@ -318,7 +332,7 @@ def check_quantize(sm: Smoke, x, nw, what: str):
     torch = sm.torch
     from metalchat_tpu_torch.ops import a8_matvec as m
 
-    kw = dict(norm_w=nw, norm_eps=None if nw is None else 1e-5)
+    kw = dict(norm_w=nw, norm_eps=None if nw is None else 1e-5, norm_offset=norm_offset)
     xq, sx, corr = m.quantize_rows(x, **kw)
     want_q, want_s, want_c = m.quantize_rows_plain(x, **kw)
     moved = (xq.int() - want_q.int()).abs().max().item()
@@ -335,9 +349,10 @@ def check_quantize(sm: Smoke, x, nw, what: str):
     sm.exact(corr, 8 * xq[:, :x.shape[1] // 2].sum(dim=1, dtype=torch.int32), what + " corr")
 
 
-def check_a8(sm: Smoke, shapes, batch: int, gen, dev, dtype=None):
+def check_a8(sm: Smoke, shapes, batch: int, gen, dev, dtype=None, norm_offset: float = 0.0):
     """Raw mode int32-exact, fused within RTOL of the plain version (1e-2
-    abs with the norm prologue); a8_quantize on its own too."""
+    abs with the norm prologue, its weights ``norm_offset + w``); a8_quantize
+    on its own too."""
     torch = sm.torch
     dtype = dtype or torch.bfloat16
     from metalchat_tpu_torch.ops import a8_matvec as m
@@ -359,11 +374,12 @@ def check_a8(sm: Smoke, shapes, batch: int, gen, dev, dtype=None):
                  m.quant_matvec_stacked_fused_plain(x, p, s, 1, bits=bits),
                  what + " fused")
         if with_norm:
-            kw = dict(bits=bits, norm_stack=nw, norm_eps=1e-5)
+            kw = dict(bits=bits, norm_stack=nw, norm_eps=1e-5, norm_offset=norm_offset)
             sm.close("a8_matvec", m.quant_matvec_stacked_fused(x, p, s, 1, **kw),
                      m.quant_matvec_stacked_fused_plain(x, p, s, 1, **kw),
-                     what + " fused+norm", loose=True)
-        check_quantize(sm, x, nw[1] if with_norm else None, what + " a8_quantize")
+                     f"{what} fused+norm offset {norm_offset}", loose=True)
+        check_quantize(sm, x, nw[1] if with_norm else None, what + " a8_quantize",
+                       norm_offset)
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
@@ -858,6 +874,54 @@ FLASH_RAGGED_S = 137
 FLASH_CASES_RAGGED = [(100, None), (37, 70), (0, 1)]
 
 
+# Gemma-3-1B (hd 256, 4 query heads over 1 kv head, window 512 on 5 of every
+# 6 layers). Row 1 at its decode shapes, int8, the norm prologue at offset 1.
+A8_GEMMA = [("wqkv", 1536, 1152, 8, True), ("wo", 1152, 1024, 8, False),
+            ("w13", 13824, 1152, 8, True), ("w2", 1152, 6912, 8, False),
+            ("lm_head", 262144, 1152, 8, False)]
+GEMMA_WINDOW = 512
+W = GEMMA_WINDOW
+# Rows 3 and 5: windows that drop positions (lengths 600, 641 and 1024 under
+# a window of 512, whose lower edge then lies inside a chunk: 600 - 512 = 88),
+# a length under the window, the global layer's -1, a chunk edge, a zeroed
+# cache.
+DECODE_CASES_GEMMA = [([1], W, "random"), ([C + 1], None, "random"), ([300], W, "random"),
+                      ([600], W, "random"), ([641], W, "random"), ([1024], W, "random"),
+                      ([1024], -1, "random"), ([600], None, "random"),
+                      ([1024], W, "zeros")]
+READ_CASES_GEMMA = [([1, 64, 300, 600, 1024, 513, 700, 129], W),
+                    ([600, 1024, 2, 768, 129, 255, 1000, 1], None)]
+# Row 8 (9): the serve path's 8 rows on pages of 256 (4 a row), and pages of
+# 48 (chunks cross pages), windows of 512 and global.
+PAGED_CASES_GEMMA = [([600, 1024, 300, 1, 513, 1000, 64, 1], W),
+                     ([1, 256, 257, 1024, 700, 513, 64, 1], None),
+                     ([1024, 600, 2, 768, 129, 255, 1000, 1], -1)]
+PAGED_CASES_GEMMA_P48 = [([600, 1056, 49, 700, 96, 1, 530, 1], W)]
+# Row 4: the generate path's 640-token prefill over a cache of 1024, sliding
+# and global; a ragged chunk from unaligned starts.
+FLASH_CASES_GEMMA = [(0, W), (0, None), (0, -1), (100, W)]
+FLASH_CASES_GEMMA_RAGGED = [(100, W), (37, 70), (600, W)]
+
+
+def gemma_kernel_checks(sm: Smoke, gen, dev):
+    """Rows 1, 3, 4, 5 and 8 (9) at Gemma-3-1B's shapes (hd 256)."""
+    torch = sm.torch
+    for rows in (1, 8):
+        check_a8(sm, A8_GEMMA, rows, gen, dev, norm_offset=1.0)
+    check_decode(sm, 1, 4, 1, 1024, 256, DECODE_CASES_GEMMA, gen, dev)
+    check_decode(sm, 1, 4, 1, 1024, 256, DECODE_CASES_GEMMA[:4], gen, dev, torch.float32)
+    check_decode_read(sm, 8, 4, 1, 1024, 256, READ_CASES_GEMMA, gen, dev)
+    check_decode_read(sm, 8, 4, 1, 1024, 256, READ_CASES_GEMMA, gen, dev, kv="int8")
+    check_decode_read(sm, 8, 4, 1, 1024, 256, READ_CASES_GEMMA[:1], gen, dev, torch.float32)
+    check_flash(sm, 1, 640, 4, 1, 1024, 256, FLASH_CASES_GEMMA, gen, dev)
+    check_flash(sm, 2, FLASH_RAGGED_S, 4, 1, 1024, 256, FLASH_CASES_GEMMA_RAGGED, gen, dev)
+    check_flash(sm, 1, FLASH_RAGGED_S, 4, 1, 768, 256, FLASH_CASES_GEMMA_RAGGED, gen, dev,
+                torch.float32)
+    check_paged(sm, 8, 4, 1, 256, 256, 4, PAGED_CASES_GEMMA, gen, dev)
+    check_paged(sm, 8, 4, 1, 256, 48, 22, PAGED_CASES_GEMMA_P48, gen, dev)
+    check_paged(sm, 8, 4, 1, 256, 256, 4, PAGED_CASES_GEMMA[:1], gen, dev, torch.float32)
+
+
 def phase_kernels(sm: Smoke):
     torch = sm.torch
     from metalchat_tpu_torch.ops.decode_attention import SPLIT_CHUNK as kernel_chunk
@@ -899,6 +963,7 @@ def phase_kernels(sm: Smoke):
     for rows in FFN_ROWS:
         check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
     check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
+    gemma_kernel_checks(sm, gen, dev)
     print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact; a8_quantize "
           "in int8 code quanta): "
           + ", ".join(f"{k} {v:.3g} ({sm.share[k]:.3g} of its limit)"
@@ -1279,6 +1344,137 @@ def phase_stream(sm: Smoke, main):
     return counts
 
 
+# -- Gemma-3-1B W8A8 at full width --------------------------------------------
+
+W8A8 = dict(bits=8, group_size=None, act_bits=8)
+GEMMA_LABEL = "gemma3-1b-w8a8"
+
+
+def make_gemma(sm: Smoke, device, **cut):
+    """Gemma-3-1B at its published widths (bench.py:103-111, gemma3-1b-int8:
+    W8A8 per-channel, int8 KV, context 1024), random weights from a seeded
+    torch.Generator on ``device``, wqkv and w13 fused; ``cut`` replaces
+    config fields (the fixture's depth and window)."""
+    torch = sm.torch
+    from metalchat_tpu_torch.config import Gemma3Config
+    from metalchat_tpu_torch.models.fuse import fuse_projections
+    from metalchat_tpu_torch.quant.quantize import init_random_quantized_params
+
+    cfg = Gemma3Config.gemma3_1b(**{"max_seq_len": 1024, **cut})
+    t0 = time.perf_counter()
+    params = fuse_projections(init_random_quantized_params(
+        cfg, max_seq_len=cfg.max_seq_len, seed=0, device=torch.device(device), **W8A8), cfg)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    print(f"{GEMMA_LABEL} params ({cfg.num_layers} layers, window {cfg.sliding_window}, "
+          f"a global layer every {cfg.sliding_window_pattern}): "
+          f"{weight_bytes(params) / 1e9:.4f} GB of weights, made in "
+          f"{time.perf_counter() - t0:.1f} s on {device}")
+    return cfg, params
+
+
+def phase_gemma(sm: Smoke, dev_name: str):
+    """Gemma-3-1B W8A8 (all 26 layers) through `generate`: a 640-token
+    prompt, so that the prefill's sliding layers mask, then 64 greedy
+    tokens; launches exact (105 a8_matvec and 26 decode_attention_update a
+    step, 26 flash a prefill, nothing else), the graph route equal to the
+    eager loop; its profile; then `gemma_window_check`."""
+    cfg, params = make_gemma(sm, "cuda")
+    L = cfg.num_layers
+    run = drive_generate(sm, dev_name, GEMMA_LABEL, cfg, params,
+                         {"a8_matvec": 4 * L + 1, "a8_quantize": 4 * L + 1,
+                          "decode_attention_update": L}, prompt_len=640)
+    phase_profile(sm, run, GEMMA_LABEL)
+    gemma_window_check(sm, cfg, params, run[5])
+    return run
+
+
+def gemma_window_check(sm: Smoke, cfg, params, prompt):
+    """The windows reach the kernels: on the same params and prompt, the
+    prefill's last logits and the first decode step's differ between window
+    512 and a window of 1024 (no position of the 641 dropped, the same rope
+    table a layer), and between window 512 and none (every layer global,
+    as the JAX package reads ``sliding_window=None``)."""
+    torch = sm.torch
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.models.transformer import forward
+
+    dev = torch.device("cuda")
+    s = prompt.shape[1]
+    out = {}
+    for window in (cfg.sliding_window, 1024, None):
+        c = cfg.replace(sliding_window=window)
+        cache = QuantizedKVCache.create(c, 1, cfg.max_seq_len, device=dev)
+        pre, _ = forward(params, cache, prompt, 0, c)
+        step, _ = forward(params, cache, pre[:, -1].argmax(-1)[:, None], s, c)
+        out[window] = (pre[:, -1], step[:, -1])
+    base = out[cfg.sliding_window]
+    for window in (1024, None):
+        d = [(a - b).abs().max().item() for a, b in zip(base, out[window])]
+        print(f"{GEMMA_LABEL} window check: window {cfg.sliding_window} against {window}: "
+              f"max |logit diff| prefill {d[0]:.4g}, first decode step {d[1]:.4g}")
+        sm.expect(min(d) > 0, f"window check: window {window} gives the same logits as "
+                  f"{cfg.sliding_window}: the window does not reach the kernels")
+
+
+# The correctness cell: Gemma-3-1B's widths cut to 2 layers, a window of 64
+# and every 2nd layer global (one sliding, one global layer), so that a
+# 96-token prompt drops positions and the CPU's plain path stays short.
+GEMMA_FIXTURE_CUT = dict(num_layers=2, sliding_window=64, sliding_window_pattern=2,
+                         max_seq_len=256)
+GEMMA_FIXTURE_PROMPT, GEMMA_FIXTURE_STEPS = 96, 16
+
+
+def to_device(tree, device):
+    """A parameter tree copied to ``device`` (quantized leaves too)."""
+    import dataclasses
+
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+
+    if isinstance(tree, QuantizedTensor):
+        return dataclasses.replace(tree, q=tree.q.to(device), scales=tree.scales.to(device))
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_gemma_fixture(sm: Smoke):
+    """Gemma-3-1B W8A8, bf16, cut as GEMMA_FIXTURE_CUT: the card against the
+    CPU's plain path on the same params (made on the CPU, copied). A random
+    96-token prompt, then each of 16 steps' logits (a prefill and 15 decode
+    steps fed the CPU's greedy tokens, int8 KV) within ``check_logits``'s
+    limit; greedy ids of both printed."""
+    torch = sm.torch
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg, cpu_params = make_gemma(sm, "cpu", **GEMMA_FIXTURE_CUT)
+    card_params = to_device(cpu_params, torch.device("cuda"))
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, GEMMA_FIXTURE_PROMPT), generator=gen)
+    forced = generate(cpu_params, cfg, prompt, max_new_tokens=GEMMA_FIXTURE_STEPS,
+                      quantized_kv=True)
+    want = teacher_forced_logits(cpu_params, cfg, prompt, forced)
+    reset_launch_counts()
+    got = teacher_forced_logits(card_params, cfg, prompt, forced)
+    counts = launch_counts()
+    ids = generate(card_params, cfg, prompt, max_new_tokens=GEMMA_FIXTURE_STEPS,
+                   quantized_kv=True).cpu()
+    share = check_logits(sm, "gemma-fixture logits", got, want)
+    print(f"gemma-fixture (Gemma-3-1B widths cut to {cfg.num_layers} layers and window "
+          f"{cfg.sliding_window}, pattern {cfg.sliding_window_pattern}; bf16, int8 KV; "
+          f"prompt {GEMMA_FIXTURE_PROMPT}, {GEMMA_FIXTURE_STEPS} steps): logits max abs err "
+          f"{(got - want).abs().max().item()}, {share:.4f} of the limit; greedy ids card "
+          f"{ids[0].tolist()}, CPU {forced[0].tolist()}; card launches {counts}")
+    L = cfg.num_layers
+    steps = GEMMA_FIXTURE_STEPS - 1
+    expected = {**dict.fromkeys(counts, 0), "flash_attention": L,
+                "a8_matvec": (4 * L + 1) * steps, "a8_quantize": (4 * L + 1) * steps,
+                "decode_attention_update": L * steps}
+    sm.expect(counts == expected, f"gemma-fixture: launches {counts} != {expected}")
+
+
 # -- phases 6-8: serving ------------------------------------------------------
 
 W4A8 = dict(bits=4, group_size=None, act_bits=8)
@@ -1515,9 +1711,15 @@ def serve_bytes_per_token(cfg, params, slots: int) -> float:
     return weight_bytes(params) + cfg.hidden_size * 2 + slots * kv_row
 
 
-def phase_serve(sm: Smoke, main, rate: float):
-    """8b-w4a8 behind the engine with bench.py's serve workload, paged then
-    dense int8. Launch counts read around the measured run only."""
+SERVE_MODES = {"paged": dict(cache_mode="paged", page_size=256),
+               "dense": dict(quantized_kv=True)}
+
+
+def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
+                modes=tuple(SERVE_MODES)):
+    """``main``'s model behind the engine with bench.py's serve workload, in
+    each of ``modes`` (paged, dense int8). Launch counts read around the
+    measured run only."""
     torch = sm.torch
     from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1530,8 +1732,8 @@ def phase_serve(sm: Smoke, main, rate: float):
     bpt = serve_bytes_per_token(cfg, params, slots)
     roof = rate / bpt * slots
     runs = {}
-    for mode, kw in (("paged", dict(cache_mode="paged", page_size=256)),
-                     ("dense", dict(quantized_kv=True))):
+    for mode in modes:
+        kw = SERVE_MODES[mode]
         engine = ContinuousBatchingEngine(params, cfg, max_slots=slots, max_seq_len=1024,
                                           decode_burst=32, prefill_chunk=256, **kw)
         engine.run([Request(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens)
@@ -1564,7 +1766,7 @@ def phase_serve(sm: Smoke, main, rate: float):
         want = {"a8_matvec": (4 * L + 1) * (steps + short),
                 "a8_quantize": (4 * L + 1) * (steps + short), attn: L * (steps + single),
                 "flash_attention": L * long_}
-        print(f"serve 8b-w4a8 {mode}: {len(done)} requests, {total} tokens in {wall:.3f} s = "
+        print(f"serve {label} {mode}: {len(done)} requests, {total} tokens in {wall:.3f} s = "
               f"{tok_s:.2f} tok/s, {tok_s / roof:.4f} of the full-slot decode roofline "
               f"({roof:.1f} tok/s at {bpt / 1e9:.4f} GB a step, {rate / 1e12:.2f} TB/s); "
               f"TTFT p50 {1e3 * m['ttft_p50']:.1f} ms p99 {1e3 * m['ttft_p99']:.1f} ms, "
@@ -1576,11 +1778,12 @@ def phase_serve(sm: Smoke, main, rate: float):
         sm.expect(all(c.error is None and c.finish_reason == "length"
                       and len(c.tokens) == new for c in done.values())
                   and len(done) == len(requests),
-                  f"serve {mode}: {[(c.finish_reason, len(c.tokens)) for c in done.values()]}")
+                  f"serve {label} {mode}: "
+                  f"{[(c.finish_reason, len(c.tokens)) for c in done.values()]}")
         sm.expect(sum(shapes.values()) == m["prefill_dispatches"] + m["combined_dispatches"],
-                  f"serve {mode}: prompt chunks {dict(shapes)} vs counters {m}")
-        sm.expect(all(counts[k] == v for k, v in want.items()),
-                  f"serve {mode}: launches {counts} != expected {want}")
+                  f"serve {label} {mode}: prompt chunks {dict(shapes)} vs counters {m}")
+        want = {**dict.fromkeys(counts, 0), **want}  # every other kernel: never
+        sm.expect(counts == want, f"serve {label} {mode}: launches {counts} != expected {want}")
         if mode == "paged":
             sm.expect(engine.allocator.free_pages == engine.num_pages,
                       f"serve paged: {engine.num_pages - engine.allocator.free_pages} "
@@ -1588,7 +1791,7 @@ def phase_serve(sm: Smoke, main, rate: float):
         if mode == "paged":  # one decode dispatch (8 steps), every slot decoding
             fill_slots(engine, requests, slots)
             engine.decode_burst = 8
-            profile_window(torch, f"serve {mode}, one decode dispatch of {slots} rows",
+            profile_window(torch, f"serve {label} {mode}, one decode dispatch of {slots} rows",
                            engine.step)
             for rid in list(engine._completions):
                 engine.cancel(rid)
@@ -2214,7 +2417,7 @@ def phase_timing_ffn(sm: Smoke, main, ffn_run, rate: float):
     w13 and w2 packed bytes and scales, the norm weights, rows in and out.
     No single PyTorch call computes the block: library_ms is null."""
     torch = sm.torch
-    from metalchat_tpu_torch.models.transformer import silu_gate
+    from metalchat_tpu_torch.models.transformer import act_gate
     from metalchat_tpu_torch.ops import a8_matvec as am
     from metalchat_tpu_torch.ops import ffn_block as fb
 
@@ -2238,7 +2441,7 @@ def phase_timing_ffn(sm: Smoke, main, ffn_run, rate: float):
         def unmerged(i):
             l = i % L
             x2 = x + am.quant_matvec_stacked_fused(attn, wo.q, wo.scales, l, bits=4)
-            g = silu_gate(am.quant_matvec_stacked_fused(x2, w13.q, w13.scales, l, bits=4,
+            g = act_gate(am.quant_matvec_stacked_fused(x2, w13.q, w13.scales, l, bits=4,
                                                         norm_stack=nw, norm_eps=eps))
             return x2 + am.quant_matvec_stacked_fused(g, w2.q, w2.scales, l, bits=4)
 
@@ -2268,6 +2471,177 @@ def phase_timing_ffn(sm: Smoke, main, ffn_run, rate: float):
 
 
 
+def phase_timing_gemma(sm: Smoke, run, serve, rate: float):
+    """Rows 3, 4, 5 and 8 at hd 256, Gemma-3-1B's shapes, each layer with
+    its own window (22 of 26 layers slide over 512 positions, 4 are
+    global): one decode step of `generate` (row 3, one row at the phase's
+    last length), one 640-token prefill (row 4), and one decode step of 8
+    rows at lengths spread to 1024 over the serve-gemma engine's pool (row
+    8, write mode) and over a bf16 dense cache (row 5, read-only). Kernel by
+    CUDA graph replay over every layer, plain version eager, the bound from
+    the positions each layer's window visits, and SDPA on bf16 K/V over the
+    same positions (a mask for the window) as the library yardstick."""
+    torch = sm.torch
+    import torch.nn.functional as F
+
+    from metalchat_tpu_torch.cache import dequantize_kv, gather_page_scales, gather_pages_dense
+    from metalchat_tpu_torch.ops import decode_attention as dm
+    from metalchat_tpu_torch.ops import paged_attention as pm
+    from metalchat_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    cfg, params, cache, counts, length, _ = run
+    dev = torch.device("cuda")
+    L, nh, nkv, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    groups = nh // nkv
+    windows = [cfg.layer_window(l) for l in range(L)]
+    n_global = windows.count(-1)
+    scale = cfg.attention_scale()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows = []
+
+    def per_layer(fn, plain):
+        """(kernel ms, plain ms) of one call on every layer."""
+        return (L * sm.device_ms(fn, 2 * L), L * sm.eager_ms(plain, L))
+
+    def visited(n, w):
+        return n if w < 0 else min(n, w)
+
+    def sdpa_rows(q, kd, vd, lens, w):
+        """SDPA of one row a query over kd/vd [B, nh, T, hd] at lens [B],
+        positions [lens - w, lens) (all below lens when w < 0)."""
+        t = torch.arange(kd.shape[2], device=dev)[None, :]
+        ok = t < lens[:, None]
+        if w >= 0:
+            ok &= t >= lens[:, None] - w
+        return sm.device_ms(lambda i: F.scaled_dot_product_attention(
+            q[:, :, None, :], kd, vd, attn_mask=ok[:, None, None, :]), 32)
+
+    def library(fn_by_window):
+        return sum(fn_by_window(w) for w in windows)
+
+    # Row 3: generate's decode step, one row at the phase's last length.
+    q = torch.randn((1, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((1, nkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    args = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    ms, plain = per_layer(
+        lambda i: dm.decode_attention_update_quantized_stacked(
+            q, kn, kn, *args, i % L, lens, scale=scale, window=windows[i % L]),
+        lambda i: dm.decode_attention_update_plain(
+            q, kn, kn, *args, i % L, lens, scale=scale, window=windows[i % L]))
+    kd = dequantize_kv(cache.k[0], cache.k_scale[0]).repeat_interleave(groups, dim=1)
+    vd = dequantize_kv(cache.v[0], cache.v_scale[0]).repeat_interleave(groups, dim=1)
+    lib_by_w = {w: sdpa_rows(q, kd, vd, lens, w) for w in set(windows)}
+    pos = sum(visited(length, w) for w in windows)
+    nbytes = (2 * nkv * pos * (hd + 4)
+              + L * (2 * nh * hd * 2 + 2 * nkv * hd * 2 + 2 * nkv * (hd + 4)))
+    b_ms, b_by = bound(nbytes, 4 * nh * hd * pos, "f32", rate)
+    rows.append(dict(row=3, name="decode_attention_update (hd 256)",
+                     counter="decode_attention_update",
+                     source="metalchat_tpu_torch/csrc/decode_attention.cu",
+                     replaces="metalchat_tpu/ops/decode_attention_pallas.py:598",
+                     ms=ms, plain_ms=plain, library_ms=library(lib_by_w.get),
+                     bound_ms=b_ms, bound_by=b_by, launches=counts["decode_attention_update"],
+                     unit=f"one {GEMMA_LABEL} decode step ({L} calls, 1 row, length {length}, "
+                          f"{L - n_global} layers with window {cfg.sliding_window})"))
+    del kd, vd
+
+    # Row 4: one 640-token prefill over the phase's cache, dequantized.
+    S = 640
+    qf = torch.randn((1, S, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kf = dequantize_kv(cache.k[0, :, :, :S], cache.k_scale[0, :, :, :S])
+    vf = dequantize_kv(cache.v[0, :, :, :S], cache.v_scale[0, :, :, :S])
+    ms, plain = per_layer(
+        lambda i: flash_attention(qf, kf, vf, 0, scale=scale, window=windows[i % L]),
+        lambda i: flash_attention_plain(qf, kf, vf, 0, scale=scale, window=windows[i % L]))
+    kr, vr = (t.repeat_interleave(groups, dim=1) for t in (kf, vf))
+    qt = qf.transpose(1, 2)
+    t = torch.arange(S, device=dev)
+
+    def flash_lib(w):
+        ok = t[None, :] <= t[:, None]
+        if w >= 0:
+            ok &= t[None, :] > t[:, None] - w
+        return sm.device_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kr, vr, attn_mask=ok), 8)
+
+    lib_by_w = {w: flash_lib(w) for w in set(windows)}
+    pairs = sum(sum(visited(p + 1, w) for p in range(S)) for w in windows)
+    b_ms, b_by = bound(L * 2 * (2 * S * nh * hd + 2 * nkv * S * hd), 4 * hd * nh * pairs,
+                       "bf16", rate)
+    rows.append(dict(row=4, name="flash_attention (hd 256)", counter="flash_attention",
+                     source="metalchat_tpu_torch/csrc/flash_attention.cu",
+                     replaces="metalchat_tpu/ops/flash_attention_pallas.py:136",
+                     ms=ms, plain_ms=plain, library_ms=library(lib_by_w.get),
+                     bound_ms=b_ms, bound_by=b_by, launches=counts["flash_attention"],
+                     unit=f"one {S}-token {GEMMA_LABEL} prefill ({L} calls, bf16; launches "
+                          "count the phase's two prefills)"))
+    del qf, kf, vf, kr, vr
+
+    # Rows 8 and 5: 8 rows at lengths spread to 1024, the serve run's pool.
+    c = serve["paged"]["engine"].cache
+    B, mp, psize = c.page_table.shape[0], c.page_table.shape[1], c.page_size
+    T = mp * psize
+    lengths = [(i + 1) * T // B for i in range(B)]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    table = torch.randperm(B * mp, generator=gen, device=dev).to(torch.int32).reshape(B, mp)
+    q = torch.randn((B, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((B, nkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    pool = (c.k_pages, c.v_pages, c.k_scale, c.v_scale)
+    pos = sum(visited(n, w) for n in lengths for w in windows)
+    io = L * (2 * B * nh * hd * 2 + B * 4)
+    ops = 4 * nh * hd * pos
+    ms, plain = per_layer(
+        lambda i: pm.paged_decode_attention_update_stacked(
+            q, kn, kn, *pool, table, lens, i % L, scale=scale, window=windows[i % L]),
+        lambda i: pm.paged_decode_attention_update_plain(
+            q, kn, kn, *pool, table, lens, i % L, scale=scale, window=windows[i % L]))
+    kd = dequantize_kv(gather_pages_dense(c.k_pages[0], table),
+                       gather_page_scales(c.k_scale[0], table)).repeat_interleave(groups, dim=1)
+    vd = dequantize_kv(gather_pages_dense(c.v_pages[0], table),
+                       gather_page_scales(c.v_scale[0], table)).repeat_interleave(groups, dim=1)
+    lib_by_w = {w: sdpa_rows(q, kd, vd, lens, w) for w in set(windows)}
+    del kd, vd
+    b_ms, b_by = bound(2 * nkv * pos * (hd + 4) + io + L * B * mp * 4
+                       + L * (2 * B * nkv * hd * 2 + 2 * B * nkv * (hd + 4)), ops, "f32", rate)
+    unit = (f"one {GEMMA_LABEL} decode step ({L} calls, 8 rows, lengths "
+            f"{lengths[0]}..{lengths[-1]}, {L - n_global} layers with window "
+            f"{cfg.sliding_window})")
+    rows.append(dict(row=8, name="paged_decode_attention_update (hd 256)",
+                     counter="paged_decode_attention_update",
+                     source="metalchat_tpu_torch/csrc/paged_attention.cu",
+                     replaces="metalchat_tpu/ops/paged_attention_pallas.py:410",
+                     ms=ms, plain_ms=plain, library_ms=library(lib_by_w.get),
+                     bound_ms=b_ms, bound_by=b_by,
+                     launches=serve["paged"]["counts"]["paged_decode_attention_update"],
+                     unit=unit + "; launches from serve-gemma"))
+    kc, vc = (torch.randn((L, B, nkv, T, hd), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    ms, plain = per_layer(
+        lambda i: dm.decode_attention_stacked(q, kc, vc, i % L, lens, scale=scale,
+                                              window=windows[i % L]),
+        lambda i: dm.decode_attention_stacked_plain(q, kc, vc, None, None, i % L, lens,
+                                                    scale=scale, window=windows[i % L]))
+    kr, vr = (x[0].repeat_interleave(groups, dim=1) for x in (kc, vc))
+    lib_by_w = {w: sdpa_rows(q, kr, vr, lens, w) for w in set(windows)}
+    del kr, vr, kc, vc
+    b_ms, b_by = bound(2 * nkv * pos * hd * 2 + io, ops, "f32", rate)
+    rows.append(dict(row=5, name="decode_attention (hd 256)", counter="decode_attention",
+                     source="metalchat_tpu_torch/csrc/decode_attention.cu",
+                     replaces="metalchat_tpu/ops/decode_attention_pallas.py:323",
+                     ms=ms, plain_ms=plain, library_ms=library(lib_by_w.get),
+                     bound_ms=b_ms, bound_by=b_by, launches=counts["decode_attention"],
+                     unit=unit.replace("decode step (", "decode step over a dense bf16 cache (")
+                          + "; read-only, on no Gemma path the script drives (launches 0)"))
+    for r in rows:
+        r.update(route="cuda", max_abs_err=sm.err[r["counter"]])
+        print(f"  {r['name']} [{r['unit']}]: {r['ms']:.5f} ms (bound {r['bound_ms']:.5f} ms, "
+              f"{r['bound_by']}; plain {r['plain_ms']:.4f} ms; sdpa bf16 "
+              f"{r['library_ms']:.5f} ms), launches {r['launches']}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2290,7 +2664,7 @@ def main() -> int:
 
     sm = Smoke(torch)
     t_start = time.perf_counter()
-    ffn_run = int4_run = stream_counts = None
+    ffn_run = int4_run = stream_counts = gemma_run = serve_gemma = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -2310,10 +2684,15 @@ def main() -> int:
             sm.phase("profile-int4", lambda: phase_profile(sm, int4_run, "8b-int4"))
         if main_run is not None:
             stream_counts = sm.phase("stream", lambda: phase_stream(sm, main_run))
+        gemma_run = sm.phase("gemma", lambda: phase_gemma(sm, dev_name))
+        sm.phase("gemma-fixture", lambda: phase_gemma_fixture(sm))
         fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
         serve = None
         if main_run is not None:
             serve = sm.phase("serve", lambda: phase_serve(sm, main_run, hbm_rate(dev_name)))
+        if gemma_run is not None:
+            serve_gemma = sm.phase("serve-gemma", lambda: phase_serve(
+                sm, gemma_run, hbm_rate(dev_name), GEMMA_LABEL, ("paged",)))
         sm.phase("http", lambda: phase_http(sm))
         if main_run is not None:
             rows = sm.phase("timing", lambda: phase_timing(sm, main_run, hbm_rate(dev_name)))
@@ -2332,6 +2711,10 @@ def main() -> int:
             more = sm.phase("timing-int4", lambda: phase_timing_int4(
                 sm, int4_run, hbm_rate(dev_name)))
             rows = None if more is None else rows + more
+        if rows is not None and serve_gemma is not None:
+            more = sm.phase("timing-gemma", lambda: phase_timing_gemma(
+                sm, gemma_run, serve_gemma, hbm_rate(dev_name)))
+            rows = None if more is None else rows + more
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if sm.failures or not smi or rows is None or stream_counts is None:
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
@@ -2340,7 +2723,8 @@ def main() -> int:
                "generate 8b-int4": int4_run[3], "serve paged": serve["paged"]["counts"],
                "serve dense": serve["dense"]["counts"],
                "serve-fixture dense-act": fixture_counts["dense-act"],
-               "stream 8b-w4a8": stream_counts}
+               "stream 8b-w4a8": stream_counts, f"generate {GEMMA_LABEL}": gemma_run[3],
+               f"serve {GEMMA_LABEL} paged": serve_gemma["paged"]["counts"]}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] if counter else 0

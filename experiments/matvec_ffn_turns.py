@@ -48,7 +48,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
-from metalchat_tpu_torch.models.transformer import silu_gate  # noqa: E402
+from metalchat_tpu_torch.models.transformer import act_gate  # noqa: E402
 from metalchat_tpu_torch.ops import _build  # noqa: E402
 from metalchat_tpu_torch.ops import a8_matvec as am  # noqa: E402
 from metalchat_tpu_torch.ops import ffn_block as fb  # noqa: E402
@@ -207,7 +207,7 @@ def main() -> int:
 
     def unmerged(version, attn, x, l):
         x2 = x + fused(version, attn, w["wo_q"], w["wo_s"], l)
-        g = silu_gate(fused(version, x2, w["w13_q"], w["w13_s"], l, w["norm_w"]))
+        g = act_gate(fused(version, x2, w["w13_q"], w["w13_s"], l, w["norm_w"]))
         return x2 + fused(version, g, w["w2_q"], w["w2_s"], l)
 
     for version in ("baseline", "repo", "repo", "baseline"):

@@ -1,9 +1,9 @@
-"""Model configuration (Llama family).
+"""Model configuration (Llama and Gemma-3 families).
 
 A trimmed copy of the JAX package's ``config.py``: the same frozen dataclasses
 and the same HF ``config.json`` mapping, so one checkpoint directory
-configures both packages identically. Only the Llama family is kept; the
-Gemma/Mixtral/GPT-2 configs belong to later slices of the port.
+configures both packages identically. The Llama and Gemma-3 families are
+kept; the Mixtral/GPT-2 configs belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -41,12 +41,44 @@ class ModelConfig:
     rope_scaling: Optional[RopeScaling] = None
     max_seq_len: int = 8192
     tie_word_embeddings: bool = True
+    # Gemma-style extras (inert for Llama):
+    norm_weight_offset: float = 0.0   # rmsnorm weight = offset + w (Gemma uses 1.0)
+    use_qk_norm: bool = False
+    use_post_norms: bool = False      # post-attention / post-ffn norms
+    embedding_scale: Optional[float] = None  # Gemma multiplies embeddings by sqrt(hidden)
+    hidden_act: str = "silu"          # "silu" (Llama) | "gelu_tanh" (Gemma)
+    query_scale: Optional[float] = None  # attention score scale; default 1/sqrt(head_dim)
+    # Sliding-window attention (Gemma-3 alternation):
+    sliding_window: Optional[int] = None
+    sliding_window_pattern: int = 1   # every Nth layer is global; 1 == all global
+    rope_local_theta: Optional[float] = None  # theta for sliding (local) layers
     bos_token_id: int = 128000
     eos_token_ids: Tuple[int, ...] = (128001, 128009)
 
     @property
     def num_kv_groups(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    def layer_is_global(self, layer_idx: int) -> bool:
+        """Sliding-window layout: pattern N>1 → every Nth layer is global
+        (Gemma-3 alternation); pattern 0 → every layer sliding; pattern 1 /
+        no window → all global."""
+        if self.sliding_window is None:
+            return True
+        if self.sliding_window_pattern == 0:
+            return False
+        if self.sliding_window_pattern == 1:
+            return True
+        return (layer_idx + 1) % self.sliding_window_pattern == 0
+
+    def layer_window(self, layer_idx: int) -> int:
+        """The attention window of layer ``layer_idx`` as the kernels take
+        it: the sliding window, or -1 for a global layer."""
+        return -1 if self.layer_is_global(layer_idx) else int(self.sliding_window)
+
+    def attention_scale(self) -> float:
+        """The score scale: ``query_scale``, else ``head_dim ** -0.5``."""
+        return self.query_scale if self.query_scale is not None else self.head_dim ** -0.5
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -108,18 +140,97 @@ class LlamaConfig(ModelConfig):
         )
 
 
+@dataclass(frozen=True)
+class Gemma3Config(ModelConfig):
+    model_type: str = "gemma3"
+
+    @staticmethod
+    def gemma3_1b(**kw: Any) -> "Gemma3Config":
+        """Gemma-3-1B-it text config (google/gemma-3-1b-it config.json)."""
+        defaults: dict = dict(
+            vocab_size=262144, hidden_size=1152, intermediate_size=6912,
+            num_layers=26, num_heads=4, num_kv_heads=1, head_dim=256,
+            rms_norm_eps=1e-6, rope_theta=1_000_000.0,
+            rope_local_theta=10_000.0, sliding_window=512,
+            sliding_window_pattern=6, max_seq_len=32768,
+            tie_word_embeddings=True, norm_weight_offset=1.0,
+            use_qk_norm=True, use_post_norms=True,
+            embedding_scale=1152.0 ** 0.5, hidden_act="gelu_tanh",
+            query_scale=256.0 ** -0.5, bos_token_id=2, eos_token_ids=(1, 106),
+        )
+        return Gemma3Config(**{**defaults, **kw})
+
+    @staticmethod
+    def gemma3_4b(**kw: Any) -> "Gemma3Config":
+        """Gemma-3-4B-it text config (google/gemma-3-4b-it text_config)."""
+        defaults: dict = dict(
+            vocab_size=262208, hidden_size=2560, intermediate_size=10240,
+            num_layers=34, num_heads=8, num_kv_heads=4, head_dim=256,
+            rms_norm_eps=1e-6, rope_theta=1_000_000.0,
+            rope_local_theta=10_000.0, sliding_window=1024,
+            sliding_window_pattern=6, max_seq_len=131072,
+            tie_word_embeddings=True, norm_weight_offset=1.0,
+            use_qk_norm=True, use_post_norms=True,
+            embedding_scale=2560.0 ** 0.5, hidden_act="gelu_tanh",
+            query_scale=256.0 ** -0.5, bos_token_id=2, eos_token_ids=(1, 106),
+        )
+        return Gemma3Config(**{**defaults, **kw})
+
+    @staticmethod
+    def from_hf_config(cfg: Mapping[str, Any]) -> "Gemma3Config":
+        """Map a HuggingFace Gemma-3 ``config.json``; a multimodal
+        checkpoint nests the text model under ``text_config``."""
+        if "text_config" in cfg:
+            cfg = {**cfg, **cfg["text_config"]}
+        heads = int(cfg.get("num_attention_heads", 8))
+        hidden = int(cfg.get("hidden_size", 1152))
+        qs = cfg.get("query_pre_attn_scalar")
+        return Gemma3Config(
+            vocab_size=int(cfg.get("vocab_size", 262144)),
+            hidden_size=hidden,
+            intermediate_size=int(cfg.get("intermediate_size", 6912)),
+            num_layers=int(cfg.get("num_hidden_layers", 26)),
+            num_heads=heads,
+            num_kv_heads=int(cfg.get("num_key_value_heads", heads)),
+            head_dim=int(cfg.get("head_dim", 256)),
+            rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
+            rope_theta=float(cfg.get("rope_theta", 1_000_000.0)),
+            rope_local_theta=float(cfg.get("rope_local_base_freq", 10_000.0)),
+            sliding_window=cfg.get("sliding_window"),
+            sliding_window_pattern=int(cfg.get("sliding_window_pattern", 6)),
+            max_seq_len=int(cfg.get("max_position_embeddings", 32768)),
+            tie_word_embeddings=bool(cfg.get("tie_word_embeddings", True)),
+            norm_weight_offset=1.0,
+            use_qk_norm=True,
+            use_post_norms=True,
+            embedding_scale=float(hidden) ** 0.5,
+            hidden_act="gelu_tanh",
+            query_scale=(qs ** -0.5) if qs else None,
+            bos_token_id=int(cfg.get("bos_token_id", 2)),
+            eos_token_ids=_as_tuple(cfg.get("eos_token_id", (1, 106))),
+        )
+
+
 def _as_tuple(v: Any) -> Tuple[int, ...]:
     if isinstance(v, (list, tuple)):
         return tuple(int(x) for x in v)
     return (int(v),)
 
 
-def load_config(path: str | Path) -> LlamaConfig:
-    """Load a Llama config from a HF ``config.json``."""
-    cfg = json.loads(Path(path).read_text())
-    archs = " ".join(cfg.get("architectures", []))
-    if cfg.get("model_type") == "llama" or "Llama" in archs:
+def load_config(path: str | Path) -> ModelConfig:
+    """Load a Llama or Gemma-3 config from a HF ``config.json``."""
+    return config_from_dict(json.loads(Path(path).read_text()))
+
+
+def config_from_dict(cfg: Mapping[str, Any]) -> ModelConfig:
+    """Dispatch on ``model_type`` / ``architectures`` as the JAX package's
+    ``config_from_dict`` does, for the families the port covers."""
+    mt = cfg.get("model_type", "")
+    archs = " ".join(cfg.get("architectures") or [])
+    if mt.startswith("gemma") or "Gemma" in archs:
+        return Gemma3Config.from_hf_config(cfg)
+    if mt == "llama" or "Llama" in archs:
         return LlamaConfig.from_hf_config(cfg)
     raise ValueError(
-        f"unsupported model config (model_type={cfg.get('model_type')!r}); "
-        "this port covers the Llama family only")
+        f"unsupported model config (model_type={mt!r}); this port covers the "
+        "Llama and Gemma-3 families only")

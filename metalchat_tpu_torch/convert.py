@@ -3,8 +3,10 @@
 ``params_from_numpy`` turns a nested dict of numpy arrays into the port's
 parameter tree, keeping every byte: a quantized leaf arrives as a dict
 ``{"q", "scales", "bits", "group_size", "transposed", "act_bits"}`` and
-becomes a `QuantizedTensor` over the same packed bytes and scales. The tests
-use it so that both packages compute on the same parameters.
+becomes a `QuantizedTensor` over the same packed bytes and scales; every
+other leaf (Gemma-3's q/k and post norms, the local rope tables beside the
+global ones) crosses as it is. The tests use it so that both packages
+compute on the same parameters.
 """
 
 from __future__ import annotations

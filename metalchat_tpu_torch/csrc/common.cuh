@@ -276,6 +276,12 @@ __device__ __forceinline__ void store_codes(void* p, const int8_t (&c)[2]) {
 __device__ __forceinline__ void store_codes(void* p, const int8_t (&c)[4]) {
   *reinterpret_cast<char4*>(p) = make_char4(c[0], c[1], c[2], c[3]);
 }
+// Eight codes as two 4-byte stores: a padded K tile row is 4-byte aligned only.
+__device__ __forceinline__ void store_codes(void* p, const int8_t (&c)[8]) {
+  char4* d = reinterpret_cast<char4*>(p);
+  d[0] = make_char4(c[0], c[1], c[2], c[3]);
+  d[1] = make_char4(c[4], c[5], c[6], c[7]);
+}
 
 // -- Decode attention split over cache positions (flash-decoding) -----------
 //
@@ -303,6 +309,11 @@ __device__ __forceinline__ void store_f32s(float* p, const float (&v)[2]) {
 __device__ __forceinline__ void store_f32s(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
+__device__ __forceinline__ void store_f32s(float* p, const float (&v)[8]) {
+  float4* d = reinterpret_cast<float4*>(p);
+  d[0] = make_float4(v[0], v[1], v[2], v[3]);
+  d[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
 __device__ __forceinline__ void load_f32s_cg(const float* p, float (&v)[2]) {
   const float2 x = __ldcg(reinterpret_cast<const float2*>(p));
   v[0] = x.x; v[1] = x.y;
@@ -310,6 +321,12 @@ __device__ __forceinline__ void load_f32s_cg(const float* p, float (&v)[2]) {
 __device__ __forceinline__ void load_f32s_cg(const float* p, float (&v)[4]) {
   const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
   v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void load_f32s_cg(const float* p, float (&v)[8]) {
+  const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
+  const float4 y = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
 }
 
 // One warp writes its query head's partial: acc[a] is dim lane * NACC + a.
@@ -341,11 +358,14 @@ __device__ __forceinline__ bool arrive_last(int* counter, int expected, int* fla
 
 // One warp merges the partials of query head `row` over the live chunks, in
 // chunk order (so the result does not depend on which block arrived last),
-// and writes out_row[lane * NACC + a]. Chunks are taken kMergeBatch at a
+// and writes out_row[lane * NACC + a]. Chunks are taken merge_batch() at a
 // time, every load of a batch issued before any is used, with the running
 // max rescaled between batches. A chunk without a position (m = -inf)
-// weighs 0; with none at all the output is 0, as when l == 0.
-constexpr int kMergeBatch = 32;
+// weighs 0; with none at all the output is 0, as when l == 0. A batch holds
+// at most 128 partial values a lane: 32 chunks up to hd 128, 16 at hd 256.
+template <int NACC> __host__ __device__ constexpr int merge_batch() {
+  return NACC <= 4 ? 32 : 128 / NACC;
+}
 
 template <typename T, int NACC>
 __device__ __forceinline__ void combine_partials(const float* acc_ws, const float* ml_ws,
@@ -355,6 +375,7 @@ __device__ __forceinline__ void combine_partials(const float* acc_ws, const floa
   const int lane = threadIdx.x & 31;
   const size_t base = row * n_split;
   const float2* ml = reinterpret_cast<const float2*>(ml_ws) + base;
+  constexpr int kMergeBatch = merge_batch<NACC>();
   float M = -INFINITY, l = 0.f, acc[NACC];
 #pragma unroll
   for (int a = 0; a < NACC; ++a) acc[a] = 0.f;

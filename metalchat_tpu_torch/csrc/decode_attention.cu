@@ -106,6 +106,7 @@ int by_head_dim(int hd, const void* q, const void* kn, const void* vn, void* kc,
   switch (hd) {
     case 64: return launch<T, KV, 2>(q, kn, vn, kc, vc, ks, vs, lengths, out, ws, counters, B, nh, nkv, t_max, scale, window, write, st);
     case 128: return launch<T, KV, 4>(q, kn, vn, kc, vc, ks, vs, lengths, out, ws, counters, B, nh, nkv, t_max, scale, window, write, st);
+    case 256: return launch<T, KV, 8>(q, kn, vn, kc, vc, ks, vs, lengths, out, ws, counters, B, nh, nkv, t_max, scale, window, write, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,6 +10,7 @@
 //                      for this thread's 16-byte staging piece i;
 //   size_t scale(j)    the index of chunk row j's scales, for j == threadIdx.x;
 //   void locate_new(length, row, scale)   those of position length - 1.
+// A lane holds NACC = hd / 32 dims of a row: 2, 4 or 8 (hd 64, 128, 256).
 #pragma once
 
 #include "common.cuh"
@@ -62,6 +63,31 @@ __device__ __forceinline__ void load_kv(const float* p, float (&f)[2]) {
 __device__ __forceinline__ void load_kv(const float* p, float (&f)[4]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+}
+__device__ __forceinline__ void load_kv(const int8_t* p, float (&f)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const uint32_t lo = u.x ^ 0x80808080u, hi = u.y ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = s8_at(lo, i);
+    f[4 + i] = s8_at(hi, i);
+  }
+}
+__device__ __forceinline__ void load_kv(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    f[2 * i] = __low2float(a);
+    f[2 * i + 1] = __high2float(a);
+  }
+}
+__device__ __forceinline__ void load_kv(const float* p, float (&f)[8]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  const float4 y = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+  f[4] = y.x; f[5] = y.y; f[6] = y.z; f[7] = y.w;
 }
 
 // Dynamic shared memory of one block: q as f32, the probabilities, the
@@ -173,35 +199,42 @@ __device__ __forceinline__ void attend_chunk(
   }
 
   // 2. Stage rows [j_lo, j_hi) of the chunk (K padded; the writer's new row
-  // is already there) and their scales, every load issued before any store.
-  int4 kw[kVecs], vw[kVecs];
+  // is already there) and their scales, every load of a batch issued before
+  // any store. A batch is at most 8 pieces of K and of V (all of them up to
+  // hd 128; an f32 cache at hd 256 takes two), which bounds the registers.
+  constexpr int kBatch = kVecs < 8 ? kVecs : 8;
+  static_assert(kVecs % kBatch == 0, "whole batches of staging pieces");
   auto staged = [&](int i) {
     const int r = 16 * (threadIdx.x + i * kThreads) / kRowBytes;
     return r >= j_lo && r < j_hi && !(writer && r == j_new);
   };
-#pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    if (staged(i)) {
-      const int e = 16 * (threadIdx.x + i * kThreads);
-      const size_t off = rows.row(i, e / kRowBytes) * kRowBytes + e % kRowBytes;
-      kw[i] = *reinterpret_cast<const int4*>(reinterpret_cast<const unsigned char*>(kc) + off);
-      vw[i] = *reinterpret_cast<const int4*>(reinterpret_cast<const unsigned char*>(vc) + off);
-    }
-  }
   const int js = threadIdx.x;  // kChunk <= kThreads: one scale row a thread
   const bool scale_row = js >= j_lo && js < j_hi && !(writer && js == j_new);
   float k_sc = 1.f, v_sc = 1.f;
-  if (scaled && scale_row) {
-    k_sc = ks[rows.scale(js)];
-    v_sc = vs[rows.scale(js)];
-  }
 #pragma unroll
-  for (int i = 0; i < kVecs; ++i) {
-    if (staged(i)) {
-      const int e = 16 * (threadIdx.x + i * kThreads);
-      int* kd = reinterpret_cast<int*>(ktile + (e / kRowBytes) * kStride + e % kRowBytes);
-      kd[0] = kw[i].x; kd[1] = kw[i].y; kd[2] = kw[i].z; kd[3] = kw[i].w;
-      *reinterpret_cast<int4*>(vtile + e) = vw[i];
+  for (int i0 = 0; i0 < kVecs; i0 += kBatch) {
+    int4 kw[kBatch], vw[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (staged(i0 + u)) {
+        const int e = 16 * (threadIdx.x + (i0 + u) * kThreads);
+        const size_t off = rows.row(i0 + u, e / kRowBytes) * kRowBytes + e % kRowBytes;
+        kw[u] = *reinterpret_cast<const int4*>(reinterpret_cast<const unsigned char*>(kc) + off);
+        vw[u] = *reinterpret_cast<const int4*>(reinterpret_cast<const unsigned char*>(vc) + off);
+      }
+    }
+    if (i0 == 0 && scaled && scale_row) {
+      k_sc = ks[rows.scale(js)];
+      v_sc = vs[rows.scale(js)];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (staged(i0 + u)) {
+        const int e = 16 * (threadIdx.x + (i0 + u) * kThreads);
+        int* kd = reinterpret_cast<int*>(ktile + (e / kRowBytes) * kStride + e % kRowBytes);
+        kd[0] = kw[u].x; kd[1] = kw[u].y; kd[2] = kw[u].z; kd[3] = kw[u].w;
+        *reinterpret_cast<int4*>(vtile + e) = vw[u];
+      }
     }
   }
   if (scale_row) {

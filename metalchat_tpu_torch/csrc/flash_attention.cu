@@ -22,7 +22,9 @@
 //   stored as hd / 64 atoms of [64 rows][128 bytes], 1024-byte aligned,
 //   with the hardware's 128-byte swizzle, so wgmma reads it through a
 //   descriptor. Q 16 KB + 3 x (K + V) 32 KB = 112 KB at hd = 128: two
-//   blocks an SM, and a 512-token prefill's 256 blocks fill one wave;
+//   blocks an SM, and a 512-token prefill's 256 blocks fill one wave. At
+//   hd = 256 (Gemma-3) the ring has two stages, Q 32 KB + 2 x (K + V) 64 KB
+//   = 160 KB, one block an SM: one tile in flight while one is used;
 // * S = QK^T by wgmma m64n64k16, Q and K from shared memory (both
 //   K-major), bf16 in, f32 accumulate: every product of two bf16 values is
 //   exact in f32, so only the summation order differs from the TPU
@@ -35,7 +37,8 @@
 //   lower edge or t_max; tiles above the diagonal and below the window are
 //   skipped;
 // * O += P V by wgmma m64n{hd}k16 with P from registers and V from shared
-//   memory (MN-major). P is split into two bf16 parts, hi = bf16(p) and
+//   memory (MN-major); at hd = 256 as two m64n128k16 halves, O being 128
+//   f32 registers a thread. P is split into two bf16 parts, hi = bf16(p) and
 //   lo = bf16(p - hi), both multiplied into the same f32 accumulator: p
 //   keeps about 16 significant bits. Rounding P to one bf16 (the usual
 //   FlashAttention-2 choice) puts the output several times outside one
@@ -169,7 +172,10 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* g, 
   }
 }
 
-constexpr int kStages = 3;  // K/V tiles in flight: the ring's depth
+// K/V tiles in the ring: three up to hd 128 (two in flight while one is
+// used); two at hd 256, where Q and three stages would take 230,400 of the
+// 232,448 bytes a block may have. One block an SM either way at hd 256.
+template <int HD> __host__ __device__ constexpr int ring_stages() { return HD == 256 ? 2 : 3; }
 constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x by the special-function unit (relative error about 2^-22; results
@@ -180,20 +186,32 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// O (+)= P V for one k-step of 16 keys, V's rows at shared address sv_step.
+// At hd 256 the product is two n = 128 halves: o[0..63] holds dims 0-127 and
+// o[64..127] dims 128-255 (the accumulator layout puts column block n in
+// registers 4n..4n+3), and the second half of V starts two atoms on.
 template <int HD>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t desc_v) {
-  if constexpr (HD == 128) wgmma_rs_m64n128k16(o, a, desc_v);
-  else wgmma_rs_m64n64k16(o, a, desc_v);
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint32_t sv_step) {
+  const uint64_t dv = smem_desc(sv_step, 64 * 128, 1024);
+  if constexpr (HD == 256) {
+    wgmma_rs_m64n128k16(o, a, dv);
+    wgmma_rs_m64n128k16(o + 64, a, smem_desc(sv_step + 2 * 64 * 128, 64 * 128, 1024));
+  } else if constexpr (HD == 128) {
+    wgmma_rs_m64n128k16(o, a, dv);
+  } else {
+    wgmma_rs_m64n64k16(o, a, dv);
+  }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+__global__ void __launch_bounds__(kMmaThreads, HD == 256 ? 1 : 2)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ start_pos,
                    int start, __nv_bfloat16* __restrict__ out, int S, int nh, int nkv,
                    int t_max, float scale, int window) {
   constexpr int kTile = kBK * HD * 2;  // bytes of one [64][HD] bf16 tile
   constexpr int KD = HD / 16;          // k-steps of QK^T
+  constexpr int kStages = ring_stages<HD>();
   extern __shared__ unsigned char smem[];
   // Q, then stage s: K at tile 1 + 2s, V at 2 + 2s; 1024-byte aligned atoms.
   const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;
@@ -331,9 +349,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = smem_desc(sv + kk * 2048, 64 * 128, 1024);
-      wgmma_pv<HD>(&o[0][0], hi[kk], dv);
-      wgmma_pv<HD>(&o[0][0], lo[kk], dv);
+      wgmma_pv<HD>(&o[0][0], hi[kk], sv + kk * 2048);
+      wgmma_pv<HD>(&o[0][0], lo[kk], sv + kk * 2048);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -368,7 +385,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* start_
                  void* out, int B, int S, int nh, int nkv, int t_max, float scale,
                  int window, cudaStream_t st) {
   // Q + the ring of K and V, and room to align the atoms to 1024 bytes.
-  const int smem = (1 + 2 * kStages) * kBK * HD * 2 + 1024;
+  const int smem = (1 + 2 * ring_stages<HD>()) * kBK * HD * 2 + 1024;
   auto kernel = flash_wgmma_kernel<HD>;
   static bool configured = false;
   if (!configured) {
@@ -569,8 +586,10 @@ int flash_attention(const void* q, const void* k, const void* v, const void* sta
   switch (hd * 2 + (x_bf16 ? 1 : 0)) {
     case 129: return launch_wgmma<64>(q, k, v, start_pos, start, out, B, S, nh, nkv, t_max, scale, window, st);
     case 257: return launch_wgmma<128>(q, k, v, start_pos, start, out, B, S, nh, nkv, t_max, scale, window, st);
+    case 513: return launch_wgmma<256>(q, k, v, start_pos, start, out, B, S, nh, nkv, t_max, scale, window, st);
     case 128: return launch_simt<2>(q, k, v, start_pos, start, out, B, S, nh, nkv, t_max, scale, window, st);
     case 256: return launch_simt<4>(q, k, v, start_pos, start, out, B, S, nh, nkv, t_max, scale, window, st);
+    case 512: return launch_simt<8>(q, k, v, start_pos, start, out, B, S, nh, nkv, t_max, scale, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

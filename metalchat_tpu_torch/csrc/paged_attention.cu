@@ -146,6 +146,9 @@ int by_head_dim(int hd, const void* q, const void* kn, const void* vn, void* kp,
     case 128:
       return launch<T, 4>(q, kn, vn, kp, vp, ks, vs, pt, lengths, out, ws, counters, B, nh,
                           nkv, num_pages, psize, mp, scale, window, write, st);
+    case 256:
+      return launch<T, 8>(q, kn, vn, kp, vp, ks, vs, pt, lengths, out, ws, counters, B, nh,
+                          nkv, num_pages, psize, mp, scale, window, write, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,11 @@
-"""HF Llama checkpoint → parameter tree (port of the JAX package's
-``io/loaders.py`` ``load_params``, HF names only).
+"""HF Llama / Gemma-3 checkpoint → parameter tree (port of the JAX
+package's ``io/loaders.py`` ``load_params``, HF names only).
 
 Linear weights are transposed from the checkpoint's ``[out, in]`` to
-``[in, out]`` and stacked over layers, as in the JAX package.
+``[in, out]`` and stacked over layers, as in the JAX package. Gemma-3's
+FFN pre-norm is ``pre_feedforward_layernorm`` (its
+``post_attention_layernorm`` is the post-attention norm), beside the
+post-FFN norm and the q/k norms; its lm_head is tied to the embedding.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from typing import Dict, Optional
 
 import torch
 
-from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.config import Gemma3Config, ModelConfig
 from metalchat_tpu_torch.device import resolve_device
 from metalchat_tpu_torch.io.safetensors import SafetensorsDocument
 from metalchat_tpu_torch.models.transformer import Params, make_rope_tables
@@ -40,11 +43,18 @@ def load_params(doc: SafetensorsDocument, config: ModelConfig, *,
         "wk": stack(pre + "self_attn.k_proj.weight", linear),
         "wv": stack(pre + "self_attn.v_proj.weight", linear),
         "wo": stack(pre + "self_attn.o_proj.weight", linear),
-        "ffn_norm": stack(pre + "post_attention_layernorm.weight", get),
         "w1": stack(pre + "mlp.gate_proj.weight", linear),
         "w3": stack(pre + "mlp.up_proj.weight", linear),
         "w2": stack(pre + "mlp.down_proj.weight", linear),
     }
+    if isinstance(config, Gemma3Config) or config.norm_weight_offset != 0.0:
+        layers["ffn_norm"] = stack(pre + "pre_feedforward_layernorm.weight", get)
+        layers["post_attn_norm"] = stack(pre + "post_attention_layernorm.weight", get)
+        layers["post_ffn_norm"] = stack(pre + "post_feedforward_layernorm.weight", get)
+        layers["q_norm"] = stack(pre + "self_attn.q_norm.weight", get)
+        layers["k_norm"] = stack(pre + "self_attn.k_norm.weight", get)
+    else:
+        layers["ffn_norm"] = stack(pre + "post_attention_layernorm.weight", get)
     embed = get("model.embed_tokens.weight")
     if "lm_head.weight" in doc:
         lm_head = linear("lm_head.weight")

@@ -1,5 +1,5 @@
-"""Decoder-only Llama transformer: the prefill path (port of the JAX
-package's ``models/transformer.py``, Llama only).
+"""Decoder-only transformer, Llama and Gemma-3: the prefill path (port of
+the JAX package's ``models/transformer.py``).
 
 Parameter tree (same keys and layouts as the JAX package; per-layer leaves
 stacked on a leading layer axis):
@@ -7,15 +7,22 @@ stacked on a leading layer axis):
   params = {
     "embed": [V, H],
     "layers": {"attn_norm": [L, H], "wqkv" | "wq"/"wk"/"wv", "wo",
-               "ffn_norm": [L, H], "w13" | "w1"/"w3", "w2"},
+               "ffn_norm": [L, H], "w13" | "w1"/"w3", "w2",
+               Gemma-3 only: "q_norm", "k_norm": [L, hd],
+               "post_attn_norm", "post_ffn_norm": [L, H]},
     "final_norm": [H], "lm_head": [H, V] or QuantizedTensor,
-    "rope": {"cos", "sin": [S_max, hd/2]},
+    "rope": {"cos", "sin": [S_max, hd/2]; Gemma-3 also
+             "cos_local", "sin_local" at rope_local_theta},
   }
 
 Dense linear leaves are ``[L, in, out]``; quantized ones are
 ``QuantizedTensor`` (act8: ``q [L, out, in/2]``, scales ``[L, 1, out]``;
 weight-only: either orientation, group scales).
-The layer loop is a Python loop over views of the stacked leaves.
+The layer loop is a Python loop over views of the stacked leaves. Gemma-3's
+extras follow the config: every norm's weight is ``norm_weight_offset + w``,
+q/k norms over hd, post-attention and post-FFN norms, the embedding scale,
+gelu-tanh, ``query_scale``, and sliding layers (``config.layer_window``)
+with their own rope table.
 """
 
 from __future__ import annotations
@@ -60,28 +67,50 @@ def layer_leaf(leaf, l: int):
 
 def make_rope_tables(config: ModelConfig, max_seq_len: Optional[int] = None,
                      device=None) -> Dict[str, torch.Tensor]:
-    """Precompute rope cos/sin ``[S_max, hd/2]`` (f32)."""
+    """Precompute rope cos/sin ``[S_max, hd/2]`` (f32), and with
+    ``rope_local_theta`` the sliding layers' tables (no scaling)."""
     s = max_seq_len or config.max_seq_len
     cos, sin = ops.precompute_rope(config.head_dim, s, config.rope_theta,
                                    config.rope_scaling, device=device)
-    return {"cos": cos, "sin": sin}
+    tables = {"cos": cos, "sin": sin}
+    if config.rope_local_theta is not None:
+        tables["cos_local"], tables["sin_local"] = ops.precompute_rope(
+            config.head_dim, s, config.rope_local_theta, device=device)
+    return tables
 
 
-def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding in the activation dtype (that of ``final_norm``)."""
-    return lookup_embedding(tokens, params["embed"]).to(params["final_norm"].dtype)
+def layer_rope(rope: Dict[str, torch.Tensor], config: ModelConfig, l: int):
+    """Layer ``l``'s cos/sin (tables, or rows gathered from them): the
+    local ones on a sliding layer."""
+    if "cos_local" in rope and not config.layer_is_global(l):
+        return rope["cos_local"], rope["sin_local"]
+    return rope["cos"], rope["sin"]
+
+
+def norm(x: torch.Tensor, w: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """rmsnorm with the config's eps and weight offset."""
+    return ops.rms_norm(x, w, eps=config.rms_norm_eps, offset=config.norm_weight_offset)
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """Token embedding in the activation dtype (that of ``final_norm``),
+    times ``embedding_scale`` rounded to that dtype first, as the JAX
+    package multiplies."""
+    x = lookup_embedding(tokens, params["embed"]).to(params["final_norm"].dtype)
+    if config.embedding_scale is not None:
+        x = x * torch.tensor(config.embedding_scale, dtype=x.dtype).item()
+    return x
 
 
 def final_logits(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Final norm + lm head → f32 logits."""
-    x = ops.rms_norm(x, params["final_norm"], eps=config.rms_norm_eps)
-    return linear(x, params["lm_head"]).float()
+    return linear(norm(x, params["final_norm"], config), params["lm_head"]).float()
 
 
-def silu_gate(fused: torch.Tensor) -> torch.Tensor:
-    """``silu(gate) * up`` of a fused w13 output ``[.., 2F]``."""
+def act_gate(fused: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """``act(gate) * up`` of a fused w13 output ``[.., 2F]``."""
     gate, up = fused.chunk(2, dim=-1)
-    return torch.nn.functional.silu(gate) * up
+    return ops.activation(act)(gate) * up
 
 
 def paged_layer_kv(cache: PagedKVCache, l: int, k, v, pages, offsets, dtype):
@@ -100,16 +129,20 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
                 rope, positions, start_pos, kv_end: int, paged_at=None) -> torch.Tensor:
     b, s, _ = x.shape
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
-    eps = config.rms_norm_eps
 
-    h = ops.rms_norm(x, layers["attn_norm"][l], eps=eps)
+    h = norm(x, layers["attn_norm"][l], config)
     if "wqkv" in layers:
         q, k, v = linear(h, layer_leaf(layers["wqkv"], l)).split(
             [nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
         q, k, v = (linear(h, layer_leaf(layers[n], l)) for n in ("wq", "wk", "wv"))
-    q = ops.apply_rope(q.reshape(b, s, nh, hd), rope["cos"], rope["sin"], positions)
-    k = ops.apply_rope(k.reshape(b, s, nkv, hd), rope["cos"], rope["sin"], positions)
+    q, k = q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd)
+    if config.use_qk_norm:
+        q = norm(q, layers["q_norm"][l], config)
+        k = norm(k, layers["k_norm"][l], config)
+    cos, sin = layer_rope(rope, config, l)
+    q = ops.apply_rope(q, cos, sin, positions)
+    k = ops.apply_rope(k, cos, sin, positions)
     v = v.reshape(b, s, nkv, hd)
 
     if isinstance(cache, PagedKVCache):
@@ -125,16 +158,22 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
     else:
         ck, cv = update_layer_cache(cache.k[l], cache.v[l], k, v, start_pos)
         keys, values = ck[:, :, :kv_end].contiguous(), cv[:, :, :kv_end].contiguous()
-    attn = flash_attention(q.contiguous(), keys, values, start_pos, scale=hd ** -0.5)
-    x = x + linear(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l))
+    attn = flash_attention(q.contiguous(), keys, values, start_pos,
+                           scale=config.attention_scale(), window=config.layer_window(l))
+    attn = linear(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l))
+    if config.use_post_norms:
+        attn = norm(attn, layers["post_attn_norm"][l], config)
+    x = x + attn
 
-    h = ops.rms_norm(x, layers["ffn_norm"][l], eps=eps)
+    h = norm(x, layers["ffn_norm"][l], config)
     if "w13" in layers:
-        ffn = linear(silu_gate(linear(h, layer_leaf(layers["w13"], l))),
+        ffn = linear(act_gate(linear(h, layer_leaf(layers["w13"], l)), config.hidden_act),
                      layer_leaf(layers["w2"], l))
     else:
         ffn = ops.swiglu(h, layer_leaf(layers["w1"], l), layer_leaf(layers["w3"], l),
-                         layer_leaf(layers["w2"], l), "silu", matmul=linear)
+                         layer_leaf(layers["w2"], l), config.hidden_act, matmul=linear)
+    if config.use_post_norms:
+        ffn = norm(ffn, layers["post_ffn_norm"][l], config)
     return x + ffn
 
 
@@ -168,7 +207,7 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     paged_at = positions_to_pages(cache.page_table, positions, cache.page_size) \
         if paged else None
 
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, config)
     for l in range(config.num_layers):
         x = _layer_step(x, params["layers"], l, cache, config, params["rope"],
                         positions, start_pos, kv_end, paged_at)

@@ -36,6 +36,10 @@ KERNELS = ("a8_matvec", "decode_attention", "flash_attention", "paged_attention"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Head sizes the attention kernels are instanced for (rows 3-9 and 4): hd 64
+# and 128 (Llama) and 256 (Gemma-3).
+HEAD_DIMS = (64, 128, 256)
+
 LAUNCHES: Dict[str, int] = {
     "a8_matvec": 0, "a8_matvec_raw": 0, "a8_quantize": 0, "decode_attention_update": 0,
     "decode_attention": 0, "flash_attention": 0, "paged_decode_attention_update": 0,

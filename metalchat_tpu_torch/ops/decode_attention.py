@@ -35,6 +35,7 @@ import torch
 
 from metalchat_tpu_torch.cache import quantize_kv
 from metalchat_tpu_torch.ops import _build
+from metalchat_tpu_torch.ops._build import HEAD_DIMS
 from metalchat_tpu_torch.ops.reference import MASK_VALUE
 
 _P = ctypes.c_void_p
@@ -154,8 +155,8 @@ def check_args(q, k_new, v_new, k, v, k_scale, v_scale, layer: int, lengths) -> 
             or k_scale.shape != (L, b, nkv, t_max) or v_scale.shape != k_scale.shape
             or nh % nkv or lengths.shape != (b,) or lengths.dtype != torch.int32):
         raise ValueError("decode_attention_update: shape mismatch")
-    if hd not in (64, 128) or nh // nkv > 32 or not 0 <= layer < L:
-        raise ValueError(f"decode_attention_update: hd in (64, 128), groups <= 32 and "
+    if hd not in HEAD_DIMS or nh // nkv > 32 or not 0 <= layer < L:
+        raise ValueError(f"decode_attention_update: hd in {HEAD_DIMS}, groups <= 32 and "
                          f"0 <= layer < {L}, got hd={hd}, groups={nh // nkv}, "
                          f"layer={layer}")
 
@@ -205,8 +206,8 @@ def check_read_args(q, k, v, k_scale, v_scale, layer: int, lengths) -> None:
     if (k.shape != (L, b, nkv, t_max, hd) or v.shape != k.shape or nh % nkv
             or lengths.shape != (b,) or lengths.dtype != torch.int32):
         raise ValueError("decode_attention: shape mismatch")
-    if hd not in (64, 128) or nh // nkv > 32 or not 0 <= layer < L:
-        raise ValueError(f"decode_attention: hd in (64, 128), groups <= 32 and "
+    if hd not in HEAD_DIMS or nh // nkv > 32 or not 0 <= layer < L:
+        raise ValueError(f"decode_attention: hd in {HEAD_DIMS}, groups <= 32 and "
                          f"0 <= layer < {L}, got hd={hd}, groups={nh // nkv}, "
                          f"layer={layer}")
 

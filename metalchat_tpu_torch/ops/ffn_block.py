@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from metalchat_tpu_torch.ops import _build
+from metalchat_tpu_torch.ops import _build, reference
 from metalchat_tpu_torch.ops.a8_matvec import (MAX_ROWS, _check_aligned, act_quantize, int_acc,
                                                prologue)
 
@@ -49,9 +49,7 @@ def _lib() -> ctypes.CDLL:
 
 def activation(g: torch.Tensor, act: str) -> torch.Tensor:
     """The gate activation on f32 values."""
-    if act == "gelu_tanh":
-        return torch.nn.functional.gelu(g, approximate="tanh")
-    return torch.nn.functional.silu(g)
+    return reference.activation(act)(g)
 
 
 def _linear(xq, sx, p, s, bits):

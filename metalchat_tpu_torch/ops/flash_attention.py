@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from metalchat_tpu_torch.ops import _build
+from metalchat_tpu_torch.ops._build import HEAD_DIMS
 from metalchat_tpu_torch.ops.reference import MASK_VALUE
 
 _P = ctypes.c_void_p
@@ -76,8 +77,8 @@ def flash_attention(q, k, v, start_pos, *, scale: float,
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v bf16 or f32, same dtype")
-    if hd not in (64, 128):
-        raise ValueError(f"flash_attention: hd in (64, 128), got {hd}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: hd in {HEAD_DIMS}, got {hd}")
     # An int start goes to the kernel as a scalar: no tensor, no extra launch.
     starts = _starts(start_pos, b, q.device) if torch.is_tensor(start_pos) else None
     out = torch.empty_like(q)

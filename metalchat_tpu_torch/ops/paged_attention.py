@@ -40,6 +40,7 @@ from metalchat_tpu_torch.cache import (
     update_stacked_paged_cache,
 )
 from metalchat_tpu_torch.ops import _build
+from metalchat_tpu_torch.ops._build import HEAD_DIMS
 from metalchat_tpu_torch.ops.decode_attention import SPLIT_CHUNK, attention_plain
 
 _P = ctypes.c_void_p
@@ -112,8 +113,8 @@ def check_args(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, layer
             or nh % nkv or page_table.shape != (b, mp) or page_table.dtype != torch.int32
             or lengths.shape != (b,) or lengths.dtype != torch.int32):
         raise ValueError("paged_decode_attention: shape mismatch")
-    if hd not in (64, 128) or nh // nkv > 32 or not 0 <= layer < L:
-        raise ValueError(f"paged_decode_attention: hd in (64, 128), groups <= 32 and "
+    if hd not in HEAD_DIMS or nh // nkv > 32 or not 0 <= layer < L:
+        raise ValueError(f"paged_decode_attention: hd in {HEAD_DIMS}, groups <= 32 and "
                          f"0 <= layer < {L}, got hd={hd}, groups={nh // nkv}, "
                          f"layer={layer}")
 

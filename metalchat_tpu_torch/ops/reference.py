@@ -111,15 +111,24 @@ def causal_mask(positions: torch.Tensor, kv_len: int, kv_valid_len,
     return ok
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh approximation (``jax.nn.gelu(approximate=True)``)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"silu": torch.nn.functional.silu, "gelu_tanh": gelu_tanh}
+
+
+def activation(name: str):
+    """The gate activation ``name`` ("silu" or "gelu_tanh")."""
+    if name not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}")
+    return ACTIVATIONS[name]
+
+
 def swiglu(x, w1, w3, w2, act: str, matmul=None) -> torch.Tensor:
     """Gated feed-forward ``w2(act(x·w1) ⊙ (x·w3))`` with [in, out] weights."""
     if matmul is None:
         matmul = lambda a, w: a @ w  # noqa: E731
-    gate = matmul(x, w1)
-    if act == "silu":
-        gate = torch.nn.functional.silu(gate)
-    elif act == "gelu_tanh":
-        gate = torch.nn.functional.gelu(gate, approximate="tanh")
-    else:
-        raise ValueError(f"unknown activation {act!r}")
+    gate = activation(act)(matmul(x, w1))
     return matmul(gate * matmul(x, w3), w2)

@@ -285,6 +285,12 @@ def init_random_quantized_params(config, *, bits: int = 4,
         "w3": qlin(h, f),
         "w2": qlin(f, h),
     }
+    if config.use_qk_norm:
+        layers["q_norm"] = torch.ones((L, hd), dtype=dtype, device=dev)
+        layers["k_norm"] = torch.ones((L, hd), dtype=dtype, device=dev)
+    if config.use_post_norms:
+        layers["post_attn_norm"] = torch.ones((L, h), dtype=dtype, device=dev)
+        layers["post_ffn_norm"] = torch.ones((L, h), dtype=dtype, device=dev)
     embed = (torch.randn((config.vocab_size, h), generator=gen, device=dev)
              * 0.02).to(dtype)
     return {

@@ -5,7 +5,8 @@ Marked ``cuda``: each test skips (with the reason) where there is no CUDA
 device. Run on a machine with an H100 from the repository root:
 ``python -m pytest -m cuda tests/test_torch_cuda.py -q``. The same checks run
 at the main path's full shapes in ``chip_smoke.py``; these use the
-fixture's small shapes (hd=64), in bf16 and in f32 activations. The graph
+fixture's small shapes (hd=64) and Gemma-3's head size (hd=256) at small
+widths, in bf16 and in f32 activations. The graph
 route is held to the eager loop bit for bit: the same kernels in the same
 order, fixed merge orders.
 """
@@ -107,6 +108,36 @@ def test_attention_kernels_in_a_cuda_graph(card):
     sm, gen, dev = card
     chip_smoke.check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
     chip_smoke.check_graph_replay(sm, 3, 6, 3, 256, 64, gen, dev)
+
+
+# hd 256 (Gemma-3): rows 3, 4 and 8 at small shapes, windows that drop
+# positions, the global layer's -1; bf16 and f32 (the f32 decode cache at hd
+# 256 needs more than 48 KB of shared memory, and stages in two batches).
+GEMMA_SMALL_DECODE = [([1], 8, "random"), ([40], 8, "random"), ([64], -1, "random"),
+                      ([33], 24, "zeros")]
+GEMMA_SMALL_FLASH = [(0, 8), (13, 24), (5, -1), ([0, 7], 8)]
+GEMMA_SMALL_PAGED = [([40, 64, 9, 1], 20), ([64, 17, 33, 1], None)]
+
+
+@DTYPES
+def test_decode_attention_update_kernel_hd256(card, dtype):
+    sm, gen, dev = card
+    chip_smoke.check_decode(sm, 1, 4, 1, 64, 256, GEMMA_SMALL_DECODE, gen, dev,
+                            getattr(torch, dtype))
+
+
+@DTYPES
+def test_flash_attention_kernel_hd256(card, dtype):
+    sm, gen, dev = card
+    chip_smoke.check_flash(sm, 2, 37, 4, 1, 64, 256, GEMMA_SMALL_FLASH, gen, dev,
+                           getattr(torch, dtype))
+
+
+@DTYPES
+def test_paged_attention_kernel_hd256(card, dtype):
+    sm, gen, dev = card
+    chip_smoke.check_paged(sm, 4, 4, 1, 256, 16, 4, GEMMA_SMALL_PAGED, gen, dev,
+                           getattr(torch, dtype))
 
 
 @DTYPES
