@@ -85,16 +85,28 @@ Phases (any failure makes the script exit non-zero without a result line):
    requests, 3 slots, chunks of 32, bursts of 4, f32 activations) in paged
    (pages of 16), dense int8 and dense activation-dtype mode, on the card
    and on the CPU plain path: the first 16 tokens of each request agree
-   card vs CPU, and paged vs dense int8 on the card.
+   card vs CPU, and paged vs dense int8 on the card. On the card the engine
+   replays a captured decode step (one CUDA graph per sampling branch); its
+   ids, every cache tensor and its launch counts equal, bit for bit, those
+   of ``eager_burst_engine`` (the burst as a loop of eager ``forward``
+   calls). A mixed-sampler run (greedy rows beside top-k + top-p and
+   temperature-only rows, all three branches captured): greedy rows equal
+   to the eager engine's, every drawn id of the captured steps in its row's
+   kept set (``check_kept``), two runs under one seed identical and another
+   seed different. Each engine prints its captures, capture ms and graph
+   pool bytes.
 7. serve: ``8b-w4a8`` behind ``ContinuousBatchingEngine`` with the workload
    of ``bench.py --mode serve`` (24 requests at once, prompts of 48-640
    tokens, 96 greedy tokens each, 8 slots, bursts of 32, chunks of 256),
-   paged (pages of 256) then dense int8, each after a 2-request warm-up:
-   tok/s, TTFT and service TTFT p50/p99, the share of the full-slot decode
-   roofline, and launch counts held exactly to the engine's counters and
-   prompt-chunk shapes (a8_quantize once per fused matvec call, at every
-   row count); then ``torch.profiler``
-   over one paged decode dispatch (8 steps) with all 8 slots decoding.
+   paged (pages of 256) then dense int8: the graph route and the eager
+   burst loop in turns (graph, eager, eager, graph), each engine after a
+   2-request warm-up: tok/s, TTFT and service TTFT p50/p99, the share of
+   the full-slot decode roofline, every turn's launch counts held exactly
+   to its engine's counters and prompt-chunk shapes (a8_quantize once per
+   fused matvec call, at every row count), every turn's ids equal; the
+   graph engine's wall by dispatch kind over one more run, each step
+   synchronized; then ``torch.profiler`` over one paged decode dispatch (8
+   steps) with all 8 slots decoding, on each route.
    serve-gemma: the gemma phase's model behind the engine with the same
    workload, all 24 requests, paged only, the same checks.
 8. http: the fixture behind ``InferenceServer`` on 127.0.0.1 (paged, on the
@@ -107,7 +119,7 @@ Phases (any failure makes the script exit non-zero without a result line):
    rows 1-2 per matrix with a8_quantize alone, and their step at 2 and 16
    rows), timing-ffn (row 10 beside the unmerged route, 1 and 8 rows) and
    timing-int4 (row 11 at 1 and 8 rows, per matrix) and timing-gemma (rows
-   3, 4, 5 and 8 at hd 256, each layer with its window).
+   3, 4, 5, 8 and 9 at hd 256, each layer with its window).
 
 The last lines are the kernel table as one JSON object (rows 1-11 of the
 JAX package's TPU kernels), the card's name and power limit, and
@@ -116,6 +128,7 @@ JAX package's TPU kernels), the card's name and power limit, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -1626,38 +1639,216 @@ SERVE_FIXTURE = dict(max_slots=3, max_seq_len=256, prefill_chunk=32, decode_burs
 SERVE_FIXTURE_MODES = {"paged": dict(cache_mode="paged", page_size=16),
                        "dense": dict(quantized_kv=True),
                        "dense-act": dict()}  # KV in the activation dtype
+SERVE_FIXTURE_LENGTHS = (5, 70, 35, 15, 48, 120)
+# The mixed-sampler run: per request (SERVE_FIXTURE_LENGTHS) greedy or
+# (temperature, top-k, top-p), so that bursts take all three sampling branches.
+SERVE_FIXTURE_MIXED = (None, (0.8, 0, 1.0), None, (0.8, 20, 0.9), (0.8, 20, 0.9), None)
+# A drawn id's row keeps it when fewer than top-k scaled logits lie above it
+# and the probability mass above it (f64) is below top-p; the mass is held
+# with this margin, as the sampler's f32 bisection sums it in another order.
+KEPT_MASS_MARGIN = 1e-5
+
+
+def eager_burst_engine(params, cfg, **kw):
+    """The engine with the decode burst it ran before its step was captured
+    (a loop of eager `forward` calls fed from the host's staged rows, the
+    sampler given host sequences), written here as the graph route's
+    reference, as `eager_generate` is for `generate`."""
+    import torch
+
+    from metalchat_tpu_torch.engine import ContinuousBatchingEngine
+    from metalchat_tpu_torch.sampling import sample_batched
+
+    class EagerBurstEngine(ContinuousBatchingEngine):
+        def _run_burst(self, steps, branch):
+            h, dev = self._host, self.device
+            tok = torch.from_numpy(h["tokens"]).to(dev, torch.long)
+            pos = torch.from_numpy(h["positions"]).to(dev)
+            adv = torch.from_numpy(h["advance"]).to(dev)
+            out = []
+            for _ in range(steps):
+                logits = self._forward(self.cache, tok[:, None], pos)
+                tok = sample_batched(logits[:, 0], self._gen, h["temperature"], h["top_k"],
+                                     h["top_p"])
+                pos = pos + adv
+                out.append(tok)
+            return torch.stack(out)
+
+    return EagerBurstEngine(params, cfg, **kw)
+
+
+def recording_engine(params, cfg, **kw):
+    """The graph-route engine with each burst step's logits written, inside
+    the captured step, into a buffer at the step index; `bursts` keeps each
+    dispatch's (settings, tokens, logits) for `check_kept`."""
+    import torch
+
+    from metalchat_tpu_torch.engine import ContinuousBatchingEngine
+
+    class RecordingEngine(ContinuousBatchingEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.bursts = []
+            self._log = torch.zeros((self.decode_burst, self.max_slots, cfg.vocab_size),
+                                    device=self.device)
+
+        def _forward(self, cache, tokens, start_pos):
+            logits = super()._forward(cache, tokens, start_pos)
+            if start_pos is self._rows["positions"]:  # a burst step
+                self._log.index_copy_(0, self._rows["step"].long(), logits[:, 0][None])
+            return logits
+
+        def _run_burst(self, steps, branch):
+            out = super()._run_burst(steps, branch)
+            settings = {k: self._host[k].copy() for k in ("temperature", "top_k", "top_p")}
+            self.bursts.append((settings, out.clone(), self._log[:steps].clone()))
+            return out
+
+    return RecordingEngine(params, cfg, **kw)
+
+
+def check_kept(sm: Smoke, what: str, bursts) -> int:
+    """Every drawn id of every recorded burst step lies in its row's kept
+    set (see KEPT_MASS_MARGIN); returns the number of drawn ids checked."""
+    torch = sm.torch
+    checked = 0
+    for settings, toks, logits in bursts:
+        dev = logits.device
+        t, k, p = (torch.from_numpy(settings[n]).to(dev) for n in ("temperature", "top_k",
+                                                                    "top_p"))
+        drawn = t > 0
+        x = logits.double() / torch.where(drawn, t, 1.0).double()[None, :, None]
+        above = x > x.gather(-1, toks[..., None])
+        count = above.sum(-1)
+        mass = (torch.softmax(x, dim=-1) * above).sum(-1)
+        ok = ((k <= 0) | (count < k)) & ((p >= 1) | (mass < p + KEPT_MASS_MARGIN))
+        sm.expect(bool((ok | ~drawn).all()),
+                  f"{what}: {int((~ok & drawn).sum())} drawn ids outside their kept sets")
+        checked += int(drawn.sum()) * toks.shape[0]
+    return checked
+
+
+@contextlib.contextmanager
+def timed_captures(torch):
+    """A context in which engines capture through a CountedGraph that
+    records each capture's wall time (synchronized) on the graph."""
+    from metalchat_tpu_torch.engine import serving
+
+    base = serving.CountedGraph
+
+    class Timed(base):
+        def capture(self, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = super().capture(fn)
+            torch.cuda.synchronize()
+            self.seconds = time.perf_counter() - t
+            return out
+
+    serving.CountedGraph = Timed
+    try:
+        yield
+    finally:
+        serving.CountedGraph = base
+
+
+def graph_report(torch, engine) -> str:
+    """The engine's captured steps: their branches, each capture's ms and
+    the bytes of the engine's graph memory pool."""
+    pool = engine._pool
+    nbytes = 0 if pool is None else sum(
+        seg["total_size"] for seg in torch.cuda.memory_snapshot()
+        if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+    ms = {b: round(1e3 * g.seconds, 3) for b, g in engine._graphs.items()}
+    return f"{len(engine._graphs)} captures (ms by branch {ms}), graph pool {nbytes} bytes"
+
+
+def cache_tensors(engine):
+    import dataclasses
+
+    return {f.name: getattr(engine.cache, f.name) for f in dataclasses.fields(engine.cache)}
 
 
 def phase_serve_fixture(sm: Smoke):
     """6 greedy requests of mixed lengths through the engine, paged, dense
-    int8 and dense in the activation dtype, on the card and on the CPU plain
-    path, at f32 activations:
-    the comparison holds the engine and the kernels' f32 instances. (In
-    bf16 the 70-token request meets a near tie at its 15th token: on the
-    card token 61 scores 6.6875 over token 41's 6.59375, on the CPU token
-    41 scores 6.625 over token 61's 6.59375, paged and dense alike.)"""
+    int8 and dense in the activation dtype, at f32 activations: on the card
+    (the graph route) against the CPU plain path (first 16 tokens), and
+    against `eager_burst_engine` on the card (ids, every cache tensor and the
+    launch counts, bit for bit). Then the mixed-sampler run on the card,
+    paged (`SERVE_FIXTURE_MIXED`): greedy rows equal to the eager engine's,
+    every drawn id of the captured steps in its kept set (`check_kept`), and
+    two runs under one seed identical. (In bf16 the 70-token request meets a
+    near tie at its 15th token: on the card token 61 scores 6.6875 over
+    token 41's 6.59375, on the CPU token 41 scores 6.625 over token 61's
+    6.59375, paged and dense alike.)"""
     torch = sm.torch
     import numpy as np
 
     from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.sampling import SamplerConfig
 
     tokens = None
     out, counts = {}, {}
+
+    def run(key, engine, samplers=None):
+        reset_launch_counts()
+        done = engine.run([Request(prompt=p, max_new_tokens=16,
+                                   sampler=SamplerConfig(*c) if c else SamplerConfig.greedy())
+                           for p, c in zip(prompts, samplers or [None] * len(prompts))])
+        counts[key] = launch_counts()
+        out[key] = [c.tokens for c in done.values()]
+        sm.expect(all(c.finish_reason == "length" for c in done.values()),
+                  f"serve-fixture {key}: {[c.finish_reason for c in done.values()]}")
+        return engine
+
     for device in ("cuda", "cpu"):
         params, cfg, fixture = fixture_params(torch, device, torch.float32)
         if tokens is None:
             tokens = np.load(fixture / "eval_tokens.npy").astype(np.int64)
         prompts = [tokens[1000 + 100 * i:1000 + 100 * i + n].tolist()
-                   for i, n in enumerate((5, 70, 35, 15, 48, 120))]
+                   for i, n in enumerate(SERVE_FIXTURE_LENGTHS)]
         for mode, kw in SERVE_FIXTURE_MODES.items():
-            engine = ContinuousBatchingEngine(params, cfg, **SERVE_FIXTURE, **kw)
-            reset_launch_counts()
-            done = engine.run([Request(prompt=p, max_new_tokens=16) for p in prompts])
-            counts[device, mode] = launch_counts()
-            out[device, mode] = [c.tokens for c in done.values()]
-            sm.expect(all(c.finish_reason == "length" for c in done.values()),
-                      f"serve-fixture {device} {mode}: {[c.finish_reason for c in done.values()]}")
+            engine = run((device, mode), ContinuousBatchingEngine(
+                params, cfg, **SERVE_FIXTURE, **kw))
+            if device == "cpu":
+                continue
+            eager = run(("eager", mode), eager_burst_engine(params, cfg, **SERVE_FIXTURE,
+                                                            **kw))
+            sm.expect(out["cuda", mode] == out["eager", mode],
+                      f"serve-fixture {mode}: graph route ids differ from the eager loop's")
+            for name, t in cache_tensors(engine).items():
+                sm.exact(t, cache_tensors(eager)[name],
+                         f"serve-fixture {mode}: cache {name}, graph route against the "
+                         "eager loop")
+            sm.expect(counts["cuda", mode] == counts["eager", mode],
+                      f"serve-fixture {mode}: launches {counts['cuda', mode]} against the "
+                      f"eager loop's {counts['eager', mode]}")
+            print(f"serve-fixture {mode}: graph route ids, caches and launches equal "
+                  f"to the eager loop's; {graph_report(torch, engine)}", flush=True)
+        if device == "cuda":  # the mixed-sampler run
+            kw = dict(**SERVE_FIXTURE, **SERVE_FIXTURE_MODES["paged"])
+            rec = run("mixed", recording_engine(params, cfg, **kw), SERVE_FIXTURE_MIXED)
+            run("mixed again", ContinuousBatchingEngine(params, cfg, **kw),
+                SERVE_FIXTURE_MIXED)
+            run("mixed eager", eager_burst_engine(params, cfg, **kw), SERVE_FIXTURE_MIXED)
+            run("mixed seed 1", ContinuousBatchingEngine(params, cfg, seed=1, **kw),
+                SERVE_FIXTURE_MIXED)
+            checked = check_kept(sm, "serve-fixture mixed", rec.bursts)
+            greedy = [i for i, c in enumerate(SERVE_FIXTURE_MIXED) if c is None]
+            sm.expect(sorted(rec._graphs) == ["draw", "greedy", "truncate"],
+                      f"serve-fixture mixed: captured branches {sorted(rec._graphs)}")
+            sm.expect(out["mixed"] == out["mixed again"] != out["mixed seed 1"],
+                      "serve-fixture mixed: two runs under one seed differ, or seeds 0 "
+                      "and 1 draw the same ids")
+            sm.expect(all(out["mixed"][i] == out["mixed eager"][i] for i in greedy),
+                      "serve-fixture mixed: greedy rows differ from the eager loop's")
+            print(f"serve-fixture mixed samplers (paged): {checked} drawn ids in their "
+                  f"kept sets, two runs under seed 0 identical (seed 1 differs), greedy "
+                  f"rows equal to the "
+                  f"eager loop's, drawn rows equal to the eager loop's: "
+                  f"{out['mixed'] == out['mixed eager']}; {graph_report(torch, rec)}",
+                  flush=True)
 
     def first16(a, b):
         return all(x[:16] == y[:16] for x, y in zip(out[a], out[b]))
@@ -1715,11 +1906,19 @@ SERVE_MODES = {"paged": dict(cache_mode="paged", page_size=256),
                "dense": dict(quantized_kv=True)}
 
 
+SERVE_TURNS = ("graph", "eager", "eager", "graph")
+
+
 def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
                 modes=tuple(SERVE_MODES)):
     """``main``'s model behind the engine with bench.py's serve workload, in
-    each of ``modes`` (paged, dense int8). Launch counts read around the
-    measured run only."""
+    each of ``modes`` (paged, dense int8): the graph route and
+    `eager_burst_engine` in turns (SERVE_TURNS), each engine after a
+    2-request warm-up (the graph engine's captures). Every turn's launch
+    counts, read around its run, held exactly to its counters and prompt
+    chunks; every turn's ids equal to the first's. Then the graph engine's
+    wall by dispatch kind (`dispatch_breakdown`) and one decode dispatch of
+    8 steps, every slot decoding, under the profiler, on each route."""
     torch = sm.torch
     from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1731,13 +1930,11 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
     requests = serve_workload(cfg, new=new)
     bpt = serve_bytes_per_token(cfg, params, slots)
     roof = rate / bpt * slots
-    runs = {}
-    for mode in modes:
-        kw = SERVE_MODES[mode]
-        engine = ContinuousBatchingEngine(params, cfg, max_slots=slots, max_seq_len=1024,
-                                          decode_burst=32, prefill_chunk=256, **kw)
-        engine.run([Request(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens)
-                    for r in requests[:2]])  # warm-up
+
+    def fresh(rs):
+        return [Request(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens) for r in rs]
+
+    def measured(engine, route, mode):
         engine.meter = Meter()
         engine.counters = dict.fromkeys(engine.counters, 0)
         engine.prefill_shapes.clear()
@@ -1745,8 +1942,7 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
         reset_launch_counts()
         engine.meter.start()
         t0 = time.perf_counter()
-        done = engine.run([Request(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens)
-                           for r in requests])
+        done = engine.run(fresh(requests))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
@@ -1766,37 +1962,90 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
         want = {"a8_matvec": (4 * L + 1) * (steps + short),
                 "a8_quantize": (4 * L + 1) * (steps + short), attn: L * (steps + single),
                 "flash_attention": L * long_}
-        print(f"serve {label} {mode}: {len(done)} requests, {total} tokens in {wall:.3f} s = "
-              f"{tok_s:.2f} tok/s, {tok_s / roof:.4f} of the full-slot decode roofline "
-              f"({roof:.1f} tok/s at {bpt / 1e9:.4f} GB a step, {rate / 1e12:.2f} TB/s); "
-              f"TTFT p50 {1e3 * m['ttft_p50']:.1f} ms p99 {1e3 * m['ttft_p99']:.1f} ms, "
-              f"service TTFT p50 {1e3 * m['service_ttft_p50']:.1f} ms p99 "
-              f"{1e3 * m['service_ttft_p99']:.1f} ms; counters "
-              f"{ {k: m[k] for k in engine.counters} }; prompt chunks by shape "
-              f"{dict(shapes)} ({short} short, {long_} long); launches {counts}",
-              flush=True)
+        print(f"serve {label} {mode} {route}: {len(done)} requests, {total} tokens in "
+              f"{wall:.3f} s = {tok_s:.2f} tok/s, {tok_s / roof:.4f} of the full-slot decode "
+              f"roofline ({roof:.1f} tok/s at {bpt / 1e9:.4f} GB a step, "
+              f"{rate / 1e12:.2f} TB/s); TTFT p50 {1e3 * m['ttft_p50']:.1f} ms p99 "
+              f"{1e3 * m['ttft_p99']:.1f} ms, service TTFT p50 "
+              f"{1e3 * m['service_ttft_p50']:.1f} ms p99 {1e3 * m['service_ttft_p99']:.1f} ms; "
+              f"counters { {k: m[k] for k in engine.counters} }; prompt chunks by shape "
+              f"{dict(shapes)} ({short} short, {long_} long); launches {counts}", flush=True)
         sm.expect(all(c.error is None and c.finish_reason == "length"
                       and len(c.tokens) == new for c in done.values())
                   and len(done) == len(requests),
-                  f"serve {label} {mode}: "
+                  f"serve {label} {mode} {route}: "
                   f"{[(c.finish_reason, len(c.tokens)) for c in done.values()]}")
         sm.expect(sum(shapes.values()) == m["prefill_dispatches"] + m["combined_dispatches"],
-                  f"serve {label} {mode}: prompt chunks {dict(shapes)} vs counters {m}")
+                  f"serve {label} {mode} {route}: prompt chunks {dict(shapes)} vs counters {m}")
         want = {**dict.fromkeys(counts, 0), **want}  # every other kernel: never
-        sm.expect(counts == want, f"serve {label} {mode}: launches {counts} != expected {want}")
+        sm.expect(counts == want,
+                  f"serve {label} {mode} {route}: launches {counts} != expected {want}")
         if mode == "paged":
             sm.expect(engine.allocator.free_pages == engine.num_pages,
-                      f"serve paged: {engine.num_pages - engine.allocator.free_pages} "
-                      "pages never freed")
+                      f"serve paged {route}: "
+                      f"{engine.num_pages - engine.allocator.free_pages} pages never freed")
+        return dict(counts=counts, tok_s=tok_s, metrics=m,
+                    ids=[c.tokens for c in done.values()])
+
+    runs = {}
+    for mode in modes:
+        kw = dict(max_slots=slots, max_seq_len=1024, decode_burst=32, prefill_chunk=256,
+                  **SERVE_MODES[mode])
+        engines = {"graph": ContinuousBatchingEngine(params, cfg, **kw),
+                   "eager": eager_burst_engine(params, cfg, **kw)}
+        for engine in engines.values():
+            engine.run(fresh(requests[:2]))  # warm-up
+        turns = [(route, measured(engines[route], route, mode)) for route in SERVE_TURNS]
+        for route, t in turns[1:]:
+            sm.expect(t["ids"] == turns[0][1]["ids"],
+                      f"serve {label} {mode}: the {route} route's ids differ from the graph "
+                      "route's")
+        graph = engines["graph"]
+        dispatch_breakdown(torch, graph, fresh(requests), f"serve {label} {mode} graph")
+        sm.expect(list(graph._graphs) == ["greedy"],
+                  f"serve {label} {mode}: captured branches {list(graph._graphs)}")
+        print(f"serve {label} {mode}: tok/s in turns "
+              + ", ".join(f"{r} {t['tok_s']:.2f}" for r, t in turns)
+              + f"; ids of every turn equal; graph engine: {graph_report(torch, graph)}",
+              flush=True)
         if mode == "paged":  # one decode dispatch (8 steps), every slot decoding
-            fill_slots(engine, requests, slots)
-            engine.decode_burst = 8
-            profile_window(torch, f"serve {label} {mode}, one decode dispatch of {slots} rows",
-                           engine.step)
-            for rid in list(engine._completions):
-                engine.cancel(rid)
-        runs[mode] = dict(engine=engine, counts=counts, tok_s=tok_s, metrics=m)
+            for route, engine in engines.items():
+                fill_slots(engine, requests, slots)
+                engine.decode_burst = 8
+                profile_window(torch, f"serve {label} {mode} {route} route, one decode "
+                               f"dispatch of {slots} rows", engine.step)
+                for rid in list(engine._completions):
+                    engine.cancel(rid)
+        first = turns[0][1]
+        runs[mode] = dict(engine=graph, counts=first["counts"], tok_s=first["tok_s"],
+                          metrics=first["metrics"])
     return runs
+
+
+def dispatch_breakdown(torch, engine, requests, what: str) -> None:
+    """One more run of ``requests`` with the card synchronized after each
+    engine step: wall seconds and count by dispatch kind (prompt chunks
+    alone, decode bursts, prompt chunk + burst), so the report says which
+    kind sets the serve pace."""
+    kinds = ("prefill_dispatches", "decode_dispatches", "combined_dispatches")
+    wall, count = dict.fromkeys(kinds, 0.0), dict.fromkeys(kinds, 0)
+    for r in requests:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while engine.has_work:
+        before = dict(engine.counters)
+        t = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        kind = next((k for k in kinds if engine.counters[k] != before[k]), None)
+        if kind is not None:
+            wall[kind] += time.perf_counter() - t
+            count[kind] += 1
+    total = time.perf_counter() - t0
+    print(f"{what}, each step synchronized: {total:.3f} s, by dispatch kind "
+          + ", ".join(f"{k.removesuffix('_dispatches')} {count[k]} in {wall[k]:.3f} s"
+                      for k in kinds), flush=True)
 
 
 def fill_slots(engine, requests, slots: int) -> None:
@@ -1868,7 +2117,9 @@ def phase_http(sm: Smoke):
         server.stop()
     print(f"http: blocking {text!r}, SSE equal: {''.join(chunks) == text}, chat "
           f"{chat['choices'][0]['message']['content']!r}, health {health}, metrics "
-          f"requests {metrics.get('requests')}, decode_steps {metrics.get('decode_steps')}")
+          f"requests {metrics.get('requests')}, decode_steps {metrics.get('decode_steps')}; "
+          f"{graph_report(torch, engine)}")
+    sm.expect(len(engine._graphs) > 0, "http: the engine captured no decode step")
     sm.expect(len(text) > 0 and "".join(chunks) == text, "http: SSE text != blocking text")
     sm.expect(chat["object"] == "chat.completion" and health == {"status": "ok"}
               and metrics.get("requests") == 3.0, f"http: {chat} {health} {metrics}")
@@ -2472,12 +2723,13 @@ def phase_timing_ffn(sm: Smoke, main, ffn_run, rate: float):
 
 
 def phase_timing_gemma(sm: Smoke, run, serve, rate: float):
-    """Rows 3, 4, 5 and 8 at hd 256, Gemma-3-1B's shapes, each layer with
+    """Rows 3, 4, 5, 8 and 9 at hd 256, Gemma-3-1B's shapes, each layer with
     its own window (22 of 26 layers slide over 512 positions, 4 are
     global): one decode step of `generate` (row 3, one row at the phase's
     last length), one 640-token prefill (row 4), and one decode step of 8
     rows at lengths spread to 1024 over the serve-gemma engine's pool (row
-    8, write mode) and over a bf16 dense cache (row 5, read-only). Kernel by
+    8, write mode; row 9, read-only) and over a bf16 dense cache (row 5,
+    read-only). Kernel by
     CUDA graph replay over every layer, plain version eager, the bound from
     the positions each layer's window visits, and SDPA on bf16 K/V over the
     same positions (a mask for the window) as the library yardstick."""
@@ -2616,6 +2868,21 @@ def phase_timing_gemma(sm: Smoke, run, serve, rate: float):
                      bound_ms=b_ms, bound_by=b_by,
                      launches=serve["paged"]["counts"]["paged_decode_attention_update"],
                      unit=unit + "; launches from serve-gemma"))
+    ms, plain = per_layer(
+        lambda i: pm.paged_decode_attention_stacked(
+            q, *pool, table, lens, i % L, scale=scale, window=windows[i % L]),
+        lambda i: pm.paged_decode_attention_plain(
+            q, *pool, table, lens, i % L, scale=scale, window=windows[i % L]))
+    b_ms, b_by = bound(2 * nkv * pos * (hd + 4) + io + L * B * mp * 4, ops, "f32", rate)
+    rows.append(dict(row=9, name="paged_decode_attention (hd 256)",
+                     counter="paged_decode_attention",
+                     source="metalchat_tpu_torch/csrc/paged_attention.cu",
+                     replaces="metalchat_tpu/ops/paged_attention_pallas.py:491",
+                     ms=ms, plain_ms=plain, library_ms=library(lib_by_w.get),
+                     bound_ms=b_ms, bound_by=b_by,
+                     launches=serve["paged"]["counts"]["paged_decode_attention"],
+                     unit=unit + "; read-only, on no Gemma path the script drives "
+                                 "(launches 0)"))
     kc, vc = (torch.randn((L, B, nkv, T, hd), generator=gen, device=dev).to(torch.bfloat16)
               for _ in range(2))
     ms, plain = per_layer(
@@ -2686,14 +2953,16 @@ def main() -> int:
             stream_counts = sm.phase("stream", lambda: phase_stream(sm, main_run))
         gemma_run = sm.phase("gemma", lambda: phase_gemma(sm, dev_name))
         sm.phase("gemma-fixture", lambda: phase_gemma_fixture(sm))
-        fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
-        serve = None
-        if main_run is not None:
-            serve = sm.phase("serve", lambda: phase_serve(sm, main_run, hbm_rate(dev_name)))
-        if gemma_run is not None:
-            serve_gemma = sm.phase("serve-gemma", lambda: phase_serve(
-                sm, gemma_run, hbm_rate(dev_name), GEMMA_LABEL, ("paged",)))
-        sm.phase("http", lambda: phase_http(sm))
+        with timed_captures(torch):  # the engines' captures, timed
+            fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
+            serve = None
+            if main_run is not None:
+                serve = sm.phase("serve", lambda: phase_serve(sm, main_run,
+                                                              hbm_rate(dev_name)))
+            if gemma_run is not None:
+                serve_gemma = sm.phase("serve-gemma", lambda: phase_serve(
+                    sm, gemma_run, hbm_rate(dev_name), GEMMA_LABEL, ("paged",)))
+            sm.phase("http", lambda: phase_http(sm))
         if main_run is not None:
             rows = sm.phase("timing", lambda: phase_timing(sm, main_run, hbm_rate(dev_name)))
         if serve is not None and fixture_counts is not None and rows is not None:

@@ -35,7 +35,7 @@ import torch
 from metalchat_tpu_torch.cache import KVCache, QuantizedKVCache, roll_kv_cache
 from metalchat_tpu_torch.config import ModelConfig
 from metalchat_tpu_torch.models.transformer import Cache, Params, forward
-from metalchat_tpu_torch.ops._build import CountedGraph
+from metalchat_tpu_torch.ops._build import CountedGraph, warm_up
 from metalchat_tpu_torch.sampling import SamplerConfig, sample
 
 
@@ -142,14 +142,7 @@ class DecodeStep:
         if entry is not None:
             entry[0].replay()
             return entry[1]
-        # Warm-up on a side stream, as torch.cuda.graph asks: the eager step
-        # makes the kernels' arrival counters and the libraries' handles.
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            emitted = self._body(params, state, eos, record)
-        cur.wait_stream(side)
+        emitted = warm_up(lambda: self._body(params, state, eos, record), dev)
         graph = CountedGraph()
         graph.graph.register_generator_state(state.generator)
         static = graph.capture(lambda: self._body(params, state, eos, record))

@@ -13,7 +13,10 @@ Architecture: HTTP handler threads `submit()` into the engine under a lock
 and block on per-request token queues; ONE scheduler thread drives
 `engine.step()`, so every CUDA call of the engine happens on that thread
 (the lock is the device queue), and fans emitted tokens out to the waiting
-handlers. Streaming uses `text.tokenizer.StreamingDecoder` so multi-byte
+handlers. The engine captures its decode step (a CUDA graph) on that thread
+too. The handler threads run Python only (tokenizer, queues, the engine's
+host-side `submit`, `completion` and `metrics`) and make no CUDA call, so
+the capture keeps `torch.cuda.graph`'s default, process-wide error mode. Streaming uses `text.tokenizer.StreamingDecoder` so multi-byte
 UTF-8 split across tokens renders correctly chunk by chunk.
 """
 

@@ -15,8 +15,15 @@ A slot-based scheduler that mixes prefill and decode on one card:
 
 The JAX package compiles one program per model step. Here a "dispatch" is
 one model call on the card: a prompt chunk for one or several slots, a
-burst of decode steps (a Python loop of `forward` calls with the tokens kept
-on the card), or both. The sampled tokens are read back once per dispatch.
+burst of decode steps, or both. The sampled tokens are read back once per
+dispatch. A decode step runs on fixed device buffers of ``max_slots`` rows
+(tokens, positions, ``advance``, the sampler settings, the output and a
+step index), filled from one host staging buffer by one copy a dispatch and
+updated in place by the step, so that on the card one captured CUDA graph
+per sampling branch (`sampling.sampling_branch`) replays every step of
+every burst: the JAX package's ``decode_step``, ``decode_burst_step`` (a
+``lax.scan`` of that step) and the burst half of ``combined_step``. The
+prompt chunks run eagerly. On the CPU the same step runs eagerly.
 Every CUDA call of an engine happens on the thread that calls `step`.
 """
 
@@ -36,7 +43,8 @@ from metalchat_tpu_torch.cache import KVCache, PagedKVCache, QuantizedKVCache
 from metalchat_tpu_torch.config import ModelConfig
 from metalchat_tpu_torch.engine.paged import PageAllocator
 from metalchat_tpu_torch.models.transformer import Params, forward
-from metalchat_tpu_torch.sampling import SamplerConfig, sample_batched
+from metalchat_tpu_torch.ops._build import CountedGraph, warm_up
+from metalchat_tpu_torch.sampling import SamplerConfig, sample_batched, sampling_branch
 from metalchat_tpu_torch.utils.profiling import Meter, trace
 
 
@@ -83,6 +91,23 @@ class Completion:
         dt = self.finished_at - self.first_token_at
         n = len(self.tokens) - 1
         return n / dt if dt > 0 and n > 0 else None
+
+
+# The decode step's per-row settings, in this order, as [max_slots] rows of
+# one flat int32 buffer (the float rows hold f32 bits), then the step index.
+_BURST_ROWS = ("tokens", "positions", "advance", "top_k", "temperature", "top_p")
+_FLOAT_ROWS = ("temperature", "top_p")
+
+
+def _burst_rows(flat, rows: int, f32) -> Dict[str, object]:
+    """Named views of ``flat`` (a numpy array or a tensor, int32): each of
+    `_BURST_ROWS` ``[rows]``, the float rows reinterpreted as ``f32``, and
+    ``step`` ``[1]``."""
+    views = {name: flat[i * rows:(i + 1) * rows] for i, name in enumerate(_BURST_ROWS)}
+    for name in _FLOAT_ROWS:
+        views[name] = views[name].view(f32)
+    views["step"] = flat[len(_BURST_ROWS) * rows:]
+    return views
 
 
 @dataclass
@@ -152,6 +177,21 @@ class ContinuousBatchingEngine:
                                         dtype=params["final_norm"].dtype, device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        # The decode step's buffers (`_burst_step`), allocated once: the
+        # host fills `_staging` (pinned on the card, so the copy is
+        # asynchronous: it is written again only after the dispatch's
+        # read-back), one copy a dispatch moves it into `_io`.
+        size = len(_BURST_ROWS) * max_slots + 1
+        self._staging = torch.zeros(size, dtype=torch.int32,
+                                    pin_memory=self.device.type == "cuda")
+        self._host = _burst_rows(self._staging.numpy(), max_slots, np.float32)
+        self._io = torch.zeros(size, dtype=torch.int32, device=self.device)
+        self._rows = _burst_rows(self._io, max_slots, torch.float32)
+        self._out = torch.zeros((self.decode_burst, max_slots), dtype=torch.int64,
+                                device=self.device)
+        # One captured step per sampling branch (at most three), in one pool.
+        self._graphs: Dict[str, CountedGraph] = {}
+        self._pool = None
         self._queue: Deque[Request] = deque()
         self._slots: Dict[int, _Slot] = {}
         self._free: List[int] = list(range(max_slots))
@@ -308,25 +348,64 @@ class ContinuousBatchingEngine:
         return logits[torch.arange(len(slot_ids), device=dev),
                       torch.tensor(lasts, device=dev)]
 
+    def _burst_step(self, branch: str) -> None:
+        """One decode step for all rows, in place on the buffers: the model
+        at each row's position, the sampler with `branch`, the token into
+        ``out[step]``, then ``step += 1``, ``positions += advance`` and the
+        tokens overwritten. It reads nothing back, so a CUDA graph captures
+        it."""
+        r = self._rows
+        logits = self._forward(self.cache, r["tokens"][:, None], r["positions"])
+        nxt = sample_batched(logits[:, 0], self._gen, r["temperature"], r["top_k"],
+                             r["top_p"], branch)
+        self._out.index_copy_(0, r["step"].long(), nxt[None])
+        r["step"].add_(1)
+        r["positions"].add_(r["advance"])
+        r["tokens"].copy_(nxt)
+
+    def _graph_route(self) -> bool:
+        """Whether bursts replay captured steps: on the card."""
+        return self.device.type == "cuda"
+
+    def _new_graph(self) -> CountedGraph:
+        """An empty graph for one burst step in the engine's memory pool,
+        the sampler's generator registered, so that draws after a replay
+        continue the generator's state."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = CountedGraph(pool=self._pool)
+        graph.graph.register_generator_state(self._gen)
+        return graph
+
     @torch.no_grad()
-    def _run_burst(self, tokens, positions, advance, temps, ks, ps,
-                   steps: int) -> torch.Tensor:
-        """`steps` decode steps for all rows, on the card → tokens ``[steps,
-        B]``. Inactive rows ride along pinned at their position (`advance`
-        0): their writes land at a position every future reader's own
-        prefill re-writes first."""
-        dev = self.device
-        tok = torch.from_numpy(tokens).to(dev, torch.long)
-        pos = torch.from_numpy(positions).to(dev)
-        adv = torch.from_numpy(advance).to(dev)
-        out = []
+    def _run_burst(self, steps: int, branch: str) -> torch.Tensor:
+        """`steps` decode steps for all rows from the staged rows → tokens
+        ``[steps, B]`` on the card (rows of the output buffer, which the
+        next dispatch overwrites). Inactive rows ride along pinned at their
+        position (`advance` 0): their writes land at a position every future
+        reader's own prefill re-writes first.
+
+        On the card the first burst of a sampling branch runs one step
+        eagerly (the warm-up; its token counts) and captures the step; every
+        other step is a replay of that graph."""
+        if steps > self._out.shape[0]:
+            raise ValueError(f"a burst of {steps} steps exceeds the output buffer's "
+                             f"{self._out.shape[0]} (decode_burst at construction)")
+        self._io.copy_(self._staging, non_blocking=True)
+        todo = steps
         with trace("decode burst"):
-            for _ in range(steps):
-                logits = self._forward(self.cache, tok[:, None], pos)
-                tok = sample_batched(logits[:, 0], self._gen, temps, ks, ps)
-                pos = pos + adv
-                out.append(tok)
-        return torch.stack(out)
+            graph = self._graphs.get(branch)
+            if graph is None and self._graph_route():
+                warm_up(lambda: self._burst_step(branch), self.device)
+                graph = self._graphs[branch] = self._new_graph()
+                graph.capture(lambda: self._burst_step(branch))
+                todo -= 1
+            for _ in range(todo):
+                if graph is None:
+                    self._burst_step(branch)
+                else:
+                    graph.replay()
+        return self._out[:steps]
 
     # -- internals ---------------------------------------------------------
 
@@ -460,7 +539,8 @@ class ContinuousBatchingEngine:
         return emitted
 
     def _decode_args(self, frontier: Optional[Dict[int, int]] = None):
-        """Build the batched decode-step row vectors.
+        """Stage the batched decode step's rows; returns the active slots
+        and the sampling branch of their settings.
 
         Rows not decoding still run through the batched step and write one
         garbage KV row. Free rows sit at position 0 (re-written by the next
@@ -470,19 +550,15 @@ class ContinuousBatchingEngine:
         prompt KV they already wrote. `frontier` overrides those rows'
         positions (the combined dispatch pins them at their POST-chunk
         frontier, since its prefill part advances them first)."""
-        b = self.max_slots
-        tokens = np.zeros(b, np.int32)
-        positions = np.zeros(b, np.int32)
-        advance = np.zeros(b, np.int32)
+        h = self._host
+        self._staging.zero_()  # tokens, positions, advance, top-k, temperature, step
+        h["top_p"][:] = 1.0
         for slot_id, slot in self._slots.items():
             if not slot.decoding:
-                positions[slot_id] = slot.pos
+                h["positions"][slot_id] = slot.pos
         if frontier:
             for slot_id, pos in frontier.items():
-                positions[slot_id] = pos
-        temps = np.zeros(b, np.float32)
-        ks = np.zeros(b, np.int32)
-        ps = np.ones(b, np.float32)
+                h["positions"][slot_id] = pos
         active = []
         for slot_id, slot in list(self._slots.items()):
             if not slot.decoding:
@@ -492,13 +568,13 @@ class ContinuousBatchingEngine:
                 self._release(slot_id)
                 continue
             active.append(slot_id)
-            tokens[slot_id] = slot.last_token
-            positions[slot_id] = slot.pos
-            advance[slot_id] = 1
-            temps[slot_id] = slot.request.sampler.temperature
-            ks[slot_id] = slot.request.sampler.top_k
-            ps[slot_id] = slot.request.sampler.top_p
-        return active, tokens, positions, advance, temps, ks, ps
+            h["tokens"][slot_id] = slot.last_token
+            h["positions"][slot_id] = slot.pos
+            h["advance"][slot_id] = 1
+            h["temperature"][slot_id] = slot.request.sampler.temperature
+            h["top_k"][slot_id] = slot.request.sampler.top_k
+            h["top_p"][slot_id] = slot.request.sampler.top_p
+        return active, sampling_branch(h["temperature"], h["top_k"], h["top_p"])
 
     def _apply_burst(self, toks: np.ndarray,
                      active: List[int]) -> List[Tuple[int, int]]:
@@ -515,7 +591,7 @@ class ContinuousBatchingEngine:
         return emitted
 
     def _decode_all(self) -> List[Tuple[int, int]]:
-        active, tokens, positions, advance, temps, ks, ps = self._decode_args()
+        active, branch = self._decode_args()
         if not active:
             return []
         steps = self._burst_steps(active)
@@ -523,7 +599,7 @@ class ContinuousBatchingEngine:
         self.counters["decode_steps"] += steps
         self.counters["decode_row_steps"] += steps * len(active)
         self._flush_page_table()
-        burst = self._run_burst(tokens, positions, advance, temps, ks, ps, steps)
+        burst = self._run_burst(steps, branch)
         return self._apply_burst(burst.cpu().numpy(), active)
 
     def _combined(self, prefill_ids: List[int]) -> List[Tuple[int, int]]:
@@ -534,8 +610,7 @@ class ContinuousBatchingEngine:
         p_toks, p_starts, p_lasts, chunk_lens = self._prefill_args(prefill_ids)
         frontier = {sid: self._slots[sid].pos + chunk_lens[row]
                     for row, sid in enumerate(prefill_ids)}
-        active, tokens, positions, advance, temps, ks, ps = \
-            self._decode_args(frontier)
+        active, branch = self._decode_args(frontier)
         if not active:
             # Decoders all finished during arg building (paged kv_oom).
             return self._prefill_batch(prefill_ids)
@@ -546,7 +621,7 @@ class ContinuousBatchingEngine:
         self._flush_page_table()
         logits = self._run_prefill(prefill_ids, p_toks, p_starts, p_lasts)
         first = self._sample_first(prefill_ids, chunk_lens, logits)
-        burst = self._run_burst(tokens, positions, advance, temps, ks, ps, steps)
+        burst = self._run_burst(steps, branch)
         if first is None:
             toks, first_host = burst.cpu().numpy(), None
         else:  # one read-back for the first tokens and the burst

@@ -19,6 +19,7 @@ recorded as that graph's, and each replay of the graph adds them.
 from __future__ import annotations
 
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
@@ -66,11 +67,14 @@ class CountedGraph:
     graph's (``launches``) and add nothing to ``LAUNCHES``, since a capture
     runs nothing; each `replay` adds them once. ``graph`` and ``context``
     default to a new `torch.cuda.CUDAGraph` and `torch.cuda.graph`; the CPU
-    tests pass stand-ins that run nothing. One capture at a time."""
+    tests pass stand-ins that run nothing. ``options`` go to ``context``
+    (``pool=``: graphs that never run at once may share one memory pool).
+    One capture at a time."""
 
-    def __init__(self, graph=None, context: Optional[Callable] = None):
+    def __init__(self, graph=None, context: Optional[Callable] = None, **options):
         self.graph = torch.cuda.CUDAGraph() if graph is None else graph
         self._context = torch.cuda.graph if context is None else context
+        self._options = options
         self.launches: Dict[str, int] = {}
 
     def capture(self, fn: Callable):
@@ -80,18 +84,43 @@ class CountedGraph:
         if _CAPTURED is not None:
             raise RuntimeError("a CountedGraph capture is already under way")
         _CAPTURED = dict.fromkeys(LAUNCHES, 0)
+        # No cyclic collection during the capture: an object in a dead cycle
+        # that holds a CUDA graph (an engine behind a stopped server) would
+        # be destroyed mid-capture, and destroying a graph while a stream
+        # captures invalidates the capture.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with self._context(self.graph):
+            with self._context(self.graph, **self._options):
                 out = fn()
             self.launches = {k: n for k, n in _CAPTURED.items() if n}
         finally:
             _CAPTURED = None
+            if collecting:
+                gc.enable()
         return out
 
     def replay(self) -> None:
         self.graph.replay()
         for k, n in self.launches.items():
             LAUNCHES[k] += n
+
+
+def warm_up(fn: Callable, device: torch.device):
+    """``fn()`` once before it is captured: on a CUDA device on a side
+    stream that the current stream then waits for, as `torch.cuda.graph`
+    asks (the eager call makes the libraries' handles and the kernels'
+    arrival counters, which a capture cannot); elsewhere just ``fn()``.
+    Returns what ``fn`` returned."""
+    if device.type != "cuda":
+        return fn()
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    return out
 
 
 def _nvcc() -> str:

@@ -6,7 +6,8 @@ then a categorical draw from an explicit ``torch.Generator``. Greedy is
 ``argmax`` (first index on ties, as ``jnp.argmax``). `sample` reads nothing
 back to the host, so a decode step captured in a CUDA graph can call it.
 `sample_batched` takes per-row settings, as the serving engine mixes
-requests in one decode step.
+requests in one decode step, as host sequences or as device tensors (then
+it too reads nothing back: the engine's captured burst step calls it).
 """
 
 from __future__ import annotations
@@ -128,7 +129,7 @@ def truncation_keep(scaled: torch.Tensor, top_k: torch.Tensor,
     lie above it; top-p keeps x while the probability mass strictly above it
     is below p (``top_k`` 0 and ``top_p`` ≥ 1 disable). The argmax is always
     kept."""
-    b, v = scaled.shape
+    v = scaled.shape[-1]
     probs = torch.softmax(scaled, dim=-1)
     lo_k = lo_p = scaled.amin(dim=-1) - 1.0
     hi_k = hi_p = scaled.amax(dim=-1)
@@ -145,33 +146,51 @@ def truncation_keep(scaled: torch.Tensor, top_k: torch.Tensor,
                       torch.where(mass_p < p, mid_p, hi_p))
     keep = scaled > lo_k[:, None]
     keep &= torch.where((p < 1.0)[:, None], scaled > lo_p[:, None], True)
-    keep[torch.arange(b, device=scaled.device), scaled.argmax(dim=-1)] = True
-    return keep
+    return keep.scatter(-1, scaled.argmax(dim=-1, keepdim=True), True)
+
+
+def sampling_branch(temperature, top_k, top_p) -> str:
+    """The work `sample_batched` does for rows with these host settings:
+    "greedy" (no row draws), "draw" (draws, no truncation) or "truncate"
+    (draws after `truncation_keep`). The JAX package picks the same branch
+    on the device with ``lax.cond``; a CUDA graph cannot branch on device
+    data, so the caller picks it from the settings it holds."""
+    drawn = np.asarray(temperature, np.float32) > 0.0
+    if not drawn.any():
+        return "greedy"
+    restricted = (np.asarray(top_k) > 0) | (np.asarray(top_p, np.float32) < 1.0)
+    return "truncate" if np.any(drawn & restricted) else "draw"
 
 
 def sample_batched(logits: torch.Tensor, generator: Optional[torch.Generator],
-                   temperature, top_k, top_p) -> torch.Tensor:
-    """Next-token ids ``[B]`` with per-row settings: host sequences of
-    temperature (≤ 0 means greedy for that row), top-k (0 disables) and
-    top-p (≥ 1 disables). The settings are known on the host, so the rows
-    that are all greedy, or need no truncation, skip that work by ordinary
-    branches. Draws are Gumbel-max from ``generator`` on the logits' device."""
+                   temperature, top_k, top_p, branch: Optional[str] = None) -> torch.Tensor:
+    """Next-token ids ``[B]`` with per-row settings: temperature (≤ 0 means
+    greedy for that row), top-k (0 disables) and top-p (≥ 1 disables),
+    each either a host sequence or a ``[B]`` tensor on the logits' device.
+    With tensors the caller passes ``branch`` (`sampling_branch` of the same
+    settings), and the call reads nothing back and copies nothing to the
+    device, so a captured decode step can make it; host sequences are copied
+    to the device and give the branch themselves. Draws are Gumbel-max from
+    ``generator`` on the logits' device; greedy rows take the argmax."""
     logits = logits.float()
     argmax = torch.argmax(logits, dim=-1)
-    temps = np.asarray(temperature, np.float32)
-    ks = np.asarray(top_k, np.int64)
-    ps = np.asarray(top_p, np.float32)
-    greedy = temps <= 0.0
-    if greedy.all():
+    if not torch.is_tensor(temperature):
+        branch = sampling_branch(temperature, top_k, top_p)
+        if branch != "greedy":
+            dev = logits.device
+            temperature = torch.from_numpy(np.asarray(temperature, np.float32)).to(dev)
+            top_k = torch.from_numpy(np.asarray(top_k, np.int64)).to(dev)
+            top_p = torch.from_numpy(np.asarray(top_p, np.float32)).to(dev)
+    elif branch not in ("greedy", "draw", "truncate"):
+        raise ValueError(f"sample_batched: settings as tensors need a branch, got {branch!r}")
+    if branch == "greedy":
         return argmax
     if generator is None:
         raise ValueError("stochastic sampling requires a torch.Generator")
-    dev = logits.device
-    scaled = logits / torch.from_numpy(np.where(greedy, 1.0, temps)).to(dev)[:, None]
-    if np.any(~greedy & ((ks > 0) | (ps < 1.0))):
-        keep = truncation_keep(scaled, torch.from_numpy(ks).to(dev),
-                               torch.from_numpy(ps).to(dev))
-        scaled = torch.where(keep, scaled, _NEG)
-    u = torch.rand(scaled.shape, generator=generator, device=dev)
+    greedy = temperature <= 0.0
+    scaled = logits / torch.where(greedy, 1.0, temperature)[:, None]
+    if branch == "truncate":
+        scaled = torch.where(truncation_keep(scaled, top_k, top_p), scaled, _NEG)
+    u = torch.rand(scaled.shape, generator=generator, device=logits.device)
     drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
-    return torch.where(torch.from_numpy(greedy).to(dev), argmax, drawn)
+    return torch.where(greedy, argmax, drawn)

@@ -315,3 +315,68 @@ def test_stochastic_generate_repeats_with_its_seed(card):
     assert not torch.equal(runs[0], runs[2])
     # Replays draw fresh numbers: the rows do not settle into one repeated id.
     assert all(len(set(r.tolist())) > 4 for r in runs[0])
+
+
+def test_sample_batched_replays_continue_the_generator(card):
+    """`sample_batched` with device tensors (top-k + top-p rows beside a
+    greedy row) captured in a CUDA graph with its generator registered: an
+    eager call, three replays, then an eager call draw the ids that five
+    eager calls draw from the same seed."""
+    from metalchat_tpu_torch.ops._build import CountedGraph, warm_up
+    from metalchat_tpu_torch.sampling import sample_batched, sampling_branch
+
+    _, gen, dev = card
+    logits = torch.randn((4, 1000), generator=gen, device=dev) * 3
+    temps, ks, ps = (np.array([0.0, 0.8, 1.0, 0.7], np.float32),
+                     np.array([0, 20, 0, 5], np.int32), np.array([1.0, 0.9, 0.8, 1.0], np.float32))
+    branch = sampling_branch(temps, ks, ps)
+    settings = [torch.from_numpy(a).to(dev) for a in (temps, ks, ps)]
+    ref = torch.Generator(device=dev).manual_seed(3)
+    want = [sample_batched(logits, ref, *settings, branch) for _ in range(5)]
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = torch.zeros((4,), dtype=torch.int64, device=dev)
+
+    def step():
+        out.copy_(sample_batched(logits, g, *settings, branch))
+
+    warm_up(step, dev)
+    got = [out.clone()]
+    graph = CountedGraph()
+    graph.graph.register_generator_state(g)
+    graph.capture(step)
+    for _ in range(3):
+        graph.replay()
+        got.append(out.clone())
+    got.append(sample_batched(logits, g, *settings, branch))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len({tuple(t.tolist()) for t in got}) > 1
+
+
+@pytest.mark.parametrize("mode", list(chip_smoke.SERVE_FIXTURE_MODES))
+def test_engine_graph_route_matches_eager_loop(card, mode):
+    """The engine on the fixture (4 greedy requests, 3 slots, bursts of 4):
+    the graph route (one warm-up step and capture, then replays) gives the
+    eager-loop engine's ids, cache tensors and launch counts bit for bit;
+    one graph is held, and a later run only replays it."""
+    from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    params, cfg, fixture = chip_smoke.fixture_params(torch, "cuda", torch.float32)
+    tokens = np.load(fixture / "eval_tokens.npy").astype(np.int64)
+    prompts = [tokens[1000 + 100 * i:1000 + 100 * i + n].tolist()
+               for i, n in enumerate((5, 70, 35, 15))]
+    kw = {**chip_smoke.SERVE_FIXTURE, **chip_smoke.SERVE_FIXTURE_MODES[mode]}
+    runs = []
+    for engine in (ContinuousBatchingEngine(params, cfg, **kw),
+                   chip_smoke.eager_burst_engine(params, cfg, **kw)):
+        reset_launch_counts()
+        done = engine.run([Request(prompt=p, max_new_tokens=16) for p in prompts])
+        runs.append((engine, [c.tokens for c in done.values()], launch_counts()))
+    (graph_engine, got, got_counts), (eager_engine, want, want_counts) = runs
+    assert got == want and got_counts == want_counts
+    for name, t in chip_smoke.cache_tensors(graph_engine).items():
+        assert torch.equal(t, chip_smoke.cache_tensors(eager_engine)[name]), name
+    graph = graph_engine._graphs["greedy"]
+    assert list(graph_engine._graphs) == ["greedy"]
+    graph_engine.run([Request(prompt=prompts[0], max_new_tokens=8)])
+    assert graph_engine._graphs == {"greedy": graph}

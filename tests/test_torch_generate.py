@@ -13,6 +13,7 @@ against the eager loop in `test_torch_cuda.py` and `chip_smoke.py`.
 """
 
 import contextlib
+import gc
 import dataclasses
 from pathlib import Path
 
@@ -384,3 +385,27 @@ def test_launch_counts_under_capture_and_replay():
     _build.count_launch("flash_attention")
     assert _build.LAUNCHES["flash_attention"] == 2 and other.launches == {}
     _build.reset_launch_counts()
+
+
+def test_capture_holds_the_cyclic_collector():
+    """The cyclic garbage collector is off while a CountedGraph captures (a
+    graph it destroyed mid-capture would invalidate the capture on the card)
+    and back on afterwards, also after a failed capture; a collector the
+    caller had turned off stays off."""
+    graph = _build.CountedGraph(StandInGraph(), lambda g: contextlib.nullcontext())
+    assert gc.isenabled()
+    assert graph.capture(gc.isenabled) is False
+    assert gc.isenabled()
+
+    def fails():
+        raise ValueError("capture fails")
+
+    with pytest.raises(ValueError, match="capture fails"):
+        graph.capture(fails)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        graph.capture(gc.isenabled)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -4,6 +4,9 @@ config.py) vs the JAX package's sampling.py and config.py, on the CPU.
 The masks keep or drop the same tokens and leave kept logits untouched, so
 the comparison is exact. Stochastic draws are not compared: a
 ``torch.Generator`` and a JAX key give different numbers from one seed.
+`sample_batched` with device tensors (the engine's captured step) is held
+to its host-sequence call and recorded at the aten level: no read back, no
+copy from the host.
 """
 
 import json
@@ -118,6 +121,61 @@ def test_sample_batched_greedy_rows_match_jax():
     all_greedy = sampling.sample_batched(torch.from_numpy(BATCH_LOGITS), None,
                                          np.zeros(6), TOP_K, TOP_P)
     np.testing.assert_array_equal(all_greedy.numpy(), BATCH_LOGITS.argmax(-1))
+
+
+def _tensors(temps, top_k, top_p):
+    return (torch.from_numpy(temps), torch.from_numpy(top_k), torch.from_numpy(top_p),
+            sampling.sampling_branch(temps, top_k, top_p))
+
+
+class _AtenLog(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the aten ops a call makes."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+SETTINGS = {"truncate": (TEMPS, TOP_K, TOP_P),
+            "draw": (TEMPS, np.zeros(6, np.int32), np.ones(6, np.float32)),
+            "greedy": (np.minimum(TEMPS, 0), TOP_K, TOP_P)}
+
+
+@pytest.mark.parametrize("branch", list(SETTINGS))
+def test_sample_batched_device_tensors(branch):
+    """Settings as tensors equal the host-sequence call (greedy ids, and
+    draws from one generator seed, four calls in a row); the greedy rows
+    equal JAX's; the draws lie in the exact kept sets; the call reads
+    nothing back (no ``_local_scalar_dense``) and makes no tensor from host
+    data."""
+    import jax
+
+    settings = SETTINGS[branch]
+    temps, top_k, top_p, got_branch = _tensors(*settings)
+    assert got_branch == branch
+    logits = torch.from_numpy(BATCH_LOGITS)
+    gen_host, gen_dev = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    for _ in range(4):
+        want = sampling.sample_batched(logits, gen_host, *settings)
+        log = _AtenLog()
+        with log:
+            got = sampling.sample_batched(logits, gen_dev, temps, top_k, top_p, branch)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        assert not [op for op in log.ops if "_local_scalar_dense" in op or "lift_fresh" in op
+                    or op.startswith("aten._to_copy")], log.ops
+        greedy = settings[0] <= 0
+        jax_ids = np.asarray(jsampling.sample_batched(
+            jnp.asarray(BATCH_LOGITS), jax.random.PRNGKey(0), *map(jnp.asarray, settings)))
+        np.testing.assert_array_equal(got.numpy()[greedy], jax_ids[greedy])
+        if branch == "truncate":
+            for r in (1, 2, 4):
+                assert _exact_keep(r)[got[r]]
+    with pytest.raises(ValueError, match="branch"):
+        sampling.sample_batched(logits, gen_dev, temps, top_k, top_p)
 
 
 def test_sample_batched_kept_sets_are_exact():

@@ -15,6 +15,11 @@ The prompts are fixed slices of the fixture's evaluation tokens. With W4A8
 a ulp of difference before an activation's int8 rounding can move one code
 and, many tokens later, a near-tied greedy choice; these slices have no
 such tie in their first 16 tokens.
+
+On the CPU the decode step runs eagerly on the engine's fixed buffers. The
+card's route (one warm-up step, then one captured step per sampling branch,
+replayed) runs here with a stand-in graph whose capture records the step and
+whose replay runs it (`ExecutingGraph`).
 """
 
 from pathlib import Path
@@ -35,6 +40,9 @@ from metalchat_tpu.quant.quantize import quantize_params as jquantize_params
 from metalchat_tpu_torch.config import load_config
 from metalchat_tpu_torch.convert import params_from_numpy
 from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
+from metalchat_tpu_torch.engine import serving
+from metalchat_tpu_torch.ops._build import CountedGraph
+from metalchat_tpu_torch.sampling import SamplerConfig
 from torch_port_util import jax_tree_to_numpy
 
 # The suite runs test files in parallel workers on shared cores: one torch
@@ -72,12 +80,67 @@ def fixture():
     return cfg, params, prompts, jax_runs
 
 
-def _run(fixture, mode, prompts=None, **kw):
+def _run(fixture, mode, prompts=None, samplers=None, engine_class=ContinuousBatchingEngine,
+         **kw):
     cfg, params, default_prompts, _ = fixture
-    engine = ContinuousBatchingEngine(params, cfg, **{**COMMON, **MODES[mode], **kw})
-    out = engine.run([Request(prompt=p, max_new_tokens=NEW)
-                      for p in (prompts or default_prompts)])
+    prompts = prompts or default_prompts
+    samplers = samplers or [SamplerConfig.greedy()] * len(prompts)
+    engine = engine_class(params, cfg, **{**COMMON, **MODES[mode], **kw})
+    out = engine.run([Request(prompt=p, max_new_tokens=NEW, sampler=c)
+                      for p, c in zip(prompts, samplers)])
     return engine, list(out.values())
+
+
+class _Recorder:
+    """The stand-in's graph: holds the recorded step and the generators
+    registered with it; a replay runs the step."""
+
+    def __init__(self, events):
+        self.events, self.fn, self.generators = events, None, []
+
+    def register_generator_state(self, generator):
+        self.generators.append(generator)
+
+    def replay(self):
+        self.events.append(("replay", id(self)))
+        self.fn()
+
+
+class ExecutingGraph(CountedGraph):
+    """A CountedGraph stand-in on the CPU: `capture` records the step and
+    runs nothing, as a capture on the card runs nothing; `replay` runs it."""
+
+    events: list = []
+
+    def __init__(self, **options):
+        super().__init__(graph=_Recorder(self.events), context=None, **options)
+
+    def capture(self, fn):
+        self.events.append(("capture", id(self.graph)))
+        self.graph.fn = fn
+
+
+class StandInEngine(ContinuousBatchingEngine):
+    """The engine on the card's route, with `ExecutingGraph` for graphs."""
+
+    def _graph_route(self) -> bool:
+        return True
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    events = []
+    monkeypatch.setattr(ExecutingGraph, "events", events)
+    monkeypatch.setattr(serving, "CountedGraph", ExecutingGraph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: ("pool", 0))
+    return events
+
+
+# Per request (LENGTHS): greedy, top-k + top-p, greedy, temperature only,
+# top-k + top-p; so bursts take every sampling branch.
+MIXED = [SamplerConfig.greedy(), SamplerConfig(temperature=0.8, top_k=20, top_p=0.9),
+         SamplerConfig.greedy(), SamplerConfig(temperature=0.8, top_k=0, top_p=1.0),
+         SamplerConfig(temperature=0.8, top_k=20, top_p=0.9)]
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -148,3 +211,56 @@ def test_submit_validation_and_cancel(fixture):
     assert engine.completion(running).finish_reason == "cancelled"
     metrics = engine.metrics()
     assert metrics["requests"] == 1.0 and metrics["prefill_dispatches"] >= 1
+
+
+def _check_captures(engine, events, branches):
+    """Each branch captured once, before any replay of its graph, then only
+    replayed; every step but one warm-up step a branch is a replay; every
+    graph shares the engine's pool and registers its generator."""
+    graphs = engine._graphs
+    assert set(graphs) == set(branches)
+    for graph in graphs.values():
+        mine = [kind for kind, g in events if g == id(graph.graph)]
+        assert mine[0] == "capture" and mine.count("capture") == 1
+        assert graph.graph.generators == [engine._gen]
+        assert graph._options == {"pool": ("pool", 0)}
+    replays = sum(kind == "replay" for kind, _ in events)
+    assert replays == engine.counters["decode_steps"] - len(graphs)
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged16"])
+def test_engine_graph_route_matches_jax(fixture, stand_in, mode):
+    """The card's route with executing stand-in graphs: the JAX engine's
+    ids, finish reasons and counters, and the eager engine's prompt-chunk
+    shapes."""
+    engine, out = _run(fixture, mode, engine_class=StandInEngine)
+    want_tokens, want_reasons, want_counters = fixture[3][mode]
+    assert [c.tokens for c in out] == want_tokens
+    assert [c.finish_reason for c in out] == want_reasons
+    assert engine.counters == want_counters
+    eager, _ = _run(fixture, mode)
+    assert engine.prefill_shapes == eager.prefill_shapes
+    _check_captures(engine, stand_in, ["greedy"])
+    if engine.paged:
+        assert engine.allocator.free_pages == engine.num_pages
+
+
+def test_engine_mixed_samplers(fixture, stand_in):
+    """Greedy rows beside drawing rows: the greedy rows equal an all-greedy
+    run's, a run is reproducible under one seed and changes with another,
+    and the card's route (stand-in graphs, one capture per branch) draws the
+    same ids as the eager step."""
+    def ids(**kw):
+        return [c.tokens for c in _run(fixture, "paged16", samplers=MIXED, **kw)[1]]
+
+    mixed = ids()
+    greedy = fixture[3]["paged16"][0]  # the all-greedy run (the port's equals it)
+    for i, cfg in enumerate(MIXED):
+        assert (mixed[i] == greedy[i]) == cfg.is_greedy
+    assert ids() == mixed
+    other = ids(seed=1)
+    assert other != mixed
+    assert all(other[i] == mixed[i] for i, cfg in enumerate(MIXED) if cfg.is_greedy)
+    engine, out = _run(fixture, "paged16", samplers=MIXED, engine_class=StandInEngine)
+    assert [c.tokens for c in out] == mixed
+    _check_captures(engine, stand_in, ["greedy", "draw", "truncate"])
