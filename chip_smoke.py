@@ -43,7 +43,12 @@ Phases (any failure makes the script exit non-zero without a result line):
    pages, lengths at the chunk edges. The dequant matmul (row 11) at the 8b-int4 and
    1b-int8 shapes, 1, 8 and 32 rows, within ``RTOL``; the merged FFN block
    (row 10) at 8B widths, 1, 2, 5, 8 and 16 rows, phase by phase (see
-   ``ACT_SLOPE``).
+   ``ACT_SLOPE``). Row 1 with a device index (Mixtral's routed experts) at
+   Mixtral-8x7B's expert widths over a flattened stack of 256 entries, 1 and
+   2 rows, entries 0, 7, 128 and 255 (past 2^31 bytes), within ``RTOL``, and
+   one call in a CUDA graph replayed before and after its index is
+   rewritten on the card: the output follows the index. Rows 6 and 7 (the
+   one-layer read-only forms) at the 8B shapes, 1 and 8 rows.
 4. The trained fixture end to end, W4A8 + int8 KV, 3 requests through
    ``generate``: kernels on the card against the plain path on the CPU; the
    first 16 greedy tokens of each request must agree. fixture-int: the same
@@ -81,6 +86,21 @@ Phases (any failure makes the script exit non-zero without a result line):
    gemma-fixture: Gemma-3-1B's widths cut to 2 layers, window 64, one
    sliding and one global layer, bf16: card against the CPU's plain path,
    each of 16 steps' logits within ``check_logits``'s limit.
+   mixtral-fixture: Mixtral-8x7B's widths cut to 2 layers, W4A8 experts,
+   int8 KV, bf16, a 96-token prompt (the prefill's MoE dispatch) and 16
+   steps at 1 and 2 rows: card against the CPU's plain path, each step's
+   logits within ``check_logits``'s limit, greedy ids equal, launches exact,
+   the smallest gap between the 2nd and 3rd router probability printed.
+   mixtral: Mixtral-8x7B W4A8 (``MixtralConfig.mixtral_8x7b``, all 32
+   layers, random experts built here, int8 KV, context 1024) through
+   ``generate``: a 512-token prompt, 64 greedy tokens, per step 65 host-index
+   matvec calls, 192 indexed expert calls and 32 decode_attention_update
+   launches, 32 flash a prefill; the graph route equal to the eager loop;
+   its profile; the HBM share against the routed bytes a token.
+   scan: ``forward(fast_decode=False)`` (the JAX package's scan route) on
+   the 8b-w4a8 params, 16 one-token steps after the main prompt on an int8
+   dense, a bf16 dense and a paged cache: logits within ``check_logits`` of
+   the fast route, one row-6 or row-7 launch a layer and nothing else.
 6. serve-fixture: the fixture through ``ContinuousBatchingEngine`` (6 greedy
    requests, 3 slots, chunks of 32, bursts of 4, f32 activations) in paged
    (pages of 16), dense int8 and dense activation-dtype mode, on the card
@@ -108,7 +128,9 @@ Phases (any failure makes the script exit non-zero without a result line):
    synchronized; then ``torch.profiler`` over one paged decode dispatch (8
    steps) with all 8 slots decoding, on each route.
    serve-gemma: the gemma phase's model behind the engine with the same
-   workload, all 24 requests, paged only, the same checks.
+   workload, all 24 requests, paged only, the same checks; serve-mixtral
+   likewise for the mixtral phase's model (its 8-row step dense over
+   experts: every expert at host indices).
 8. http: the fixture behind ``InferenceServer`` on 127.0.0.1 (paged, on the
    card): a blocking completion, its SSE stream (same text), a chat
    completion, ``/health`` and ``/metrics``.
@@ -118,8 +140,10 @@ Phases (any failure makes the script exit non-zero without a result line):
    hd=64, kernel and yardstick only), timing-serve at the serve path's (8 rows;
    rows 1-2 per matrix with a8_quantize alone, and their step at 2 and 16
    rows), timing-ffn (row 10 beside the unmerged route, 1 and 8 rows) and
-   timing-int4 (row 11 at 1 and 8 rows, per matrix) and timing-gemma (rows
-   3, 4, 5, 8 and 9 at hd 256, each layer with its window).
+   timing-int4 (row 11 at 1 and 8 rows, per matrix), timing-gemma (rows
+   3, 4, 5, 8 and 9 at hd 256, each layer with its window) and
+   timing-mixtral (row 1 indexed: a batch-1 Mixtral step's 192 expert calls;
+   rows 6 and 7: a scan-route step of 32 one-layer calls).
 
 The last lines are the kernel table as one JSON object (rows 1-11 of the
 JAX package's TPU kernels), the card's name and power limit, and
@@ -184,10 +208,12 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.failures = []
-        self.err = {"a8_matvec": 0.0, "a8_quantize": 0.0, "decode_attention_update": 0.0,
-                    "decode_attention": 0.0, "flash_attention": 0.0,
+        self.err = {"a8_matvec": 0.0, "a8_matvec_indexed": 0.0, "a8_quantize": 0.0,
+                    "decode_attention_update": 0.0, "decode_attention": 0.0,
+                    "decode_attention_layer": 0.0, "flash_attention": 0.0,
                     "paged_decode_attention_update": 0.0, "paged_decode_attention": 0.0,
-                    "quant_matmul": 0.0, "ffn_block": 0.0}
+                    "paged_decode_attention_layer": 0.0, "quant_matmul": 0.0,
+                    "ffn_block": 0.0}
         self.share = dict.fromkeys(self.err, 0.0)  # worst error / its limit
         self.tok_s = {}  # decode tok/s by run
         self.a8_library = {}  # torch._int_mm at M=17 per matvec shape (phase timing)
@@ -649,6 +675,113 @@ def check_graph_replay(sm: Smoke, B, nh, nkv, T, hd, gen, dev, dtype=None):
         sm.exact(a, b, f"paged_decode_attention_update in a CUDA graph: pool {nm}")
 
 
+def indexed_stack(torch, out_f, in_f, entries, n, gen, dev):
+    """A flattened int4 expert stack ``[n, out, in/2]``, random bytes in the
+    ``entries`` and left uninitialised elsewhere (nothing reads them), and
+    bf16 scales ``[n, 1, out]``."""
+    p = torch.empty((n, out_f, in_f // 2), dtype=torch.int8, device=dev)
+    for e in entries:
+        p[e] = torch.randint(-128, 128, (out_f, in_f // 2), generator=gen, device=dev,
+                             dtype=torch.int8)
+    s = (torch.rand((n, 1, out_f), generator=gen, device=dev) * 0.0015 + 0.0005).to(
+        torch.bfloat16)
+    return p, s
+
+
+def check_a8_indexed(sm: Smoke, shapes, rows, entries, n, gen, dev):
+    """Row 1 with the stack entry in a 0-d int32 tensor on the card, read by
+    the kernel: every entry within RTOL of the plain version on the same
+    index. Then one call captured in a CUDA graph and replayed, the index
+    rewritten on the card (``fill_``) and the graph replayed again: the
+    output follows the new entry, as a routed expert needs."""
+    torch = sm.torch
+    from metalchat_tpu_torch.ops import a8_matvec as m
+    from metalchat_tpu_torch.ops._build import CountedGraph
+
+    for name, out_f, in_f in shapes:
+        p, s = indexed_stack(torch, out_f, in_f, entries, n, gen, dev)
+        for b in rows:
+            x = torch.randn((b, in_f), generator=gen, device=dev).to(torch.bfloat16)
+            what = f"a8_matvec indexed {name} {out_f}x{in_f} w4 B={b}"
+            want = {}
+            for e in entries:
+                index = torch.tensor(e, dtype=torch.int32, device=dev)
+                want[e] = m.quant_matvec_stacked_fused_plain(x, p, s, index, bits=4)
+                sm.close("a8_matvec_indexed", m.quant_matvec_stacked_fused(x, p, s, index, bits=4),
+                         want[e], f"{what} entry {e} (byte {e * out_f * in_f // 2})")
+            first, last = entries[0], entries[-1]
+            index = torch.tensor(first, dtype=torch.int32, device=dev)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                m.quant_matvec_stacked_fused(x, p, s, index, bits=4)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = CountedGraph()
+            out = graph.capture(lambda: m.quant_matvec_stacked_fused(x, p, s, index, bits=4))
+            graph.replay()
+            got_first = out.clone()
+            index.fill_(last)
+            graph.replay()
+            sm.close("a8_matvec_indexed", got_first, want[first],
+                     f"{what} in a CUDA graph at entry {first}")
+            sm.close("a8_matvec_indexed", out, want[last],
+                     f"{what} in a CUDA graph, the index rewritten to {last}")
+            sm.expect(not torch.equal(out, got_first),
+                      f"{what}: the replay did not follow the rewritten index")
+        del p, s
+        torch.cuda.synchronize()
+
+
+def check_one_layer(sm: Smoke, B, nh, nkv, T, hd, cases, psize, gen, dev, dtype=None):
+    """Rows 6 and 7, the one-layer read-only forms (the JAX package's scan
+    route at one token): ``decode_attention`` over a cache in the activation
+    dtype, ``decode_attention_quantized`` over an int8 one and
+    ``paged_decode_attention`` over pages of ``psize`` (the table built as
+    the engine builds it, the last row free), each against its plain
+    version. Each case is (lengths, window)."""
+    torch = sm.torch
+    dtype = dtype or torch.bfloat16
+    from metalchat_tpu_torch.ops import decode_attention as dm
+    from metalchat_tpu_torch.ops import paged_attention as pm
+
+    kw = dict(scale=hd ** -0.5)
+    mp = T // psize
+    rows = max(B, 2)  # the table's last row is free: one row gets a free row beside it
+    n_pages = rows * mp
+    for lengths, window in cases:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.randn((B, nh, hd), generator=gen, device=dev).to(dtype)
+        kc, vc = (torch.randn((B, nkv, T, hd), generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        k8, v8 = (torch.randint(-127, 128, (B, nkv, T, hd), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((B, nkv, T), generator=gen, device=dev) * 0.01 for _ in range(2))
+        what = f"hd={hd} B={B} lengths={lengths} window={window} {dtype}"
+        sm.close("decode_attention_layer",
+                 dm.decode_attention(q, kc, vc, lens, window=window, **kw),
+                 dm.decode_attention_stacked_plain(q, kc[None], vc[None], None, None, 0, lens,
+                                                   window=window, **kw),
+                 f"decode_attention one layer {what}")
+        sm.close("decode_attention_layer",
+                 dm.decode_attention_quantized(q, k8, v8, ks, vs, lens, window=window, **kw),
+                 dm.decode_attention_stacked_plain(q, k8[None], v8[None], ks[None], vs[None], 0,
+                                                   lens, window=window, **kw),
+                 f"decode_attention_quantized one layer {what}")
+        table = paged_table(torch, rows, mp, psize, n_pages,
+                            lengths + [1] * (rows - B), gen, dev)[:B]
+        pool = [torch.randint(-127, 128, (nkv, n_pages + 1, psize, hd), generator=gen,
+                              device=dev, dtype=torch.int8) for _ in range(2)]
+        pool += [torch.rand((n_pages + 1, nkv, psize), generator=gen, device=dev) * 0.01
+                 for _ in range(2)]
+        sm.close("paged_decode_attention_layer",
+                 pm.paged_decode_attention(q, *pool, table, lens, window=window, **kw),
+                 pm.paged_decode_attention_plain(q, *(t[None] for t in pool), table, lens, 0,
+                                                 window=window, **kw),
+                 f"paged_decode_attention one layer psize={psize} {what}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+
 def paged_table(torch, B, mp, psize, n_pages, lengths, gen, dev):
     """A page table as the engine builds it: each live row owns the pages
     its length needs, drawn from a shuffled pool so that they are not
@@ -916,6 +1049,30 @@ FLASH_CASES_GEMMA = [(0, W), (0, None), (0, -1), (100, W)]
 FLASH_CASES_GEMMA_RAGGED = [(100, W), (37, 70), (600, W)]
 
 
+# Row 1 with a device index at Mixtral-8x7B's expert widths (w1 and w3: 4096
+# → 14336, w2: 14336 → 4096) over a flattened stack of 32 layers × 8
+# experts; w2's entry 255 starts 255 × 29,360,128 = 7.49e9 bytes in, past
+# 2^31 (as does w1's).
+A8_MIXTRAL = [("w1/w3", 14336, 4096), ("w2", 4096, 14336)]
+A8_MIXTRAL_ENTRIES = (0, 7, 128, 255)
+MIXTRAL_STACK = 32 * 8
+# Rows 6 and 7 at the 8B one-layer shapes: generate's one row (lengths at
+# chunk edges, the main path's, the full context, windows) and 8 rows.
+ONE_LAYER_CASES_1 = [([1], None), ([C + 1], None), ([576], None), ([1024], None),
+                     ([700], 100), ([577], 1)]
+
+
+def mixtral_kernel_checks(sm: Smoke, gen, dev):
+    """Row 1 indexed at Mixtral's widths, 1 and 2 rows; rows 6 and 7 at the
+    8B shapes (1 row and 8)."""
+    torch = sm.torch
+    check_a8_indexed(sm, A8_MIXTRAL, (1, 2), A8_MIXTRAL_ENTRIES, MIXTRAL_STACK, gen, dev)
+    check_one_layer(sm, 1, 32, 8, 1024, 128, ONE_LAYER_CASES_1, 256, gen, dev)
+    check_one_layer(sm, 8, 32, 8, 1024, 128, READ_CASES_SERVE, 256, gen, dev)
+    check_one_layer(sm, 8, 32, 8, 1024, 128, READ_CASES_SERVE[:1], 256, gen, dev,
+                    torch.float32)
+
+
 def gemma_kernel_checks(sm: Smoke, gen, dev):
     """Rows 1, 3, 4, 5 and 8 (9) at Gemma-3-1B's shapes (hd 256)."""
     torch = sm.torch
@@ -977,6 +1134,7 @@ def phase_kernels(sm: Smoke):
         check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
     check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
     gemma_kernel_checks(sm, gen, dev)
+    mixtral_kernel_checks(sm, gen, dev)
     print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact; a8_quantize "
           "in int8 code quanta): "
           + ", ".join(f"{k} {v:.3g} ({sm.share[k]:.3g} of its limit)"
@@ -1077,11 +1235,13 @@ def eager_stream(params, cfg, prompt, n_new: int, cache, sink_tokens: int):
 
 def drive_generate(sm: Smoke, dev_name: str, label: str, cfg, params, per_step,
                    ffn_block: bool = False, ctx: int = 1024, prompt_len: int = 512,
-                   new: int = 64):
+                   new: int = 64, weights_per_token=None):
     """One user's request through `generate` at full width: int8 KV, batch
     1, a random 512-token prompt, then 64 greedy decode steps (one eager
     warm-up step, the capture, 63 replays of the CUDA graph). Prints decode
-    tok/s, TTFT, bytes a token and the HBM share (bench.py's accounting).
+    tok/s, TTFT, bytes a token and the HBM share (bench.py's accounting;
+    ``weights_per_token`` replaces its weight bytes where a token reads
+    less than every weight, as routed experts do).
     Launches are read around the timed runs and held exactly: ``per_step``
     a decode step, replays included, flash once a layer a prefill, every
     other kernel never. Then `graph_vs_eager`."""
@@ -1112,7 +1272,7 @@ def drive_generate(sm: Smoke, dev_name: str, label: str, cfg, params, per_step,
     decode_s = total - ttft
     tok_s = new / decode_s
     kv_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * (ctx / 2) * (cfg.head_dim + 4)
-    bpt = weight_bytes(params) + cfg.hidden_size * 2 + kv_bytes
+    bpt = (weights_per_token or weight_bytes(params)) + cfg.hidden_size * 2 + kv_bytes
     rate = hbm_rate(dev_name)
     sm.expect(out.shape == (1, new + 1) and bool((out >= 0).all())
               and bool((out < cfg.vocab_size).all()), f"{label}: bad tokens {out.shape}")
@@ -1486,6 +1646,251 @@ def phase_gemma_fixture(sm: Smoke):
                 "a8_matvec": (4 * L + 1) * steps, "a8_quantize": (4 * L + 1) * steps,
                 "decode_attention_update": L * steps}
     sm.expect(counts == expected, f"gemma-fixture: launches {counts} != {expected}")
+
+
+# -- Mixtral-8x7B W4A8 at full width ------------------------------------------
+
+MIXTRAL_LABEL = "mixtral-8x7b-w4a8"
+EXPERT_LEAVES = ("w1", "w3", "w2")
+
+
+def make_mixtral(sm: Smoke, device, **cut):
+    """Mixtral-8x7B at its published widths (`MixtralConfig.mixtral_8x7b`:
+    hidden 4096, 32 layers, 32 query heads over 8 kv heads, hd 128, 8
+    experts, top-2, intermediate 14336, vocab 32000), context 1024, W4A8
+    per-channel, random weights from seeded torch.Generators on ``device``:
+    attention, lm_head, norms and embedding from
+    `init_random_quantized_params`; the expert stacks ``q [L, E, out, in/2]``
+    with scales ``[L, E, 1, out]`` built here in that function's ranges
+    (bytes in [-127, 127], scales in [0.001, 0.011)), and a dense bf16
+    router ``[L, H, E]`` of N(0, 0.02), as `init_random_params` draws it.
+    wqkv fused; the experts stay apart. ``cut`` replaces config fields."""
+    torch = sm.torch
+    from metalchat_tpu_torch.config import MixtralConfig
+    from metalchat_tpu_torch.models.fuse import fuse_projections
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor, init_random_quantized_params
+
+    cfg = MixtralConfig.mixtral_8x7b().replace(max_seq_len=1024, **cut)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    params = init_random_quantized_params(cfg, max_seq_len=cfg.max_seq_len, seed=0,
+                                          device=dev, **W4A8)
+    layers = params["layers"]
+    L, E, H, F = cfg.num_layers, cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for name, (in_f, out_f) in zip(EXPERT_LEAVES, ((H, F), (H, F), (F, H))):
+        del layers[name]  # the dense FFN's leaf
+        q = torch.randint(-127, 128, (L, E, out_f, in_f // 2), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scales = (torch.rand((L, E, 1, out_f), generator=gen, device=dev) * 0.01
+                  + 0.001).to(torch.bfloat16)
+        layers[name] = QuantizedTensor(q=q, scales=scales, bits=4, group_size=in_f,
+                                       transposed=True, act_bits=8)
+    layers["router"] = (torch.randn((L, H, E), generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    params = fuse_projections(params, cfg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"{MIXTRAL_LABEL} params ({L} layers): {weight_bytes(params) / 1e9:.4f} GB of "
+          f"weights ({expert_bytes(params) / 1e9:.4f} GB experts), made in "
+          f"{time.perf_counter() - t0:.1f} s on {device}")
+    return cfg, params
+
+
+def expert_bytes(params) -> int:
+    return sum(params["layers"][n].q.numel() + params["layers"][n].scales.numel()
+               * params["layers"][n].scales.element_size() for n in EXPERT_LEAVES)
+
+
+def routed_weight_bytes(cfg, params) -> float:
+    """The weight bytes one batch-1 decode step reads (bench.py's accounting
+    with routed experts): every weight but the embedding table, the expert
+    stacks counted at K of E."""
+    experts = expert_bytes(params)
+    return weight_bytes(params) - experts + experts * cfg.num_experts_per_tok / cfg.num_experts
+
+
+@contextlib.contextmanager
+def router_gaps(torch, gaps: list):
+    """Inside the block, every routing appends (as a device tensor, no host
+    read) the smallest gap between a token's K-th and (K+1)-th router
+    probability: a gap near 0 is a tie that two sum orders may break
+    apart, sending the token to another expert."""
+    from metalchat_tpu_torch.models import decode as dmod
+    from metalchat_tpu_torch.models import moe as mmod
+
+    real = mmod.route
+
+    def spy(xt, router, config):
+        out = real(xt, router, config)
+        top = torch.topk(out[0], config.num_experts_per_tok + 1, dim=-1).values
+        gaps.append((top[:, -2] - top[:, -1]).min().float().cpu())
+        return out
+
+    mmod.route = dmod.route = spy
+    try:
+        yield gaps
+    finally:
+        mmod.route = dmod.route = real
+
+
+def greedy_logits(params, cfg, prompts, steps: int):
+    """Greedy decode as a loop of `forward` calls on an int8 cache: the ids
+    ``[B, steps]`` and each step's last-position logits ``[steps, B, V]``
+    (f32, on the CPU), the CPU's reference for `teacher_forced_logits`."""
+    import torch
+
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.models.transformer import forward
+
+    device = params["final_norm"].device
+    b, s = prompts.shape
+    cache = QuantizedKVCache.create(cfg, b, min(cfg.max_seq_len, s + steps), device=device)
+    logits, _ = forward(params, cache, prompts.to(device), 0, cfg)
+    out, ids = [logits[:, -1].float().cpu()], [logits[:, -1].argmax(-1)]
+    for i in range(steps - 1):
+        logits, _ = forward(params, cache, ids[-1][:, None], s + i, cfg)
+        out.append(logits[:, -1].float().cpu())
+        ids.append(logits[:, -1].argmax(-1))
+    return torch.stack(ids, dim=1).cpu(), torch.stack(out)
+
+
+# The correctness cell: Mixtral-8x7B's widths cut to 2 layers, bf16, a
+# 96-token prompt (over 32 tokens, so the prefill takes `_moe_dispatch`) and
+# 16 steps at 1 and 2 rows (both the sparse decode formulation), so that the
+# CPU's plain path stays short.
+MIXTRAL_FIXTURE_CUT = dict(num_layers=2)
+MIXTRAL_FIXTURE_PROMPT, MIXTRAL_FIXTURE_STEPS = 96, 16
+
+
+def phase_mixtral_fixture(sm: Smoke):
+    """Mixtral W4A8 cut as MIXTRAL_FIXTURE_CUT, int8 KV, bf16: the card
+    against the CPU's plain path on the same params (made on the card,
+    copied). For 1 and 2 rows: the CPU's greedy run, then each of its 16
+    steps' logits on the card fed the CPU's tokens (`check_logits`), launches
+    exact (flash a layer for the prefill; per decode step the host-index
+    and the indexed matvec calls of `matvec_calls` and one attention launch
+    a layer); the card's greedy ids through `generate` equal to the CPU's.
+    Prints the smallest gap between the 2nd and 3rd router probability seen
+    on either side."""
+    torch = sm.torch
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg, card_params = make_mixtral(sm, "cuda", **MIXTRAL_FIXTURE_CUT)
+    cpu_params = to_device(card_params, torch.device("cpu"))
+    L, steps = cfg.num_layers, MIXTRAL_FIXTURE_STEPS
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    for b in (1, 2):
+        prompt = torch.randint(0, cfg.vocab_size, (b, MIXTRAL_FIXTURE_PROMPT), generator=gen)
+        t0 = time.perf_counter()
+        with router_gaps(torch, []) as cpu_gaps:
+            ids, want = greedy_logits(cpu_params, cfg, prompt, steps)
+        cpu_s = time.perf_counter() - t0
+        reset_launch_counts()
+        with router_gaps(torch, []) as card_gaps:
+            got = teacher_forced_logits(card_params, cfg, prompt, ids)
+        counts = launch_counts()
+        out = generate(card_params, cfg, prompt.cuda(), max_new_tokens=steps,
+                       quantized_kv=True).cpu()
+        gap = min(float(g) for g in cpu_gaps + card_gaps)
+        share = check_logits(sm, f"mixtral-fixture B={b} logits", got, want)
+        print(f"mixtral-fixture B={b} ({MIXTRAL_LABEL} widths cut to {L} layers; bf16, int8 "
+              f"KV; prompt {MIXTRAL_FIXTURE_PROMPT}, {steps} steps; the CPU's run "
+              f"{cpu_s:.1f} s): logits max abs err {(got - want).abs().max().item()}, "
+              f"{share:.4f} of the limit; smallest 2nd-3rd router probability gap {gap:.3g}; "
+              f"greedy ids card {out.tolist()}, CPU {ids.tolist()}; card launches {counts}",
+              flush=True)
+        sm.expect(torch.equal(out, ids), f"mixtral-fixture B={b}: greedy ids differ card vs "
+                  f"CPU (smallest router gap {gap:.3g})")
+        expected = {**dict.fromkeys(counts, 0), "flash_attention": L,
+                    "decode_attention_update": L * (steps - 1)}
+        for k, n in matvec_calls(cfg, b).items():
+            expected[k] = n * (steps - 1)
+        sm.expect(counts == expected, f"mixtral-fixture B={b}: launches {counts} != {expected}")
+
+
+def phase_mixtral(sm: Smoke, dev_name: str):
+    """Mixtral-8x7B W4A8 (all 32 layers) through `generate`: a 512-token
+    prompt (the prefill's MoE takes `_moe_dispatch`), 64 greedy tokens;
+    launches exact (a step: wqkv and wo a layer and lm_head, 192 indexed
+    expert calls, 32 decode_attention_update; 32 flash a prefill), the graph
+    route equal to the eager loop bit for bit; its profile."""
+    cfg, params = make_mixtral(sm, "cuda")
+    run = drive_generate(sm, dev_name, MIXTRAL_LABEL, cfg, params,
+                         {**matvec_calls(cfg, 1), "decode_attention_update": cfg.num_layers},
+                         weights_per_token=routed_weight_bytes(cfg, params))
+    phase_profile(sm, run, MIXTRAL_LABEL)
+    return run
+
+
+def scan_caches(torch, cfg, dev):
+    """The scan phase's caches of one row and 1024 positions: int8 dense,
+    bf16 dense, and int8 pages of 256 (4 pages, shuffled in the table)."""
+    from metalchat_tpu_torch.cache import KVCache, PagedKVCache, QuantizedKVCache
+
+    def paged():
+        c = PagedKVCache.create(cfg, num_pages=4, page_size=256, max_slots=1, device=dev)
+        c.page_table.copy_(torch.tensor([[2, 0, 3, 1]], dtype=torch.int32))
+        return c
+
+    return {"int8": (lambda: QuantizedKVCache.create(cfg, 1, 1024, device=dev),
+                     "decode_attention_layer"),
+            "bf16": (lambda: KVCache.create(cfg, 1, 1024, dtype=torch.bfloat16, device=dev),
+                     "decode_attention_layer"),
+            "paged": (paged, "paged_decode_attention_layer")}
+
+
+SCAN_STEPS = 16
+
+
+def phase_scan(sm: Smoke, main):
+    """The JAX package's scan route at one token: `forward(fast_decode=False)`
+    on phase main's 8b-w4a8 params and prompt, after the same 512-token
+    prefill, on an int8 dense, a bf16 dense and a paged cache. SCAN_STEPS
+    steps fed the fast route's greedy tokens: each step's logits within
+    `check_logits`'s limit of the fast route's; launches exact (the cache
+    written by the layer route, then one row-6 or row-7 launch a layer;
+    the linears are plain products, so no matvec, and no row 3 or 8)."""
+    torch = sm.torch
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg, params, _, _, _, prompt = main
+    L, s = cfg.num_layers, prompt.shape[1]
+    dev = torch.device("cuda")
+    out = dict(counts=dict.fromkeys(launch_counts(), 0), caches={}, length=s + SCAN_STEPS,
+               cfg=cfg)
+    for kind, (make, counter) in scan_caches(torch, cfg, dev).items():
+        fast_c, scan_c = make(), make()
+        first, _ = forward(params, fast_c, prompt, 0, cfg)
+        forward(params, scan_c, prompt, 0, cfg)
+        tok, fast = first[:, -1].argmax(-1), []
+        for i in range(SCAN_STEPS):
+            logits, _ = forward(params, fast_c, tok[:, None], s + i, cfg)
+            fast.append((tok, logits[:, -1].float().cpu()))
+            tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        scan = [forward(params, scan_c, t[:, None], s + i, cfg, fast_decode=False)[0][:, -1]
+                .float().cpu() for i, (t, _) in enumerate(fast)]
+        scan_s = time.perf_counter() - t0
+        counts = launch_counts()
+        got, want = torch.stack(scan), torch.stack([l for _, l in fast])
+        share = check_logits(sm, f"scan {kind}", got, want)
+        print(f"scan 8b-w4a8 {kind} cache: {SCAN_STEPS} one-token steps of forward("
+              f"fast_decode=False) in {scan_s:.3f} s; logits against the fast route max abs "
+              f"err {(got - want).abs().max().item()}, {share:.4f} of the limit; launches "
+              f"{counts}", flush=True)
+        expected = {**dict.fromkeys(counts, 0), counter: L * SCAN_STEPS}
+        sm.expect(counts == expected, f"scan {kind}: launches {counts} != {expected}")
+        for k, n in counts.items():
+            out["counts"][k] += n
+        out["caches"][kind] = scan_c
+    return out
 
 
 # -- phases 6-8: serving ------------------------------------------------------
@@ -1907,13 +2312,34 @@ SERVE_MODES = {"paged": dict(cache_mode="paged", page_size=256),
 
 
 SERVE_TURNS = ("graph", "eager", "eager", "graph")
+# Mixtral's eager-loop engine takes about 47 s for the workload (833 matvec
+# launches a step from the host): one eager turn between two graph turns.
+MIXTRAL_SERVE_TURNS = ("graph", "eager", "graph")
+
+
+def matvec_calls(cfg, rows: int):
+    """The fused matvec calls of one decode window of ``rows`` rows, by
+    launch counter: 4 a layer and lm_head for a dense FFN; for MoE, wqkv
+    and wo a layer and lm_head at host indices, and the experts: 3 a
+    routed (row, choice) at a device index when rows·K ≤ E/2, else 3 an
+    expert at host indices (`models/decode._moe_ffn_decode`)."""
+    L = cfg.num_layers
+    if not cfg.num_experts:
+        calls = {"a8_matvec": 4 * L + 1}
+    elif rows * cfg.num_experts_per_tok <= cfg.num_experts // 2:
+        calls = {"a8_matvec": 2 * L + 1,
+                 "a8_matvec_indexed": 3 * L * rows * cfg.num_experts_per_tok}
+    else:
+        calls = {"a8_matvec": (2 + 3 * cfg.num_experts) * L + 1}
+    calls["a8_quantize"] = sum(calls.values())
+    return calls
 
 
 def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
-                modes=tuple(SERVE_MODES)):
+                modes=tuple(SERVE_MODES), turns=SERVE_TURNS):
     """``main``'s model behind the engine with bench.py's serve workload, in
     each of ``modes`` (paged, dense int8): the graph route and
-    `eager_burst_engine` in turns (SERVE_TURNS), each engine after a
+    `eager_burst_engine` in ``turns``, each engine after a
     2-request warm-up (the graph engine's captures). Every turn's launch
     counts, read around its run, held exactly to its counters and prompt
     chunks; every turn's ids equal to the first's. Then the graph engine's
@@ -1952,16 +2378,20 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
         steps = m["decode_steps"]
         # Prompt chunks by shape: windows of <= 16 tokens take the decode
         # path (the matvec kernel when B*S <= 16 rows; the attention kernel
-        # when S == 1), longer ones flash attention.
+        # when S == 1), but on a paged cache only single tokens do (windows
+        # of 2-16 tokens take the layer route's plain products there, as in
+        # the JAX package); longer ones flash attention.
         shapes = engine.prefill_shapes
-        short = sum(n for (b, s), n in shapes.items() if s <= 16 and b * s <= 16)
+        short = {(b, s): n for (b, s), n in shapes.items() if s <= 16 and b * s <= 16
+                 and (s == 1 or mode != "paged")}
         single = sum(n for (b, s), n in shapes.items() if s == 1)
         long_ = sum(n for (b, s), n in shapes.items() if s > 16)
         attn = "paged_decode_attention_update" if mode == "paged" else "decode_attention_update"
         # a8_quantize once for each fused matvec call, of any row count.
-        want = {"a8_matvec": (4 * L + 1) * (steps + short),
-                "a8_quantize": (4 * L + 1) * (steps + short), attn: L * (steps + single),
-                "flash_attention": L * long_}
+        want = {attn: L * (steps + single), "flash_attention": L * long_}
+        for rows, n in [(slots, steps)] + [(b * s, n) for (b, s), n in short.items()]:
+            for k, c in matvec_calls(cfg, rows).items():
+                want[k] = want.get(k, 0) + c * n
         print(f"serve {label} {mode} {route}: {len(done)} requests, {total} tokens in "
               f"{wall:.3f} s = {tok_s:.2f} tok/s, {tok_s / roof:.4f} of the full-slot decode "
               f"roofline ({roof:.1f} tok/s at {bpt / 1e9:.4f} GB a step, "
@@ -1969,7 +2399,8 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
               f"{1e3 * m['ttft_p99']:.1f} ms, service TTFT p50 "
               f"{1e3 * m['service_ttft_p50']:.1f} ms p99 {1e3 * m['service_ttft_p99']:.1f} ms; "
               f"counters { {k: m[k] for k in engine.counters} }; prompt chunks by shape "
-              f"{dict(shapes)} ({short} short, {long_} long); launches {counts}", flush=True)
+              f"{dict(shapes)} ({sum(short.values())} short, {long_} long); launches "
+              f"{counts}", flush=True)
         sm.expect(all(c.error is None and c.finish_reason == "length"
                       and len(c.tokens) == new for c in done.values())
                   and len(done) == len(requests),
@@ -1995,9 +2426,9 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
                    "eager": eager_burst_engine(params, cfg, **kw)}
         for engine in engines.values():
             engine.run(fresh(requests[:2]))  # warm-up
-        turns = [(route, measured(engines[route], route, mode)) for route in SERVE_TURNS]
-        for route, t in turns[1:]:
-            sm.expect(t["ids"] == turns[0][1]["ids"],
+        by_turn = [(route, measured(engines[route], route, mode)) for route in turns]
+        for route, t in by_turn[1:]:
+            sm.expect(t["ids"] == by_turn[0][1]["ids"],
                       f"serve {label} {mode}: the {route} route's ids differ from the graph "
                       "route's")
         graph = engines["graph"]
@@ -2005,7 +2436,7 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
         sm.expect(list(graph._graphs) == ["greedy"],
                   f"serve {label} {mode}: captured branches {list(graph._graphs)}")
         print(f"serve {label} {mode}: tok/s in turns "
-              + ", ".join(f"{r} {t['tok_s']:.2f}" for r, t in turns)
+              + ", ".join(f"{r} {t['tok_s']:.2f}" for r, t in by_turn)
               + f"; ids of every turn equal; graph engine: {graph_report(torch, graph)}",
               flush=True)
         if mode == "paged":  # one decode dispatch (8 steps), every slot decoding
@@ -2016,7 +2447,7 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
                                f"dispatch of {slots} rows", engine.step)
                 for rid in list(engine._completions):
                     engine.cancel(rid)
-        first = turns[0][1]
+        first = by_turn[0][1]
         runs[mode] = dict(engine=graph, counts=first["counts"], tok_s=first["tok_s"],
                           metrics=first["metrics"])
     return runs
@@ -2491,7 +2922,7 @@ def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, one_row, rate: fl
     """The serve path's attention kernels at its shapes, one decode step
     (one call per layer) of 8 rows with lengths spread 128..1024. The paged
     kernel over the serve run's pool: write mode (row 8) and read-only on
-    the stacked pool (row 9; row 7 is the same launch on a one-layer view).
+    the stacked pool (row 9; row 7, its one-layer form, is timed in timing-mixtral).
     The dense kernel's read-only mode over a bf16 cache of 8 rows of 1024
     (row 5, the engine's default dense mode). Library yardstick: SDPA over
     the same K/V in bf16 (pages gathered and dequantized), heads repeated, a
@@ -2581,17 +3012,6 @@ def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, one_row, rate: fl
             max_abs_err=sm.err[counter], launches=path[counter], counter=counter,
             unit=f"one decode step ({L} calls, 8 rows, lengths {lengths[0]}..{lengths[-1]})"))
     del kc, vc
-    # Rows 6 and 7 are rows 5 and 9's launches on a one-layer view of the
-    # cache: the same kernel and numbers; no driven path calls those wrappers.
-    for row, name, like, replaces in (
-            (6, "decode_attention_one_layer", "decode_attention",
-             "metalchat_tpu/ops/decode_attention_pallas.py:229"),
-            (7, "paged_decode_attention_one_layer", "paged_decode_attention_stacked",
-             "metalchat_tpu/ops/paged_attention_pallas.py:167")):
-        base = next(r for r in rows if r["name"] == like)
-        rows.append(dict(base, row=row, name=name, replaces=replaces, launches=0,
-                         counter=None, unit=f"as row {base['row']}: {base['unit']}; the "
-                         "one-layer wrapper is on no driven path"))
     return rows
 
 
@@ -2909,6 +3329,126 @@ def phase_timing_gemma(sm: Smoke, run, serve, rate: float):
     return rows
 
 
+def phase_timing_mixtral(sm: Smoke, run, scan, rate: float):
+    """Row 1 with a device index at a batch-1 Mixtral decode step's shapes:
+    the 192 expert calls (w1, w3, w2 of two distinct experts a layer, each a
+    0-d index on the card into the flattened [256, out, k] stacks of phase
+    mixtral's params) captured in one CUDA graph; plain version eager; the
+    bound from the routed bytes (each entry's packed bytes and scales, the
+    rows in and out); `torch._int_mm` at M=17 on unpacked int8 entries of
+    the same stacks, by shape, as phase timing's yardstick. Rows 6 and 7:
+    one step of 32 one-layer calls (the scan route) at the 8B shapes over
+    the scan phase's int8 dense and paged caches at its last length, SDPA on
+    the dequantized bf16 K/V as the yardstick."""
+    torch = sm.torch
+    import torch.nn.functional as F
+
+    from metalchat_tpu_torch.cache import dequantize_kv
+    from metalchat_tpu_torch.ops import a8_matvec as am
+    from metalchat_tpu_torch.ops import decode_attention as dm
+    from metalchat_tpu_torch.ops import paged_attention as pm
+    from metalchat_tpu_torch.ops.quant_matmul import unpack_int4
+
+    cfg, params, _, counts, _, _ = run
+    dev = torch.device("cuda")
+    L, E, K = cfg.num_layers, cfg.num_experts, cfg.num_experts_per_tok
+    layers = params["layers"]
+    flat = {n: (layers[n].q.reshape((L * E,) + layers[n].q.shape[2:]),
+                layers[n].scales.reshape((L * E,) + layers[n].scales.shape[2:]))
+            for n in EXPERT_LEAVES}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    host = torch.Generator()
+    host.manual_seed(8)
+    xs = {"w1": torch.randn((1, cfg.hidden_size), generator=gen, device=dev).to(torch.bfloat16),
+          "w2": torch.randn((1, cfg.intermediate_size), generator=gen, device=dev).to(
+              torch.bfloat16)}
+    xs["w3"] = xs["w1"]
+    calls = []  # (leaf, entry): w1, w3, w2 of K distinct experts a layer
+    for l in range(L):
+        for e in torch.randperm(E, generator=host)[:K].tolist():
+            for n in EXPERT_LEAVES:
+                calls.append((n, torch.tensor(l * E + e, dtype=torch.int32, device=dev)))
+
+    def call(i, fn):
+        n, index = calls[i % len(calls)]
+        return fn(xs[n], *flat[n], index, bits=4)
+
+    n_calls = len(calls)
+    ms = n_calls * sm.device_ms(lambda i: call(i, am.quant_matvec_stacked_fused), n_calls)
+    plain = n_calls * sm.eager_ms(lambda i: call(i, am.quant_matvec_stacked_fused_plain), 3)
+    b_ms = sum(a8_bound(flat[n][0], None, 1, rate)[0] for n, _ in calls)
+    lib = {}
+    for n in ("w1", "w2"):
+        pq = flat[n][0]
+        n_lib = max(1, math.ceil(120e6 / (pq.shape[1] * pq.shape[2] * 2)))
+        unpacked = [unpack_int4(pq[l * E], -1).contiguous() for l in range(n_lib)]
+        xq17 = torch.randint(-127, 128, (17, 2 * pq.shape[2]), generator=gen, device=dev,
+                             dtype=torch.int8)
+        lib[n] = sm.device_ms(lambda i: torch._int_mm(xq17, unpacked[i % n_lib].t()), 32)
+        del unpacked
+    lib_ms = sum(lib["w2" if n == "w2" else "w1"] for n, _ in calls)
+    rows = [dict(row=1, name="a8_matvec indexed (Mixtral experts)", counter="a8_matvec_indexed",
+                 source="metalchat_tpu_torch/csrc/a8_matvec.cu",
+                 replaces="metalchat_tpu/ops/a8_matvec_pallas.py:262", ms=ms, plain_ms=plain,
+                 bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms,
+                 launches=counts["a8_matvec_indexed"],
+                 unit=f"one batch-1 {MIXTRAL_LABEL} decode step's {n_calls} routed expert "
+                      "calls (a device index each, a8_quantize and the tensor-core matvec); "
+                      "library: torch._int_mm at M=17 on unpacked entries; launches from "
+                      "phase mixtral")]
+
+    # Rows 6 and 7 over the scan phase's caches (8B shapes, one row).
+    cfg8 = scan["cfg"]
+    nh, nkv, hd, L8 = cfg8.num_heads, cfg8.num_kv_heads, cfg8.head_dim, cfg8.num_layers
+    n = scan["length"]
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    q = torch.randn((1, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(scale=hd ** -0.5)
+    c8, cp = scan["caches"]["int8"], scan["caches"]["paged"]
+    table = cp.page_table
+    dense = lambda i: (c8.k[i % L8], c8.v[i % L8], c8.k_scale[i % L8], c8.v_scale[i % L8])  # noqa: E731
+    paged = lambda i: (cp.k_pages[i % L8], cp.v_pages[i % L8], cp.k_scale[i % L8],  # noqa: E731
+                       cp.v_scale[i % L8])
+    kd = dequantize_kv(c8.k[0, :, :, :n], c8.k_scale[0, :, :, :n]).repeat_interleave(
+        nh // nkv, dim=1)
+    vd = dequantize_kv(c8.v[0, :, :, :n], c8.v_scale[0, :, :, :n]).repeat_interleave(
+        nh // nkv, dim=1)
+    sdpa = L8 * sm.device_ms(lambda i: F.scaled_dot_product_attention(q[:, :, None, :], kd, vd),
+                             64)
+    io = 2 * nh * hd * 2 + 4
+    for row, name, counter, fn, plain_fn, extra in (
+            (6, "decode_attention_quantized (one layer)", "decode_attention_layer",
+             lambda i: dm.decode_attention_quantized(q, *dense(i), lens, **kw),
+             lambda i: dm.decode_attention_stacked_plain(
+                 q, *(t[None] for t in dense(i)), 0, lens, **kw), 0),
+            (7, "paged_decode_attention (one layer)", "paged_decode_attention_layer",
+             lambda i: pm.paged_decode_attention(q, *paged(i), table, lens, **kw),
+             lambda i: pm.paged_decode_attention_plain(
+                 q, *(t[None] for t in paged(i)), table, lens, 0, **kw), table.numel() * 4)):
+        ms = L8 * sm.device_ms(fn, 2 * L8)
+        plain = L8 * sm.eager_ms(plain_fn, L8)
+        b_ms, b_by = bound(L8 * (2 * nkv * n * (hd + 4) + io + extra), L8 * 4 * nh * hd * n,
+                           "f32", rate)
+        rows.append(dict(row=row, name=name, counter=counter,
+                         source=("metalchat_tpu_torch/csrc/decode_attention.cu" if row == 6
+                                 else "metalchat_tpu_torch/csrc/paged_attention.cu"),
+                         replaces=("metalchat_tpu/ops/decode_attention_pallas.py:229" if row == 6
+                                   else "metalchat_tpu/ops/paged_attention_pallas.py:167"),
+                         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=sdpa,
+                         launches=scan["counts"][counter],
+                         unit=f"one scan-route decode step of 8b-w4a8 ({L8} one-layer calls, "
+                              f"1 row, length {n}, int8 "
+                              + ("dense cache" if row == 6 else "pages of 256")
+                              + "); launches from phase scan (its three caches)"))
+    for r in rows:
+        r.update(route="cuda", max_abs_err=sm.err[r["counter"]])
+        print(f"  {r['name']} [{r['unit']}]: {r['ms']:.5f} ms (bound {r['bound_ms']:.5f} ms, "
+              f"{r['bound_by']}; plain {r['plain_ms']:.4f} ms; library {r['library_ms']:.5f} "
+              f"ms), launches {r['launches']}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2932,6 +3472,7 @@ def main() -> int:
     sm = Smoke(torch)
     t_start = time.perf_counter()
     ffn_run = int4_run = stream_counts = gemma_run = serve_gemma = None
+    mixtral_run = scan_run = serve_mixtral = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -2953,6 +3494,10 @@ def main() -> int:
             stream_counts = sm.phase("stream", lambda: phase_stream(sm, main_run))
         gemma_run = sm.phase("gemma", lambda: phase_gemma(sm, dev_name))
         sm.phase("gemma-fixture", lambda: phase_gemma_fixture(sm))
+        sm.phase("mixtral-fixture", lambda: phase_mixtral_fixture(sm))
+        mixtral_run = sm.phase("mixtral", lambda: phase_mixtral(sm, dev_name))
+        if main_run is not None:
+            scan_run = sm.phase("scan", lambda: phase_scan(sm, main_run))
         with timed_captures(torch):  # the engines' captures, timed
             fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
             serve = None
@@ -2962,6 +3507,10 @@ def main() -> int:
             if gemma_run is not None:
                 serve_gemma = sm.phase("serve-gemma", lambda: phase_serve(
                     sm, gemma_run, hbm_rate(dev_name), GEMMA_LABEL, ("paged",)))
+            if mixtral_run is not None:
+                serve_mixtral = sm.phase("serve-mixtral", lambda: phase_serve(
+                    sm, mixtral_run, hbm_rate(dev_name), MIXTRAL_LABEL, ("paged",),
+                    MIXTRAL_SERVE_TURNS))
             sm.phase("http", lambda: phase_http(sm))
         if main_run is not None:
             rows = sm.phase("timing", lambda: phase_timing(sm, main_run, hbm_rate(dev_name)))
@@ -2984,8 +3533,18 @@ def main() -> int:
             more = sm.phase("timing-gemma", lambda: phase_timing_gemma(
                 sm, gemma_run, serve_gemma, hbm_rate(dev_name)))
             rows = None if more is None else rows + more
+        if rows is not None and None not in (mixtral_run, scan_run, serve_mixtral):
+            more = sm.phase("timing-mixtral", lambda: phase_timing_mixtral(
+                sm, mixtral_run, scan_run, hbm_rate(dev_name)))
+            rows = None if more is None else rows + more
+        mixtral_counts = None if mixtral_run is None else mixtral_run[3]
+        mixtral_run = None  # free the 23.5 GB of Mixtral weights
+        if serve_mixtral is not None:
+            serve_mixtral = {m: dict(counts=r["counts"]) for m, r in serve_mixtral.items()}
+        torch.cuda.empty_cache()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    if sm.failures or not smi or rows is None or stream_counts is None:
+    if (sm.failures or not smi or rows is None or stream_counts is None
+            or serve_mixtral is None):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -2993,11 +3552,13 @@ def main() -> int:
                "serve dense": serve["dense"]["counts"],
                "serve-fixture dense-act": fixture_counts["dense-act"],
                "stream 8b-w4a8": stream_counts, f"generate {GEMMA_LABEL}": gemma_run[3],
-               f"serve {GEMMA_LABEL} paged": serve_gemma["paged"]["counts"]}
+               f"serve {GEMMA_LABEL} paged": serve_gemma["paged"]["counts"],
+               f"generate {MIXTRAL_LABEL}": mixtral_counts,
+               f"serve {MIXTRAL_LABEL} paged": serve_mixtral["paged"]["counts"],
+               "scan 8b-w4a8": scan_run["counts"]}
     for r in rows:
         counter = r.get("counter", r["name"])
-        r["launches_by_path"] = {path: c[counter] if counter else 0
-                                 for path, c in by_path.items()}
+        r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}
     rows.sort(key=lambda r: r["row"])
     keys = ("row", "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "unit", "launches_by_path")

@@ -1,9 +1,9 @@
-"""Model configuration (Llama and Gemma-3 families).
+"""Model configuration (Llama, Gemma-3 and Mixtral families).
 
 A trimmed copy of the JAX package's ``config.py``: the same frozen dataclasses
 and the same HF ``config.json`` mapping, so one checkpoint directory
-configures both packages identically. The Llama and Gemma-3 families are
-kept; the Mixtral/GPT-2 configs belong to later slices of the port.
+configures both packages identically. The GPT-2 config belongs to a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -52,6 +52,10 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     sliding_window_pattern: int = 1   # every Nth layer is global; 1 == all global
     rope_local_theta: Optional[float] = None  # theta for sliding (local) layers
+    # Mixture-of-experts (None → dense FFN): experts replace the FFN.
+    num_experts: Optional[int] = None
+    num_experts_per_tok: int = 2
+    expert_capacity_factor: float = 2.0  # prefill dispatch capacity headroom
     bos_token_id: int = 128000
     eos_token_ids: Tuple[int, ...] = (128001, 128009)
 
@@ -211,6 +215,50 @@ class Gemma3Config(ModelConfig):
         )
 
 
+@dataclass(frozen=True)
+class MixtralConfig(ModelConfig):
+    """Mixtral sparse-MoE family (Llama-style attention + top-k expert FFN)."""
+
+    model_type: str = "mixtral"
+
+    @staticmethod
+    def mixtral_8x7b(**kw: Any) -> "MixtralConfig":
+        """mistralai/Mixtral-8x7B-v0.1's published widths."""
+        return MixtralConfig(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+            rope_theta=1_000_000.0, rms_norm_eps=1e-5, max_seq_len=32768,
+            tie_word_embeddings=False, num_experts=8, num_experts_per_tok=2,
+            bos_token_id=1, eos_token_ids=(2,), **kw,
+        )
+
+    @staticmethod
+    def from_hf_config(cfg: Mapping[str, Any]) -> "MixtralConfig":
+        """Map a HuggingFace Mixtral ``config.json``."""
+        heads = int(cfg.get("num_attention_heads", 32))
+        hidden = int(cfg.get("hidden_size", 4096))
+        return MixtralConfig(
+            vocab_size=int(cfg.get("vocab_size", 32000)),
+            hidden_size=hidden,
+            intermediate_size=int(cfg.get("intermediate_size", 14336)),
+            num_layers=int(cfg.get("num_hidden_layers", 32)),
+            num_heads=heads,
+            num_kv_heads=int(cfg.get("num_key_value_heads", heads)),
+            head_dim=int(cfg.get("head_dim", hidden // heads)),
+            rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-5)),
+            rope_theta=float(cfg.get("rope_theta", 1_000_000.0)),
+            max_seq_len=int(cfg.get("max_position_embeddings", 32768)),
+            tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
+            num_experts=int(cfg.get("num_local_experts", 8)),
+            num_experts_per_tok=int(cfg.get("num_experts_per_tok", 2)),
+            # Mixtral's sliding window (when set) applies to every layer.
+            sliding_window=cfg.get("sliding_window"),
+            sliding_window_pattern=0 if cfg.get("sliding_window") else 1,
+            bos_token_id=int(cfg.get("bos_token_id", 1)),
+            eos_token_ids=_as_tuple(cfg.get("eos_token_id", 2)),
+        )
+
+
 def _as_tuple(v: Any) -> Tuple[int, ...]:
     if isinstance(v, (list, tuple)):
         return tuple(int(x) for x in v)
@@ -218,7 +266,7 @@ def _as_tuple(v: Any) -> Tuple[int, ...]:
 
 
 def load_config(path: str | Path) -> ModelConfig:
-    """Load a Llama or Gemma-3 config from a HF ``config.json``."""
+    """Load a Llama, Gemma-3 or Mixtral config from a HF ``config.json``."""
     return config_from_dict(json.loads(Path(path).read_text()))
 
 
@@ -229,8 +277,10 @@ def config_from_dict(cfg: Mapping[str, Any]) -> ModelConfig:
     archs = " ".join(cfg.get("architectures") or [])
     if mt.startswith("gemma") or "Gemma" in archs:
         return Gemma3Config.from_hf_config(cfg)
+    if mt == "mixtral" or "Mixtral" in archs:
+        return MixtralConfig.from_hf_config(cfg)
     if mt == "llama" or "Llama" in archs:
         return LlamaConfig.from_hf_config(cfg)
     raise ValueError(
         f"unsupported model config (model_type={mt!r}); this port covers the "
-        "Llama and Gemma-3 families only")
+        "Llama, Gemma-3 and Mixtral families")

@@ -5,7 +5,9 @@ parameter tree, keeping every byte: a quantized leaf arrives as a dict
 ``{"q", "scales", "bits", "group_size", "transposed", "act_bits"}`` and
 becomes a `QuantizedTensor` over the same packed bytes and scales; every
 other leaf (Gemma-3's q/k and post norms, the local rope tables beside the
-global ones) crosses as it is. The tests use it so that both packages
+global ones, Mixtral's router) crosses as it is. Stacked leaves keep their
+shapes, so Mixtral's ``[L, E, ...]`` expert stacks, dense or quantized (a 4-D
+``q``), cross too. The tests use it so that both packages
 compute on the same parameters.
 """
 

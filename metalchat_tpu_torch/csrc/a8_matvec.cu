@@ -8,6 +8,16 @@
 //   raw:   xq int8 [B, in] -> raw int32 accumulator [B, out]
 // The weight pointer is already layer l of the stacked [L, out, k] array,
 // k = in/2 for packed int4 (half-split, offset-binary low nibble) or in.
+// The indexed form (a8_quantize_mma_indexed) takes the stack's base instead,
+// with the entry read on the device: every block of a8_mma_kernel reads the
+// int32 index once and forms base + (int64) index * stride for the weights
+// and the scales. That is the Pallas kernel's scalar-prefetched layer
+// argument, which the JAX decode step feeds with l * E + topk(router)[j]
+// over a flattened [L * E, out, k] expert stack (models/decode.py
+// _expert_linear_l): the host never reads the routed expert, so a decode
+// step with routed experts stays one CUDA graph. Mixtral-8x7B's w2 entry
+// 255 starts 7.49e9 bytes into its stack, past 2^31: the offset is 64-bit.
+// The index comes from topk over E and is not range-checked here.
 //
 // What bounds it on the H100: the weight stream. At batch <= 16 each weight
 // byte is used B times, far below the ~600 int8 ops per byte where the
@@ -104,13 +114,21 @@ a8_quantize_kernel(const T* __restrict__ x, const T* __restrict__ nw, int8_t* __
 }
 
 // NT n-tiles of 8 code rows (B <= 8 * NT). MODE kRaw writes int32 (and, for
-// int4, makes its own corr); kFused applies sx and s_col into T.
-template <int BITS, int NT, int MODE, typename T, typename S>
+// int4, makes its own corr); kFused applies sx and s_col into T. INDEXED:
+// p and s_col are the stacks' bases, the entry is *index (strides in
+// elements of p and s_col).
+template <int BITS, int NT, int MODE, typename T, typename S, bool INDEXED>
 __global__ void __launch_bounds__(kMmaSplit * 32, 2)
 a8_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ p,
               const S* __restrict__ s_col, const float* __restrict__ sx,
               const int* __restrict__ corr, void* __restrict__ out_, int B, int in_f,
-              int out_f) {
+              int out_f, const int* __restrict__ index, long long p_stride,
+              long long s_stride) {
+  if (INDEXED) {
+    const long long e = __ldg(index);
+    p += e * p_stride;
+    s_col += e * s_stride;
+  }
   constexpr bool kOwnCorr = BITS == 4 && MODE == kRaw;
   constexpr int NA = mma_terms<BITS, kOwnCorr>();  // lo, hi, 8 sum(x_lo)
   constexpr int U = NT == 1 ? kUnroll : kUnroll / 2;
@@ -187,18 +205,19 @@ int quantize(int norm, const void* x, const void* nw, int8_t* xq, float* sx, int
   return (int)cudaGetLastError();
 }
 
-template <int BITS, int MODE, typename T, typename S>
+template <int BITS, int MODE, typename T, typename S, bool INDEXED = false>
 int launch_mma(const int8_t* xq, const int8_t* p, const void* s, const float* sx,
-               const int* corr, void* out, int B, int in_f, int out_f, cudaStream_t st) {
+               const int* corr, void* out, int B, int in_f, int out_f, cudaStream_t st,
+               const int* index = nullptr, long long p_stride = 0, long long s_stride = 0) {
   if (B < 1 || B > 16) return (int)cudaErrorInvalidValue;
   const int grid = (out_f + kMmaRows - 1) / kMmaRows;
   const S* sc = static_cast<const S*>(s);
   if (B <= 8)
-    a8_mma_kernel<BITS, 1, MODE, T, S><<<grid, kMmaSplit * 32, 0, st>>>(xq, p, sc, sx, corr,
-                                                                       out, B, in_f, out_f);
+    a8_mma_kernel<BITS, 1, MODE, T, S, INDEXED><<<grid, kMmaSplit * 32, 0, st>>>(
+        xq, p, sc, sx, corr, out, B, in_f, out_f, index, p_stride, s_stride);
   else
-    a8_mma_kernel<BITS, 2, MODE, T, S><<<grid, kMmaSplit * 32, 0, st>>>(xq, p, sc, sx, corr,
-                                                                       out, B, in_f, out_f);
+    a8_mma_kernel<BITS, 2, MODE, T, S, INDEXED><<<grid, kMmaSplit * 32, 0, st>>>(
+        xq, p, sc, sx, corr, out, B, in_f, out_f, index, p_stride, s_stride);
   return (int)cudaGetLastError();
 }
 
@@ -207,6 +226,17 @@ int mma_fused(int bits, const int8_t* xq, const int8_t* p, const void* s, const 
               const int* corr, void* out, int B, int in_f, int out_f, cudaStream_t st) {
   if (bits == 4) return launch_mma<4, kFused, T, S>(xq, p, s, sx, corr, out, B, in_f, out_f, st);
   return launch_mma<8, kFused, T, S>(xq, p, s, sx, corr, out, B, in_f, out_f, st);
+}
+
+template <typename T, typename S>
+int mma_indexed(int bits, const int8_t* xq, const int8_t* p, const void* s, const float* sx,
+                const int* corr, void* out, int B, int in_f, int out_f, cudaStream_t st,
+                const int* index, long long p_stride, long long s_stride) {
+  if (bits == 4)
+    return launch_mma<4, kFused, T, S, true>(xq, p, s, sx, corr, out, B, in_f, out_f, st,
+                                             index, p_stride, s_stride);
+  return launch_mma<8, kFused, T, S, true>(xq, p, s, sx, corr, out, B, in_f, out_f, st, index,
+                                           p_stride, s_stride);
 }
 
 }  // namespace
@@ -260,6 +290,35 @@ int a8_quantize_mma(const void* x, const void* nw, const void* p, const void* s,
   const int rc = a8_quantize(x, nw, xq, sx, corr, B, in_f, x_bf16, eps, offset, stream);
   if (rc != 0) return rc;
   return a8_mma(xq, p, s, sx, corr, out, B, in_f, out_f, bits, x_bf16, s_bf16, stream);
+}
+
+// a8_quantize_mma with the stack entry read on the device: p and s are the
+// bases of the stacks [N, out, k] and [N, 1, out], index points to one int32
+// entry in [0, N) on the card, p_stride = out * k and s_stride = out. No norm
+// prologue.
+int a8_quantize_mma_indexed(const void* x, const void* p, const void* s, const void* index,
+                            void* ws, void* out, int B, int in_f, int out_f, int bits,
+                            int x_bf16, int s_bf16, long long p_stride, long long s_stride,
+                            void* stream) {
+  int8_t* xq = static_cast<int8_t*>(ws);
+  float* sx = reinterpret_cast<float*>(xq + (size_t)B * in_f);
+  int* corr = bits == 4 ? reinterpret_cast<int*>(sx + B) : nullptr;
+  const int rc = a8_quantize(x, nullptr, xq, sx, corr, B, in_f, x_bf16, 0.f, 0.f, stream);
+  if (rc != 0) return rc;
+  const int8_t* w = static_cast<const int8_t*>(p);
+  const int* e = static_cast<const int*>(index);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16 && s_bf16)
+    return mma_indexed<__nv_bfloat16, __nv_bfloat16>(bits, xq, w, s, sx, corr, out, B, in_f,
+                                                     out_f, st, e, p_stride, s_stride);
+  if (x_bf16)
+    return mma_indexed<__nv_bfloat16, float>(bits, xq, w, s, sx, corr, out, B, in_f, out_f, st,
+                                             e, p_stride, s_stride);
+  if (s_bf16)
+    return mma_indexed<float, __nv_bfloat16>(bits, xq, w, s, sx, corr, out, B, in_f, out_f, st,
+                                             e, p_stride, s_stride);
+  return mma_indexed<float, float>(bits, xq, w, s, sx, corr, out, B, in_f, out_f, st, e,
+                                   p_stride, s_stride);
 }
 
 // 1 <= B <= 16. xq: int8 [B, in]; p: int8 [out, k]; out: int32 [B, out].

@@ -1,4 +1,4 @@
-"""HF Llama / Gemma-3 checkpoint → parameter tree (port of the JAX
+"""HF Llama / Gemma-3 / Mixtral checkpoint → parameter tree (port of the JAX
 package's ``io/loaders.py`` ``load_params``, HF names only).
 
 Linear weights are transposed from the checkpoint's ``[out, in]`` to
@@ -6,6 +6,10 @@ Linear weights are transposed from the checkpoint's ``[out, in]`` to
 FFN pre-norm is ``pre_feedforward_layernorm`` (its
 ``post_attention_layernorm`` is the post-attention norm), beside the
 post-FFN norm and the q/k norms; its lm_head is tied to the embedding.
+Mixtral's sparse-MoE names, ``block_sparse_moe.gate`` and
+``block_sparse_moe.experts.N.w{1,2,3}`` (w1 the gate, w3 the up and w2 the
+down projection), stack to the router ``[L, H, E]`` and the experts ``[L, E,
+in, out]``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from metalchat_tpu_torch.models.transformer import Params, make_rope_tables
 def load_params(doc: SafetensorsDocument, config: ModelConfig, *,
                 dtype=torch.bfloat16, max_seq_len: Optional[int] = None,
                 device=None) -> Params:
-    """Build the parameter tree from an HF-named Llama safetensors document."""
+    """Build the parameter tree from an HF-named safetensors document."""
     dev = resolve_device(device)
 
     def get(name: str) -> torch.Tensor:
@@ -43,10 +47,21 @@ def load_params(doc: SafetensorsDocument, config: ModelConfig, *,
         "wk": stack(pre + "self_attn.k_proj.weight", linear),
         "wv": stack(pre + "self_attn.v_proj.weight", linear),
         "wo": stack(pre + "self_attn.o_proj.weight", linear),
-        "w1": stack(pre + "mlp.gate_proj.weight", linear),
-        "w3": stack(pre + "mlp.up_proj.weight", linear),
-        "w2": stack(pre + "mlp.down_proj.weight", linear),
     }
+    if config.num_experts:
+        moe = pre + "block_sparse_moe."
+
+        def experts(name: str) -> torch.Tensor:
+            return stack(moe + "experts.{{j}}." + name + ".weight", lambda t: torch.stack(
+                [linear(t.format(j=j)) for j in range(config.num_experts)]))
+
+        layers["router"] = stack(moe + "gate.weight", linear)
+        for name in ("w1", "w3", "w2"):
+            layers[name] = experts(name)
+    else:
+        layers["w1"] = stack(pre + "mlp.gate_proj.weight", linear)
+        layers["w3"] = stack(pre + "mlp.up_proj.weight", linear)
+        layers["w2"] = stack(pre + "mlp.down_proj.weight", linear)
     if isinstance(config, Gemma3Config) or config.norm_weight_offset != 0.0:
         layers["ffn_norm"] = stack(pre + "pre_feedforward_layernorm.weight", get)
         layers["post_attn_norm"] = stack(pre + "post_attention_layernorm.weight", get)

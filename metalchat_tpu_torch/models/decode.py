@@ -1,5 +1,5 @@
 """Decode path: windows of 1 to 16 tokens (port of the JAX package's
-``models/decode.py``, Llama and Gemma-3).
+``models/decode.py``, Llama, Gemma-3 and Mixtral).
 
 * Every act8 per-channel linear runs through the stacked matvec kernel
   (``ops.a8_matvec``) with the window's rows flattened to ``[B·S]``; wqkv
@@ -11,10 +11,11 @@
   (``ops.paged_attention``), with ``lengths = offsets + 1``; with a cache in
   the activation dtype, an indexed write of the new row, then the same
   kernel's read-only mode (``decode_attention_stacked``).
-* 1 < S ≤ 16: the cache is updated in place and the
-  reference attention runs over the layer's dequantized cache (a paged
-  cache: each row's gathered pages) with a causal window mask, the
-  semantics of the JAX package's scan path for paged windows.
+* 1 < S ≤ 16 on a dense cache: the cache is updated in place and the
+  reference attention runs over the layer's (dequantized) cache with a
+  causal window mask. A paged cache takes one token only: `forward` sends
+  its longer windows to the layer route, as the JAX package does
+  (`supports_fast_decode`).
 * ``ffn_block=True`` (off by default, as in the JAX package): each layer's
   post-attention block (wo → residual → ffn-norm → w13 → act → w2 →
   residual) is one ``ops.ffn_block`` launch when the layer qualifies.
@@ -27,12 +28,22 @@
   gelu-tanh. The merged FFN block has no post-FFN norm: it is off for a
   config with post-norms, as in the JAX package.
 
+* Mixtral (``_moe_ffn_decode``): the router in plain PyTorch, then the
+  experts through the same matvec kernel over the flattened ``[L·E, out,
+  k]`` stack. Chosen statically, as in the JAX package: when T·K ≤ E/2
+  (T rows, K choices of E experts) one call a (row, choice) on the routed
+  expert ``l·E + topk[row, j]``, passed as a 0-d device tensor that the
+  kernel reads, so the step reads nothing back and a CUDA graph captures
+  it; otherwise every expert on all rows at the host index ``l·E + e``,
+  the gates selecting (exact either way). No merged FFN block for MoE.
+
 Dense linear leaves take a plain product. The TPU-only gates of the JAX
 path (Mosaic head-dim rules, block choice, lane alignment) do not apply.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Any, Dict
 
 import torch
@@ -41,18 +52,18 @@ from metalchat_tpu_torch.cache import (
     PagedKVCache,
     QuantizedKVCache,
     dequantize_kv,
-    positions_to_pages,
     update_stacked_layer_cache,
     update_stacked_layer_cache_quantized,
 )
 from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.models.moe import route
 from metalchat_tpu_torch.models.transformer import (
+    DECODE_MAX_TOKENS,
     act_gate,
     embed_tokens,
     layer_leaf,
     layer_rope,
     norm,
-    paged_layer_kv,
 )
 from metalchat_tpu_torch.ops import ffn_block as fb
 from metalchat_tpu_torch.ops import reference as ops
@@ -78,7 +89,7 @@ def _ffn_block_ok(layers: Dict[str, Any], rows: int, dtype, config: ModelConfig)
     rules): no post-norms, act8 per-channel transposed wo, w13 (fused) and
     w2 of one ``bits``, an ffn norm in the activation dtype, wo's input as
     wide as the hidden state, and shapes the kernel takes."""
-    if config.use_post_norms:
+    if config.use_post_norms or config.num_experts:
         return False
     leaves = [layers.get(n) for n in ("wo", "w13", "w2")]
     if not all(isinstance(w, QuantizedTensor) and w.q.ndim == 3 and _kernel_ok(w, rows)
@@ -89,6 +100,88 @@ def _ffn_block_ok(layers: Dict[str, Any], rows: int, dtype, config: ModelConfig)
     return (len({w.bits for w in leaves}) == 1 and norm.dtype == dtype
             and wo.in_features == config.hidden_size
             and fb.supported(rows, config.hidden_size, w13.out_features // 2))
+
+
+def _entry(stack: torch.Tensor, flat_idx) -> torch.Tensor:
+    """Entry ``flat_idx`` of ``stack [N, ...]``: a view at an int, a gather
+    on the device at a tensor index (indexing with a 0-d tensor reads it on
+    the host)."""
+    if torch.is_tensor(flat_idx):
+        return stack.index_select(0, flat_idx.reshape(1))[0]
+    return stack[flat_idx]
+
+
+def _expert_linear_l(x: torch.Tensor, leaf: Any, flat_idx) -> torch.Tensor:
+    """x ``[T, in]`` through expert ``flat_idx`` (``l·E + e``: an int, or a
+    0-d int32 tensor on x's device) of an ``[L, E, ...]`` expert stack,
+    addressed as the flattened ``[L·E, ...]`` stack."""
+    if isinstance(leaf, QuantizedTensor):
+        q = leaf.q.reshape((-1,) + leaf.q.shape[2:])
+        scales = leaf.scales.reshape((-1,) + leaf.scales.shape[2:])
+        if leaf.q.ndim == 4 and _kernel_ok(leaf, x.shape[0]):
+            return quant_matvec_stacked_fused(x, q, scales, flat_idx, bits=leaf.bits)
+        return linear(x, replace(leaf, q=_entry(q, flat_idx), scales=_entry(scales, flat_idx)))
+    return x @ _entry(leaf.reshape((-1,) + leaf.shape[2:]), flat_idx)
+
+
+def _moe_ffn_decode(h: torch.Tensor, layers: Dict[str, Any], l: int,
+                    config: ModelConfig) -> torch.Tensor:
+    """Sparse-MoE FFN of the decode rows ``h [T, H]`` at layer ``l``: sparse
+    (one call a routed (row, choice), T·K ≤ E/2) or dense over experts,
+    accumulated in the JAX package's order and dtypes."""
+    t = h.shape[0]
+    e = config.num_experts
+    _, gate_vals, idx = route(h, layers["router"][l], config)
+    act = ops.activation(config.hidden_act)
+
+    def expert_ffn(rows, flat_e):
+        gate = act(_expert_linear_l(rows, layers["w1"], flat_e))
+        if "w3" in layers:
+            gate = gate * _expert_linear_l(rows, layers["w3"], flat_e)
+        return _expert_linear_l(gate, layers["w2"], flat_e)
+
+    if t * config.num_experts_per_tok <= e // 2:
+        flat = (idx + l * e).to(torch.int32)  # [T, K] on h's device
+        rows = []
+        for row in range(t):
+            x_row = h[row:row + 1]
+            contrib = torch.zeros_like(x_row)
+            for j in range(config.num_experts_per_tok):
+                out = expert_ffn(x_row, flat[row, j])
+                contrib = contrib + gate_vals[row, j].to(h.dtype) * out
+            rows.append(contrib)
+        return torch.cat(rows)
+    gates = torch.zeros((t, e), dtype=torch.float32, device=h.device).scatter(
+        1, idx, gate_vals)
+    y = torch.zeros_like(h)
+    for ex in range(e):
+        y = y + gates[:, ex:ex + 1].to(h.dtype) * expert_ffn(h, l * e + ex)
+    return y
+
+
+def _moe_ok(params: Dict[str, Any], config: ModelConfig) -> bool:
+    """MoE models take the decode path when their expert leaves are stacked
+    ``[L, E, ...]`` (dense or quantized) beside a router."""
+    if not config.num_experts:
+        return True
+    layers = params.get("layers", {})
+    if "router" not in layers:
+        return False
+
+    def ok(leaf) -> bool:
+        return (leaf.q if isinstance(leaf, QuantizedTensor) else leaf).ndim == 4
+
+    return all(ok(layers[n]) for n in ("w1", "w2", "w3") if n in layers)
+
+
+def supports_fast_decode(params: Dict[str, Any], cache, config: ModelConfig,
+                         tokens: torch.Tensor) -> bool:
+    """Whether `forward` may take `decode_step` (the JAX package's rule, its
+    sharding clause aside): at most 16 tokens, one on a paged cache (the
+    JAX scan route's scatter takes paged windows), and MoE leaves stacked."""
+    s = tokens.shape[1]
+    return (s <= DECODE_MAX_TOKENS and (s == 1 or not isinstance(cache, PagedKVCache))
+            and _moe_ok(params, config))
 
 
 def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
@@ -117,12 +210,9 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
     rows = b * s
     quantized = isinstance(cache, QuantizedKVCache)
     paged = isinstance(cache, PagedKVCache)
-    if paged:
-        kv_len = cache.page_table.shape[1] * cache.page_size
-        paged_at = positions_to_pages(cache.page_table, positions, cache.page_size) \
-            if s > 1 else None
-    else:
-        kv_len = cache.k.shape[3]
+    if paged and s > 1:
+        raise ValueError("decode_step takes one token a row on a paged cache; forward "
+                         "sends longer windows to the layer route")
 
     x = embed_tokens(params, tokens, config).reshape(rows, -1)
     merged = ffn_block and _ffn_block_ok(layers, rows, x.dtype, config)
@@ -185,9 +275,7 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
             attn = decode_attention_stacked(q[:, 0].contiguous(), cache.k, cache.v, l,
                                             lengths, scale=scale, window=window)
         else:
-            if paged:
-                keys, values = paged_layer_kv(cache, l, k, v, *paged_at, x.dtype)
-            elif quantized:
+            if quantized:
                 update_stacked_layer_cache_quantized(
                     cache.k, cache.v, cache.k_scale, cache.v_scale, k, v, l, start_pos)
                 keys = dequantize_kv(cache.k[l], cache.k_scale[l], x.dtype)
@@ -195,7 +283,7 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
             else:
                 update_stacked_layer_cache(cache.k, cache.v, k, v, l, start_pos)
                 keys, values = cache.k[l], cache.v[l]
-            mask = ops.causal_mask(positions, kv_len, lengths[:, None, None],
+            mask = ops.causal_mask(positions, cache.k.shape[3], lengths[:, None, None],
                                    None if window < 0 else window)
             attn = ops.attention(q, keys, values, mask, scale=scale)
         attn = attn.reshape(rows, nh * hd)
@@ -211,7 +299,9 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
         x = x + attn
 
         normed = {}
-        if "w13" in layers:
+        if config.num_experts:
+            ffn = _moe_ffn_decode(norm(x, layers["ffn_norm"][l], config), layers, l, config)
+        elif "w13" in layers:
             ffn = linear_l(act_gate(norm_linear(x, "w13", "ffn_norm", l, normed),
                                     config.hidden_act), "w2", l)
         else:

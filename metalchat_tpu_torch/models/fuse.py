@@ -55,10 +55,15 @@ def _concat_linears(leaves) -> Any:
 
 
 def fuse_projections(params: Dict[str, Any], config: ModelConfig) -> Dict[str, Any]:
-    """Return a tree with wq/wk/wv fused to ``wqkv`` and w1/w3 to ``w13``."""
+    """Return a tree with wq/wk/wv fused to ``wqkv`` and w1/w3 to ``w13``.
+    MoE expert stacks stay as they are: the decode path reads w1 and w3
+    apart (`models/decode._moe_ffn_decode`)."""
     out = dict(params)
     layers = dict(params["layers"])
-    for names, fused in ((("wq", "wk", "wv"), "wqkv"), (("w1", "w3"), "w13")):
+    groups = [(("wq", "wk", "wv"), "wqkv")]
+    if not config.num_experts:
+        groups.append((("w1", "w3"), "w13"))
+    for names, fused in groups:
         if all(n in layers for n in names):
             layers[fused] = _concat_linears([layers[n] for n in names])
             for n in names:

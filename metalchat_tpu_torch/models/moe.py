@@ -1,0 +1,125 @@
+"""Mixture-of-experts FFN, Mixtral-style top-k routing (port of the JAX
+package's ``models/moe.py``).
+
+Two schemes, chosen by the token count:
+
+* ``_moe_dense`` (at most ``DENSE_TOKEN_CUTOFF`` tokens): every expert
+  computes every token and the renormalised top-k gates select; exact.
+* ``_moe_dispatch`` (more tokens, the prefill): dispatch and combine
+  einsums over a static expert capacity, ``min(t, max(1, ceil(t·k·factor
+  / e)))`` slots an expert. Slots go to all first choices before any second
+  choice (a k-major cumulative sum); a (token, choice) past its expert's
+  capacity is dropped and contributes a zero row.
+
+Decode windows do not come here: ``models/decode.py`` routes each row to
+its experts through the stacked matvec kernel (``_moe_ffn_decode``).
+
+Layout per layer (stacked leaves in the parameter tree carry a leading
+layer axis): router ``[H, E]``; w1/w3 ``[E, H, F]`` and w2 ``[E, F, H]``
+dense, or ``QuantizedTensor`` over the expert axis (act8: ``q [E, out,
+in/2]``, scales ``[E, 1, out]``). The load-balancing loss belongs to
+training and is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.ops import reference as ops
+from metalchat_tpu_torch.quant.quantize import QuantizedTensor, linear
+
+# Up to this many tokens the dense (exact) scheme runs: the expert weights
+# are read whole either way, so dropping tokens saves nothing.
+DENSE_TOKEN_CUTOFF = 32
+
+
+def _expert_linear(xin: torch.Tensor, leaf) -> torch.Tensor:
+    """xin ``[E, C, in]`` through one layer's expert stack: dense ``[E, in,
+    out]``, or quantized, one `linear` per expert."""
+    if isinstance(leaf, QuantizedTensor):
+        return torch.stack([linear(xin[e], leaf.layer(e)) for e in range(xin.shape[0])])
+    return torch.einsum("ech,ehf->ecf", xin, leaf.to(xin.dtype))
+
+
+def _expert_mlp(xin: torch.Tensor, layer: Dict[str, Any], config: ModelConfig) -> torch.Tensor:
+    """SwiGLU over every expert at once: xin ``[E, C, H]`` → ``[E, C, H]``."""
+    act = ops.activation(config.hidden_act)(_expert_linear(xin, layer["w1"]))
+    if "w3" in layer:
+        act = act * _expert_linear(xin, layer["w3"])
+    return _expert_linear(act, layer["w2"])
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, config: ModelConfig):
+    """Router: f32 softmax over the experts, top-k, the k gates renormalised.
+    Returns (probs ``[T, E]``, gates ``[T, K]``, expert ids ``[T, K]``)."""
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    gate_vals, idx = torch.topk(probs, config.num_experts_per_tok, dim=-1)
+    return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), idx
+
+
+def _aux_loss(probs: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Switch-transformer load-balancing loss: E · Σ_e fraction_e · prob_e."""
+    counts = F.one_hot(idx, e).float().sum(dim=(0, 1))
+    fraction = counts / counts.sum().clamp_min(1.0)
+    return e * (fraction * probs.mean(dim=0)).sum()
+
+
+def _moe_dense(xt: torch.Tensor, layer: Dict[str, Any], config: ModelConfig):
+    e = config.num_experts
+    probs, gate_vals, idx = route(xt, layer["router"], config)
+    gates = torch.zeros_like(probs).scatter(1, idx, gate_vals)  # [T, E]
+    outs = _expert_mlp(xt[None].expand(e, *xt.shape), layer, config)  # [E, T, H]
+    y = torch.einsum("te,eth->th", gates.to(xt.dtype), outs)
+    return y, _aux_loss(probs, idx, e)
+
+
+def capacity(t: int, config: ModelConfig) -> int:
+    """Slots an expert in `_moe_dispatch` for ``t`` tokens."""
+    e, k = config.num_experts, config.num_experts_per_tok
+    return min(t, max(1, int(-(-t * k * config.expert_capacity_factor // e))))
+
+
+def dispatch_slots(idx: torch.Tensor, e: int, cap: int):
+    """Each (token, choice)'s slot in its expert's buffer, all first choices
+    before any second: (slot ``[T, K]``, kept ``[T, K]``); a dropped pair's
+    slot is ``cap``."""
+    t, k = idx.shape
+    mask = F.one_hot(idx, e).to(torch.int32)                 # [T, K, E]
+    mask_flat = mask.transpose(0, 1).reshape(k * t, e)
+    pos_flat = torch.cumsum(mask_flat, dim=0) - mask_flat
+    pos = pos_flat.reshape(k, t, e).transpose(0, 1)           # [T, K, E]
+    slot = (pos * mask).sum(dim=-1)
+    kept = slot < cap
+    return torch.where(kept, slot, torch.full_like(slot, cap)), kept
+
+
+def _moe_dispatch(xt: torch.Tensor, layer: Dict[str, Any], config: ModelConfig):
+    t, _ = xt.shape
+    e = config.num_experts
+    cap = capacity(t, config)
+    probs, gate_vals, idx = route(xt, layer["router"], config)
+    slot, kept = dispatch_slots(idx, e, cap)
+    dt = xt.dtype
+    sel = F.one_hot(idx, e).to(dt) * kept[..., None].to(dt)          # [T, K, E]
+    slot_oh = F.one_hot(slot, cap + 1)[..., :cap].to(dt)            # [T, K, C]; dropped: 0
+    dispatch = torch.einsum("tke,tkc->tec", sel, slot_oh)            # 0/1 [T, E, C]
+    xin = torch.einsum("tec,th->ech", dispatch, xt)
+    out = _expert_mlp(xin, layer, config)                            # [E, C, H]
+    combine = torch.einsum("tke,tkc,tk->tec", sel, slot_oh, gate_vals.to(dt))
+    y = torch.einsum("tec,ech->th", combine, out)
+    return y, _aux_loss(probs, idx, e)
+
+
+def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], config: ModelConfig):
+    """Sparse-MoE FFN of x ``[B, S, H]`` → (y, load-balancing loss)."""
+    b, s, h = x.shape
+    xt = x.reshape(b * s, h)
+    if b * s <= DENSE_TOKEN_CUTOFF:
+        yt, aux = _moe_dense(xt, layer, config)
+    else:
+        yt, aux = _moe_dispatch(xt, layer, config)
+    return yt.reshape(b, s, h).to(x.dtype), aux

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, Llama and Gemma-3: the prefill path (port of
-the JAX package's ``models/transformer.py``).
+"""Decoder-only transformer, Llama, Gemma-3 and Mixtral: the layer-by-layer
+route (port of the JAX package's ``models/transformer.py``).
 
 Parameter tree (same keys and layouts as the JAX package; per-layer leaves
 stacked on a leading layer axis):
@@ -9,7 +9,9 @@ stacked on a leading layer axis):
     "layers": {"attn_norm": [L, H], "wqkv" | "wq"/"wk"/"wv", "wo",
                "ffn_norm": [L, H], "w13" | "w1"/"w3", "w2",
                Gemma-3 only: "q_norm", "k_norm": [L, hd],
-               "post_attn_norm", "post_ffn_norm": [L, H]},
+               "post_attn_norm", "post_ffn_norm": [L, H],
+               Mixtral: "router": [L, H, E] and expert stacks
+               "w1"/"w3": [L, E, H, F], "w2": [L, E, F, H]},
     "final_norm": [H], "lm_head": [H, V] or QuantizedTensor,
     "rope": {"cos", "sin": [S_max, hd/2]; Gemma-3 also
              "cos_local", "sin_local" at rope_local_theta},
@@ -22,7 +24,17 @@ The layer loop is a Python loop over views of the stacked leaves. Gemma-3's
 extras follow the config: every norm's weight is ``norm_weight_offset + w``,
 q/k norms over hd, post-attention and post-FFN norms, the embedding scale,
 gelu-tanh, ``query_scale``, and sliding layers (``config.layer_window``)
-with their own rope table.
+with their own rope table. Mixtral's FFN is ``models/moe.moe_ffn``.
+
+`forward` sends windows of up to 16 tokens to ``models/decode.decode_step``
+where `supports_fast_decode` allows it, as the JAX package does; everything
+else takes `_layer_step` layer by layer, the JAX package's scan route. At
+one token that route writes the cache first (the JAX package's XLA-side
+write), then attends with the one-layer read-only kernels, as JAX does
+under its block conditions: a dense cache whose length a block of 128 or
+256 divides takes ``decode_attention(_quantized)``, a paged cache with pages
+of 128 or 256 ``paged_decode_attention``; otherwise, and for 2-16 tokens,
+the reference attention under a causal mask; longer windows flash attention.
 """
 
 from __future__ import annotations
@@ -44,8 +56,11 @@ from metalchat_tpu_torch.cache import (
     write_paged_layer,
 )
 from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.device import resolve_device
 from metalchat_tpu_torch.ops import reference as ops
+from metalchat_tpu_torch.ops.decode_attention import decode_attention, decode_attention_quantized
 from metalchat_tpu_torch.ops.flash_attention import flash_attention
+from metalchat_tpu_torch.ops.paged_attention import paged_decode_attention
 from metalchat_tpu_torch.quant.quantize import (
     QuantizedTensor,
     linear,
@@ -58,6 +73,18 @@ Cache = Union[KVCache, QuantizedKVCache, PagedKVCache]
 # Windows of at most this many tokens take the decode path (as in the JAX
 # package: weights are read once per window through the matvec kernel).
 DECODE_MAX_TOKENS = 16
+
+
+MOE_LEAVES = ("router", "w1", "w3", "w2")
+
+
+def _choose_block(length: int, preferred: int = 256) -> Optional[int]:
+    """The JAX package's block rule: the largest of 256 and 128 that divides
+    ``length`` (None: its one-token scan route takes no kernel)."""
+    for candidate in (preferred, 128):
+        if candidate <= length and length % candidate == 0:
+            return candidate
+    return None
 
 
 def layer_leaf(leaf, l: int):
@@ -113,20 +140,33 @@ def act_gate(fused: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return ops.activation(act)(gate) * up
 
 
-def paged_layer_kv(cache: PagedKVCache, l: int, k, v, pages, offsets, dtype):
-    """Write k/v ``[B, S, n_kv, hd]`` into layer ``l``'s pages in place, then
-    each row's pages gathered and dequantized to ``dtype`` → keys, values
-    ``[B, n_kv, MP·psize, hd]``."""
-    kp, vp, ksc, vsc = (t[l] for t in (cache.k_pages, cache.v_pages, cache.k_scale,
-                                       cache.v_scale))
-    write_paged_layer(kp, vp, ksc, vsc, k, v, pages, offsets)
-    pt = cache.page_table
-    return (dequantize_kv(gather_pages_dense(kp, pt), gather_page_scales(ksc, pt), dtype),
-            dequantize_kv(gather_pages_dense(vp, pt), gather_page_scales(vsc, pt), dtype))
+def _paged_layer(cache: PagedKVCache, l: int):
+    """Layer ``l``'s pages and scales (views)."""
+    return tuple(t[l] for t in (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale))
+
+
+def _attend_one(q, cache: Cache, l: int, offsets, config: ModelConfig):
+    """The one-token scan route's attention kernels (rows 6 and 7) over the
+    layer's cache, already written; None where the JAX block conditions
+    leave the step to the reference attention."""
+    lengths = (offsets + 1).to(torch.int32)
+    kw = dict(scale=config.attention_scale(), window=config.layer_window(l))
+    q1 = q[:, 0].contiguous()
+    if isinstance(cache, PagedKVCache):
+        if _choose_block(cache.page_size) != cache.page_size:
+            return None
+        return paged_decode_attention(q1, *_paged_layer(cache, l), cache.page_table,
+                                      lengths, **kw)[:, None]
+    if _choose_block(cache.k.shape[3]) is None:
+        return None
+    if isinstance(cache, QuantizedKVCache):
+        return decode_attention_quantized(q1, cache.k[l], cache.v[l], cache.k_scale[l],
+                                          cache.v_scale[l], lengths, **kw)[:, None]
+    return decode_attention(q1, cache.k[l], cache.v[l], lengths, **kw)[:, None]
 
 
 def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
-                rope, positions, start_pos, kv_end: int, paged_at=None) -> torch.Tensor:
+                rope, positions, offsets, start_pos, kv_end: int, paged_at=None) -> torch.Tensor:
     b, s, _ = x.shape
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
 
@@ -145,28 +185,54 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
     k = ops.apply_rope(k, cos, sin, positions)
     v = v.reshape(b, s, nkv, hd)
 
-    if isinstance(cache, PagedKVCache):
-        # Prefill attends over the row's whole page table, dequantized.
-        keys, values = paged_layer_kv(cache, l, k, v, *paged_at, x.dtype)
+    paged = isinstance(cache, PagedKVCache)
+    window = config.layer_window(l)
+    attn = None
+    if paged:
+        write_paged_layer(*_paged_layer(cache, l), k, v, *paged_at)
     elif isinstance(cache, QuantizedKVCache):
-        ck, cv, sk, sv = update_layer_cache_quantized(
-            cache.k[l], cache.v[l], cache.k_scale[l], cache.v_scale[l], k, v,
-            start_pos)
-        # Prefill attends over the cache dequantized to the activation dtype.
-        keys = dequantize_kv(ck[:, :, :kv_end], sk[:, :, :kv_end], x.dtype)
-        values = dequantize_kv(cv[:, :, :kv_end], sv[:, :, :kv_end], x.dtype)
+        update_layer_cache_quantized(cache.k[l], cache.v[l], cache.k_scale[l],
+                                     cache.v_scale[l], k, v, start_pos)
     else:
-        ck, cv = update_layer_cache(cache.k[l], cache.v[l], k, v, start_pos)
-        keys, values = ck[:, :, :kv_end].contiguous(), cv[:, :, :kv_end].contiguous()
-    attn = flash_attention(q.contiguous(), keys, values, start_pos,
-                           scale=config.attention_scale(), window=config.layer_window(l))
+        update_layer_cache(cache.k[l], cache.v[l], k, v, start_pos)
+    if s == 1:
+        attn = _attend_one(q, cache, l, offsets, config)
+    if attn is None:
+        if paged:  # each row's whole page table, gathered and dequantized
+            kp, vp, ksc, vsc = _paged_layer(cache, l)
+            pt = cache.page_table
+            keys = dequantize_kv(gather_pages_dense(kp, pt), gather_page_scales(ksc, pt),
+                                 x.dtype)
+            values = dequantize_kv(gather_pages_dense(vp, pt), gather_page_scales(vsc, pt),
+                                   x.dtype)
+        elif isinstance(cache, QuantizedKVCache):
+            # The cache up to the window's end, dequantized to the activation dtype.
+            keys = dequantize_kv(cache.k[l][:, :, :kv_end], cache.k_scale[l][:, :, :kv_end],
+                                 x.dtype)
+            values = dequantize_kv(cache.v[l][:, :, :kv_end], cache.v_scale[l][:, :, :kv_end],
+                                   x.dtype)
+        else:
+            keys = cache.k[l][:, :, :kv_end].contiguous()
+            values = cache.v[l][:, :, :kv_end].contiguous()
+        if s > DECODE_MAX_TOKENS:
+            attn = flash_attention(q.contiguous(), keys, values, start_pos,
+                                   scale=config.attention_scale(), window=window)
+        else:
+            mask = ops.causal_mask(positions, keys.shape[2], (offsets + s)[:, None, None],
+                                   None if window < 0 else window)
+            attn = ops.attention(q, keys, values, mask, scale=config.attention_scale())
     attn = linear(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l))
     if config.use_post_norms:
         attn = norm(attn, layers["post_attn_norm"][l], config)
     x = x + attn
 
     h = norm(x, layers["ffn_norm"][l], config)
-    if "w13" in layers:
+    if config.num_experts:
+        from metalchat_tpu_torch.models.moe import moe_ffn
+
+        ffn, _ = moe_ffn(h, {n: layer_leaf(layers[n], l) for n in MOE_LEAVES if n in layers},
+                         config)
+    elif "w13" in layers:
         ffn = linear(act_gate(linear(h, layer_leaf(layers["w13"], l)), config.hidden_act),
                      layer_leaf(layers["w2"], l))
     else:
@@ -178,26 +244,28 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
 
 
 def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
-            config: ModelConfig, *, ffn_block: bool = False):
+            config: ModelConfig, *, ffn_block: bool = False, fast_decode: bool = True):
     """One model step: tokens int ``[B, S]`` written at ``start_pos`` (an int,
     or an integer tensor: 0-d, or ``[B]`` per-row offsets). Returns (f32
     logits ``[B, S, V]``, cache), the cache updated in place.
 
-    Windows of up to 16 tokens take `decode_step` (the matvec kernel path),
-    as in the JAX package, which reads a tensor ``start_pos`` on the device
-    only; longer ones are the prefill path below, with
-    flash attention over the dequantized cache (a paged cache: over each
-    row's gathered pages). ``ffn_block`` is `decode_step`'s: the merged
-    post-attention kernel on decode windows (prefill is not affected)."""
+    With ``fast_decode`` (the default), windows that `supports_fast_decode`
+    accepts (up to 16 tokens; one on a paged cache; MoE experts stacked
+    ``[L, E, ...]``) take `decode_step` (the matvec kernel path), which
+    reads a tensor ``start_pos`` on the device only. Every other call, and
+    every call with ``fast_decode=False``, takes the layer-by-layer route
+    (the module docstring). ``ffn_block`` is `decode_step`'s: the merged
+    post-attention kernel on decode windows (the other route is not
+    affected)."""
     b, s = tokens.shape
-    if s <= DECODE_MAX_TOKENS:
-        from metalchat_tpu_torch.models.decode import decode_step
+    from metalchat_tpu_torch.models.decode import decode_step, supports_fast_decode
 
+    if fast_decode and supports_fast_decode(params, cache, config, tokens):
         return decode_step(params, cache, tokens, start_pos, config, ffn_block=ffn_block)
     paged = isinstance(cache, PagedKVCache)
     if torch.is_tensor(start_pos) and start_pos.ndim == 1:
         offsets = start_pos.to(device=tokens.device, dtype=torch.int64)
-        # A paged prefill reads whole page tables: no host read of the ends.
+        # A paged cache is read through whole page tables: no host read of the ends.
         kv_end = 0 if paged else int(offsets.max()) + s
     else:
         start_pos = int(start_pos)
@@ -210,5 +278,48 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     x = embed_tokens(params, tokens, config)
     for l in range(config.num_layers):
         x = _layer_step(x, params["layers"], l, cache, config, params["rope"],
-                        positions, start_pos, kv_end, paged_at)
+                        positions, offsets, start_pos, kv_end, paged_at)
     return final_logits(params, x, config), cache
+
+
+def init_random_params(config: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
+                       max_seq_len: Optional[int] = None, device=None) -> Params:
+    """Random dense parameters (tests and benchmarks without weights): the
+    JAX package's ``init_random_params`` tree, N(0, 0.02) projections (and,
+    for MoE, the router and ``[L, E, in, out]`` expert stacks) and unit
+    norms, drawn from a ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h, f = config.hidden_size, config.intermediate_size
+    nh, nkv, hd, L = config.num_heads, config.num_kv_heads, config.head_dim, config.num_layers
+
+    def dense(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    layers = {
+        "attn_norm": ones(L, h), "ffn_norm": ones(L, h),
+        "wq": dense(L, h, nh * hd), "wk": dense(L, h, nkv * hd),
+        "wv": dense(L, h, nkv * hd), "wo": dense(L, nh * hd, h),
+    }
+    if config.num_experts:
+        e = config.num_experts
+        layers.update(router=dense(L, h, e), w1=dense(L, e, h, f), w3=dense(L, e, h, f),
+                      w2=dense(L, e, f, h))
+    else:
+        layers.update(w1=dense(L, h, f), w3=dense(L, h, f), w2=dense(L, f, h))
+    if config.use_qk_norm:
+        layers.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
+    if config.use_post_norms:
+        layers.update(post_attn_norm=ones(L, h), post_ffn_norm=ones(L, h))
+    embed = dense(config.vocab_size, h)
+    return {
+        "embed": embed,
+        "layers": layers,
+        "final_norm": ones(h),
+        "lm_head": embed.T if config.tie_word_embeddings else dense(h, config.vocab_size),
+        "rope": make_rope_tables(config, max_seq_len, device=dev),
+    }

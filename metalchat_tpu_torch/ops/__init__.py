@@ -6,7 +6,7 @@ CUDA tensors launch the kernel, and anything else raises. There is no
 fallback from the kernel to the plain version and no switch to force one.
 
 | kernel (``csrc/``)       | wrapper                                       | TPU kernel it replaces |
-| ``a8_matvec.cu``         | ``quant_matvec_stacked_fused`` / ``_stacked`` (the fused call first runs ``quantize_rows``, kernel ``a8_quantize``) | ``ops/a8_matvec_pallas.py`` |
+| ``a8_matvec.cu``         | ``quant_matvec_stacked_fused`` / ``_stacked`` (the fused call first runs ``quantize_rows``, kernel ``a8_quantize``; its stack entry an int, or a 0-d int32 tensor on the card that the kernel reads) | ``ops/a8_matvec_pallas.py`` |
 | ``decode_attention.cu``  | ``decode_attention_update_quantized_stacked`` (write mode), ``decode_attention_stacked`` / ``decode_attention_quantized_stacked`` (read-only; the module's ``decode_attention`` / ``decode_attention_quantized`` take one layer) | ``ops/decode_attention_pallas.py`` |
 | ``flash_attention.cu``   | ``flash_attention``                           | ``ops/flash_attention_pallas.py`` |
 | ``paged_attention.cu``   | ``paged_decode_attention_update_stacked`` (write mode), ``paged_decode_attention_stacked`` / ``paged_decode_attention`` (read-only) | ``ops/paged_attention_pallas.py`` |

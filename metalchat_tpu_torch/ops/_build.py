@@ -42,9 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 HEAD_DIMS = (64, 128, 256)
 
 LAUNCHES: Dict[str, int] = {
-    "a8_matvec": 0, "a8_matvec_raw": 0, "a8_quantize": 0, "decode_attention_update": 0,
-    "decode_attention": 0, "flash_attention": 0, "paged_decode_attention_update": 0,
-    "paged_decode_attention": 0, "quant_matmul": 0, "ffn_block": 0}
+    "a8_matvec": 0, "a8_matvec_indexed": 0, "a8_matvec_raw": 0, "a8_quantize": 0,
+    "decode_attention_update": 0, "decode_attention": 0, "decode_attention_layer": 0,
+    "flash_attention": 0, "paged_decode_attention_update": 0, "paged_decode_attention": 0,
+    "paged_decode_attention_layer": 0, "quant_matmul": 0, "ffn_block": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # The launches of the capture under way (`CountedGraph.capture`), else None.

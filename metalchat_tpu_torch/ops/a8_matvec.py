@@ -13,8 +13,11 @@ mode is the matvec alone (counter ``a8_matvec_raw``).
 Layouts as in the JAX package: weights ``[L, out, in/2]`` (int4, half-split
 with an offset-binary low nibble) or ``[L, out, in]`` (int8); per-channel
 scales ``[L, 1, out]`` in f32 or bf16; norm weights ``[L, in]``. ``layer``
-is a Python int. CPU tensors take the plain version; CUDA tensors launch
-the kernel or raise.
+is a Python int, or for the fused call a 0-d int32 tensor on x's device
+(the JAX kernel's traced layer scalar): the kernel then reads the entry on
+the card, so a routed expert (``l·E + topk``) needs no host read; that
+instance counts as ``a8_matvec_indexed`` and takes no norm prologue. CPU
+tensors take the plain version; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from metalchat_tpu_torch.ops import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 MAX_ROWS = 16
 
 
@@ -42,6 +46,8 @@ def _lib() -> ctypes.CDLL:
     lib.a8_mma_raw.restype = _I
     lib.a8_quantize_mma.argtypes = [_P] * 6 + [_I] * 6 + [_F, _F, _P]
     lib.a8_quantize_mma.restype = _I
+    lib.a8_quantize_mma_indexed.argtypes = [_P] * 6 + [_I] * 6 + [_L, _L, _P]
+    lib.a8_quantize_mma_indexed.restype = _I
     return lib
 
 
@@ -109,9 +115,10 @@ def quantize_rows_plain(x, norm_w=None, norm_eps=None, norm_offset: float = 0.0,
     return xq, sx.reshape(-1), c
 
 
-def quant_matvec_stacked_fused_plain(x, p_stack, s_stack, layer: int, *, bits: int,
+def quant_matvec_stacked_fused_plain(x, p_stack, s_stack, layer, *, bits: int,
                                      norm_stack=None, norm_eps=None,
                                      norm_offset: float = 0.0):
+    """``layer``: an int or a 0-d integer tensor (it indexes the stacks)."""
     norm_w = None if norm_stack is None else norm_stack[layer]
     xq, sx = prologue(x, norm_w, norm_eps, norm_offset)
     acc = int_acc(xq, p_stack[layer], bits)
@@ -121,7 +128,7 @@ def quant_matvec_stacked_fused_plain(x, p_stack, s_stack, layer: int, *, bits: i
 
 # -- kernel wrappers ----------------------------------------------------------
 
-def _check_shapes(x, p_stack, layer: int, bits: int) -> None:
+def _check_shapes(x, p_stack, layer, bits: int) -> None:
     L, out_f, k = p_stack.shape
     b, in_f = x.shape
     if p_stack.dtype != torch.int8 or bits not in (4, 8):
@@ -130,7 +137,7 @@ def _check_shapes(x, p_stack, layer: int, bits: int) -> None:
     if k * (2 if bits == 4 else 1) != in_f:
         raise ValueError(f"a8_matvec: x {tuple(x.shape)} vs weights "
                          f"{tuple(p_stack.shape)} at bits={bits}")
-    if not 0 <= layer < L:
+    if not torch.is_tensor(layer) and not 0 <= layer < L:
         raise IndexError(f"a8_matvec: layer {layer} of {L}")
     if not 1 <= b <= MAX_ROWS or in_f % 32:
         raise ValueError(f"a8_matvec kernel: 1 <= rows <= {MAX_ROWS} and "
@@ -208,13 +215,14 @@ def quantize_rows(x: torch.Tensor, norm_w: Optional[torch.Tensor] = None,
 
 
 def quant_matvec_stacked_fused(x: torch.Tensor, p_stack: torch.Tensor,
-                               s_stack: torch.Tensor, layer: int, *, bits: int,
+                               s_stack: torch.Tensor, layer, *, bits: int,
                                norm_stack: Optional[torch.Tensor] = None,
                                norm_eps: Optional[float] = None,
                                norm_offset: float = 0.0) -> torch.Tensor:
     """bf16/f32 rows ``[B, in]`` → ``[B, out]`` in x's dtype: optional rmsnorm
     prologue (``norm_stack [L, in]``), per-token int8 act-quant, s8×s8→s32
-    against layer ``layer``, then ``acc·sx·s_col``."""
+    against layer ``layer``, then ``acc·sx·s_col``. ``layer`` is an int, or
+    a 0-d int32 tensor on x's device that the kernel reads (no norm then)."""
     if x.device.type == "cpu":
         return quant_matvec_stacked_fused_plain(
             x, p_stack, s_stack, layer, bits=bits, norm_stack=norm_stack,
@@ -230,6 +238,10 @@ def quant_matvec_stacked_fused(x: torch.Tensor, p_stack: torch.Tensor,
                                                                torch.float32):
         raise ValueError(f"a8_matvec: scales [L, 1, out] f32/bf16, got "
                          f"{tuple(s_stack.shape)} {s_stack.dtype}")
+    if torch.is_tensor(layer):
+        if norm_stack is not None:
+            raise ValueError("a8_matvec: a device index takes no norm prologue")
+        return _indexed(x, p_stack, s_stack, layer, bits)
     norm_w = None
     if norm_stack is not None:
         if norm_stack.shape != (L, in_f) or norm_stack.dtype != x.dtype:
@@ -253,4 +265,30 @@ def quant_matvec_stacked_fused(x: torch.Tensor, p_stack: torch.Tensor,
     _build.check(rc, "a8_matvec_fused")
     _build.count_launch("a8_quantize")
     _build.count_launch("a8_matvec")
+    return out
+
+
+def _indexed(x, p_stack, s_stack, index: torch.Tensor, bits: int) -> torch.Tensor:
+    """The fused call with the stack entry in a 0-d int32 tensor on x's
+    card, read by the kernel (never on the host)."""
+    if index.device != x.device:
+        raise RuntimeError(f"a8_matvec: the index is on {index.device}, x on {x.device}; "
+                           "a device index lies on x's card")
+    if index.shape != () or index.dtype != torch.int32:
+        raise ValueError(f"a8_matvec: the index is a 0-d int32 tensor, got "
+                         f"{tuple(index.shape)} {index.dtype}")
+    _, out_f, k = p_stack.shape
+    b, in_f = x.shape
+    out = torch.empty(b, out_f, dtype=x.dtype, device=x.device)
+    ws = torch.empty(b * in_f + 8 * b, dtype=torch.int8, device=x.device)
+    _check_aligned(x, p_stack)
+    if (out_f * k) % 16:
+        raise ValueError("a8_matvec: every stack entry must start 16-byte aligned")
+    rc = _lib().a8_quantize_mma_indexed(
+        x.data_ptr(), p_stack.data_ptr(), s_stack.data_ptr(), index.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), b, in_f, out_f, bits, int(x.dtype == torch.bfloat16),
+        int(s_stack.dtype == torch.bfloat16), out_f * k, out_f, _build.stream_ptr(x))
+    _build.check(rc, "a8_matvec_indexed")
+    _build.count_launch("a8_quantize")
+    _build.count_launch("a8_matvec_indexed")
     return out

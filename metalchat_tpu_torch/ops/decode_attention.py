@@ -213,7 +213,10 @@ def check_read_args(q, k, v, k_scale, v_scale, layer: int, lengths) -> None:
 
 
 def _read(q, k, v, k_scale, v_scale, layer: int, lengths, scale: float,
-          window: Optional[int]) -> torch.Tensor:
+          window: Optional[int], counter: str = "decode_attention") -> torch.Tensor:
+    """The read-only launch; ``counter`` names it in the launch counts (the
+    one-layer forms, the JAX package's ``decode_attention(_quantized)``,
+    count as ``decode_attention_layer``)."""
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(q, k, v, k_scale, v_scale, layer, lengths,
                                               scale=scale, window=window)
@@ -232,7 +235,7 @@ def _read(q, k, v, k_scale, v_scale, layer: int, lengths, scale: float,
         t_max, hd, SPLIT_CHUNK, float(scale), _window(window), int(q.dtype == torch.bfloat16),
         int(k_scale is not None), _build.stream_ptr(q))
     _build.check(rc, "decode_attention")
-    _build.count_launch("decode_attention")
+    _build.count_launch(counter)
     return out
 
 
@@ -252,11 +255,12 @@ def decode_attention_quantized_stacked(q, k, v, k_scale, v_scale, layer: int, le
 def decode_attention(q, k, v, lengths, *, scale: float,
                      window: Optional[int] = None) -> torch.Tensor:
     """`decode_attention_stacked` on one layer ``k, v [B, n_kv, T, hd]``."""
-    return _read(q, k[None], v[None], None, None, 0, lengths, scale, window)
+    return _read(q, k[None], v[None], None, None, 0, lengths, scale, window,
+                 "decode_attention_layer")
 
 
 def decode_attention_quantized(q, k, v, k_scale, v_scale, lengths, *, scale: float,
                                window: Optional[int] = None) -> torch.Tensor:
     """`decode_attention_quantized_stacked` on one layer."""
     return _read(q, k[None], v[None], k_scale[None], v_scale[None], 0, lengths, scale,
-                 window)
+                 window, "decode_attention_layer")

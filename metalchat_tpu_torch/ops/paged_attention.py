@@ -120,7 +120,10 @@ def check_args(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, layer
 
 
 def _launch(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
-            layer: int, scale: float, window: Optional[int]) -> torch.Tensor:
+            layer: int, scale: float, window: Optional[int],
+            counter: Optional[str] = None) -> torch.Tensor:
+    """One launch; ``counter`` names it in the launch counts (by default
+    its mode's name)."""
     write = k_new is not None
     name = "paged_decode_attention_update" if write else "paged_decode_attention"
     extra = (k_new, v_new) if write else ()
@@ -144,7 +147,7 @@ def _launch(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, page_table, len
         mp, hd, SPLIT_CHUNK, float(scale), -1 if window is None else int(window), int(write),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(rc, name)
-    _build.count_launch(name)
+    _build.count_launch(counter or name)
     return out
 
 
@@ -178,7 +181,11 @@ def paged_decode_attention_stacked(q, k_pages, v_pages, k_scale, v_scale, page_t
 def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, *,
                            scale: float, window: Optional[int] = None) -> torch.Tensor:
     """One layer's pool: pages ``[n_kv, P, psize, hd]``, scales ``[P, n_kv,
-    psize]``; the stacked form on a one-layer view."""
-    return paged_decode_attention_stacked(
-        q, k_pages[None], v_pages[None], k_scale[None], v_scale[None], page_table,
-        lengths, 0, scale=scale, window=window)
+    psize]``; the stacked form on a one-layer view, counted as
+    ``paged_decode_attention_layer``."""
+    pool = (k_pages[None], v_pages[None], k_scale[None], v_scale[None])
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, *pool, page_table, lengths, 0, scale=scale,
+                                            window=window)
+    return _launch(q, None, None, *pool, page_table, lengths, 0, scale, window,
+                   "paged_decode_attention_layer")

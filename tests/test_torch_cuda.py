@@ -380,3 +380,78 @@ def test_engine_graph_route_matches_eager_loop(card, mode):
     assert list(graph_engine._graphs) == ["greedy"]
     graph_engine.run([Request(prompt=prompts[0], max_new_tokens=8)])
     assert graph_engine._graphs == {"greedy": graph}
+
+
+# Row 1 with a device index (Mixtral's routed experts): every entry against
+# the plain version; one call in a CUDA graph follows an index rewritten on
+# the card between replays.
+def test_a8_matvec_indexed_kernel_and_graph(card):
+    sm, gen, dev = card
+    chip_smoke.check_a8_indexed(sm, [("w1", 512, 256), ("w2", 256, 512)], (1, 2, 5),
+                                (0, 3, 9, 15), 16, gen, dev)
+
+
+def test_a8_matvec_indexed_past_2_31_bytes(card):
+    """Entry 255 of a [256, 4096, 7168] stack (w2 of Mixtral-8x7B, flattened)
+    starts 7.49e9 bytes in: the kernel's 64-bit offset reaches it."""
+    sm, gen, dev = card
+    assert 255 * 4096 * 7168 > 2 ** 31
+    chip_smoke.check_a8_indexed(sm, [("w2", 4096, 14336)], (1,), (0, 255), 256, gen, dev)
+
+
+def test_a8_matvec_index_contract(card):
+    """A CPU index with CUDA rows raises (it is never read on the host), as
+    do an index of another dtype or shape and a norm prologue."""
+    from metalchat_tpu_torch.ops.a8_matvec import quant_matvec_stacked_fused
+
+    _, gen, dev = card
+    p = torch.randint(-128, 128, (4, 64, 16), generator=gen, device=dev, dtype=torch.int8)
+    s = torch.ones((4, 1, 64), device=dev)
+    x = torch.randn((1, 32), generator=gen, device=dev).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="index is on cpu"):
+        quant_matvec_stacked_fused(x, p, s, torch.tensor(1, dtype=torch.int32), bits=4)
+    for bad in (torch.tensor(1, device=dev), torch.tensor([1], dtype=torch.int32, device=dev)):
+        with pytest.raises(ValueError, match="0-d int32"):
+            quant_matvec_stacked_fused(x, p, s, bad, bits=4)
+    with pytest.raises(ValueError, match="no norm"):
+        quant_matvec_stacked_fused(x, p, s, torch.tensor(1, dtype=torch.int32, device=dev),
+                                   bits=4, norm_stack=torch.ones((4, 32), device=dev,
+                                                                 dtype=torch.bfloat16),
+                                   norm_eps=1e-5)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_moe_generate_graph_matches_eager_loop(card, b):
+    """A small W4A8 Mixtral through generate: 1 row routes each pair through
+    the indexed matvec (device indices, no host read, one captured step), 3
+    rows run every expert at host indices; ids and cache equal the eager
+    loop's bit for bit."""
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.config import MixtralConfig
+    from metalchat_tpu_torch.engine import generate
+    from metalchat_tpu_torch.models.fuse import fuse_projections
+    from metalchat_tpu_torch.models.transformer import init_random_params
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.quant.quantize import quantize_params
+
+    _, gen, dev = card
+    cfg = MixtralConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                        num_heads=4, num_kv_heads=2, head_dim=64, max_seq_len=128,
+                        num_experts=8)
+    params = fuse_projections(quantize_params(init_random_params(cfg, device=dev), bits=4,
+                                              group_size=None, act_bits=8,
+                                              quantize_lm_head=True), cfg)
+    prompts = torch.randint(0, 512, (b, 40), generator=gen, device=dev)
+    reset_launch_counts()
+    cache = QuantizedKVCache.create(cfg, b, 64, device=dev)
+    got = generate(params, cfg, prompts, max_new_tokens=12, cache=cache)
+    counts = launch_counts()
+    eager_cache = QuantizedKVCache.create(cfg, b, 64, device=dev)
+    want, _ = chip_smoke.eager_generate(params, cfg, prompts, 12, eager_cache)
+    assert torch.equal(got, want)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(cache, name), getattr(eager_cache, name)), name
+    want_counts = {**dict.fromkeys(counts, 0), "flash_attention": 2,
+                   "decode_attention_update": 2 * 11}
+    want_counts.update({k: n * 11 for k, n in chip_smoke.matvec_calls(cfg, b).items()})
+    assert counts == want_counts

@@ -58,7 +58,13 @@ from metalchat_tpu.ops.paged_attention_pallas import (
 )
 from metalchat_tpu.quant.quantize import quantize_params as jquantize_params
 from metalchat_tpu_torch.cache import KVCache, PagedKVCache, QuantizedKVCache
-from metalchat_tpu_torch.config import Gemma3Config, LlamaConfig, ModelConfig, load_config
+from metalchat_tpu_torch.config import (
+    Gemma3Config,
+    LlamaConfig,
+    MixtralConfig,
+    ModelConfig,
+    load_config,
+)
 from metalchat_tpu_torch.convert import params_from_numpy
 from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
 from metalchat_tpu_torch.engine.generate import generate
@@ -187,7 +193,9 @@ def test_load_config_dispatch(tmp_path):
                                 "num_attention_heads": 4}))
     assert isinstance(load_config(path), LlamaConfig)
     path.write_text(json.dumps({"model_type": "mixtral"}))
-    with pytest.raises(ValueError, match="mixtral"):
+    assert isinstance(load_config(path), MixtralConfig)
+    path.write_text(json.dumps({"model_type": "gpt2"}))
+    with pytest.raises(ValueError, match="gpt2"):
         load_config(path)
 
 

@@ -8,8 +8,9 @@ decode bursts of 4 and a prefill interleave of 1, so that batched prefill,
 combined prefill + burst dispatches and ride-along rows all occur. Tokens,
 finish reasons and dispatch counters must be identical, in dense int8 mode,
 dense mode in the activation dtype and paged mode. Pages of 8 also send a short last chunk (16 tokens)
-through the decode-window path, and a 15-token prompt ends one token short
-of a page edge.
+through the layer-by-layer route (a paged cache takes windows of 2-16
+tokens there, as in the JAX package), and a 15-token prompt ends one token
+short of a page edge.
 
 The prompts are fixed slices of the fixture's evaluation tokens. With W4A8
 a ulp of difference before an activation's int8 rounding can move one code
