@@ -134,6 +134,22 @@ Phases (any failure makes the script exit non-zero without a result line):
 8. http: the fixture behind ``InferenceServer`` on 127.0.0.1 (paged, on the
    card): a blocking completion, its SSE stream (same text), a chat
    completion, ``/health`` and ``/metrics``.
+   chat (after stream): the chat ``Interpreter`` on the 8b-w4a8 params
+   with a 128,000-rank Llama-3-layout tokenizer written here, greedy, a
+   dense bf16 cache of 1024 positions and 4 sinks: a system and a user
+   message (about 600 tokens) and a reply of up to 64 tokens, then a user
+   message of about 300 tokens prefilled by flash at the session's position
+   and a reply of up to 128 that rolls the cache. One captured decode step
+   for the session; ids, pos and cache equal ``eager_chat``'s bit for bit;
+   launches exact; each turn's TTFT and tok/s. cli-fixture: the CLI on the
+   trained fixture in a temporary home: ``model pull``; ``serve`` of
+   tests/test_fixture_e2e.py's prompt (first 16 ids against the library
+   path on the CPU, printed beside its GOLDEN); ``prompt --quantize int4``
+   (row 11); ``checkout`` in a process of its own with two lines on stdin.
+   cli-1b: a checkout at Llama-3.2-1B's published widths written to disk
+   (random bf16 weights, 2.47 GB), ``model pull``, ``prompt --quantize
+   w8a8``: load and quantize time, tokenize time, TTFT, tok/s, launches
+   exact; the checkout is deleted afterwards.
 9. Each kernel timed with CUDA events at its path's shapes beside its bound,
    its plain version and one PyTorch library call as a yardstick: timing at
    the generate path's shapes (and row 3 at lengths 64 and 1024, row 4 at
@@ -2556,6 +2572,426 @@ def phase_http(sm: Smoke):
               and metrics.get("requests") == 3.0, f"http: {chat} {health} {metrics}")
 
 
+# -- text, chat and the CLI ----------------------------------------------------------
+
+CHAT_CTX, CHAT_SINKS = 1024, 4
+# Each turn: its messages as (role, tokens of text), and its reply limit.
+# Turn 1 fills about 650 positions with its reply; turn 2's prompt is
+# prefilled by flash from there and its reply crosses position 1023.
+CHAT_TURNS = (((("system", 24), ("user", 530)), 64), ((("user", 300),), 128))
+CHAT_RANKS = 128000  # Llama-3's byte-pair ranks; its 256 specials follow
+# meta-llama/Llama-3.2-1B's config.json.
+LLAMA32_1B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 2048,
+    "intermediate_size": 8192, "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64, "vocab_size": 128256,
+    "max_position_embeddings": 131072, "rms_norm_eps": 1e-05, "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "tie_word_embeddings": True, "bos_token_id": 128000, "eos_token_id": 128001,
+    "torch_dtype": "bfloat16"}
+FIXTURE_PROMPT = "def main():\n    "  # tests/test_fixture_e2e.py's PROMPT
+# tests/test_fixture_e2e.py's GOLDEN: its greedy continuation in f32 on the CPU.
+FIXTURE_GOLDEN = [32, 32, 32, 32, 32, 32, 32, 32, 32, 32, 32, 32, 35, 32, 67, 114,
+                  101, 97, 116, 101, 32, 97, 32, 99, 108, 105, 101, 110, 116, 10, 32, 32]
+# Runs the CLI's `checkout` in a process of its own and reports its launches
+# and its session's turns on the last line of stderr.
+CHECKOUT_DRIVER = """
+import dataclasses, json, sys
+from metalchat_tpu_torch.cli import main as cli
+from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+sessions, load = [], cli._load_session
+cli._load_session = lambda ref, args: sessions.append(load(ref, args)) or sessions[-1]
+reset_launch_counts()
+rc = cli.main(sys.argv[1:])
+s = sessions[0]
+print(json.dumps({"launches": launch_counts(), "captures": s.captures,
+                  "turns": [dataclasses.asdict(t) for t in s.turns]}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def write_llama3_tokenizer(path, seed: int = 0) -> None:
+    """A tiktoken ``tokenizer.model`` in Llama-3's layout: 128,000 ranks, the
+    256 bytes, the 65,536 byte pairs and 62,208 distinct byte triples drawn
+    from a seeded numpy generator; the loader puts the 256 specials at
+    128000-128255."""
+    import base64
+
+    import numpy as np
+
+    tokens = [bytes([b]) for b in range(256)]
+    tokens += [bytes([a, b]) for a in range(256) for b in range(256)]
+    triples = np.random.default_rng(seed).choice(1 << 24, size=CHAT_RANKS - len(tokens),
+                                                 replace=False)
+    tokens += [int(t).to_bytes(3, "big") for t in triples]
+    path.write_text("\n".join(f"{base64.b64encode(t).decode()} {i}"
+                              for i, t in enumerate(tokens)))
+
+
+def chat_text(tokenizer, n_tokens: int, rng) -> str:
+    """Words of 2-9 random lowercase letters, as many as encode to at least
+    ``n_tokens`` ids."""
+    words = []
+    while len(tokenizer.encode(" ".join(words))) < n_tokens:
+        words += ["".join(chr(97 + c) for c in rng.integers(0, 26, rng.integers(2, 10)))
+                  for _ in range(8)]
+    return " ".join(words)
+
+
+def eager_chat(params, cfg, tokenizer, turns, ctx: int, sinks: int):
+    """The JAX package's interpreter loop (its ``read_tokens``) as plain
+    `forward` calls at int positions, greedy, written here as the session's
+    reference: each turn's messages and the assistant header rendered with
+    the Llama-3 template and prefilled at the session's position, then one
+    token at a time until an end-of-turn id (carried into the next prefill)
+    or the turn's limit, the cache rolled by ``(ctx - sinks) // 4`` when it
+    fills. Returns the reply ids of each turn, the final position, the
+    cache and the number of rolls."""
+    import torch
+
+    from metalchat_tpu_torch.cache import KVCache, roll_kv_cache
+    from metalchat_tpu_torch.chat.interpreter import ChatTemplates
+    from metalchat_tpu_torch.chat.template import render_template
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.text.tokenizer import TokenKind
+
+    tpl = ChatTemplates.llama3()
+    dev = params["final_norm"].device
+    cache = KVCache.create(cfg, 1, ctx, dtype=params["final_norm"].dtype, device=dev)
+    stop = set(tokenizer.specials.ids_with_kind(
+        TokenKind.END_TEXT | TokenKind.END_TURN | TokenKind.END_MESSAGE))
+    buffer = tokenizer.encode(tpl.begin_text, allow_special=True)
+    pos, rolls, replies = 0, 0, []
+    for messages, limit in turns:
+        for role, text in messages:
+            buffer += tokenizer.encode(render_template(tpl.message, {"role": role,
+                                                                     "content": text}),
+                                       allow_special=True)
+        buffer += tokenizer.encode(render_template(tpl.header, {"role": "assistant"}),
+                                   allow_special=True)
+        logits, _ = forward(params, cache, torch.tensor([buffer], device=dev), pos, cfg)
+        pos, buffer, ids = pos + len(buffer), [], []
+        while True:
+            tok = int(logits[0, -1].argmax())
+            if pos + 1 >= ctx:
+                shift = max(1, (ctx - sinks) // 4)
+                roll_kv_cache(cache, sinks, shift)
+                pos, rolls = pos - shift, rolls + 1
+            if tok in stop or len(ids) == limit:
+                buffer += [tok] if tok in stop else []
+                break
+            ids.append(tok)
+            logits, _ = forward(params, cache, torch.tensor([[tok]], device=dev), pos, cfg)
+            pos += 1
+        replies.append(ids)
+    return replies, pos, cache, rolls
+
+
+def chat_launches(counts, cfg, turns, per_step: dict):
+    """The launches ``turns`` (a session's `TurnStats`) imply: ``per_step``
+    each decode step, flash once a layer a prefill of more than 16 tokens,
+    every other kernel never."""
+    steps = sum(t.decode_steps for t in turns)
+    want = dict.fromkeys(counts, 0)
+    want.update({k: n * steps for k, n in per_step.items()})
+    want["flash_attention"] = cfg.num_layers * sum(t.prefill_tokens > 16 for t in turns)
+    return want
+
+
+def turn_report(turns) -> str:
+    return "; ".join(
+        f"turn {i + 1}: prefill {t.prefill_tokens} at {t.start_pos}, TTFT "
+        f"{1e3 * t.ttft_s:.2f} ms, {t.decode_steps} tokens at {t.decode_tok_s or 0:.2f} "
+        f"tok/s, {t.rolls} roll(s)" for i, t in enumerate(turns))
+
+
+def phase_chat(sm: Smoke, main):
+    """The chat `Interpreter` at full width: phase main's 8b-w4a8 params, a
+    Llama-3-layout tokenizer of 128,000 ranks (`write_llama3_tokenizer`),
+    the Llama-3 template, greedy, a dense bf16 cache of 1024 positions, 4
+    sinks. Turn 1: a system and a user message (about 600 tokens) and a
+    reply of up to 64 tokens; turn 2: a user message of about 300 tokens
+    prefilled by flash at the session's position, its reply of up to 128
+    tokens crossing position 1023, so the cache rolls. The session captures
+    one decode step for both turns; ids, pos and cache equal `eager_chat`'s
+    bit for bit; launches exact (row 1 and row 5 each step, flash each
+    prefill)."""
+    torch = sm.torch
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from metalchat_tpu_torch.chat.interpreter import ChatTemplates, Interpreter
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.sampling import SamplerConfig
+    from metalchat_tpu_torch.text import load_tiktoken_model
+
+    cfg, params = main[0], main[1]
+    L = cfg.num_layers
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_llama3_tokenizer(Path(tmp) / "tokenizer.model")
+        tok = load_tiktoken_model(Path(tmp) / "tokenizer.model")
+    load_s = time.perf_counter() - t
+    sm.expect(tok.vocab_size == cfg.vocab_size
+              and tok.specials.id_of("<|begin_of_text|>") == 128000,
+              f"chat: tokenizer vocab {tok.vocab_size}")
+    rng = np.random.default_rng(1)
+    turns = [(tuple((role, chat_text(tok, n, rng)) for role, n in msgs), limit)
+             for msgs, limit in CHAT_TURNS]
+    session = Interpreter(params, cfg, tok, templates=ChatTemplates.llama3(),
+                          sampler=SamplerConfig.greedy(), max_seq_len=CHAT_CTX,
+                          sink_tokens=CHAT_SINKS, max_reply_tokens=128)
+    reset_launch_counts()
+    got = []
+    for messages, limit in turns:
+        for role, text in messages:
+            session.write(text, role=role)
+        session.scanner.scanners[1].limit = limit  # the turn's reply limit
+        got.append(list(session.read_tokens()))
+    counts = launch_counts()
+    t = time.perf_counter()
+    want, pos, cache, rolls = eager_chat(params, cfg, tok, turns, CHAT_CTX, CHAT_SINKS)
+    eager_s = time.perf_counter() - t
+    expected = chat_launches(counts, cfg, session.turns,
+                             {"a8_matvec": 4 * L + 1, "a8_quantize": 4 * L + 1,
+                              "decode_attention": L})
+    print(f"chat 8b-w4a8 (tokenizer of {tok.vocab_size} ids made and loaded in {load_s:.1f} "
+          f"s; dense bf16 cache {CHAT_CTX}, {CHAT_SINKS} sinks): "
+          f"{turn_report(session.turns)}; captures {session.captures}; eager loop "
+          f"{eager_s:.2f} s; ids equal: {got == want}; launches {counts}", flush=True)
+    sm.expect(got == want, "chat: the session's ids differ from the eager loop's")
+    sm.expect(session.pos == pos, f"chat: pos {session.pos} != the eager loop's {pos}")
+    for name in ("k", "v"):
+        sm.exact(getattr(session.cache, name), getattr(cache, name),
+                 f"chat: cache {name}, the session against the eager loop")
+    sm.expect(session.captures == 1, f"chat: {session.captures} captures in one session")
+    sm.expect(rolls >= 1 and sum(t.rolls for t in session.turns) == rolls,
+              f"chat: {rolls} rolls")
+    t2 = session.turns[1]
+    sm.expect(t2.start_pos > 0 and t2.prefill_tokens > 16, f"chat: turn 2 {t2}")
+    sm.expect(counts == expected, f"chat: launches {counts} != expected {expected}")
+    return counts
+
+
+@contextlib.contextmanager
+def cli_home():
+    """A temporary METALCHAT_TPU_HOME and working directory, both removed
+    afterwards; yields the directory."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    tmp = Path(tempfile.mkdtemp(prefix="metalchat_cli_"))
+    old = os.environ.get("METALCHAT_TPU_HOME")
+    os.environ["METALCHAT_TPU_HOME"] = str(tmp / "home")
+    try:
+        with contextlib.chdir(tmp):
+            yield tmp
+    finally:
+        if old is None:
+            os.environ.pop("METALCHAT_TPU_HOME", None)
+        else:
+            os.environ["METALCHAT_TPU_HOME"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_cli(argv):
+    """The CLI's `main` in this process: (stdout, stderr, sessions with the
+    seconds each took to load). Fails on a non-zero exit."""
+    import io
+
+    from metalchat_tpu_torch.cli import main as cli
+
+    out, err, sessions = io.StringIO(), io.StringIO(), []
+    load = cli._load_session
+
+    def timed_load(ref, args):
+        t = time.perf_counter()
+        session = load(ref, args)
+        sessions.append((session, time.perf_counter() - t))
+        return session
+
+    cli._load_session = timed_load
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main([str(a) for a in argv])
+    finally:
+        cli._load_session = load
+    if rc != 0:
+        raise AssertionError(f"CLI {argv} exited {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue(), sessions
+
+
+def greedy_manifest(ref: str) -> None:
+    """[inference.sampling] temperature = 0 in a stored model's manifest."""
+    from metalchat_tpu_torch.cli.store import Manifest, ModelStore
+
+    model = ModelStore().find(ref)
+    manifest = Manifest.load(model.path / Manifest.FILENAME)
+    manifest.inference["sampling"] = {"temperature": 0}
+    manifest.save(model.path / Manifest.FILENAME)
+
+
+def phase_cli_fixture(sm: Smoke):
+    """The CLI on the trained fixture: ``model pull`` into a temporary home;
+    ``serve`` (JSONL, 2 slots, dense bf16) of tests/test_fixture_e2e.py's
+    PROMPT at temperature 0, its first 16 ids against the library path on
+    the CPU in bf16 (`generate`), printed beside GOLDEN (f32); ``prompt
+    --quantize int4`` with a greedy manifest (row 11 each decode step);
+    ``checkout`` as a process of its own with two lines on stdin. Launches
+    exact in each: the engine's own counters (its summary on stderr) for
+    serve, the session's turns for prompt and checkout."""
+    torch = sm.torch
+    import ast
+    import os
+    from pathlib import Path
+
+    from metalchat_tpu_torch.config import load_config
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.io.loaders import load_params
+    from metalchat_tpu_torch.io.safetensors import open_safetensors
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    root = Path(__file__).resolve().parent
+    fixture = root / "tests" / "fixtures" / "pyllama_10m"
+    cfg = load_config(fixture / "config.json")
+    L = cfg.num_layers
+    out = {}
+    with cli_home() as tmp:
+        run_cli(["model", "pull", fixture, "--name", "pyllama"])
+        greedy_manifest("pyllama")
+
+        reqs = tmp / "reqs.jsonl"
+        reqs.write_text(json.dumps({"prompt": FIXTURE_PROMPT, "max_tokens": 24,
+                                    "temperature": 0.0}) + "\n")
+        reset_launch_counts()
+        stdout, stderr, _ = run_cli(["serve", "pyllama", "--input", reqs, "--slots", 2,
+                                     "--max-seq-len", 256])
+        counts = launch_counts()
+        line = json.loads(stdout.splitlines()[0])
+        summary = ast.literal_eval(stderr.split("requests: ", 1)[1].strip())
+        cpu = load_params(open_safetensors(fixture), cfg, dtype=torch.bfloat16,
+                          max_seq_len=256, device="cpu")
+        ref = generate(cpu, cfg, torch.tensor([list(FIXTURE_PROMPT.encode())]),
+                       max_new_tokens=24)[0].tolist()
+        got = list(line["text"].encode())
+        want = dict.fromkeys(counts, 0)
+        want.update(decode_attention=L * summary["decode_steps"],
+                    flash_attention=L * summary["prefill_dispatches"])
+        print(f"cli-fixture serve (bf16 dense, 2 slots): {line['tokens']} tokens "
+              f"{line['finish_reason']}, ids {got}; CPU library path (bf16) {ref}; GOLDEN "
+              f"(f32) {FIXTURE_GOLDEN[:24]}; engine {summary}; launches {counts}", flush=True)
+        sm.expect(got[:16] == ref[:16], "cli-fixture serve: the first 16 ids differ from "
+                  "the CPU library path's")
+        sm.expect(summary["combined_dispatches"] == 0 and counts == want,
+                  f"cli-fixture serve: launches {counts} != expected {want}")
+        out["serve"] = counts
+
+        reset_launch_counts()
+        content = "Write a Python function that reads a file and counts its lines."
+        stdout, _, sessions = run_cli(["prompt", "pyllama", "-c", content, "--quantize",
+                                       "int4", "--max-tokens", 32])
+        counts = launch_counts()
+        session, load_s = sessions[0]
+        want = chat_launches(counts, cfg, session.turns,
+                             {"quant_matmul": 7 * L, "decode_attention": L})
+        print(f"cli-fixture prompt --quantize int4: {stdout!r}; load {load_s:.2f} s; "
+              f"{turn_report(session.turns)}; launches {counts}", flush=True)
+        sm.expect(session.turns[0].prefill_tokens > 32 and session.turns[0].decode_steps > 0,
+                  f"cli-fixture prompt: {session.turns}")
+        sm.expect(counts == want, f"cli-fixture prompt: launches {counts} != expected {want}")
+        out["int4"] = counts
+
+        proc = subprocess.run(
+            [sys.executable, "-c", CHECKOUT_DRIVER, "checkout", "pyllama", "--max-tokens", "16"],
+            input="def add(a, b):\nprint('hello')\n", capture_output=True, text=True,
+            timeout=600, cwd=tmp, env={**os.environ, "PYTHONPATH": str(root)})
+        sm.expect(proc.returncode == 0, f"cli-fixture checkout exited {proc.returncode}: "
+                  f"{proc.stderr[-3000:]}")
+        report = json.loads(proc.stderr.strip().splitlines()[-1])
+        turns = [type(session.turns[0])(**t) for t in report["turns"]]
+        counts = report["launches"]
+        want = chat_launches(counts, cfg, turns, {"decode_attention": L})
+        print(f"cli-fixture checkout (a process of its own): stdout {proc.stdout!r}; "
+              f"{turn_report(turns)}; captures {report['captures']}; launches {counts}",
+              flush=True)
+        sm.expect(len(turns) == 2 and all(t.decode_steps > 0 for t in turns)
+                  and proc.stdout.count(">>> ") == 3, "cli-fixture checkout: not two replies")
+        sm.expect(report["captures"] == 1, f"cli-fixture checkout: {report['captures']} "
+                  "captures in one session")
+        sm.expect(counts == want, f"cli-fixture checkout: launches {counts} != {want}")
+        out["checkout"] = counts
+    return out
+
+
+def phase_cli_1b(sm: Smoke):
+    """The CLI at Llama-3.2-1B's published widths: a checkout written here
+    (its config.json, random bf16 weights from a seeded torch.Generator
+    through `save_params` + `save_safetensors`, the chat phase's tokenizer
+    layout), ``model pull``, then ``prompt --quantize w8a8 --max-tokens 64``
+    with a greedy manifest: row 1 (bits 8) each decode step for the seven
+    linears of each layer, row 5 at hd 64, flash for the prompt. Prints the
+    time to load and quantize, to tokenize the message, the TTFT and the
+    decode tok/s; launches exact. The checkout is deleted afterwards."""
+    torch = sm.torch
+    import numpy as np
+
+    from metalchat_tpu_torch.config import load_config
+    from metalchat_tpu_torch.io.loaders import save_params
+    from metalchat_tpu_torch.io.safetensors import save_safetensors
+    from metalchat_tpu_torch.models.transformer import init_random_params
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.text import load_tiktoken_model
+
+    with cli_home() as tmp:
+        ckpt = tmp / "Llama-3.2-1B"
+        ckpt.mkdir()
+        (ckpt / "config.json").write_text(json.dumps(LLAMA32_1B_CONFIG))
+        cfg = load_config(ckpt / "config.json")
+        L = cfg.num_layers
+        t = time.perf_counter()
+        params = init_random_params(cfg, seed=0, dtype=torch.bfloat16, max_seq_len=16,
+                                    device="cuda")
+        save_safetensors(ckpt / "model.safetensors", save_params(params, cfg))
+        del params
+        torch.cuda.empty_cache()
+        write_llama3_tokenizer(ckpt / "tokenizer.model")
+        write_s = time.perf_counter() - t
+        size = (ckpt / "model.safetensors").stat().st_size
+        run_cli(["model", "pull", ckpt, "--name", "llama-3.2-1b"])
+        greedy_manifest("llama-3.2-1b")
+
+        reset_launch_counts()
+        tokenizer_s = time.perf_counter()
+        tok = load_tiktoken_model(ckpt / "tokenizer.model")
+        tokenizer_s = time.perf_counter() - tokenizer_s
+        content = chat_text(tok, 200, np.random.default_rng(2))
+        t = time.perf_counter()
+        n_ids = len(tok.encode(content, allow_special=True))
+        encode_s = time.perf_counter() - t
+        stdout, _, sessions = run_cli(["prompt", "llama-3.2-1b", "-c", content, "--quantize",
+                                       "w8a8", "--max-tokens", 64])
+        counts = launch_counts()
+        session, load_s = sessions[0]
+        turn = session.turns[0]
+        want = chat_launches(counts, cfg, session.turns,
+                             {"a8_matvec": 7 * L, "a8_quantize": 7 * L, "decode_attention": L})
+        print(f"cli 1b-w8a8 (Llama-3.2-1B widths, checkout {size / 1e9:.3f} GB written in "
+              f"{write_s:.1f} s): load and quantize {load_s:.2f} s (its tokenizer load "
+              f"{tokenizer_s:.2f} s alone); tokenize the {n_ids}-token message "
+              f"{1e3 * encode_s:.2f} ms; TTFT {1e3 * turn.ttft_s:.2f} ms (prefill "
+              f"{turn.prefill_tokens} tokens); {turn.decode_steps} tokens at "
+              f"{turn.decode_tok_s or 0:.2f} tok/s; cache {session.cache.max_seq_len} "
+              f"positions; {len(stdout)} characters out; launches {counts}", flush=True)
+        sm.expect(turn.decode_steps > 0 and turn.prefill_tokens > 16, f"cli-1b: {turn}")
+        sm.expect(counts == want, f"cli-1b: launches {counts} != expected {want}")
+        return counts
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, end = 0.0, float("-inf")
@@ -3472,7 +3908,7 @@ def main() -> int:
     sm = Smoke(torch)
     t_start = time.perf_counter()
     ffn_run = int4_run = stream_counts = gemma_run = serve_gemma = None
-    mixtral_run = scan_run = serve_mixtral = None
+    mixtral_run = scan_run = serve_mixtral = chat_counts = cli_counts = cli_1b = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -3492,6 +3928,7 @@ def main() -> int:
             sm.phase("profile-int4", lambda: phase_profile(sm, int4_run, "8b-int4"))
         if main_run is not None:
             stream_counts = sm.phase("stream", lambda: phase_stream(sm, main_run))
+            chat_counts = sm.phase("chat", lambda: phase_chat(sm, main_run))
         gemma_run = sm.phase("gemma", lambda: phase_gemma(sm, dev_name))
         sm.phase("gemma-fixture", lambda: phase_gemma_fixture(sm))
         sm.phase("mixtral-fixture", lambda: phase_mixtral_fixture(sm))
@@ -3512,6 +3949,8 @@ def main() -> int:
                     sm, mixtral_run, hbm_rate(dev_name), MIXTRAL_LABEL, ("paged",),
                     MIXTRAL_SERVE_TURNS))
             sm.phase("http", lambda: phase_http(sm))
+        cli_counts = sm.phase("cli-fixture", lambda: phase_cli_fixture(sm))
+        cli_1b = sm.phase("cli-1b", lambda: phase_cli_1b(sm))
         if main_run is not None:
             rows = sm.phase("timing", lambda: phase_timing(sm, main_run, hbm_rate(dev_name)))
         if serve is not None and fixture_counts is not None and rows is not None:
@@ -3543,8 +3982,8 @@ def main() -> int:
             serve_mixtral = {m: dict(counts=r["counts"]) for m, r in serve_mixtral.items()}
         torch.cuda.empty_cache()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    if (sm.failures or not smi or rows is None or stream_counts is None
-            or serve_mixtral is None):
+    if (sm.failures or not smi or rows is None or None in (
+            stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -3555,7 +3994,8 @@ def main() -> int:
                f"serve {GEMMA_LABEL} paged": serve_gemma["paged"]["counts"],
                f"generate {MIXTRAL_LABEL}": mixtral_counts,
                f"serve {MIXTRAL_LABEL} paged": serve_mixtral["paged"]["counts"],
-               "scan 8b-w4a8": scan_run["counts"]}
+               "scan 8b-w4a8": scan_run["counts"], "chat 8b-w4a8": chat_counts,
+               "cli 1b-w8a8": cli_1b, "cli-fixture int4": cli_counts["int4"]}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

@@ -1,0 +1,3 @@
+from metalchat_tpu_torch.cli.main import main
+
+raise SystemExit(main())

@@ -1,0 +1,417 @@
+"""`metalchat-tpu-torch` command-line program (port of the JAX package's
+``cli/main.py``, the same subcommands and flags, plus ``--device``):
+
+  metalchat-tpu-torch -                      # read prompt from stdin
+  metalchat-tpu-torch prompt -c "..."        # one-shot completion
+  metalchat-tpu-torch checkout <model>       # interactive chat session
+  metalchat-tpu-torch serve <model>          # JSONL (or HTTP) batch serving
+  metalchat-tpu-torch model pull <url>       # clone into the store
+  metalchat-tpu-torch model list
+  metalchat-tpu-torch model remove <ref>
+  metalchat-tpu-torch options get/set/unset/list
+  metalchat-tpu-torch credential add/list/remove
+
+``--quantize {int8,int4,w8a8,w4a8}`` quantizes the weights on load
+(w8a8/w4a8: per-channel weights and dynamic int8 activations, the matvec
+kernel's scheme; int8/int4: weight-only, group 32). ``--device`` defaults to
+``cuda`` and raises without a card; ``--device cpu`` runs the plain PyTorch
+versions of the kernels. Activations are bf16 on the card and f32 on the
+CPU. The store and manifests are the JAX package's (`cli.store`).
+
+``prompt --draft`` (speculative decoding) and ``serve --pp/--cp`` (pipeline
+and context parallelism) parse and raise `NotImplementedError`: they are
+not ported yet (ROADMAP.md, Queue A items 6 and 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+from typing import Optional
+
+from metalchat_tpu_torch.cli.store import (
+    CredentialStore,
+    Manifest,
+    ModelStore,
+    home_dir,
+    load_scoped_manifest,
+)
+
+
+def _progress(name: str, done: int, total: int) -> None:
+    if total:
+        pct = 100 * done // total
+        bar = "#" * (pct // 4)
+        sys.stderr.write(f"\r{name}: [{bar:<25}] {pct}%")
+        if done >= total:
+            sys.stderr.write("\n")
+    else:
+        sys.stderr.write(f"\r{name}: {done >> 20} MiB")
+    sys.stderr.flush()
+
+
+def _load_model(ref: str, args):
+    """Resolve store → config (manifest options merged) → params on the
+    device → tokenizer, sampler and chat templates."""
+    import torch
+
+    from metalchat_tpu_torch.chat.hf_template import load_hf_chat_templates
+    from metalchat_tpu_torch.chat.interpreter import ChatTemplates
+    from metalchat_tpu_torch.config import Gemma3Config, merge_options
+    from metalchat_tpu_torch.device import resolve_device
+    from metalchat_tpu_torch.io.loaders import load_params
+    from metalchat_tpu_torch.io.repository import FilesystemRepository
+    from metalchat_tpu_torch.quant.quantize import quantize_params
+    from metalchat_tpu_torch.sampling import SamplerConfig
+
+    device = resolve_device(args.device)
+    store = ModelStore()
+    model = store.find(ref)
+    if model is None and Path(ref).is_dir():
+        repo = FilesystemRepository(Path(ref))
+        manifest = load_scoped_manifest()
+    elif model is None:
+        raise SystemExit(f"model {ref!r} not found — try `model pull`")
+    else:
+        repo = store.repository(ref)
+        manifest = load_scoped_manifest(model.path)
+
+    config = repo.retrieve_config()
+    overrides = manifest.merged_overrides()
+    if overrides:
+        config = merge_options(config, overrides)
+    if args.max_seq_len:
+        config = config.replace(max_seq_len=args.max_seq_len)
+
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    params = load_params(repo.retrieve_weights(), config, dtype=dtype, device=device)
+    if args.quantize:
+        bits = {"int8": 8, "int4": 4, "w8a8": 8, "w4a8": 4}[args.quantize]
+        if args.quantize.startswith("w"):
+            params = quantize_params(params, bits=bits, group_size=None, act_bits=8)
+        else:
+            params = quantize_params(params, bits=bits, group_size=32)
+
+    tokenizer = repo.retrieve_tokenizer()
+    sampling = manifest.inference.get("sampling", {})
+    sampler = SamplerConfig(
+        temperature=float(sampling.get("temperature", 0.6)),
+        top_k=int(sampling.get("k", 50)),
+        top_p=float(sampling.get("probability", 0.9)),
+    )
+    # The checkpoint's own chat template (tokenizer_config.json) first, then
+    # the built-in mustache formats.
+    model_dir = model.path if model is not None else Path(ref)
+    try:
+        templates = load_hf_chat_templates(model_dir)
+    except (OSError, ValueError):
+        templates = None
+    if templates is None:
+        templates = (ChatTemplates.gemma3() if isinstance(config, Gemma3Config)
+                     else ChatTemplates.llama3())
+    return params, config, tokenizer, sampler, templates
+
+
+def _load_session(ref: str, args):
+    """The model behind a chat `Interpreter`."""
+    from metalchat_tpu_torch.chat.interpreter import Interpreter
+
+    params, config, tokenizer, sampler, templates = _load_model(ref, args)
+    return Interpreter(params, config, tokenizer, templates=templates, sampler=sampler,
+                       max_reply_tokens=args.max_tokens)
+
+
+def _cmd_prompt(args) -> int:
+    if getattr(args, "draft", None):
+        raise NotImplementedError(
+            "prompt --draft: speculative decoding is not ported to this package yet "
+            "(ROADMAP.md, Queue A item 6)")
+    content = args.content
+    if content is None:
+        content = sys.stdin.read()
+    session = _load_session(args.model, args)
+    if args.system:
+        session.write(args.system, role="system")
+    session.write(content, role="user")
+    for chunk in session.read_stream():
+        sys.stdout.write(chunk)
+        sys.stdout.flush()
+    sys.stdout.write("\n")
+    return 0
+
+
+def _cmd_checkout(args) -> int:
+    session = _load_session(args.model, args)
+    if args.system:
+        session.write(args.system, role="system")
+    print("(interactive session — empty line or Ctrl-D to exit)")
+    while True:
+        try:
+            line = input(">>> ")
+        except EOFError:
+            break
+        if not line.strip():
+            break
+        reply = session.exec(line)
+        print(reply)
+    return 0
+
+
+def _cmd_serve(args) -> int:
+    """Batch-serve prompts: JSONL in → JSONL out through the
+    continuous-batching engine (one line: {"prompt": "...", "max_tokens": N,
+    "temperature": T, "top_k": K, "top_p": P})."""
+    import json as _json
+
+    if args.pp > 1 or args.cp > 1:
+        raise NotImplementedError(
+            "serve --pp/--cp: pipeline- and context-parallel serving are not ported to "
+            "this package yet (ROADMAP.md, Queue A item 9)")
+    from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine, Request
+    from metalchat_tpu_torch.sampling import SamplerConfig
+    from metalchat_tpu_torch.text.tokenizer import TokenKind
+
+    params, config, tokenizer, _, _ = _load_model(args.model, args)
+    specials = getattr(tokenizer, "specials", None)
+    stop_kinds = TokenKind.END_TEXT | TokenKind.END_TURN | TokenKind.END_MESSAGE
+    eos_ids = tuple(specials.ids_with_kind(stop_kinds)) if specials else ()
+
+    engine = ContinuousBatchingEngine(
+        params, config,
+        max_slots=args.slots, max_seq_len=args.max_seq_len or config.max_seq_len,
+        cache_mode="paged" if args.paged else "dense",
+        quantized_kv=args.quantized_kv,
+        decode_burst=args.burst,
+    )
+    if args.http is not None:
+        import time as _time
+
+        from metalchat_tpu_torch.engine.http import InferenceServer
+
+        server = InferenceServer(engine, tokenizer, model_name=args.model,
+                                 default_max_tokens=args.max_tokens,
+                                 eos_ids=eos_ids)
+        port = server.start(host=args.host, port=args.http)
+        print(f"listening on http://{args.host}:{port}", file=sys.stderr)
+        try:
+            while True:
+                _time.sleep(3600)
+        except KeyboardInterrupt:
+            server.stop()
+        return 0
+    requests = []
+    texts = {}
+    source = open(args.input) if args.input else sys.stdin
+    for line in source:
+        line = line.strip()
+        if not line:
+            continue
+        spec = _json.loads(line)
+        prompt_ids = tokenizer.encode(spec["prompt"], allow_special=True)
+        req = Request(
+            prompt=prompt_ids,
+            max_new_tokens=int(spec.get("max_tokens", args.max_tokens)),
+            sampler=SamplerConfig(
+                temperature=float(spec.get("temperature", 0.0)),
+                top_k=int(spec.get("top_k", 0)),
+                top_p=float(spec.get("top_p", 1.0)),
+            ),
+            eos_ids=eos_ids,
+        )
+        requests.append(req)
+        texts[id(req)] = spec["prompt"]
+    out = engine.run(requests)
+    for req in requests:
+        completion = out[req.request_id]
+        sys.stdout.write(_json.dumps({
+            "prompt": texts[id(req)],
+            "text": tokenizer.decode(completion.tokens),
+            "tokens": len(completion.tokens),
+            "finish_reason": completion.finish_reason,
+            "ttft_s": completion.ttft,
+        }) + "\n")
+    summary = engine.metrics()
+    print(f"served {len(requests)} requests: {summary}", file=sys.stderr)
+    return 0
+
+
+def _cmd_model(args) -> int:
+    store = ModelStore()
+    if args.action == "pull":
+        token = args.token or CredentialStore().get("huggingface.co")
+        model = store.pull(args.url, name=args.name, token=token, progress=_progress)
+        print(f"pulled {model.name} → {model.id}")
+    elif args.action == "list":
+        for m in store.list():
+            print(f"{m.id[:12]}  {m.name}  {m.manifest.model.get('url', '')}")
+    elif args.action == "remove":
+        ok = store.remove(args.ref)
+        if not ok:
+            print(f"model {args.ref!r} not found", file=sys.stderr)
+            return 1
+        print(f"removed {args.ref}")
+    return 0
+
+
+def _manifest_path(scope: str, model_ref: Optional[str]) -> Path:
+    if scope == "local":
+        return Path.cwd() / Manifest.FILENAME
+    if scope == "global":
+        return home_dir() / Manifest.FILENAME
+    store = ModelStore()
+    model = store.find(model_ref or "")
+    if model is None:
+        raise SystemExit(f"model {model_ref!r} not found")
+    return model.path / Manifest.FILENAME
+
+
+def _cmd_options(args) -> int:
+    path = _manifest_path(args.scope, getattr(args, "model", None))
+    manifest = Manifest.load(path) if path.exists() else Manifest()
+    if args.action == "list":
+        for k, v in sorted(manifest.options.items()):
+            print(f"{k} = {v}")
+        for k, v in sorted(manifest.inference.items()):
+            print(f"inference.{k} = {v}")
+    elif args.action == "get":
+        section, key = _split_option(args.key)
+        table = manifest.inference if section == "inference" else manifest.options
+        if key not in table:
+            return 1
+        print(table[key])
+    elif args.action == "set":
+        section, key = _split_option(args.key)
+        value: object = args.value
+        try:
+            value = int(args.value)
+        except ValueError:
+            try:
+                value = float(args.value)
+            except ValueError:
+                pass
+        (manifest.inference if section == "inference" else manifest.options)[key] = value
+        manifest.save(path)
+    elif args.action == "unset":
+        section, key = _split_option(args.key)
+        (manifest.inference if section == "inference" else manifest.options).pop(key, None)
+        manifest.save(path)
+    return 0
+
+
+def _split_option(key: str):
+    if key.startswith("inference."):
+        return "inference", key.split(".", 1)[1]
+    return "options", key
+
+
+def _cmd_credential(args) -> int:
+    creds = CredentialStore()
+    if args.action == "add":
+        creds.add(args.host, args.token)
+    elif args.action == "list":
+        for host in creds.list_hosts():
+            print(host)
+    elif args.action == "remove":
+        creds.remove(args.host)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="metalchat-tpu-torch")
+    sub = parser.add_subparsers(dest="command")
+
+    def add_infer_args(p):
+        p.add_argument("model", nargs="?", default="default")
+        p.add_argument("--system", default=None)
+        p.add_argument("--max-tokens", type=int, default=512)
+        p.add_argument("--max-seq-len", type=int, default=None)
+        p.add_argument("--quantize", choices=["int8", "int4", "w8a8", "w4a8"], default=None)
+        p.add_argument("--device", default="cuda",
+                       help="torch device (default: the card; 'cpu' runs the plain "
+                            "PyTorch versions of the kernels)")
+
+    prompt = sub.add_parser("prompt", help="one-shot completion")
+    add_infer_args(prompt)
+    prompt.add_argument("-c", "--content", default=None)
+    prompt.add_argument("--draft", default=None, metavar="MODEL",
+                        help="speculative decoding: draft model ref (not ported yet)")
+    prompt.add_argument("--n-draft", type=int, default=4,
+                        help="draft tokens proposed per verify round")
+    prompt.add_argument("--no-draft-check", dest="draft_check",
+                        action="store_false", default=True,
+                        help="skip the measured draft/target step-ratio check")
+    prompt.set_defaults(fn=_cmd_prompt)
+
+    stdin_p = sub.add_parser("-", help="prompt from stdin")
+    add_infer_args(stdin_p)
+    stdin_p.set_defaults(fn=_cmd_prompt, content=None)
+
+    checkout = sub.add_parser("checkout", help="interactive chat")
+    add_infer_args(checkout)
+    checkout.set_defaults(fn=_cmd_checkout)
+
+    serve = sub.add_parser("serve", help="batch-serve JSONL prompts")
+    add_infer_args(serve)
+    serve.add_argument("--input", default=None, help="JSONL file (default stdin)")
+    serve.add_argument("--http", type=int, default=None, metavar="PORT",
+                       help="serve an OpenAI-compatible HTTP API instead of JSONL")
+    serve.add_argument("--host", default="127.0.0.1")
+    serve.add_argument("--slots", type=int, default=8)
+    serve.add_argument("--burst", type=int, default=32,
+                       help="decode burst: tokens per dispatched decode program")
+    serve.add_argument("--paged", action="store_true")
+    serve.add_argument("--quantized-kv", action="store_true")
+    serve.add_argument("--pp", type=int, default=0, metavar="N",
+                       help="pipeline-parallel serving over N devices (not ported yet)")
+    serve.add_argument("--cp", type=int, default=0, metavar="N",
+                       help="context-parallel prefill over N devices (not ported yet)")
+    serve.set_defaults(fn=_cmd_serve)
+
+    model = sub.add_parser("model", help="manage models")
+    msub = model.add_subparsers(dest="action", required=True)
+    pull = msub.add_parser("pull")
+    pull.add_argument("url")
+    pull.add_argument("--name", default=None)
+    pull.add_argument("--token", default=None)
+    msub.add_parser("list")
+    remove = msub.add_parser("remove")
+    remove.add_argument("ref")
+    model.set_defaults(fn=_cmd_model)
+
+    options = sub.add_parser("options", help="manifest options")
+    osub = options.add_subparsers(dest="action", required=True)
+    for action in ("get", "set", "unset", "list"):
+        p = osub.add_parser(action)
+        p.add_argument("--scope", choices=["local", "global", "model"], default="local")
+        p.add_argument("--model", default=None)
+        if action in ("get", "set", "unset"):
+            p.add_argument("key")
+        if action == "set":
+            p.add_argument("value")
+    options.set_defaults(fn=_cmd_options)
+
+    credential = sub.add_parser("credential", help="auth tokens")
+    csub = credential.add_subparsers(dest="action", required=True)
+    add = csub.add_parser("add")
+    add.add_argument("host")
+    add.add_argument("token")
+    csub.add_parser("list")
+    rm = csub.add_parser("remove")
+    rm.add_argument("host")
+    credential.set_defaults(fn=_cmd_credential)
+    return parser
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not getattr(args, "command", None):
+        parser.print_help()
+        return 2
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

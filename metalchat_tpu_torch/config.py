@@ -284,3 +284,21 @@ def config_from_dict(cfg: Mapping[str, Any]) -> ModelConfig:
     raise ValueError(
         f"unsupported model config (model_type={mt!r}); this port covers the "
         "Llama, Gemma-3 and Mixtral families")
+
+
+def merge_options(config: ModelConfig, overrides: Mapping[str, Any]) -> ModelConfig:
+    """Apply dotted-path option overrides (the CLI manifest's ``[options]``,
+    merged over its scopes) to a config: the last path component names
+    the field."""
+    fields = {f.name for f in dataclasses.fields(config)}
+    updates: dict = {}
+    for path, value in overrides.items():
+        name = path.split(".")[-1]
+        if name not in fields:
+            raise KeyError(f"unknown option path {path!r}")
+        if name == "rope_scaling" and isinstance(value, Mapping):
+            value = RopeScaling(**value)
+        if name == "eos_token_ids":
+            value = _as_tuple(value)
+        updates[name] = value
+    return dataclasses.replace(config, **updates)

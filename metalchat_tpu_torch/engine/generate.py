@@ -120,6 +120,17 @@ class DecodeStep:
         state.pos.add_(1)
         return emitted
 
+    def _graph_route(self, device: torch.device) -> bool:
+        """Whether steps on ``device`` are captured and replayed: on the
+        card. The CPU tests override it to drive the route with a stand-in
+        graph."""
+        return device.type == "cuda"
+
+    @property
+    def captures(self) -> int:
+        """The graphs this step has captured."""
+        return len(self._graphs)
+
     @torch.no_grad()
     def advance(self, params: Params, state: DecodeState, record=None) -> torch.Tensor:
         """One step, in place; returns the emitted tokens ``[B]`` (on the
@@ -130,7 +141,7 @@ class DecodeStep:
         if dev not in self._eos:
             self._eos[dev] = _eos_tensor(self.eos_ids, dev)
         eos = self._eos[dev]
-        if dev.type != "cuda":
+        if not self._graph_route(dev):
             return self._body(params, state, eos, record)
         held = [*(getattr(state.cache, f.name) for f in dataclasses.fields(state.cache)),
                 state.last_tokens, state.pos, state.done]

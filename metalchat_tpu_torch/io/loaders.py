@@ -1,5 +1,6 @@
-"""HF Llama / Gemma-3 / Mixtral checkpoint → parameter tree (port of the JAX
-package's ``io/loaders.py`` ``load_params``, HF names only).
+"""HF Llama / Gemma-3 / Mixtral checkpoint ↔ parameter tree (port of the
+JAX package's ``io/loaders.py`` ``load_params`` and ``save_params``, HF
+names only).
 
 Linear weights are transposed from the checkpoint's ``[out, in]`` to
 ``[in, out]`` and stacked over layers, as in the JAX package. Gemma-3's
@@ -84,3 +85,52 @@ def load_params(doc: SafetensorsDocument, config: ModelConfig, *,
         "lm_head": lm_head.to(dev),
         "rope": make_rope_tables(config, max_seq_len, device=dev),
     }
+
+
+def save_params(params: Params, config: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Flatten a dense parameter tree back to HF-named CPU tensors (for
+    `io.safetensors.save_safetensors`): linear weights ``[out, in]`` again,
+    one tensor a layer, no lm_head when the embeddings are tied."""
+
+    def host(t: torch.Tensor) -> torch.Tensor:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError("save_params takes dense parameters, not quantized leaves")
+        return t.detach().contiguous().to("cpu")
+
+    out: Dict[str, torch.Tensor] = {
+        "model.embed_tokens.weight": host(params["embed"]),
+        "model.norm.weight": host(params["final_norm"]),
+    }
+    if not config.tie_word_embeddings:
+        out["lm_head.weight"] = host(params["lm_head"].T)
+    name_map = {
+        "attn_norm": "input_layernorm.weight",
+        "wq": "self_attn.q_proj.weight",
+        "wk": "self_attn.k_proj.weight",
+        "wv": "self_attn.v_proj.weight",
+        "wo": "self_attn.o_proj.weight",
+        "w1": "mlp.gate_proj.weight",
+        "w3": "mlp.up_proj.weight",
+        "w2": "mlp.down_proj.weight",
+        "q_norm": "self_attn.q_norm.weight",
+        "k_norm": "self_attn.k_norm.weight",
+        "post_attn_norm": "post_attention_layernorm.weight",
+        "post_ffn_norm": "post_feedforward_layernorm.weight",
+        "ffn_norm": ("pre_feedforward_layernorm.weight" if config.norm_weight_offset != 0.0
+                     else "post_attention_layernorm.weight"),
+    }
+    moe = bool(config.num_experts)
+    for key, stacked in params["layers"].items():
+        for i in range(config.num_layers):
+            w = stacked[i]
+            if moe and key == "router":
+                out[f"model.layers.{i}.block_sparse_moe.gate.weight"] = host(w.T)
+            elif moe and key in ("w1", "w2", "w3"):
+                for j in range(config.num_experts):
+                    out[f"model.layers.{i}.block_sparse_moe.experts.{j}.{key}.weight"] = (
+                        host(w[j].T))
+            elif key in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"):
+                out[f"model.layers.{i}.{name_map[key]}"] = host(w.T)
+            else:
+                out[f"model.layers.{i}.{name_map[key]}"] = host(w)
+    return out

@@ -1,9 +1,10 @@
-"""Zero-copy safetensors reader (a trimmed copy of the JAX package's
-``io/safetensors.py``: read side only, no native fast path).
+"""Zero-copy safetensors reader and a writer (a trimmed copy of the JAX
+package's ``io/safetensors.py``, no native fast path).
 
 Tensors come back as numpy views of the mmap; ``torch_tensor`` gives a CPU
 torch tensor with the checkpoint's dtype (bf16 is read as raw 16-bit words
-and reinterpreted, so numpy needs no bf16 type).
+and reinterpreted, so numpy needs no bf16 type). `save_safetensors` writes
+torch tensors (bf16 as its raw 16-bit words).
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ _DTYPES: Dict[str, np.dtype] = {
     "F64": np.dtype(np.float64),
     "I64": np.dtype(np.int64),
 }
+
+_TORCH_TAGS = {torch.bool: "BOOL", torch.int8: "I8", torch.uint8: "U8", torch.int16: "I16",
+               torch.float16: "F16", torch.bfloat16: "BF16", torch.int32: "I32",
+               torch.float32: "F32", torch.float64: "F64", torch.int64: "I64"}
 
 _MAX_HEADER_BYTES = 100 * 1024 * 1024
 
@@ -155,3 +160,37 @@ def open_safetensors(path: str | Path) -> SafetensorsDocument:
     if path.name.endswith(".index.json"):
         return ShardedSafetensorsDocument(path)
     return SafetensorsDocument.open(path)
+
+
+def _raw(name: str, t: torch.Tensor) -> Tuple[str, np.ndarray]:
+    """(safetensors tag, the tensor's bytes as a contiguous numpy array)."""
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype not in _TORCH_TAGS:
+        raise ValueError(f"cannot serialize dtype {t.dtype} for {name!r}")
+    if t.dtype == torch.bfloat16:
+        return "BF16", t.view(torch.int16).numpy()
+    return _TORCH_TAGS[t.dtype], t.numpy()
+
+
+def save_safetensors(path: str | Path, tensors: Mapping[str, torch.Tensor],
+                     metadata: Optional[Mapping[str, str]] = None) -> None:
+    """Serialize torch tensors to a safetensors file, in the order given,
+    the header padded to 8 bytes."""
+    header: Dict[str, Any] = {}
+    if metadata:
+        header["__metadata__"] = dict(metadata)
+    offset = 0
+    arrays = []
+    for name, t in tensors.items():
+        tag, arr = _raw(name, t)
+        header[name] = {"dtype": tag, "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+        arrays.append(arr)
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob += b" " * (-len(blob) % 8)
+    with Path(path).open("wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for arr in arrays:
+            f.write(arr.tobytes())

@@ -455,3 +455,28 @@ def test_moe_generate_graph_matches_eager_loop(card, b):
                    "decode_attention_update": 2 * 11}
     want_counts.update({k: n * 11 for k, n in chip_smoke.matvec_calls(cfg, b).items()})
     assert counts == want_counts
+
+
+def test_chat_session_replays_one_graph(card):
+    """The chat `Interpreter` on the fixture (W4A8, bf16, a dense cache of
+    96 positions, 4 sinks): two turns whose second reply rolls the cache,
+    one captured decode step for the session, ids, pos and cache equal to
+    `chip_smoke.eager_chat` on the card bit for bit."""
+    from metalchat_tpu_torch.chat.interpreter import Interpreter
+    from metalchat_tpu_torch.sampling import SamplerConfig
+    from metalchat_tpu_torch.text import load_tiktoken_model
+
+    params, cfg, fixture = chip_smoke.fixture_params(torch, "cuda")
+    tok = load_tiktoken_model(fixture / "tokenizer.model")
+    turns = [((("user", "def f(x):\n    "),), 24), ((("user", "return x"),), 24)]
+    session = Interpreter(params, cfg, tok, sampler=SamplerConfig.greedy(), max_seq_len=96,
+                          sink_tokens=4, max_reply_tokens=24)
+    got = []
+    for messages, _ in turns:
+        for role, text in messages:
+            session.write(text, role=role)
+        got.append(list(session.read_tokens()))
+    want, pos, cache, rolls = chip_smoke.eager_chat(params, cfg, tok, turns, 96, 4)
+    assert got == want and session.pos == pos and rolls >= 1
+    assert session.captures == 1
+    assert torch.equal(session.cache.k, cache.k) and torch.equal(session.cache.v, cache.v)

@@ -5,6 +5,9 @@
 * An entry point asked for the card without one raises, and a kernel
   wrapper given a tensor that is not on the CPU or a card raises: neither
   falls back to the plain version.
+* The text, chat and CLI layers load without the packages the card's
+  machine lacks (``regex``, ``jsonschema``, ``jinja2``): importing them
+  pulls in none of those, nor jax or the JAX package.
 """
 
 import ast
@@ -121,13 +124,35 @@ def test_wrappers_do_not_fall_back():
     "metalchat_tpu_torch.engine.serving", "metalchat_tpu_torch.ops.paged_attention",
     "metalchat_tpu_torch.ops.quant_matmul", "metalchat_tpu_torch.ops.ffn_block",
     "metalchat_tpu_torch.models.decode",
-    "metalchat_tpu_torch.text.tokenizer", "metalchat_tpu_torch.utils.profiling"])
+    "metalchat_tpu_torch.text.tokenizer", "metalchat_tpu_torch.utils.profiling",
+    "metalchat_tpu_torch.text", "metalchat_tpu_torch.text.pretokenize",
+    "metalchat_tpu_torch.chat", "metalchat_tpu_torch.chat.interpreter",
+    "metalchat_tpu_torch.chat.tools", "metalchat_tpu_torch.chat.hf_template",
+    "metalchat_tpu_torch.cli.main", "metalchat_tpu_torch.cli.store",
+    "metalchat_tpu_torch.io.repository"])
 def test_serving_modules_import_without_a_card(module):
-    """Importing a module of the serving slice builds and loads no kernel,
-    so it needs neither nvcc nor a card."""
+    """Importing a module of the serving, text, chat or CLI slice builds and
+    loads no kernel, so it needs neither nvcc nor a card."""
     import importlib
 
     from metalchat_tpu_torch.ops import _build
 
     importlib.import_module(module)
     assert _build._LIBS == {}
+
+
+@pytest.mark.parametrize("module", ["metalchat_tpu_torch.text", "metalchat_tpu_torch.chat",
+                                    "metalchat_tpu_torch.cli.main"])
+def test_text_chat_cli_import_no_optional_packages(module):
+    """In a fresh interpreter: after the import, none of regex, jsonschema,
+    jinja2, jax or metalchat_tpu is in ``sys.modules`` (jinja2 is imported
+    inside the HF template render only)."""
+    import subprocess
+    import sys
+
+    code = (f"import sys, {module}\n"
+            "banned = ('regex', 'jsonschema', 'jinja2', 'jax', 'metalchat_tpu')\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in banned))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
