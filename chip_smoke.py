@@ -101,6 +101,18 @@ Phases (any failure makes the script exit non-zero without a result line):
    the 8b-w4a8 params, 16 one-token steps after the main prompt on an int8
    dense, a bf16 dense and a paged cache: logits within ``check_logits`` of
    the fast route, one row-6 or row-7 launch a layer and nothing else.
+   speculative: ``speculative_generate`` with the 8b-w4a8 params as the
+   target and Llama-3.2-1B's widths (random bf16 weights, W8A8 unfused) as
+   the draft, dense bf16 caches, the main prompt, 64 tokens at n_draft 4:
+   three captured steps and one host read a round, launches exact a round
+   (465 row 1, 32 row 5, 48 flash for the prefills); ids and both caches
+   equal to the JAX loop's (``_windows=False``) bit for bit; ids equal to
+   ``generate``'s but at a parting that ``near_tie`` explains; decode tok/s
+   at ``_force_accept`` 3 and 0 against ``generate`` in turns; each
+   captured step's device ms; ``measure_step_ratio`` and
+   ``breakeven_accept_rate``. speculative-fixture: the fixture's W4A8
+   target and W8A8 draft in f32, the tie-free prompts, card against CPU:
+   ids and stats equal, ids equal to the greedy ``generate``'s.
 6. serve-fixture: the fixture through ``ContinuousBatchingEngine`` (6 greedy
    requests, 3 slots, chunks of 32, bursts of 4, f32 activations) in paged
    (pages of 16), dense int8 and dense activation-dtype mode, on the card
@@ -145,7 +157,9 @@ Phases (any failure makes the script exit non-zero without a result line):
    trained fixture in a temporary home: ``model pull``; ``serve`` of
    tests/test_fixture_e2e.py's prompt (first 16 ids against the library
    path on the CPU, printed beside its GOLDEN); ``prompt --quantize int4``
-   (row 11); ``checkout`` in a process of its own with two lines on stdin.
+   (row 11); ``prompt --draft`` with the checkout as its own draft (its reply the
+   greedy reply but at a ``near_tie`` parting); ``checkout`` in a process
+   of its own with two lines on stdin.
    cli-1b: a checkout at Llama-3.2-1B's published widths written to disk
    (random bf16 weights, 2.47 GB), ``model pull``, ``prompt --quantize
    w8a8``: load and quantize time, tokenize time, TTFT, tok/s, launches
@@ -949,6 +963,14 @@ A8_ROWS = (1, 2, 3, 5, 8, 16)
 # with and without the norm, int4 and int8.
 A8_EDGE = [("edge", 1003, 4128, 4, True), ("edge", 77, 14368, 8, True),
            ("edge", 4100, 96, 4, False), ("edge", 9, 2080, 8, False)]
+# The speculative path: the 8b-w4a8 verify window at 4 rows (A8_8B); the
+# Llama-3.2-1B draft, W8A8 unfused (the norm prologue on wq, wk, wv, w1 and
+# w3), at one row and at its 2-token window; its row 5 at hd 64 over the
+# draft's 582-position cache (the target's at hd 128 in the draft check).
+A8_1B_W8 = [("wq", 2048, 2048, 8, True), ("wk/wv", 512, 2048, 8, True),
+            ("wo", 2048, 2048, 8, False), ("w1/w3", 8192, 2048, 8, True),
+            ("w2", 2048, 8192, 8, False)]
+READ_CASES_SPEC = [([513], None), ([546], None), ([582], None)]
 # Row 10's row counts: one row (dp4a, each block's own codes), one n-tile
 # of the tensor-core tile (2, 5, 8) and two (16).
 FFN_ROWS = (1, 2, 5, 8, 16)
@@ -1089,6 +1111,16 @@ def mixtral_kernel_checks(sm: Smoke, gen, dev):
                     torch.float32)
 
 
+def speculative_kernel_checks(sm: Smoke, gen, dev):
+    """Rows 1, 4 and 5 at the speculative phase's shapes (A8_1B_W8)."""
+    check_a8(sm, A8_8B, 4, gen, dev)
+    for rows in (1, 2):
+        check_a8(sm, A8_1B_W8, rows, gen, dev)
+    check_decode_read(sm, 1, 32, 8, 582, 64, READ_CASES_SPEC, gen, dev)
+    check_decode_read(sm, 1, 32, 8, 256, 128, [([12], None), ([256], None)], gen, dev)
+    check_flash(sm, 1, 512, 32, 8, 582, 64, [(0, None)], gen, dev)
+
+
 def gemma_kernel_checks(sm: Smoke, gen, dev):
     """Rows 1, 3, 4, 5 and 8 (9) at Gemma-3-1B's shapes (hd 256)."""
     torch = sm.torch
@@ -1149,6 +1181,7 @@ def phase_kernels(sm: Smoke):
     for rows in FFN_ROWS:
         check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
     check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
+    speculative_kernel_checks(sm, gen, dev)
     gemma_kernel_checks(sm, gen, dev)
     mixtral_kernel_checks(sm, gen, dev)
     print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact; a8_quantize "
@@ -1909,6 +1942,302 @@ def phase_scan(sm: Smoke, main):
     return out
 
 
+# -- speculative decoding (engine/speculative.py) ---------------------------------
+
+SPEC_DRAFT = 4    # n_draft: 3 drafts and the target's verify of 4 tokens a round
+SPEC_NEW = 64
+SPEC_FORCED = (3, 0)  # _force_accept in the turns: every draft, then none
+
+
+def a8_calls_a_window(params, cfg) -> int:
+    """The fused matvec calls of one decode window of a dense Llama: one for
+    each act8 linear of a layer, fused or not, and lm_head's where it is
+    quantized (a tied bf16 lm_head is a torch.matmul)."""
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+
+    layers = params["layers"]
+    per_layer = sum(isinstance(layers.get(n), QuantizedTensor)
+                    for n in ("wqkv", "wq", "wk", "wv", "wo", "w13", "w1", "w3", "w2"))
+    return per_layer * cfg.num_layers + isinstance(params["lm_head"], QuantizedTensor)
+
+
+def spec_launches(counts, target, draft, n_draft: int, rounds: int, prefills: int):
+    """The launches of ``prefills`` speculative calls of ``rounds`` greedy
+    rounds in all, on dense caches in the activation dtype: a round is the
+    draft's 2-token window, its ``n_draft - 2`` one-token steps (row 5 a
+    layer each) and the target's ``n_draft``-token verify; windows of 2 or
+    more tokens attend through the plain attention. A prefill is one flash
+    launch a layer of each model."""
+    (tp, tcfg), (dp, dcfg) = target, draft
+    a8 = rounds * (a8_calls_a_window(dp, dcfg) * (n_draft - 1) + a8_calls_a_window(tp, tcfg))
+    return {**dict.fromkeys(counts, 0), "a8_matvec": a8, "a8_quantize": a8,
+            "decode_attention": rounds * dcfg.num_layers * (n_draft - 2),
+            "flash_attention": prefills * (tcfg.num_layers + dcfg.num_layers)}
+
+
+def make_1b_draft(torch):
+    """Llama-3.2-1B at its published widths, random bf16 weights from a
+    seeded torch.Generator, quantized as the CLI's ``--quantize w8a8`` does:
+    per-channel int8, unfused (7 matvec calls a layer), the tied lm_head
+    left in bf16."""
+    from metalchat_tpu_torch.config import LlamaConfig
+    from metalchat_tpu_torch.models.transformer import init_random_params
+    from metalchat_tpu_torch.quant.quantize import quantize_params
+
+    cfg = LlamaConfig.llama32_1b(max_seq_len=1024)
+    dense = init_random_params(cfg, seed=1, dtype=torch.bfloat16, max_seq_len=1024,
+                               device="cuda")
+    return cfg, quantize_params(dense, bits=8, group_size=None, act_bits=8)
+
+
+def near_tie(sm: Smoke, what: str, params, cfg, prompt, ids, got) -> str:
+    """Where speculative ids ``got`` part from the greedy ids ``ids`` of the
+    one-token route: at the first such index j, the one-token route's
+    logits (the prompt's prefill, then one-token steps over ids[:j] at
+    host positions, as `eager_generate` runs), and beside them a 2-token
+    verify window's first row on the same cache. The parting passes when
+    the one-token route's top-2 gap lies within `check_logits`'s limit of
+    its row, or when the one-token route chooses ``got[j]`` once its
+    attention rounds the softmax weights to the cache's dtype before
+    weighting the values, as a verify window's attention does (the JAX
+    reference's cast, `ops.reference.attention`; row 5 keeps them in f32).
+    Otherwise the phase fails."""
+    torch = sm.torch
+    from metalchat_tpu_torch.cache import KVCache
+    from metalchat_tpu_torch.models import decode
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.ops import reference
+
+    diff = [i for i, (a, b) in enumerate(zip(got, ids)) if a != b]
+    if not diff:
+        return "identical"
+    j, m, dev = diff[0], prompt.shape[1], prompt.device
+    sm.expect(j > 0, f"{what}: the prefill's token differs ({got[0]} against {ids[0]})")
+    cache = KVCache.create(cfg, 1, m + j + 2, device=dev)
+    forward(params, cache, prompt, 0, cfg)
+    for i in range(j - 1):
+        forward(params, cache, torch.tensor([[ids[i]]], device=dev), m + i, cfg)
+    snap = [t.clone() for t in (cache.k, cache.v)]
+
+    def step(tokens):
+        cache.k.copy_(snap[0])
+        cache.v.copy_(snap[1])
+        return forward(params, cache, torch.tensor([tokens], device=dev),
+                       torch.tensor(m + j - 1, device=dev), cfg)[0][0, 0].float()
+
+    def window_attention(q, k, v, layer, lengths, *, scale, window):
+        pos = (lengths.long() - 1)[:, None]
+        mask = reference.causal_mask(pos, k.shape[3], lengths[:, None, None],
+                                     None if window < 0 else window)
+        return reference.attention(q[:, None], k[layer], v[layer], mask, scale=scale)[:, 0]
+
+    one = step([ids[j - 1]])
+    win = step([ids[j - 1], got[j]])
+    kernel_attention = decode.decode_attention_stacked
+    decode.decode_attention_stacked = window_attention
+    try:
+        rounded = step([ids[j - 1]])
+    finally:
+        decode.decode_attention_stacked = kernel_attention
+    top = torch.topk(one, 2)
+    gap = (top.values[0] - top.values[1]).item()
+    limit = RTOL["bfloat16"] * top.values[0].abs().item() + LOGIT_SHARE * one.abs().max().item()
+    routes = (f"index {j} of {len(ids)}: one-token route {int(one.argmax())} (top-2 gap {gap}, "
+              f"limit {limit}), verify window {int(win.argmax())} (max |window - one-token| "
+              f"{(win - one).abs().max().item()}), one-token route with the window's "
+              f"attention {int(rounded.argmax())}")
+    sm.expect(int(one.argmax()) == ids[j],
+              f"{what}: the one-token route does not reproduce its run's id at {routes}")
+    if gap <= limit:
+        return f"a near tie at {routes}"
+    sm.expect(int(rounded.argmax()) == got[j],
+              f"{what}: ids part with no near tie at {routes}")
+    return (f"parted at {routes}: the window attention's rounded softmax weights alone "
+            f"move the target's choice")
+
+
+def phase_speculative(sm: Smoke, main):
+    """Speculative decoding at full width: the main phase's 8b-w4a8 params as
+    the target, Llama-3.2-1B W8A8 as the draft, dense bf16 caches, the main
+    prompt (512 tokens), 64 new tokens at n_draft 4. The graph route's
+    launches held exactly (`spec_launches`), one host read a round, three
+    captures; its ids and both caches equal the JAX loop's (`_windows=False`,
+    eager, a host read a draft) bit for bit; its ids equal `generate`'s
+    greedy ids on a dense bf16 cache but at a near tie (`near_tie`). Then
+    decode tok/s in turns (speculative, generate, generate, speculative) at
+    ``_force_accept`` 3 and 0, 64 / (t(65) - t(1)) each; each captured
+    step's device ms (20 replays between CUDA events); the draft check
+    (`measure_step_ratio`, `breakeven_accept_rate`)."""
+    torch = sm.torch
+    import importlib
+
+    from metalchat_tpu_torch.cache import KVCache
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    spec = importlib.import_module("metalchat_tpu_torch.engine.speculative")
+    tcfg, tparams, _, _, _, prompt = main
+    t0 = time.perf_counter()
+    dcfg, dparams = make_1b_draft(torch)
+    torch.cuda.synchronize()
+    print(f"speculative draft 1b-w8a8: {weight_bytes(dparams) / 1e9:.3f} GB of weights, "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda")
+    m = prompt.shape[1]
+
+    def caches(n_new):
+        total = m + n_new + SPEC_DRAFT + 2
+        return (KVCache.create(tcfg, 1, total, device=dev),
+                KVCache.create(dcfg, 1, total, device=dev))
+
+    def run(n_new, **kw):
+        tc, dc = caches(n_new)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids, stats = spec.speculative_generate(tparams, tcfg, dparams, dcfg, prompt,
+                                               max_new_tokens=n_new, n_draft=SPEC_DRAFT,
+                                               target_cache=tc, draft_cache=dc, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, ids.tolist(), stats, (tc, dc), dict(spec.LAST_RUN)
+
+    captures = []
+    reset_launch_counts()
+    with timed_captures(torch, spec, captures):
+        wall, ids, stats, graph_caches, info = run(SPEC_NEW)
+    counts = launch_counts()
+    want = spec_launches(counts, (tparams, tcfg), (dparams, dcfg), SPEC_DRAFT, info["rounds"], 1)
+    print(f"speculative 8b-w4a8 / 1b-w8a8: {len(ids)} tokens in {info['rounds']} rounds "
+          f"({1e3 * wall:.1f} ms, prefills and captures included), stats {stats}, "
+          f"{info['host_reads'] / info['rounds']:.2f} host reads a round, {info['captures']} "
+          f"captures ({', '.join(f'{1e3 * s:.3f}' for s in captures)} ms); launches {counts}",
+          flush=True)
+    sm.expect(info["captures"] == 3 and info["host_reads"] == info["rounds"],
+              f"speculative: {info}")
+    sm.expect(counts == want, f"speculative: launches {counts} != expected {want}")
+
+    _, eager_ids, eager_stats, eager_caches, eager_info = run(SPEC_NEW, _windows=False)
+    sm.expect(eager_ids == ids and eager_stats == stats,
+              f"speculative: graph route {ids} {stats} against the eager loop "
+              f"{eager_ids} {eager_stats}")
+    for g, e, model in zip(graph_caches, eager_caches, ("target", "draft")):
+        sm.exact(g.k, e.k, f"speculative: {model} cache k, graph route against the eager loop")
+        sm.exact(g.v, e.v, f"speculative: {model} cache v, graph route against the eager loop")
+    ref = generate(tparams, tcfg, prompt, max_new_tokens=SPEC_NEW,
+                   cache=KVCache.create(tcfg, 1, m + SPEC_NEW, device=dev))[0].tolist()
+    verdict = near_tie(sm, "speculative", tparams, tcfg, prompt, ref, ids)
+    print(f"speculative: graph route equal to the eager loop (ids, stats, both caches; the "
+          f"loop made {eager_info['host_reads'] / eager_info['rounds']:.2f} host reads a "
+          f"round); against generate's greedy ids: {verdict}", flush=True)
+
+    def timed(route, n_new, force):
+        if route == "speculative":
+            return run(n_new, _force_accept=force)[0]
+        cache = KVCache.create(tcfg, 1, m + n_new, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        generate(tparams, tcfg, prompt, max_new_tokens=n_new, cache=cache)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    turns = {}
+    for force in SPEC_FORCED:
+        for route in ("speculative", "generate", "generate", "speculative"):
+            first = timed(route, 1, force)
+            total = timed(route, SPEC_NEW + 1, force)
+            turns.setdefault(force, []).append((route, SPEC_NEW / (total - first)))
+        rounds = spec.LAST_RUN["rounds"]
+        print(f"speculative _force_accept={force}: decode tok/s in turns "
+              + ", ".join(f"{r} {v:.2f}" for r, v in turns[force])
+              + f" ({rounds} rounds for {SPEC_NEW + 1} tokens, dense bf16 caches, captures "
+              f"included)", flush=True)
+    # Where a round's time goes: the captured steps replayed 20 times between
+    # CUDA events, each sequence one the round allows (a draft step follows
+    # the window, which resets its position): the window alone, the window
+    # and one step, the verify alone, and whole rounds without the host read.
+    tc, dc = caches(SPEC_NEW)
+    forward(tparams, tc, prompt, 0, tcfg)
+    forward(dparams, dc, prompt, 0, dcfg)
+    steps = spec.GreedyWindows(tparams, tcfg, tc, dparams, dcfg, dc, SPEC_DRAFT)
+    steps.round(int(prompt[0, -1]), int(prompt[0, -2]), m)
+    graphs = {key[0]: graph for key, graph in steps._graphs.items()}
+
+    def replay_ms(names):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(20):
+            for name in names:
+                graphs[name].replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 20
+
+    window = replay_ms(["draft_window"])
+    step_ms = {"draft_window": window,
+               "draft_step": replay_ms(["draft_window", "draft_step"]) - window,
+               "verify": replay_ms(["verify"]),
+               "round": replay_ms(["draft_window"] + ["draft_step"] * (SPEC_DRAFT - 2)
+                                  + ["verify"])}
+    print(f"speculative round, device ms a replay: {step_ms}", flush=True)
+    ratio = spec.measure_step_ratio(tparams, tcfg, dparams, dcfg)
+    alpha = spec.breakeven_accept_rate(ratio, n_draft=SPEC_DRAFT)
+    print(f"speculative draft check: measure_step_ratio(8b-w4a8, 1b-w8a8) = {ratio:.4f}, "
+          f"breakeven_accept_rate(n_draft={SPEC_DRAFT}) = {alpha}", flush=True)
+    return counts
+
+
+def phase_speculative_fixture(sm: Smoke):
+    """The trained fixture in f32 (tie-free, as serve-fixture runs): the W4A8
+    fused target and a W8A8 fused draft of the same weights, dense f32
+    caches, the three 48-token prompts of eval_tokens[1440:1584], 32 new
+    tokens each at n_draft 4: card against the CPU's plain path, the same
+    ids and stats; the card's ids equal the target's greedy `generate`;
+    launches exact."""
+    torch = sm.torch
+    import importlib
+
+    import numpy as np
+
+    from metalchat_tpu_torch.cache import KVCache
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    spec = importlib.import_module("metalchat_tpu_torch.engine.speculative")
+    runs, new, length = {}, 32, 96
+    for where, device in (("cpu", "cpu"), ("card", "cuda")):
+        tp, cfg, fixture = fixture_params(torch, device, torch.float32)
+        dp, _, _ = fixture_params(torch, device, torch.float32, W8A8)
+        tokens = np.load(fixture / "eval_tokens.npy").astype(np.int64)
+        prompts = torch.from_numpy(tokens[FIXTURE_INT_PROMPTS].reshape(3, 48)).to(device)
+        reset_launch_counts()
+        runs[where], rounds = [], 0
+        for p in prompts:
+            tc, dc = (KVCache.create(c, 1, length, dtype=torch.float32, device=device)
+                      for c in (cfg, cfg))
+            ids, stats = spec.speculative_generate(tp, cfg, dp, cfg, p[None], max_new_tokens=new,
+                                                   n_draft=SPEC_DRAFT, target_cache=tc,
+                                                   draft_cache=dc)
+            runs[where].append((ids.tolist(), stats))
+            rounds += spec.LAST_RUN["rounds"]
+        if where == "card":
+            counts = launch_counts()
+            want = spec_launches(counts, (tp, cfg), (dp, cfg), SPEC_DRAFT, rounds, len(prompts))
+            greedy = [generate(tp, cfg, p[None], max_new_tokens=new,
+                               cache=KVCache.create(cfg, 1, length, dtype=torch.float32,
+                                                    device=device))[0].tolist()
+                      for p in prompts]
+    rates = [s["accept_rate"] for _, s in runs["card"]]
+    print(f"speculative-fixture (W4A8 target, W8A8 draft, f32): accept rates {rates}, "
+          f"tokens a round {[s['tokens_per_iteration'] for _, s in runs['card']]}; card "
+          f"equal to the CPU: {runs['card'] == runs['cpu']}; launches {counts}", flush=True)
+    sm.expect(runs["card"] == runs["cpu"], f"speculative-fixture: card {runs['card']} "
+              f"against the CPU {runs['cpu']}")
+    sm.expect([ids for ids, _ in runs["card"]] == greedy,
+              f"speculative-fixture: ids against generate's greedy {greedy}")
+    sm.expect(counts == want, f"speculative-fixture: launches {counts} != expected {want}")
+    return counts
+
+
 # -- phases 6-8: serving ------------------------------------------------------
 
 W4A8 = dict(bits=4, group_size=None, act_bits=8)
@@ -2150,12 +2479,14 @@ def check_kept(sm: Smoke, what: str, bursts) -> int:
 
 
 @contextlib.contextmanager
-def timed_captures(torch):
-    """A context in which engines capture through a CountedGraph that
-    records each capture's wall time (synchronized) on the graph."""
-    from metalchat_tpu_torch.engine import serving
+def timed_captures(torch, module=None, seconds=None):
+    """A context in which ``module`` (default `engine.serving`) captures
+    through a CountedGraph that records each capture's wall time
+    (synchronized) on the graph, and appends it to ``seconds`` if given."""
+    if module is None:
+        from metalchat_tpu_torch.engine import serving as module
 
-    base = serving.CountedGraph
+    base = module.CountedGraph
 
     class Timed(base):
         def capture(self, fn):
@@ -2164,13 +2495,15 @@ def timed_captures(torch):
             out = super().capture(fn)
             torch.cuda.synchronize()
             self.seconds = time.perf_counter() - t
+            if seconds is not None:
+                seconds.append(self.seconds)
             return out
 
-    serving.CountedGraph = Timed
+    module.CountedGraph = Timed
     try:
         yield
     finally:
-        serving.CountedGraph = base
+        module.CountedGraph = base
 
 
 def graph_report(torch, engine) -> str:
@@ -2826,6 +3159,35 @@ def run_cli(argv):
     return out.getvalue(), err.getvalue(), sessions
 
 
+@contextlib.contextmanager
+def recorded_replies():
+    """Records the ids of CLI replies made in this process: ``greedy`` the
+    chat session's (`Interpreter.read_tokens`), ``prompt`` and
+    ``speculative`` the rendered prompt and ids of `speculative_generate`."""
+    import importlib
+
+    interp = importlib.import_module("metalchat_tpu_torch.chat.interpreter")
+    spec = importlib.import_module("metalchat_tpu_torch.engine.speculative")
+    read_tokens, spec_generate = interp.Interpreter.read_tokens, spec.speculative_generate
+    ids = {"greedy": []}
+
+    def reading(self):
+        for t in read_tokens(self):
+            ids["greedy"].append(t)
+            yield t
+
+    def speculating(*args, **kwargs):
+        out, stats = spec_generate(*args, **kwargs)
+        ids["prompt"], ids["speculative"] = args[4], out.tolist()
+        return out, stats
+
+    interp.Interpreter.read_tokens, spec.speculative_generate = reading, speculating
+    try:
+        yield ids
+    finally:
+        interp.Interpreter.read_tokens, spec.speculative_generate = read_tokens, spec_generate
+
+
 def greedy_manifest(ref: str) -> None:
     """[inference.sampling] temperature = 0 in a stored model's manifest."""
     from metalchat_tpu_torch.cli.store import Manifest, ModelStore
@@ -2842,9 +3204,13 @@ def phase_cli_fixture(sm: Smoke):
     PROMPT at temperature 0, its first 16 ids against the library path on
     the CPU in bf16 (`generate`), printed beside GOLDEN (f32); ``prompt
     --quantize int4`` with a greedy manifest (row 11 each decode step);
+    ``prompt --draft`` with the checkout as its own draft (the step-ratio
+    check, then speculative decoding at n_draft 4): its reply equal to the
+    greedy ``prompt`` reply, or parting from it at a near tie (`near_tie`:
+    bf16 logits of a verify window and of a one-token step may round apart);
     ``checkout`` as a process of its own with two lines on stdin. Launches
-    exact in each: the engine's own counters (its summary on stderr) for
-    serve, the session's turns for prompt and checkout."""
+    exact in each but ``--draft``: the engine's own counters (its summary on
+    stderr) for serve, the session's turns for prompt and checkout."""
     torch = sm.torch
     import ast
     import os
@@ -2905,6 +3271,29 @@ def phase_cli_fixture(sm: Smoke):
                   f"cli-fixture prompt: {session.turns}")
         sm.expect(counts == want, f"cli-fixture prompt: launches {counts} != expected {want}")
         out["int4"] = counts
+
+        with recorded_replies() as ids:
+            greedy, _, _ = run_cli(["prompt", "pyllama", "-c", content, "--max-tokens", 32])
+            reset_launch_counts()
+            stdout, stderr, sessions = run_cli(
+                ["prompt", "pyllama", "-c", content, "--max-tokens", 32, "--draft", "pyllama",
+                 "--n-draft", SPEC_DRAFT])
+            counts = launch_counts()
+        target = sessions[0][0]
+        drafted = [t for t in ids["speculative"] if t not in target.stop_ids]
+        verdict = "identical" if stdout == greedy else near_tie(
+            sm, "cli-fixture prompt --draft", target.params, target.config,
+            ids["prompt"].cuda(), ids["greedy"], drafted)
+        notes = [line for line in stderr.splitlines() if line.startswith("[speculative]")]
+        print(f"cli-fixture prompt --draft (the checkout as its own draft, n_draft "
+              f"{SPEC_DRAFT}, bf16): {stdout!r}; against the greedy prompt's reply: "
+              f"{verdict}; {notes}; launches {counts}", flush=True)
+        sm.expect((stdout == greedy) == (drafted == ids["greedy"]),
+                  f"cli-fixture prompt --draft: ids {drafted} and {ids['greedy']}")
+        sm.expect(len(notes) == 2 and "accept_rate=" in notes[1]
+                  and counts["decode_attention"] > 0 and counts["flash_attention"] > 0,
+                  f"cli-fixture prompt --draft: {notes}, launches {counts}")
+        out["draft"] = counts
 
         proc = subprocess.run(
             [sys.executable, "-c", CHECKOUT_DRIVER, "checkout", "pyllama", "--max-tokens", "16"],
@@ -3909,6 +4298,7 @@ def main() -> int:
     t_start = time.perf_counter()
     ffn_run = int4_run = stream_counts = gemma_run = serve_gemma = None
     mixtral_run = scan_run = serve_mixtral = chat_counts = cli_counts = cli_1b = None
+    spec_counts = spec_fixture = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -3935,6 +4325,8 @@ def main() -> int:
         mixtral_run = sm.phase("mixtral", lambda: phase_mixtral(sm, dev_name))
         if main_run is not None:
             scan_run = sm.phase("scan", lambda: phase_scan(sm, main_run))
+            spec_counts = sm.phase("speculative", lambda: phase_speculative(sm, main_run))
+        spec_fixture = sm.phase("speculative-fixture", lambda: phase_speculative_fixture(sm))
         with timed_captures(torch):  # the engines' captures, timed
             fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
             serve = None
@@ -3983,7 +4375,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if (sm.failures or not smi or rows is None or None in (
-            stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b)):
+            stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b, spec_counts,
+            spec_fixture)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -3995,7 +4388,9 @@ def main() -> int:
                f"generate {MIXTRAL_LABEL}": mixtral_counts,
                f"serve {MIXTRAL_LABEL} paged": serve_mixtral["paged"]["counts"],
                "scan 8b-w4a8": scan_run["counts"], "chat 8b-w4a8": chat_counts,
-               "cli 1b-w8a8": cli_1b, "cli-fixture int4": cli_counts["int4"]}
+               "cli 1b-w8a8": cli_1b, "cli-fixture int4": cli_counts["int4"],
+               "speculative 8b-w4a8/1b-w8a8": spec_counts,
+               "speculative-fixture": spec_fixture, "cli-fixture --draft": cli_counts["draft"]}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

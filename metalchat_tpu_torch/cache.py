@@ -90,16 +90,21 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor, start_pos) -> None:
-    """cache ``[B, n_kv, T(, hd)]`` ← new ``[B, n_kv, S(, hd)]`` at a shared
-    int or per-row ``[B]`` start position, in place."""
+    """cache ``[B, n_kv, T(, hd)]`` ← new ``[B, n_kv, S(, hd)]`` at
+    ``start_pos``, in place. An int writes a slice. An integer tensor, 0-d
+    (shared) or ``[B]`` (per row), writes through indices computed on the
+    cache's device and reads nothing back, so a captured window can write
+    with it; both routes write the same bytes."""
     s = new.shape[2]
-    if torch.is_tensor(start_pos) and start_pos.ndim == 0:
-        start_pos = int(start_pos)
-    if isinstance(start_pos, int):
+    if not torch.is_tensor(start_pos):
         cache[:, :, start_pos:start_pos + s] = new
         return
-    for b, p in enumerate(start_pos.tolist()):
-        cache[b, :, p:p + s] = new[b]
+    b, dev = cache.shape[0], cache.device
+    offsets = start_pos.to(device=dev, dtype=torch.int64).reshape(-1).expand(b)
+    positions = offsets[:, None] + torch.arange(s, device=dev)[None, :]
+    rows = torch.arange(b, device=dev)[:, None]
+    # Advanced indices on dims 0 and 2 around a slice move first: [B, S, n_kv(, hd)].
+    cache[rows, :, positions] = new.transpose(1, 2)
 
 
 def update_layer_cache(cache_k, cache_v, k, v, start_pos):

@@ -18,9 +18,12 @@ kernel's scheme; int8/int4: weight-only, group 32). ``--device`` defaults to
 versions of the kernels. Activations are bf16 on the card and f32 on the
 CPU. The store and manifests are the JAX package's (`cli.store`).
 
-``prompt --draft`` (speculative decoding) and ``serve --pp/--cp`` (pipeline
-and context parallelism) parse and raise `NotImplementedError`: they are
-not ported yet (ROADMAP.md, Queue A items 6 and 9).
+``prompt --draft <model>`` decodes greedily with speculative decoding
+(`engine.speculative`): the draft proposes ``--n-draft`` tokens a round and
+the target verifies them, after a measured check of the draft/target step
+ratio that ``--no-draft-check`` skips. ``serve --pp/--cp`` (pipeline and
+context parallelism) parse and raise `NotImplementedError`: they are not
+ported yet (ROADMAP.md, Queue A item 9).
 """
 
 from __future__ import annotations
@@ -123,10 +126,6 @@ def _load_session(ref: str, args):
 
 
 def _cmd_prompt(args) -> int:
-    if getattr(args, "draft", None):
-        raise NotImplementedError(
-            "prompt --draft: speculative decoding is not ported to this package yet "
-            "(ROADMAP.md, Queue A item 6)")
     content = args.content
     if content is None:
         content = sys.stdin.read()
@@ -134,11 +133,63 @@ def _cmd_prompt(args) -> int:
     if args.system:
         session.write(args.system, role="system")
     session.write(content, role="user")
+    if getattr(args, "draft", None):
+        return _prompt_speculative(args, session)
     for chunk in session.read_stream():
         sys.stdout.write(chunk)
         sys.stdout.flush()
     sys.stdout.write("\n")
     return 0
+
+
+def _prompt_speculative(args, session) -> int:
+    """One-shot completion through draft/target speculative decoding: the
+    session renders the prompt (its templates and tokenizer), the draft
+    model proposes and the target verifies, so the reply is exactly the
+    target's greedy decode (`engine.speculative`)."""
+    import torch
+
+    from metalchat_tpu_torch.engine.speculative import speculative_generate
+
+    draft = _load_session(args.draft, args)
+    if getattr(args, "draft_check", True):
+        _warn_futile_speculation(args, session, draft)
+    session.write_header(session.assistant_role)
+    prompt_tokens = torch.tensor([session._buffer], dtype=torch.int64)
+    tokens, stats = speculative_generate(
+        session.params, session.config, draft.params, draft.config, prompt_tokens,
+        max_new_tokens=args.max_tokens, n_draft=args.n_draft, temperature=0.0,
+        eos_ids=tuple(session.stop_ids))
+    out = [int(t) for t in tokens if int(t) not in session.stop_ids]
+    sys.stdout.write(session.tokenizer.decode(out))
+    sys.stdout.write("\n")
+    sys.stderr.write(
+        f"[speculative] accept_rate={stats['accept_rate']:.2f} "
+        f"tokens/iteration={stats['tokens_per_iteration']:.2f}\n")
+    return 0
+
+
+def _warn_futile_speculation(args, session, draft) -> None:
+    """Measure t_draft / t_target (`measure_step_ratio`) and warn when the
+    breakeven accept rate it implies is above 0.85, where speculation is
+    likely to slow decode down. A failed measurement raises: on the card it
+    would be a kernel's fault. ``--no-draft-check`` skips it."""
+    from metalchat_tpu_torch.engine.speculative import (
+        breakeven_accept_rate,
+        measure_step_ratio,
+    )
+
+    ratio = measure_step_ratio(session.params, session.config, draft.params, draft.config)
+    alpha = breakeven_accept_rate(ratio, n_draft=args.n_draft)
+    if alpha is None or alpha > 0.85:
+        need = "unattainable" if alpha is None else f"{alpha:.2f}"
+        sys.stderr.write(
+            f"[speculative] WARNING: draft step costs {ratio:.2f}x the target step — "
+            f"breakeven accept rate {need} (> 0.85); this configuration is likely "
+            f"to SLOW decode down. Use a much smaller draft or drop --draft.\n")
+    else:
+        sys.stderr.write(f"[speculative] step ratio {ratio:.2f}, breakeven accept rate "
+                         f"{alpha:.2f}\n")
 
 
 def _cmd_checkout(args) -> int:
@@ -335,7 +386,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_infer_args(prompt)
     prompt.add_argument("-c", "--content", default=None)
     prompt.add_argument("--draft", default=None, metavar="MODEL",
-                        help="speculative decoding: draft model ref (not ported yet)")
+                        help="speculative decoding: draft model ref")
     prompt.add_argument("--n-draft", type=int, default=4,
                         help="draft tokens proposed per verify round")
     prompt.add_argument("--no-draft-check", dest="draft_check",

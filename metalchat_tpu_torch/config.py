@@ -1,8 +1,8 @@
 """Model configuration (Llama, Gemma-3 and Mixtral families).
 
 A trimmed copy of the JAX package's ``config.py``: the same frozen dataclasses
-and the same HF ``config.json`` mapping, so one checkpoint directory
-configures both packages identically. The GPT-2 config belongs to a later
+and the same HF ``config.json`` and Meta ``params.json`` mappings, so one
+checkpoint directory configures both packages identically. The GPT-2 config belongs to a later
 slice of the port.
 """
 
@@ -13,6 +13,10 @@ import json
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Mapping, Optional, Tuple
+
+
+def _round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
 
 
 @dataclass(frozen=True)
@@ -102,10 +106,28 @@ class LlamaConfig(ModelConfig):
         )
 
     @staticmethod
+    def llama32_3b(**kw: Any) -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=128256, hidden_size=3072, intermediate_size=8192,
+            num_layers=28, num_heads=24, num_kv_heads=8, head_dim=128,
+            rope_theta=500000.0, rope_scaling=RopeScaling(factor=32.0),
+            tie_word_embeddings=True, **kw,
+        )
+
+    @staticmethod
     def llama31_8b(**kw: Any) -> "LlamaConfig":
         return LlamaConfig(
             vocab_size=128256, hidden_size=4096, intermediate_size=14336,
             num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+            rope_theta=500000.0, rope_scaling=RopeScaling(),
+            tie_word_embeddings=False, **kw,
+        )
+
+    @staticmethod
+    def llama31_70b(**kw: Any) -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+            num_layers=80, num_heads=64, num_kv_heads=8, head_dim=128,
             rope_theta=500000.0, rope_scaling=RopeScaling(),
             tie_word_embeddings=False, **kw,
         )
@@ -141,6 +163,32 @@ class LlamaConfig(ModelConfig):
             tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
             bos_token_id=int(cfg.get("bos_token_id", 128000)),
             eos_token_ids=_as_tuple(cfg.get("eos_token_id", (128001, 128009))),
+        )
+
+    @staticmethod
+    def from_meta_params(cfg: Mapping[str, Any]) -> "LlamaConfig":
+        """Map a Meta ``params.json``: the FFN width is derived from ``dim``
+        (Llama's 2·4·dim/3, times ``ffn_dim_multiplier``, rounded up to
+        ``multiple_of``); embeddings are tied, as the JAX package maps them."""
+        dim = int(cfg["dim"])
+        heads = int(cfg["n_heads"])
+        inter = int(2 * (4 * dim) / 3)
+        if "ffn_dim_multiplier" in cfg:
+            inter = int(inter * float(cfg["ffn_dim_multiplier"]))
+        inter = _round_up(inter, int(cfg.get("multiple_of", 256)))
+        scaling = RopeScaling() if cfg.get("use_scaled_rope") else None
+        return LlamaConfig(
+            vocab_size=int(cfg.get("vocab_size", 128256)),
+            hidden_size=dim,
+            intermediate_size=inter,
+            num_layers=int(cfg["n_layers"]),
+            num_heads=heads,
+            num_kv_heads=int(cfg.get("n_kv_heads", heads)),
+            head_dim=dim // heads,
+            rms_norm_eps=float(cfg.get("norm_eps", 1e-5)),
+            rope_theta=float(cfg.get("rope_theta", 500000.0)),
+            rope_scaling=scaling,
+            tie_word_embeddings=True,
         )
 
 
@@ -266,7 +314,8 @@ def _as_tuple(v: Any) -> Tuple[int, ...]:
 
 
 def load_config(path: str | Path) -> ModelConfig:
-    """Load a Llama, Gemma-3 or Mixtral config from a HF ``config.json``."""
+    """Load a Llama, Gemma-3 or Mixtral config from a HF ``config.json``, or a
+    Llama config from a Meta ``params.json``."""
     return config_from_dict(json.loads(Path(path).read_text()))
 
 
@@ -281,6 +330,8 @@ def config_from_dict(cfg: Mapping[str, Any]) -> ModelConfig:
         return MixtralConfig.from_hf_config(cfg)
     if mt == "llama" or "Llama" in archs:
         return LlamaConfig.from_hf_config(cfg)
+    if "dim" in cfg and "n_layers" in cfg:  # Meta params.json has no model_type
+        return LlamaConfig.from_meta_params(cfg)
     raise ValueError(
         f"unsupported model config (model_type={mt!r}); this port covers the "
         "Llama, Gemma-3 and Mixtral families")

@@ -1,4 +1,5 @@
-"""Generation loops, continuous-batching serving and its HTTP front end."""
+"""Generation loops, speculative decoding, continuous-batching serving and
+its HTTP front end."""
 
 from metalchat_tpu_torch.engine.generate import (  # noqa: F401
     DecodeState,
@@ -13,6 +14,12 @@ from metalchat_tpu_torch.engine.serving import (  # noqa: F401
     ContinuousBatchingEngine,
     Request,
 )
+from metalchat_tpu_torch.engine.speculative import (  # noqa: F401
+    breakeven_accept_rate,
+    measure_step_ratio,
+    speculative_generate,
+)
 
 __all__ = ["Completion", "ContinuousBatchingEngine", "DecodeState", "PageAllocator",
-           "Request", "generate", "generate_stream", "make_decode_step", "make_prefill"]
+           "Request", "breakeven_accept_rate", "generate", "generate_stream",
+           "make_decode_step", "make_prefill", "measure_step_ratio", "speculative_generate"]

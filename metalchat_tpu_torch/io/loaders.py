@@ -1,6 +1,6 @@
-"""HF Llama / Gemma-3 / Mixtral checkpoint ↔ parameter tree (port of the
-JAX package's ``io/loaders.py`` ``load_params`` and ``save_params``, HF
-names only).
+"""HF Llama / Gemma-3 / Mixtral and Meta Llama checkpoints ↔ parameter tree
+(port of the JAX package's ``io/loaders.py`` ``load_params`` and
+``save_params``).
 
 Linear weights are transposed from the checkpoint's ``[out, in]`` to
 ``[in, out]`` and stacked over layers, as in the JAX package. Gemma-3's
@@ -11,6 +11,10 @@ Mixtral's sparse-MoE names, ``block_sparse_moe.gate`` and
 ``block_sparse_moe.experts.N.w{1,2,3}`` (w1 the gate, w3 the up and w2 the
 down projection), stack to the router ``[L, H, E]`` and the experts ``[L, E,
 in, out]``.
+
+A Meta-format checkpoint (``source="meta"``) is renamed to HF names in
+place, its lm_head aliased to the embedding when missing, and its q/k rows
+permuted from Meta's interleaved rope layout to HF's half-split one.
 """
 
 from __future__ import annotations
@@ -24,18 +28,63 @@ from metalchat_tpu_torch.device import resolve_device
 from metalchat_tpu_torch.io.safetensors import SafetensorsDocument
 from metalchat_tpu_torch.models.transformer import Params, make_rope_tables
 
+# Meta checkpoint names → HF names.
+_META_RENAMES = [
+    (r"^tok_embeddings\.weight$", "model.embed_tokens.weight"),
+    (r"^norm\.weight$", "model.norm.weight"),
+    (r"^output\.weight$", "lm_head.weight"),
+    (r"^layers\.(\d+)\.attention\.wq\.weight$", r"model.layers.\1.self_attn.q_proj.weight"),
+    (r"^layers\.(\d+)\.attention\.wk\.weight$", r"model.layers.\1.self_attn.k_proj.weight"),
+    (r"^layers\.(\d+)\.attention\.wv\.weight$", r"model.layers.\1.self_attn.v_proj.weight"),
+    (r"^layers\.(\d+)\.attention\.wo\.weight$", r"model.layers.\1.self_attn.o_proj.weight"),
+    (r"^layers\.(\d+)\.feed_forward\.w1\.weight$", r"model.layers.\1.mlp.gate_proj.weight"),
+    (r"^layers\.(\d+)\.feed_forward\.w2\.weight$", r"model.layers.\1.mlp.down_proj.weight"),
+    (r"^layers\.(\d+)\.feed_forward\.w3\.weight$", r"model.layers.\1.mlp.up_proj.weight"),
+    (r"^layers\.(\d+)\.attention_norm\.weight$", r"model.layers.\1.input_layernorm.weight"),
+    (r"^layers\.(\d+)\.ffn_norm\.weight$",
+     r"model.layers.\1.post_attention_layernorm.weight"),
+]
+
+
+def permute_qk_meta_to_hf(w: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Meta's interleaved rope layout → HF's half-split one, rows only:
+    ``w [num_heads·head_dim, hidden]`` as stored (out-major)."""
+    out_dim, in_dim = w.shape
+    head_dim = out_dim // num_heads
+    return (w.reshape(num_heads, head_dim // 2, 2, in_dim)
+            .permute(0, 2, 1, 3).reshape(out_dim, in_dim))
+
+
+def normalize_meta_document(doc: SafetensorsDocument) -> SafetensorsDocument:
+    """Rename a Meta-format checkpoint to HF names, in place."""
+    for pattern, repl in _META_RENAMES:
+        doc.rename(pattern, repl)
+    return doc
+
 
 def load_params(doc: SafetensorsDocument, config: ModelConfig, *,
-                dtype=torch.bfloat16, max_seq_len: Optional[int] = None,
-                device=None) -> Params:
-    """Build the parameter tree from an HF-named safetensors document."""
+                dtype=torch.bfloat16, source: str = "hf",
+                max_seq_len: Optional[int] = None, device=None) -> Params:
+    """Build the parameter tree from a safetensors document: HF-named, or
+    with ``source="meta"`` a Meta-format one (renamed in place, the tied
+    lm_head aliased, q/k permuted to HF's rope layout)."""
     dev = resolve_device(device)
+    if source == "meta":
+        normalize_meta_document(doc)
+        doc.alias_if_missing("lm_head.weight", "model.embed_tokens.weight")
 
     def get(name: str) -> torch.Tensor:
         return doc.torch_tensor(name).to(dtype)
 
     def linear(name: str) -> torch.Tensor:
         return get(name).T.contiguous()  # [out, in] → [in, out]
+
+    def qk(heads: int):
+        def load(name: str) -> torch.Tensor:
+            if source != "meta":
+                return linear(name)
+            return permute_qk_meta_to_hf(get(name), heads).T.contiguous()
+        return load
 
     def stack(template: str, fn) -> torch.Tensor:
         return torch.stack([fn(template.format(i=i))
@@ -44,8 +93,8 @@ def load_params(doc: SafetensorsDocument, config: ModelConfig, *,
     pre = "model.layers.{i}."
     layers: Dict[str, torch.Tensor] = {
         "attn_norm": stack(pre + "input_layernorm.weight", get),
-        "wq": stack(pre + "self_attn.q_proj.weight", linear),
-        "wk": stack(pre + "self_attn.k_proj.weight", linear),
+        "wq": stack(pre + "self_attn.q_proj.weight", qk(config.num_heads)),
+        "wk": stack(pre + "self_attn.k_proj.weight", qk(config.num_kv_heads)),
         "wv": stack(pre + "self_attn.v_proj.weight", linear),
         "wo": stack(pre + "self_attn.o_proj.weight", linear),
     }

@@ -4,9 +4,9 @@ remotes (port of the JAX package's ``io/repository.py``).
 `FilesystemRepository` resolves the config, tokenizer and weights of a
 local directory; `HuggingFaceRepository` clones a model's inference
 artifacts over a read-only filesystem (a local directory, or HTTP with
-bearer auth), so the transport is pluggable. A Meta-format checkpoint
-(``params.json``) clones, but its config raises: this package reads HF
-``config.json`` only (ROADMAP.md, Queue A item 3).
+bearer auth), so the transport is pluggable. A Meta-format checkout
+(``params.json``) yields its config; its weights load under Meta names
+with ``io.loaders.load_params(..., source="meta")``.
 """
 from __future__ import annotations
 
@@ -117,12 +117,11 @@ class FilesystemRepository:
     path: Path
 
     def retrieve_config(self) -> ModelConfig:
-        if (self.path / "config.json").exists():
-            return load_config(self.path / "config.json")
-        if (self.path / "params.json").exists():
-            raise NotImplementedError(
-                f"{self.path / 'params.json'}: Meta-format checkpoints are not supported "
-                "by this package yet (ROADMAP.md, Queue A item 3); use the HF checkout")
+        """The checkout's ``config.json``, else its Meta ``params.json``."""
+        for name in CONFIG_FILES:
+            p = self.path / name
+            if p.exists():
+                return load_config(p)
         raise FileNotFoundError(f"no model config under {self.path}")
 
     def retrieve_tokenizer(self) -> AnyTokenizer:

@@ -4,13 +4,16 @@ package's ``io/safetensors.py``, no native fast path).
 Tensors come back as numpy views of the mmap; ``torch_tensor`` gives a CPU
 torch tensor with the checkpoint's dtype (bf16 is read as raw 16-bit words
 and reinterpreted, so numpy needs no bf16 type). `save_safetensors` writes
-torch tensors (bf16 as its raw 16-bit words).
+torch tensors (bf16 as its raw 16-bit words). ``rename`` and
+``alias_if_missing`` rename tensors by regex and expose a tied weight under
+a second name (the Meta-format loader's surgery).
 """
 
 from __future__ import annotations
 
 import json
 import mmap
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
@@ -91,6 +94,7 @@ class SafetensorsDocument:
         self._entries: Dict[str, TensorEntry] = {e.name: e for e in entries}
         self._data = data
         self.metadata: Dict[str, Any] = dict(metadata or {})
+        self._aliases: Dict[str, str] = {}
         self._owner = _owner  # keeps the mmap/file alive
 
     @classmethod
@@ -104,15 +108,17 @@ class SafetensorsDocument:
 
     def keys(self) -> Iterator[str]:
         yield from self._entries
+        yield from self._aliases
 
     def __contains__(self, name: str) -> bool:
-        return name in self._entries
+        return name in self._entries or name in self._aliases
 
     def entry(self, name: str) -> TensorEntry:
-        return self._entries[name]
+        return self._entries[self._aliases.get(name, name)]
 
     def tensor(self, name: str) -> np.ndarray:
-        """Zero-copy numpy view (BF16 as int16 words)."""
+        """Zero-copy numpy view (BF16 as int16 words); an alias reads its
+        source."""
         e = self.entry(name)
         begin, end = e.data_offsets
         return np.frombuffer(self._data[begin:end], dtype=e.np_dtype).reshape(e.shape)
@@ -123,6 +129,31 @@ class SafetensorsDocument:
         """A CPU tensor (a copy) with the checkpoint's dtype."""
         t = torch.from_numpy(self.tensor(name).copy())
         return t.view(torch.bfloat16) if self.entry(name).dtype == "BF16" else t
+
+    def rename(self, pattern: str, replacement: str) -> "SafetensorsDocument":
+        """Regex-rename every tensor (``re.sub``: ``\\1`` backreferences in
+        ``replacement``); two names landing on one raise."""
+        rx = re.compile(pattern)
+        renamed: Dict[str, TensorEntry] = {}
+        for name, e in self._entries.items():
+            new = rx.sub(replacement, name)
+            if new in renamed:
+                raise ValueError(f"rename collision: {new!r}")
+            renamed[new] = TensorEntry(new, e.dtype, e.shape, e.data_offsets)
+        self._entries = renamed
+        return self
+
+    def alias(self, name: str, source: str) -> "SafetensorsDocument":
+        """Expose tensor ``source`` under a second name (tied weights)."""
+        if source not in self._entries:
+            raise KeyError(source)
+        self._aliases[name] = source
+        return self
+
+    def alias_if_missing(self, name: str, source: str) -> "SafetensorsDocument":
+        if name not in self:
+            self.alias(name, source)
+        return self
 
 
 class ShardedSafetensorsDocument(SafetensorsDocument):
@@ -141,9 +172,17 @@ class ShardedSafetensorsDocument(SafetensorsDocument):
         super().__init__(entries, memoryview(b""), index.get("metadata", {}))
 
     def tensor(self, name: str) -> np.ndarray:
+        name = self._aliases.get(name, name)
         return self._shards[self._where[name]].tensor(name)
 
     __getitem__ = tensor
+
+    def rename(self, pattern: str, replacement: str) -> "ShardedSafetensorsDocument":
+        rx = re.compile(pattern)
+        self._where = {rx.sub(replacement, n): s for n, s in self._where.items()}
+        for shard in self._shards.values():
+            shard.rename(pattern, replacement)
+        return super().rename(pattern, replacement)  # type: ignore[return-value]
 
 
 def open_safetensors(path: str | Path) -> SafetensorsDocument:

@@ -11,9 +11,9 @@
   (``ops.paged_attention``), with ``lengths = offsets + 1``; with a cache in
   the activation dtype, an indexed write of the new row, then the same
   kernel's read-only mode (``decode_attention_stacked``).
-* 1 < S ≤ 16 on a dense cache: the cache is updated in place and the
-  reference attention runs over the layer's (dequantized) cache with a
-  causal window mask. A paged cache takes one token only: `forward` sends
+* 1 < S ≤ 16 on a dense cache: the cache is updated in place (at a tensor
+  position through device indices) and the reference attention runs over
+  the layer's (dequantized) cache with a causal window mask. A paged cache takes one token only: `forward` sends
   its longer windows to the layer route, as the JAX package does
   (`supports_fast_decode`).
 * ``ffn_block=True`` (off by default, as in the JAX package): each layer's
@@ -189,9 +189,10 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
     """One decode window ``tokens [B, S]`` (S ≤ 16) at ``start_pos``; same
     contract as `forward`. The cache is updated in place. ``start_pos`` is
     an int, or an integer device tensor, 0-d (shared) or ``[B]`` (per row).
-    A tensor is never read back to the host, so a one-token step (S == 1)
-    captured in a CUDA graph reads the position from that tensor at every
-    replay (`engine.generate`); windows of 2-16 tokens may read it.
+    A tensor is never read back to the host, at one token or at 2-16 (the
+    cache rows of a longer window are written at indices computed on the
+    device), so a window captured in a CUDA graph reads the position from
+    that tensor at every replay (`engine.generate`, `engine.speculative`).
     ``ffn_block`` merges each layer's post-attention block into one kernel
     launch where `_ffn_block_ok` holds."""
     b, s = tokens.shape

@@ -8,9 +8,10 @@ A fake HF checkout with tiny random weights → ``model pull`` → ``prompt``
 the JAX CLI's (``serve``: every JSONL field but ``ttft_s``). The trained
 fixture's ``serve`` gives ``tests/test_fixture_e2e.py``'s GOLDEN. The store,
 manifests, TOML and credentials; a model pulled by one package's CLI is
-listed and served by the other's; ``--draft``, ``--pp`` and ``--cp`` raise
-`NotImplementedError`; ``--device`` defaults to the card and raises
-without one.
+listed and served by the other's; ``prompt --draft`` gives the JAX CLI's
+reply; ``--pp`` and ``--cp`` raise `NotImplementedError`; a Meta
+``params.json`` without its head count raises as the JAX package's does;
+``--device`` defaults to the card and raises without one.
 """
 
 import base64
@@ -183,9 +184,14 @@ def test_clone_missing_artifacts(tmp_path):
 
 
 def test_meta_params_json_raises(tmp_path):
+    """A Meta ``params.json`` is read (tests/test_torch_meta.py holds its
+    mapping); one without ``n_heads`` raises KeyError in both packages."""
+    from metalchat_tpu.io.repository import FilesystemRepository as JFilesystemRepository
+
     (tmp_path / "params.json").write_text(json.dumps({"dim": 64, "n_layers": 2}))
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        FilesystemRepository(tmp_path).retrieve_config()
+    for repo in (FilesystemRepository(tmp_path), JFilesystemRepository(tmp_path)):
+        with pytest.raises(KeyError, match="n_heads"):
+            repo.retrieve_config()
 
 
 # -- store, manifests, credentials ---------------------------------------------------
@@ -396,12 +402,21 @@ def test_model_pulled_by_either_cli(fake_checkout, store_home, capsys, puller):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["prompt", "tiny", "-c", "x", "--draft", "tiny", "--n-draft", "3"], "item 6"),
     (["serve", "tiny", "--pp", "2"], "item 9"), (["serve", "tiny", "--cp", "2"], "item 9"),
 ])
 def test_unported_options_raise(pulled, argv, item):
     with pytest.raises(NotImplementedError, match=item):
         main(argv + CPU)
+
+
+@pytest.mark.parametrize("n_draft", [2, 3])
+def test_cli_prompt_draft_matches_jax(pulled, n_draft):
+    """prompt --draft (the tiny checkout as its own draft, no step-ratio
+    check): stdout equal to the JAX CLI's and to the greedy ``prompt``."""
+    argv = ["prompt", "tiny", "-c", "hello world", "--max-tokens", "10"]
+    draft = ["--draft", "tiny", "--n-draft", str(n_draft), "--no-draft-check"]
+    got = _stdout(main, argv + draft + CPU)
+    assert got == _stdout(jmain, argv + draft) == _stdout(main, argv + CPU)
 
 
 def test_device_defaults_to_the_card(pulled, monkeypatch):

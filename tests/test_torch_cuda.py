@@ -480,3 +480,84 @@ def test_chat_session_replays_one_graph(card):
     assert got == want and session.pos == pos and rolls >= 1
     assert session.captures == 1
     assert torch.equal(session.cache.k, cache.k) and torch.equal(session.cache.v, cache.v)
+
+
+# -- speculative decoding (engine/speculative.py) ---------------------------------
+
+@pytest.mark.parametrize("kv", ["act", "int8"])
+def test_window_captured_at_a_tensor_position(card, kv):
+    """decode_step over a 4-token window at a 0-d device position, captured
+    in a CUDA graph and replayed at two positions rewritten between the
+    replays: logits and cache bit for bit those of the eager window at the
+    int position (the cache rows written at device indices)."""
+    from metalchat_tpu_torch.cache import KVCache, QuantizedKVCache
+    from metalchat_tpu_torch.models.decode import decode_step
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.ops._build import CountedGraph, warm_up
+
+    params, cfg, prompts = fixture_on_card(rows=1)
+
+    def fresh():
+        if kv == "int8":
+            cache = QuantizedKVCache.create(cfg, 1, 96, device="cuda")
+        else:
+            cache = KVCache.create(cfg, 1, 96, device="cuda")
+        forward(params, cache, prompts, 0, cfg)
+        return cache
+
+    window = prompts[:, 40:44].clone()
+    eager = []
+    for p in (48, 52):
+        cache = fresh()
+        logits, _ = decode_step(params, cache, window, p, cfg)
+        eager.append((logits, cache))
+    cache = fresh()
+    pos = torch.tensor(48, dtype=torch.int32, device="cuda")
+
+    def body():
+        return decode_step(params, cache, window, pos, cfg)[0]
+
+    warm_up(body, torch.device("cuda"))
+    graph = CountedGraph()
+    out = graph.capture(body)
+    for p, (logits, want) in zip((48, 52), eager):
+        prefilled = fresh()
+        for name in vars(cache):  # the prompt's rows only, as the eager window saw
+            getattr(cache, name).copy_(getattr(prefilled, name))
+        pos.fill_(p)
+        graph.replay()
+        assert torch.equal(out, logits)
+        for name in vars(want):
+            assert torch.equal(getattr(cache, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("force", [None, 0, 1])
+def test_speculative_graph_route_matches_eager_loop(card, force):
+    """speculative_generate on the fixture (W4A8 target, the same weights
+    W8A8 as the draft, bf16, dense caches), 24 tokens at n_draft 4: three
+    captures, one host read a round, and ids, stats and both caches equal
+    to the JAX loop's (``_windows=False``) bit for bit; launches exact."""
+    from metalchat_tpu_torch.cache import KVCache
+    from metalchat_tpu_torch.engine import speculative as spec
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    params, cfg, prompts = fixture_on_card(rows=1)
+    draft, _, _ = chip_smoke.fixture_params(torch, "cuda", quant=chip_smoke.W8A8)
+
+    def run(**kw):
+        tc, dc = (KVCache.create(cfg, 1, 96, device="cuda") for _ in range(2))
+        ids, stats = spec.speculative_generate(params, cfg, draft, cfg, prompts,
+                                               max_new_tokens=24, n_draft=4, target_cache=tc,
+                                               draft_cache=dc, _force_accept=force, **kw)
+        return ids, stats, tc, dc, dict(spec.LAST_RUN)
+
+    reset_launch_counts()
+    graph = run()
+    counts = launch_counts()
+    eager = run(_windows=False)
+    rounds = graph[4]["rounds"]
+    assert graph[4] == {"rounds": rounds, "host_reads": rounds, "captures": 3}
+    assert np.array_equal(graph[0], eager[0]) and graph[1] == eager[1]
+    for a, b in zip(graph[2:4], eager[2:4]):
+        assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+    assert counts == chip_smoke.spec_launches(counts, (params, cfg), (draft, cfg), 4, rounds, 1)
