@@ -48,7 +48,10 @@ Phases (any failure makes the script exit non-zero without a result line):
    2 rows, entries 0, 7, 128 and 255 (past 2^31 bytes), within ``RTOL``, and
    one call in a CUDA graph replayed before and after its index is
    rewritten on the card: the output follows the index. Rows 6 and 7 (the
-   one-layer read-only forms) at the 8B shapes, 1 and 8 rows.
+   one-layer read-only forms) at the 8B shapes, 1 and 8 rows. Rows 1, 3,
+   4, 5 and 8 at GPT-2 XL's shapes (``gpt2_kernel_checks``: 25 heads of 64
+   over 25 kv heads, lengths off the 32- and 64-position edges; row 1 at K
+   1600 and 6400 and at the odd vocabulary, out 50257).
 4. The trained fixture end to end, W4A8 + int8 KV, 3 requests through
    ``generate``: kernels on the card against the plain path on the CPU; the
    first 16 greedy tokens of each request must agree. fixture-int: the same
@@ -113,6 +116,22 @@ Phases (any failure makes the script exit non-zero without a result line):
    ``breakeven_accept_rate``. speculative-fixture: the fixture's W4A8
    target and W8A8 draft in f32, the tie-free prompts, card against CPU:
    ids and stats equal, ids equal to the greedy ``generate``'s.
+   gpt2: GPT-2 XL W8A8 (openai-community/gpt2-xl's widths, all 48 layers,
+   random int8 weights and non-zero biases, layernorm terms and positions
+   drawn on the card by ``make_gpt2_params``, wqkv fused, a dense bf16
+   lm_head, int8 KV, context 1024) through ``generate``: a 512-token prompt,
+   64 greedy tokens, 192 a8_matvec and 48 decode_attention_update launches
+   a step and 48 flash a prefill, the graph route equal to the eager loop
+   and both timed in turns, its profile; then ``generate`` on its default
+   dense bf16 cache (48 row-5 launches a step), ids equal to the eager
+   loop's. gpt2-fixture: GPT-2 cut to 2 layers (hidden 256, 4 heads of 64,
+   vocab 512) in f32, W8A8 bf16, and weight-only int8/int4 group 32 with
+   row-quantized embeddings: card against the CPU's plain path, each
+   step's logits within ``check_logits``'s limit, ids equal or parted at a
+   near tie, launches exact. ppl: ``quant.ppl.perplexity_delta`` of the
+   trained fixture in bf16 against W8A8, W4A8, int4 g32 with and without
+   ``clip_search`` and int8 g32 with ``quantize_embed``, card against CPU
+   within ``PPL_RTOL``, the table printed.
 6. serve-fixture: the fixture through ``ContinuousBatchingEngine`` (6 greedy
    requests, 3 slots, chunks of 32, bursts of 4, f32 activations) in paged
    (pages of 16), dense int8 and dense activation-dtype mode, on the card
@@ -142,7 +161,9 @@ Phases (any failure makes the script exit non-zero without a result line):
    serve-gemma: the gemma phase's model behind the engine with the same
    workload, all 24 requests, paged only, the same checks; serve-mixtral
    likewise for the mixtral phase's model (its 8-row step dense over
-   experts: every expert at host indices).
+   experts: every expert at host indices); serve-gpt2 for the gpt2 phase's
+   model (paged, pages of 256, turns graph, eager, graph: row 8 at 25
+   heads, padded prompt chunks near the end of the position table).
 8. http: the fixture behind ``InferenceServer`` on 127.0.0.1 (paged, on the
    card): a blocking completion, its SSE stream (same text), a chat
    completion, ``/health`` and ``/metrics``.
@@ -173,7 +194,9 @@ Phases (any failure makes the script exit non-zero without a result line):
    timing-int4 (row 11 at 1 and 8 rows, per matrix), timing-gemma (rows
    3, 4, 5, 8 and 9 at hd 256, each layer with its window) and
    timing-mixtral (row 1 indexed: a batch-1 Mixtral step's 192 expert calls;
-   rows 6 and 7: a scan-route step of 32 one-layer calls).
+   rows 6 and 7: a scan-route step of 32 one-layer calls), timing-gpt2
+   (rows 1 and 3 at GPT-2 XL's decode shapes: a step's 192 matvec calls,
+   each with its a8_quantize alone, and 48 attention calls at length 576).
 
 The last lines are the kernel table as one JSON object (rows 1-11 of the
 JAX package's TPU kernels), the card's name and power limit, and
@@ -1184,6 +1207,7 @@ def phase_kernels(sm: Smoke):
     speculative_kernel_checks(sm, gen, dev)
     gemma_kernel_checks(sm, gen, dev)
     mixtral_kernel_checks(sm, gen, dev)
+    gpt2_kernel_checks(sm, gen, dev)
     print("max |kernel - plain| in bf16 (raw int32 and cache bytes exact; a8_quantize "
           "in int8 code quanta): "
           + ", ".join(f"{k} {v:.3g} ({sm.share[k]:.3g} of its limit)"
@@ -1225,7 +1249,8 @@ def phase_fixture(sm: Smoke):
 
 def weight_bytes(params) -> int:
     """bench.py's accounting: every weight except the embedding table (one
-    row is gathered) and the rope tables."""
+    row is gathered), GPT-2's position table (one row too) and the rope
+    tables."""
     from metalchat_tpu_torch.quant.quantize import QuantizedTensor
 
     def nbytes(node):
@@ -1235,7 +1260,8 @@ def weight_bytes(params) -> int:
             return sum(nbytes(v) for v in node.values())
         return node.numel() * node.element_size()
 
-    return nbytes(params) - nbytes(params["rope"]) - nbytes(params["embed"])
+    return (nbytes(params) - nbytes(params["rope"]) - nbytes(params["embed"])
+            - (nbytes(params["pos_emb"]) if "pos_emb" in params else 0))
 
 
 def eager_generate(params, cfg, prompt, n_new: int, cache, ffn_block: bool = False):
@@ -1695,6 +1721,409 @@ def phase_gemma_fixture(sm: Smoke):
                 "a8_matvec": (4 * L + 1) * steps, "a8_quantize": (4 * L + 1) * steps,
                 "decode_attention_update": L * steps}
     sm.expect(counts == expected, f"gemma-fixture: launches {counts} != {expected}")
+
+
+# -- GPT-2 XL W8A8 at full width ----------------------------------------------
+
+GPT2_LABEL = "gpt2-xl-w8a8"
+# openai-community/gpt2-xl config.json: 48 layers of 25 heads of 64 (MHA),
+# hidden 1600, intermediate 6400, 1024 learned positions, vocabulary 50257.
+GPT2_XL_JSON = {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2", "n_embd": 1600,
+                "n_head": 25, "n_layer": 48, "n_positions": 1024, "n_ctx": 1024,
+                "vocab_size": 50257, "layer_norm_epsilon": 1e-5,
+                "activation_function": "gelu_new", "bos_token_id": 50256,
+                "eos_token_id": 50256}
+# Row 1 at GPT-2 XL's decode shapes, int8, no norm prologue (layernorm runs
+# outside the kernel); lm_head at the odd vocabulary (quantize_lm_head=True:
+# the last 16-row tile holds one live row).
+A8_GPT2 = [("wqkv", 4800, 1600, 8, False), ("wo", 1600, 1600, 8, False),
+           ("w1", 6400, 1600, 8, False), ("w2", 1600, 6400, 8, False),
+           ("lm_head", 50257, 1600, 8, False)]
+# Rows 3 and 5 at 25 heads over 25 kv heads (groups 1): lengths that are not
+# multiples of 32 or 64 (the prompt and its decode, the serve mix's), chunk
+# edges, the full context, a zeroed cache.
+DECODE_CASES_GPT2 = [([1], None, "random"), ([C + 1], None, "random"),
+                     ([513], None, "random"), ([545], None, "random"),
+                     ([576], None, "random"), ([1024], None, "random"),
+                     ([577], None, "zeros")]
+READ_CASES_GPT2 = [([513], None), ([545], None), ([577], None)]
+READ_CASES_GPT2_SERVE = [([49, 213, 577, 1024, 700, 129, 1, 640], None),
+                         ([736, 97, 1, 300, 545, 1000, 65, 33], None)]
+# Row 4: the 512-token prompt from 0 and from an unaligned start, the serve
+# path's 256-token chunks of 8 rows at per-row offsets, a ragged chunk.
+FLASH_CASES_GPT2 = [(0, None), (100, None)]
+FLASH_CASES_GPT2_SERVE = [([0, 256, 512, 768, 100, 37, 640, 0], None)]
+# Row 8: the serve path's 8 rows on pages of 256 (4 a row).
+PAGED_CASES_GPT2 = [([49, 256, 257, 1024, 700, 513, 213, 1], None),
+                    ([1024, 300, 545, 1, 97, 900, 640, 1], None)]
+
+
+def gpt2_kernel_checks(sm: Smoke, gen, dev):
+    """Rows 1, 3, 4, 5 and 8 at GPT-2 XL's shapes (25 heads of 64, groups 1;
+    K 1600 and 6400; out 50257)."""
+    torch = sm.torch
+    for rows in (1, 8):
+        check_a8(sm, A8_GPT2, rows, gen, dev)
+    check_decode(sm, 1, 25, 25, 1024, 64, DECODE_CASES_GPT2, gen, dev)
+    check_decode_read(sm, 1, 25, 25, 1024, 64, READ_CASES_GPT2, gen, dev)
+    check_decode_read(sm, 8, 25, 25, 1024, 64, READ_CASES_GPT2_SERVE, gen, dev)
+    check_flash(sm, 1, 512, 25, 25, 1024, 64, FLASH_CASES_GPT2, gen, dev)
+    check_flash(sm, 8, 256, 25, 25, 1024, 64, FLASH_CASES_GPT2_SERVE, gen, dev)
+    check_flash(sm, 1, FLASH_RAGGED_S, 25, 25, 1024, 64, FLASH_CASES_RAGGED, gen, dev)
+    check_paged(sm, 8, 25, 25, 64, 256, 4, PAGED_CASES_GPT2, gen, dev)
+    check_paged(sm, 8, 25, 25, 64, 256, 4, PAGED_CASES_GPT2[:1], gen, dev, torch.float32)
+
+
+def make_gpt2_params(cfg, device, seed: int = 0):
+    """GPT-2 W8A8 per-channel (the scheme of ``prompt --quantize w8a8``),
+    wqkv fused, drawn on ``device`` from a seeded torch.Generator in the
+    layout `quantize_params` and `fuse_projections` give (tests hold it at
+    a small size): int8 codes in [-127, 127] ``q [L, out, in]`` transposed,
+    f32 scales ``[L, 1, out]`` in [1.4e-4, 4.2e-4) (weights about GPT-2's
+    N(0, 0.02)); N(0, 0.02) projection biases, embedding and positions;
+    layernorm weights 1 + N(0, 0.1) and biases N(0, 0.1), all non-zero, so
+    that a dropped bias or norm term shows; bf16 activations; lm_head a
+    contiguous copy of the embedding's transpose. Nothing is quantized on
+    the host: `quantize_params` over GPT-2 XL's 1.47 B weights would take
+    tens of seconds."""
+    import torch
+
+    from metalchat_tpu_torch.models.transformer import make_rope_tables
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    bf16 = torch.bfloat16
+
+    def normal(*shape, std=0.02, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std + mean).to(bf16)
+
+    def qlin(in_f, out_f):
+        q = torch.randint(-127, 128, (L, out_f, in_f), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s = torch.rand((L, 1, out_f), generator=gen, device=dev) * 2.8e-4 + 1.4e-4
+        return QuantizedTensor(q=q, scales=s, bits=8, group_size=in_f, transposed=True,
+                               act_bits=8)
+
+    layers = {
+        "attn_norm": normal(L, h, std=0.1, mean=1.0), "attn_norm_b": normal(L, h, std=0.1),
+        "ffn_norm": normal(L, h, std=0.1, mean=1.0), "ffn_norm_b": normal(L, h, std=0.1),
+        "wqkv": qlin(h, 3 * h), "wqkv_b": normal(L, 3 * h),
+        "wo": qlin(h, h), "wo_b": normal(L, h),
+        "w1": qlin(h, f), "w1_b": normal(L, f),
+        "w2": qlin(f, h), "w2_b": normal(L, h),
+    }
+    embed = normal(cfg.vocab_size, h)
+    return {
+        "embed": embed, "pos_emb": normal(cfg.max_seq_len, h), "layers": layers,
+        "final_norm": normal(h, std=0.1, mean=1.0), "final_norm_b": normal(h, std=0.1),
+        "lm_head": embed.T.contiguous(),
+        "rope": make_rope_tables(cfg, cfg.max_seq_len, device=dev),
+    }
+
+
+def gpt2_generate_counts(cfg, new: int, attn: str):
+    """Launches of a `generate` run of GPT-2 of ``new`` decode steps: 4
+    matvec calls a layer (lm_head is a dense product), one attention launch
+    a layer a step, flash once a layer for the prompt."""
+    L = cfg.num_layers
+    return {"a8_matvec": 4 * L * new, "a8_quantize": 4 * L * new, attn: L * new,
+            "flash_attention": L}
+
+
+def phase_gpt2(sm: Smoke, dev_name: str):
+    """GPT-2 XL W8A8 (all 48 layers, int8 KV, context 1024) through
+    `generate`: a 512-token prompt and 64 greedy tokens, launches exact (192
+    a8_matvec and 48 decode_attention_update a step, 48 flash a prefill), the
+    graph route equal to the eager loop and both timed in turns, its
+    profile; then the same `generate` on its default dense bf16 cache (row 5
+    in place of row 3), ids and cache equal to the eager loop's."""
+    torch = sm.torch
+    from metalchat_tpu_torch.cache import KVCache
+    from metalchat_tpu_torch.config import config_from_dict
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = config_from_dict(GPT2_XL_JSON)
+    t0 = time.perf_counter()
+    params = make_gpt2_params(cfg, "cuda")
+    torch.cuda.synchronize()
+    lm = params["lm_head"]
+    print(f"{GPT2_LABEL} params ({cfg.num_layers} layers, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}): {weight_bytes(params) / 1e9:.4f} GB of "
+          f"weights ({lm.numel() * lm.element_size() / 1e9:.4f} GB of them the bf16 lm_head), "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    L = cfg.num_layers
+    run = drive_generate(sm, dev_name, GPT2_LABEL, cfg, params,
+                         {"a8_matvec": 4 * L, "a8_quantize": 4 * L,
+                          "decode_attention_update": L})
+    phase_profile(sm, run, GPT2_LABEL)
+    prompt, new = run[5], 64
+    reset_launch_counts()
+    out = generate(params, cfg, prompt, max_new_tokens=new + 1)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {**dict.fromkeys(counts, 0), **gpt2_generate_counts(cfg, new, "decode_attention")}
+    sm.expect(counts == want, f"{GPT2_LABEL} bf16 cache: launches {counts} != {want}")
+    limit = prompt.shape[1] + new + 1
+    cache = KVCache.create(cfg, 1, limit, dtype=torch.bfloat16, device=prompt.device)
+    ids, _ = eager_generate(params, cfg, prompt, new + 1, cache)
+    sm.exact(out, ids, f"{GPT2_LABEL} bf16 cache: graph route ids against the eager loop")
+    print(f"{GPT2_LABEL} on generate's default dense bf16 cache ({limit} positions): ids "
+          f"equal to the eager loop's; launches {counts}")
+    return run, counts
+
+
+# The correctness cell: GPT-2 at hd 64 cut to 2 layers (hidden 256, 4 heads,
+# vocab 512, 256 positions); non-zero biases, layernorm terms and positions.
+GPT2_FIXTURE_JSON = dict(GPT2_XL_JSON, n_embd=256, n_head=4, n_layer=2, n_positions=256,
+                         vocab_size=512, bos_token_id=511, eos_token_id=511)
+GPT2_FIXTURE_PROMPT, GPT2_FIXTURE_STEPS = 96, 16
+# The modes: (dtype, quantize_params' arguments or None, fuse).
+GPT2_FIXTURE_MODES = {
+    "f32": ("float32", None),
+    "w8a8 bf16": ("bfloat16", W8A8),
+    "w8 g32 embed bf16": ("bfloat16", dict(bits=8, group_size=32, quantize_embed=True)),
+    "w4 g32 embed bf16": ("bfloat16", dict(bits=4, group_size=32, quantize_embed=True)),
+}
+
+
+def gpt2_fixture_params(torch, cfg, dtype, quant):
+    """The fixture cell's parameters on the CPU: `init_random_params` in f32
+    (seed 0) with every bias, layernorm term and the position table redrawn
+    non-zero from a seeded generator, then cast to ``dtype``, quantized by
+    ``quant`` and fused."""
+    from metalchat_tpu_torch.models.fuse import fuse_projections
+    from metalchat_tpu_torch.models.transformer import init_random_params
+    from metalchat_tpu_torch.quant.quantize import quantize_params
+
+    params = init_random_params(cfg, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for tree in (params["layers"], params):
+        for name, leaf in tree.items():
+            if name.endswith("_b") or name.endswith("norm") or name == "pos_emb":
+                noise = torch.randn(leaf.shape, generator=gen) * 0.1
+                tree[name] = leaf + noise if name.endswith("norm") else noise
+    params = {k: (v if k in ("layers", "rope") else v.to(dtype)) for k, v in params.items()}
+    params["layers"] = {k: v.to(dtype) for k, v in params["layers"].items()}
+    params["lm_head"] = params["embed"].T.contiguous()
+    if quant is not None:
+        params = quantize_params(params, **quant)
+    return fuse_projections(params, cfg)
+
+
+def first_parting(torch, got_ids, want_ids, want_logits):
+    """The first step where two greedy rollouts part, and the CPU's top-2
+    logit gap there with `check_logits`'s limit at that logit (None if
+    they do not part)."""
+    parted = (got_ids != want_ids).any(0).nonzero()
+    if parted.numel() == 0:
+        return None
+    i = int(parted[0])
+    row = int((got_ids[:, i] != want_ids[:, i]).nonzero()[0])
+    top2 = want_logits[i, row].topk(2).values
+    limit = (RTOL["bfloat16"] * top2[0].abs()
+             + LOGIT_SHARE * want_logits[i, row].abs().max()).item()
+    return i, (top2[0] - top2[1]).item(), limit
+
+
+def gpt2_fixture_counts(cfg, quant, steps: int):
+    """Launches of two prefills (flash) and ``steps`` decode steps of the
+    fixture cell (int8 KV: row 3): its 4 projections a layer through row 1
+    (W8A8) or row 11 (weight-only, at 2 rows), none for dense f32; the
+    head is a dense product."""
+    L = cfg.num_layers
+    counts = {"flash_attention": 2 * L, "decode_attention_update": L * steps}
+    if quant is not None and quant.get("act_bits") == 8:
+        counts.update(a8_matvec=4 * L * steps, a8_quantize=4 * L * steps)
+    elif quant is not None:
+        counts.update(quant_matmul=4 * L * steps)
+    return counts
+
+
+def phase_gpt2_fixture(sm: Smoke):
+    """GPT-2 cut as GPT2_FIXTURE_JSON in each GPT2_FIXTURE_MODES mode, the
+    card against the CPU's plain path on the same params (made on the CPU,
+    copied): two random 96-token prompts, 16 greedy tokens through
+    `generate` (int8 KV), and each step's logits fed the CPU's tokens within
+    `check_logits`'s limit. The ids must agree, or part only where the CPU's
+    top-2 gap lies within that limit (a near tie)."""
+    torch = sm.torch
+    from metalchat_tpu_torch.config import config_from_dict
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = config_from_dict(GPT2_FIXTURE_JSON)
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (2, GPT2_FIXTURE_PROMPT), generator=gen)
+    total = {}
+    for mode, (dtype, quant) in GPT2_FIXTURE_MODES.items():
+        cpu_params = gpt2_fixture_params(torch, cfg, getattr(torch, dtype), quant)
+        card_params = to_device(cpu_params, torch.device("cuda"))
+        forced = generate(cpu_params, cfg, prompt, max_new_tokens=GPT2_FIXTURE_STEPS,
+                          quantized_kv=True)
+        want = teacher_forced_logits(cpu_params, cfg, prompt, forced)
+        reset_launch_counts()
+        got = teacher_forced_logits(card_params, cfg, prompt, forced)
+        ids = generate(card_params, cfg, prompt, max_new_tokens=GPT2_FIXTURE_STEPS,
+                       quantized_kv=True).cpu()
+        counts = launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        share = check_logits(sm, f"gpt2-fixture {mode} logits", got, want)
+        parting = first_parting(torch, ids, forced, want)
+        if parting is not None:
+            i, gap, limit = parting
+            sm.expect(gap <= limit, f"gpt2-fixture {mode}: ids part at step {i} with a "
+                      f"top-2 gap of {gap} on the CPU, beyond the limit {limit}")
+        print(f"gpt2-fixture {mode} ({cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+              f"{cfg.num_heads} heads of {cfg.head_dim}; int8 KV; 2 prompts of "
+              f"{GPT2_FIXTURE_PROMPT}, {GPT2_FIXTURE_STEPS} steps): logits max abs err "
+              f"{(got - want).abs().max().item():.4g}, {share:.4f} of the limit; ids "
+              + ("equal" if parting is None else
+                 f"part at step {parting[0]}, a near tie (gap {parting[1]:.4g}, limit "
+                 f"{parting[2]:.4g})")
+              + f"; card launches {counts}", flush=True)
+        expected = {**dict.fromkeys(counts, 0),
+                    **gpt2_fixture_counts(cfg, quant, 2 * (GPT2_FIXTURE_STEPS - 1))}
+        sm.expect(counts == expected, f"gpt2-fixture {mode}: launches {counts} != {expected}")
+    return total
+
+
+# Perplexity of the fixture (pyllama_10m) in bf16 against its quantized
+# trees, over PPL_BATCHES batches of PPL_ROWS rows of PPL_LEN eval tokens.
+PPL_BATCHES, PPL_ROWS, PPL_LEN = 4, 4, 128
+PPL_MODES = {
+    "w8a8": W8A8,
+    "w4a8": dict(bits=4, group_size=None, act_bits=8),
+    "int4 g32": dict(bits=4, group_size=32),
+    "int4 g32 clip_search": dict(bits=4, group_size=32, clip_search=True),
+    "int8 g32 quantize_embed": dict(bits=8, group_size=32, quantize_embed=True),
+}
+# Card against CPU: each perplexity within this share of the CPU's (bf16
+# logits on both; the NLL averages PPL_BATCHES * PPL_ROWS * (PPL_LEN - 1)
+# tokens, so a rounding step here and there moves it far less).
+PPL_RTOL = 5e-3
+
+
+def phase_ppl(sm: Smoke):
+    """`perplexity_delta` of the fixture's bf16 tree against each PPL_MODES
+    tree, on the card and on the CPU's plain path: every perplexity within
+    PPL_RTOL of the CPU's; the table printed. On the card `forward` runs the
+    prefill's flash attention (a batch is longer than 16 tokens)."""
+    torch = sm.torch
+    from pathlib import Path
+
+    import numpy as np
+
+    from metalchat_tpu_torch.config import load_config
+    from metalchat_tpu_torch.io.loaders import load_params
+    from metalchat_tpu_torch.io.safetensors import open_safetensors
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.quant.ppl import perplexity_delta
+    from metalchat_tpu_torch.quant.quantize import quantize_params
+
+    fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / "pyllama_10m"
+    cfg = load_config(fixture / "config.json")
+    tokens = np.load(fixture / "eval_tokens.npy").astype(np.int64)
+    n = PPL_ROWS * PPL_LEN
+    batches = [tokens[i * n:(i + 1) * n].reshape(PPL_ROWS, PPL_LEN) for i in range(PPL_BATCHES)]
+    ref = load_params(open_safetensors(fixture), cfg, dtype=torch.bfloat16, device="cpu")
+    card_ref = to_device(ref, torch.device("cuda"))
+    reset_launch_counts()
+    table, worst = [], 0.0
+    for mode, quant in PPL_MODES.items():
+        cand = quantize_params(ref, **quant)
+        t0 = time.perf_counter()
+        got = perplexity_delta(card_ref, to_device(cand, torch.device("cuda")), cfg, batches)
+        card_s = time.perf_counter() - t0
+        want = perplexity_delta(ref, cand, cfg, batches)
+        for key in ("reference", "candidate"):
+            rel = abs(got[key] - want[key]) / want[key]
+            worst = max(worst, rel)
+            sm.expect(rel <= PPL_RTOL, f"ppl {mode}: {key} {got[key]} on the card against "
+                      f"{want[key]} on the CPU ({rel:.3g} relative)")
+        table.append((mode, got, want, card_s))
+    counts = launch_counts()
+    print(f"ppl: the fixture in bf16 against each tree, {PPL_BATCHES} batches of "
+          f"{PPL_ROWS} x {PPL_LEN} eval tokens (card, then CPU; worst card/CPU relative "
+          f"difference {worst:.3g}, limit {PPL_RTOL}):")
+    for mode, got, want, card_s in table:
+        print(f"  {mode}: reference {got['reference']:.5f} candidate {got['candidate']:.5f} "
+              f"delta {got['delta']:.5f} ({got['delta_pct']:.4f}%) in {card_s:.2f} s; CPU "
+              f"{want['reference']:.5f} {want['candidate']:.5f} ({want['delta_pct']:.4f}%)")
+    want = {**dict.fromkeys(counts, 0),
+            "flash_attention": 2 * len(PPL_MODES) * PPL_BATCHES * cfg.num_layers}
+    sm.expect(counts == want, f"ppl: launches {counts} != {want}")
+    print(f"ppl launches {counts}")
+    return counts
+
+
+def phase_timing_gpt2(sm: Smoke, gpt2_run, rate: float):
+    """Rows 1 and 3 at GPT-2 XL's decode shapes beside their bounds: one
+    decode step's 192 matvec calls at one row (wqkv, wo, w1, w2 a layer;
+    int8, no prologue) and its 48 decode_attention_update calls at the
+    main prompt's last length (576); the plain versions and the library
+    yardsticks as phase timing's (torch._int_mm at M=17, SDPA)."""
+    torch = sm.torch
+    import torch.nn.functional as F
+
+    from metalchat_tpu_torch.cache import dequantize_kv
+    from metalchat_tpu_torch.ops import a8_matvec as am
+    from metalchat_tpu_torch.ops import decode_attention as dm
+
+    cfg, params, cache, _, length, _ = gpt2_run
+    dev = torch.device("cuda")
+    L, nh, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    layers = params["layers"]
+    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, quantize_ms=0.0)
+    for name in ("wqkv", "wo", "w1", "w2"):
+        pq, ps = layers[name].q, layers[name].scales
+        _, out_f, in_f = pq.shape
+        x = torch.randn((1, in_f), generator=gen, device=dev).to(torch.bfloat16)
+        ms = sm.device_ms(lambda i: am.quant_matvec_stacked_fused(x, pq, ps, i % L, bits=8), 64)
+        qms = sm.device_ms(lambda i: am.quantize_rows(x), 64)
+        plain = sm.eager_ms(lambda i: am.quant_matvec_stacked_fused_plain(
+            x, pq, ps, i % L, bits=8), 3)
+        xq17 = torch.randint(-127, 128, (17, in_f), generator=gen, device=dev,
+                             dtype=torch.int8)
+        lib = sm.device_ms(lambda i: torch._int_mm(xq17, pq[i % L].t()), 32)
+        nbytes = out_f * in_f + out_f * 4 + (in_f + out_f) * 2
+        b_ms, _ = bound(nbytes, 2 * in_f * out_f, "int8", rate)
+        print(f"  a8_matvec {name} [{out_f}x{in_f} w8]: {ms * 1e3:.2f} us (bound "
+              f"{b_ms * 1e3:.2f} us, bytes; its a8_quantize alone {qms * 1e3:.2f} us; plain "
+              f"{plain * 1e3:.1f} us; _int_mm M=17 {lib * 1e3:.2f} us) x{L}/token")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", b_ms), ("quantize_ms", qms)):
+            step[key] += L * val
+    print(f"{GPT2_LABEL} row 1 at one row, one decode step ({4 * L} calls): "
+          f"{step['ms']:.4f} ms (bound {step['bound_ms']:.4f} ms, bytes; a8_quantize alone "
+          f"{step['quantize_ms']:.4f} ms; plain {step['plain_ms']:.3f} ms; _int_mm M=17 "
+          f"{step['library_ms']:.4f} ms)")
+    nkv = cfg.num_kv_heads
+    q = torch.randn((1, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((1, nkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    args = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    ms = sm.device_ms(lambda i: dm.decode_attention_update_quantized_stacked(
+        q, kn, kn, *args, i % L, lens, scale=hd ** -0.5), 64)
+    plain = sm.eager_ms(lambda i: dm.decode_attention_update_plain(
+        q, kn, kn, *args, i % L, lens, scale=hd ** -0.5), 5)
+    kd = dequantize_kv(cache.k[0, :, :, :length], cache.k_scale[0, :, :, :length])
+    vd = dequantize_kv(cache.v[0, :, :, :length], cache.v_scale[0, :, :, :length])
+    lib = sm.device_ms(lambda i: F.scaled_dot_product_attention(q[:, :, None, :], kd, vd), 64)
+    nbytes = (2 * nkv * length * (hd + 4) + 2 * nh * hd * 2 + 2 * nkv * hd * 2
+              + 2 * nkv * (hd + 4))
+    b_ms, b_by = bound(nbytes, 4 * nh * hd * length, "f32", rate)
+    print(f"{GPT2_LABEL} row 3 [length {length}, {nh} heads over {nkv}], one decode step "
+          f"({L} calls): {L * ms:.5f} ms (bound {L * b_ms:.6f} ms, {b_by}; plain "
+          f"{L * plain:.4f} ms; sdpa bf16 {L * lib:.5f} ms)")
+    return dict(row1=step, row3=dict(ms=L * ms, bound_ms=L * b_ms, plain_ms=L * plain,
+                                     library_ms=L * lib))
 
 
 # -- Mixtral-8x7B W4A8 at full width ------------------------------------------
@@ -2662,24 +3091,26 @@ SERVE_MODES = {"paged": dict(cache_mode="paged", page_size=256),
 
 SERVE_TURNS = ("graph", "eager", "eager", "graph")
 # Mixtral's eager-loop engine takes about 47 s for the workload (833 matvec
-# launches a step from the host): one eager turn between two graph turns.
+# launches a step from the host), GPT-2 XL's about 22 s (48 layers of eager
+# glue): one eager turn between two graph turns.
 MIXTRAL_SERVE_TURNS = ("graph", "eager", "graph")
 
 
-def matvec_calls(cfg, rows: int):
+def matvec_calls(cfg, rows: int, lm_head: bool = True):
     """The fused matvec calls of one decode window of ``rows`` rows, by
     launch counter: 4 a layer and lm_head for a dense FFN; for MoE, wqkv
     and wo a layer and lm_head at host indices, and the experts: 3 a
     routed (row, choice) at a device index when rows·K ≤ E/2, else 3 an
-    expert at host indices (`models/decode._moe_ffn_decode`)."""
-    L = cfg.num_layers
+    expert at host indices (`models/decode._moe_ffn_decode`). Without
+    ``lm_head`` the head is a dense product (GPT-2's bf16 head)."""
+    L, head = cfg.num_layers, int(lm_head)
     if not cfg.num_experts:
-        calls = {"a8_matvec": 4 * L + 1}
+        calls = {"a8_matvec": 4 * L + head}
     elif rows * cfg.num_experts_per_tok <= cfg.num_experts // 2:
-        calls = {"a8_matvec": 2 * L + 1,
+        calls = {"a8_matvec": 2 * L + head,
                  "a8_matvec_indexed": 3 * L * rows * cfg.num_experts_per_tok}
     else:
-        calls = {"a8_matvec": (2 + 3 * cfg.num_experts) * L + 1}
+        calls = {"a8_matvec": (2 + 3 * cfg.num_experts) * L + head}
     calls["a8_quantize"] = sum(calls.values())
     return calls
 
@@ -2697,10 +3128,12 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
     torch = sm.torch
     from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
     from metalchat_tpu_torch.utils.profiling import Meter
 
     cfg, params = main[0], main[1]
     L = cfg.num_layers
+    head = isinstance(params["lm_head"], QuantizedTensor)
     slots, new = 8, 96
     requests = serve_workload(cfg, new=new)
     bpt = serve_bytes_per_token(cfg, params, slots)
@@ -2739,7 +3172,7 @@ def phase_serve(sm: Smoke, main, rate: float, label: str = "8b-w4a8",
         # a8_quantize once for each fused matvec call, of any row count.
         want = {attn: L * (steps + single), "flash_attention": L * long_}
         for rows, n in [(slots, steps)] + [(b * s, n) for (b, s), n in short.items()]:
-            for k, c in matvec_calls(cfg, rows).items():
+            for k, c in matvec_calls(cfg, rows, head).items():
                 want[k] = want.get(k, 0) + c * n
         print(f"serve {label} {mode} {route}: {len(done)} requests, {total} tokens in "
               f"{wall:.3f} s = {tok_s:.2f} tok/s, {tok_s / roof:.4f} of the full-slot decode "
@@ -4299,6 +4732,7 @@ def main() -> int:
     ffn_run = int4_run = stream_counts = gemma_run = serve_gemma = None
     mixtral_run = scan_run = serve_mixtral = chat_counts = cli_counts = cli_1b = None
     spec_counts = spec_fixture = None
+    gpt2 = gpt2_fixture = ppl_counts = serve_gpt2 = gpt2_times = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -4327,6 +4761,9 @@ def main() -> int:
             scan_run = sm.phase("scan", lambda: phase_scan(sm, main_run))
             spec_counts = sm.phase("speculative", lambda: phase_speculative(sm, main_run))
         spec_fixture = sm.phase("speculative-fixture", lambda: phase_speculative_fixture(sm))
+        gpt2 = sm.phase("gpt2", lambda: phase_gpt2(sm, dev_name))
+        gpt2_fixture = sm.phase("gpt2-fixture", lambda: phase_gpt2_fixture(sm))
+        ppl_counts = sm.phase("ppl", lambda: phase_ppl(sm))
         with timed_captures(torch):  # the engines' captures, timed
             fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
             serve = None
@@ -4339,6 +4776,10 @@ def main() -> int:
             if mixtral_run is not None:
                 serve_mixtral = sm.phase("serve-mixtral", lambda: phase_serve(
                     sm, mixtral_run, hbm_rate(dev_name), MIXTRAL_LABEL, ("paged",),
+                    MIXTRAL_SERVE_TURNS))
+            if gpt2 is not None:
+                serve_gpt2 = sm.phase("serve-gpt2", lambda: phase_serve(
+                    sm, gpt2[0], hbm_rate(dev_name), GPT2_LABEL, ("paged",),
                     MIXTRAL_SERVE_TURNS))
             sm.phase("http", lambda: phase_http(sm))
         cli_counts = sm.phase("cli-fixture", lambda: phase_cli_fixture(sm))
@@ -4368,6 +4809,9 @@ def main() -> int:
             more = sm.phase("timing-mixtral", lambda: phase_timing_mixtral(
                 sm, mixtral_run, scan_run, hbm_rate(dev_name)))
             rows = None if more is None else rows + more
+        if rows is not None and gpt2 is not None:
+            gpt2_times = sm.phase("timing-gpt2", lambda: phase_timing_gpt2(
+                sm, gpt2[0], hbm_rate(dev_name)))
         mixtral_counts = None if mixtral_run is None else mixtral_run[3]
         mixtral_run = None  # free the 23.5 GB of Mixtral weights
         if serve_mixtral is not None:
@@ -4376,7 +4820,7 @@ def main() -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if (sm.failures or not smi or rows is None or None in (
             stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b, spec_counts,
-            spec_fixture)):
+            spec_fixture, gpt2, gpt2_fixture, ppl_counts, serve_gpt2, gpt2_times)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -4390,7 +4834,11 @@ def main() -> int:
                "scan 8b-w4a8": scan_run["counts"], "chat 8b-w4a8": chat_counts,
                "cli 1b-w8a8": cli_1b, "cli-fixture int4": cli_counts["int4"],
                "speculative 8b-w4a8/1b-w8a8": spec_counts,
-               "speculative-fixture": spec_fixture, "cli-fixture --draft": cli_counts["draft"]}
+               "speculative-fixture": spec_fixture, "cli-fixture --draft": cli_counts["draft"],
+               f"generate {GPT2_LABEL}": gpt2[0][3],
+               f"generate {GPT2_LABEL} bf16 cache": gpt2[1],
+               f"serve {GPT2_LABEL} paged": serve_gpt2["paged"]["counts"],
+               "gpt2-fixture": gpt2_fixture, "ppl": ppl_counts}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

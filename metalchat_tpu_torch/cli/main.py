@@ -23,7 +23,7 @@ CPU. The store and manifests are the JAX package's (`cli.store`).
 the target verifies them, after a measured check of the draft/target step
 ratio that ``--no-draft-check`` skips. ``serve --pp/--cp`` (pipeline and
 context parallelism) parse and raise `NotImplementedError`: they are not
-ported yet (ROADMAP.md, Queue A item 9).
+ported yet (ROADMAP.md, Queue A, the parallelism item).
 """
 
 from __future__ import annotations
@@ -218,7 +218,7 @@ def _cmd_serve(args) -> int:
     if args.pp > 1 or args.cp > 1:
         raise NotImplementedError(
             "serve --pp/--cp: pipeline- and context-parallel serving are not ported to "
-            "this package yet (ROADMAP.md, Queue A item 9)")
+            "this package yet (ROADMAP.md, Queue A, the parallelism item)")
     from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine, Request
     from metalchat_tpu_torch.sampling import SamplerConfig
     from metalchat_tpu_torch.text.tokenizer import TokenKind

@@ -1,9 +1,8 @@
-"""Model configuration (Llama, Gemma-3 and Mixtral families).
+"""Model configuration (Llama, Gemma-3, Mixtral and GPT-2 families).
 
 A trimmed copy of the JAX package's ``config.py``: the same frozen dataclasses
 and the same HF ``config.json`` and Meta ``params.json`` mappings, so one
-checkpoint directory configures both packages identically. The GPT-2 config belongs to a later
-slice of the port.
+checkpoint directory configures both packages identically.
 """
 
 from __future__ import annotations
@@ -56,6 +55,11 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     sliding_window_pattern: int = 1   # every Nth layer is global; 1 == all global
     rope_local_theta: Optional[float] = None  # theta for sliding (local) layers
+    # GPT-2-era architecture switches (inert for Llama/Gemma):
+    norm_type: str = "rmsnorm"        # "rmsnorm" | "layernorm"
+    position_embedding: str = "rope"  # "rope" | "learned"
+    ffn_type: str = "swiglu"          # "swiglu" | "mlp"
+    use_bias: bool = False            # biases on attention/FFN projections
     # Mixture-of-experts (None → dense FFN): experts replace the FFN.
     num_experts: Optional[int] = None
     num_experts_per_tok: int = 2
@@ -307,6 +311,41 @@ class MixtralConfig(ModelConfig):
         )
 
 
+@dataclass(frozen=True)
+class GPT2Config(ModelConfig):
+    """GPT-2 family: layernorm, learned positions, biased GELU MLP, MHA.
+
+    Built directly, it keeps ModelConfig's (Llama-like) switches, as the JAX
+    package's does; `from_hf_config` sets GPT-2's."""
+
+    model_type: str = "gpt2"
+
+    @staticmethod
+    def from_hf_config(cfg: Mapping[str, Any]) -> "GPT2Config":
+        """Map a HuggingFace GPT-2 ``config.json``."""
+        heads = int(cfg.get("n_head", 12))
+        hidden = int(cfg.get("n_embd", 768))
+        return GPT2Config(
+            vocab_size=int(cfg.get("vocab_size", 50257)),
+            hidden_size=hidden,
+            intermediate_size=int(cfg.get("n_inner") or 4 * hidden),
+            num_layers=int(cfg.get("n_layer", 12)),
+            num_heads=heads,
+            num_kv_heads=heads,
+            head_dim=hidden // heads,
+            rms_norm_eps=float(cfg.get("layer_norm_epsilon", 1e-5)),
+            max_seq_len=int(cfg.get("n_positions", 1024)),
+            tie_word_embeddings=True,
+            norm_type="layernorm",
+            position_embedding="learned",
+            ffn_type="mlp",
+            use_bias=True,
+            hidden_act="gelu_tanh",
+            bos_token_id=int(cfg.get("bos_token_id", 50256)),
+            eos_token_ids=_as_tuple(cfg.get("eos_token_id", 50256)),
+        )
+
+
 def _as_tuple(v: Any) -> Tuple[int, ...]:
     if isinstance(v, (list, tuple)):
         return tuple(int(x) for x in v)
@@ -314,8 +353,8 @@ def _as_tuple(v: Any) -> Tuple[int, ...]:
 
 
 def load_config(path: str | Path) -> ModelConfig:
-    """Load a Llama, Gemma-3 or Mixtral config from a HF ``config.json``, or a
-    Llama config from a Meta ``params.json``."""
+    """Load a Llama, Gemma-3, Mixtral or GPT-2 config from a HF
+    ``config.json``, or a Llama config from a Meta ``params.json``."""
     return config_from_dict(json.loads(Path(path).read_text()))
 
 
@@ -330,11 +369,13 @@ def config_from_dict(cfg: Mapping[str, Any]) -> ModelConfig:
         return MixtralConfig.from_hf_config(cfg)
     if mt == "llama" or "Llama" in archs:
         return LlamaConfig.from_hf_config(cfg)
+    if mt == "gpt2" or "GPT2" in archs:
+        return GPT2Config.from_hf_config(cfg)
     if "dim" in cfg and "n_layers" in cfg:  # Meta params.json has no model_type
         return LlamaConfig.from_meta_params(cfg)
     raise ValueError(
         f"unsupported model config (model_type={mt!r}); this port covers the "
-        "Llama, Gemma-3 and Mixtral families")
+        "Llama, Gemma-3, Mixtral and GPT-2 families")
 
 
 def merge_options(config: ModelConfig, overrides: Mapping[str, Any]) -> ModelConfig:

@@ -1,6 +1,6 @@
-"""HF Llama / Gemma-3 / Mixtral and Meta Llama checkpoints ↔ parameter tree
-(port of the JAX package's ``io/loaders.py`` ``load_params`` and
-``save_params``).
+"""HF Llama / Gemma-3 / Mixtral / GPT-2 and Meta Llama checkpoints ↔
+parameter tree (port of the JAX package's ``io/loaders.py``
+``load_params``, ``load_gpt2_params`` and ``save_params``).
 
 Linear weights are transposed from the checkpoint's ``[out, in]`` to
 ``[in, out]`` and stacked over layers, as in the JAX package. Gemma-3's
@@ -15,6 +15,10 @@ in, out]``.
 A Meta-format checkpoint (``source="meta"``) is renamed to HF names in
 place, its lm_head aliased to the embedding when missing, and its q/k rows
 permuted from Meta's interleaved rope layout to HF's half-split one.
+
+A GPT-2 checkpoint (``load_gpt2_params``) has its own names (``wte``,
+``wpe``, ``h.N.*``, ``ln_f``); its Conv1D weights are already ``[in, out]``,
+and the fused ``c_attn`` splits into wq/wk/wv with their biases.
 """
 
 from __future__ import annotations
@@ -132,6 +136,49 @@ def load_params(doc: SafetensorsDocument, config: ModelConfig, *,
         "layers": layers,
         "final_norm": get("model.norm.weight").to(dev),
         "lm_head": lm_head.to(dev),
+        "rope": make_rope_tables(config, max_seq_len, device=dev),
+    }
+
+
+def load_gpt2_params(doc: SafetensorsDocument, config: ModelConfig, *,
+                     dtype=torch.bfloat16, max_seq_len: Optional[int] = None,
+                     device=None) -> Params:
+    """Build the GPT-2 parameter tree from an HF GPT-2 safetensors document
+    (names without the ``transformer.`` prefix): layernorms with their
+    biases, ``c_attn [H, 3H]`` split into wq/wk/wv (and its bias), the
+    learned positions ``pos_emb`` and the lm_head a contiguous copy of
+    ``wte``'s transpose (GPT-2 ties them)."""
+    dev = resolve_device(device)
+    h = config.hidden_size
+
+    def get(name: str) -> torch.Tensor:
+        return doc.torch_tensor(name).to(dtype)
+
+    def stack(template: str, part=slice(None)) -> torch.Tensor:
+        return torch.stack([get(template.format(i=i))[..., part].contiguous()
+                            for i in range(config.num_layers)]).to(dev)
+
+    q, k, v = slice(0, h), slice(h, 2 * h), slice(2 * h, None)
+    pre = "h.{i}."
+    layers = {
+        "attn_norm": stack(pre + "ln_1.weight"), "attn_norm_b": stack(pre + "ln_1.bias"),
+        "ffn_norm": stack(pre + "ln_2.weight"), "ffn_norm_b": stack(pre + "ln_2.bias"),
+        "wq": stack(pre + "attn.c_attn.weight", q), "wk": stack(pre + "attn.c_attn.weight", k),
+        "wv": stack(pre + "attn.c_attn.weight", v),
+        "wq_b": stack(pre + "attn.c_attn.bias", q), "wk_b": stack(pre + "attn.c_attn.bias", k),
+        "wv_b": stack(pre + "attn.c_attn.bias", v),
+        "wo": stack(pre + "attn.c_proj.weight"), "wo_b": stack(pre + "attn.c_proj.bias"),
+        "w1": stack(pre + "mlp.c_fc.weight"), "w1_b": stack(pre + "mlp.c_fc.bias"),
+        "w2": stack(pre + "mlp.c_proj.weight"), "w2_b": stack(pre + "mlp.c_proj.bias"),
+    }
+    embed = get("wte.weight")
+    return {
+        "embed": embed.to(dev),
+        "pos_emb": get("wpe.weight").to(dev),
+        "layers": layers,
+        "final_norm": get("ln_f.weight").to(dev),
+        "final_norm_b": get("ln_f.bias").to(dev),
+        "lm_head": embed.T.contiguous().to(dev),
         "rope": make_rope_tables(config, max_seq_len, device=dev),
     }
 

@@ -1,5 +1,5 @@
 """Decode path: windows of 1 to 16 tokens (port of the JAX package's
-``models/decode.py``, Llama, Gemma-3 and Mixtral).
+``models/decode.py``, Llama, Gemma-3, Mixtral and GPT-2).
 
 * Every act8 per-channel linear runs through the stacked matvec kernel
   (``ops.a8_matvec``) with the window's rows flattened to ``[B·S]``; wqkv
@@ -36,6 +36,14 @@
   kernel reads, so the step reads nothing back and a CUDA graph captures
   it; otherwise every expert on all rows at the host index ``l·E + e``,
   the gates selecting (exact either way). No merged FFN block for MoE.
+* GPT-2 (as the JAX ``decode_step``): learned positions added to the
+  embedding at the window's device positions (no rope), layernorm run
+  outside the kernel (the matvec has an rmsnorm prologue only, so the
+  projections take the normed activation, as JAX's ``fuse_norms`` is off
+  for layernorm), each projection's bias added after its product in the
+  activation dtype, the biased gelu MLP (w1, w2; no w3) and the final
+  layernorm. The merged FFN block takes no biases: it is off under
+  ``use_bias``, as in the JAX package.
 
 Dense linear leaves take a plain product. The TPU-only gates of the JAX
 path (Mosaic head-dim rules, block choice, lane alignment) do not apply.
@@ -60,10 +68,12 @@ from metalchat_tpu_torch.models.moe import route
 from metalchat_tpu_torch.models.transformer import (
     DECODE_MAX_TOKENS,
     act_gate,
+    biased,
     embed_tokens,
     layer_leaf,
     layer_rope,
     norm,
+    rms_norm,
 )
 from metalchat_tpu_torch.ops import ffn_block as fb
 from metalchat_tpu_torch.ops import reference as ops
@@ -86,10 +96,12 @@ def _kernel_ok(leaf: Any, rows: int) -> bool:
 
 def _ffn_block_ok(layers: Dict[str, Any], rows: int, dtype, config: ModelConfig) -> bool:
     """The merged block's gate (the JAX package's, without the Mosaic block
-    rules): no post-norms, act8 per-channel transposed wo, w13 (fused) and
-    w2 of one ``bits``, an ffn norm in the activation dtype, wo's input as
-    wide as the hidden state, and shapes the kernel takes."""
-    if config.use_post_norms or config.num_experts:
+    rules): no post-norms, no biases, no layernorm, act8 per-channel
+    transposed wo, w13 (fused) and w2 of one ``bits``, an ffn norm in the
+    activation dtype, wo's input as wide as the hidden state, and shapes the
+    kernel takes."""
+    if (config.use_post_norms or config.num_experts or config.use_bias
+            or config.norm_type == "layernorm"):
         return False
     leaves = [layers.get(n) for n in ("wo", "w13", "w2")]
     if not all(isinstance(w, QuantizedTensor) and w.q.ndim == 3 and _kernel_ok(w, rows)
@@ -215,23 +227,28 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
         raise ValueError("decode_step takes one token a row on a paged cache; forward "
                          "sends longer windows to the layer route")
 
-    x = embed_tokens(params, tokens, config).reshape(rows, -1)
+    x = embed_tokens(params, tokens, positions, config).reshape(rows, -1)
     merged = ffn_block and _ffn_block_ok(layers, rows, x.dtype, config)
     # Rope rows of the window's positions, [B, S, hd/2], gathered once a
     # step per table (Gemma-3's sliding layers take the local one).
-    rope_rows = {name: table[positions] for name, table in params["rope"].items()}
+    rope = config.position_embedding == "rope"
+    rope_rows = {name: table[positions] for name, table in params["rope"].items()} \
+        if rope else {}
+    # The kernel's prologue is an rmsnorm: layernorm runs outside it.
+    prologue = config.norm_type != "layernorm"
 
     def norm_linear(x_res, name: str, norm_name: str, l: int, normed: dict):
-        """layers[name] @ rmsnorm(x_res): inside the kernel when it applies,
-        else one normed activation shared by the layer's projections."""
+        """layers[name] @ norm(x_res): the norm inside the kernel when it
+        applies, else one normed activation shared by the layer's
+        projections."""
         leaf = layers[name]
         norm_w = layers[norm_name]
-        if _kernel_ok(leaf, rows) and norm_w.dtype == x_res.dtype:
+        if prologue and _kernel_ok(leaf, rows) and norm_w.dtype == x_res.dtype:
             return quant_matvec_stacked_fused(x_res, leaf.q, leaf.scales, l,
                                               bits=leaf.bits, norm_stack=norm_w,
                                               norm_eps=eps, norm_offset=mu)
         if norm_name not in normed:
-            normed[norm_name] = norm(x_res, norm_w[l], config)
+            normed[norm_name] = norm(x_res, layers, norm_name, config, l)
         return linear_l(normed[norm_name], name, l)
 
     def linear_l(h, name: str, l: int):
@@ -240,21 +257,25 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
             return quant_matvec_stacked_fused(h, leaf.q, leaf.scales, l, bits=leaf.bits)
         return linear(h, layer_leaf(leaf, l))
 
+    def bias_l(y, name: str, l: int):
+        return biased(y, layers, name, config, l)
+
     for l in range(config.num_layers):
         normed: dict = {}
         if "wqkv" in layers:
-            q, k, v = norm_linear(x, "wqkv", "attn_norm", l, normed).split(
-                [nh * hd, nkv * hd, nkv * hd], dim=-1)
+            q, k, v = bias_l(norm_linear(x, "wqkv", "attn_norm", l, normed), "wqkv_b",
+                             l).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
         else:
-            q, k, v = (norm_linear(x, n, "attn_norm", l, normed)
+            q, k, v = (bias_l(norm_linear(x, n, "attn_norm", l, normed), n + "_b", l)
                        for n in ("wq", "wk", "wv"))
         q, k = q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd)
         if config.use_qk_norm:
-            q = norm(q, layers["q_norm"][l], config)
-            k = norm(k, layers["k_norm"][l], config)
-        cos, sin = layer_rope(rope_rows, config, l)
-        q = ops.apply_rope_rows(q, cos, sin)
-        k = ops.apply_rope_rows(k, cos, sin)
+            q = rms_norm(q, layers["q_norm"][l], config)
+            k = rms_norm(k, layers["k_norm"][l], config)
+        if rope:
+            cos, sin = layer_rope(rope_rows, config, l)
+            q = ops.apply_rope_rows(q, cos, sin)
+            k = ops.apply_rope_rows(k, cos, sin)
         v = v.reshape(b, s, nkv, hd)
         window = config.layer_window(l)
 
@@ -294,26 +315,29 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
                 layers["w13"].q, layers["w13"].scales, layers["w2"].q, layers["w2"].scales,
                 l, bits=layers["wo"].bits, act=config.hidden_act, eps=eps, offset=mu)
             continue
-        attn = linear_l(attn, "wo", l)
+        attn = bias_l(linear_l(attn, "wo", l), "wo_b", l)
         if config.use_post_norms:
-            attn = norm(attn, layers["post_attn_norm"][l], config)
+            attn = rms_norm(attn, layers["post_attn_norm"][l], config)
         x = x + attn
 
         normed = {}
+        act = ops.activation(config.hidden_act)
         if config.num_experts:
-            ffn = _moe_ffn_decode(norm(x, layers["ffn_norm"][l], config), layers, l, config)
+            ffn = _moe_ffn_decode(norm(x, layers, "ffn_norm", config, l), layers, l, config)
         elif "w13" in layers:
-            ffn = linear_l(act_gate(norm_linear(x, "w13", "ffn_norm", l, normed),
-                                    config.hidden_act), "w2", l)
+            fused = bias_l(norm_linear(x, "w13", "ffn_norm", l, normed), "w13_b", l)
+            ffn = linear_l(act_gate(fused, config.hidden_act), "w2", l)
+        elif config.ffn_type == "mlp":
+            gate = act(bias_l(norm_linear(x, "w1", "ffn_norm", l, normed), "w1_b", l))
+            ffn = bias_l(linear_l(gate, "w2", l), "w2_b", l)
         else:
-            gate = ops.activation(config.hidden_act)(
-                norm_linear(x, "w1", "ffn_norm", l, normed))
+            gate = act(norm_linear(x, "w1", "ffn_norm", l, normed))
             ffn = linear_l(gate * norm_linear(x, "w3", "ffn_norm", l, normed), "w2", l)
         if config.use_post_norms:
-            ffn = norm(ffn, layers["post_ffn_norm"][l], config)
+            ffn = rms_norm(ffn, layers["post_ffn_norm"][l], config)
         x = x + ffn
 
-    x = norm(x, params["final_norm"], config)
+    x = norm(x, params, "final_norm", config)
     lm_head = params["lm_head"]
     if isinstance(lm_head, QuantizedTensor) and lm_head.q.ndim == 2 \
             and _kernel_ok(lm_head, rows):

@@ -55,18 +55,23 @@ def _concat_linears(leaves) -> Any:
 
 
 def fuse_projections(params: Dict[str, Any], config: ModelConfig) -> Dict[str, Any]:
-    """Return a tree with wq/wk/wv fused to ``wqkv`` and w1/w3 to ``w13``.
-    MoE expert stacks stay as they are: the decode path reads w1 and w3
-    apart (`models/decode._moe_ffn_decode`)."""
+    """Return a tree with wq/wk/wv fused to ``wqkv`` and w1/w3 to ``w13``,
+    and with biases (``use_bias``) their ``_b`` leaves concatenated to
+    ``wqkv_b`` / ``w13_b``. MoE expert stacks stay as they are (the decode
+    path reads w1 and w3 apart, `models/decode._moe_ffn_decode`), and so do
+    an MLP's w1 and w2 (``ffn_type == "mlp"``: there is no w3)."""
     out = dict(params)
     layers = dict(params["layers"])
     groups = [(("wq", "wk", "wv"), "wqkv")]
-    if not config.num_experts:
+    if not config.num_experts and config.ffn_type != "mlp":
         groups.append((("w1", "w3"), "w13"))
     for names, fused in groups:
         if all(n in layers for n in names):
             layers[fused] = _concat_linears([layers[n] for n in names])
             for n in names:
                 del layers[n]
+            biases = [n + "_b" for n in names]
+            if config.use_bias and all(b in layers for b in biases):
+                layers[fused + "_b"] = torch.cat([layers.pop(b) for b in biases], dim=-1)
     out["layers"] = layers
     return out

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, Llama, Gemma-3 and Mixtral: the layer-by-layer
-route (port of the JAX package's ``models/transformer.py``).
+"""Decoder-only transformer, Llama, Gemma-3, Mixtral and GPT-2: the
+layer-by-layer route (port of the JAX package's ``models/transformer.py``).
 
 Parameter tree (same keys and layouts as the JAX package; per-layer leaves
 stacked on a leading layer axis):
@@ -11,8 +11,12 @@ stacked on a leading layer axis):
                Gemma-3 only: "q_norm", "k_norm": [L, hd],
                "post_attn_norm", "post_ffn_norm": [L, H],
                Mixtral: "router": [L, H, E] and expert stacks
-               "w1"/"w3": [L, E, H, F], "w2": [L, E, F, H]},
+               "w1"/"w3": [L, E, H, F], "w2": [L, E, F, H];
+               GPT-2: no "w3", layernorm biases "attn_norm_b",
+               "ffn_norm_b": [L, H] and projection biases "<name>_b":
+               [L, out] ("wqkv_b" once fused)},
     "final_norm": [H], "lm_head": [H, V] or QuantizedTensor,
+    GPT-2 also "final_norm_b": [H] and "pos_emb": [S_max, H],
     "rope": {"cos", "sin": [S_max, hd/2]; Gemma-3 also
              "cos_local", "sin_local" at rope_local_theta},
   }
@@ -25,6 +29,11 @@ extras follow the config: every norm's weight is ``norm_weight_offset + w``,
 q/k norms over hd, post-attention and post-FFN norms, the embedding scale,
 gelu-tanh, ``query_scale``, and sliding layers (``config.layer_window``)
 with their own rope table. Mixtral's FFN is ``models/moe.moe_ffn``.
+GPT-2's switches follow the config too: layernorm (``norm_type``), learned
+positions added to the embedding in place of rope (``position_embedding``;
+the ``pos_emb`` gather clamps its index to the last row, as JAX's gather
+does), bias adds after the projections (``use_bias``) and the biased gelu
+MLP (``ffn_type == "mlp"``).
 
 `forward` sends windows of up to 16 tokens to ``models/decode.decode_step``
 where `supports_fast_decode` allows it, as the JAX package does; everything
@@ -114,24 +123,56 @@ def layer_rope(rope: Dict[str, torch.Tensor], config: ModelConfig, l: int):
     return rope["cos"], rope["sin"]
 
 
-def norm(x: torch.Tensor, w: torch.Tensor, config: ModelConfig) -> torch.Tensor:
-    """rmsnorm with the config's eps and weight offset."""
+def rms_norm(x: torch.Tensor, w: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """rmsnorm with the config's eps and weight offset (Gemma-3's q/k and
+    post norms, whatever ``norm_type`` says)."""
     return ops.rms_norm(x, w, eps=config.rms_norm_eps, offset=config.norm_weight_offset)
 
 
-def embed_tokens(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def _leaf(tree: Params, name: str, l: Optional[int]):
+    return tree[name] if l is None else tree[name][l]
+
+
+def norm(x: torch.Tensor, tree: Params, name: str, config: ModelConfig,
+         l: Optional[int] = None) -> torch.Tensor:
+    """The pre-norm ``tree[name]`` (layer ``l`` of a stacked leaf): rmsnorm,
+    or with ``norm_type == "layernorm"`` layernorm with the bias leaf
+    ``<name>_b``."""
+    w = _leaf(tree, name, l)
+    if config.norm_type == "layernorm":
+        return ops.layer_norm(x, w, _leaf(tree, name + "_b", l), eps=config.rms_norm_eps)
+    return rms_norm(x, w, config)
+
+
+def biased(y: torch.Tensor, tree: Params, name: str, config: ModelConfig,
+           l: Optional[int] = None) -> torch.Tensor:
+    """``y + tree[name]`` (layer ``l``) where the config has biases and the
+    tree the leaf: added in y's dtype after the product, as JAX adds."""
+    if config.use_bias and name in tree:
+        return y + _leaf(tree, name, l)
+    return y
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
+                 config: ModelConfig) -> torch.Tensor:
     """Token embedding in the activation dtype (that of ``final_norm``),
     times ``embedding_scale`` rounded to that dtype first, as the JAX
-    package multiplies."""
+    package multiplies; with learned positions plus ``pos_emb[positions]``.
+    The position index is clamped to the table's last row on the device (a
+    padded prompt chunk or an idle engine row may run past it: JAX's gather
+    clamps, and on the card an index past the table is a device assert)."""
     x = lookup_embedding(tokens, params["embed"]).to(params["final_norm"].dtype)
     if config.embedding_scale is not None:
         x = x * torch.tensor(config.embedding_scale, dtype=x.dtype).item()
+    if config.position_embedding == "learned":
+        table = params["pos_emb"]
+        x = x + table[positions.clamp_max(table.shape[0] - 1)].to(x.dtype)
     return x
 
 
 def final_logits(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Final norm + lm head → f32 logits."""
-    return linear(norm(x, params["final_norm"], config), params["lm_head"]).float()
+    return linear(norm(x, params, "final_norm", config), params["lm_head"]).float()
 
 
 def act_gate(fused: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -170,19 +211,21 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
     b, s, _ = x.shape
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
 
-    h = norm(x, layers["attn_norm"][l], config)
+    h = norm(x, layers, "attn_norm", config, l)
     if "wqkv" in layers:
-        q, k, v = linear(h, layer_leaf(layers["wqkv"], l)).split(
-            [nh * hd, nkv * hd, nkv * hd], dim=-1)
+        q, k, v = biased(linear(h, layer_leaf(layers["wqkv"], l)), layers, "wqkv_b",
+                         config, l).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
-        q, k, v = (linear(h, layer_leaf(layers[n], l)) for n in ("wq", "wk", "wv"))
+        q, k, v = (biased(linear(h, layer_leaf(layers[n], l)), layers, n + "_b", config, l)
+                   for n in ("wq", "wk", "wv"))
     q, k = q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd)
     if config.use_qk_norm:
-        q = norm(q, layers["q_norm"][l], config)
-        k = norm(k, layers["k_norm"][l], config)
-    cos, sin = layer_rope(rope, config, l)
-    q = ops.apply_rope(q, cos, sin, positions)
-    k = ops.apply_rope(k, cos, sin, positions)
+        q = rms_norm(q, layers["q_norm"][l], config)
+        k = rms_norm(k, layers["k_norm"][l], config)
+    if config.position_embedding == "rope":
+        cos, sin = layer_rope(rope, config, l)
+        q = ops.apply_rope(q, cos, sin, positions)
+        k = ops.apply_rope(k, cos, sin, positions)
     v = v.reshape(b, s, nkv, hd)
 
     paged = isinstance(cache, PagedKVCache)
@@ -221,25 +264,30 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
             mask = ops.causal_mask(positions, keys.shape[2], (offsets + s)[:, None, None],
                                    None if window < 0 else window)
             attn = ops.attention(q, keys, values, mask, scale=config.attention_scale())
-    attn = linear(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l))
+    attn = biased(linear(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l)),
+                  layers, "wo_b", config, l)
     if config.use_post_norms:
-        attn = norm(attn, layers["post_attn_norm"][l], config)
+        attn = rms_norm(attn, layers["post_attn_norm"][l], config)
     x = x + attn
 
-    h = norm(x, layers["ffn_norm"][l], config)
+    h = norm(x, layers, "ffn_norm", config, l)
     if config.num_experts:
         from metalchat_tpu_torch.models.moe import moe_ffn
 
         ffn, _ = moe_ffn(h, {n: layer_leaf(layers[n], l) for n in MOE_LEAVES if n in layers},
                          config)
     elif "w13" in layers:
-        ffn = linear(act_gate(linear(h, layer_leaf(layers["w13"], l)), config.hidden_act),
-                     layer_leaf(layers["w2"], l))
+        fused = biased(linear(h, layer_leaf(layers["w13"], l)), layers, "w13_b", config, l)
+        ffn = linear(act_gate(fused, config.hidden_act), layer_leaf(layers["w2"], l))
+    elif config.ffn_type == "mlp":
+        gate = ops.activation(config.hidden_act)(
+            biased(linear(h, layer_leaf(layers["w1"], l)), layers, "w1_b", config, l))
+        ffn = biased(linear(gate, layer_leaf(layers["w2"], l)), layers, "w2_b", config, l)
     else:
         ffn = ops.swiglu(h, layer_leaf(layers["w1"], l), layer_leaf(layers["w3"], l),
                          layer_leaf(layers["w2"], l), config.hidden_act, matmul=linear)
     if config.use_post_norms:
-        ffn = norm(ffn, layers["post_ffn_norm"][l], config)
+        ffn = rms_norm(ffn, layers["post_ffn_norm"][l], config)
     return x + ffn
 
 
@@ -275,7 +323,7 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     paged_at = positions_to_pages(cache.page_table, positions, cache.page_size) \
         if paged else None
 
-    x = embed_tokens(params, tokens, config)
+    x = embed_tokens(params, tokens, positions, config)
     for l in range(config.num_layers):
         x = _layer_step(x, params["layers"], l, cache, config, params["rope"],
                         positions, offsets, start_pos, kv_end, paged_at)
@@ -287,7 +335,10 @@ def init_random_params(config: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     """Random dense parameters (tests and benchmarks without weights): the
     JAX package's ``init_random_params`` tree, N(0, 0.02) projections (and,
     for MoE, the router and ``[L, E, in, out]`` expert stacks) and unit
-    norms, drawn from a ``torch.Generator`` seeded with ``seed``."""
+    norms, drawn from a ``torch.Generator`` seeded with ``seed``. GPT-2's
+    leaves as in JAX: no w3 for the MLP, zero norm and projection biases,
+    ``final_norm_b``, and N(0, 0.02) ``pos_emb`` of ``max_seq_len or
+    config.max_seq_len`` rows."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -300,6 +351,9 @@ def init_random_params(config: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     layers = {
         "attn_norm": ones(L, h), "ffn_norm": ones(L, h),
         "wq": dense(L, h, nh * hd), "wk": dense(L, h, nkv * hd),
@@ -310,16 +364,30 @@ def init_random_params(config: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
         layers.update(router=dense(L, h, e), w1=dense(L, e, h, f), w3=dense(L, e, h, f),
                       w2=dense(L, e, f, h))
     else:
-        layers.update(w1=dense(L, h, f), w3=dense(L, h, f), w2=dense(L, f, h))
+        layers["w1"] = dense(L, h, f)
+        if config.ffn_type != "mlp":
+            layers["w3"] = dense(L, h, f)
+        layers["w2"] = dense(L, f, h)
     if config.use_qk_norm:
         layers.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
     if config.use_post_norms:
         layers.update(post_attn_norm=ones(L, h), post_ffn_norm=ones(L, h))
+    if config.norm_type == "layernorm":
+        layers.update(attn_norm_b=zeros(L, h), ffn_norm_b=zeros(L, h))
+    if config.use_bias:
+        layers.update(wq_b=zeros(L, nh * hd), wk_b=zeros(L, nkv * hd),
+                      wv_b=zeros(L, nkv * hd), wo_b=zeros(L, h), w1_b=zeros(L, f),
+                      w2_b=zeros(L, h))
     embed = dense(config.vocab_size, h)
-    return {
+    params = {
         "embed": embed,
         "layers": layers,
         "final_norm": ones(h),
         "lm_head": embed.T if config.tie_word_embeddings else dense(h, config.vocab_size),
         "rope": make_rope_tables(config, max_seq_len, device=dev),
     }
+    if config.norm_type == "layernorm":
+        params["final_norm_b"] = zeros(h)
+    if config.position_embedding == "learned":
+        params["pos_emb"] = dense(max_seq_len or config.max_seq_len, h)
+    return params

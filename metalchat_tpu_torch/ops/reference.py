@@ -29,6 +29,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5,
     return (normed * (offset + weight.float())).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Classic LayerNorm (GPT-2 family): f32 statistics, weight and bias
+    applied in f32, one cast back to x's dtype."""
+    dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * weight.float() + bias.float()).to(dtype)
+
+
 def scale_rope_freqs(freqs: torch.Tensor, scaling: RopeScaling) -> torch.Tensor:
     """Llama-3.1 rope frequency scaling."""
     low_wavelen = scaling.original_max_position_embeddings / scaling.low_freq_factor

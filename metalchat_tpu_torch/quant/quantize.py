@@ -23,6 +23,11 @@ Two execution schemes:
   sends up to 32 rows to the dequant-matmul kernel (``ops/quant_matmul.py``)
   and more rows to the weight dequantized in the activation dtype and
   ``torch.matmul`` (the JAX package leaves that large product to XLA).
+
+Embeddings may be row-quantized (``quantize_params(quantize_embed=True)``):
+the table ``[V, H]`` is stored row-major, ``q [V, H(/2)]`` and scales
+``[V, H/g]`` with groups along H, and `lookup_embedding` dequantizes only the
+gathered rows.
 """
 
 from __future__ import annotations
@@ -79,11 +84,15 @@ def _pack_int4(w4: np.ndarray) -> np.ndarray:
 
 def quantize(w, bits: int = 8, group_size: Optional[int] = 32,
              scales_dtype=torch.float32, transposed: bool = False,
-             act_bits: Optional[int] = None, device=None) -> QuantizedTensor:
+             act_bits: Optional[int] = None, clip_search: bool = False,
+             device=None) -> QuantizedTensor:
     """Symmetric groupwise quantization of an ``[(L,) in, out]`` weight.
 
     ``group_size=None`` gives per-output-channel scales, which the
-    ``act_bits=8`` scheme requires."""
+    ``act_bits=8`` scheme requires. ``clip_search`` replaces each group's
+    absmax scale by the one of 11 clip ratios (1.0 down to 0.5) with the
+    least squared reconstruction error over the group, as the JAX package
+    searches (the same numpy steps, so the same bytes)."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if act_bits not in (None, 8):
@@ -103,6 +112,18 @@ def quantize(w, bits: int = 8, group_size: Optional[int] = 32,
     g = w.reshape(*w.shape[:-2], in_features // group_size, group_size, out_features)
     qmax = 127.0 if bits == 8 else 7.0
     scales = np.abs(g).max(axis=-2, keepdims=True) / qmax
+    if clip_search:
+        best_err = np.full(scales.shape, np.inf, np.float32)
+        best = scales.copy()
+        for ratio in np.linspace(1.0, 0.5, 11):
+            s = scales * np.float32(ratio)
+            with np.errstate(divide="ignore"):
+                inv = np.where(s == 0.0, 0.0, 1.0 / s)
+            codes = np.clip(np.round(g * inv), -qmax, qmax)
+            err = ((codes * s - g) ** 2).sum(axis=-2, keepdims=True)
+            best = np.where(err < best_err, s, best)
+            best_err = np.minimum(err, best_err)
+        scales = best
     with np.errstate(divide="ignore"):  # all-zero groups: inv 0, codes 0
         inv = np.where(scales == 0.0, 0.0, 1.0 / scales)
     q = np.clip(np.round(g * inv), -qmax, qmax).astype(np.int8).reshape(w.shape)
@@ -227,10 +248,17 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def lookup_embedding(tokens: torch.Tensor, embed) -> torch.Tensor:
-    """Dense embedding lookup ``embed [V, H]`` at ``tokens``."""
-    if isinstance(embed, QuantizedTensor):
-        raise NotImplementedError("quantized embeddings are later work")
-    return embed[tokens]
+    """Embedding lookup at ``tokens``: a dense table ``[V, H]``, or a
+    row-quantized one (``q [V, H(/2)]``, scales ``[V, H/g]``) whose gathered
+    rows are unpacked (int4: half-split along H) and dequantized in f32."""
+    if not isinstance(embed, QuantizedTensor):
+        return embed[tokens]
+    q = embed.q[tokens]
+    if embed.bits == 4:
+        q = torch.cat([(q & 15) - 8, q >> 4], dim=-1)
+    s = embed.scales[tokens]
+    grouped = q.reshape(*q.shape[:-1], s.shape[-1], -1).float()
+    return (grouped * s[..., None].float()).reshape(q.shape)
 
 
 def init_random_quantized_params(config, *, bits: int = 4,
@@ -307,18 +335,22 @@ _DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 
 def quantize_params(params: Dict[str, Any], *, bits: int = 8,
                     group_size: Optional[int] = 32, targets=_DEFAULT_TARGETS,
-                    quantize_lm_head: bool = False, scales_dtype=torch.float32,
-                    act_bits: Optional[int] = None) -> Dict[str, Any]:
+                    quantize_lm_head: bool = False, quantize_embed: bool = False,
+                    scales_dtype=torch.float32, act_bits: Optional[int] = None,
+                    clip_search: bool = False) -> Dict[str, Any]:
     """Quantize selected dense ``[(L,) in, out]`` leaves of a parameter tree.
 
     Storage orientation as the reference's ``auto_orient``: act8 tensors and
-    wide-output tensors are stored transposed."""
+    wide-output tensors are stored transposed. ``quantize_embed`` row-
+    quantizes the embedding as the JAX package does: its transpose is
+    quantized groupwise along H (no clip search, no act8) and stored
+    row-major again."""
     def q(w):
         in_f, out_f = w.shape[-2:]
         return quantize(w, bits=bits, group_size=group_size,
                         scales_dtype=scales_dtype, act_bits=act_bits,
                         transposed=act_bits == 8 or out_f > in_f,
-                        device=w.device)
+                        clip_search=clip_search, device=w.device)
 
     out = dict(params)
     out["layers"] = dict(params["layers"])
@@ -327,4 +359,11 @@ def quantize_params(params: Dict[str, Any], *, bits: int = 8,
             out["layers"][name] = q(out["layers"][name])
     if quantize_lm_head:
         out["lm_head"] = q(params["lm_head"])
+    if quantize_embed:
+        embed = params["embed"]
+        qt = quantize(embed.T, bits=bits, group_size=group_size, scales_dtype=scales_dtype,
+                      device=embed.device)
+        out["embed"] = QuantizedTensor(q=qt.q.transpose(-1, -2).contiguous(),
+                                       scales=qt.scales.transpose(-1, -2).contiguous(),
+                                       bits=bits, group_size=qt.group_size)
     return out

@@ -402,7 +402,8 @@ def test_model_pulled_by_either_cli(fake_checkout, store_home, capsys, puller):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "tiny", "--pp", "2"], "item 9"), (["serve", "tiny", "--cp", "2"], "item 9"),
+    (["serve", "tiny", "--pp", "2"], "parallelism item"),
+    (["serve", "tiny", "--cp", "2"], "parallelism item"),
 ])
 def test_unported_options_raise(pulled, argv, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -561,3 +561,56 @@ def test_speculative_graph_route_matches_eager_loop(card, force):
     for a, b in zip(graph[2:4], eager[2:4]):
         assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
     assert counts == chip_smoke.spec_launches(counts, (params, cfg), (draft, cfg), 4, rounds, 1)
+
+
+# -- GPT-2: rows 1, 3, 4, 5 and 8 at GPT-2 XL's shapes, and its paths ----------
+
+def test_gpt2_xl_kernel_shapes(card):
+    """Rows 1 (K 1600 and 6400, out 50257), 3, 4, 5 and 8 at 25 heads of 64
+    (groups 1) against their plain versions, as phase kernels checks them."""
+    sm, gen, dev = card
+    chip_smoke.gpt2_kernel_checks(sm, gen, dev)
+
+
+@pytest.mark.parametrize("kv", ["int8", "act"])
+def test_gpt2_generate_graph_matches_eager_loop(card, kv):
+    """A small GPT-2 W8A8 (chip_smoke.make_gpt2_params at 2 layers, hidden
+    256, 4 heads of 64) through `generate` on an int8 or a bf16 cache: ids
+    and cache equal to the eager loop's bit for bit, launches exact."""
+    from metalchat_tpu_torch.cache import KVCache, QuantizedKVCache
+    from metalchat_tpu_torch.config import config_from_dict
+    from metalchat_tpu_torch.engine import generate
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = config_from_dict(chip_smoke.GPT2_FIXTURE_JSON)
+    params = chip_smoke.make_gpt2_params(cfg, "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=card[1], device="cuda")
+
+    def cache():
+        if kv == "int8":
+            return QuantizedKVCache.create(cfg, 2, 64, device="cuda")
+        return KVCache.create(cfg, 2, 64, dtype=torch.bfloat16, device="cuda")
+
+    reset_launch_counts()
+    c = cache()
+    got = generate(params, cfg, prompt, max_new_tokens=17, cache=c)
+    counts = launch_counts()
+    ec = cache()
+    want, _ = chip_smoke.eager_generate(params, cfg, prompt, 17, ec)
+    assert torch.equal(got, want)
+    assert torch.equal(c.k, ec.k) and torch.equal(c.v, ec.v)
+    attn = "decode_attention_update" if kv == "int8" else "decode_attention"
+    assert counts == {**dict.fromkeys(counts, 0),
+                      **chip_smoke.gpt2_generate_counts(cfg, 16, attn)}
+
+
+def test_gpt2_fixture_card_against_cpu(card):
+    """phase gpt2-fixture: f32, W8A8 and row-quantized embeddings, the card
+    against the CPU's plain path."""
+    chip_smoke.phase_gpt2_fixture(card[0])
+
+
+def test_ppl_card_against_cpu(card):
+    """phase ppl: `perplexity_delta` on the fixture, the card within
+    chip_smoke.PPL_RTOL of the CPU."""
+    chip_smoke.phase_ppl(card[0])

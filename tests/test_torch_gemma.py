@@ -60,6 +60,7 @@ from metalchat_tpu.quant.quantize import quantize_params as jquantize_params
 from metalchat_tpu_torch.cache import KVCache, PagedKVCache, QuantizedKVCache
 from metalchat_tpu_torch.config import (
     Gemma3Config,
+    GPT2Config,
     LlamaConfig,
     MixtralConfig,
     ModelConfig,
@@ -195,7 +196,9 @@ def test_load_config_dispatch(tmp_path):
     path.write_text(json.dumps({"model_type": "mixtral"}))
     assert isinstance(load_config(path), MixtralConfig)
     path.write_text(json.dumps({"model_type": "gpt2"}))
-    with pytest.raises(ValueError, match="gpt2"):
+    assert isinstance(load_config(path), GPT2Config)
+    path.write_text(json.dumps({"model_type": "bert"}))
+    with pytest.raises(ValueError, match="bert"):
         load_config(path)
 
 

@@ -203,3 +203,61 @@ def test_requantize_per_channel_matches(bits, act_bits, transposed):
     tt = tq.quantize(w, bits=4, group_size=32, transposed=transposed, device="cpu")
     want = jax_tree_to_numpy(jq.requantize_per_channel(jt, bits=bits, act_bits=act_bits))
     _same_leaf(tq.requantize_per_channel(tt, bits=bits, act_bits=act_bits), want, "requant")
+
+
+# -- clip_search, row-quantized embeddings ---------------------------------------
+
+@pytest.mark.parametrize("bits,group_size,transposed,act_bits", [
+    (4, None, True, 8), (8, None, True, 8), (4, 32, False, None), (8, 32, True, None),
+    (4, 16, True, None), (8, None, False, None),
+])
+def test_clip_search_bytes_identical(bits, group_size, transposed, act_bits):
+    """clip_search's 11-ratio grid gives the JAX package's codes and scales
+    bit for bit (heavy-tailed weights, so that at int4 the search moves
+    many scales), and through `quantize_params` too."""
+    rng = np.random.default_rng(7)
+    w = (rng.standard_t(3, (2, 128, 96)) * 0.02).astype(np.float32)
+    w[0, :, 5] = 0.0  # an all-zero channel: every ratio's scale is 0
+    kw = dict(bits=bits, group_size=group_size, transposed=transposed, act_bits=act_bits)
+    jt = jq.quantize(w, clip_search=True, **kw)
+    tt = tq.quantize(w, clip_search=True, device="cpu", **kw)
+    np.testing.assert_array_equal(tt.q.numpy(), np.asarray(jt.q))
+    np.testing.assert_array_equal(tt.scales.numpy(), np.asarray(jt.scales))
+    if bits == 4:  # the search chose other ratios than 1.0
+        plain = tq.quantize(w, device="cpu", **kw)
+        assert (plain.scales != tt.scales).float().mean() > 0.3
+    qkw = dict(bits=bits, group_size=group_size, act_bits=act_bits, quantize_lm_head=True,
+               clip_search=True)
+    want = jax_tree_to_numpy(jq.quantize_params(
+        {"layers": {"wq": jnp.asarray(w)}, "lm_head": jnp.asarray(w[0])}, **qkw))
+    got = tq.quantize_params({"layers": {"wq": torch.from_numpy(w)},
+                              "lm_head": torch.from_numpy(w[0])}, **qkw)
+    for leaf, ref in ((got["layers"]["wq"], want["layers"]["wq"]),
+                      (got["lm_head"], want["lm_head"])):
+        np.testing.assert_array_equal(leaf.q.numpy(), ref["q"])
+        np.testing.assert_array_equal(leaf.scales.numpy(), ref["scales"])
+        assert leaf.transposed == ref["transposed"]
+
+
+@pytest.mark.parametrize("bits,group_size", [(8, 32), (4, 32), (8, None), (4, 16)], ids=str)
+def test_quantize_embed_bytes_and_lookup_match_jax(bits, group_size):
+    """`quantize_params(quantize_embed=True)`: the table row-quantized as the
+    JAX package stores it (the same bytes, ``transposed=False``), and
+    `lookup_embedding` of it equal to JAX's in f32, exactly."""
+    rng = np.random.default_rng(8)
+    embed = (rng.standard_normal((200, 64)) * 0.1).astype(np.float32)
+    embed[3] = 0.0  # an all-zero row: scale 0
+    kw = dict(bits=bits, group_size=group_size, quantize_embed=True)
+    jt = jq.quantize_params({"layers": {}, "embed": jnp.asarray(embed)}, **kw)["embed"]
+    tt = tq.quantize_params({"layers": {}, "embed": torch.from_numpy(embed)}, **kw)["embed"]
+    np.testing.assert_array_equal(tt.q.numpy(), np.asarray(jt.q))
+    np.testing.assert_array_equal(tt.scales.numpy(), np.asarray(jt.scales))
+    assert not tt.transposed and tt.bits == bits and tt.q.shape[0] == 200
+    tokens = rng.integers(0, 200, (3, 7))
+    tokens[0, 0] = 3
+    want = np.asarray(jq.lookup_embedding(jnp.asarray(tokens), jt))
+    got = tq.lookup_embedding(torch.from_numpy(tokens), tt)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_allclose(got.numpy(), embed[tokens], rtol=0,
+                               atol=np.abs(embed).max() / (7 if bits == 4 else 127))
