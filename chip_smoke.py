@@ -12,7 +12,8 @@ Phases (any failure makes the script exit non-zero without a result line):
 3. Hold each kernel against its plain PyTorch version on the card, at the
    Llama-3.1-8B shapes of the main path, at the fixture's (hd=64) and at
    Gemma-3-1B's (hd=256, windows of 512 that drop positions; row 1 at its
-   widths with the norm prologue at offset 1):
+   widths with the norm prologue at offset 1), and row 11 at qlora-1b's
+   shapes with f32 scales (``QMM_QLORA_1B``):
    a8_matvec raw mode int32-exact; cache bytes exact; every other output
    elementwise within one bf16 rounding step of the plain version's (see
    ``RTOL``), the fused matvec with its norm prologue within 1e-2 abs; lengths
@@ -130,8 +131,29 @@ Phases (any failure makes the script exit non-zero without a result line):
    step's logits within ``check_logits``'s limit, ids equal or parted at a
    near tie, launches exact. ppl: ``quant.ppl.perplexity_delta`` of the
    trained fixture in bf16 against W8A8, W4A8, int4 g32 with and without
-   ``clip_search`` and int8 g32 with ``quantize_embed``, card against CPU
-   within ``PPL_RTOL``, the table printed.
+   ``clip_search`` and int8 g32 with ``quantize_embed``, and W4A8 with
+   ``clip_search``, AWQ (α ``PPL_AWQ_ALPHA``), GPTQ, GPTQ with two scale
+   refits and AWQ + GPTQ (each calibrated tree quantized on the card and on
+   the CPU from the same bf16 weights, its codes card against CPU within
+   ``GPTQ_TOLERANCE``'s share, and for plain GPTQ where they part:
+   ``gptq_cause``), card against CPU within ``PPL_RTOL``, the table printed.
+   qlora-1b (run after chat, before the larger models load): a
+   reference-dialect QLoRA checkpoint at Llama-3.2-1B's widths
+   (``write_reference_qlora``: int8 g32 with f32 scales, rank-16 adaptors,
+   the head tied to the embedding, 1.41 GB in a temporary directory) loaded
+   onto the card by ``load_reference_qlora``, then ``generate`` as the main
+   phase drives it (113 quant_matmul and 16 decode_attention_update
+   launches a step, 16 flash a prefill, the graph route equal to the eager
+   loop), its profile, and a native round trip (``export_quantized``,
+   ``save_safetensors``, ``load_quantized``): every exported tensor equal,
+   16 greedy ids and every step's logits bit for bit. gptq-1b: random dense
+   bf16 weights at the same widths, ``gptq_quantize_params`` (W4A8, AWQ α
+   ``GPTQ_AWQ_ALPHA``, two refits) on 8 x 512 calibration tokens, no
+   factorization fallback, the AWQ fold's layer 0 byte for byte against the
+   CPU's, layer 0's wk, wo, w1 and w2 codes (``GPTQ_COMPARE`` columns)
+   against the CPU port within ``GPTQ_TOLERANCE``, the
+   native round trip, and the reloaded tree fused through ``generate`` (64
+   a8_matvec launches a step).
 6. serve-fixture: the fixture through ``ContinuousBatchingEngine`` (6 greedy
    requests, 3 slots, chunks of 32, bursts of 4, f32 activations) in paged
    (pages of 16), dense int8 and dense activation-dtype mode, on the card
@@ -157,7 +179,10 @@ Phases (any failure makes the script exit non-zero without a result line):
    fused matvec call, at every row count), every turn's ids equal; the
    graph engine's wall by dispatch kind over one more run, each step
    synchronized; then ``torch.profiler`` over one paged decode dispatch (8
-   steps) with all 8 slots decoding, on each route.
+   steps) with all 8 slots decoding, on each route. Each serve phase runs
+   its generate phase's model cut to its first ``SERVE_LAYERS`` layers
+   (views of the stacks; widths, workload and turns unchanged), which
+   keeps the script inside its time limit.
    serve-gemma: the gemma phase's model behind the engine with the same
    workload, all 24 requests, paged only, the same checks; serve-mixtral
    likewise for the mixtral phase's model (its 8-row step dense over
@@ -196,7 +221,8 @@ Phases (any failure makes the script exit non-zero without a result line):
    timing-mixtral (row 1 indexed: a batch-1 Mixtral step's 192 expert calls;
    rows 6 and 7: a scan-route step of 32 one-layer calls), timing-gpt2
    (rows 1 and 3 at GPT-2 XL's decode shapes: a step's 192 matvec calls,
-   each with its a8_quantize alone, and 48 attention calls at length 576).
+   each with its a8_quantize alone, and 48 attention calls at length 576),
+   timing-qlora (row 11 at qlora-1b's decode step: 113 calls, f32 scales).
 
 The last lines are the kernel table as one JSON object (rows 1-11 of the
 JAX package's TPU kernels), the card's name and power limit, and
@@ -1010,6 +1036,12 @@ QMM_8B_INT4 = [("wqkv", 6144, 4096, 4, 32, True), ("wo", 4096, 4096, 4, 32, Fals
 QMM_1B_INT8 = [("wqkv", 3072, 2048, 8, 32, True), ("wo", 2048, 2048, 8, 32, False),
                ("w13", 16384, 2048, 8, 32, True), ("w2", 2048, 8192, 8, 32, False),
                ("lm_head", 128256, 2048, 8, 32, True)]
+# qlora-1b's shapes (Llama-3.2-1B, int8 group 32, f32 scales, as
+# `load_reference_qlora` stores them): the unfused wq, wk/wv, wo and w2
+# natural, w1/w3 transposed, the tied head natural at out 128256.
+QMM_QLORA_1B = [("wq", 2048, 2048, 8, 32, False), ("wk/wv", 512, 2048, 8, 32, False),
+                ("wo", 2048, 2048, 8, 32, False), ("w1/w3", 8192, 2048, 8, 32, True),
+                ("w2", 2048, 8192, 8, 32, False), ("lm_head", 128256, 2048, 8, 32, False)]
 # The fixture's widths, per-channel and group scales, both orientations.
 QMM_FIXTURE = [("wqkv", 768, 384, 4, 32, True), ("wo", 384, 384, 4, 32, False),
                ("w13", 2048, 384, 8, 32, True), ("w2", 384, 1024, 8, 32, False),
@@ -1201,6 +1233,12 @@ def phase_kernels(sm: Smoke):
         check_qmm(sm, QMM_8B_INT4, rows, gen, dev)
         check_qmm(sm, QMM_1B_INT8, rows, gen, dev)
     check_qmm(sm, QMM_FIXTURE, 3, gen, dev, torch.float32, torch.float32)
+    # qlora-1b's shapes draw from a generator of their own, so the checks
+    # after them see the inputs they saw before these shapes were added.
+    gen_qlora = torch.Generator(device=dev)
+    gen_qlora.manual_seed(17)
+    for rows in (1, 8):
+        check_qmm(sm, QMM_QLORA_1B, rows, gen_qlora, dev, scales_dtype=torch.float32)
     for rows in FFN_ROWS:
         check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
     check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
@@ -1251,11 +1289,13 @@ def weight_bytes(params) -> int:
     """bench.py's accounting: every weight except the embedding table (one
     row is gathered), GPT-2's position table (one row too) and the rope
     tables."""
-    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+    from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor
 
     def nbytes(node):
         if isinstance(node, QuantizedTensor):
             return nbytes(node.q) + nbytes(node.scales)
+        if isinstance(node, LoraLinear):
+            return nbytes(node.base) + nbytes(node.a) + nbytes(node.b)
         if isinstance(node, dict):
             return sum(nbytes(v) for v in node.values())
         return node.numel() * node.element_size()
@@ -1674,13 +1714,16 @@ GEMMA_FIXTURE_PROMPT, GEMMA_FIXTURE_STEPS = 96, 16
 
 
 def to_device(tree, device):
-    """A parameter tree copied to ``device`` (quantized leaves too)."""
+    """A parameter tree copied to ``device`` (quantized and LoRA leaves too)."""
     import dataclasses
 
-    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+    from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor
 
     if isinstance(tree, QuantizedTensor):
         return dataclasses.replace(tree, q=tree.q.to(device), scales=tree.scales.to(device))
+    if isinstance(tree, LoraLinear):
+        return dataclasses.replace(tree, base=to_device(tree.base, device),
+                                   a=tree.a.to(device), b=tree.b.to(device))
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
@@ -1995,24 +2038,130 @@ def phase_gpt2_fixture(sm: Smoke):
 # Perplexity of the fixture (pyllama_10m) in bf16 against its quantized
 # trees, over PPL_BATCHES batches of PPL_ROWS rows of PPL_LEN eval tokens.
 PPL_BATCHES, PPL_ROWS, PPL_LEN = 4, 4, 128
+# The calibrated modes' batch: the quality gate's shape, 8 rows of PPL_LEN
+# (tools/quality_gate.py:67), the eval tokens after the scored ones.
+PPL_CALIB_ROWS = 8
+# AWQ's α: the one the quality gate's grid picks on this fixture
+# (QUALITY.json "awq_alpha"), fixed here so card and CPU fold alike.
+PPL_AWQ_ALPHA = 0.1
+# A mode is `quantize_params` keywords (quantized once on the host: the
+# same bytes for card and CPU), or a calibrated scheme quantized once on the
+# card and once on the CPU: {"awq": α} (`awq_quantize_params`) or {"gptq":
+# keywords} (W4A8 `gptq_quantize_params`). A calibrated mode's codes are
+# held card against CPU within GPTQ_TOLERANCE's share (`codes_against_cpu`):
+# the perplexities alone cannot tell GPTQ from GPTQ refit or AWQ + GPTQ.
 PPL_MODES = {
     "w8a8": W8A8,
     "w4a8": dict(bits=4, group_size=None, act_bits=8),
     "int4 g32": dict(bits=4, group_size=32),
     "int4 g32 clip_search": dict(bits=4, group_size=32, clip_search=True),
     "int8 g32 quantize_embed": dict(bits=8, group_size=32, quantize_embed=True),
+    "w4a8 clip_search": dict(bits=4, group_size=None, act_bits=8, clip_search=True),
+    "w4a8 awq": {"awq": PPL_AWQ_ALPHA},
+    "w4a8 gptq": {"gptq": {}},
+    "w4a8 gptq refit": {"gptq": dict(refit_iters=2)},
+    "w4a8 awq gptq": {"gptq": dict(awq_alpha=PPL_AWQ_ALPHA)},
 }
 # Card against CPU: each perplexity within this share of the CPU's (bf16
 # logits on both; the NLL averages PPL_BATCHES * PPL_ROWS * (PPL_LEN - 1)
 # tokens, so a rounding step here and there moves it far less).
 PPL_RTOL = 5e-3
+# GPTQ codes of one leaf against another build's on the same weights and
+# Hessian (the card against the CPU; the port against JAX in the CPU tests):
+# at most this share of the codes differ, each by one quantum, and the
+# per-channel Hessian objective summed over channels within this relative
+# difference. The recursion's arithmetic is the same on every device, but
+# inv/cholesky differ in the last ulp between LAPACK builds, calibration's f32
+# products sum in another order, and a code that flips at a .5 boundary feeds
+# another error into the channels after it. Trees calibrated apart, and the
+# fixture's trained Hessians factored apart (phase ppl), are held to the
+# share alone.
+GPTQ_TOLERANCE = (0.02, 0.01)
+
+
+def codes_against_cpu(sm: Smoke, what: str, card_tree, cpu_tree):
+    """Every per-channel layer leaf of a tree quantized on the card against
+    the same tree quantized on the CPU, each side calibrated on its own: at
+    most GPTQ_TOLERANCE's share of the codes differ. The one-quantum bound
+    holds only on shared inputs and random weights (`gptq_against_cpu`):
+    here the Hessians and their factorizations differ in their last bits,
+    and a flipped code feeds another error into the channels after it.
+    Returns (share, largest difference)."""
+    torch = sm.torch
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+
+    n = diff = worst = 0
+    for name, leaf in cpu_tree["layers"].items():
+        if not isinstance(leaf, QuantizedTensor):
+            continue
+        for l in range(leaf.q.shape[0]):
+            d = (unpack_codes(card_tree["layers"][name], l).cpu().to(torch.int32)
+                 - unpack_codes(leaf, l).to(torch.int32))
+            n, diff = n + d.numel(), diff + int((d != 0).sum())
+            worst = max(worst, int(d.abs().max()))
+    share = diff / n
+    sm.expect(share <= GPTQ_TOLERANCE[0], f"{what}: {diff} of {n} codes differ card "
+              f"against CPU, the largest by {worst}")
+    return share, worst
+
+
+def gptq_cause(sm: Smoke, cfg, card_ref, ref, calib, card_tree) -> str:
+    """Where the fixture's GPTQ codes (no refit) part between card and CPU:
+    each tap's Hessians, card against CPU (largest difference over the
+    largest entry), and the CPU's recursion run on the card's Hessians,
+    whose codes against the card's own are the factorization's share (the
+    damping's mean, inv and cholesky): at most GPTQ_TOLERANCE's share. On
+    the fixture's trained Hessians a flip there moves later codes by more
+    than one quantum, so the largest difference is reported, not bound."""
+    torch = sm.torch
+    from metalchat_tpu_torch.quant import gptq
+    from metalchat_tpu_torch.quant.awq import calibration_stats
+
+    h_card = calibration_stats(card_ref, cfg, calib.cuda(), tap=gptq.hessian_tap)
+    h_cpu = calibration_stats(ref, cfg, calib, tap=gptq.hessian_tap)
+    layers, parts, n, diff, worst = ref["layers"], [], 0, 0, 0
+    for tap, H in h_cpu.items():
+        names = [k for k, t in gptq._TAP_OF.items() if t == tap and k in layers]
+        hc = h_card[tap].cpu()
+        parts.append(f"{tap} {float((hc - H).abs().max() / H.abs().max()):.3g}")
+        w = torch.cat([layers[k].float() for k in names], dim=-1).double()
+        q, _ = gptq._gptq_codes(w, hc, qmax=7.0, clip_search=True, act_order=True,
+                                damp=0.01, refit_iters=0, failures=None)
+        card = torch.cat([torch.stack([unpack_codes(card_tree["layers"][k], l)
+                                       for l in range(cfg.num_layers)]) for k in names], dim=-1)
+        d = card.cpu().to(torch.int32) - q.to(torch.int32)
+        n, diff = n + q.numel(), diff + int((d != 0).sum())
+        worst = max(worst, int(d.abs().max()))
+    sm.expect(diff <= GPTQ_TOLERANCE[0] * n, f"ppl gptq: {diff} of {n} codes differ on the "
+              f"card's Hessians, the largest by {worst}")
+    return (f"Hessians card against CPU (largest difference / largest entry): "
+            f"{', '.join(parts)}; the CPU recursion on the card's Hessians: {diff} of {n} "
+            f"codes differ from the card's (largest {worst})")
+
+
+def ppl_candidate(quant: dict, params, cfg, calib):
+    """A PPL_MODES tree of ``params`` (calibrated on ``calib`` where the mode
+    calibrates)."""
+    from metalchat_tpu_torch.quant.awq import awq_quantize_params
+    from metalchat_tpu_torch.quant.gptq import gptq_quantize_params
+    from metalchat_tpu_torch.quant.quantize import quantize_params
+
+    if "awq" in quant:
+        return awq_quantize_params(params, cfg, calib, alpha=quant["awq"])
+    if "gptq" in quant:
+        return gptq_quantize_params(params, cfg, calib, bits=4, act_bits=8, **quant["gptq"])
+    return quantize_params(params, **quant)
 
 
 def phase_ppl(sm: Smoke):
     """`perplexity_delta` of the fixture's bf16 tree against each PPL_MODES
     tree, on the card and on the CPU's plain path: every perplexity within
     PPL_RTOL of the CPU's; the table printed. On the card `forward` runs the
-    prefill's flash attention (a batch is longer than 16 tokens)."""
+    prefill's flash attention (a batch is longer than 16 tokens). The
+    calibrated modes (AWQ, GPTQ) quantize on the card and on the CPU from
+    the same bf16 weights and calibration tokens, their codes held card
+    against CPU (`codes_against_cpu`), plain GPTQ's traced to the Hessians
+    or the factorization (`gptq_cause`)."""
     torch = sm.torch
     from pathlib import Path
 
@@ -2022,43 +2171,460 @@ def phase_ppl(sm: Smoke):
     from metalchat_tpu_torch.io.loaders import load_params
     from metalchat_tpu_torch.io.safetensors import open_safetensors
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
-    from metalchat_tpu_torch.quant.ppl import perplexity_delta
-    from metalchat_tpu_torch.quant.quantize import quantize_params
+    from metalchat_tpu_torch.quant.ppl import perplexity_delta, token_nll
 
     fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / "pyllama_10m"
     cfg = load_config(fixture / "config.json")
     tokens = np.load(fixture / "eval_tokens.npy").astype(np.int64)
     n = PPL_ROWS * PPL_LEN
     batches = [tokens[i * n:(i + 1) * n].reshape(PPL_ROWS, PPL_LEN) for i in range(PPL_BATCHES)]
+    calib = torch.from_numpy(tokens[PPL_BATCHES * n:PPL_BATCHES * n + PPL_CALIB_ROWS * PPL_LEN]
+                             .reshape(PPL_CALIB_ROWS, PPL_LEN))
     ref = load_params(open_safetensors(fixture), cfg, dtype=torch.bfloat16, device="cpu")
     card_ref = to_device(ref, torch.device("cuda"))
+
+    def cpu_perplexity(params):  # perplexity_delta's, one tree on the CPU
+        return float(np.exp(np.mean([float(token_nll(params, cfg, torch.from_numpy(b)))
+                                     for b in batches])))
+
+    cpu_reference = cpu_perplexity(ref)  # once: the same tree for every mode
     reset_launch_counts()
-    table, worst = [], 0.0
+    table, worst, codes, cause = [], 0.0, {}, None
     for mode, quant in PPL_MODES.items():
-        cand = quantize_params(ref, **quant)
         t0 = time.perf_counter()
-        got = perplexity_delta(card_ref, to_device(cand, torch.device("cuda")), cfg, batches)
+        calibrated = "awq" in quant or "gptq" in quant
+        if calibrated:
+            card_cand = ppl_candidate(quant, card_ref, cfg, calib.cuda())
+            torch.cuda.synchronize()
+            quant_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cand = ppl_candidate(quant, ref, cfg, calib)
+            cpu_quant_s = time.perf_counter() - t0
+            codes[mode] = codes_against_cpu(sm, f"ppl {mode}", card_cand, cand)
+            if quant == {"gptq": {}}:
+                cause = gptq_cause(sm, cfg, card_ref, ref, calib, card_cand)
+        else:
+            cand = ppl_candidate(quant, ref, cfg, None)
+            card_cand = to_device(cand, torch.device("cuda"))
+            quant_s = cpu_quant_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = perplexity_delta(card_ref, card_cand, cfg, batches)
         card_s = time.perf_counter() - t0
-        want = perplexity_delta(ref, cand, cfg, batches)
+        t0 = time.perf_counter()
+        cpu_cand = cpu_perplexity(cand)
+        cpu_s = time.perf_counter() - t0
+        want = {"reference": cpu_reference, "candidate": cpu_cand,
+                "delta_pct": 100.0 * (cpu_cand - cpu_reference) / cpu_reference}
         for key in ("reference", "candidate"):
             rel = abs(got[key] - want[key]) / want[key]
             worst = max(worst, rel)
             sm.expect(rel <= PPL_RTOL, f"ppl {mode}: {key} {got[key]} on the card against "
                       f"{want[key]} on the CPU ({rel:.3g} relative)")
-        table.append((mode, got, want, card_s))
+        table.append((mode, got, want, card_s, cpu_s, quant_s, cpu_quant_s))
     counts = launch_counts()
     print(f"ppl: the fixture in bf16 against each tree, {PPL_BATCHES} batches of "
           f"{PPL_ROWS} x {PPL_LEN} eval tokens (card, then CPU; worst card/CPU relative "
-          f"difference {worst:.3g}, limit {PPL_RTOL}):")
-    for mode, got, want, card_s in table:
+          f"difference {worst:.3g}, limit {PPL_RTOL}); calibrated modes on "
+          f"{PPL_CALIB_ROWS} x {PPL_LEN} later tokens, AWQ alpha {PPL_AWQ_ALPHA}, their "
+          f"codes card against CPU:")
+    for mode, got, want, card_s, cpu_s, quant_s, cpu_quant_s in table:
         print(f"  {mode}: reference {got['reference']:.5f} candidate {got['candidate']:.5f} "
               f"delta {got['delta']:.5f} ({got['delta_pct']:.4f}%) in {card_s:.2f} s; CPU "
-              f"{want['reference']:.5f} {want['candidate']:.5f} ({want['delta_pct']:.4f}%)")
+              f"{want['reference']:.5f} {want['candidate']:.5f} ({want['delta_pct']:.4f}%) in "
+              f"{cpu_s:.2f} s; "
+              f"quantized in {quant_s:.2f} s (CPU {cpu_quant_s:.2f} s)"
+              + (f"; {codes[mode][0]:.6f} of the codes differ (largest {codes[mode][1]} "
+                 f"quanta)" if mode in codes else ""))
+    print(f"ppl w4a8 gptq, card against CPU: {cause}")
     want = {**dict.fromkeys(counts, 0),
             "flash_attention": 2 * len(PPL_MODES) * PPL_BATCHES * cfg.num_layers}
     sm.expect(counts == want, f"ppl: launches {counts} != {want}")
     print(f"ppl launches {counts}")
     return counts
+
+
+# -- quantization tooling at Llama-3.2-1B's widths (qlora-1b, gptq-1b) ----------
+
+QLORA_LABEL = "qlora-1b"
+GPTQ_LABEL = "gptq-1b-w4a8"
+QLORA_RANK = 16
+# Reference-dialect codes are uniform over ±127 (std 73): scales of about
+# this size give weights of std ~0.02, as `init_random_params` draws them.
+QLORA_SCALE = 2.7e-4
+# The gate's calibration shape (tools/quality_gate.py:67): 8 rows of 512.
+GPTQ_CALIB = (8, 512)
+# gptq-1b folds AWQ's saliency scales first, with this α (awq_fold's
+# default): `gptq_quantize_params(awq_alpha=...)` on the card.
+GPTQ_AWQ_ALPHA = 0.5
+# The card's GPTQ codes against the CPU port's: layer 0's leaves, the first
+# this many output columns of each (each column's recursion is its own; w2's
+# 8192 channels make its CPU side the costly one).
+GPTQ_COMPARE = {"wk": 256, "wo": 256, "w1": 256, "w2": 64}
+# Greedy steps compared bit for bit after a native export and reload.
+ROUNDTRIP_STEPS = 16
+
+
+def write_reference_qlora(path, cfg, rank: int = QLORA_RANK, seed: int = 0,
+                          device="cuda", group: int = 32) -> int:
+    """A QLoRA checkpoint in the reference's internal naming at ``cfg``'s
+    widths, drawn from a seeded torch.Generator on ``device``: int8 ``[out,
+    in]`` codes with f32 ``[out, in/group]`` scales, adaptors ``A [rank,
+    in]`` and ``B [out, rank]`` and norms in bf16, the embedding int8 with
+    its scales, and no ``output.weight`` (the head tied to the embedding).
+    Returns the file's size in bytes."""
+    import torch
+
+    from metalchat_tpu_torch.io.safetensors import save_safetensors
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    H, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def codes(o, i):
+        return torch.randint(-127, 128, (o, i), generator=gen, device=device, dtype=torch.int8)
+
+    def scales(o, i):
+        return (torch.rand((o, i // group), generator=gen, device=device) + 0.5) * QLORA_SCALE
+
+    def normal(*shape, std=0.02, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=gen, device=device)).to(torch.bfloat16)
+
+    dims = {"attention.wq": (nh * hd, H), "attention.wk": (nkv * hd, H),
+            "attention.wv": (nkv * hd, H), "attention.wo": (H, nh * hd),
+            "feed_forward.w1": (F, H), "feed_forward.w2": (H, F), "feed_forward.w3": (F, H)}
+    tensors = {}
+    for i in range(L):
+        for name, (o, inn) in dims.items():
+            p = f"layers.{i}.{name}"
+            tensors[p + ".weight"], tensors[p + ".scales"] = codes(o, inn), scales(o, inn)
+            tensors[p + ".adaptor.A.weight"] = normal(rank, inn)
+            tensors[p + ".adaptor.B.weight"] = normal(o, rank)
+        tensors[f"layers.{i}.attention_norm.weight"] = normal(H, std=0.1, mean=1.0)
+        tensors[f"layers.{i}.ffn_norm.weight"] = normal(H, std=0.1, mean=1.0)
+    tensors["tok_embeddings.weight"] = codes(cfg.vocab_size, H)
+    tensors["tok_embeddings.scales"] = scales(cfg.vocab_size, H)
+    tensors["norm.weight"] = normal(H, std=0.1, mean=1.0)
+    save_safetensors(path, tensors)
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+def sync(torch, device) -> None:
+    """Wait for ``device``'s work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def same_layout(tree, like):
+    """``tree`` with every leaf stored as in ``like``: a quantized leaf in
+    ``like``'s orientation, a dense one with its strides (the values
+    unchanged)."""
+    import dataclasses
+
+    import torch
+
+    from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor, with_orientation
+
+    if isinstance(like, QuantizedTensor):
+        return with_orientation(tree, like.transposed)
+    if isinstance(like, LoraLinear):
+        return dataclasses.replace(tree, base=same_layout(tree.base, like.base))
+    if isinstance(like, dict):
+        return {k: same_layout(tree[k], v) for k, v in like.items()}
+    if tree.stride() == like.stride():
+        return tree
+    return torch.empty_strided(like.shape, like.stride(), dtype=tree.dtype,
+                               device=tree.device).copy_(tree)
+
+
+def native_roundtrip(sm: Smoke, label: str, cfg, params, path):
+    """`export_quantized` → `save_safetensors` → `load_quantized` on the
+    parameters' device: every tensor the two trees export equal, bit for bit (the leaves
+    in the canonical layout). Returns the reloaded tree."""
+    torch = sm.torch
+    from metalchat_tpu_torch.io.safetensors import open_safetensors, save_safetensors
+    from metalchat_tpu_torch.quant.checkpoint import export_quantized, load_quantized
+
+    dev = params["final_norm"].device
+    sync(torch, dev)
+    t = time.perf_counter()
+    tensors, meta = export_quantized(params, cfg)
+    save_safetensors(path, tensors, meta)
+    export_s = time.perf_counter() - t
+    del tensors
+    t = time.perf_counter()
+    reloaded = load_quantized(open_safetensors(path), cfg, device=dev,
+                              dtype=params["final_norm"].dtype,
+                              max_seq_len=params["rope"]["cos"].shape[0])
+    sync(torch, dev)
+    load_s = time.perf_counter() - t
+    want, want_meta = export_quantized(params, cfg)
+    got, got_meta = export_quantized(reloaded, cfg)
+    sm.expect(got_meta == want_meta and sorted(got) == sorted(want),
+              f"{label}: the reloaded tree exports {got_meta} against {want_meta}")
+    for name, t_ in want.items():
+        sm.expect(got[name].dtype == t_.dtype, f"{label}: {name} {got[name].dtype} after "
+                  f"the round trip, {t_.dtype} before")
+        sm.exact(got[name], t_, f"{label}: {name} after export, save and load")
+    print(f"{label}: export + save {export_s:.2f} s ({path.stat().st_size / 1e9:.4f} GB, "
+          f"metadata {meta}), load_quantized {load_s:.2f} s; {len(want)} tensors equal "
+          "after the round trip")
+    return reloaded, export_s, load_s
+
+
+def roundtrip_logits(sm: Smoke, label: str, cfg, params, reloaded, prompt):
+    """The reloaded tree against the tree it was saved from, ROUNDTRIP_STEPS
+    greedy steps after ``prompt`` on an int8 cache: stored as the original
+    (`same_layout`) its ids and every step's logits equal, bit for bit; as
+    `load_quantized` stores it (`auto_orient` may turn a leaf, which moves
+    that leaf to the other kernel schedule) its logits fed the same ids
+    within `check_logits`'s limit."""
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+
+    cache = QuantizedKVCache.create(cfg, 1, cfg.max_seq_len, device=prompt.device)
+    ids, _ = eager_generate(params, cfg, prompt, ROUNDTRIP_STEPS, cache)
+    want = teacher_forced_logits(params, cfg, prompt, ids)
+    got = teacher_forced_logits(same_layout(reloaded, params), cfg, prompt, ids)
+    sm.exact(got, want, f"{label}: logits of the reloaded tree stored as the original")
+    sm.exact(got.argmax(-1).T, ids.cpu(), f"{label}: greedy ids of the reloaded tree")
+    turned = [k for k, v in params["layers"].items() if getattr(
+        getattr(v, "base", v), "transposed", None) != getattr(
+        getattr(reloaded["layers"][k], "base", reloaded["layers"][k]), "transposed", None)]
+    head_turned = getattr(params["lm_head"], "transposed", None) != getattr(
+        reloaded["lm_head"], "transposed", None)
+    share = check_logits(sm, f"{label}: reloaded tree as loaded",
+                         teacher_forced_logits(reloaded, cfg, prompt, ids), want)
+    print(f"{label}: after the round trip {ROUNDTRIP_STEPS} greedy ids and each step's logits "
+          f"equal bit for bit (stored as the original); as loaded (turned by auto_orient: "
+          f"{turned + ['lm_head'] * head_turned or 'none'}) the logits within "
+          f"{share:.3g} of check_logits's limit")
+
+
+def phase_qlora_1b(sm: Smoke, dev_name: str):
+    """qlora-1b: a reference-dialect QLoRA checkpoint at Llama-3.2-1B's
+    widths (int8 group 32, f32 scales, rank-16 adaptors, the head tied to the
+    embedding; about 1.4 GB, written to a temporary directory and deleted)
+    → `load_reference_qlora` onto the card → `generate` (`drive_generate`:
+    512-token prompt, 64 greedy steps, int8 KV, context 1024, the graph
+    route against the eager loop bit for bit; 113 row-11 and 16 row-3
+    launches a step, 16 flash a prefill, nothing else), its profile (the
+    busy share; the prefill dequantizes every int8 base in bf16), then
+    `export_quantized` → save → `load_quantized` (`native_roundtrip`,
+    `roundtrip_logits`)."""
+    torch = sm.torch
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from metalchat_tpu_torch.config import config_from_dict
+    from metalchat_tpu_torch.io.safetensors import open_safetensors
+    from metalchat_tpu_torch.quant.checkpoint import load_reference_qlora
+
+    cfg = config_from_dict(LLAMA32_1B_CONFIG).replace(max_seq_len=1024)
+    L = cfg.num_layers
+    tmp = Path(tempfile.mkdtemp(prefix="metalchat_qlora_"))
+    try:
+        t = time.perf_counter()
+        nbytes = write_reference_qlora(tmp / "qlora.safetensors", cfg)
+        write_s = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        params = load_reference_qlora(open_safetensors(tmp / "qlora.safetensors"), cfg,
+                                      device="cuda", max_seq_len=1024)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        print(f"{QLORA_LABEL}: reference QLoRA checkpoint, {nbytes / 1e9:.4f} GB of tensors "
+              f"(rank {QLORA_RANK}, int8 g32, f32 scales, tied head) written in {write_s:.2f} s; "
+              f"load_reference_qlora onto the card {load_s:.2f} s; "
+              f"{weight_bytes(params) / 1e9:.4f} GB read a decode step", flush=True)
+        run = drive_generate(sm, dev_name, QLORA_LABEL, cfg, params,
+                             {"quant_matmul": 7 * L + 1, "decode_attention_update": L})
+        phase_profile(sm, run, QLORA_LABEL)
+        reloaded, _, _ = native_roundtrip(sm, QLORA_LABEL, cfg, params, tmp / "native.safetensors")
+        roundtrip_logits(sm, QLORA_LABEL, cfg, params, reloaded, run[5])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return run
+
+
+def unpack_codes(leaf, l: int):
+    """Layer ``l``'s signed codes ``[in, out]`` (int16) of a per-channel
+    leaf, either orientation, int4 unpacked."""
+    import torch
+
+    q = leaf.q[l].to(torch.int16)
+    axis = -1 if leaf.transposed else -2
+    if leaf.bits == 4:
+        q = torch.cat([(q & 15) - 8, q >> 4], dim=axis)
+    return q.T if leaf.transposed else q
+
+
+def awq_fold_against_cpu(sm: Smoke, label: str, cfg, params, stats, folded, alpha: float):
+    """Layer 0 of ``folded`` (`awq_fold` on the card) against the CPU's fold
+    of the same layer on the same statistics: every leaf byte for byte."""
+    torch = sm.torch
+    from metalchat_tpu_torch.quant.awq import _saliency_scale, awq_fold
+
+    one = {"layers": {k: v[:1].cpu() for k, v in params["layers"].items()}}
+    want = awq_fold(one, cfg, {k: v[:1].cpu() for k, v in stats.items()}, alpha=alpha)["layers"]
+    differ = [k for k, v in want.items() if not torch.equal(
+        folded["layers"][k][:1].cpu().view(torch.uint8), v.view(torch.uint8))]
+    spread = {k: _saliency_scale(v[:1], alpha) for k, v in stats.items()}
+    print(f"{label}: awq_fold (alpha {alpha}) layer 0 on the card against the CPU's fold on "
+          f"the same statistics: {len(want) - len(differ)} of {len(want)} leaves equal byte "
+          f"for byte; saliency scales " + ", ".join(
+              f"{k} {float(v.min()):.4g}-{float(v.max()):.4g}" for k, v in spread.items()))
+    sm.expect(not differ, f"{label}: awq_fold leaves {differ} differ from the CPU's")
+
+
+def gptq_against_cpu(sm: Smoke, label: str, name: str, w, hessian, leaf, cols: int):
+    """Layer 0's ``name`` as the card quantized it (``leaf``) against the
+    CPU port on the same weights ``w [in, out]`` and Hessian, the first
+    ``cols`` columns, ``refit_iters=2``: at most GPTQ_TOLERANCE's share of
+    the codes differ, each by one quantum, and the Hessian objective summed
+    over the columns within its relative limit (each side with its own
+    scales)."""
+    torch = sm.torch
+    from metalchat_tpu_torch.quant import gptq
+
+    code_share, obj_rtol = GPTQ_TOLERANCE
+    w = w[:, :cols].float().cpu().double()
+    H = hessian.cpu()
+    t = time.perf_counter()
+    q_cpu, s_cpu = gptq._gptq_codes(w, H, qmax=7.0, clip_search=True, act_order=True,
+                                    damp=0.01, refit_iters=2, failures=None)
+    cpu_s = time.perf_counter() - t
+    q_card = unpack_codes(leaf, 0)[:, :cols].cpu()
+    s_card = leaf.scales[0, 0, :cols].cpu().double()
+
+    def objective(q, s):
+        e = w - q.double() * s
+        return float((e * (H @ e)).sum())
+
+    d = (q_card.to(torch.int32) - q_cpu.to(torch.int32))
+    share, worst = float((d != 0).double().mean()), int(d.abs().max())
+    o_card, o_cpu = objective(q_card, s_card), objective(q_cpu, s_cpu.float().double())
+    rel = abs(o_card - o_cpu) / o_cpu
+    print(f"{label}: layer 0 {name} (in {w.shape[0]}, {cols} columns) card against the CPU "
+          f"port: {share:.6f} of the codes differ (largest {worst} quanta; limit "
+          f"{code_share}), Hessian objective {o_card:.6g} against {o_cpu:.6g} ({rel:.3g} "
+          f"relative; limit {obj_rtol}); the CPU took {cpu_s:.2f} s")
+    sm.expect(worst <= 1 and share <= code_share, f"{label}: {name} codes {share} differ, "
+              f"the largest by {worst}")
+    sm.expect(rel <= obj_rtol, f"{label}: {name} objective {o_card} against {o_cpu}")
+
+
+def gptq_against_cpu_all(sm: Smoke, label: str, cfg, params, calib, qparams, alpha: float):
+    """What `gptq_quantize_params(awq_alpha=alpha)` rounded, made again as
+    it makes it on the card: the AWQ fold (layer 0 against the CPU's,
+    `awq_fold_against_cpu`) and the Hessians of the folded model; then
+    layer 0's GPTQ_COMPARE leaves of ``qparams`` against the CPU port
+    (`gptq_against_cpu`)."""
+    from metalchat_tpu_torch.quant.awq import awq_fold, calibration_stats
+    from metalchat_tpu_torch.quant.gptq import _TAP_OF, hessian_tap
+
+    stats = calibration_stats(params, cfg, calib)
+    folded = awq_fold(params, cfg, stats, alpha=alpha)
+    awq_fold_against_cpu(sm, label, cfg, params, stats, folded, alpha)
+    hess = calibration_stats(folded, cfg, calib, tap=hessian_tap)
+    for name, cols in GPTQ_COMPARE.items():
+        gptq_against_cpu(sm, label, name, folded["layers"][name][0], hess[_TAP_OF[name]][0],
+                         qparams["layers"][name], cols)
+
+
+def phase_gptq_1b(sm: Smoke, dev_name: str):
+    """gptq-1b: random dense bf16 weights at Llama-3.2-1B's widths
+    (`init_random_params` on the card, head tied), calibration on 8 x 512
+    seeded tokens (`calibration_stats` with `hessian_tap`, timed alone),
+    `gptq_quantize_params(bits=4, act_bits=8, awq_alpha=GPTQ_AWQ_ALPHA,
+    refit_iters=2)` on the card: no factorization falls back; its AWQ fold
+    and layer 0's GPTQ_COMPARE leaves against the CPU port
+    (`gptq_against_cpu_all`); then export → save → load
+    (`native_roundtrip`), `fuse_projections`, and `drive_generate` on the
+    reloaded tree (64 row-1 launches a step with the dense tied head) with
+    `roundtrip_logits` against the quantized tree."""
+    torch = sm.torch
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from metalchat_tpu_torch.config import config_from_dict
+    from metalchat_tpu_torch.models.fuse import fuse_projections
+    from metalchat_tpu_torch.models.transformer import init_random_params
+    from metalchat_tpu_torch.quant.awq import calibration_stats
+    from metalchat_tpu_torch.quant.gptq import gptq_quantize_params, hessian_tap
+
+    cfg = config_from_dict(LLAMA32_1B_CONFIG).replace(max_seq_len=1024)
+    L = cfg.num_layers
+    dev = torch.device("cuda")
+    params = init_random_params(cfg, seed=0, dtype=torch.bfloat16, max_seq_len=1024,
+                                device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    calib = torch.randint(0, cfg.vocab_size, GPTQ_CALIB, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hess = calibration_stats(params, cfg, calib, tap=hessian_tap)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t
+    del hess
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    failures = []
+    t = time.perf_counter()
+    qparams = gptq_quantize_params(params, cfg, calib, bits=4, act_bits=8,
+                                   awq_alpha=GPTQ_AWQ_ALPHA, refit_iters=2, failures=failures)
+    torch.cuda.synchronize()
+    gptq_s = time.perf_counter() - t
+    fallbacks = sum(int(f.sum()) for f in failures)
+    print(f"{GPTQ_LABEL}: calibration (8 x 512 tokens, Hessians of 4 taps x {L} layers, "
+          f"f64 on the card) {calib_s:.2f} s; gptq_quantize_params (W4A8, AWQ alpha "
+          f"{GPTQ_AWQ_ALPHA}, refit_iters=2, per-channel updates, its two calibration passes "
+          f"included) {gptq_s:.2f} s, {(gptq_s - 2 * calib_s) / L:.3f} s a layer past them; "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card; "
+          f"{sum(f.numel() for f in failures)} factorizations, {fallbacks} fell back",
+          flush=True)
+    sm.expect(fallbacks == 0, f"{GPTQ_LABEL}: {fallbacks} factorizations fell back")
+    gptq_against_cpu_all(sm, GPTQ_LABEL, cfg, params, calib, qparams, GPTQ_AWQ_ALPHA)
+    del params
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="metalchat_gptq_"))
+    try:
+        reloaded, _, _ = native_roundtrip(sm, GPTQ_LABEL, cfg, qparams,
+                                          tmp / "native.safetensors")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    qparams, reloaded = fuse_projections(qparams, cfg), fuse_projections(reloaded, cfg)
+    run = drive_generate(sm, dev_name, GPTQ_LABEL, cfg, reloaded,
+                         {"a8_matvec": 4 * L, "a8_quantize": 4 * L,
+                          "decode_attention_update": L})
+    roundtrip_logits(sm, GPTQ_LABEL, cfg, qparams, reloaded, run[5])
+    return run
+
+
+def phase_timing_qlora(sm: Smoke, run, rate: float):
+    """Row 11 at qlora-1b's decode step, one row: each int8 g32 base with
+    its f32 scales and the tied head (`qmm_leaf_times`), summed over the
+    step's 113 calls."""
+    torch = sm.torch
+    cfg, params = run[0], run[1]
+    L = cfg.num_layers
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    x = torch.randn((1, cfg.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+    xf = torch.randn((1, cfg.intermediate_size), generator=gen, device=dev).to(torch.bfloat16)
+    layers = params["layers"]
+    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for name, leaf, xin, per_step in [(n, layers[n].base, xf if n == "w2" else x, L)
+                                      for n in ("wq", "wk", "wv", "wo", "w1", "w3", "w2")] + [
+            ("lm_head", params["lm_head"], x, 1)]:
+        for key, val in qmm_leaf_times(sm, name, leaf, xin, per_step, rate).items():
+            step[key] += per_step * val
+    print(f"  quant_matmul at 1 row, one {QLORA_LABEL} decode step ({7 * L + 1} calls): "
+          f"{step['ms']:.4f} ms (bound {step['bound_ms']:.4f} ms; plain "
+          f"{step['plain_ms']:.3f}; matmul on bf16 weights {step['library_ms']:.4f})")
+    return step
 
 
 def phase_timing_gpt2(sm: Smoke, gpt2_run, rate: float):
@@ -2237,7 +2803,10 @@ def greedy_logits(params, cfg, prompts, steps: int):
 # The correctness cell: Mixtral-8x7B's widths cut to 2 layers, bf16, a
 # 96-token prompt (over 32 tokens, so the prefill takes `_moe_dispatch`) and
 # 16 steps at 1 and 2 rows (both the sparse decode formulation), so that the
-# CPU's plain path stays short.
+# CPU's plain path stays short. A 1-layer cut draws other weights, and on
+# them one decode token's router 2nd-3rd gap (0.0011) is below the card/CPU
+# router-probability drift (up to 0.007): the token takes another expert
+# and its logits part (ROADMAP Queue C).
 MIXTRAL_FIXTURE_CUT = dict(num_layers=2)
 MIXTRAL_FIXTURE_PROMPT, MIXTRAL_FIXTURE_STEPS = 96, 16
 
@@ -3090,10 +3659,37 @@ SERVE_MODES = {"paged": dict(cache_mode="paged", page_size=256),
 
 
 SERVE_TURNS = ("graph", "eager", "eager", "graph")
+# Each serve phase's depth: its generate phase's model cut to the first
+# layers (`first_layers`), so that the script stays inside its time limit
+# (serve-mixtral took 141 s and serve 93 s at full depth on an H100). Widths,
+# the workload and the turns are unchanged; the generate phases run every
+# layer.
+SERVE_LAYERS = {"serve": 16, "serve-gemma": 13, "serve-mixtral": 8, "serve-gpt2": 16}
 # Mixtral's eager-loop engine takes about 47 s for the workload (833 matvec
 # launches a step from the host), GPT-2 XL's about 22 s (48 layers of eager
 # glue): one eager turn between two graph turns.
 MIXTRAL_SERVE_TURNS = ("graph", "eager", "graph")
+
+
+def first_layers(run, n: int, what: str):
+    """``run``'s config and params (its first two items) cut to their first
+    ``n`` layers: the depth replaced, every stacked layer leaf sliced
+    (views, no copy), everything else shared."""
+    import dataclasses
+
+    from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor
+
+    def cut(leaf):
+        if isinstance(leaf, QuantizedTensor):
+            return dataclasses.replace(leaf, q=leaf.q[:n], scales=leaf.scales[:n])
+        if isinstance(leaf, LoraLinear):
+            return dataclasses.replace(leaf, base=cut(leaf.base), a=leaf.a[:n], b=leaf.b[:n])
+        return leaf[:n]
+
+    cfg, params = run[0], run[1]
+    print(f"{what}: the model cut to its first {n} of {cfg.num_layers} layers", flush=True)
+    return cfg.replace(num_layers=n), {**params, "layers": {
+        k: cut(v) for k, v in params["layers"].items()}}
 
 
 def matvec_calls(cfg, rows: int, lm_head: bool = True):
@@ -4195,6 +4791,7 @@ def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, one_row, rate: fl
     cfg = main[0]
     engine = serve["paged"]["engine"]
     c = engine.cache
+    Lp = c.k_pages.shape[0]  # the serve phase's depth (SERVE_LAYERS): pool layers cycled
     dev = torch.device("cuda")
     L, nh, nkv, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B, mp, psize = c.page_table.shape[0], c.page_table.shape[1], c.page_size
@@ -4237,16 +4834,16 @@ def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, one_row, rate: fl
          "metalchat_tpu_torch/csrc/paged_attention.cu",
          "metalchat_tpu/ops/paged_attention_pallas.py:410", "write mode, paged",
          lambda i: pm.paged_decode_attention_update_stacked(
-             q, kn, kn, *pool, table, lens, i % L, scale=scale),
+             q, kn, kn, *pool, table, lens, i % Lp, scale=scale),
          lambda i: pm.paged_decode_attention_update_plain(
-             q, kn, kn, *pool, table, lens, i % L, scale=scale), read_bytes + write_bytes,
+             q, kn, kn, *pool, table, lens, i % Lp, scale=scale), read_bytes + write_bytes,
          lib, serve["paged"]["counts"]),
         ("paged_decode_attention_stacked", "paged_decode_attention",
          "metalchat_tpu_torch/csrc/paged_attention.cu",
          "metalchat_tpu/ops/paged_attention_pallas.py:491", "read-only, paged",
-         lambda i: pm.paged_decode_attention_stacked(q, *pool, table, lens, i % L,
+         lambda i: pm.paged_decode_attention_stacked(q, *pool, table, lens, i % Lp,
                                                      scale=scale),
-         lambda i: pm.paged_decode_attention_plain(q, *pool, table, lens, i % L, scale=scale),
+         lambda i: pm.paged_decode_attention_plain(q, *pool, table, lens, i % Lp, scale=scale),
          read_bytes, lib, serve["paged"]["counts"]),
         ("decode_attention", "decode_attention",
          "metalchat_tpu_torch/csrc/decode_attention.cu",
@@ -4273,6 +4870,38 @@ def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, one_row, rate: fl
     return rows
 
 
+def qmm_leaf_times(sm: Smoke, name: str, leaf, xin, per_step: int, rate: float) -> dict:
+    """Row 11 on one (stacked) weight-only leaf at ``xin``'s rows, a call's
+    ms: the kernel (CUDA graph replay over the layers), the plain version
+    (eager), as the library yardstick one torch.matmul of x against the
+    weights already dequantized to bf16, and the bound (packed weights, the
+    group scales in their dtype, x in and out once)."""
+    torch = sm.torch
+    from metalchat_tpu_torch.ops import quant_matmul as qm
+
+    rows = xin.shape[0]
+    n = leaf.q.shape[0] if leaf.q.ndim == 3 else 1
+    at = (lambda i: leaf.layer(i % n)) if leaf.q.ndim == 3 else (lambda i: leaf)
+    kw = dict(bits=leaf.bits, group_size=leaf.group_size, transposed=leaf.transposed)
+    ms = sm.device_ms(lambda i: qm.dequant_matmul(xin, at(i).q, at(i).scales, **kw), 64)
+    plain = sm.eager_ms(lambda i: qm.dequant_matmul_plain(xin, at(i).q, at(i).scales, **kw), 3)
+    one = at(0)
+    n_lib = max(1, min(n, math.ceil(120e6 / (2 * one.in_features * one.out_features))))
+    dense = [qm.dequant_weight(at(i).q, at(i).scales, dtype=torch.bfloat16, **kw)
+             for i in range(n_lib)]
+    lib = sm.device_ms(lambda i: torch.matmul(xin, dense[i % n_lib]), 32)
+    del dense
+    nbytes = (one.q.numel() + one.scales.numel() * one.scales.element_size()
+              + 2 * rows * (one.in_features + one.out_features))
+    b_ms, b_by = bound(nbytes, 2 * rows * one.in_features * one.out_features, "bf16", rate)
+    print(f"  quant_matmul {name} [{one.out_features}x{one.in_features} w{leaf.bits} "
+          f"g{leaf.group_size} {'transposed' if leaf.transposed else 'natural'}, scales "
+          f"{str(one.scales.dtype).removeprefix('torch.')}, {rows} row(s)]: {ms * 1e3:.2f} us "
+          f"(bound {b_ms * 1e3:.2f} us, {b_by}; plain {plain * 1e3:.1f} us; matmul on bf16 "
+          f"weights {lib * 1e3:.2f} us) x{per_step}/token")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms)
+
+
 def phase_timing_int4(sm: Smoke, run, rate: float):
     """Row 11 at 8b-int4's decode step, at 1 row (the generate path) and at
     8 rows: the 129 calls of one step, kernel (CUDA graph replay), plain
@@ -4281,8 +4910,6 @@ def phase_timing_int4(sm: Smoke, run, rate: float):
     dequantization). Bound: the packed weights, the group scales, x in and
     out once."""
     torch = sm.torch
-    from metalchat_tpu_torch.ops import quant_matmul as qm
-
     cfg, params, counts = run[0], run[1], run[3]
     L = cfg.num_layers
     dev = torch.device("cuda")
@@ -4299,29 +4926,7 @@ def phase_timing_int4(sm: Smoke, run, rate: float):
                                           ("wo", layers["wo"], x, L),
                                           ("w13", layers["w13"], x, L),
                                           ("w2", layers["w2"], xf, L), ("lm_head", lm, x, 1)):
-            n = leaf.q.shape[0] if leaf.q.ndim == 3 else 1
-            at = (lambda i: leaf.layer(i % n)) if leaf.q.ndim == 3 else (lambda i: leaf)
-            kw = dict(bits=leaf.bits, group_size=leaf.group_size, transposed=leaf.transposed)
-            ms = sm.device_ms(lambda i: qm.dequant_matmul(xin, at(i).q, at(i).scales, **kw), 64)
-            plain = sm.eager_ms(lambda i: qm.dequant_matmul_plain(xin, at(i).q, at(i).scales,
-                                                                  **kw), 3)
-            one = at(0)
-            n_lib = max(1, min(n, math.ceil(120e6 / (2 * one.in_features * one.out_features))))
-            dense = [qm.dequant_weight(at(i).q, at(i).scales, dtype=torch.bfloat16, **kw)
-                     for i in range(n_lib)]
-            lib = sm.device_ms(lambda i: torch.matmul(xin, dense[i % n_lib]), 32)
-            del dense
-            nbytes = (one.q.numel() + one.scales.numel() * one.scales.element_size()
-                      + 2 * rows * (one.in_features + one.out_features))
-            b_ms, b_by = bound(nbytes, 2 * rows * one.in_features * one.out_features, "bf16",
-                               rate)
-            print(f"  quant_matmul {name} [{one.out_features}x{one.in_features} w{leaf.bits} "
-                  f"g{leaf.group_size} {'transposed' if leaf.transposed else 'natural'}, "
-                  f"{rows} row(s)]: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us, {b_by}; "
-                  f"plain {plain * 1e3:.1f} us; matmul on bf16 weights {lib * 1e3:.2f} us) "
-                  f"x{per_step}/token")
-            for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                             ("bound_ms", b_ms)):
+            for key, val in qmm_leaf_times(sm, name, leaf, xin, per_step, rate).items():
                 step[key] += per_step * val
         print(f"  quant_matmul at {rows} row(s), one 8b-int4 decode step ({4 * L + 1} calls): "
               f"{step['ms']:.4f} ms (bound {step['bound_ms']:.4f} ms; plain "
@@ -4511,6 +5116,7 @@ def phase_timing_gemma(sm: Smoke, run, serve, rate: float):
 
     # Rows 8 and 5: 8 rows at lengths spread to 1024, the serve run's pool.
     c = serve["paged"]["engine"].cache
+    Lp = c.k_pages.shape[0]  # the serve phase's depth (SERVE_LAYERS): pool layers cycled
     B, mp, psize = c.page_table.shape[0], c.page_table.shape[1], c.page_size
     T = mp * psize
     lengths = [(i + 1) * T // B for i in range(B)]
@@ -4524,9 +5130,9 @@ def phase_timing_gemma(sm: Smoke, run, serve, rate: float):
     ops = 4 * nh * hd * pos
     ms, plain = per_layer(
         lambda i: pm.paged_decode_attention_update_stacked(
-            q, kn, kn, *pool, table, lens, i % L, scale=scale, window=windows[i % L]),
+            q, kn, kn, *pool, table, lens, i % Lp, scale=scale, window=windows[i % L]),
         lambda i: pm.paged_decode_attention_update_plain(
-            q, kn, kn, *pool, table, lens, i % L, scale=scale, window=windows[i % L]))
+            q, kn, kn, *pool, table, lens, i % Lp, scale=scale, window=windows[i % L]))
     kd = dequantize_kv(gather_pages_dense(c.k_pages[0], table),
                        gather_page_scales(c.k_scale[0], table)).repeat_interleave(groups, dim=1)
     vd = dequantize_kv(gather_pages_dense(c.v_pages[0], table),
@@ -4548,9 +5154,9 @@ def phase_timing_gemma(sm: Smoke, run, serve, rate: float):
                      unit=unit + "; launches from serve-gemma"))
     ms, plain = per_layer(
         lambda i: pm.paged_decode_attention_stacked(
-            q, *pool, table, lens, i % L, scale=scale, window=windows[i % L]),
+            q, *pool, table, lens, i % Lp, scale=scale, window=windows[i % L]),
         lambda i: pm.paged_decode_attention_plain(
-            q, *pool, table, lens, i % L, scale=scale, window=windows[i % L]))
+            q, *pool, table, lens, i % Lp, scale=scale, window=windows[i % L]))
     b_ms, b_by = bound(2 * nkv * pos * (hd + 4) + io + L * B * mp * 4, ops, "f32", rate)
     rows.append(dict(row=9, name="paged_decode_attention (hd 256)",
                      counter="paged_decode_attention",
@@ -4733,6 +5339,7 @@ def main() -> int:
     mixtral_run = scan_run = serve_mixtral = chat_counts = cli_counts = cli_1b = None
     spec_counts = spec_fixture = None
     gpt2 = gpt2_fixture = ppl_counts = serve_gpt2 = gpt2_times = None
+    qlora = gptq_run = qlora_times = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -4753,6 +5360,10 @@ def main() -> int:
         if main_run is not None:
             stream_counts = sm.phase("stream", lambda: phase_stream(sm, main_run))
             chat_counts = sm.phase("chat", lambda: phase_chat(sm, main_run))
+        # Before the larger models load: GPTQ's f64 Hessians and their
+        # factorization take tens of GB for a while.
+        qlora = sm.phase("qlora-1b", lambda: phase_qlora_1b(sm, dev_name))
+        gptq_run = sm.phase("gptq-1b", lambda: phase_gptq_1b(sm, dev_name))
         gemma_run = sm.phase("gemma", lambda: phase_gemma(sm, dev_name))
         sm.phase("gemma-fixture", lambda: phase_gemma_fixture(sm))
         sm.phase("mixtral-fixture", lambda: phase_mixtral_fixture(sm))
@@ -4768,19 +5379,22 @@ def main() -> int:
             fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
             serve = None
             if main_run is not None:
-                serve = sm.phase("serve", lambda: phase_serve(sm, main_run,
-                                                              hbm_rate(dev_name)))
+                serve = sm.phase("serve", lambda: phase_serve(
+                    sm, first_layers(main_run, SERVE_LAYERS["serve"], "serve"),
+                    hbm_rate(dev_name)))
             if gemma_run is not None:
                 serve_gemma = sm.phase("serve-gemma", lambda: phase_serve(
-                    sm, gemma_run, hbm_rate(dev_name), GEMMA_LABEL, ("paged",)))
+                    sm, first_layers(gemma_run, SERVE_LAYERS["serve-gemma"], "serve-gemma"),
+                    hbm_rate(dev_name), GEMMA_LABEL, ("paged",)))
             if mixtral_run is not None:
                 serve_mixtral = sm.phase("serve-mixtral", lambda: phase_serve(
-                    sm, mixtral_run, hbm_rate(dev_name), MIXTRAL_LABEL, ("paged",),
-                    MIXTRAL_SERVE_TURNS))
+                    sm, first_layers(mixtral_run, SERVE_LAYERS["serve-mixtral"],
+                                     "serve-mixtral"),
+                    hbm_rate(dev_name), MIXTRAL_LABEL, ("paged",), MIXTRAL_SERVE_TURNS))
             if gpt2 is not None:
                 serve_gpt2 = sm.phase("serve-gpt2", lambda: phase_serve(
-                    sm, gpt2[0], hbm_rate(dev_name), GPT2_LABEL, ("paged",),
-                    MIXTRAL_SERVE_TURNS))
+                    sm, first_layers(gpt2[0], SERVE_LAYERS["serve-gpt2"], "serve-gpt2"),
+                    hbm_rate(dev_name), GPT2_LABEL, ("paged",), MIXTRAL_SERVE_TURNS))
             sm.phase("http", lambda: phase_http(sm))
         cli_counts = sm.phase("cli-fixture", lambda: phase_cli_fixture(sm))
         cli_1b = sm.phase("cli-1b", lambda: phase_cli_1b(sm))
@@ -4812,6 +5426,9 @@ def main() -> int:
         if rows is not None and gpt2 is not None:
             gpt2_times = sm.phase("timing-gpt2", lambda: phase_timing_gpt2(
                 sm, gpt2[0], hbm_rate(dev_name)))
+        if qlora is not None:
+            qlora_times = sm.phase("timing-qlora", lambda: phase_timing_qlora(
+                sm, qlora, hbm_rate(dev_name)))
         mixtral_counts = None if mixtral_run is None else mixtral_run[3]
         mixtral_run = None  # free the 23.5 GB of Mixtral weights
         if serve_mixtral is not None:
@@ -4820,7 +5437,8 @@ def main() -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if (sm.failures or not smi or rows is None or None in (
             stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b, spec_counts,
-            spec_fixture, gpt2, gpt2_fixture, ppl_counts, serve_gpt2, gpt2_times)):
+            spec_fixture, gpt2, gpt2_fixture, ppl_counts, serve_gpt2, gpt2_times, qlora,
+            gptq_run, qlora_times)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -4838,7 +5456,8 @@ def main() -> int:
                f"generate {GPT2_LABEL}": gpt2[0][3],
                f"generate {GPT2_LABEL} bf16 cache": gpt2[1],
                f"serve {GPT2_LABEL} paged": serve_gpt2["paged"]["counts"],
-               "gpt2-fixture": gpt2_fixture, "ppl": ppl_counts}
+               "gpt2-fixture": gpt2_fixture, "ppl": ppl_counts,
+               f"generate {QLORA_LABEL}": qlora[3], f"generate {GPTQ_LABEL}": gptq_run[3]}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

@@ -21,6 +21,11 @@
   residual) is one ``ops.ffn_block`` launch when the layer qualifies.
 * Weight-only leaves go through `linear`: up to 32 rows take the
   dequant-matmul kernel (``ops.quant_matmul``).
+* A LoRA leaf (``LoraLinear``, as the JAX ``_linear_l``): its base goes
+  where a plain leaf would (the matvec kernel for an act8 base, else
+  `linear`), then the adaptor product is added on top (`add_adaptor`). It
+  never takes the kernel's rmsnorm prologue: its projections read one
+  normed activation. The merged FFN block refuses LoRA leaves.
 * Gemma-3 (as the JAX ``decode_step``): the norm weight offset inside the
   matvec's rmsnorm prologue, q/k norms, the sliding layers' rope table and
   window (a host int per layer, -1 on a global layer, so a captured step
@@ -83,7 +88,7 @@ from metalchat_tpu_torch.ops.decode_attention import (
     decode_attention_update_quantized_stacked,
 )
 from metalchat_tpu_torch.ops.paged_attention import paged_decode_attention_update_stacked
-from metalchat_tpu_torch.quant.quantize import QuantizedTensor, linear
+from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor, add_adaptor, linear
 
 
 def _kernel_ok(leaf: Any, rows: int) -> bool:
@@ -92,6 +97,18 @@ def _kernel_ok(leaf: Any, rows: int) -> bool:
     return (isinstance(leaf, QuantizedTensor) and leaf.act_bits == 8
             and leaf.transposed and leaf.group_size == leaf.in_features
             and rows <= MAX_ROWS and leaf.in_features % 32 == 0)
+
+
+def _linear_l(h: torch.Tensor, leaf: Any, l: int, rows: int) -> torch.Tensor:
+    """h ``[rows, in]`` through layer ``l`` of a stacked linear leaf: the
+    matvec kernel for an act8 per-channel leaf, `linear` otherwise; a LoRA
+    leaf's base the same way, then its adaptor (the JAX ``_linear_l``)."""
+    if isinstance(leaf, LoraLinear):
+        return add_adaptor(h, _linear_l(h, leaf.base, l, rows), leaf.a[l], leaf.b[l],
+                           leaf.scale)
+    if _kernel_ok(leaf, rows):
+        return quant_matvec_stacked_fused(h, leaf.q, leaf.scales, l, bits=leaf.bits)
+    return linear(h, layer_leaf(leaf, l))
 
 
 def _ffn_block_ok(layers: Dict[str, Any], rows: int, dtype, config: ModelConfig) -> bool:
@@ -252,10 +269,7 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
         return linear_l(normed[norm_name], name, l)
 
     def linear_l(h, name: str, l: int):
-        leaf = layers[name]
-        if _kernel_ok(leaf, rows):
-            return quant_matvec_stacked_fused(h, leaf.q, leaf.scales, l, bits=leaf.bits)
-        return linear(h, layer_leaf(leaf, l))
+        return _linear_l(h, layers[name], l, rows)
 
     def bias_l(y, name: str, l: int):
         return biased(y, layers, name, config, l)

@@ -13,7 +13,12 @@ from typing import Any, Dict, Sequence
 import torch
 
 from metalchat_tpu_torch.config import ModelConfig
-from metalchat_tpu_torch.quant.quantize import QuantizedTensor, auto_orient, with_orientation
+from metalchat_tpu_torch.quant.quantize import (
+    LoraLinear,
+    QuantizedTensor,
+    auto_orient,
+    with_orientation,
+)
 
 
 def fused_segments(name: str, config: ModelConfig) -> tuple:
@@ -38,7 +43,10 @@ def _concat_linears(leaves) -> Any:
     Quantized leaves are concatenated in the non-transposed layout (q
     ``[.., in(/2), out]``, scales ``[.., in/g, out]`` or ``[.., 1, out]``),
     then stored by `auto_orient`, as the JAX package does: a fused leaf is
-    wider than its parts, so its orientation may differ from theirs."""
+    wider than its parts, so its orientation may differ from theirs. LoRA
+    leaves do not fuse (their adaptors would have to be block-diagonal)."""
+    if any(isinstance(w, LoraLinear) for w in leaves):
+        raise ValueError("cannot fuse LoRA-adapted projections")
     if all(isinstance(w, QuantizedTensor) for w in leaves):
         qs = [with_orientation(w, False) for w in leaves]
         layout = {(w.bits, w.group_size, w.act_bits, w.in_features) for w in qs}
@@ -59,7 +67,9 @@ def fuse_projections(params: Dict[str, Any], config: ModelConfig) -> Dict[str, A
     and with biases (``use_bias``) their ``_b`` leaves concatenated to
     ``wqkv_b`` / ``w13_b``. MoE expert stacks stay as they are (the decode
     path reads w1 and w3 apart, `models/decode._moe_ffn_decode`), and so do
-    an MLP's w1 and w2 (``ffn_type == "mlp"``: there is no w3)."""
+    an MLP's w1 and w2 (``ffn_type == "mlp"``: there is no w3). A group
+    that `_concat_linears` refuses (LoRA, or dense beside quantized) raises
+    its ``ValueError``."""
     out = dict(params)
     layers = dict(params["layers"])
     groups = [(("wq", "wk", "wv"), "wqkv")]

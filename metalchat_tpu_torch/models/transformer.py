@@ -23,7 +23,9 @@ stacked on a leading layer axis):
 
 Dense linear leaves are ``[L, in, out]``; quantized ones are
 ``QuantizedTensor`` (act8: ``q [L, out, in/2]``, scales ``[L, 1, out]``;
-weight-only: either orientation, group scales).
+weight-only: either orientation, group scales); LoRA ones are
+``LoraLinear`` (a base of either kind, adaptors ``a [L, in, r]``,
+``b [L, r, out]``), which `linear` runs on the layer route.
 The layer loop is a Python loop over views of the stacked leaves. Gemma-3's
 extras follow the config: every norm's weight is ``norm_weight_offset + w``,
 q/k norms over hd, post-attention and post-FFN norms, the embedding scale,
@@ -71,6 +73,7 @@ from metalchat_tpu_torch.ops.decode_attention import decode_attention, decode_at
 from metalchat_tpu_torch.ops.flash_attention import flash_attention
 from metalchat_tpu_torch.ops.paged_attention import paged_decode_attention
 from metalchat_tpu_torch.quant.quantize import (
+    LoraLinear,
     QuantizedTensor,
     linear,
     lookup_embedding,
@@ -97,8 +100,9 @@ def _choose_block(length: int, preferred: int = 256) -> Optional[int]:
 
 
 def layer_leaf(leaf, l: int):
-    """Layer ``l`` of a stacked linear leaf (a view, no copy)."""
-    return leaf.layer(l) if isinstance(leaf, QuantizedTensor) else leaf[l]
+    """Layer ``l`` of a stacked linear leaf: dense, quantized or LoRA (views,
+    no copy)."""
+    return leaf.layer(l) if isinstance(leaf, (QuantizedTensor, LoraLinear)) else leaf[l]
 
 
 def make_rope_tables(config: ModelConfig, max_seq_len: Optional[int] = None,

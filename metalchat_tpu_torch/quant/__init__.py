@@ -1,9 +1,12 @@
 """Quantization: packed weights, the W4A8/W8A8 and weight-only linears,
-row-quantized embeddings, and perplexity (`ppl`) to score them. The
-function ``quantize`` stays under its module's name,
+LoRA adaptors (`LoraLinear`), row-quantized embeddings, perplexity (`ppl`)
+to score them, the calibrated schemes (`awq`, `gptq`) and the quantized
+checkpoints (`checkpoint`: the native dialect and the reference's QLoRA
+one). The function ``quantize`` stays under its module's name,
 ``metalchat_tpu_torch.quant.quantize``, which it would shadow here."""
 
 from metalchat_tpu_torch.quant.quantize import (  # noqa: F401
+    LoraLinear,
     QuantizedTensor,
     dequantize,
     linear,

@@ -24,6 +24,11 @@ Two execution schemes:
   and more rows to the weight dequantized in the activation dtype and
   ``torch.matmul`` (the JAX package leaves that large product to XLA).
 
+A `LoraLinear` leaf is a base linear (quantized or dense) plus a low-rank
+adaptor, the reference's QLoRA layer: `linear` runs the base as above, then
+adds ``scale · (x·A)·B`` in the activation dtype (two products, each rounded,
+then the scaled sum: the JAX package's order).
+
 Embeddings may be row-quantized (``quantize_params(quantize_embed=True)``):
 the table ``[V, H]`` is stored row-major, ``q [V, H(/2)]`` and scales
 ``[V, H/g]`` with groups along H, and `lookup_embedding` dequantizes only the
@@ -73,13 +78,35 @@ class QuantizedTensor:
         return replace(self, q=self.q[l], scales=self.scales[l])
 
 
-def _pack_int4(w4: np.ndarray) -> np.ndarray:
+@dataclass
+class LoraLinear:
+    """A base linear plus a low-rank adaptor, ``y = base(x) + scale·(x·A)·B``
+    (the reference's QLoRA layer; LoRA scale 2.0 by default). ``base`` is a
+    `QuantizedTensor` or a dense ``[(L,) in, out]`` tensor; ``a [(L,) in,
+    rank]``, ``b [(L,) rank, out]``."""
+
+    base: Any
+    a: torch.Tensor
+    b: torch.Tensor
+    scale: float = 2.0
+
+    def layer(self, l: int) -> "LoraLinear":
+        """Layer ``l`` of a stacked leaf (views, no copy)."""
+        base = self.base.layer(l) if isinstance(self.base, QuantizedTensor) else self.base[l]
+        return replace(self, base=base, a=self.a[l], b=self.b[l])
+
+
+def _pack_int4(w4):
     """Pack int4 values [-8, 7] along the in axis (-2), two per byte,
-    half-split with an offset-binary low nibble."""
+    half-split with an offset-binary low nibble. A numpy array or a torch
+    tensor (packed where it lies)."""
+    if torch.is_tensor(w4):
+        w4 = w4.to(torch.int16)
     half = w4.shape[-2] // 2
     lo = (w4[..., :half, :] + 8) & 0x0F
     hi = (w4[..., half:, :] & 0x0F) << 4
-    return (lo | hi).astype(np.int8)
+    packed = lo | hi
+    return packed.to(torch.int8) if torch.is_tensor(packed) else packed.astype(np.int8)
 
 
 def quantize(w, bits: int = 8, group_size: Optional[int] = 32,
@@ -230,12 +257,27 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def add_adaptor(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    """``y + (x·a)·b · scale``, the JAX package's LoRA epilogue: each product
+    in the promoted dtype of its operands (rounded there), the scale rounded
+    to y's dtype first, then one product and one sum in the result dtype."""
+    t = torch.promote_types(x.dtype, a.dtype)
+    adapt = x.to(t) @ a.to(t)
+    t = torch.promote_types(adapt.dtype, b.dtype)
+    adapt = adapt.to(t) @ b.to(t)
+    return y + adapt * torch.tensor(scale, dtype=y.dtype).item()
+
+
 def linear(x: torch.Tensor, w) -> torch.Tensor:
-    """Linear dispatch on the leaf type: dense ``[in, out]`` or quantized.
+    """Linear dispatch on the leaf type: dense ``[in, out]``, quantized, or
+    `LoraLinear` (its base through this dispatch, then `add_adaptor`).
 
     A weight-only 2-D leaf with at most 32 rows of x (leading dims
     flattened) goes to the dequant-matmul kernel, as the JAX package's
     `_maybe_pallas` routes it; more rows take `quant_matmul`."""
+    if isinstance(w, LoraLinear):
+        return add_adaptor(x, linear(x, w.base), w.a, w.b, w.scale)
     if not isinstance(w, QuantizedTensor):
         return x @ w
     rows = x.numel() // x.shape[-1]

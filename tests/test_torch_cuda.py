@@ -614,3 +614,82 @@ def test_ppl_card_against_cpu(card):
     """phase ppl: `perplexity_delta` on the fixture, the card within
     chip_smoke.PPL_RTOL of the CPU."""
     chip_smoke.phase_ppl(card[0])
+
+
+# -- quantization tooling: LoRA leaves on row 11, GPTQ on the card ---------------
+
+QLORA_SMALL = dict(chip_smoke.LLAMA32_1B_CONFIG, hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                   vocab_size=512)
+
+
+def test_qlora_kernel_shapes(card):
+    """Row 11 at qlora-1b's shapes (int8 g32, f32 scales, natural and
+    transposed, the tied head natural at out 128256), 1 and 8 rows."""
+    sm, gen, dev = card
+    for rows in (1, 8):
+        chip_smoke.check_qmm(sm, chip_smoke.QMM_QLORA_1B, rows, gen, dev,
+                             scales_dtype=torch.float32)
+
+
+def test_qlora_generate_graph_matches_eager_loop(card, tmp_path):
+    """A small reference-dialect QLoRA file (`write_reference_qlora`) loaded
+    on the card: `generate` on an int8 cache against the eager loop, ids and
+    cache bit for bit, 7 row-11 launches a layer plus the head a step; then
+    the phase's native round trip (`native_roundtrip`, `roundtrip_logits`)."""
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.config import config_from_dict
+    from metalchat_tpu_torch.engine import generate
+    from metalchat_tpu_torch.io.safetensors import open_safetensors
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.quant.checkpoint import load_reference_qlora
+
+    sm = card[0]
+    cfg = config_from_dict(QLORA_SMALL).replace(max_seq_len=128)
+    chip_smoke.write_reference_qlora(tmp_path / "q.safetensors", cfg, rank=8)
+    params = load_reference_qlora(open_safetensors(tmp_path / "q.safetensors"), cfg,
+                                  device="cuda", max_seq_len=128)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 40), generator=card[1], device="cuda")
+    reset_launch_counts()
+    c = QuantizedKVCache.create(cfg, 1, 128, device="cuda")
+    got = generate(params, cfg, prompt, max_new_tokens=17, cache=c)
+    counts = launch_counts()
+    ec = QuantizedKVCache.create(cfg, 1, 128, device="cuda")
+    want, _ = chip_smoke.eager_generate(params, cfg, prompt, 17, ec)
+    assert torch.equal(got, want)
+    assert torch.equal(c.k, ec.k) and torch.equal(c.v, ec.v)
+    L = cfg.num_layers
+    assert counts == {**dict.fromkeys(counts, 0), "quant_matmul": 16 * (7 * L + 1),
+                      "decode_attention_update": 16 * L, "flash_attention": L}
+    reloaded, _, _ = chip_smoke.native_roundtrip(sm, "qlora-small", cfg, params,
+                                                 tmp_path / "native.safetensors")
+    chip_smoke.roundtrip_logits(sm, "qlora-small", cfg, params, reloaded, prompt)
+
+
+@pytest.mark.parametrize("awq_alpha", [None, 0.5])
+def test_gptq_card_against_cpu(card, awq_alpha):
+    """`gptq_quantize_params` on the card (W4A8, refit_iters=2) on a small
+    random Llama, with and without the AWQ fold: no factorization falls
+    back, the fold's layer 0 equals the CPU's byte for byte, and layer 0's
+    wk, wo, w1 and w2 against the CPU port within GPTQ_TOLERANCE."""
+    from metalchat_tpu_torch.config import config_from_dict
+    from metalchat_tpu_torch.models.transformer import init_random_params
+    from metalchat_tpu_torch.quant.awq import calibration_stats
+    from metalchat_tpu_torch.quant.gptq import _TAP_OF, gptq_quantize_params, hessian_tap
+
+    sm, gen, dev = card
+    cfg = config_from_dict(QLORA_SMALL).replace(max_seq_len=128)
+    params = init_random_params(cfg, seed=0, dtype=torch.bfloat16, max_seq_len=128,
+                                device=dev)
+    calib = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen, device=dev)
+    failures = []
+    q = gptq_quantize_params(params, cfg, calib, bits=4, refit_iters=2, awq_alpha=awq_alpha,
+                             failures=failures)
+    assert failures and sum(int(f.sum()) for f in failures) == 0
+    if awq_alpha is not None:
+        chip_smoke.gptq_against_cpu_all(sm, "gptq-small", cfg, params, calib, q, awq_alpha)
+        return
+    hess = calibration_stats(params, cfg, calib, tap=hessian_tap)
+    for name, cols in chip_smoke.GPTQ_COMPARE.items():
+        chip_smoke.gptq_against_cpu(sm, "gptq-small", name, params["layers"][name][0],
+                                    hess[_TAP_OF[name]][0], q["layers"][name], cols)

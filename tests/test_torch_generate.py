@@ -409,3 +409,51 @@ def test_capture_holds_the_cyclic_collector():
         assert not gc.isenabled()
     finally:
         gc.enable()
+
+
+def test_smoke_first_layers_is_a_shallower_model_of_views():
+    """`chip_smoke.first_layers` (the serve phases' depth cut): the depth is
+    replaced, each stacked leaf is a view of the full tree's first layers,
+    and `generate` on the cut tree equals `generate` on those layers copied
+    into a model of that depth (W4A8 and a LoRA leaf)."""
+    import chip_smoke
+    from metalchat_tpu_torch.quant.quantize import (LoraLinear, QuantizedTensor,
+                                                    init_random_quantized_params)
+
+    cfg = TINY.replace(num_layers=4)
+    params = init_random_quantized_params(cfg, bits=4, group_size=None, act_bits=8,
+                                          seed=3, max_seq_len=32, dtype=torch.float32,
+                                          device=torch.device("cpu"))
+    gen = torch.Generator().manual_seed(0)
+    wo = params["layers"]["wo"]
+    params["layers"]["wo"] = LoraLinear(
+        base=wo, a=0.02 * torch.randn((4, cfg.hidden_size, 4), generator=gen),
+        b=0.02 * torch.randn((4, 4, cfg.hidden_size), generator=gen))
+    ccfg, cut = chip_smoke.first_layers((cfg, params), 2, "test")
+    assert ccfg.num_layers == 2 and cfg.num_layers == 4
+    for name, leaf in cut["layers"].items():
+        full = params["layers"][name]
+        if isinstance(leaf, LoraLinear):
+            assert leaf.a.data_ptr() == full.a.data_ptr() and leaf.b.shape[0] == 2
+            leaf, full = leaf.base, full.base
+        if isinstance(leaf, QuantizedTensor):
+            assert leaf.q.shape[0] == 2 and leaf.q.data_ptr() == full.q.data_ptr()
+            assert leaf.scales.data_ptr() == full.scales.data_ptr()
+        else:
+            assert leaf.shape[0] == 2 and leaf.data_ptr() == full.data_ptr()
+    assert all(cut[k] is params[k] for k in params if k != "layers")
+    def copy2(leaf):  # the first two layers, copied into tensors of their own
+        if isinstance(leaf, QuantizedTensor):
+            return dataclasses.replace(leaf, q=leaf.q[:2].clone(), scales=leaf.scales[:2].clone())
+        if isinstance(leaf, LoraLinear):
+            return dataclasses.replace(leaf, base=copy2(leaf.base), a=leaf.a[:2].clone(),
+                                       b=leaf.b[:2].clone())
+        return leaf[:2].clone()
+
+    copied = {**params, "layers": {k: copy2(v) for k, v in params["layers"].items()}}
+    prompts = torch.tensor(TINY_PROMPTS)
+    got = generate(cut, ccfg, prompts, max_new_tokens=8, max_seq_len=32)
+    want = generate(copied, ccfg, prompts, max_new_tokens=8, max_seq_len=32)
+    assert torch.equal(got, want)
+    full = generate(params, cfg, prompts, max_new_tokens=8, max_seq_len=32)
+    assert not torch.equal(got, full)  # the cut reaches the model

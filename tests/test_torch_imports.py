@@ -130,11 +130,13 @@ def test_wrappers_do_not_fall_back():
     "metalchat_tpu_torch.chat.tools", "metalchat_tpu_torch.chat.hf_template",
     "metalchat_tpu_torch.cli.main", "metalchat_tpu_torch.cli.store",
     "metalchat_tpu_torch.io.repository", "metalchat_tpu_torch.engine.speculative",
-    "metalchat_tpu_torch.io.loaders", "metalchat_tpu_torch.io.safetensors"])
+    "metalchat_tpu_torch.io.loaders", "metalchat_tpu_torch.io.safetensors",
+    "metalchat_tpu_torch.quant.awq", "metalchat_tpu_torch.quant.gptq",
+    "metalchat_tpu_torch.quant.checkpoint"])
 def test_serving_modules_import_without_a_card(module):
-    """Importing a module of the serving, text, chat, CLI, speculative or
-    checkpoint slice builds and loads no kernel, so it needs neither nvcc
-    nor a card."""
+    """Importing a module of the serving, text, chat, CLI, speculative,
+    checkpoint or quantization-tooling slice builds and loads no kernel, so
+    it needs neither nvcc nor a card."""
     import importlib
 
     from metalchat_tpu_torch.ops import _build
@@ -146,7 +148,9 @@ def test_serving_modules_import_without_a_card(module):
 @pytest.mark.parametrize("module", ["metalchat_tpu_torch.text", "metalchat_tpu_torch.chat",
                                     "metalchat_tpu_torch.cli.main",
                                     "metalchat_tpu_torch.engine.speculative",
-                                    "metalchat_tpu_torch.io.loaders"])
+                                    "metalchat_tpu_torch.io.loaders",
+                                    "metalchat_tpu_torch.quant.checkpoint",
+                                    "metalchat_tpu_torch.quant.gptq"])
 def test_text_chat_cli_import_no_optional_packages(module):
     """In a fresh interpreter: after the import, none of regex, jsonschema,
     jinja2, jax or metalchat_tpu is in ``sys.modules`` (jinja2 is imported

@@ -4,14 +4,28 @@ Data crosses between the two frameworks only as numpy arrays: the JAX side
 is computed and taken to numpy before any torch op runs.
 """
 
+import dataclasses
+
 import numpy as np
 
-from metalchat_tpu.quant.quantize import QuantizedTensor
+import metalchat_tpu_torch.config as tconfig
+from metalchat_tpu.quant.quantize import LoraLinear, QuantizedTensor
+
+
+def port_config(jcfg):
+    """The port's config of the same class as the JAX config ``jcfg``, with
+    the same fields."""
+    cls = getattr(tconfig, type(jcfg).__name__)
+    return cls(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(cls)})
 
 
 def jax_tree_to_numpy(tree):
-    """JAX parameter tree → nested dicts of numpy arrays, quantized leaves as
-    the dicts `metalchat_tpu_torch.convert.params_from_numpy` takes."""
+    """JAX parameter tree → nested dicts of numpy arrays, quantized and LoRA
+    leaves as the dicts `metalchat_tpu_torch.convert.params_from_numpy`
+    takes."""
+    if isinstance(tree, LoraLinear):
+        return {"base": jax_tree_to_numpy(tree.base), "a": np.asarray(tree.a),
+                "b": np.asarray(tree.b), "scale": tree.scale}
     if isinstance(tree, QuantizedTensor):
         assert tree.pack_chunks == 1 and tree.fuse_tp == 1
         return {"q": np.asarray(tree.q), "scales": np.asarray(tree.scales),
