@@ -23,6 +23,11 @@ import chip_smoke as cs  # noqa: E402
 from metalchat_tpu_torch.ops import ffn_block as m  # noqa: E402
 from metalchat_tpu_torch.ops.a8_matvec import prologue, quantize_rows  # noqa: E402
 
+# The fixed one-code allowance this diagnosis was written against (largest
+# |weight code| a width): `chip_smoke.check_ffn_block` now bounds phase B by
+# the codes that moved.
+QMAX = {4: 8, 8: 127}
+
 
 def diag_ffn(sm, H, F, rows, cases, gen, dev, dtype=None, L=2):
     """`chip_smoke.check_ffn_block`'s draws, each case diagnosed (printed)."""
@@ -41,7 +46,7 @@ def diag_ffn(sm, H, F, rows, cases, gen, dev, dtype=None, L=2):
                                             w["w13_s"][layer], bits=bits, act=act, eps=1e-5,
                                             offset=offset)
         s13 = w["w13_s"][layer].reshape(-1).float()
-        dg, du = (sx_n * s13[None, sl] * cs.QMAX[bits] for sl in (slice(0, F), slice(F, None)))
+        dg, du = (sx_n * s13[None, sl] * QMAX[bits] for sl in (slice(0, F), slice(F, None)))
         one = (cs.ACT_SLOPE * up.abs() * dg + m.activation(gate, act).abs() * du
                + cs.ACT_SLOPE * dg * du)
         diff = (h.float() - h_ref.float()).abs()

@@ -10,11 +10,18 @@ global ones, Mixtral's router) crosses as it is. Stacked leaves keep their
 shapes, so Mixtral's ``[L, E, ...]`` expert stacks, dense or quantized (a 4-D
 ``q``), cross too. The tests use it so that both packages
 compute on the same parameters.
+
+``optimizer_state_leaves`` and ``set_optimizer_state`` carry a PyTorch
+optimizer's state across in optax's layout, the leaves that the JAX
+package's train-state files hold after the trainable list: Adam and AdamW
+as ``ScaleByAdamState`` (the update count, int32, then every first moment,
+then every second moment), SGD with momentum as ``TraceState`` (every
+momentum buffer) and plain SGD as no leaf at all.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List, Sequence
 
 import numpy as np
 import torch
@@ -53,3 +60,55 @@ def params_from_numpy(tree: Any, device=None) -> Any:
         return _tensor(node, dev)
 
     return conv(tree)
+
+
+def _optimizer_kind(opt) -> str:
+    if isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        if any(g.get("amsgrad") for g in opt.param_groups):
+            raise NotImplementedError("amsgrad has no optax state layout here")
+        return "adam"
+    if isinstance(opt, torch.optim.SGD):
+        return "trace" if any(g.get("momentum") for g in opt.param_groups) else "sgd"
+    raise NotImplementedError(f"no optax state layout for {type(opt).__name__}")
+
+
+def optimizer_state_leaves(opt, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``opt``'s state over ``params`` as optax's state leaves (zeros before
+    the first step, as ``optimizer.init`` makes them)."""
+    kind = _optimizer_kind(opt)
+    if kind == "sgd":
+        return []
+    states = [opt.state.get(p, {}) for p in params]
+    if kind == "trace":
+        return [s.get("momentum_buffer", torch.zeros_like(p)) for s, p in zip(states, params)]
+    count = int(states[0]["step"]) if states and "step" in states[0] else 0
+    return [torch.tensor(count, dtype=torch.int32),
+            *[s.get("exp_avg", torch.zeros_like(p)) for s, p in zip(states, params)],
+            *[s.get("exp_avg_sq", torch.zeros_like(p)) for s, p in zip(states, params)]]
+
+
+def set_optimizer_state(opt, params: Sequence[torch.Tensor], leaves) -> None:
+    """Replace ``opt``'s state over ``params`` by optax's state leaves
+    ``leaves`` (tensors or numpy arrays, as `optimizer_state_leaves` lists
+    them)."""
+    kind = _optimizer_kind(opt)
+    n = len(params)
+    want = {"sgd": 0, "trace": n, "adam": 2 * n + 1}[kind]
+    if len(leaves) != want:
+        raise ValueError(f"{type(opt).__name__} over {n} tensors takes {want} state "
+                         f"leaves, got {len(leaves)}")
+
+    def like(leaf, p):
+        t = leaf if torch.is_tensor(leaf) else _tensor(np.asarray(leaf), p.device)
+        return t.detach().reshape(p.shape).to(device=p.device, dtype=p.dtype).clone()
+
+    if kind == "trace":
+        for p, leaf in zip(params, leaves):
+            opt.state[p] = {"momentum_buffer": like(leaf, p)}
+    elif kind == "adam":
+        count = float(torch.as_tensor(leaves[0]).reshape(()))
+        for i, p in enumerate(params):
+            # torch keeps the step as a CPU f32 tensor unless fused or capturable
+            opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+                            "exp_avg": like(leaves[1 + i], p),
+                            "exp_avg_sq": like(leaves[1 + n + i], p)}

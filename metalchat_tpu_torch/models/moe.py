@@ -17,8 +17,11 @@ its experts through the stacked matvec kernel (``_moe_ffn_decode``).
 Layout per layer (stacked leaves in the parameter tree carry a leading
 layer axis): router ``[H, E]``; w1/w3 ``[E, H, F]`` and w2 ``[E, F, H]``
 dense, or ``QuantizedTensor`` over the expert axis (act8: ``q [E, out,
-in/2]``, scales ``[E, 1, out]``). The load-balancing loss belongs to
-training and is not ported yet.
+in/2]``, scales ``[E, 1, out]``). Both schemes return the router's
+Switch-transformer load-balancing loss beside the output; training adds it
+to the objective (``forward(with_aux=True)``, `load_balancing_loss`).
+``kernels=False`` keeps quantized experts off the dequant-matmul kernel
+(the differentiable route).
 """
 
 from __future__ import annotations
@@ -37,20 +40,22 @@ from metalchat_tpu_torch.quant.quantize import QuantizedTensor, linear
 DENSE_TOKEN_CUTOFF = 32
 
 
-def _expert_linear(xin: torch.Tensor, leaf) -> torch.Tensor:
+def _expert_linear(xin: torch.Tensor, leaf, kernels: bool = True) -> torch.Tensor:
     """xin ``[E, C, in]`` through one layer's expert stack: dense ``[E, in,
     out]``, or quantized, one `linear` per expert."""
     if isinstance(leaf, QuantizedTensor):
-        return torch.stack([linear(xin[e], leaf.layer(e)) for e in range(xin.shape[0])])
+        return torch.stack([linear(xin[e], leaf.layer(e), kernels=kernels)
+                            for e in range(xin.shape[0])])
     return torch.einsum("ech,ehf->ecf", xin, leaf.to(xin.dtype))
 
 
-def _expert_mlp(xin: torch.Tensor, layer: Dict[str, Any], config: ModelConfig) -> torch.Tensor:
+def _expert_mlp(xin: torch.Tensor, layer: Dict[str, Any], config: ModelConfig,
+                kernels: bool = True) -> torch.Tensor:
     """SwiGLU over every expert at once: xin ``[E, C, H]`` → ``[E, C, H]``."""
-    act = ops.activation(config.hidden_act)(_expert_linear(xin, layer["w1"]))
+    act = ops.activation(config.hidden_act)(_expert_linear(xin, layer["w1"], kernels))
     if "w3" in layer:
-        act = act * _expert_linear(xin, layer["w3"])
-    return _expert_linear(act, layer["w2"])
+        act = act * _expert_linear(xin, layer["w3"], kernels)
+    return _expert_linear(act, layer["w2"], kernels)
 
 
 def route(xt: torch.Tensor, router: torch.Tensor, config: ModelConfig):
@@ -68,11 +73,12 @@ def _aux_loss(probs: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
     return e * (fraction * probs.mean(dim=0)).sum()
 
 
-def _moe_dense(xt: torch.Tensor, layer: Dict[str, Any], config: ModelConfig):
+def _moe_dense(xt: torch.Tensor, layer: Dict[str, Any], config: ModelConfig,
+               kernels: bool = True):
     e = config.num_experts
     probs, gate_vals, idx = route(xt, layer["router"], config)
     gates = torch.zeros_like(probs).scatter(1, idx, gate_vals)  # [T, E]
-    outs = _expert_mlp(xt[None].expand(e, *xt.shape), layer, config)  # [E, T, H]
+    outs = _expert_mlp(xt[None].expand(e, *xt.shape), layer, config, kernels)  # [E, T, H]
     y = torch.einsum("te,eth->th", gates.to(xt.dtype), outs)
     return y, _aux_loss(probs, idx, e)
 
@@ -97,7 +103,8 @@ def dispatch_slots(idx: torch.Tensor, e: int, cap: int):
     return torch.where(kept, slot, torch.full_like(slot, cap)), kept
 
 
-def _moe_dispatch(xt: torch.Tensor, layer: Dict[str, Any], config: ModelConfig):
+def _moe_dispatch(xt: torch.Tensor, layer: Dict[str, Any], config: ModelConfig,
+                  kernels: bool = True):
     t, _ = xt.shape
     e = config.num_experts
     cap = capacity(t, config)
@@ -108,18 +115,29 @@ def _moe_dispatch(xt: torch.Tensor, layer: Dict[str, Any], config: ModelConfig):
     slot_oh = F.one_hot(slot, cap + 1)[..., :cap].to(dt)            # [T, K, C]; dropped: 0
     dispatch = torch.einsum("tke,tkc->tec", sel, slot_oh)            # 0/1 [T, E, C]
     xin = torch.einsum("tec,th->ech", dispatch, xt)
-    out = _expert_mlp(xin, layer, config)                            # [E, C, H]
+    out = _expert_mlp(xin, layer, config, kernels)                   # [E, C, H]
     combine = torch.einsum("tke,tkc,tk->tec", sel, slot_oh, gate_vals.to(dt))
     y = torch.einsum("tec,ech->th", combine, out)
     return y, _aux_loss(probs, idx, e)
 
 
-def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], config: ModelConfig):
+def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], config: ModelConfig, *,
+            kernels: bool = True):
     """Sparse-MoE FFN of x ``[B, S, H]`` → (y, load-balancing loss)."""
     b, s, h = x.shape
     xt = x.reshape(b * s, h)
     if b * s <= DENSE_TOKEN_CUTOFF:
-        yt, aux = _moe_dense(xt, layer, config)
+        yt, aux = _moe_dense(xt, layer, config, kernels)
     else:
-        yt, aux = _moe_dispatch(xt, layer, config)
+        yt, aux = _moe_dispatch(xt, layer, config, kernels)
     return yt.reshape(b, s, h).to(x.dtype), aux
+
+
+def load_balancing_loss(xt: torch.Tensor, router: torch.Tensor,
+                        config: ModelConfig) -> torch.Tensor:
+    """Switch-transformer auxiliary loss of activations ``xt [..., H]``
+    under ``router [H, E]``: E · Σ_e fraction_e · prob_e (1.0 when perfectly
+    balanced, E when collapsed), recomputed from the activations as the
+    JAX package's training loss may."""
+    probs, _, idx = route(xt.reshape(-1, xt.shape[-1]), router, config)
+    return _aux_loss(probs, idx, config.num_experts)

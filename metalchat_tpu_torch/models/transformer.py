@@ -50,9 +50,11 @@ the reference attention under a causal mask; longer windows flash attention.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from metalchat_tpu_torch.cache import (
     KVCache,
@@ -174,9 +176,11 @@ def embed_tokens(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     return x
 
 
-def final_logits(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def final_logits(params: Params, x: torch.Tensor, config: ModelConfig, *,
+                 kernels: bool = True) -> torch.Tensor:
     """Final norm + lm head → f32 logits."""
-    return linear(norm(x, params, "final_norm", config), params["lm_head"]).float()
+    return linear(norm(x, params, "final_norm", config), params["lm_head"],
+                  kernels=kernels).float()
 
 
 def act_gate(fused: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -211,16 +215,21 @@ def _attend_one(q, cache: Cache, l: int, offsets, config: ModelConfig):
 
 
 def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
-                rope, positions, offsets, start_pos, kv_end: int, paged_at=None) -> torch.Tensor:
+                rope, positions, offsets, start_pos, kv_end: int, paged_at=None,
+                differentiable: bool = False):
+    """One layer: (x after it, the layer's MoE load-balancing loss or None
+    on a dense layer)."""
     b, s, _ = x.shape
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    kernels = not differentiable
+    lin = functools.partial(linear, kernels=kernels)
 
     h = norm(x, layers, "attn_norm", config, l)
     if "wqkv" in layers:
-        q, k, v = biased(linear(h, layer_leaf(layers["wqkv"], l)), layers, "wqkv_b",
+        q, k, v = biased(lin(h, layer_leaf(layers["wqkv"], l)), layers, "wqkv_b",
                          config, l).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
-        q, k, v = (biased(linear(h, layer_leaf(layers[n], l)), layers, n + "_b", config, l)
+        q, k, v = (biased(lin(h, layer_leaf(layers[n], l)), layers, n + "_b", config, l)
                    for n in ("wq", "wk", "wv"))
     q, k = q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd)
     if config.use_qk_norm:
@@ -235,14 +244,19 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
     paged = isinstance(cache, PagedKVCache)
     window = config.layer_window(l)
     attn = None
-    if paged:
+    if differentiable:
+        keys, values = _differentiable_kv(cache, l, k, v, start_pos)
+        mask = ops.causal_mask(positions, keys.shape[2], (offsets + s)[:, None, None],
+                               None if window < 0 else window)
+        attn = ops.attention(q, keys, values, mask, scale=config.attention_scale())
+    elif paged:
         write_paged_layer(*_paged_layer(cache, l), k, v, *paged_at)
     elif isinstance(cache, QuantizedKVCache):
         update_layer_cache_quantized(cache.k[l], cache.v[l], cache.k_scale[l],
                                      cache.v_scale[l], k, v, start_pos)
     else:
         update_layer_cache(cache.k[l], cache.v[l], k, v, start_pos)
-    if s == 1:
+    if s == 1 and attn is None:
         attn = _attend_one(q, cache, l, offsets, config)
     if attn is None:
         if paged:  # each row's whole page table, gathered and dequantized
@@ -268,52 +282,89 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
             mask = ops.causal_mask(positions, keys.shape[2], (offsets + s)[:, None, None],
                                    None if window < 0 else window)
             attn = ops.attention(q, keys, values, mask, scale=config.attention_scale())
-    attn = biased(linear(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l)),
+    attn = biased(lin(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l)),
                   layers, "wo_b", config, l)
     if config.use_post_norms:
         attn = rms_norm(attn, layers["post_attn_norm"][l], config)
     x = x + attn
 
     h = norm(x, layers, "ffn_norm", config, l)
+    aux = None
     if config.num_experts:
         from metalchat_tpu_torch.models.moe import moe_ffn
 
-        ffn, _ = moe_ffn(h, {n: layer_leaf(layers[n], l) for n in MOE_LEAVES if n in layers},
-                         config)
+        ffn, aux = moe_ffn(h, {n: layer_leaf(layers[n], l) for n in MOE_LEAVES if n in layers},
+                           config, kernels=kernels)
     elif "w13" in layers:
-        fused = biased(linear(h, layer_leaf(layers["w13"], l)), layers, "w13_b", config, l)
-        ffn = linear(act_gate(fused, config.hidden_act), layer_leaf(layers["w2"], l))
+        fused = biased(lin(h, layer_leaf(layers["w13"], l)), layers, "w13_b", config, l)
+        ffn = lin(act_gate(fused, config.hidden_act), layer_leaf(layers["w2"], l))
     elif config.ffn_type == "mlp":
         gate = ops.activation(config.hidden_act)(
-            biased(linear(h, layer_leaf(layers["w1"], l)), layers, "w1_b", config, l))
-        ffn = biased(linear(gate, layer_leaf(layers["w2"], l)), layers, "w2_b", config, l)
+            biased(lin(h, layer_leaf(layers["w1"], l)), layers, "w1_b", config, l))
+        ffn = biased(lin(gate, layer_leaf(layers["w2"], l)), layers, "w2_b", config, l)
     else:
         ffn = ops.swiglu(h, layer_leaf(layers["w1"], l), layer_leaf(layers["w3"], l),
-                         layer_leaf(layers["w2"], l), config.hidden_act, matmul=linear)
+                         layer_leaf(layers["w2"], l), config.hidden_act, matmul=lin)
     if config.use_post_norms:
         ffn = rms_norm(ffn, layers["post_ffn_norm"][l], config)
-    return x + ffn
+    return x + ffn, aux
+
+
+def _differentiable_kv(cache: Cache, l: int, k, v, start_pos):
+    """The differentiable route's keys and values for layer ``l``: the
+    cache's earlier rows, then k and v cast to the cache's dtype, the JAX
+    package's XLA route (its cache write rounds them so, and the gradient
+    passes the cast). The cache is written too, outside the graph: autograd
+    never sees an in-place write into the shared ``[L, ...]`` cache, which a
+    layer recomputed under ``remat`` would trip on."""
+    if not isinstance(cache, KVCache) or torch.is_tensor(start_pos) and start_pos.ndim:
+        raise ValueError("forward(differentiable=True) takes a dense KVCache and one "
+                         "start position for every row")
+    start = int(start_pos)
+    with torch.no_grad():
+        update_layer_cache(cache.k[l], cache.v[l], k.detach(), v.detach(), start)
+    kv = [t.transpose(1, 2).to(cache.k.dtype) for t in (k, v)]
+    if start:
+        kv = [torch.cat([c[l][:, :, :start], t], dim=2) for c, t in zip((cache.k, cache.v), kv)]
+    return kv
 
 
 def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
-            config: ModelConfig, *, ffn_block: bool = False, fast_decode: bool = True):
+            config: ModelConfig, *, remat: bool = False, with_aux: bool = False,
+            fast_decode: bool = True, differentiable: bool = False,
+            ffn_block: bool = False):
     """One model step: tokens int ``[B, S]`` written at ``start_pos`` (an int,
     or an integer tensor: 0-d, or ``[B]`` per-row offsets). Returns (f32
-    logits ``[B, S, V]``, cache), the cache updated in place.
+    logits ``[B, S, V]``, cache), the cache updated in place, and with
+    ``with_aux`` a third value: the mean over layers of MoE's load-balancing
+    loss (an f32 0-d tensor, exactly 0 for a dense model).
 
     With ``fast_decode`` (the default), windows that `supports_fast_decode`
     accepts (up to 16 tokens; one on a paged cache; MoE experts stacked
     ``[L, E, ...]``) take `decode_step` (the matvec kernel path), which
     reads a tensor ``start_pos`` on the device only. Every other call, and
-    every call with ``fast_decode=False``, takes the layer-by-layer route
-    (the module docstring). ``ffn_block`` is `decode_step`'s: the merged
-    post-attention kernel on decode windows (the other route is not
-    affected)."""
+    every call with ``fast_decode=False``, ``remat`` or ``differentiable``,
+    takes the layer-by-layer route (the module docstring). ``ffn_block`` is
+    `decode_step`'s: the merged post-attention kernel on decode windows (the
+    other route is not affected).
+
+    ``differentiable=True`` is the training route, the JAX package's
+    ``allow_pallas=False``: no kernel runs (none defines a backward), the
+    quantized products take `quant_matmul` and attention the reference
+    version under a causal mask at every length, over k and v rounded to
+    the cache's dtype (a dense `KVCache`, one start position). ``remat=True``
+    recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``)."""
     b, s = tokens.shape
     from metalchat_tpu_torch.models.decode import decode_step, supports_fast_decode
 
-    if fast_decode and supports_fast_decode(params, cache, config, tokens):
-        return decode_step(params, cache, tokens, start_pos, config, ffn_block=ffn_block)
+    if fast_decode and not remat and not differentiable \
+            and supports_fast_decode(params, cache, config, tokens):
+        logits, cache = decode_step(params, cache, tokens, start_pos, config,
+                                    ffn_block=ffn_block)
+        if with_aux:
+            return logits, cache, torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, cache
     paged = isinstance(cache, PagedKVCache)
     if torch.is_tensor(start_pos) and start_pos.ndim == 1:
         offsets = start_pos.to(device=tokens.device, dtype=torch.int64)
@@ -328,10 +379,21 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
         if paged else None
 
     x = embed_tokens(params, tokens, positions, config)
+    aux = []
     for l in range(config.num_layers):
-        x = _layer_step(x, params["layers"], l, cache, config, params["rope"],
-                        positions, offsets, start_pos, kv_end, paged_at)
-    return final_logits(params, x, config), cache
+        step = functools.partial(_layer_step, layers=params["layers"], l=l, cache=cache,
+                                 config=config, rope=params["rope"], positions=positions,
+                                 offsets=offsets, start_pos=start_pos, kv_end=kv_end,
+                                 paged_at=paged_at, differentiable=differentiable)
+        x, layer_aux = checkpoint(step, x, use_reentrant=False) if remat else step(x)
+        if layer_aux is not None:
+            aux.append(layer_aux)
+    logits = final_logits(params, x, config, kernels=not differentiable)
+    if with_aux:  # the mean over layers: a dense layer adds 0
+        mean = torch.stack(aux).sum() / config.num_layers if aux \
+            else torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, cache, mean
+    return logits, cache
 
 
 def init_random_params(config: ModelConfig, seed: int = 0, dtype=torch.bfloat16,

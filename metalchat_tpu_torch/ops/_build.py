@@ -231,7 +231,15 @@ def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """A wrapper's gate: the plain version serves CPU tensors only, so any
-    other device must be CUDA (and all operands on the same card)."""
+    other device must be CUDA (and all operands on the same card). No kernel
+    defines a backward: with grad mode on, an operand that requires grad
+    raises here, so that a launch never returns an output cut off from the
+    graph (the differentiable route, ``forward(differentiable=True)``,
+    reaches no kernel)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an operand requires grad, and the kernel has no "
+                           "backward; use forward(..., differentiable=True) or "
+                           "torch.no_grad()")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {dev}; the plain "

@@ -85,7 +85,7 @@ def ffn_block_plain(attn, x, wo_q, wo_s, norm_w, w13_q, w13_s, w2_q, w2_s, layer
     h = w13_stage(x2, norm_w[layer], w13_q[layer], w13_s[layer], bits=bits, act=act,
                   eps=eps, offset=offset)[0]
     if scratch is not None:
-        scratch.update(x2=x2, h=h)
+        scratch.update(x2=x2, h=h, norm_codes=prologue(x2, norm_w[layer], eps, offset)[0])
     return w2_stage(h, x2, w2_q[layer], w2_s[layer], bits=bits)[0]
 
 
@@ -103,7 +103,10 @@ def ffn_block_stacked(attn: torch.Tensor, x: torch.Tensor, wo_q, wo_s, norm_w, w
 
     ``scratch``, a dict, receives the intermediates ``x2`` ``[B, H]`` and
     ``h`` ``[B, F]`` (the kernel's own scratch buffers): the checks hold
-    each phase on its own."""
+    each phase on its own. At 2-16 rows it also receives ``norm_codes``
+    ``[B, H]``, the int8 codes of the normed x2 that phase B multiplied
+    (the codes workspace; at one row each block keeps its codes in shared
+    memory)."""
     if act not in ACTS:
         raise ValueError(f"ffn_block: act in {ACTS}, got {act!r}")
     if x.device.type == "cpu":
@@ -161,4 +164,7 @@ def ffn_block_stacked(attn: torch.Tensor, x: torch.Tensor, wo_q, wo_s, norm_w, w
     _build.count_launch("ffn_block")
     if scratch is not None:
         scratch.update(x2=x2, h=h)
+        if shared:  # phase B's rows of the codes workspace
+            m = max(hidden, inter)
+            scratch["norm_codes"] = ws[b * m:b * m + b * hidden].view(b, hidden)
     return out

@@ -269,19 +269,22 @@ def add_adaptor(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor, b: torch.Tens
     return y + adapt * torch.tensor(scale, dtype=y.dtype).item()
 
 
-def linear(x: torch.Tensor, w) -> torch.Tensor:
+def linear(x: torch.Tensor, w, *, kernels: bool = True) -> torch.Tensor:
     """Linear dispatch on the leaf type: dense ``[in, out]``, quantized, or
     `LoraLinear` (its base through this dispatch, then `add_adaptor`).
 
     A weight-only 2-D leaf with at most 32 rows of x (leading dims
     flattened) goes to the dequant-matmul kernel, as the JAX package's
-    `_maybe_pallas` routes it; more rows take `quant_matmul`."""
+    `_maybe_pallas` routes it; more rows take `quant_matmul`. With
+    ``kernels=False`` every quantized leaf takes `quant_matmul`, plain
+    PyTorch that autograd differentiates (the JAX package's training route:
+    its `_maybe_pallas` is off there)."""
     if isinstance(w, LoraLinear):
-        return add_adaptor(x, linear(x, w.base), w.a, w.b, w.scale)
+        return add_adaptor(x, linear(x, w.base, kernels=kernels), w.a, w.b, w.scale)
     if not isinstance(w, QuantizedTensor):
         return x @ w
     rows = x.numel() // x.shape[-1]
-    if w.act_bits is None and w.q.ndim == 2 \
+    if kernels and w.act_bits is None and w.q.ndim == 2 \
             and dequant_kernel_supported(rows, w.in_features, w.group_size):
         y = dequant_matmul(x.reshape(rows, x.shape[-1]).contiguous(), w.q, w.scales,
                            bits=w.bits, group_size=w.group_size, transposed=w.transposed)
@@ -292,9 +295,12 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
 def lookup_embedding(tokens: torch.Tensor, embed) -> torch.Tensor:
     """Embedding lookup at ``tokens``: a dense table ``[V, H]``, or a
     row-quantized one (``q [V, H(/2)]``, scales ``[V, H/g]``) whose gathered
-    rows are unpacked (int4: half-split along H) and dequantized in f32."""
+    rows are unpacked (int4: half-split along H) and dequantized in f32. A
+    dense table goes through ``F.embedding``, whose backward sums rows in a
+    fixed order (indexing's accumulates in any order, so two runs of a train
+    step could differ)."""
     if not isinstance(embed, QuantizedTensor):
-        return embed[tokens]
+        return torch.nn.functional.embedding(tokens, embed)
     q = embed.q[tokens]
     if embed.bits == 4:
         q = torch.cat([(q & 15) - 8, q >> 4], dim=-1)

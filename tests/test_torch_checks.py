@@ -13,7 +13,10 @@ codes, a prefetched w13 tile from the next layer, one row's scale taken
 from its neighbour and a ring slot refilled one stage early; for the
 matvec's raw mode (the int8 tensor-core schedule, emulated) a dropped k
 step, the int4 correction left out, and a padded code column stored into
-row B - 1. Each must fail the check.
+row B - 1. Each must fail the check. For the FFN block's phase B, two
+norm codes moved by a quantum (at 2464 and 3159, where the card moved them
+on one draw) must pass when the block reports the codes it used and fail when
+it does not, and more than ``FFN_MOVED_CODES`` moved codes in a row fail.
 A wrapper that differs from the plain version only by f32 rounding noise
 must pass. The shapes are the fixture's (hd=64).
 
@@ -520,7 +523,8 @@ def _faulty_ffn(fault):
             h = _noisy(ffn_mod.activation(gate, act) * up, x.dtype)
             w2_out = ffn_mod.w2_stage(h, torch.zeros_like(x2), w2_q[layer], w2_s[layer],
                                       bits=bits)[0]
-            scratch.update(x2=x2, h=h)
+            codes = a8_mod.prologue(x2, norm_w[layer], eps, offset)[0]
+            scratch.update(x2=x2, h=h, norm_codes=codes)
             return _noisy(x2.float() + w2_out.float(), x.dtype)
         out = plain(attn, x, wo_q, wo_s, norm_w, w13_q, w13_s, w2_q, w2_s, layer, bits=bits,
                     act=act, eps=eps, offset=offset, scratch=scratch)
@@ -552,6 +556,86 @@ def test_ffn_check_passes_rounding_noise(monkeypatch, case, dtype):
 def test_ffn_check_fails_a_planted_fault(monkeypatch, fault, case):
     with pytest.raises(AssertionError, match="beyond the limit"):
         _run_ffn(monkeypatch, fault, case, "bfloat16")
+
+
+# The two normed codes that row 10's phase B moved on the card in a draw
+# that failed the one-code allowance the check had before (H 4096, w8, one
+# row, gelu_tanh, offset 0, layer 0).
+PHASE_B_MOVED = (2464, 3159)
+
+
+def _moved_codes_ffn(positions, report=True):
+    """A stand-in kernel whose phase B multiplies the plain prologue's codes
+    with those at ``positions`` (of row 0) moved by one quantum, as an ulp
+    in the norm statistics moves a code at a rounding boundary; with
+    ``report`` its scratch holds those codes (as the card's workspace
+    does), else the plain ones."""
+    def ffn(attn, x, wo_q, wo_s, norm_w, w13_q, w13_s, w2_q, w2_s, layer, *, bits, act,
+            eps, offset=0.0, scratch=None):
+        x2 = ffn_mod.wo_stage(attn, x, wo_q[layer], wo_s[layer], bits=bits)
+        plain, sx = a8_mod.prologue(x2, norm_w[layer], eps, offset)
+        codes = plain.clone()
+        for i in positions:
+            codes[0, i] += 1 if codes[0, i] < 127 else -1
+        gate, up = ffn_mod._linear(codes, sx, w13_q[layer], w13_s[layer], bits).chunk(2, dim=-1)
+        h = (ffn_mod.activation(gate, act) * up).to(x2.dtype)
+        if scratch is not None:
+            scratch.update(x2=x2, h=h, norm_codes=codes if report else plain)
+        return ffn_mod.w2_stage(h, x2, w2_q[layer], w2_s[layer], bits=bits)[0]
+
+    return ffn
+
+
+def _run_moved(monkeypatch, positions, report=True, rows=2):
+    monkeypatch.setattr(ffn_mod, "ffn_block_stacked", _moved_codes_ffn(positions, report))
+    sm = chip_smoke.Smoke(torch)
+    chip_smoke.check_ffn_block(sm, 4096, 512, rows, [(8, "gelu_tanh", 0.0, 0)],
+                               torch.Generator().manual_seed(17), CPU, torch.bfloat16)
+    return sm
+
+
+def test_ffn_check_bounds_phase_b_by_the_codes_that_moved(monkeypatch, capsys):
+    """The card's two moved codes, 2464 and 3159, replayed at H 4096 (F cut to
+    512 here): reported as the card's workspace reports them, phase B passes
+    and the count is printed."""
+    sm = _run_moved(monkeypatch, PHASE_B_MOVED)
+    assert sm.share["ffn_block"] <= 1.0
+    assert "case by case: [2]" in capsys.readouterr().out
+
+
+def test_ffn_check_fails_codes_moved_unreported(monkeypatch):
+    """The same two moves with the plain codes reported: nothing bounds them,
+    and phase B fails (the bound is not slack)."""
+    with pytest.raises(AssertionError, match=r"phase B \(h\).*beyond the limit"):
+        _run_moved(monkeypatch, PHASE_B_MOVED, report=False)
+
+
+def test_ffn_check_fails_too_many_moved_codes(monkeypatch):
+    """More than FFN_MOVED_CODES moved codes in a row fail, bound or not."""
+    many = range(1000, 1000 + chip_smoke.FFN_MOVED_CODES + 1)
+    with pytest.raises(AssertionError, match="norm codes moved"):
+        _run_moved(monkeypatch, many)
+
+
+def test_ffn_check_reads_one_row_codes_from_a_two_row_call(monkeypatch):
+    """At one row the kernel keeps its codes in shared memory: the check
+    calls it at 2 rows on [x2; x2] with attn zero, whose workspace holds
+    them (the stand-in moves row 0's codes in both calls)."""
+    calls = []
+    moved = _moved_codes_ffn(PHASE_B_MOVED)
+
+    def ffn(attn, x, *args, scratch=None, **kw):
+        calls.append(x.shape[0])
+        out = moved(attn, x, *args, scratch=scratch, **kw)
+        if x.shape[0] == 1:
+            del scratch["norm_codes"]  # one row: no workspace
+        return out
+
+    monkeypatch.setattr(ffn_mod, "ffn_block_stacked", ffn)
+    sm = chip_smoke.Smoke(torch)
+    chip_smoke.check_ffn_block(sm, 4096, 512, 1, [(8, "gelu_tanh", 0.0, 0)],
+                               torch.Generator().manual_seed(17), CPU, torch.bfloat16)
+    assert calls == [1, 2] and sm.share["ffn_block"] <= 1.0
 
 
 def _run_ffn_ring(monkeypatch, fault, case, rows=3):

@@ -693,3 +693,51 @@ def test_gptq_card_against_cpu(card, awq_alpha):
     for name, cols in chip_smoke.GPTQ_COMPARE.items():
         chip_smoke.gptq_against_cpu(sm, "gptq-small", name, params["layers"][name][0],
                                     hess[_TAP_OF[name]][0], q["layers"][name], cols)
+
+
+def test_kernel_gate_refuses_an_operand_that_requires_grad(card):
+    """A kernel wrapper on the card, under grad mode, refuses an operand
+    that requires grad (no kernel defines a backward); under no_grad the
+    same call launches."""
+    from metalchat_tpu_torch.ops.flash_attention import flash_attention
+
+    _, gen, dev = card
+    q = torch.randn((1, 32, 4, 64), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, 2, 32, 64), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    with torch.enable_grad(), pytest.raises(RuntimeError, match="flash_attention: an operand"):
+        flash_attention(q.requires_grad_(True), k, v, 0, scale=0.125)
+    with torch.no_grad():
+        assert torch.isfinite(flash_attention(q, k, v, 0, scale=0.125).float()).all()
+
+
+def test_train_step_on_card_matches_cpu_and_launches_nothing(card):
+    """A QLoRA train step on an int8 g32 base at the fixture's widths (bf16
+    activations, remat): no kernel launched; the loss within 1e-3 and each
+    adaptor gradient within 5% (relative L2) of the CPU port's, the bounds
+    of `chip_smoke.TRAIN_LOSS_RTOL` and `TRAIN_GRAD_RTOL`."""
+    from metalchat_tpu_torch.config import LlamaConfig
+    from metalchat_tpu_torch.models.transformer import init_random_params
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.quant.quantize import quantize_params
+    from metalchat_tpu_torch.train import attach_lora, trainable_lora
+
+    sm, gen, dev = card
+    cfg = LlamaConfig(vocab_size=384, hidden_size=384, intermediate_size=1024, num_layers=2,
+                      num_heads=6, num_kv_heads=3, head_dim=64, max_seq_len=128)
+    params = quantize_params(init_random_params(cfg, seed=0, dtype=torch.bfloat16,
+                                                device="cpu"), bits=8)
+    params = attach_lora(params, rank=8, dtype=torch.bfloat16)
+    for leaf in params["layers"].values():  # non-zero B: every adaptor gradient is non-zero
+        if hasattr(leaf, "b"):
+            leaf.b = torch.randn(leaf.b.shape, generator=torch.Generator().manual_seed(1)
+                                 ).to(torch.bfloat16) * 0.02
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator().manual_seed(2))
+    reset_launch_counts()
+    on_card = chip_smoke.first_step_grads(torch, cfg, chip_smoke.to_device(params, dev),
+                                          tokens.to(dev), trainable_lora)
+    assert not any(launch_counts().values())
+    on_cpu = chip_smoke.first_step_grads(torch, cfg, params, tokens, trainable_lora)
+    assert abs(on_card[0] - on_cpu[0]) <= chip_smoke.TRAIN_LOSS_RTOL * abs(on_cpu[0])
+    for a, b in zip(on_card[1], on_cpu[1]):
+        assert float((a - b).norm() / b.norm()) <= chip_smoke.TRAIN_GRAD_RTOL

@@ -458,4 +458,6 @@ def ffn_block_emulate(attn, x, wo_q, wo_s, norm_w, w13_q, w13_s, w2_q, w2_s, lay
         qc = (flat[:b * inter].reshape(b, inter), qb[1], qb[2])
     if scratch is not None:
         scratch.update(x2=x2, h=h)
+        if b > 1:  # the kernel's codes workspace holds phase B's codes
+            scratch["norm_codes"] = qb[0]
     return x2 + linear(qc, 2, w2_s[layer]).to(x.dtype)
