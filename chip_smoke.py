@@ -52,7 +52,10 @@ Phases (any failure makes the script exit non-zero without a result line):
    one-layer read-only forms) at the 8B shapes, 1 and 8 rows. Rows 1, 3,
    4, 5 and 8 at GPT-2 XL's shapes (``gpt2_kernel_checks``: 25 heads of 64
    over 25 kv heads, lengths off the 32- and 64-position edges; row 1 at K
-   1600 and 6400 and at the odd vocabulary, out 50257).
+   1600 and 6400 and at the odd vocabulary, out 50257). Row 1 at the 8B's
+   tensor-parallel local shapes over two ranks (``A8_8B_TP2``: wqkv 3072,
+   wo K 2048, w13 14336, w2 K 7168, the lm_head's 64128 rows) at 1 and 8
+   rows.
 4. The trained fixture end to end, W4A8 + int8 KV, 3 requests through
    ``generate``: kernels on the card against the plain path on the CPU; the
    first 16 greedy tokens of each request must agree. fixture-int: the same
@@ -91,7 +94,7 @@ Phases (any failure makes the script exit non-zero without a result line):
    sliding and one global layer, bf16: card against the CPU's plain path,
    each of 16 steps' logits within ``check_logits``'s limit.
    mixtral-fixture: Mixtral-8x7B's widths cut to 2 layers, W4A8 experts,
-   int8 KV, bf16, a 96-token prompt (the prefill's MoE dispatch) and 8
+   int8 KV, bf16, a 96-token prompt (the prefill's MoE dispatch) and 4
    steps at 1 and 2 rows: card against the CPU's plain path, each step's
    logits within ``check_logits``'s limit, greedy ids equal, launches exact,
    the smallest gap between the 2nd and 3rd router probability printed.
@@ -156,7 +159,24 @@ Phases (any failure makes the script exit non-zero without a result line):
    reloaded and served by ``generate`` (ids equal to the in-memory tree's,
    rows 11, 3 and 4 launched as qlora-1b counts them); then the fixture
    fine-tuned whole in f32, card against CPU, and remat against none on the
-   card. gptq-1b: random dense
+   card. tp (after chat, ``phase_tp``): tensor-parallel decode and serving,
+   two ranks (``tp_rank``, processes started with ``spawn``) on the one card
+   over gloo (NCCL refuses two ranks on one device), a ``file://``
+   rendezvous, the kernels loaded from phase build's libraries. Each rank
+   makes the seeded 8b-w4a8 tree (its digest equal on both ranks, one
+   all_reduce, and equal to main's), shards it through ``MultiHostEngine``
+   and frees the whole one, then a 512-token prefill and 32 greedy steps
+   through ``tp_decode_forward_fn`` (eager: collectives between the kernels)
+   held against a one-process run of main's params: the prefill's logits
+   within ``check_logits``'s limit (bit-equality printed), layer 0's K/V
+   codes after the first step bit-equal, the first step's logits within
+   relative L2 5e-2, both ranks' ids (and ``generate``'s) equal; per rank
+   and step 129 row-1 and 32 row-3 launches, 32 flash a prefill, nothing
+   else, no capture. Then ``MultiHostEngine.run`` (paged, 8 requests of
+   48-640 tokens, 48 greedy tokens each, 8 slots, chunks of 256): every
+   stream finished and equal on both ranks, row-8 and row-1 launches exact.
+   Its times are labelled "2 ranks over gloo on one card": functional
+   numbers, not a tensor-parallel speed figure. gptq-1b: random dense
    bf16 weights at the same widths, the first ``GPTQ_LAYERS`` (8) of 16
    layers, ``gptq_quantize_params`` (W4A8, AWQ α
    ``GPTQ_AWQ_ALPHA``, two refits) on 8 x 512 calibration tokens, no
@@ -1076,6 +1096,13 @@ A8_8B = [("wqkv", 6144, 4096, 4, True), ("wo", 4096, 4096, 4, False),
          ("lm_head", 128256, 4096, 4, False)]
 A8_8B_W8 = [("wo", 4096, 4096, 8, False), ("wqkv", 6144, 4096, 8, True)]
 A8_ROWS = (1, 2, 3, 5, 8, 16)
+# Row 1 at the 8B's tensor-parallel local shapes over two ranks (phase tp):
+# wqkv and w13 at half their rows, wo and w2 at half their K (wo's 2048 is
+# 1024 packed bytes), the lm_head's 64128 vocabulary rows (not a multiple
+# of the 16-row tile); one row (the generate step) and 8 (the serve step).
+A8_8B_TP2 = [("wqkv tp2", 3072, 4096, 4, True), ("wo tp2", 4096, 2048, 4, False),
+             ("w13 tp2", 14336, 4096, 4, True), ("w2 tp2", 4096, 7168, 4, False),
+             ("lm_head tp2", 64128, 4096, 4, False)]
 # One row at edge widths: k not a multiple of the tile's 64-byte step (4128 /
 # 2 = 2064 bytes, 14368, 96 / 2 = 48), out not a multiple of its 16 rows,
 # with and without the norm, int4 and int8.
@@ -1308,6 +1335,10 @@ def phase_kernels(sm: Smoke):
     gen_qlora.manual_seed(17)
     for rows in (1, 8):
         check_qmm(sm, QMM_QLORA_1B, rows, gen_qlora, dev, scales_dtype=torch.float32)
+    gen_tp = torch.Generator(device=dev)  # a generator of their own, as qlora-1b's
+    gen_tp.manual_seed(19)
+    for rows in (1, 8):
+        check_a8(sm, A8_8B_TP2, rows, gen_tp, dev)
     for rows in FFN_ROWS:
         check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
     check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
@@ -3222,14 +3253,15 @@ def greedy_logits(params, cfg, prompts, steps: int):
 
 # The correctness cell: Mixtral-8x7B's widths cut to 2 layers, bf16, a
 # 96-token prompt (over 32 tokens, so the prefill takes `_moe_dispatch`) and
-# 8 steps at 1 and 2 rows (both the sparse decode formulation), so that the
+# 4 steps at 1 and 2 rows (both the sparse decode formulation), so that the
 # CPU's plain path stays short (16 steps took 37.2 and 83.3 s of the H100
-# machine's CPU, too long for the script's time limit). A 1-layer cut draws other weights, and on
+# machine's CPU, 8 steps 80.8 s for both: too long for the script's time
+# limit once phase tp runs). A 1-layer cut draws other weights, and on
 # them one decode token's router 2nd-3rd gap (0.0011) is below the card/CPU
 # router-probability drift (up to 0.007): the token takes another expert
 # and its logits part (ROADMAP Queue C).
 MIXTRAL_FIXTURE_CUT = dict(num_layers=2)
-MIXTRAL_FIXTURE_PROMPT, MIXTRAL_FIXTURE_STEPS = 96, 8
+MIXTRAL_FIXTURE_PROMPT, MIXTRAL_FIXTURE_STEPS = 96, 4
 
 
 def phase_mixtral_fixture(sm: Smoke):
@@ -3362,6 +3394,326 @@ def phase_scan(sm: Smoke, main):
 
 
 # -- speculative decoding (engine/speculative.py) ---------------------------------
+
+# -- phase tp: tensor-parallel decode and serving, two ranks on one card --------
+
+TP_RANKS = 2
+# gloo: NCCL refuses two ranks on one device, and this machine has one card.
+# gloo all_reduces CUDA tensors through the host, so the phase's times are
+# functional numbers, not a tensor-parallel speed figure.
+TP_BACKEND = "gloo"
+TP_PROMPT, TP_STEPS = 512, 32
+TP_SERVE = dict(max_slots=8, prefill_chunk=256, cache_mode="paged", page_size=256,
+                decode_burst=8)
+TP_SERVE_REQUESTS, TP_SERVE_NEW = 8, 48
+TP_STEP_REL_L2 = 5e-2  # JAX's tolerance for per-shard act-quant (tests/test_tp_decode.py)
+TP_COLLECTIVE_TIMEOUT_S = 180  # a collective waiting on a lost peer raises
+TP_TIMEOUT_S = 420  # the parent kills ranks still running after this
+TP_LABEL = f"{TP_RANKS} ranks over {TP_BACKEND} on one card"
+
+
+def tree_digest(torch, params):
+    """One int64 a tensor of the tree (in a fixed walk): its bytes, each
+    weighted by its position mod 65521 plus 1, summed; equal trees give
+    equal digests."""
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, QuantizedTensor):
+            leaves.extend((node.q, node.scales))
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        else:
+            leaves.append(node)
+
+    walk(params)
+    chunk = 1 << 24
+    w = torch.arange(chunk, dtype=torch.int32, device=leaves[0].device) % 65521 + 1
+    out = []
+    for t in leaves:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        acc = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, b.numel(), chunk):
+            c = b[i:i + chunk]
+            acc += (c.to(torch.int32) * w[:c.numel()]).sum(dtype=torch.int64)
+        out.append(acc)
+    return torch.stack(out).cpu()
+
+
+def tp_greedy(torch, fwd, params, cache, prompt, steps: int):
+    """A prefill of ``prompt`` [1, S], then ``steps`` (at least one) greedy
+    one-token steps, through ``fwd(params, cache, tokens, start_pos)``: the
+    prefill's logits [S, V], the first step's [V], layer 0's K/V codes and
+    scales over the S + 1 written positions after that step, the ids [steps
+    + 1] (the prefill's, then each step's), the launches of the prefill and
+    of the steps, and the prefill's and the steps' wall seconds (all on the
+    CPU)."""
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    s = prompt.shape[1]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    logits, _ = fwd(params, cache, prompt, 0)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_counts = launch_counts()
+    out = {"prefill": logits[0].float().cpu()}
+    tok = logits[:, -1].argmax(-1)
+    ids = [tok]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    for i in range(steps):
+        logits, _ = fwd(params, cache, tok[:, None], s + i)
+        tok = logits[:, -1].argmax(-1)
+        ids.append(tok)
+        if i == 0:
+            out["step1"] = logits[0, -1].float().cpu()
+            out["layer0"] = {n: getattr(cache, n)[0, 0, :, :s + 1].cpu().clone()
+                             for n in ("k", "v", "k_scale", "v_scale")}
+    torch.cuda.synchronize()
+    out.update(steps_s=time.perf_counter() - t, step_counts=launch_counts(),
+               prefill_counts=prefill_counts, prefill_s=prefill_s, ids=torch.cat(ids).cpu())
+    return out
+
+
+def tp_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase tp, a process of its own (`phase_tp` starts it with
+    ``spawn``). It joins the gloo group through the ``file://`` store,
+    makes the seeded 8b-w4a8 tree (`make_8b`), checks with one all_reduce
+    that every rank holds the same bytes, builds `MultiHostEngine` on it
+    (which shards it; the whole tree is then freed), runs `tp_greedy` and
+    `generate` through `tp_decode_forward_fn` on the engine's local tree,
+    then serves `serve_workload`'s first requests (rank 0's; the others
+    pass None), and saves what it saw to ``out_dir/rank{rank}.pt``. Its
+    `tp_greedy` takes one step (the first step's logits and layer 0's
+    codes); the `TP_STEPS` steps and their ids are `generate`'s. The
+    kernels were built by phase build: this process loads them."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    import importlib
+
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.parallel import (
+        MultiHostEngine,
+        initialize,
+        make_mesh,
+        shard_cache,
+        shutdown,
+        tp_decode_forward_fn,
+    )
+
+    gm = importlib.import_module("metalchat_tpu_torch.engine.generate")
+    initialize(f"file://{store}", TP_RANKS, rank, backend=TP_BACKEND,
+               timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    try:
+        mesh = make_mesh()
+        dev = torch.device("cuda")
+        t0 = time.perf_counter()
+        cfg, full = make_8b(Smoke(torch), f"tp rank {rank}: 8b-w4a8", bits=4, group_size=None,
+                            act_bits=8)
+        digest = tree_digest(torch, full)
+        both = mesh.all_reduce(torch.cat([digest, -digest]).to(dev), "max").cpu()
+        out = {"digest": digest, "same_bytes": bool(torch.equal(both[:len(digest)], digest)
+                                                    and torch.equal(-both[len(digest):], digest))}
+        engine = MultiHostEngine(full, cfg, mesh, **TP_SERVE)
+        del full
+        torch.cuda.empty_cache()
+        local = engine.engine.params
+        torch.cuda.synchronize()
+        out.update(setup_s=time.perf_counter() - t0, local_bytes=weight_bytes(local),
+                   memory=torch.cuda.memory_allocated())
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)  # drive_generate's prompt
+        prompt = torch.randint(0, cfg.vocab_size, (1, TP_PROMPT), generator=gen, device=dev)
+        fwd = tp_decode_forward_fn(local, cfg, mesh)
+
+        def cache():
+            return shard_cache(QuantizedKVCache.create(cfg, 1, cfg.max_seq_len, device=dev),
+                               mesh)
+
+        out["prompt"] = prompt.cpu()
+        out["greedy"] = tp_greedy(torch, fwd, local, cache(), prompt, 1)
+        captures = []
+        with timed_captures(torch, gm, captures):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ids = gm.generate(local, cfg, prompt, max_new_tokens=TP_STEPS + 1, cache=cache(),
+                              forward_fn=fwd)
+            torch.cuda.synchronize()
+        out.update(generate_ids=ids[0].cpu(), generate_counts=launch_counts(),
+                   generate_captures=len(captures), generate_s=time.perf_counter() - t)
+        requests = (serve_workload(cfg, TP_SERVE_REQUESTS, TP_SERVE_NEW) if rank == 0
+                    else None)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        done = engine.run(requests)
+        torch.cuda.synchronize()
+        out.update(serve_s=time.perf_counter() - t, serve_counts=launch_counts(),
+                   serve_counters=dict(engine.engine.counters),
+                   serve_shapes=dict(engine.engine.prefill_shapes),
+                   serve_captures=len(engine.engine._graphs),
+                   serve_streams=[(c.tokens, c.finished, c.error) for c in done.values()],
+                   serve_prompts=[len(r.prompt) for r in requests] if requests else None,
+                   collectives=dict(mesh.counts))
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        shutdown()
+
+
+def tp_launches(cfg, steps: int, prefill_calls: int, attention: str):
+    """The launches of `steps` tensor-parallel decode steps (one matvec a
+    fused projection a layer and the lm_head: 129 at the 8B, one
+    ``attention`` a layer) and `prefill_calls` prompt windows of over 16
+    tokens (flash a layer); every other kernel none."""
+    L = cfg.num_layers
+    return {"a8_matvec": (4 * L + 1) * steps, "a8_quantize": (4 * L + 1) * steps,
+            attention: L * steps, "flash_attention": L * prefill_calls}
+
+
+def phase_tp(sm: Smoke, main, smi: str):
+    """Tensor-parallel decode and serving, `TP_RANKS` ranks on one card over
+    `TP_BACKEND` (`tp_rank`), held against a one-process run of the same
+    tree (main's 8b-w4a8 params; every rank's tree digest must equal it):
+    the 512-token prefill's logits within `check_logits`'s limit (and
+    whether bit-equal), layer 0's K/V codes and scales after the first step
+    bit-equal, the first step's logits within relative L2
+    `TP_STEP_REL_L2`, `generate`'s ids equal on every rank (and to the
+    greedy loop's first two), the ids against the one-process run
+    reported; launches exact per rank; no step captured. Then the engine's streams equal on every
+    rank, every request finished, launches exact."""
+    torch = sm.torch
+    import multiprocessing
+    import tempfile
+
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.ops import launch_counts
+
+    cfg, params, _, _, _, prompt = main
+    print(f"tp: {TP_LABEL} ({TP_BACKEND} asked for explicitly: NCCL refuses two ranks "
+          "on one device); each rank's step runs eagerly (collectives between the "
+          "kernels)", flush=True)
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=tp_rank, args=(r, f"{tmp}/store", tmp), daemon=True)
+                 for r in range(TP_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, t0 + TP_TIMEOUT_S - time.perf_counter()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        wall = time.perf_counter() - t0
+        sm.expect(not hung, f"tp: ranks {hung} still running after {TP_TIMEOUT_S} s (killed)")
+        codes = [p.exitcode for p in procs]
+        sm.expect(codes == [0] * TP_RANKS, f"tp: rank exit codes {codes}")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP_RANKS)]
+    r0 = ranks[0]
+    sm.expect(all(r["same_bytes"] for r in ranks), "tp: the ranks' trees differ")
+    sm.expect(torch.equal(tree_digest(torch, params), r0["digest"]),
+              "tp: the ranks' tree differs from main's 8b-w4a8 params")
+    sm.expect(torch.equal(r0["prompt"], prompt.cpu()), "tp: the prompt differs from main's")
+
+    # The one-process run of the same tree on this card.
+    ref = tp_greedy(torch, lambda p, c, t, s: forward(p, c, t, s, cfg), params,
+                    QuantizedKVCache.create(cfg, 1, cfg.max_seq_len, device="cuda"),
+                    prompt, TP_STEPS)
+    got = r0["greedy"]
+    share = check_logits(sm, "tp prefill logits", got["prefill"], ref["prefill"])
+    bit_equal = bool(torch.equal(got["prefill"], ref["prefill"]))
+    whole0 = {n: torch.cat([r["greedy"]["layer0"][n] for r in ranks], dim=0)
+              for n in ("k", "v", "k_scale", "v_scale")}
+    for n, t in whole0.items():
+        sm.exact(t, ref["layer0"][n], f"tp layer 0 {n} after the first step")
+    rel = ((got["step1"] - ref["step1"]).norm() / ref["step1"].norm()).item()
+    sm.expect(rel < TP_STEP_REL_L2, f"tp: first step's logits relative L2 {rel:.4g} "
+              f">= {TP_STEP_REL_L2}")
+    ids = r0["generate_ids"]
+    for r in ranks:
+        sm.exact(r["generate_ids"], ids, "tp: generate's ids rank 0 vs another rank")
+        sm.exact(r["greedy"]["ids"], ids[:2], "tp: the greedy loop's ids vs generate's")
+        sm.exact(r["greedy"]["prefill"], got["prefill"],
+                 "tp: prefill logits rank 0 vs another rank")
+        sm.expect(r["generate_captures"] == 0 and r["serve_captures"] == 0,
+                  "tp: a step was captured")
+    same = int((ids == ref["ids"]).sum())
+    first_part = next((i for i, (a, b) in enumerate(zip(ids.tolist(), ref["ids"].tolist()))
+                       if a != b), None)
+    # Launches, per rank.
+    want = {**dict.fromkeys(launch_counts(), 0)}
+    for r in ranks:
+        g = r["greedy"]
+        sm.expect(g["prefill_counts"] == {**want, **tp_launches(cfg, 0, 1,
+                                                                "decode_attention_update")},
+                  f"tp: prefill launches {g['prefill_counts']}")
+        sm.expect(g["step_counts"] == {**want, **tp_launches(cfg, 1, 0,
+                                                             "decode_attention_update")},
+                  f"tp: step launches {g['step_counts']}")
+        sm.expect(r["generate_counts"] == {**want, **tp_launches(cfg, TP_STEPS, 1,
+                                                                 "decode_attention_update")},
+                  f"tp: generate launches {r['generate_counts']}")
+    print(f"tp generate ({TP_LABEL}; 8b-w4a8, all {cfg.num_layers} layers, each rank "
+          f"{r0['local_bytes'] / 1e9:.3f} GB of local weights, set-up {r0['setup_s']:.1f} s): "
+          f"prefill logits {share:.4f} of check_logits' limit, bit-equal {bit_equal}; layer "
+          f"0's K/V codes and scales after the first step bit-equal; first step's logits "
+          f"relative L2 {rel:.4g}; ids {same} of {len(ref['ids'])} equal to the one-process "
+          f"run's (first parting at {first_part}); ranks' ids equal; generate "
+          f"{1e3 * r0['generate_s']:.2f} ms for the prefill ({1e3 * got['prefill_s']:.2f} ms "
+          f"alone; one process {1e3 * ref['prefill_s']:.2f}) and {TP_STEPS} eager steps: "
+          f"{TP_STEPS / (r0['generate_s'] - got['prefill_s']):.2f} tok/s (the one-process "
+          f"eager loop {1e3 * ref['steps_s'] / TP_STEPS:.2f} ms a step); launches a rank: "
+          f"prefill {got['prefill_counts']}, generate {r0['generate_counts']}; captured "
+          f"steps {r0['generate_captures']} (every step eager)",
+          flush=True)
+
+    # The engine.
+    streams = [r["serve_streams"] for r in ranks]
+    for r in ranks[1:]:
+        sm.expect(r["serve_streams"] == streams[0], "tp serve: streams differ across ranks")
+    sm.expect(len(streams[0]) == TP_SERVE_REQUESTS and all(
+        f and e is None and len(t) == TP_SERVE_NEW for t, f, e in streams[0]),
+        f"tp serve: unfinished or short completions {[(len(t), f, e) for t, f, e in streams[0]]}")
+    for r in ranks:
+        c = r["serve_counters"]
+        # A one-token prompt window takes the decode step too.
+        steps = c["decode_steps"] + sum(n for (b, s), n in r["serve_shapes"].items()
+                                        if s == 1)
+        windows = sum(n for (b, s), n in r["serve_shapes"].items() if s > 16)
+        expect = {**want, **tp_launches(cfg, steps, windows,
+                                        "paged_decode_attention_update")}
+        sm.expect(r["serve_counts"] == expect,
+                  f"tp serve: launches {r['serve_counts']} != {expect}")
+    c = r0["serve_counters"]
+    tokens = sum(len(t) for t, _, _ in streams[0])
+    print(f"tp serve ({TP_LABEL}; MultiHostEngine paged, pages of {TP_SERVE['page_size']}, "
+          f"{TP_SERVE_REQUESTS} requests of {min(r0['serve_prompts'])}-"
+          f"{max(r0['serve_prompts'])} prompt tokens, {TP_SERVE_NEW} greedy tokens each, "
+          f"{TP_SERVE['max_slots']} slots, chunks of {TP_SERVE['prefill_chunk']}): "
+          f"{tokens / r0['serve_s']:.2f} tok/s over {r0['serve_s']:.2f} s, streams equal on "
+          f"every rank; counters {c} (captured bursts {r0['serve_captures']}); prompt "
+          f"windows {r0['serve_shapes']}; launches a rank "
+          f"{r0['serve_counts']}; collectives a rank over the phase {r0['collectives']}",
+          flush=True)
+    print(f"tp: phase wall {wall:.1f} s for the ranks ({TP_LABEL}; {smi.splitlines()[0]}); "
+          "these times are functional numbers, not a tensor-parallel speed figure",
+          flush=True)
+    return {"generate": r0["generate_counts"], "serve": r0["serve_counts"]}
+
 
 SPEC_DRAFT = 4    # n_draft: 3 drafts and the target's verify of 4 tokens a round
 SPEC_NEW = 64
@@ -4082,10 +4434,11 @@ SERVE_MODES = {"paged": dict(cache_mode="paged", page_size=256),
 SERVE_TURNS = ("graph", "eager", "eager", "graph")
 # Each serve phase's depth: its generate phase's model cut to the first
 # layers (`first_layers`), so that the script stays inside its time limit
-# (serve-mixtral took 141 s and serve 93 s at full depth on an H100). Widths,
-# the workload and the turns are unchanged; the generate phases run every
-# layer.
-SERVE_LAYERS = {"serve": 16, "serve-gemma": 13, "serve-mixtral": 8, "serve-gpt2": 16}
+# (serve-mixtral took 141 s and serve 93 s at full depth on an H100; at 8 and
+# 16 layers 46.1 and 53.2 s, the script 846.7 s with phase tp, so the depths
+# were halved again). Widths, the workload and the turns are unchanged
+# (Gemma's 7 layers hold a global one); the generate phases run every layer.
+SERVE_LAYERS = {"serve": 8, "serve-gemma": 7, "serve-mixtral": 4, "serve-gpt2": 8}
 # Mixtral's eager-loop engine takes about 47 s for the workload (833 matvec
 # launches a step from the host), GPT-2 XL's about 22 s (48 layers of eager
 # glue): one eager turn between two graph turns.
@@ -5760,7 +6113,7 @@ def main() -> int:
     mixtral_run = scan_run = serve_mixtral = chat_counts = cli_counts = cli_1b = None
     spec_counts = spec_fixture = None
     gpt2 = gpt2_fixture = ppl_counts = serve_gpt2 = gpt2_times = None
-    qlora = gptq_run = qlora_times = train_counts = None
+    qlora = gptq_run = qlora_times = train_counts = tp_counts = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -5781,6 +6134,7 @@ def main() -> int:
         if main_run is not None:
             stream_counts = sm.phase("stream", lambda: phase_stream(sm, main_run))
             chat_counts = sm.phase("chat", lambda: phase_chat(sm, main_run))
+            tp_counts = sm.phase("tp", lambda: phase_tp(sm, main_run, smi))
         # Before the larger models load: GPTQ's f64 Hessians and their
         # factorization take tens of GB for a while.
         qlora = sm.phase("qlora-1b", lambda: phase_qlora_1b(sm, dev_name))
@@ -5861,7 +6215,7 @@ def main() -> int:
     if (sm.failures or not smi or rows is None or None in (
             stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b, spec_counts,
             spec_fixture, gpt2, gpt2_fixture, ppl_counts, serve_gpt2, gpt2_times, qlora,
-            gptq_run, qlora_times, train_counts)):
+            gptq_run, qlora_times, train_counts, tp_counts)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -5881,7 +6235,9 @@ def main() -> int:
                f"serve {GPT2_LABEL} paged": serve_gpt2["paged"]["counts"],
                "gpt2-fixture": gpt2_fixture, "ppl": ppl_counts,
                f"generate {QLORA_LABEL}": qlora[3], f"generate {GPTQ_LABEL}": gptq_run[3],
-               f"generate {TRAIN_LABEL}": train_counts}
+               f"generate {TRAIN_LABEL}": train_counts,
+               "tp 8b-w4a8 generate (a rank)": tp_counts["generate"],
+               "tp 8b-w4a8 serve paged (a rank)": tp_counts["serve"]}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

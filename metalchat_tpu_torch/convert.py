@@ -2,8 +2,10 @@
 
 ``params_from_numpy`` turns a nested dict of numpy arrays into the port's
 parameter tree, keeping every byte: a quantized leaf arrives as a dict
-``{"q", "scales", "bits", "group_size", "transposed", "act_bits"}`` and
-becomes a `QuantizedTensor` over the same packed bytes and scales, a LoRA
+``{"q", "scales", "bits", "group_size", "transposed", "act_bits"}`` (and
+``"pack_chunks"`` / ``"fuse_tp"`` where a tensor-parallel layout set them)
+and becomes a `QuantizedTensor` over the same packed bytes and scales with
+the same layout fields, a LoRA
 leaf as ``{"base", "a", "b", "scale"}`` becomes a `LoraLinear`; every
 other leaf (Gemma-3's q/k and post norms, the local rope tables beside the
 global ones, Mixtral's router) crosses as it is. Stacked leaves keep their
@@ -30,6 +32,7 @@ from metalchat_tpu_torch.device import resolve_device
 from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor
 
 _QUANT_KEYS = {"q", "scales", "bits", "group_size", "transposed", "act_bits"}
+_TP_KEYS = {"pack_chunks", "fuse_tp"}
 _LORA_KEYS = {"base", "a", "b", "scale"}
 
 
@@ -45,13 +48,15 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     dev = resolve_device(device)
 
     def conv(node):
-        if isinstance(node, dict) and set(node) == _QUANT_KEYS:
+        if isinstance(node, dict) and _QUANT_KEYS <= set(node) <= _QUANT_KEYS | _TP_KEYS:
             act = node["act_bits"]
             return QuantizedTensor(
                 q=_tensor(node["q"], dev), scales=_tensor(node["scales"], dev),
                 bits=int(node["bits"]), group_size=int(node["group_size"]),
                 transposed=bool(node["transposed"]),
-                act_bits=None if act is None else int(act))
+                act_bits=None if act is None else int(act),
+                pack_chunks=int(node.get("pack_chunks", 1)),
+                fuse_tp=int(node.get("fuse_tp", 1)))
         if isinstance(node, dict) and set(node) == _LORA_KEYS:
             return LoraLinear(base=conv(node["base"]), a=_tensor(node["a"], dev),
                               b=_tensor(node["b"], dev), scale=float(node["scale"]))

@@ -22,6 +22,12 @@ that graph on the state's own tensors. The step reads its position from
 On the CPU the step runs eagerly and no graph is made. Kernel launches are
 counted exactly: a capture counts none, each replay counts the launches it
 holds (`ops._build.CountedGraph`).
+
+``forward_fn(params, cache, tokens, start_pos) → (logits, cache)`` swaps the
+model step (the JAX package's argument), e.g.
+`parallel.tp_decode.tp_decode_forward_fn`. A forward that runs collectives
+between its kernels (``collectives`` set on the function) runs its steps
+eagerly on every backend.
 """
 
 from __future__ import annotations
@@ -61,19 +67,26 @@ def _eos_tensor(eos_ids: Tuple[int, ...], device) -> Optional[torch.Tensor]:
     return torch.tensor(eos_ids, dtype=torch.int64, device=device) if eos_ids else None
 
 
+def _model_step(config: ModelConfig, ffn_block: bool, forward_fn):
+    """``forward_fn``, or `forward` with ``ffn_block``."""
+    if forward_fn is not None:
+        return forward_fn
+    return lambda p, c, t, s: forward(p, c, t, s, config, ffn_block=ffn_block)
+
+
 def make_prefill(config: ModelConfig, sampler: SamplerConfig, eos_ids: Tuple[int, ...] = (),
-                 ffn_block: bool = False):
+                 ffn_block: bool = False, forward_fn=None):
     """Returns ``prefill(params, cache, tokens, start_pos, generator) →
     DecodeState``: one `forward` over ``tokens [B, S]`` at the int
     ``start_pos`` (flash attention for S > 16), eagerly, and the first
     sampled token. ``ffn_block`` is `forward`'s, for prompts of at most 16
-    tokens."""
+    tokens; ``forward_fn`` replaces `forward`."""
+    fwd = _model_step(config, ffn_block, forward_fn)
 
     @torch.no_grad()
     def prefill(params: Params, cache: Cache, tokens: torch.Tensor, start_pos: int,
                 generator: torch.Generator) -> DecodeState:
-        logits, cache = forward(params, cache, tokens, start_pos, config,
-                                ffn_block=ffn_block)
+        logits, cache = fwd(params, cache, tokens, start_pos)
         first = sample(logits[:, -1], generator, sampler)
         return DecodeState(
             cache=cache, last_tokens=first,
@@ -95,8 +108,10 @@ class DecodeStep:
     tensors they read, are held by this object and dropped with it."""
 
     def __init__(self, config: ModelConfig, sampler: SamplerConfig,
-                 eos_ids: Tuple[int, ...] = (), ffn_block: bool = False):
+                 eos_ids: Tuple[int, ...] = (), ffn_block: bool = False, forward_fn=None):
         self.config, self.sampler, self.ffn_block = config, sampler, ffn_block
+        self.forward_fn = forward_fn
+        self._fwd = _model_step(config, ffn_block, forward_fn)
         self.eos_ids = tuple(eos_ids)
         self._eos: Dict[torch.device, Optional[torch.Tensor]] = {}
         self._graphs: Dict[tuple, tuple] = {}
@@ -111,8 +126,7 @@ class DecodeStep:
         if record is not None:
             out, base = record
             out.index_copy_(1, (state.pos.long() - base).reshape(1), emitted[:, None])
-        logits, _ = forward(params, state.cache, emitted[:, None], state.pos, self.config,
-                            ffn_block=self.ffn_block)
+        logits, _ = self._fwd(params, state.cache, emitted[:, None], state.pos)
         nxt = sample(logits[:, -1], state.generator, self.sampler)
         hit = _eos_hit(nxt, eos)
         state.last_tokens.copy_(torch.where(state.done, emitted, nxt))
@@ -122,9 +136,12 @@ class DecodeStep:
 
     def _graph_route(self, device: torch.device) -> bool:
         """Whether steps on ``device`` are captured and replayed: on the
-        card. The CPU tests override it to drive the route with a stand-in
-        graph."""
-        return device.type == "cuda"
+        card, unless ``forward_fn`` runs collectives between its kernels
+        (the tensor-parallel forward: gloo's cannot be captured, and NCCL's
+        capture is untested on a machine with one card), whose steps run
+        eagerly on every backend. The CPU tests override it to drive the
+        route with a stand-in graph."""
+        return device.type == "cuda" and not getattr(self.forward_fn, "collectives", False)
 
     @property
     def captures(self) -> int:
@@ -163,11 +180,12 @@ class DecodeStep:
 
 
 def make_decode_step(config: ModelConfig, sampler: SamplerConfig,
-                     eos_ids: Tuple[int, ...] = (), ffn_block: bool = False) -> DecodeStep:
+                     eos_ids: Tuple[int, ...] = (), ffn_block: bool = False,
+                     forward_fn=None) -> DecodeStep:
     """Returns ``step(params, state) → (state, emitted [B])`` (`DecodeStep`):
     the JAX package's jitted step, as a CUDA graph on the card.
-    ``ffn_block`` is `decode_step`'s."""
-    return DecodeStep(config, sampler, eos_ids, ffn_block)
+    ``ffn_block`` is `decode_step`'s; ``forward_fn`` replaces `forward`."""
+    return DecodeStep(config, sampler, eos_ids, ffn_block, forward_fn)
 
 
 def _default_cache(config: ModelConfig, params: Params, batch: int, limit: int,
@@ -184,7 +202,8 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
              max_new_tokens: int, sampler: SamplerConfig = SamplerConfig.greedy(),
              eos_ids: Tuple[int, ...] = (), seed: int = 0,
              cache: Optional[Cache] = None, quantized_kv: bool = False,
-             max_seq_len: Optional[int] = None, ffn_block: bool = False) -> torch.Tensor:
+             max_seq_len: Optional[int] = None, ffn_block: bool = False,
+             forward_fn=None) -> torch.Tensor:
     """Prompt ``[B, S]`` → generated ids ``[B, max_new_tokens]`` (int64).
 
     Same token semantics as the JAX package: the first token comes from the
@@ -194,7 +213,9 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
     graph, with no host read in between. The default cache holds the
     prompt and the new tokens, dense in the activation dtype or int8.
     ``ffn_block`` merges each decode step's post-attention block into one
-    kernel launch a layer (`decode_step`)."""
+    kernel launch a layer (`decode_step`). ``forward_fn`` replaces
+    `forward` (with it, pass the ``cache`` it expects: a tensor-parallel
+    forward takes the rank's local cache)."""
     device = params["final_norm"].device
     prompt = prompt.to(device)
     b, s = prompt.shape
@@ -203,10 +224,10 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
         cache = _default_cache(config, params, b, limit, quantized_kv)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    state = make_prefill(config, sampler, eos_ids, ffn_block)(params, cache, prompt, 0,
-                                                              generator)
+    state = make_prefill(config, sampler, eos_ids, ffn_block, forward_fn)(
+        params, cache, prompt, 0, generator)
     out = torch.empty((b, max_new_tokens), dtype=torch.int64, device=device)
-    step = DecodeStep(config, sampler, eos_ids, ffn_block)
+    step = DecodeStep(config, sampler, eos_ids, ffn_block, forward_fn)
     for _ in range(max_new_tokens - 1):
         step.advance(params, state, record=(out, s))
     if max_new_tokens:
@@ -220,7 +241,7 @@ def generate_stream(params: Params, config: ModelConfig, prompt: Sequence[int], 
                     eos_ids: Tuple[int, ...] = (), seed: int = 0,
                     cache: Optional[Cache] = None, start_pos: int = 0,
                     max_seq_len: Optional[int] = None,
-                    sink_tokens: Optional[int] = None) -> Iterator[int]:
+                    sink_tokens: Optional[int] = None, forward_fn=None) -> Iterator[int]:
     """Stream generated token ids one at a time (batch of one).
 
     Stops on EOS or token budget. Reuses a caller's cache (a multi-turn
@@ -231,7 +252,7 @@ def generate_stream(params: Params, config: ModelConfig, prompt: Sequence[int], 
     the first ``sink_tokens`` positions stay and a quarter of the rest is
     evicted at once (`roll_kv_cache`, in place), so generation goes on past
     the cache length at degraded fidelity. Without it the stream stops
-    there."""
+    there. ``forward_fn`` replaces `forward`."""
     device = params["final_norm"].device
     tokens = torch.tensor([list(prompt)], dtype=torch.int64, device=device)
     if cache is None:
@@ -241,8 +262,9 @@ def generate_stream(params: Params, config: ModelConfig, prompt: Sequence[int], 
     cache_len = cache.max_seq_len
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    state = make_prefill(config, sampler, eos_ids)(params, cache, tokens, start_pos, generator)
-    step = DecodeStep(config, sampler, eos_ids)
+    state = make_prefill(config, sampler, eos_ids, forward_fn=forward_fn)(
+        params, cache, tokens, start_pos, generator)
+    step = DecodeStep(config, sampler, eos_ids, forward_fn=forward_fn)
     pos = start_pos + len(prompt)  # the host's copy of state.pos
     for _ in range(max_new_tokens):
         token = int(state.last_tokens[0])

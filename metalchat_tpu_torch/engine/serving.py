@@ -25,6 +25,16 @@ every burst: the JAX package's ``decode_step``, ``decode_burst_step`` (a
 ``lax.scan`` of that step) and the burst half of ``combined_step``. The
 prompt chunks run eagerly. On the CPU the same step runs eagerly.
 Every CUDA call of an engine happens on the thread that calls `step`.
+
+``forward_fn`` swaps the model step, ``cache`` supplies a dense cache, and
+``spmd_mesh`` (a `parallel.mesh.Mesh` of tp > 1) makes the engine one rank
+of a tensor-parallel group: it takes the rank's local params
+(`parallel.mesh.shard_params`), builds its local cache (the rank's
+kv-heads) and routes every model call through
+`parallel.tp_decode.tp_decode_forward_fn`; every rank runs the same loop
+(`parallel.multihost.MultiHostEngine`). A forward with collectives between
+its kernels (``collectives`` set on the function, as the tensor-parallel one
+has) runs its bursts eagerly on every backend.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ import torch
 from metalchat_tpu_torch.cache import KVCache, PagedKVCache, QuantizedKVCache
 from metalchat_tpu_torch.config import ModelConfig
 from metalchat_tpu_torch.engine.paged import PageAllocator
-from metalchat_tpu_torch.models.transformer import Params, forward
+from metalchat_tpu_torch.models.transformer import Cache, Params, forward
 from metalchat_tpu_torch.ops._build import CountedGraph, warm_up
 from metalchat_tpu_torch.sampling import SamplerConfig, sample_batched, sampling_branch
 from metalchat_tpu_torch.utils.profiling import Meter, trace
@@ -138,6 +148,9 @@ class ContinuousBatchingEngine:
         decode_burst: int = 1,
         prefill_interleave: int = 4,
         ffn_block: bool = False,
+        forward_fn=None,
+        cache: Optional[Cache] = None,
+        spmd_mesh=None,
     ):
         self.params = params
         self.config = config
@@ -157,7 +170,24 @@ class ContinuousBatchingEngine:
         self.paged = cache_mode == "paged"
         # The cache lives on the params' device.
         self.device = params["final_norm"].device
-        if self.paged:
+        # SPMD mode: this process is one rank of a tensor-parallel group;
+        # its cache holds the rank's kv-heads.
+        self.spmd_mesh = spmd_mesh if spmd_mesh is not None and spmd_mesh.tp > 1 else None
+        cache_config = config
+        if self.spmd_mesh is not None:
+            from metalchat_tpu_torch.parallel.tp_decode import _local_config, tp_refusal
+
+            reason = None if forward_fn is not None else tp_refusal(params, config,
+                                                                   self.spmd_mesh)
+            if reason is not None:
+                raise ValueError(f"spmd_mesh: {reason}; the port has no partitioned "
+                                 "route for such a model")
+            cache_config = _local_config(config, self.spmd_mesh.tp)
+        if cache is not None and self.paged:
+            raise ValueError("an external cache is for the dense modes")
+        if cache is not None:
+            self.cache = cache
+        elif self.paged:
             self.page_size = page_size
             mps = -(-self.max_seq_len // page_size)
             self.num_pages = num_pages or (max_slots * mps)
@@ -165,16 +195,23 @@ class ContinuousBatchingEngine:
             self._sentinel = self.num_pages
             self._host_pt = np.full((max_slots, mps), self._sentinel, np.int32)
             self.cache = PagedKVCache.create(
-                config, num_pages=self.num_pages, page_size=page_size,
+                cache_config, num_pages=self.num_pages, page_size=page_size,
                 max_slots=max_slots, max_pages_per_seq=mps, device=self.device)
             self._pt_dirty = True
         elif quantized_kv:
-            self.cache = QuantizedKVCache.create(config, max_slots, self.max_seq_len,
+            self.cache = QuantizedKVCache.create(cache_config, max_slots, self.max_seq_len,
                                                  device=self.device)
         else:
             # KV dtype follows the activation dtype (params' final norm).
-            self.cache = KVCache.create(config, max_slots, self.max_seq_len,
+            self.cache = KVCache.create(cache_config, max_slots, self.max_seq_len,
                                         dtype=params["final_norm"].dtype, device=self.device)
+        if self.spmd_mesh is not None and forward_fn is None:
+            from metalchat_tpu_torch.parallel.tp_decode import tp_decode_forward_fn
+
+            forward_fn = tp_decode_forward_fn(params, config, self.spmd_mesh)
+        # forward_fn(params, cache, tokens, start_pos) -> (logits, cache), or
+        # None for `forward` with this engine's ffn_block.
+        self.forward_fn = forward_fn
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         # The decode step's buffers (`_burst_step`), allocated once: the
@@ -313,6 +350,8 @@ class ContinuousBatchingEngine:
     def _forward(self, cache, tokens: torch.Tensor, start_pos) -> torch.Tensor:
         """One model call → f32 logits ``[B, S, V]``; the cache is updated
         in place."""
+        if self.forward_fn is not None:
+            return self.forward_fn(self.params, cache, tokens, start_pos)[0]
         return forward(self.params, cache, tokens, start_pos, self.config,
                        ffn_block=self.ffn_block)[0]
 
@@ -364,8 +403,12 @@ class ContinuousBatchingEngine:
         r["tokens"].copy_(nxt)
 
     def _graph_route(self) -> bool:
-        """Whether bursts replay captured steps: on the card."""
-        return self.device.type == "cuda"
+        """Whether bursts replay captured steps: on the card, unless the
+        forward runs collectives between its kernels (the tensor-parallel
+        one: gloo's cannot be captured, and NCCL's capture is untested on a
+        machine with one card), whose bursts run eagerly on every backend."""
+        return self.device.type == "cuda" and not getattr(self.forward_fn, "collectives",
+                                                          False)
 
     def _new_graph(self) -> CountedGraph:
         """An empty graph for one burst step in the engine's memory pool,

@@ -49,6 +49,14 @@
   activation dtype, the biased gelu MLP (w1, w2; no w3) and the final
   layernorm. The merged FFN block takes no biases: it is off under
   ``use_bias``, as in the JAX package.
+* Tensor parallelism (``tp``, the JAX package's ``tp_axis``): the rank's
+  local tree and cache at the local head and FFN counts, the embedding a
+  masked lookup over the rank's vocabulary rows and one ``all_reduce``, one
+  ``all_reduce`` after wo and one after w2 in the activation dtype, the
+  lm_head over the rank's vocabulary columns and the whole logits gathered
+  on every rank (`parallel.tp_decode`). Row-parallel matvecs quantize their
+  local slice (per shard, as JAX's ``shard_map`` body). Biases are refused
+  and the merged FFN block is off, as in JAX.
 
 Dense linear leaves take a plain product. The TPU-only gates of the JAX
 path (Mosaic head-dim rules, block choice, lane alignment) do not apply.
@@ -79,6 +87,8 @@ from metalchat_tpu_torch.models.transformer import (
     layer_rope,
     norm,
     rms_norm,
+    split_qkv,
+    tp_config,
 )
 from metalchat_tpu_torch.ops import ffn_block as fb
 from metalchat_tpu_torch.ops import reference as ops
@@ -96,7 +106,8 @@ def _kernel_ok(leaf: Any, rows: int) -> bool:
     16 rows, with in-features a multiple of 32."""
     return (isinstance(leaf, QuantizedTensor) and leaf.act_bits == 8
             and leaf.transposed and leaf.group_size == leaf.in_features
-            and rows <= MAX_ROWS and leaf.in_features % 32 == 0)
+            and leaf.pack_chunks == 1 and rows <= MAX_ROWS
+            and leaf.in_features % 32 == 0)
 
 
 def _linear_l(h: torch.Tensor, leaf: Any, l: int, rows: int) -> torch.Tensor:
@@ -214,7 +225,7 @@ def supports_fast_decode(params: Dict[str, Any], cache, config: ModelConfig,
 
 
 def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
-                config: ModelConfig, *, ffn_block: bool = False):
+                config: ModelConfig, *, ffn_block: bool = False, tp=None):
     """One decode window ``tokens [B, S]`` (S ≤ 16) at ``start_pos``; same
     contract as `forward`. The cache is updated in place. ``start_pos`` is
     an int, or an integer device tensor, 0-d (shared) or ``[B]`` (per row).
@@ -223,7 +234,12 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
     device), so a window captured in a CUDA graph reads the position from
     that tensor at every replay (`engine.generate`, `engine.speculative`).
     ``ffn_block`` merges each layer's post-attention block into one kernel
-    launch where `_ffn_block_ok` holds."""
+    launch where `_ffn_block_ok` holds. ``tp`` (a `parallel.mesh.Mesh` of
+    tp > 1): ``params`` and ``cache`` are this rank's local ones,
+    ``config`` the whole model's; the module docstring's tensor-parallel
+    step, its ``ffn_block`` off."""
+    config, tp = tp_config(config, tp)
+    ffn_block = ffn_block and tp is None
     b, s = tokens.shape
     dev = tokens.device
     if torch.is_tensor(start_pos):
@@ -244,7 +260,7 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
         raise ValueError("decode_step takes one token a row on a paged cache; forward "
                          "sends longer windows to the layer route")
 
-    x = embed_tokens(params, tokens, positions, config).reshape(rows, -1)
+    x = embed_tokens(params, tokens, positions, config, tp).reshape(rows, -1)
     merged = ffn_block and _ffn_block_ok(layers, rows, x.dtype, config)
     # Rope rows of the window's positions, [B, S, hd/2], gathered once a
     # step per table (Gemma-3's sliding layers take the local one).
@@ -277,8 +293,8 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
     for l in range(config.num_layers):
         normed: dict = {}
         if "wqkv" in layers:
-            q, k, v = bias_l(norm_linear(x, "wqkv", "attn_norm", l, normed), "wqkv_b",
-                             l).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+            q, k, v = split_qkv(bias_l(norm_linear(x, "wqkv", "attn_norm", l, normed),
+                                       "wqkv_b", l), layers["wqkv"], config)
         else:
             q, k, v = (bias_l(norm_linear(x, n, "attn_norm", l, normed), n + "_b", l)
                        for n in ("wq", "wk", "wv"))
@@ -330,6 +346,8 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
                 l, bits=layers["wo"].bits, act=config.hidden_act, eps=eps, offset=mu)
             continue
         attn = bias_l(linear_l(attn, "wo", l), "wo_b", l)
+        if tp is not None:  # row-parallel wo: sum the partial outputs
+            attn = tp.all_reduce(attn)
         if config.use_post_norms:
             attn = rms_norm(attn, layers["post_attn_norm"][l], config)
         x = x + attn
@@ -340,13 +358,16 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
             ffn = _moe_ffn_decode(norm(x, layers, "ffn_norm", config, l), layers, l, config)
         elif "w13" in layers:
             fused = bias_l(norm_linear(x, "w13", "ffn_norm", l, normed), "w13_b", l)
-            ffn = linear_l(act_gate(fused, config.hidden_act), "w2", l)
+            ffn = linear_l(act_gate(fused, config.hidden_act,
+                                    getattr(layers["w13"], "fuse_tp", 1)), "w2", l)
         elif config.ffn_type == "mlp":
             gate = act(bias_l(norm_linear(x, "w1", "ffn_norm", l, normed), "w1_b", l))
             ffn = bias_l(linear_l(gate, "w2", l), "w2_b", l)
         else:
             gate = act(norm_linear(x, "w1", "ffn_norm", l, normed))
             ffn = linear_l(gate * norm_linear(x, "w3", "ffn_norm", l, normed), "w2", l)
+        if tp is not None:  # row-parallel w2
+            ffn = tp.all_reduce(ffn)
         if config.use_post_norms:
             ffn = rms_norm(ffn, layers["post_ffn_norm"][l], config)
         x = x + ffn
@@ -359,4 +380,7 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
                                             0, bits=lm_head.bits)
     else:
         logits = linear(x, lm_head)
-    return logits.float().reshape(b, s, -1), cache
+    logits = logits.float()
+    if tp is not None:  # the rank's vocabulary columns → the whole logits
+        logits = tp.all_gather(logits, dim=-1)
+    return logits.reshape(b, s, -1), cache

@@ -1,15 +1,22 @@
 """Projection fusion: wq/wk/wv → ``wqkv`` and w1/w3 → ``w13`` (port of the
-JAX package's ``models/fuse.py``, plain concatenation only: ``fuse_tp=1``).
+JAX package's ``models/fuse.py``).
 
 Concatenating along out-features is exact: for quantized leaves the packed
 bytes and scales concatenate unchanged (groups run along in-features). Fewer,
 wider matvecs mean fewer kernel launches per layer.
+
+For tensor parallelism `permute_fused_tp` block-permutes a fused leaf's out
+axis (``QuantizedTensor.fuse_tp``) so that each rank's contiguous chunk is a
+standard fused leaf of its own heads and FFN columns; `split_fused` with
+``blocks`` splits such an output back into its segments.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Any, Dict, Sequence
 
+import numpy as np
 import torch
 
 from metalchat_tpu_torch.config import ModelConfig
@@ -32,9 +39,49 @@ def fused_segments(name: str, config: ModelConfig) -> tuple:
     raise ValueError(f"not a fused leaf: {name}")
 
 
-def split_fused(y: torch.Tensor, segments: Sequence[int]):
-    """Split a fused projection output back into its segments (views)."""
-    return torch.split(y, list(segments), dim=-1)
+def split_fused(y: torch.Tensor, segments: Sequence[int], blocks: int = 1):
+    """Split a fused projection output back into its segments: views of the
+    plain concatenation at ``blocks`` 1; with ``blocks`` > 1 (the
+    ``fuse_tp`` layout: ``blocks`` chunks of [seg0/b | seg1/b | ...]) each
+    segment's strips gathered from the chunks."""
+    if blocks == 1:
+        return torch.split(y, list(segments), dim=-1)
+    total = y.shape[-1]
+    if total != sum(segments):
+        raise ValueError(f"fused width {total} != sum of segments {tuple(segments)}")
+    parts = torch.split(y.reshape(*y.shape[:-1], blocks, total // blocks),
+                        [s // blocks for s in segments], dim=-1)
+    return [p.reshape(*y.shape[:-1], s) for p, s in zip(parts, segments)]
+
+
+def _blocked_order(segments: Sequence[int], blocks: int) -> np.ndarray:
+    """Index order turning [seg0|seg1|...] into ``blocks`` chunks of
+    [seg0_i|seg1_i|...] (the ``fuse_tp`` layout)."""
+    starts = np.concatenate([[0], np.cumsum(segments)[:-1]])
+    order = []
+    for i in range(blocks):
+        for seg, start in zip(segments, starts):
+            w = seg // blocks
+            order.append(np.arange(start + i * w, start + (i + 1) * w))
+    return np.concatenate(order)
+
+
+def permute_fused_tp(leaf: QuantizedTensor, segments: Sequence[int],
+                     tp: int) -> QuantizedTensor:
+    """Block-permute a fused leaf's out axis for ``tp`` ranks (see
+    ``QuantizedTensor.fuse_tp``), on the device where it lies: a move of
+    rows and scales, no numeric change. Every segment must divide by tp."""
+    if leaf.fuse_tp == tp:
+        return leaf
+    if leaf.fuse_tp != 1:
+        raise ValueError("re-blocking a blocked leaf is not supported")
+    if any(s % tp for s in segments):
+        raise ValueError(f"segments {tuple(segments)} not divisible by tp={tp}")
+    order = torch.from_numpy(_blocked_order(segments, tp)).to(leaf.q.device)
+    q = leaf.q.index_select(leaf.q.ndim - (2 if leaf.transposed else 1), order)
+    grouped_t = leaf.group_size != leaf.in_features and leaf.transposed
+    s_axis = leaf.scales.ndim - (2 if grouped_t else 1)  # [.., out, in/g] or [.., *, out]
+    return replace(leaf, q=q, scales=leaf.scales.index_select(s_axis, order), fuse_tp=tp)
 
 
 def _concat_linears(leaves) -> Any:

@@ -70,6 +70,7 @@ from metalchat_tpu_torch.cache import (
 )
 from metalchat_tpu_torch.config import ModelConfig
 from metalchat_tpu_torch.device import resolve_device
+from metalchat_tpu_torch.models.fuse import split_fused
 from metalchat_tpu_torch.ops import reference as ops
 from metalchat_tpu_torch.ops.decode_attention import decode_attention, decode_attention_quantized
 from metalchat_tpu_torch.ops.flash_attention import flash_attention
@@ -78,6 +79,7 @@ from metalchat_tpu_torch.quant.quantize import (
     LoraLinear,
     QuantizedTensor,
     linear,
+    linear_row_parallel,
     lookup_embedding,
 )
 
@@ -159,15 +161,32 @@ def biased(y: torch.Tensor, tree: Params, name: str, config: ModelConfig,
     return y
 
 
+def _tp_lookup_embedding(tokens: torch.Tensor, embed, mesh) -> torch.Tensor:
+    """Lookup in a vocabulary-split embedding: each rank holds rows
+    ``[rank·V_l, (rank+1)·V_l)``; an id outside them reads row 0 and is
+    zeroed, then one ``all_reduce`` assembles the rows (exact: one rank adds
+    each value to zeros), in the lookup's dtype, as JAX's ``psum``."""
+    v_local = (embed.q if isinstance(embed, QuantizedTensor) else embed).shape[0]
+    local = tokens - mesh.rank * v_local
+    valid = (local >= 0) & (local < v_local)
+    x = lookup_embedding(local.clamp(0, v_local - 1), embed)
+    x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return mesh.all_reduce(x)
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
-                 config: ModelConfig) -> torch.Tensor:
+                 config: ModelConfig, tp=None) -> torch.Tensor:
     """Token embedding in the activation dtype (that of ``final_norm``),
     times ``embedding_scale`` rounded to that dtype first, as the JAX
     package multiplies; with learned positions plus ``pos_emb[positions]``.
     The position index is clamped to the table's last row on the device (a
     padded prompt chunk or an idle engine row may run past it: JAX's gather
-    clamps, and on the card an index past the table is a device assert)."""
-    x = lookup_embedding(tokens, params["embed"]).to(params["final_norm"].dtype)
+    clamps, and on the card an index past the table is a device assert).
+    Under ``tp`` (a `parallel.mesh.Mesh`) the table is this rank's
+    vocabulary rows (`_tp_lookup_embedding`)."""
+    lookup = lookup_embedding(tokens, params["embed"]) if tp is None \
+        else _tp_lookup_embedding(tokens, params["embed"], tp)
+    x = lookup.to(params["final_norm"].dtype)
     if config.embedding_scale is not None:
         x = x * torch.tensor(config.embedding_scale, dtype=x.dtype).item()
     if config.position_embedding == "learned":
@@ -177,16 +196,41 @@ def embed_tokens(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
 
 
 def final_logits(params: Params, x: torch.Tensor, config: ModelConfig, *,
-                 kernels: bool = True) -> torch.Tensor:
-    """Final norm + lm head → f32 logits."""
-    return linear(norm(x, params, "final_norm", config), params["lm_head"],
-                  kernels=kernels).float()
+                 kernels: bool = True, tp=None) -> torch.Tensor:
+    """Final norm + lm head → f32 logits; under ``tp`` the lm_head is this
+    rank's vocabulary columns and the whole logits are gathered."""
+    logits = linear(norm(x, params, "final_norm", config), params["lm_head"],
+                    kernels=kernels).float()
+    return logits if tp is None else tp.all_gather(logits, dim=-1)
 
 
-def act_gate(fused: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """``act(gate) * up`` of a fused w13 output ``[.., 2F]``."""
-    gate, up = fused.chunk(2, dim=-1)
+def act_gate(fused: torch.Tensor, act: str = "silu", blocks: int = 1) -> torch.Tensor:
+    """``act(gate) * up`` of a fused w13 output ``[.., 2F]`` (``blocks``:
+    the leaf's ``fuse_tp``, `models.fuse.split_fused`)."""
+    f = fused.shape[-1] // 2
+    gate, up = split_fused(fused, (f, f), blocks)
     return ops.activation(act)(gate) * up
+
+
+def split_qkv(y: torch.Tensor, leaf, config: ModelConfig):
+    """q, k, v of a fused wqkv output (``leaf``'s ``fuse_tp`` blocking)."""
+    hd = config.head_dim
+    return split_fused(y, (config.num_heads * hd, config.num_kv_heads * hd,
+                           config.num_kv_heads * hd), getattr(leaf, "fuse_tp", 1))
+
+
+def tp_config(config: ModelConfig, tp):
+    """(the config of this rank's shard, the mesh) under tensor parallelism,
+    (config, None) without it or at tp 1. Biases are refused: they would
+    be added once a rank before the ``all_reduce``, as in JAX's decode."""
+    if tp is None or tp.tp == 1:
+        return config, None
+    if config.use_bias:
+        raise NotImplementedError("tp adds no biases (they would be summed over ranks); "
+                                  "use_bias models are not supported under tp")
+    from metalchat_tpu_torch.parallel.tp_decode import _local_config
+
+    return _local_config(config, tp.tp), tp
 
 
 def _paged_layer(cache: PagedKVCache, l: int):
@@ -216,18 +260,20 @@ def _attend_one(q, cache: Cache, l: int, offsets, config: ModelConfig):
 
 def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
                 rope, positions, offsets, start_pos, kv_end: int, paged_at=None,
-                differentiable: bool = False):
+                differentiable: bool = False, tp=None):
     """One layer: (x after it, the layer's MoE load-balancing loss or None
-    on a dense layer)."""
+    on a dense layer). Under ``tp`` (config: the rank's shard) wo and w2 are
+    row-parallel (`linear_row_parallel`)."""
     b, s, _ = x.shape
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
     kernels = not differentiable
     lin = functools.partial(linear, kernels=kernels)
+    row = lin if tp is None else functools.partial(linear_row_parallel, mesh=tp)
 
     h = norm(x, layers, "attn_norm", config, l)
     if "wqkv" in layers:
-        q, k, v = biased(lin(h, layer_leaf(layers["wqkv"], l)), layers, "wqkv_b",
-                         config, l).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+        q, k, v = split_qkv(biased(lin(h, layer_leaf(layers["wqkv"], l)), layers, "wqkv_b",
+                                   config, l), layers["wqkv"], config)
     else:
         q, k, v = (biased(lin(h, layer_leaf(layers[n], l)), layers, n + "_b", config, l)
                    for n in ("wq", "wk", "wv"))
@@ -282,7 +328,7 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
             mask = ops.causal_mask(positions, keys.shape[2], (offsets + s)[:, None, None],
                                    None if window < 0 else window)
             attn = ops.attention(q, keys, values, mask, scale=config.attention_scale())
-    attn = biased(lin(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l)),
+    attn = biased(row(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l)),
                   layers, "wo_b", config, l)
     if config.use_post_norms:
         attn = rms_norm(attn, layers["post_attn_norm"][l], config)
@@ -297,14 +343,17 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
                            config, kernels=kernels)
     elif "w13" in layers:
         fused = biased(lin(h, layer_leaf(layers["w13"], l)), layers, "w13_b", config, l)
-        ffn = lin(act_gate(fused, config.hidden_act), layer_leaf(layers["w2"], l))
+        ffn = row(act_gate(fused, config.hidden_act, getattr(layers["w13"], "fuse_tp", 1)),
+                  layer_leaf(layers["w2"], l))
     elif config.ffn_type == "mlp":
         gate = ops.activation(config.hidden_act)(
             biased(lin(h, layer_leaf(layers["w1"], l)), layers, "w1_b", config, l))
-        ffn = biased(lin(gate, layer_leaf(layers["w2"], l)), layers, "w2_b", config, l)
+        ffn = biased(row(gate, layer_leaf(layers["w2"], l)), layers, "w2_b", config, l)
     else:
-        ffn = ops.swiglu(h, layer_leaf(layers["w1"], l), layer_leaf(layers["w3"], l),
-                         layer_leaf(layers["w2"], l), config.hidden_act, matmul=lin)
+        w2 = layer_leaf(layers["w2"], l)
+        ffn = ops.swiglu(h, layer_leaf(layers["w1"], l), layer_leaf(layers["w3"], l), w2,
+                         config.hidden_act,
+                         matmul=lambda a, w: row(a, w) if w is w2 else lin(a, w))
     if config.use_post_norms:
         ffn = rms_norm(ffn, layers["post_ffn_norm"][l], config)
     return x + ffn, aux
@@ -332,7 +381,7 @@ def _differentiable_kv(cache: Cache, l: int, k, v, start_pos):
 def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
             config: ModelConfig, *, remat: bool = False, with_aux: bool = False,
             fast_decode: bool = True, differentiable: bool = False,
-            ffn_block: bool = False):
+            ffn_block: bool = False, tp=None):
     """One model step: tokens int ``[B, S]`` written at ``start_pos`` (an int,
     or an integer tensor: 0-d, or ``[B]`` per-row offsets). Returns (f32
     logits ``[B, S, V]``, cache), the cache updated in place, and with
@@ -354,11 +403,26 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     version under a causal mask at every length, over k and v rounded to
     the cache's dtype (a dense `KVCache`, one start position). ``remat=True``
     recomputes each layer in the backward pass
-    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``)."""
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
+
+    ``tp`` (a `parallel.mesh.Mesh` of tp > 1) is the tensor-parallel
+    prefill: ``params`` and ``cache`` are this rank's local ones
+    (`parallel.mesh.shard_params`, `shard_cache`), ``config`` the whole
+    model's. Every window takes the layer route at the rank's heads, and the
+    result is the single device's function (JAX's GSPMD prefill): the
+    embedding split by vocabulary, wo and w2 row-parallel
+    (`linear_row_parallel`: act8 codes from the whole row, exact int32
+    sums), the lm_head split by vocabulary and the whole logits on every
+    rank. One-token steps go to `decode_step(..., tp=)` through
+    `parallel.tp_decode.tp_decode_forward_fn`, as in JAX."""
     b, s = tokens.shape
     from metalchat_tpu_torch.models.decode import decode_step, supports_fast_decode
 
-    if fast_decode and not remat and not differentiable \
+    config, tp = tp_config(config, tp)
+    if tp is not None and (remat or differentiable):
+        raise ValueError("forward(tp=...) is the inference route: no remat or "
+                         "differentiable")
+    if tp is None and fast_decode and not remat and not differentiable \
             and supports_fast_decode(params, cache, config, tokens):
         logits, cache = decode_step(params, cache, tokens, start_pos, config,
                                     ffn_block=ffn_block)
@@ -378,17 +442,17 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     paged_at = positions_to_pages(cache.page_table, positions, cache.page_size) \
         if paged else None
 
-    x = embed_tokens(params, tokens, positions, config)
+    x = embed_tokens(params, tokens, positions, config, tp)
     aux = []
     for l in range(config.num_layers):
         step = functools.partial(_layer_step, layers=params["layers"], l=l, cache=cache,
                                  config=config, rope=params["rope"], positions=positions,
                                  offsets=offsets, start_pos=start_pos, kv_end=kv_end,
-                                 paged_at=paged_at, differentiable=differentiable)
+                                 paged_at=paged_at, differentiable=differentiable, tp=tp)
         x, layer_aux = checkpoint(step, x, use_reentrant=False) if remat else step(x)
         if layer_aux is not None:
             aux.append(layer_aux)
-    logits = final_logits(params, x, config, kernels=not differentiable)
+    logits = final_logits(params, x, config, kernels=not differentiable, tp=tp)
     if with_aux:  # the mean over layers: a dense layer adds 0
         mean = torch.stack(aux).sum() / config.num_layers if aux \
             else torch.zeros((), dtype=torch.float32, device=logits.device)

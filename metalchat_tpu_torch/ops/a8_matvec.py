@@ -53,15 +53,18 @@ def _lib() -> ctypes.CDLL:
 
 # -- plain version ------------------------------------------------------------
 
-def act_quantize(x: torch.Tensor):
+def act_quantize(x: torch.Tensor, absmax: Optional[torch.Tensor] = None):
     """Per-token dynamic symmetric int8: x ≈ xq * sx, sx ``[..., 1]`` f32.
 
     Same ops and order as the reference ``_act_quantize``: absmax, ``sx = 1``
     where it is 0, then true divisions and round-half-to-even. (The divisor
     127 is a tensor on x's device: PyTorch's CUDA division by a Python
-    scalar multiplies by its reciprocal, which rounds differently.)"""
+    scalar multiplies by its reciprocal, which rounds differently.) A given
+    ``absmax`` ``[..., 1]`` f32 replaces x's own (a tensor-parallel slice of
+    a row quantized on the whole row's absmax)."""
     xf = x.float()
-    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if absmax is None:
+        absmax = xf.abs().amax(dim=-1, keepdim=True)
     sx = torch.where(absmax == 0.0, torch.ones_like(absmax),
                      absmax / absmax.new_full((), 127.0))
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)

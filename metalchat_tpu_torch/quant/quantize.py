@@ -63,6 +63,18 @@ class QuantizedTensor:
     group_size: int = 32
     transposed: bool = False
     act_bits: Optional[int] = None
+    # int4 packing granularity: the half-split pairing runs within each of
+    # ``pack_chunks`` equal chunks of the in-features axis (1 is the standard
+    # packing). `parallel.mesh.shard_params` repacks a row-parallel int4
+    # leaf per rank (`repack_int4_chunks`), so that each rank's contiguous
+    # byte shard is a standard packing of its own logical rows.
+    pack_chunks: int = 1
+    # Fused-projection tp blocking: with ``fuse_tp`` > 1 the out axis of a
+    # fused wqkv / w13 is block-permuted (`models.fuse.permute_fused_tp`), so
+    # that each contiguous 1/fuse_tp chunk holds one rank's [q_i|k_i|v_i]
+    # ([gate_i|up_i]); `models.fuse.split_fused(..., blocks=fuse_tp)`
+    # splits its output.
+    fuse_tp: int = 1
 
     @property
     def in_features(self) -> int:
@@ -107,6 +119,55 @@ def _pack_int4(w4):
     hi = (w4[..., half:, :] & 0x0F) << 4
     packed = lo | hi
     return packed.to(torch.int8) if torch.is_tensor(packed) else packed.astype(np.int8)
+
+
+def _unpack_int4(packed: torch.Tensor, chunks: int = 1) -> torch.Tensor:
+    """int8 ``[..., in/2, out]`` → the signed nibbles ``[..., in, out]``;
+    with ``chunks`` > 1 the half-split pairing runs within each of
+    ``chunks`` equal ranges of the packed axis (``pack_chunks``)."""
+    lo = (packed & 15) - 8
+    hi = packed >> 4  # arithmetic: the high nibble is two's complement
+    if chunks == 1:
+        return torch.cat([lo, hi], dim=-2)
+    *lead, half, out = packed.shape
+    lo = lo.reshape(*lead, chunks, half // chunks, out)
+    hi = hi.reshape(*lead, chunks, half // chunks, out)
+    return torch.cat([lo, hi], dim=-2).reshape(*lead, 2 * half, out)
+
+
+def _packed_in_rows(qt: "QuantizedTensor") -> torch.Tensor:
+    """``q`` with its packed axis at -2 (a view)."""
+    return qt.q.transpose(-1, -2) if qt.transposed else qt.q
+
+
+def _with_packed(qt: "QuantizedTensor", packed: torch.Tensor, chunks: int) -> "QuantizedTensor":
+    q = packed.transpose(-1, -2) if qt.transposed else packed
+    return replace(qt, q=q.contiguous(), pack_chunks=chunks)
+
+
+def repack_int4_chunks(qt: "QuantizedTensor", chunks: int) -> "QuantizedTensor":
+    """The same int4 weight packed per chunk (``pack_chunks = chunks``), on
+    the device where it lies: only the pairing of bytes with logical rows
+    moves, so a contiguous 1/chunks byte shard becomes a standard packing
+    of its own logical in-range (the JAX package's numpy steps, the same
+    bytes)."""
+    if qt.bits != 4 or chunks == qt.pack_chunks:
+        return qt
+    if qt.pack_chunks != 1:
+        raise ValueError("repack from non-default chunking not supported")
+    packed = _packed_in_rows(qt)
+    *lead, half, out = packed.shape
+    if half % (2 * chunks):
+        raise ValueError(f"packed axis {half} not splittable into {chunks} half-split chunks")
+    w4 = _unpack_int4(packed).reshape(*lead, chunks, 2 * half // chunks, out)
+    return _with_packed(qt, _pack_int4(w4).reshape(*lead, half, out), chunks)
+
+
+def standard_packing(qt: "QuantizedTensor") -> "QuantizedTensor":
+    """``qt`` with the standard int4 packing (``pack_chunks = 1``)."""
+    if qt.bits != 4 or qt.pack_chunks == 1:
+        return qt
+    return _with_packed(qt, _pack_int4(_unpack_int4(_packed_in_rows(qt), qt.pack_chunks)), 1)
 
 
 def quantize(w, bits: int = 8, group_size: Optional[int] = 32,
@@ -172,6 +233,7 @@ def quantize(w, bits: int = 8, group_size: Optional[int] = 32,
 
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """The dense ``[(L,) in, out]`` weight (f32 products, one rounding)."""
+    qt = standard_packing(qt)
     return dequant_weight(qt.q, qt.scales, bits=qt.bits, group_size=qt.group_size,
                           transposed=qt.transposed, dtype=torch.float32
                           ).to(dtype).contiguous()
@@ -229,6 +291,44 @@ def _matmul_a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return (acc * sx * s_col).to(dtype).reshape(*lead, n_out)
 
 
+def _a8_int_acc(xq: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The exact int32 products ``xq [M, in] · q`` of an act8 per-channel
+    leaf (int4: the low and high nibble products, the high one's factor 16
+    taken out exactly)."""
+    p = qt.q if qt.transposed else qt.q.t()  # [out, k]
+    if qt.bits == 8:
+        return _int_mm(xq, p)
+    half = qt.in_features // 2
+    acc_lo = _int_mm(xq[:, :half].contiguous(), (p & 15) - 8)
+    acc_hi = _int_mm(xq[:, half:].contiguous(), p & -16)
+    return acc_lo + (acc_hi >> 4)
+
+
+def linear_row_parallel(x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """``x [..., in/tp]`` through this rank's rows of a row-parallel leaf,
+    summed over ``mesh`` (`parallel.mesh.Mesh`): the single device's
+    `linear` of the whole row. An act8 per-channel leaf quantizes its slice
+    on the whole row's absmax (one ``all_reduce`` max), so its codes are the
+    single device's, and sums the exact int32 products (one ``all_reduce``
+    sum) before the scales apply; while every partial sum stays below
+    2**24, the f32 result is the single device's bit for bit. A dense leaf
+    sums f32 partial products, then rounds to x's dtype."""
+    lead = x.shape[:-1]
+    if isinstance(w, QuantizedTensor):
+        if not (w.act_bits == 8 and w.group_size == w.in_features and w.q.ndim == 2):
+            raise ValueError("a row-parallel quantized leaf must be act8 per-channel")
+        w = standard_packing(w)
+        x2 = x.reshape(-1, x.shape[-1])
+        absmax = mesh.all_reduce(x2.float().abs().amax(dim=-1, keepdim=True), "max")
+        xq, sx = act_quantize(x2, absmax)
+        acc = mesh.all_reduce(_a8_int_acc(xq, w)).float()
+        s_col = w.scales.reshape(w.out_features).float()
+        return (acc * sx * s_col).to(x.dtype).reshape(*lead, w.out_features)
+    if isinstance(w, LoraLinear):
+        raise ValueError("LoRA leaves under tp are not ported")
+    return mesh.all_reduce(x.float() @ w.float()).to(x.dtype)
+
+
 def requantize_per_channel(qt: QuantizedTensor, bits: int = 8,
                            scales_dtype=torch.float32,
                            act_bits: Optional[int] = 8) -> QuantizedTensor:
@@ -283,6 +383,7 @@ def linear(x: torch.Tensor, w, *, kernels: bool = True) -> torch.Tensor:
         return add_adaptor(x, linear(x, w.base, kernels=kernels), w.a, w.b, w.scale)
     if not isinstance(w, QuantizedTensor):
         return x @ w
+    w = standard_packing(w)
     rows = x.numel() // x.shape[-1]
     if kernels and w.act_bits is None and w.q.ndim == 2 \
             and dequant_kernel_supported(rows, w.in_features, w.group_size):

@@ -1,7 +1,9 @@
 """Structural rules of the PyTorch port.
 
-* No file of `metalchat_tpu_torch/` nor `chip_smoke.py` imports jax or the
-  JAX package `metalchat_tpu`.
+* No file of `metalchat_tpu_torch/` (its `parallel/` included), nor
+  `chip_smoke.py`, nor the tensor-parallel test's rank worker
+  (`tests/torch_tp_worker.py`) imports jax or the JAX package
+  `metalchat_tpu`.
 * An entry point asked for the card without one raises, and a kernel
   wrapper given a tensor that is not on the CPU or a card raises: neither
   falls back to the plain version.
@@ -17,7 +19,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "metalchat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "metalchat_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py"]
 
 
 def _imported_modules(path: Path):

@@ -1,0 +1,531 @@
+"""The port's tensor parallelism (metalchat_tpu_torch/parallel/) against the
+JAX package's (metalchat_tpu/parallel/), at tests/test_tp_decode.py's shapes
+(`CFG`, tp = 2).
+
+The JAX side runs first, on the 8-device virtual CPU mesh, its Pallas
+kernels in interpret mode (``METALCHAT_TPU_PALLAS_INTERPRET=1``, as
+tests/test_tp_decode.py runs them), and hands its parameters across as
+numpy. The port's two ranks are two processes (tests/torch_tp_worker.py,
+which imports torch, numpy and the port only) joined by gloo through a
+``file://`` store under ``tmp_path``; one launch runs every case, and the
+launch enforces its own time limit (`RANK_TIMEOUT_S`: pytest-timeout is not
+installed). The port's single-device references run here.
+
+Tolerances:
+
+* shards (a): every local leaf byte for byte the JAX ``shard_params``
+  shard on device r after ``_localize_quant_metadata``;
+* dense f32 step (b): logits within 2e-4 of JAX's ``make_tp_decode_step``
+  (tests/test_tp_decode.py's), 8 greedy ids equal;
+* W4A8 steps, int8 cache (c) and pages (e): as the port's single-device
+  parity tests hold ``decode_step`` (tests/test_torch_ffn_block.py): cache
+  codes equal on every layer (layer 0 first, as JAX's tests hold it
+  against one device), cache scales within 1e-6 relative, logits within
+  1e-5;
+* the tensor-parallel prefill (d) against the port's single-device
+  ``forward``: W4A8 cache codes, scales and logits bit for bit, dense f32
+  within 2e-4 (tests/test_tp_decode.py's GSPMD check);
+* the engine (f): token-exact against the single-device engine, dense f32,
+  dense and paged caches; ``MultiHostEngine`` (g): the same streams on both
+  ranks.
+"""
+
+import dataclasses
+import importlib
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from metalchat_tpu.cache import KVCache as JKVCache
+from metalchat_tpu.cache import PagedKVCache as JPagedKVCache
+from metalchat_tpu.cache import QuantizedKVCache as JQKVCache
+from metalchat_tpu.config import LlamaConfig as JLlamaConfig
+from metalchat_tpu.models import fuse as jfusemod
+from metalchat_tpu.models import init_random_params as jinit
+from metalchat_tpu.models.fuse import fuse_projections as jfuse
+from metalchat_tpu.parallel import mesh as jmesh
+from metalchat_tpu.parallel import tp_decode as jtp
+from metalchat_tpu_torch.cache import KVCache, QuantizedKVCache
+from metalchat_tpu_torch.convert import params_from_numpy
+from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine, Request
+from metalchat_tpu_torch.models import fuse as tfuse
+from metalchat_tpu_torch.models.transformer import forward
+from metalchat_tpu_torch.parallel import (
+    Mesh,
+    make_mesh,
+    make_tp_decode_step,
+    shard_params,
+    supports_tp_fast_decode,
+    tp_refusal,
+)
+from metalchat_tpu_torch.parallel.distributed import initialize
+from metalchat_tpu_torch.quant import quantize as tq
+from torch_port_util import jax_tree_to_numpy, port_config
+
+import torch_tp_worker as worker
+
+jq = importlib.import_module("metalchat_tpu.quant.quantize")
+
+HERE = Path(__file__).resolve().parent
+CFG = JLlamaConfig(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                   num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
+                   max_seq_len=256, tie_word_embeddings=False)
+TP = 2
+PROMPT_LEN = 40  # over 16 tokens: the prefill's flash route
+RANK_TIMEOUT_S = 150
+CPU = torch.device("cpu")
+
+
+def _jmesh():
+    return jmesh.make_mesh(tp=TP, dp=1, devices=jax.devices()[:TP])
+
+
+def _w4a8(seed):
+    return jq.quantize_params(jinit(CFG, seed=seed, dtype=jnp.float32), bits=4,
+                              group_size=None, act_bits=8, scales_dtype=jnp.float32)
+
+
+def _trees():
+    return {"dense": jinit(CFG, seed=0, dtype=jnp.float32), "w4a8": _w4a8(1),
+            "fused": jfuse(_w4a8(4), CFG)}
+
+
+def _jax_cache(cache):
+    return {f.name: np.asarray(getattr(cache, f.name)) for f in dataclasses.fields(cache)
+            if getattr(cache, f.name) is not None}
+
+
+def _jax_results(trees):
+    """The JAX package's tensor-parallel steps on the 2-device mesh."""
+    mesh = _jmesh()
+    out = {}
+    sdense = jmesh.shard_params(trees["dense"], CFG, mesh)
+    step = jax.jit(jtp.make_tp_decode_step(sdense, CFG, mesh, cache_quantized=False))
+    cache = jmesh.shard_cache(JKVCache.create(CFG, 2, CFG.max_seq_len, dtype=jnp.float32),
+                              mesh)
+    tok, pos, ids, first = jnp.asarray(worker.TOKENS, jnp.int32), jnp.zeros(2, jnp.int32), [], None
+    for _ in range(worker.GREEDY_STEPS):
+        logits, cache = step(sdense, cache, tok, pos)
+        first = np.asarray(logits) if first is None else first
+        tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)[:, None]
+        ids.append(np.asarray(tok)[:, 0])
+        pos = pos + 1
+    out["dense_greedy"] = {"logits": first, "ids": np.stack(ids)}
+    tok, pos = jnp.asarray(worker.TOKENS, jnp.int32), jnp.asarray(worker.POSITIONS, jnp.int32)
+    for name in ("w4a8", "fused"):
+        sq = jmesh.shard_params(trees[name], CFG, mesh)
+        logits, cache = jax.jit(jtp.make_tp_decode_step(sq, CFG, mesh))(
+            sq, jmesh.shard_cache(JQKVCache.create(CFG, 2, CFG.max_seq_len), mesh), tok, pos)
+        out[f"{name}_step"] = {"logits": np.asarray(logits), "cache": _jax_cache(cache)}
+    sq = jmesh.shard_params(trees["w4a8"], CFG, mesh)
+    pcache = JPagedKVCache.create(CFG, num_pages=worker.PAGED["num_pages"],
+                                  page_size=worker.PAGED["page_size"],
+                                  max_slots=worker.PAGED["max_slots"])
+    pt = jnp.asarray(worker.PAGE_TABLE, jnp.int32)
+    pcache = jmesh.shard_cache(pcache.replace(page_table=pt), mesh)
+    pcache = pcache.replace(page_table=jax.device_put(pt))
+    logits, pcache = jax.jit(jtp.make_tp_decode_step(sq, CFG, mesh, paged=True))(
+        sq, pcache, tok, pos)
+    out["paged_step"] = {"logits": np.asarray(logits), "cache": _jax_cache(pcache)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(JAX results, the port's per-rank results, numpy trees, port config)."""
+    from metalchat_tpu import ops as jops
+
+    trees = _trees()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("METALCHAT_TPU_PALLAS_INTERPRET", "1")
+        jops.use_pallas.cache_clear()
+        try:
+            want = _jax_results(trees)
+        finally:
+            jops.use_pallas.cache_clear()
+    numpy_trees = {k: jax_tree_to_numpy(v) for k, v in trees.items()}
+    prompt = np.random.default_rng(3).integers(0, CFG.vocab_size, (1, PROMPT_LEN))
+    tmp = tmp_path_factory.mktemp("tp")
+    with open(tmp / "inputs.pkl", "wb") as f:
+        pickle.dump({"cfg": {f.name: getattr(CFG, f.name) for f in dataclasses.fields(CFG)},
+                     "prompt": prompt.tolist(), **numpy_trees}, f)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "torch_tp_worker.py"), str(r), str(TP),
+         str(tmp / "store"), str(tmp / "inputs.pkl"), str(tmp / f"rank{r}.pkl")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(TP)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:  # a rank that hangs is killed, and the launch fails
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and f"OK {r}" in log, f"rank {r} failed:\n{log}"
+    ranks = []
+    for r in range(TP):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return want, ranks, numpy_trees, port_config(CFG), prompt
+
+
+def _whole_cache(ranks, case):
+    """The ranks' local caches joined along the kv-head axis."""
+    axes = {"k": 2, "v": 2, "k_scale": 2, "v_scale": 2, "k_pages": 1, "v_pages": 1}
+    parts = [r[case]["cache"] for r in ranks]
+    return {n: (np.concatenate([p[n] for p in parts], axis=axes[n]) if n in axes
+                else parts[0][n]) for n in parts[0]}
+
+
+# -- (a) shard_params: the JAX shards byte for byte ---------------------------
+
+def _jax_shard(arr, device):
+    (shard,) = [s for s in arr.addressable_shards if s.device == device]
+    return np.asarray(shard.data)
+
+
+@pytest.mark.parametrize("name", ["dense", "w4a8", "fused"])
+def test_shard_params_equals_jax_shards(name):
+    """Every rank's local leaf equals the JAX ``shard_params`` shard on device
+    r after ``_localize_quant_metadata``: the int4 repack of wo/w2 per
+    chunk, the fused permutation of wqkv/w13, the vocabulary shards."""
+    tree = _trees()[name]
+    mesh = _jmesh()
+    sharded = jmesh.shard_params(tree, CFG, mesh)
+    full = params_from_numpy(jax_tree_to_numpy(tree), CPU)
+    cfg = port_config(CFG)
+    for r in range(TP):
+        local = shard_params(full, cfg, Mesh(tp=TP, rank=r))
+        dev = mesh.devices[0, r]
+
+        def check(path, want, got):
+            if isinstance(want, dict):
+                assert set(want) == set(got), path
+                for k in want:
+                    check(f"{path}/{k}", want[k], got[k])
+            elif isinstance(want, jq.QuantizedTensor):
+                jlocal = jtp._localize_quant_metadata(dataclasses.replace(
+                    want, q=jnp.asarray(_jax_shard(want.q, dev)),
+                    scales=jnp.asarray(_jax_shard(want.scales, dev))))
+                assert isinstance(got, tq.QuantizedTensor), path
+                for f in ("bits", "group_size", "transposed", "act_bits", "pack_chunks",
+                          "fuse_tp"):
+                    assert getattr(got, f) == getattr(jlocal, f), (path, f)
+                np.testing.assert_array_equal(got.q.numpy(), np.asarray(jlocal.q), path)
+                np.testing.assert_array_equal(got.scales.numpy(), np.asarray(jlocal.scales),
+                                              path)
+            else:
+                np.testing.assert_array_equal(got.numpy(), _jax_shard(want, dev), path)
+
+        check(name, sharded, local)
+
+
+# -- (b), (c), (e): the tensor-parallel step against JAX's ----------------------
+
+def test_dense_tp_step_matches_jax(runs):
+    """Dense f32: logits within 2e-4 of JAX's tensor-parallel step, 8
+    greedy steps token for token, both ranks the same logits."""
+    want, ranks, *_ = runs
+    got = ranks[0]["dense_greedy"]
+    np.testing.assert_allclose(got["logits"], want["dense_greedy"]["logits"], rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_array_equal(got["ids"], want["dense_greedy"]["ids"])
+    np.testing.assert_array_equal(ranks[1]["dense_greedy"]["logits"], got["logits"])
+
+
+def _check_step(want, ranks, case, layer0_only=()):
+    whole = _whole_cache(ranks, case)
+    for n, w in want[case]["cache"].items():
+        if n in ("page_table", "lengths"):
+            continue
+        g = whole[n]
+        if n.endswith("scale"):
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=0, err_msg=f"{case} {n}")
+        else:  # codes: layer 0, then every layer, bit for bit
+            np.testing.assert_array_equal(g[0], w[0], f"{case} {n} layer 0")
+            np.testing.assert_array_equal(g, w, f"{case} {n}")
+    np.testing.assert_allclose(ranks[0][case]["logits"], want[case]["logits"], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(ranks[1][case]["logits"], ranks[0][case]["logits"])
+    # one all_reduce for the embedding, one after wo and one after w2 a
+    # layer; one all_gather for the logits
+    assert ranks[0][case]["collectives"] == {"all_reduce_sum": 1 + 2 * CFG.num_layers,
+                                             "all_gather": 1}
+
+
+@pytest.mark.parametrize("case", ["w4a8_step", "fused_step"])
+def test_w4a8_tp_step_matches_jax(runs, case):
+    """W4A8 with an int8 cache, unfused and fused (wqkv/w13 block-permuted):
+    the port's tensor-parallel step against JAX's."""
+    want, ranks, *_ = runs
+    _check_step(want, ranks, case)
+
+
+def test_paged_tp_step_matches_jax(runs):
+    """Paged, pools split by kv-head, page table whole: the port's
+    tensor-parallel step against JAX's (tests/test_tp_decode.py's
+    test_tp_paged_kernel_path setting)."""
+    want, ranks, *_ = runs
+    _check_step(want, ranks, "paged_step")
+
+
+# -- (d): the tensor-parallel prefill computes the single device's function -----
+
+@pytest.mark.parametrize("name", ["w4a8", "fused", "dense"])
+def test_tp_prefill_matches_single_device(runs, name):
+    """``forward(..., tp=mesh)`` over a 40-token prompt against the port's
+    single-device ``forward``: W4A8 codes, scales and logits bit for bit
+    (act8 scales from the whole row, exact int32 sums), dense f32 within
+    2e-4."""
+    _, ranks, trees, cfg, prompt = runs
+    params = params_from_numpy(trees[name], CPU)
+    if name == "dense":
+        cache = KVCache.create(cfg, 1, cfg.max_seq_len, dtype=torch.float32, device=CPU)
+    else:
+        cache = QuantizedKVCache.create(cfg, 1, cfg.max_seq_len, device=CPU)
+    with torch.no_grad():
+        logits, cache = forward(params, cache, torch.from_numpy(prompt), 0, cfg)
+    case = f"prefill_{name}"
+    whole = _whole_cache(ranks, case)
+    got = ranks[0][case]["logits"]
+    np.testing.assert_array_equal(ranks[1][case]["logits"], got)
+    if name == "dense":
+        np.testing.assert_allclose(got, logits.numpy(), rtol=2e-4, atol=2e-4)
+        for n in ("k", "v"):
+            np.testing.assert_allclose(whole[n], getattr(cache, n).numpy(), rtol=2e-4,
+                                       atol=2e-4)
+        return
+    np.testing.assert_array_equal(got, logits.numpy())
+    for n in ("k", "v", "k_scale", "v_scale"):
+        np.testing.assert_array_equal(whole[n], getattr(cache, n).numpy(), n)
+
+
+# -- (f), (g): the engine ---------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_engine_spmd_token_exact(runs, mode):
+    """``ContinuousBatchingEngine(spmd_mesh=...)`` on two ranks, dense f32:
+    the single-device engine's tokens (tests/test_tp_decode.py's
+    test_tp_engine_spmd_token_exact and ..._paged_token_exact), every
+    request finished, the forward the tensor-parallel one."""
+    _, ranks, trees, cfg, _ = runs
+    engine = ContinuousBatchingEngine(params_from_numpy(trees["dense"], CPU), cfg,
+                                      **worker.ENGINE, **worker.ENGINE_MODES[mode])
+    out = engine.run([Request(prompt=p, max_new_tokens=n) for p, n in worker.REQUESTS])
+    want = [c.tokens for c in out.values()]
+    for r in ranks:
+        got = r[f"engine_{mode}"]
+        assert all(got["finished"]) and got["collectives"] is True
+        assert got["tokens"] == want, (got["tokens"], want)
+
+
+def test_multihost_engine_same_streams(runs):
+    """``MultiHostEngine``: rank 1 passes None, rank 0's requests (two
+    greedy, one sampled with a seeded sampler) are served on both ranks, and
+    both return the same streams."""
+    _, ranks, *_ = runs
+    streams = [r["multihost"] for r in ranks]
+    assert all(streams[0]["finished"]) and len(streams[0]["tokens"]) == 3
+    assert [len(t) for t in streams[0]["tokens"]] == [n for _, n in worker.REQUESTS] + [7]
+    assert streams[1] == streams[0]
+
+
+# -- (h): gating -------------------------------------------------------------------
+
+def test_gating_refuses_what_jax_refuses():
+    """``supports_tp_fast_decode`` on tests/test_tp_decode.py's cases (a
+    dense model; a dense fused leaf; kv-heads that tp=4 does not divide)
+    and a grouped weight-only model: the JAX package's answers. The port
+    also refuses MoE and LoRA leaves (not ported under tp); JAX takes MoE."""
+    cfg = port_config(CFG)
+    params = jinit(CFG, seed=0, dtype=jnp.float32)
+    tparams = params_from_numpy(jax_tree_to_numpy(params), CPU)
+    grouped = jq.quantize_params(params, bits=4, group_size=32)
+    cases = [
+        (params, tparams, TP),
+        (dict(params, layers=dict(params["layers"], wqkv=1)),
+         dict(tparams, layers=dict(tparams["layers"], wqkv=torch.zeros(1))), TP),
+        (params, tparams, 4),
+        (grouped, params_from_numpy(jax_tree_to_numpy(grouped), CPU), TP),
+    ]
+    for jp, tp_, tp in cases:
+        want = jtp.supports_tp_fast_decode(jp, CFG, jmesh.make_mesh(
+            tp=tp, dp=1, devices=jax.devices()[:tp]))
+        assert supports_tp_fast_decode(tp_, cfg, Mesh(tp=tp)) == want
+    assert [supports_tp_fast_decode(c[1], cfg, Mesh(tp=c[2])) for c in cases] == [
+        True, False, False, False]
+    assert "not divisible" in tp_refusal(tparams, cfg, Mesh(tp=4))
+    moe = dataclasses.replace(cfg, num_experts=4, num_experts_per_tok=2)
+    assert "MoE" in tp_refusal(tparams, moe, Mesh(tp=TP))
+    lora = dict(tparams, layers=dict(tparams["layers"], wq=tq.LoraLinear(
+        base=tparams["layers"]["wq"], a=torch.zeros(2, 512, 4), b=torch.zeros(2, 4, 512))))
+    assert "LoRA" in tp_refusal(lora, cfg, Mesh(tp=TP))
+    with pytest.raises(ValueError, match="not divisible"):
+        make_tp_decode_step(tparams, cfg, Mesh(tp=4))
+
+
+def test_biased_model_raises():
+    """A model with biases: the tensor-parallel step refuses it with the
+    reason, and ``decode_step(..., tp=)`` raises as JAX's does
+    (``decode_step(..., tp_axis=)`` on ``use_bias``)."""
+    from metalchat_tpu_torch.models.decode import decode_step
+
+    cfg = dataclasses.replace(port_config(CFG), use_bias=True)
+    params = params_from_numpy(jax_tree_to_numpy(jinit(CFG, seed=0, dtype=jnp.float32)),
+                               CPU)
+    with pytest.raises(ValueError, match="use_bias"):
+        make_tp_decode_step(params, cfg, Mesh(tp=TP))
+    cache = KVCache.create(cfg, 1, 16, dtype=torch.float32, device=CPU)
+    with pytest.raises(NotImplementedError, match="use_bias"):
+        decode_step(params, cache, torch.tensor([[5]]), 0, cfg, tp=Mesh(tp=TP))
+    with pytest.raises(NotImplementedError, match="use_bias"):
+        forward(params, cache, torch.tensor([[5, 6]]), 0, cfg, tp=Mesh(tp=TP))
+
+
+# -- the layout pieces against the JAX package's ------------------------------------
+
+@pytest.mark.parametrize("transposed", [True, False])
+def test_repack_and_unpack_int4_match_jax(transposed):
+    """``repack_int4_chunks`` (on the tensor's device) the JAX package's
+    bytes; ``_unpack_int4(q, chunks)`` its nibbles; ``dequantize`` and
+    ``linear`` of a chunk-packed leaf those of the standard one."""
+    w = np.random.default_rng(0).standard_normal((2, 256, 96)).astype(np.float32)
+    jleaf = jq.quantize(w, bits=4, group_size=None, act_bits=8, transposed=transposed)
+    tleaf = tq.quantize(w, bits=4, group_size=None, act_bits=8, transposed=transposed,
+                        device=CPU)
+    jre, tre = jq.repack_int4_chunks(jleaf, 4), tq.repack_int4_chunks(tleaf, 4)
+    assert tre.pack_chunks == jre.pack_chunks == 4
+    np.testing.assert_array_equal(tre.q.numpy(), np.asarray(jre.q))
+    packed = jre.q if not transposed else jnp.swapaxes(jre.q, -1, -2)
+    tpacked = tre.q if not transposed else tre.q.transpose(-1, -2)
+    np.testing.assert_array_equal(tq._unpack_int4(tpacked, 4).numpy(),
+                                  np.asarray(jq._unpack_int4(packed, 4)))
+    assert torch.equal(tq.dequantize(tre, torch.float32), tq.dequantize(tleaf, torch.float32))
+    assert torch.equal(tq.standard_packing(tre).q, tleaf.q)
+    x = torch.randn(3, 256)
+    assert torch.equal(tq.linear(x, tre.layer(1)), tq.linear(x, tleaf.layer(1)))
+
+
+def test_fused_blocking_matches_jax():
+    """``permute_fused_tp`` the JAX package's bytes, ``split_fused(...,
+    blocks=)`` its segments; a single device's ``forward`` on the blocked
+    tree equals the plain tree's (as JAX's GSPMD check)."""
+    jfused = jfuse(_w4a8(5), CFG)
+    cfg = port_config(CFG)
+    tfused = params_from_numpy(jax_tree_to_numpy(jfused), CPU)
+    blocked = dict(tfused, layers=dict(tfused["layers"]))
+    for name in ("wqkv", "w13"):
+        segs = tfuse.fused_segments(name, cfg)
+        jb = jfusemod.permute_fused_tp(jfused["layers"][name], segs, TP)
+        tb = tfuse.permute_fused_tp(tfused["layers"][name], segs, TP)
+        assert tb.fuse_tp == jb.fuse_tp == TP
+        np.testing.assert_array_equal(tb.q.numpy(), np.asarray(jb.q))
+        np.testing.assert_array_equal(tb.scales.numpy(), np.asarray(jb.scales))
+        blocked["layers"][name] = tb
+        y = np.arange(sum(segs) * 2, dtype=np.float32).reshape(2, -1)
+        jparts = jfusemod.split_fused(jnp.asarray(y), segs, blocks=TP)
+        for g, w in zip(tfuse.split_fused(torch.from_numpy(y), segs, blocks=TP), jparts):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    tokens = torch.tensor([[3, 1, 4, 1, 5, 9, 2, 6]])
+    with torch.no_grad():
+        want, _ = forward(tfused, QuantizedKVCache.create(cfg, 1, 64, device=CPU), tokens, 0,
+                          cfg)
+        got, _ = forward(blocked, QuantizedKVCache.create(cfg, 1, 64, device=CPU), tokens, 0,
+                         cfg)
+        want1, _ = forward(tfused, QuantizedKVCache.create(cfg, 1, 64, device=CPU),
+                           tokens[:, :1], 0, cfg)
+        got1, _ = forward(blocked, QuantizedKVCache.create(cfg, 1, 64, device=CPU),
+                          tokens[:, :1], 0, cfg)
+    assert torch.equal(got, want) and torch.equal(got1, want1)
+
+
+def test_convert_keeps_tp_layout_fields():
+    """A JAX leaf's ``pack_chunks`` and ``fuse_tp`` cross with its bytes."""
+    sq = jmesh.shard_params(jfuse(_w4a8(6), CFG), CFG, _jmesh())
+    tree = params_from_numpy(jax_tree_to_numpy(sq), CPU)
+    assert tree["layers"]["wqkv"].fuse_tp == TP and tree["layers"]["w13"].fuse_tp == TP
+    assert tree["layers"]["wo"].pack_chunks == TP and tree["layers"]["w2"].pack_chunks == TP
+    np.testing.assert_array_equal(tree["layers"]["wo"].q.numpy(),
+                                  np.asarray(sq["layers"]["wo"].q))
+
+
+def test_single_process_mesh_and_initialize():
+    """One process: ``initialize`` does nothing, ``make_mesh`` is one rank,
+    and a larger tp without a process group raises."""
+    assert initialize(world_size=1) is False
+    assert make_mesh() == Mesh(tp=1, rank=0)
+    with pytest.raises(ValueError, match="process group"):
+        make_mesh(tp=TP)
+    with pytest.raises(ValueError, match="rank"):
+        initialize("file:///nonexistent", world_size=2, device="cpu")
+    params = {"layers": {}}
+    assert shard_params(params, port_config(CFG), Mesh()) is params
+
+
+def test_forward_fn_and_cache_options(runs):
+    """``forward_fn`` on ``generate`` and the engine, and the engine's
+    ``cache=``: the default path's tokens; a forward marked ``collectives``
+    sends ``DecodeStep`` and the engine's bursts to the eager route on the
+    card's device type too, and only such a forward does."""
+    from metalchat_tpu_torch.engine.generate import DecodeStep, generate
+    from metalchat_tpu_torch.sampling import SamplerConfig
+
+    _, _, trees, cfg, prompt = runs
+    params = params_from_numpy(trees["w4a8"], CPU)
+    calls = []
+
+    def fwd(p, c, t, s):
+        calls.append(t.shape[1])
+        return forward(p, c, t, s, cfg)
+
+    tokens = torch.from_numpy(prompt[:, :12])
+    with torch.no_grad():
+        want = generate(params, cfg, tokens, max_new_tokens=5, quantized_kv=True)
+        got = generate(params, cfg, tokens, max_new_tokens=5, quantized_kv=True,
+                       forward_fn=fwd)
+    assert torch.equal(got, want) and calls == [12, 1, 1, 1, 1]
+    requests = [Request(prompt=p, max_new_tokens=n) for p, n in worker.REQUESTS]
+    base = ContinuousBatchingEngine(params, cfg, quantized_kv=True, **worker.ENGINE)
+    want = [c.tokens for c in base.run(requests).values()]
+    cache = QuantizedKVCache.create(cfg, worker.ENGINE["max_slots"],
+                                    worker.ENGINE["max_seq_len"], device=CPU)
+    engine = ContinuousBatchingEngine(params, cfg, cache=cache, forward_fn=fwd,
+                                      **worker.ENGINE)
+    requests = [Request(prompt=p, max_new_tokens=n) for p, n in worker.REQUESTS]
+    assert [c.tokens for c in engine.run(requests).values()] == want
+    assert engine.cache is cache and bool(cache.k.any())
+    with pytest.raises(ValueError, match="dense modes"):
+        ContinuousBatchingEngine(params, cfg, cache=cache, cache_mode="paged", **worker.ENGINE)
+    cuda = torch.device("cuda")
+    fwd.collectives = True
+    assert not DecodeStep(cfg, SamplerConfig.greedy(), forward_fn=fwd)._graph_route(cuda)
+    assert DecodeStep(cfg, SamplerConfig.greedy())._graph_route(cuda)
+    assert not engine._graph_route()  # the engine's device is the CPU
+    engine.device = cuda
+    assert not engine._graph_route()
+    base.device = cuda
+    assert base._graph_route()
+
+
+def test_engine_spmd_refuses_an_ineligible_model():
+    """``spmd_mesh`` with a model the tensor-parallel decode cannot run: a
+    ``ValueError`` with the reason (the JAX engine falls back to GSPMD,
+    which the port does not have)."""
+    cfg = port_config(CFG)
+    grouped = params_from_numpy(jax_tree_to_numpy(jq.quantize_params(
+        jinit(CFG, seed=0, dtype=jnp.float32), bits=4, group_size=32)), CPU)
+    with pytest.raises(ValueError, match="per-channel"):
+        ContinuousBatchingEngine(grouped, cfg, spmd_mesh=Mesh(tp=TP), **worker.ENGINE)

@@ -27,10 +27,13 @@ def jax_tree_to_numpy(tree):
         return {"base": jax_tree_to_numpy(tree.base), "a": np.asarray(tree.a),
                 "b": np.asarray(tree.b), "scale": tree.scale}
     if isinstance(tree, QuantizedTensor):
-        assert tree.pack_chunks == 1 and tree.fuse_tp == 1
-        return {"q": np.asarray(tree.q), "scales": np.asarray(tree.scales),
-                "bits": tree.bits, "group_size": tree.group_size,
-                "transposed": tree.transposed, "act_bits": tree.act_bits}
+        out = {"q": np.asarray(tree.q), "scales": np.asarray(tree.scales),
+               "bits": tree.bits, "group_size": tree.group_size,
+               "transposed": tree.transposed, "act_bits": tree.act_bits}
+        # A tensor-parallel layout's fields, where it set them.
+        out.update({k: getattr(tree, k) for k in ("pack_chunks", "fuse_tp")
+                    if getattr(tree, k) != 1})
+        return out
     if isinstance(tree, dict):
         return {k: jax_tree_to_numpy(v) for k, v in tree.items()}
     return np.asarray(tree)
