@@ -3525,8 +3525,6 @@ def tp_rank(rank: int, store: str, out_dir: str) -> None:
         out = {"digest": digest, "same_bytes": bool(torch.equal(both[:len(digest)], digest)
                                                     and torch.equal(-both[len(digest):], digest))}
         engine = MultiHostEngine(full, cfg, mesh, **TP_SERVE)
-        del full
-        torch.cuda.empty_cache()
         local = engine.engine.params
         torch.cuda.synchronize()
         out.update(setup_s=time.perf_counter() - t0, local_bytes=weight_bytes(local),
@@ -3566,9 +3564,165 @@ def tp_rank(rank: int, store: str, out_dir: str) -> None:
                    serve_streams=[(c.tokens, c.finished, c.error) for c in done.values()],
                    serve_prompts=[len(r.prompt) for r in requests] if requests else None,
                    collectives=dict(mesh.counts))
+        del engine, local
+        torch.cuda.empty_cache()
+        out.update(pp_cp_rank(torch, cfg, full, rank, prompt))
         torch.save(out, f"{out_dir}/rank{rank}.pt")
     finally:
         shutdown()
+
+
+# Pipeline and context parallelism, in phase tp's two ranks (`pp_cp_rank`).
+PP_STEPS = TP_STEPS
+CP_PROMPT, CP_CACHE, CP_THRESHOLD = 1536, 2048, 512
+PP_CP_SERVE = dict(max_slots=8, prefill_chunk=256, decode_burst=8)
+
+
+def timed_run(torch, fn, mesh=None):
+    """``fn()`` with the launches, wall seconds (synchronized) and, given a
+    mesh, the collectives it made: (result, launches, seconds, moves)."""
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    before = dict(mesh.counts) if mesh is not None else {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    moves = {} if mesh is None else {k: v - before.get(k, 0) for k, v in mesh.counts.items()
+                                     if v != before.get(k, 0)}
+    return out, launch_counts(), secs, moves
+
+
+def with_rope(params, cfg, positions: int):
+    """``params`` with rope tables of ``positions`` rows (the same rows
+    first: each row depends only on its position), and the config."""
+    from metalchat_tpu_torch.models.transformer import make_rope_tables
+
+    cfg = cfg.replace(max_seq_len=positions)
+    return cfg, {**params, "rope": make_rope_tables(cfg, positions,
+                                                     device=params["final_norm"].device)}
+
+
+def cp_prompt(torch, cfg, device):
+    """The cp sub-phase's prompt: CP_PROMPT tokens from a generator seeded 1."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    return torch.randint(0, cfg.vocab_size, (1, CP_PROMPT), generator=gen, device=device)
+
+
+def pp_cp_rank(torch, cfg, full, rank: int, prompt) -> dict:
+    """Phase tp's pp and cp sub-phases on this rank (`tp_rank`), on the whole
+    8b-w4a8 tree ``full``. pp 2 × dp 1 (16 layers a stage): the 512-token
+    prefill into an int8 cache against a one-process `forward` of the same
+    tree in this process (logits, and this stage's layers of every cache
+    tensor, bit for bit or not), `generate` for `PP_STEPS` greedy steps
+    through the pipeline forward, and the engine (dense int8, the pipeline
+    forward and its cache) on `serve_workload`'s first `TP_SERVE_REQUESTS`
+    requests at SERVE_LAYERS["serve"] layers (rank 0's, broadcast). cp 2:
+    `context_parallel_prefill` of a CP_PROMPT-token prompt into a
+    CP_CACHE-position int8 cache (rank 0 also runs the one-process
+    `forward`: its last logits and layer 0's codes and scales), `generate`
+    with the context-parallel mesh, and the engine with it (threshold
+    CP_THRESHOLD). Launches, wall seconds and collectives of each run."""
+    import importlib
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.parallel import (
+        context_parallel_prefill,
+        make_grid_mesh,
+        make_pipeline_forward,
+        make_pp_mesh,
+        shard_cache_pp,
+        shard_params_pp,
+    )
+    from metalchat_tpu_torch.parallel.multihost import broadcast_requests
+
+    gm = importlib.import_module("metalchat_tpu_torch.engine.generate")
+    dev = full["final_norm"].device
+    out = {}
+
+    # -- pp 2 x dp 1 ------------------------------------------------------------
+    mesh = make_pp_mesh(pp=2)
+    stage, per = mesh.index("pp"), cfg.num_layers // 2
+    local = shard_params_pp(full, mesh)
+    pipe = make_pipeline_forward(cfg, mesh)
+
+    def int8(c, rows, positions=None):
+        return QuantizedKVCache.create(c, rows, positions or c.max_seq_len, device=dev)
+
+    cache = shard_cache_pp(int8(cfg, 1), mesh)
+    (logits, _), counts, secs, moves = timed_run(torch, lambda: pipe(local, cache, prompt, 0),
+                                                 mesh)
+    ref_cache = int8(cfg, 1)
+    ref, _, ref_s, _ = timed_run(torch, lambda: forward(full, ref_cache, prompt, 0, cfg)[0])
+    mine = slice(stage * per, (stage + 1) * per)
+    out["pp_prefill"] = {
+        "logits_equal": bool(torch.equal(logits, ref)),
+        "share": ((logits - ref).abs() / logit_limit(ref)).max().item(),
+        "cache_equal": {n: bool(torch.equal(getattr(cache, n), getattr(ref_cache, n)[mine]))
+                        for n in ("k", "v", "k_scale", "v_scale")},
+        "counts": counts, "s": secs, "ref_s": ref_s, "moves": moves}
+    del logits, ref, cache, ref_cache
+    ids, counts, secs, moves = timed_run(torch, lambda: gm.generate(
+        local, cfg, prompt, max_new_tokens=PP_STEPS + 1, cache=shard_cache_pp(int8(cfg, 1), mesh),
+        forward_fn=pipe), mesh)
+    out["pp_generate"] = {"ids": ids[0].cpu(), "counts": counts, "s": secs, "moves": moves}
+    cfg8, full8 = first_layers((cfg, full), SERVE_LAYERS["serve"], "pp/cp serve", quiet=True)
+    pipe8 = make_pipeline_forward(cfg8, mesh)
+    engine = ContinuousBatchingEngine(
+        shard_params_pp(full8, mesh), cfg8, forward_fn=pipe8,
+        cache=shard_cache_pp(int8(cfg8, PP_CP_SERVE["max_slots"]), mesh), **PP_CP_SERVE)
+    reqs = broadcast_requests(mesh, serve_workload(cfg8, TP_SERVE_REQUESTS, TP_SERVE_NEW)
+                              if rank == 0 else None)
+    done, counts, secs, moves = timed_run(torch, lambda: engine.run(reqs), mesh)
+    out["pp_serve"] = {"streams": [(c.tokens, c.finished, c.error) for c in done.values()],
+                       "counts": counts, "s": secs, "moves": moves,
+                       "counters": dict(engine.counters), "shapes": dict(engine.prefill_shapes),
+                       "prompts": [len(r.prompt) for r in reqs]}
+    del local, engine, pipe, pipe8
+    torch.cuda.empty_cache()
+
+    # -- cp 2 -----------------------------------------------------------------------
+    mesh = make_grid_mesh({"sp": 2})
+    ccfg, cfull = with_rope(full, cfg, CP_CACHE)
+    cprompt = cp_prompt(torch, ccfg, dev)
+    cache = int8(ccfg, 1)
+    (logits, _), counts, secs, moves = timed_run(torch, lambda: context_parallel_prefill(
+        cfull, cache, cprompt, ccfg, mesh), mesh)
+    res = {"prompt": cprompt.cpu(), "last": logits[0].float().cpu(), "counts": counts,
+           "s": secs, "moves": moves}
+    if rank == 0:
+        ref_cache = int8(ccfg, 1)
+        ref, _, res["ref_s"], _ = timed_run(
+            torch, lambda: forward(cfull, ref_cache, cprompt, 0, ccfg)[0][0, -1])
+        res["ref_last"] = ref.float().cpu()
+        res["layer0_equal"] = {n: bool(torch.equal(getattr(cache, n)[0, ..., :CP_PROMPT],
+                                                   getattr(ref_cache, n)[0, ..., :CP_PROMPT]))
+                               for n in ("k", "v", "k_scale", "v_scale")}
+        del ref_cache
+    out["cp_prefill"] = res
+    del cache
+    captures = []
+    with timed_captures(torch, gm, captures):
+        ids, counts, secs, moves = timed_run(torch, lambda: gm.generate(
+            cfull, ccfg, cprompt, max_new_tokens=PP_STEPS + 1, cache=int8(ccfg, 1),
+            context_parallel_mesh=mesh), mesh)
+    out["cp_generate"] = {"ids": ids[0].cpu(), "counts": counts, "s": secs, "moves": moves,
+                          "captures": len(captures)}
+    engine = ContinuousBatchingEngine(full8, cfg8, quantized_kv=True, context_parallel_mesh=mesh,
+                                      context_parallel_threshold=CP_THRESHOLD, **PP_CP_SERVE)
+    reqs = broadcast_requests(mesh, serve_workload(cfg8, TP_SERVE_REQUESTS, TP_SERVE_NEW)
+                              if rank == 0 else None)
+    done, counts, secs, moves = timed_run(torch, lambda: engine.run(reqs), mesh)
+    out["cp_serve"] = {"streams": [(c.tokens, c.finished, c.error) for c in done.values()],
+                       "counts": counts, "s": secs, "moves": moves,
+                       "counters": dict(engine.counters), "shapes": dict(engine.prefill_shapes),
+                       "cp_shapes": dict(engine.cp_prefill_shapes),
+                       "captures": len(engine._graphs)}
+    return out
 
 
 def tp_launches(cfg, steps: int, prefill_calls: int, attention: str):
@@ -3709,10 +3863,186 @@ def phase_tp(sm: Smoke, main, smi: str):
           f"windows {r0['serve_shapes']}; launches a rank "
           f"{r0['serve_counts']}; collectives a rank over the phase {r0['collectives']}",
           flush=True)
+    pp_cp = check_pp_cp(sm, main, ranks)
     print(f"tp: phase wall {wall:.1f} s for the ranks ({TP_LABEL}; {smi.splitlines()[0]}); "
-          "these times are functional numbers, not a tensor-parallel speed figure",
-          flush=True)
-    return {"generate": r0["generate_counts"], "serve": r0["serve_counts"]}
+          "these times are functional numbers, not a tensor-parallel, pipeline or "
+          "context-parallel speed figure", flush=True)
+    return {"generate": r0["generate_counts"], "serve": r0["serve_counts"], **pp_cp}
+
+
+def pp_cp_serve_launches(cfg, run: dict, per_rank_layers: int, attention: str,
+                         matvec: bool) -> dict:
+    """The launches an engine run (`pp_cp_rank`'s ``pp_serve`` or
+    ``cp_serve``) must show on one rank: flash a layer for every prompt
+    window of over 16 tokens; for every decode step, and every window of
+    at most 16 tokens, one ``attention`` launch a layer and, on the decode
+    route (``matvec``), one fused matvec a projection and the lm_head."""
+    from metalchat_tpu_torch.ops import launch_counts
+
+    short = sum(n for (b, s), n in run["shapes"].items() if s <= 16)
+    windows = sum(n for (b, s), n in run["shapes"].items() if s > 16)
+    steps = run["counters"]["decode_steps"] + short
+    want = {**dict.fromkeys(launch_counts(), 0), "flash_attention": per_rank_layers * windows,
+            attention: per_rank_layers * steps}
+    if matvec:
+        a8 = (4 * cfg.num_layers + 1) * steps
+        want.update(a8_matvec=a8, a8_quantize=a8)
+    return want
+
+
+def check_pp_cp(sm: Smoke, main, ranks) -> dict:
+    """Phase tp's pp and cp sub-phases (`pp_cp_rank`), held here against
+    one-process runs of main's tree on this card: pp's prefill bit for bit
+    against `forward` (checked on each rank), `generate`'s ids on both
+    ranks equal to a greedy loop of `forward(fast_decode=False)` (the layer
+    route, which a stage runs), the engine's streams on both ranks equal to
+    the one-process engine given that forward (`eager_burst_engine`); cp's
+    last logits within `check_logits`'s limit of the one-process prefill's,
+    layer 0's codes and scales bit for bit, `generate`'s ids on both ranks
+    equal, and against the one-process `generate` (int8 cache) a parting
+    only at a near tie (`near_tie`), the engine's streams equal on both
+    ranks. Launches exact on each rank. Returns the runs' launches by
+    path."""
+    torch = sm.torch
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.ops import launch_counts
+
+    cfg, params, _, _, _, prompt = main
+    dev = params["final_norm"].device
+    zero = dict.fromkeys(launch_counts(), 0)
+    L, per = cfg.num_layers, cfg.num_layers // 2
+    r0 = ranks[0]
+
+    # -- pp -------------------------------------------------------------------
+    for stage, r in enumerate(ranks):
+        pre = r["pp_prefill"]
+        sm.expect(pre["share"] <= 1.0, f"pp stage {stage}: prefill logits at {pre['share']:.4g} "
+                  "of check_logits' limit")
+        sm.expect(pre["logits_equal"] and all(pre["cache_equal"].values()),
+                  f"pp stage {stage}: prefill against the one-process forward: logits "
+                  f"bit-equal {pre['logits_equal']}, cache {pre['cache_equal']}")
+        sm.expect(pre["counts"] == {**zero, "flash_attention": per},
+                  f"pp stage {stage}: prefill launches {pre['counts']}")
+        g = r["pp_generate"]
+        sm.expect(g["counts"] == {**zero, "flash_attention": per,
+                                  "decode_attention_layer": per * PP_STEPS},
+                  f"pp stage {stage}: generate launches {g['counts']}")
+        sm.exact(g["ids"], r0["pp_generate"]["ids"], "pp: generate's ids stage 0 vs stage 1")
+    ref = tp_greedy(torch, lambda p, c, t, s: forward(p, c, t, s, cfg, fast_decode=False),
+                    params, QuantizedKVCache.create(cfg, 1, cfg.max_seq_len, device=dev),
+                    prompt, PP_STEPS)
+    sm.exact(r0["pp_generate"]["ids"], ref["ids"],
+             "pp: generate's ids against the one-process layer-route loop")
+    cfg8, params8 = first_layers((cfg, params), SERVE_LAYERS["serve"], "pp/cp serve")
+    streams = [r["pp_serve"]["streams"] for r in ranks]
+    sm.expect(streams[1] == streams[0], "pp serve: streams differ across stages")
+    sm.expect(all(f and e is None and len(t) == TP_SERVE_NEW for t, f, e in streams[0])
+              and len(streams[0]) == TP_SERVE_REQUESTS,
+              "pp serve: unfinished or short completions "
+              f"{[(len(t), f, e) for t, f, e in streams[0]]}")
+    one = eager_burst_engine(params8, cfg8, quantized_kv=True,
+                             forward_fn=lambda p, c, t, s: forward(p, c, t, s, cfg8,
+                                                                   fast_decode=False),
+                             **PP_CP_SERVE)
+    t = time.perf_counter()
+    done = one.run(serve_workload(cfg8, TP_SERVE_REQUESTS, TP_SERVE_NEW))
+    one_s = time.perf_counter() - t
+    sm.expect([c.tokens for c in done.values()] == [t_ for t_, _, _ in streams[0]],
+              "pp serve: streams differ from the one-process engine's")
+    for stage, r in enumerate(ranks):
+        want = pp_cp_serve_launches(cfg8, r["pp_serve"], SERVE_LAYERS["serve"] // 2,
+                                    "decode_attention_layer", matvec=False)
+        sm.expect(r["pp_serve"]["counts"] == want,
+                  f"pp serve stage {stage}: launches {r['pp_serve']['counts']} != {want}")
+    pre, g, sv = r0["pp_prefill"], r0["pp_generate"], r0["pp_serve"]
+    step_moves = {k: (v - pre["moves"].get(k, 0)) / PP_STEPS for k, v in g["moves"].items()}
+    tokens = sum(len(t_) for t_, _, _ in streams[0])
+    print(f"tp pp ({TP_LABEL}; pp 2 x dp 1, {per} of {L} layers a stage, int8 KV; times "
+          f"are functional numbers over gloo, not a pipeline speed figure): the "
+          f"{prompt.shape[1]}-token prefill bit-equal to the one-process forward's (logits and "
+          f"every layer's codes and scales, both stages) in {1e3 * pre['s']:.2f} ms (one "
+          f"process {1e3 * pre['ref_s']:.2f} ms); generate {PP_STEPS} greedy steps: ids equal on "
+          f"both stages and to the one-process layer-route loop, {1e3 * g['s']:.2f} ms with "
+          f"the prefill ({1e3 * (g['s'] - pre['s']) / PP_STEPS:.2f} ms a step; the one-process "
+          f"loop {1e3 * ref['steps_s'] / PP_STEPS:.2f}); launches a stage: prefill "
+          f"{pre['counts']}, generate {g['counts']}; collectives: a prefill {pre['moves']}, "
+          f"a step {step_moves}", flush=True)
+    print(f"tp pp serve (functional numbers over gloo; the pipeline forward in the engine, "
+          f"dense int8, {cfg8.num_layers} layers, {SERVE_LAYERS['serve'] // 2} a stage; "
+          f"{TP_SERVE_REQUESTS} requests of {min(sv['prompts'])}-{max(sv['prompts'])} tokens, "
+          f"{TP_SERVE_NEW} greedy tokens): "
+          f"{tokens / sv['s']:.2f} tok/s over {sv['s']:.2f} s (the one-process eager engine "
+          f"{one_s:.2f} s); streams equal on both stages and to the one-process engine's; "
+          f"counters {sv['counters']}; windows {sv['shapes']}; launches a stage {sv['counts']}; "
+          f"collectives {sv['moves']}", flush=True)
+
+    # -- cp -------------------------------------------------------------------
+    ccfg, cparams = with_rope(params, cfg, CP_CACHE)
+    cprompt = cp_prompt(torch, ccfg, dev)
+    cp = r0["cp_prefill"]
+    for rank, r in enumerate(ranks):
+        sm.exact(r["cp_prefill"]["prompt"], cprompt.cpu(), f"cp rank {rank}: the prompt")
+        sm.exact(r["cp_prefill"]["last"], cp["last"], f"cp rank {rank}: the last logits")
+        sm.expect(r["cp_prefill"]["counts"] == zero,
+                  f"cp rank {rank}: prefill launches {r['cp_prefill']['counts']}")
+    share = check_logits(sm, "cp prefill's last logits", cp["last"], cp["ref_last"])
+    sm.expect(all(cp["layer0_equal"].values()),
+              f"cp: layer 0's cache against the one-process forward's {cp['layer0_equal']}")
+    ids = r0["cp_generate"]["ids"]
+    for rank, r in enumerate(ranks):
+        g = r["cp_generate"]
+        sm.exact(g["ids"], ids, f"cp rank {rank}: generate's ids against rank 0's")
+        a8 = (4 * L + 1) * PP_STEPS
+        sm.expect(g["counts"] == {**zero, "a8_matvec": a8, "a8_quantize": a8,
+                                  "decode_attention_update": L * PP_STEPS},
+                  f"cp rank {rank}: generate launches {g['counts']}")
+    t = time.perf_counter()
+    ref_ids = generate(cparams, ccfg, cprompt, max_new_tokens=PP_STEPS + 1, quantized_kv=True,
+                       max_seq_len=CP_CACHE)[0].cpu()
+    one_s = time.perf_counter() - t
+    parting = near_tie(sm, "cp generate", cparams, ccfg, cprompt, ref_ids.tolist(),
+                       ids.tolist(), quantized=True)
+    streams = [r["cp_serve"]["streams"] for r in ranks]
+    sm.expect(streams[1] == streams[0], "cp serve: streams differ across ranks")
+    sm.expect(all(f and e is None and len(t_) == TP_SERVE_NEW for t_, f, e in streams[0])
+              and len(streams[0]) == TP_SERVE_REQUESTS,
+              "cp serve: unfinished or short completions "
+              f"{[(len(t_), f, e) for t_, f, e in streams[0]]}")
+    long = sum(len(r.prompt) >= CP_THRESHOLD
+               for r in serve_workload(cfg8, TP_SERVE_REQUESTS, TP_SERVE_NEW))
+    for rank, r in enumerate(ranks):
+        sv = r["cp_serve"]
+        sm.expect(sum(sv["cp_shapes"].values()) == long,
+                  f"cp serve rank {rank}: {sv['cp_shapes']} ring prefills, {long} prompts of "
+                  f"{CP_THRESHOLD} tokens or more")
+        want = pp_cp_serve_launches(cfg8, sv, cfg8.num_layers, "decode_attention_update",
+                                    matvec=True)
+        sm.expect(sv["counts"] == want, f"cp serve rank {rank}: launches {sv['counts']} != {want}")
+    g, sv = r0["cp_generate"], r0["cp_serve"]
+    tokens = sum(len(t_) for t_, _, _ in streams[0])
+    print(f"tp cp ({TP_LABEL}; sp 2, all {L} layers, int8 KV of {CP_CACHE}; times are "
+          f"functional numbers over gloo, not a context-parallel speed figure): the "
+          f"{CP_PROMPT}-token context-parallel prefill in {1e3 * cp['s']:.2f} ms (one "
+          f"process, flash: {1e3 * cp['ref_s']:.2f} ms), its last logits {share:.4f} of "
+          f"check_logits' limit (max abs err "
+          f"{(cp['last'] - cp['ref_last']).abs().max().item()}), layer 0's codes "
+          f"and scales bit-equal to the one-process forward's, launches {cp['counts']} (no "
+          f"kernel: the products are torch._int_mm, the attention the plain ring), "
+          f"collectives {cp['moves']}; generate {PP_STEPS} steps: ids equal on both ranks, "
+          f"against the one-process generate: {parting}; {1e3 * g['s']:.2f} ms with the "
+          f"prefill (one process {1e3 * one_s:.2f}), captured steps {g['captures']}, launches "
+          f"{g['counts']}", flush=True)
+    print(f"tp cp serve (functional numbers over gloo; the engine with the cp mesh, dense "
+          f"int8, threshold {CP_THRESHOLD}, {cfg8.num_layers} layers): "
+          f"{tokens / sv['s']:.2f} tok/s over {sv['s']:.2f} s; streams equal on both ranks; "
+          f"{sum(sv['cp_shapes'].values())} prompts through the ring {sv['cp_shapes']}, "
+          f"other windows {sv['shapes']}; counters {sv['counters']}; "
+          f"captured bursts {sv['captures']}; launches a rank {sv['counts']}; collectives "
+          f"{sv['moves']}", flush=True)
+    return {"pp_generate": r0["pp_generate"]["counts"], "pp_serve": r0["pp_serve"]["counts"],
+            "cp_generate": r0["cp_generate"]["counts"], "cp_serve": r0["cp_serve"]["counts"]}
 
 
 SPEC_DRAFT = 4    # n_draft: 3 drafts and the target's verify of 4 tokens a round
@@ -3761,7 +4091,8 @@ def make_1b_draft(torch):
     return cfg, quantize_params(dense, bits=8, group_size=None, act_bits=8)
 
 
-def near_tie(sm: Smoke, what: str, params, cfg, prompt, ids, got) -> str:
+def near_tie(sm: Smoke, what: str, params, cfg, prompt, ids, got,
+             quantized: bool = False) -> str:
     """Where speculative ids ``got`` part from the greedy ids ``ids`` of the
     one-token route: at the first such index j, the one-token route's
     logits (the prompt's prefill, then one-token steps over ids[:j] at
@@ -3772,9 +4103,12 @@ def near_tie(sm: Smoke, what: str, params, cfg, prompt, ids, got) -> str:
     attention rounds the softmax weights to the cache's dtype before
     weighting the values, as a verify window's attention does (the JAX
     reference's cast, `ops.reference.attention`; row 5 keeps them in f32).
-    Otherwise the phase fails."""
+    Otherwise the phase fails. With ``quantized`` the one-token route runs
+    on an int8 cache (row 3), as a context-parallel `generate` decodes."""
     torch = sm.torch
-    from metalchat_tpu_torch.cache import KVCache
+    import dataclasses
+
+    from metalchat_tpu_torch.cache import KVCache, QuantizedKVCache
     from metalchat_tpu_torch.models import decode
     from metalchat_tpu_torch.models.transformer import forward
     from metalchat_tpu_torch.ops import reference
@@ -3784,15 +4118,16 @@ def near_tie(sm: Smoke, what: str, params, cfg, prompt, ids, got) -> str:
         return "identical"
     j, m, dev = diff[0], prompt.shape[1], prompt.device
     sm.expect(j > 0, f"{what}: the prefill's token differs ({got[0]} against {ids[0]})")
-    cache = KVCache.create(cfg, 1, m + j + 2, device=dev)
+    cache = (QuantizedKVCache if quantized else KVCache).create(cfg, 1, m + j + 2, device=dev)
     forward(params, cache, prompt, 0, cfg)
     for i in range(j - 1):
         forward(params, cache, torch.tensor([[ids[i]]], device=dev), m + i, cfg)
-    snap = [t.clone() for t in (cache.k, cache.v)]
+    fields = [f.name for f in dataclasses.fields(cache)]
+    snap = {n: getattr(cache, n).clone() for n in fields}
 
     def step(tokens):
-        cache.k.copy_(snap[0])
-        cache.v.copy_(snap[1])
+        for n in fields:
+            getattr(cache, n).copy_(snap[n])
         return forward(params, cache, torch.tensor([tokens], device=dev),
                        torch.tensor(m + j - 1, device=dev), cfg)[0][0, 0].float()
 
@@ -4095,13 +4430,18 @@ def teacher_forced_logits(params, cfg, prompts, tokens, ffn_block: bool = False)
     return torch.stack(out)
 
 
+def logit_limit(want):
+    """`check_logits`'s limit for each of ``want``'s logits."""
+    return RTOL["bfloat16"] * want.abs() + LOGIT_SHARE * want.abs().amax(-1, keepdim=True)
+
+
 def check_logits(sm: Smoke, what: str, got, want) -> float:
     """Each step's logits within one bf16 step of each value plus
     ``LOGIT_SHARE`` of the row's largest |logit|; returns the worst share of
     that limit."""
     torch = sm.torch
     diff = (got - want).abs()
-    limit = RTOL["bfloat16"] * want.abs() + LOGIT_SHARE * want.abs().amax(-1, keepdim=True)
+    limit = logit_limit(want)
     share = (diff / limit).max().item()
     sm.expect(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
     sm.expect(share <= 1.0, f"{what}: {int((diff > limit).sum())} logits beyond the limit "
@@ -4445,10 +4785,11 @@ SERVE_LAYERS = {"serve": 8, "serve-gemma": 7, "serve-mixtral": 4, "serve-gpt2": 
 MIXTRAL_SERVE_TURNS = ("graph", "eager", "graph")
 
 
-def first_layers(run, n: int, what: str):
+def first_layers(run, n: int, what: str, quiet: bool = False):
     """``run``'s config and params (its first two items) cut to their first
     ``n`` layers: the depth replaced, every stacked layer leaf sliced
-    (views, no copy), everything else shared."""
+    (views, no copy), everything else shared; the cut printed unless
+    ``quiet``."""
     import dataclasses
 
     from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor
@@ -4461,7 +4802,8 @@ def first_layers(run, n: int, what: str):
         return leaf[:n]
 
     cfg, params = run[0], run[1]
-    print(f"{what}: the model cut to its first {n} of {cfg.num_layers} layers", flush=True)
+    if not quiet:
+        print(f"{what}: the model cut to its first {n} of {cfg.num_layers} layers", flush=True)
     return cfg.replace(num_layers=n), {**params, "layers": {
         k: cut(v) for k, v in params["layers"].items()}}
 
@@ -6237,7 +6579,11 @@ def main() -> int:
                f"generate {QLORA_LABEL}": qlora[3], f"generate {GPTQ_LABEL}": gptq_run[3],
                f"generate {TRAIN_LABEL}": train_counts,
                "tp 8b-w4a8 generate (a rank)": tp_counts["generate"],
-               "tp 8b-w4a8 serve paged (a rank)": tp_counts["serve"]}
+               "tp 8b-w4a8 serve paged (a rank)": tp_counts["serve"],
+               "pp 8b-w4a8 generate (a stage)": tp_counts["pp_generate"],
+               "pp 8b-w4a8 serve dense int8 (a stage)": tp_counts["pp_serve"],
+               "cp 8b-w4a8 generate (a rank)": tp_counts["cp_generate"],
+               "cp 8b-w4a8 serve dense int8 (a rank)": tp_counts["cp_serve"]}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

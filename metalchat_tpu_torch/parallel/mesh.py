@@ -22,6 +22,12 @@ Layout, the JAX package's ``param_shardings`` on a ``tp`` axis:
 
 `Mesh` is one rank's view of its group: the process group, the rank, tp,
 and the collectives the tensor-parallel code calls (counted by kind).
+
+`GridMesh` is one rank's view of a named grid of ranks, the pipeline's
+("dp", "pp") and context parallelism's ("sp",): its place on each axis,
+the sub-group of the ranks along each axis through it, and the
+point-to-point and collective moves that JAX's ``shard_map`` bodies make
+with ``ppermute``, ``psum`` and gathers (counted by kind, as `Mesh`'s).
 """
 
 from __future__ import annotations
@@ -100,6 +106,156 @@ def make_mesh(tp: Optional[int] = None, group: Any = None) -> Mesh:
     if tp != size:
         raise ValueError(f"tp={tp} != {size} processes in the group (only tp is ported)")
     return Mesh(tp=tp, rank=dist.get_rank(group), group=group)
+
+
+@dataclass
+class GridMesh:
+    """One rank's view of a grid of ranks with named axes, laid out row-major
+    over ``shape`` as JAX's ``np.asarray(devices).reshape(...)``: on the
+    pipeline's ``{"dp": D, "pp": P}`` rank r is stage ``r % P`` of dp row
+    ``r // P``. ``groups`` holds, for each axis longer than one, the
+    process group of the ranks along that axis through this rank (its
+    pipeline for "pp", the ranks of its stage for "dp"). A grid of one rank
+    needs no process group; a mesh built by hand with a rank and no groups
+    describes that rank for the sharding functions, and its moves raise.
+
+    Every move counts one under its kind and axis in ``counts``: ``shift``
+    ("handoff" or "rotate"), ``broadcast``, ``all_gather``, and
+    ``broadcast_object`` over the whole grid. On gloo, which moves only
+    host memory point to point, a CUDA tensor crosses through the host:
+    ``backend`` (the process group's, recorded at `make_grid_mesh`) decides
+    it, and each such move also counts one under "host_staged"."""
+
+    shape: Dict[str, int]
+    rank: int = 0
+    groups: Dict[str, Any] = field(default_factory=dict)
+    backend: str = ""
+    counts: Counter = field(default_factory=Counter)
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def _coords(self, rank: int) -> Dict[str, int]:
+        out = {}
+        for axis in reversed(list(self.shape)):
+            rank, out[axis] = divmod(rank, self.shape[axis])
+        return out
+
+    def index(self, axis: str) -> int:
+        """This rank's place along ``axis`` (0 on an axis the grid lacks)."""
+        return self._coords(self.rank).get(axis, 0)
+
+    def peers(self, axis: str):
+        """The global ranks along ``axis`` through this rank, in axis order."""
+        axes = list(self.shape)
+        if axis not in self.shape:
+            return [self.rank]
+        stride = 1
+        for a in axes[axes.index(axis) + 1:]:
+            stride *= self.shape[a]
+        base = self.rank - self.index(axis) * stride
+        return [base + i * stride for i in range(self.shape[axis])]
+
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as handed to torch.distributed: contiguous, and in host
+        memory for a CUDA tensor on gloo."""
+        t = t.contiguous()
+        return t.cpu() if self.backend == "gloo" and t.is_cuda else t
+
+    def _count(self, kind: str, axis: str, t: torch.Tensor) -> None:
+        self.counts[f"{kind}_{axis}"] += 1
+        if self.backend == "gloo" and t.is_cuda:
+            self.counts["host_staged"] += 1
+
+    def _group(self, axis: str):
+        if axis not in self.groups:
+            raise ValueError(f"axis {axis!r} of this mesh has no process group "
+                             "(parallel.mesh.make_grid_mesh after initialize)")
+        return self.groups[axis]
+
+    def shift(self, t: torch.Tensor, axis: str, *, wrap: bool) -> torch.Tensor:
+        """Every rank sends ``t`` to the next rank along ``axis`` and returns
+        what the previous one sent: JAX's ``ppermute`` with pairs (i, i+1),
+        the pipeline's hand-off (``wrap=False``: the first rank receives
+        zeros, the last sends nothing), or (i, (i+1) % n), the ring's
+        rotation (``wrap=True``). Every rank along the axis must call it."""
+        n, i = self.size(axis), self.index(axis)
+        if n == 1:
+            return t if wrap else torch.zeros_like(t)
+        peers, group = self.peers(axis), self._group(axis)
+        ops, recv = [], None
+        if wrap or i + 1 < n:
+            ops.append(dist.P2POp(dist.isend, self._wire(t), peers[(i + 1) % n], group))
+        if wrap or i > 0:
+            staged = self.backend == "gloo" and t.is_cuda
+            recv = torch.empty(t.shape, dtype=t.dtype, device="cpu" if staged else t.device)
+            ops.append(dist.P2POp(dist.irecv, recv, peers[(i - 1) % n], group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        self._count("rotate" if wrap else "handoff", axis, t)
+        return torch.zeros_like(t) if recv is None else recv.to(t.device)
+
+    def broadcast(self, t: torch.Tensor, axis: str, src: int) -> torch.Tensor:
+        """The ``t`` of the rank at place ``src`` along ``axis``, on every
+        rank along it (a new tensor on ``t``'s device)."""
+        if self.size(axis) == 1:
+            return t
+        w = self._wire(t)
+        dist.broadcast(w, src=self.peers(axis)[src], group=self._group(axis))
+        self._count("broadcast", axis, t)
+        return w.to(t.device)
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` along ``axis`` concatenated on ``dim`` in axis
+        order (the same tensor on every rank along it)."""
+        n = self.size(axis)
+        if n == 1:
+            return t
+        w = self._wire(t)
+        parts = [torch.empty_like(w) for _ in range(n)]
+        dist.all_gather(parts, w, group=self._group(axis))
+        self._count("all_gather", axis, t)
+        return torch.cat(parts, dim=dim).to(t.device)
+
+    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+        """Rank ``src``'s ``obj`` (picklable) on every rank of the grid."""
+        if all(n == 1 for n in self.shape.values()):
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=src)
+        self.counts["broadcast_object"] += 1
+        return box[0]
+
+
+def make_grid_mesh(shape: Dict[str, int]) -> GridMesh:
+    """This process's view of the grid ``shape`` (axis name → size, in
+    order) over the default process group, whose size must be the grid's.
+    Every rank creates every axis's sub-groups, in one order (which
+    ``torch.distributed.new_group`` requires). Without a process group up,
+    a grid of one rank."""
+    total = 1
+    for n in shape.values():
+        total *= n
+    if not dist.is_initialized():
+        if total != 1:
+            raise ValueError(f"a {shape} mesh needs a process group of {total} ranks "
+                             "(parallel.distributed.initialize)")
+        return GridMesh(dict(shape))
+    world = dist.get_world_size()
+    if world != total:
+        desc = " * ".join(f"{a}={n}" for a, n in shape.items())
+        raise ValueError(f"{desc} = {total} != {world} processes in the group")
+    mesh = GridMesh(dict(shape), rank=dist.get_rank(), backend=dist.get_backend())
+    for axis, n in shape.items():
+        if n == 1:
+            continue
+        lines = sorted({tuple(GridMesh(dict(shape), rank=r).peers(axis))
+                        for r in range(total)})
+        for line in lines:
+            group = dist.new_group(list(line))
+            if mesh.rank in line:
+                mesh.groups[axis] = group
+    return mesh
 
 
 def _check_divisibility(config: ModelConfig, tp: int) -> None:

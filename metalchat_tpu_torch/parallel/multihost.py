@@ -32,6 +32,27 @@ class MultiHostRoundError(RuntimeError):
         self.completed = completed
 
 
+def broadcast_requests(mesh, requests: Optional[Sequence]) -> List:
+    """Rank 0's ``requests`` (`engine.serving.Request`; other ranks pass
+    None), rebuilt on every rank of ``mesh`` (a `Mesh` or `GridMesh`) from
+    one broadcast of their prompts, budgets, EOS ids and sampler settings."""
+    from metalchat_tpu_torch.engine.serving import Request
+
+    spec = None
+    if mesh.rank == 0:
+        spec = [{"prompt": [int(t) for t in r.prompt],
+                 "max_new_tokens": r.max_new_tokens,
+                 "eos_ids": [int(t) for t in r.eos_ids],
+                 "sampler": [r.sampler.temperature, r.sampler.top_k, r.sampler.top_p]}
+                for r in (requests or [])]
+    spec = mesh.broadcast_object(spec)
+    return [Request(prompt=s["prompt"], max_new_tokens=s["max_new_tokens"],
+                    eos_ids=tuple(s["eos_ids"]),
+                    sampler=SamplerConfig(temperature=s["sampler"][0],
+                                          top_k=int(s["sampler"][1]), top_p=s["sampler"][2]))
+            for s in spec]
+
+
 class MultiHostEngine:
     """Continuous batching over a tensor-parallel group, one process a rank.
 
@@ -55,22 +76,7 @@ class MultiHostEngine:
         Completion}, the same token streams on every rank. A step that
         raises ends the run with `MultiHostRoundError` (round 0: the whole
         list is one round)."""
-        from metalchat_tpu_torch.engine.serving import Request
-
-        spec = None
-        if self.is_root:
-            spec = [{"prompt": [int(t) for t in r.prompt],
-                     "max_new_tokens": r.max_new_tokens,
-                     "eos_ids": [int(t) for t in r.eos_ids],
-                     "sampler": [r.sampler.temperature, r.sampler.top_k, r.sampler.top_p]}
-                    for r in (requests or [])]
-        spec = self.mesh.broadcast_object(spec)
-        reqs = [Request(prompt=s["prompt"], max_new_tokens=s["max_new_tokens"],
-                        eos_ids=tuple(s["eos_ids"]),
-                        sampler=SamplerConfig(temperature=s["sampler"][0],
-                                              top_k=int(s["sampler"][1]),
-                                              top_p=s["sampler"][2]))
-                for s in spec]
+        reqs = broadcast_requests(self.mesh, requests if self.is_root else None)
         # The same submissions, deterministic scheduling and the same
         # sampled tokens give the same step() sequence on every rank.
         engine = self.engine

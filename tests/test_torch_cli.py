@@ -9,7 +9,8 @@ the JAX CLI's (``serve``: every JSONL field but ``ttft_s``). The trained
 fixture's ``serve`` gives ``tests/test_fixture_e2e.py``'s GOLDEN. The store,
 manifests, TOML and credentials; a model pulled by one package's CLI is
 listed and served by the other's; ``prompt --draft`` gives the JAX CLI's
-reply; ``--pp`` and ``--cp`` raise `NotImplementedError`; a Meta
+reply; ``--pp`` and ``--cp`` in one process alone are refused (their ranks
+run in tests/test_torch_pp_cp.py); a Meta
 ``params.json`` without its head count raises as the JAX package's does;
 ``--device`` defaults to the card and raises without one.
 """
@@ -402,11 +403,16 @@ def test_model_pulled_by_either_cli(fake_checkout, store_home, capsys, puller):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "tiny", "--pp", "2"], "parallelism item"),
-    (["serve", "tiny", "--cp", "2"], "parallelism item"),
+    (["serve", "tiny", "--pp", "2"], "start 2 processes"),
+    (["serve", "tiny", "--cp", "2"], "start 2 processes"),
 ])
-def test_unported_options_raise(pulled, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_options_raise(pulled, argv, item, monkeypatch):
+    """``serve --pp/--cp N`` runs as N processes, one a rank
+    (tests/test_torch_pp_cp.py runs them): one process alone is refused,
+    with how to start the ranks."""
+    for var in ("WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match=item):
         main(argv + CPU)
 
 

@@ -1,9 +1,10 @@
 """Structural rules of the PyTorch port.
 
-* No file of `metalchat_tpu_torch/` (its `parallel/` included), nor
-  `chip_smoke.py`, nor the tensor-parallel test's rank worker
-  (`tests/torch_tp_worker.py`) imports jax or the JAX package
-  `metalchat_tpu`.
+* No file of `metalchat_tpu_torch/` (its `parallel/` included: the
+  pipeline, context-parallel and ring-attention modules too), nor
+  `chip_smoke.py`, nor the parallel tests' rank workers
+  (`tests/torch_tp_worker.py`, `tests/torch_pp_cp_worker.py`) imports jax
+  or the JAX package `metalchat_tpu`.
 * An entry point asked for the card without one raises, and a kernel
   wrapper given a tensor that is not on the CPU or a card raises: neither
   falls back to the plain version.
@@ -20,7 +21,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "metalchat_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py",
+    ROOT / "tests" / "torch_pp_cp_worker.py"]
+PARALLEL_MODULES = ("pipeline", "context", "ring_attention")
+
+
+def test_parallel_modules_are_checked():
+    """The pipeline, context-parallel and ring-attention modules exist and
+    are among the files `test_port_imports_no_jax` reads."""
+    for name in PARALLEL_MODULES:
+        assert ROOT / "metalchat_tpu_torch" / "parallel" / f"{name}.py" in PORT_FILES
 
 
 def _imported_modules(path: Path):
