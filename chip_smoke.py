@@ -45,8 +45,10 @@ Phases (any failure makes the script exit non-zero without a result line):
    1b-int8 shapes, 1, 8 and 32 rows, within ``RTOL``; the merged FFN block
    (row 10) at 8B widths, 1, 2, 5, 8 and 16 rows, phase by phase (see
    ``ACT_SLOPE``). Row 1 with a device index (Mixtral's routed experts) at
-   Mixtral-8x7B's expert widths over a flattened stack of 256 entries, 1 and
-   2 rows, entries 0, 7, 128 and 255 (past 2^31 bytes), within ``RTOL``, and
+   Mixtral-8x7B's expert widths and at a tp-2 rank's (``A8_MIXTRAL_TP2``:
+   w1/w3 out 7168, w2 in 7168, phase tp-moe's local stacks) over a
+   flattened stack of 256 entries, 1 and 2 rows, entries 0, 7, 128 and 255
+   (past 2^31 bytes), within ``RTOL``, and
    one call in a CUDA graph replayed before and after its index is
    rewritten on the card: the output follows the index. Rows 6 and 7 (the
    one-layer read-only forms) at the 8B shapes, 1 and 8 rows. Rows 1, 3,
@@ -93,11 +95,17 @@ Phases (any failure makes the script exit non-zero without a result line):
    gemma-fixture: Gemma-3-1B's widths cut to 2 layers, window 64, one
    sliding and one global layer, bf16: card against the CPU's plain path,
    each of 16 steps' logits within ``check_logits``'s limit.
-   mixtral-fixture: Mixtral-8x7B's widths cut to 2 layers, W4A8 experts,
-   int8 KV, bf16, a 96-token prompt (the prefill's MoE dispatch) and 4
-   steps at 1 and 2 rows: card against the CPU's plain path, each step's
-   logits within ``check_logits``'s limit, greedy ids equal, launches exact,
-   the smallest gap between the 2nd and 3rd router probability printed.
+   mixtral-fixture: Mixtral-8x7B's widths cut to 1 layer and to 2, W4A8
+   experts, int8 KV, bf16, a 96-token prompt (the prefill's MoE dispatch)
+   and 4 steps at 1 and 2 rows: card against the CPU's plain path, both
+   sides' routing recorded, each step's logits within ``check_logits``'s
+   limit of the CPU's, or, where the card routed a token to other experts
+   at a router near tie (a gap of at most ``ROUTER_TIE_GAP``), of the CPU's
+   run given the card's routing, each such step printed with its router
+   gap (``check_routed_logits``); greedy ids equal
+   or parted only after such a step, where the CPU given the card's routing
+   picks the card's ids; launches exact; the smallest gap between the 2nd
+   and 3rd router probability printed.
    mixtral: Mixtral-8x7B W4A8 (``MixtralConfig.mixtral_8x7b``, all 32
    layers, random experts built here, int8 KV, context 1024) through
    ``generate``: a 512-token prompt, 64 greedy tokens, per step 65 host-index
@@ -176,7 +184,25 @@ Phases (any failure makes the script exit non-zero without a result line):
    48-640 tokens, 48 greedy tokens each, 8 slots, chunks of 256): every
    stream finished and equal on both ranks, row-8 and row-1 launches exact.
    Its times are labelled "2 ranks over gloo on one card": functional
-   numbers, not a tensor-parallel speed figure. gptq-1b: random dense
+   numbers, not a tensor-parallel speed figure. multihost (after tp,
+   ``phase_multihost``): ``MultiHostServer`` on ``make_hybrid_mesh(dcn_dp=2,
+   tp=2)``, four ranks (``multihost_rank``) on the one card over gloo, each
+   making the 8b-w4a8 tree (digest equal to main's) that the server shards:
+   requests of 116, 116 and 244 tokens in two rounds, 12 greedy tokens each
+   on the sharded layer route, rank 0's ids equal, request by request, to a
+   one-process loop of ``forward(fast_decode=False)``; per rank 32 flash a
+   round and 32 row-6 launches a step. tp-moe (``phase_tp_moe``):
+   Mixtral-8x7B's widths cut to 8 layers, W4A8, int8 KV, two ranks
+   (``moe_tp_rank``): (a) tp 2, MoE on the tensor-parallel decode (each
+   routed expert through row 1's indexed entry at F/tp): the 512-token
+   prefill within ``check_logits``' limit of one process's, layer 0's K/V
+   bit-equal, the first step within relative L2 5e-2, ids equal on both
+   ranks, launches exact (17 row 1, 48 indexed, 8 row 3 a step); (b) ep 2,
+   the sharded layer route the engine picks for an ep mesh: the prefill
+   within the limit of one process's layer route, layer 0's K/V bit-equal,
+   ids equal on both ranks and to a one-process ``forward(fast_decode=
+   False)`` loop or parted at a near tie, launches exact (8 flash a
+   prefill, 8 row 6 a step, no row 1). gptq-1b: random dense
    bf16 weights at the same widths, the first ``GPTQ_LAYERS`` (8) of 16
    layers, ``gptq_quantize_params`` (W4A8, AWQ α
    ``GPTQ_AWQ_ALPHA``, two refits) on 8 x 512 calibration tokens, no
@@ -1243,6 +1269,10 @@ FLASH_CASES_GEMMA_RAGGED = [(100, W), (37, 70), (600, W)]
 # experts; w2's entry 255 starts 255 × 29,360,128 = 7.49e9 bytes in, past
 # 2^31 (as does w1's).
 A8_MIXTRAL = [("w1/w3", 14336, 4096), ("w2", 4096, 14336)]
+# The same at a rank's expert width under tp 2 (phase tp-moe's local stacks:
+# w1/w3 4096 → 7168, w2 7168 → 4096, its int4 repacked per chunk by
+# `shard_params` into a standard leaf of the local shape).
+A8_MIXTRAL_TP2 = [("w1/w3 tp2", 7168, 4096), ("w2 tp2", 4096, 7168)]
 A8_MIXTRAL_ENTRIES = (0, 7, 128, 255)
 MIXTRAL_STACK = 32 * 8
 # Rows 6 and 7 at the 8B one-layer shapes: generate's one row (lengths at
@@ -1252,10 +1282,11 @@ ONE_LAYER_CASES_1 = [([1], None), ([C + 1], None), ([576], None), ([1024], None)
 
 
 def mixtral_kernel_checks(sm: Smoke, gen, dev):
-    """Row 1 indexed at Mixtral's widths, 1 and 2 rows; rows 6 and 7 at the
-    8B shapes (1 row and 8)."""
+    """Row 1 indexed at Mixtral's widths and at a tp-2 rank's, 1 and 2 rows;
+    rows 6 and 7 at the 8B shapes (1 row and 8)."""
     torch = sm.torch
-    check_a8_indexed(sm, A8_MIXTRAL, (1, 2), A8_MIXTRAL_ENTRIES, MIXTRAL_STACK, gen, dev)
+    for shapes in (A8_MIXTRAL, A8_MIXTRAL_TP2):
+        check_a8_indexed(sm, shapes, (1, 2), A8_MIXTRAL_ENTRIES, MIXTRAL_STACK, gen, dev)
     check_one_layer(sm, 1, 32, 8, 1024, 128, ONE_LAYER_CASES_1, 256, gen, dev)
     check_one_layer(sm, 8, 32, 8, 1024, 128, READ_CASES_SERVE, 256, gen, dev)
     check_one_layer(sm, 8, 32, 8, 1024, 128, READ_CASES_SERVE[:1], 256, gen, dev,
@@ -3207,27 +3238,146 @@ def routed_weight_bytes(cfg, params) -> float:
 
 
 @contextlib.contextmanager
-def router_gaps(torch, gaps: list):
-    """Inside the block, every routing appends (as a device tensor, no host
-    read) the smallest gap between a token's K-th and (K+1)-th router
-    probability: a gap near 0 is a tie that two sum orders may break
-    apart, sending the token to another expert."""
+def recorded_routing(torch, calls: list, forced=None):
+    """Inside the block, every routing (`models.moe.route`, which the decode
+    path calls too) appends to ``calls``, on the CPU, the expert ids it used
+    ``[T, K]`` and its router probabilities ``[T, E]`` (f32): the gap
+    between a token's K-th and (K+1)-th is how near a tie it was (one that
+    two sum orders may break apart, sending the token to another expert).
+    ``forced`` maps a routing's index in the block to expert ids ``[T, K]``:
+    that routing takes them, its gates the router probabilities at them
+    renormalised, as `route` renormalises its own."""
     from metalchat_tpu_torch.models import decode as dmod
     from metalchat_tpu_torch.models import moe as mmod
 
-    real = mmod.route
+    real, forced = mmod.route, forced or {}
 
     def spy(xt, router, config):
-        out = real(xt, router, config)
-        top = torch.topk(out[0], config.num_experts_per_tok + 1, dim=-1).values
-        gaps.append((top[:, -2] - top[:, -1]).min().float().cpu())
-        return out
+        probs, gates, idx = real(xt, router, config)
+        if len(calls) in forced:
+            idx = forced[len(calls)].to(idx.device)
+            gates = probs.gather(1, idx)
+            gates = gates / gates.sum(dim=-1, keepdim=True)
+        calls.append((idx.cpu(), probs.float().cpu()))
+        return probs, gates, idx
 
     mmod.route = dmod.route = spy
     try:
-        yield gaps
+        yield calls
     finally:
         mmod.route = dmod.route = real
+
+
+# The card's router probabilities drift from the CPU's by up to 0.007 each
+# (mixtral-fixture's runs), so two sum orders swap a K-th and a (K+1)-th
+# choice only where the CPU put them at most twice that apart. A token that
+# the card sent to an expert the CPU ranked further below is a fault.
+ROUTER_TIE_GAP = 0.014
+
+
+def smallest_router_gap(calls) -> float:
+    """The smallest K-th minus (K+1)-th router probability of `recorded_routing`'s calls."""
+    gaps = []
+    for idx, probs in calls:
+        top = probs.topk(idx.shape[1] + 1, dim=-1).values
+        gaps.append(float((top[:, -2] - top[:, -1]).min()))
+    return min(gaps)
+
+
+def routing_flips(cpu_calls, card_calls, layers: int) -> list:
+    """Each (routing, token) where the card took other experts than the
+    CPU's router picks (its top K, which is what it takes unforced): its
+    step (a prefill, then one a decode step), layer, token row, both sides'
+    experts and the CPU's router gap there: how far above the least likely
+    expert the card took the CPU put the likeliest one the card dropped
+    (for a swapped K-th and (K+1)-th choice, their gap)."""
+    flips = []
+    for i, ((_, probs), (b, _)) in enumerate(zip(cpu_calls, card_calls)):
+        a = probs.topk(b.shape[1], dim=-1).indices
+        for row in range(a.shape[0]):
+            mine, theirs = sorted(a[row].tolist()), sorted(b[row].tolist())
+            if mine != theirs:
+                p = probs[row]
+                dropped = max(float(p[e]) for e in mine if e not in theirs)
+                taken = min(float(p[e]) for e in theirs if e not in mine)
+                flips.append(dict(call=i, step=i // layers, layer=i % layers, row=row,
+                                  cpu=mine, card=theirs, gap=dropped - taken))
+    return flips
+
+
+def held_to_routing(sm: Smoke, what: str, cpu_calls, card_calls, layers: int, rerun,
+                    sides=("the card", "the CPU")):
+    """Where the card (``card_calls``, `recorded_routing`'s) took other
+    experts than the CPU (``cpu_calls``) for a token: ``rerun()`` is made
+    again on the CPU's side with every routing forced to the card's, and
+    each routing where the card took other experts than the CPU's router
+    picks given the card's earlier routings (a flip; one that only follows
+    an earlier flip is none) must be a near tie (`check_near_ties`).
+    Returns (those flips, the rerun's result), or ([], None) where both
+    sides routed alike."""
+    if not routing_flips(cpu_calls, card_calls, layers):
+        return [], None
+    forced = {i: idx for i, (idx, _) in enumerate(card_calls)}
+    with recorded_routing(sm.torch, [], forced) as given:
+        held = rerun()
+    flips = routing_flips(given, card_calls, layers)
+    check_near_ties(sm, what, flips, sides)
+    return flips, held
+
+
+def check_near_ties(sm: Smoke, what: str, flips, sides=("the card", "the CPU")) -> None:
+    """Every routing flip at a router gap of at most ROUTER_TIE_GAP, each
+    printed with its gap."""
+    for f in flips:
+        where = f"{what}: step {f['step']} layer {f['layer']} token {f['row']}"
+        sm.expect(f["gap"] <= ROUTER_TIE_GAP,
+                  f"{where}: {sides[0]} routed to experts {f['card']}, {sides[1]} to {f['cpu']} "
+                  f"at a router gap {f['gap']:.3g} > {ROUTER_TIE_GAP}: not a near tie")
+        print(f"{where}: {sides[0]} routed to experts {f['card']}, {sides[1]} to {f['cpu']} "
+              f"(router gap {f['gap']:.3g} <= {ROUTER_TIE_GAP}, a near tie); that step is held "
+              f"to {sides[1]} given {sides[0]}'s routing", flush=True)
+
+
+def check_routed_logits(sm: Smoke, what: str, cfg, cpu_params, prompt, ids, want, cpu_calls,
+                        got, card_calls):
+    """`check_logits` of the card's teacher-forced logits ``got`` (fed the
+    CPU's ``ids``) against the CPU's ``want``, where both sides routed every
+    token alike (``cpu_calls``, ``card_calls``: `recorded_routing`'s). Where
+    the card picked other experts for a token, the CPU's teacher-forced run
+    is made again given the card's routing, and the card's logits are held
+    to that run, at the same limit; each flip must be a router near tie
+    that the two sides' sum orders break apart (`moe.route` is the JAX
+    package's, and so is the flip): a CPU router gap of at most
+    ROUTER_TIE_GAP (`held_to_routing`, `check_near_ties`, which prints
+    each). Returns (the worst share of the limit, the flips, the logits
+    held to)."""
+    sm.expect(len(cpu_calls) == len(card_calls),
+              f"{what}: {len(card_calls)} routings on the card, {len(cpu_calls)} on the CPU")
+    flips, held = held_to_routing(sm, what, cpu_calls, card_calls, cfg.num_layers,
+                                  lambda: teacher_forced_logits(cpu_params, cfg, prompt, ids))
+    if held is None:
+        return check_logits(sm, what, got, want), flips, want
+    return check_logits(sm, f"{what} (the CPU given the card's routing)", got, held), flips, held
+
+
+def check_routed_ids(sm: Smoke, what: str, out, ids, flips, held) -> str:
+    """The card's greedy ids ``out [B, steps]`` against the CPU's ``ids``:
+    equal, or parted first at a step at or after a named routing flip
+    (`check_routed_logits`) where the CPU given the card's routing
+    (``held``, its logits ``[steps, B, V]``) picks the card's ids."""
+    torch = sm.torch
+    parts = [j for j in range(ids.shape[1]) if not torch.equal(out[:, j], ids[:, j])]
+    if not parts:
+        return "identical"
+    j = parts[0]
+    flipped = [f["step"] for f in flips if f["step"] <= j]
+    sm.expect(bool(flipped), f"{what}: greedy ids part at step {j} (card {out[:, j].tolist()}, "
+              f"CPU {ids[:, j].tolist()}) with no routing flip at or before it")
+    choice = held[j].argmax(-1)
+    sm.expect(torch.equal(choice, out[:, j]),
+              f"{what}: at step {j} the CPU given the card's routing picks {choice.tolist()}, "
+              f"the card {out[:, j].tolist()}")
+    return f"parted at step {j}, after the routing flip at step {flipped[0]}"
 
 
 def greedy_logits(params, cfg, prompts, steps: int):
@@ -3251,34 +3401,43 @@ def greedy_logits(params, cfg, prompts, steps: int):
     return torch.stack(ids, dim=1).cpu(), torch.stack(out)
 
 
-# The correctness cell: Mixtral-8x7B's widths cut to 2 layers, bf16, a
-# 96-token prompt (over 32 tokens, so the prefill takes `_moe_dispatch`) and
-# 4 steps at 1 and 2 rows (both the sparse decode formulation), so that the
-# CPU's plain path stays short (16 steps took 37.2 and 83.3 s of the H100
-# machine's CPU, 8 steps 80.8 s for both: too long for the script's time
-# limit once phase tp runs). A 1-layer cut draws other weights, and on
-# them one decode token's router 2nd-3rd gap (0.0011) is below the card/CPU
-# router-probability drift (up to 0.007): the token takes another expert
-# and its logits part (ROADMAP Queue C).
-MIXTRAL_FIXTURE_CUT = dict(num_layers=2)
+# The correctness cell: Mixtral-8x7B's widths cut to 1 layer and to 2 (the
+# second routes on an earlier MoE layer's output, and reads the stacked
+# experts past the first layer's), bf16, a 96-token prompt (over 32 tokens,
+# so the prefill takes `_moe_dispatch`) and 4 steps at 1 and 2 rows (both the
+# sparse decode formulation), so that the CPU's plain path stays short. A
+# token at a router near tie may take another expert on the card:
+# `check_routed_logits` names such a step and holds it to the CPU given the
+# card's routing.
+MIXTRAL_FIXTURE_LAYERS = (1, 2)
 MIXTRAL_FIXTURE_PROMPT, MIXTRAL_FIXTURE_STEPS = 96, 4
 
 
 def phase_mixtral_fixture(sm: Smoke):
-    """Mixtral W4A8 cut as MIXTRAL_FIXTURE_CUT, int8 KV, bf16: the card
-    against the CPU's plain path on the same params (made on the card,
+    """Mixtral W4A8 cut to each of MIXTRAL_FIXTURE_LAYERS, int8 KV, bf16: the
+    card against the CPU's plain path on the same params (made on the card,
     copied). For 1 and 2 rows: the CPU's greedy run, then each of its
-    MIXTRAL_FIXTURE_STEPS steps' logits on the card fed the CPU's tokens (`check_logits`), launches
-    exact (flash a layer for the prefill; per decode step the host-index
-    and the indexed matvec calls of `matvec_calls` and one attention launch
-    a layer); the card's greedy ids through `generate` equal to the CPU's.
+    MIXTRAL_FIXTURE_STEPS steps' logits on the card fed the CPU's tokens,
+    both sides' routing recorded (`check_routed_logits`: a step where the
+    card picked other experts is held to the CPU given the card's routing);
+    launches exact (flash a layer for the prefill; per decode step the
+    host-index and the indexed matvec calls of `matvec_calls` and one
+    attention launch a layer); the card's greedy ids through `generate`
+    equal to the CPU's, or parted after a named flip (`check_routed_ids`).
     Prints the smallest gap between the 2nd and 3rd router probability seen
     on either side."""
+    for layers in MIXTRAL_FIXTURE_LAYERS:
+        mixtral_fixture_cut(sm, layers)
+        sm.torch.cuda.empty_cache()
+
+
+def mixtral_fixture_cut(sm: Smoke, layers: int):
+    """`phase_mixtral_fixture` at one cut of ``layers`` layers."""
     torch = sm.torch
     from metalchat_tpu_torch.engine.generate import generate
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    cfg, card_params = make_mixtral(sm, "cuda", **MIXTRAL_FIXTURE_CUT)
+    cfg, card_params = make_mixtral(sm, "cuda", num_layers=layers)
     cpu_params = to_device(card_params, torch.device("cpu"))
     L, steps = cfg.num_layers, MIXTRAL_FIXTURE_STEPS
     gen = torch.Generator()
@@ -3286,30 +3445,31 @@ def phase_mixtral_fixture(sm: Smoke):
     for b in (1, 2):
         prompt = torch.randint(0, cfg.vocab_size, (b, MIXTRAL_FIXTURE_PROMPT), generator=gen)
         t0 = time.perf_counter()
-        with router_gaps(torch, []) as cpu_gaps:
+        with recorded_routing(torch, []) as cpu_calls:
             ids, want = greedy_logits(cpu_params, cfg, prompt, steps)
         cpu_s = time.perf_counter() - t0
         reset_launch_counts()
-        with router_gaps(torch, []) as card_gaps:
+        with recorded_routing(torch, []) as card_calls:
             got = teacher_forced_logits(card_params, cfg, prompt, ids)
         counts = launch_counts()
         out = generate(card_params, cfg, prompt.cuda(), max_new_tokens=steps,
                        quantized_kv=True).cpu()
-        gap = min(float(g) for g in cpu_gaps + card_gaps)
-        share = check_logits(sm, f"mixtral-fixture B={b} logits", got, want)
-        print(f"mixtral-fixture B={b} ({MIXTRAL_LABEL} widths cut to {L} layers; bf16, int8 "
+        gap = min(smallest_router_gap(cpu_calls), smallest_router_gap(card_calls))
+        label = f"mixtral-fixture L={L} B={b}"
+        share, flips, held = check_routed_logits(sm, f"{label} logits", cfg, cpu_params, prompt,
+                                                 ids, want, cpu_calls, got, card_calls)
+        parting = check_routed_ids(sm, label, out, ids, flips, held)
+        print(f"{label} ({MIXTRAL_LABEL} widths cut to {L} layers; bf16, int8 "
               f"KV; prompt {MIXTRAL_FIXTURE_PROMPT}, {steps} steps; the CPU's run "
-              f"{cpu_s:.1f} s): logits max abs err {(got - want).abs().max().item()}, "
-              f"{share:.4f} of the limit; smallest 2nd-3rd router probability gap {gap:.3g}; "
-              f"greedy ids card {out.tolist()}, CPU {ids.tolist()}; card launches {counts}",
-              flush=True)
-        sm.expect(torch.equal(out, ids), f"mixtral-fixture B={b}: greedy ids differ card vs "
-                  f"CPU (smallest router gap {gap:.3g})")
+              f"{cpu_s:.1f} s): logits max abs err {(got - held).abs().max().item()}, "
+              f"{share:.4f} of the limit; routing flips card vs CPU {len(flips)}; smallest "
+              f"2nd-3rd router probability gap {gap:.3g}; greedy ids card {out.tolist()}, CPU "
+              f"{ids.tolist()} ({parting}); card launches {counts}", flush=True)
         expected = {**dict.fromkeys(counts, 0), "flash_attention": L,
                     "decode_attention_update": L * (steps - 1)}
         for k, n in matvec_calls(cfg, b).items():
             expected[k] = n * (steps - 1)
-        sm.expect(counts == expected, f"mixtral-fixture B={b}: launches {counts} != {expected}")
+        sm.expect(counts == expected, f"{label}: launches {counts} != {expected}")
 
 
 def phase_mixtral(sm: Smoke, dev_name: str):
@@ -3443,6 +3603,55 @@ def tree_digest(torch, params):
     return torch.stack(out).cpu()
 
 
+def seeded_prompt(torch, cfg, device):
+    """A prompt of TP_PROMPT tokens from a generator seeded 0 on ``device``
+    (drive_generate's)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return torch.randint(0, cfg.vocab_size, (1, TP_PROMPT), generator=gen, device=device)
+
+
+def same_tree(torch, params) -> dict:
+    """This rank's tree digest and whether every rank of the process group
+    (one all_reduce max of the digest and its negation) holds the same
+    bytes."""
+    import torch.distributed as dist
+
+    digest = tree_digest(torch, params)
+    both = torch.cat([digest, -digest]).cuda()
+    dist.all_reduce(both, op=dist.ReduceOp.MAX)
+    both = both.cpu()
+    return {"digest": digest, "same_bytes": bool(torch.equal(both[:len(digest)], digest)
+                                                 and torch.equal(-both[len(digest):], digest))}
+
+
+def spawn_ranks(sm: Smoke, what: str, target, n: int, timeout_s: float, tmp: str):
+    """Run ``target(rank, store, out_dir)`` in ``n`` spawned processes, kill
+    those still running after ``timeout_s``, and load each rank's
+    ``rank{r}.pt``; returns (the ranks' results, wall seconds)."""
+    import multiprocessing
+
+    torch = sm.torch
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, f"{tmp}/store", tmp), daemon=True)
+             for r in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, t0 + timeout_s - time.perf_counter()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    wall = time.perf_counter() - t0
+    sm.expect(not hung, f"{what}: ranks {hung} still running after {timeout_s} s (killed)")
+    codes = [p.exitcode for p in procs]
+    sm.expect(codes == [0] * n, f"{what}: rank exit codes {codes}")
+    return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(n)], wall
+
+
 def tp_greedy(torch, fwd, params, cache, prompt, steps: int):
     """A prefill of ``prompt`` [1, S], then ``steps`` (at least one) greedy
     one-token steps, through ``fwd(params, cache, tokens, start_pos)``: the
@@ -3450,7 +3659,7 @@ def tp_greedy(torch, fwd, params, cache, prompt, steps: int):
     scales over the S + 1 written positions after that step, the ids [steps
     + 1] (the prefill's, then each step's), the launches of the prefill and
     of the steps, and the prefill's and the steps' wall seconds (all on the
-    CPU)."""
+    CPU), and the logits that chose each id (``last`` [steps + 1, V])."""
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
 
     s = prompt.shape[1]
@@ -3463,7 +3672,7 @@ def tp_greedy(torch, fwd, params, cache, prompt, steps: int):
     prefill_counts = launch_counts()
     out = {"prefill": logits[0].float().cpu()}
     tok = logits[:, -1].argmax(-1)
-    ids = [tok]
+    ids, last = [tok], [logits[0, -1].float()]
     torch.cuda.synchronize()
     reset_launch_counts()
     t = time.perf_counter()
@@ -3471,13 +3680,15 @@ def tp_greedy(torch, fwd, params, cache, prompt, steps: int):
         logits, _ = fwd(params, cache, tok[:, None], s + i)
         tok = logits[:, -1].argmax(-1)
         ids.append(tok)
+        last.append(logits[0, -1].float())
         if i == 0:
             out["step1"] = logits[0, -1].float().cpu()
             out["layer0"] = {n: getattr(cache, n)[0, 0, :, :s + 1].cpu().clone()
                              for n in ("k", "v", "k_scale", "v_scale")}
     torch.cuda.synchronize()
     out.update(steps_s=time.perf_counter() - t, step_counts=launch_counts(),
-               prefill_counts=prefill_counts, prefill_s=prefill_s, ids=torch.cat(ids).cpu())
+               prefill_counts=prefill_counts, prefill_s=prefill_s, ids=torch.cat(ids).cpu(),
+               last=torch.stack(last).cpu())
     return out
 
 
@@ -3520,18 +3731,13 @@ def tp_rank(rank: int, store: str, out_dir: str) -> None:
         t0 = time.perf_counter()
         cfg, full = make_8b(Smoke(torch), f"tp rank {rank}: 8b-w4a8", bits=4, group_size=None,
                             act_bits=8)
-        digest = tree_digest(torch, full)
-        both = mesh.all_reduce(torch.cat([digest, -digest]).to(dev), "max").cpu()
-        out = {"digest": digest, "same_bytes": bool(torch.equal(both[:len(digest)], digest)
-                                                    and torch.equal(-both[len(digest):], digest))}
+        out = same_tree(torch, full)
         engine = MultiHostEngine(full, cfg, mesh, **TP_SERVE)
         local = engine.engine.params
         torch.cuda.synchronize()
         out.update(setup_s=time.perf_counter() - t0, local_bytes=weight_bytes(local),
                    memory=torch.cuda.memory_allocated())
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)  # drive_generate's prompt
-        prompt = torch.randint(0, cfg.vocab_size, (1, TP_PROMPT), generator=gen, device=dev)
+        prompt = seeded_prompt(torch, cfg, dev)
         fwd = tp_decode_forward_fn(local, cfg, mesh)
 
         def cache():
@@ -3747,7 +3953,6 @@ def phase_tp(sm: Smoke, main, smi: str):
     reported; launches exact per rank; no step captured. Then the engine's streams equal on every
     rank, every request finished, launches exact."""
     torch = sm.torch
-    import multiprocessing
     import tempfile
 
     from metalchat_tpu_torch.cache import QuantizedKVCache
@@ -3758,25 +3963,8 @@ def phase_tp(sm: Smoke, main, smi: str):
     print(f"tp: {TP_LABEL} ({TP_BACKEND} asked for explicitly: NCCL refuses two ranks "
           "on one device); each rank's step runs eagerly (collectives between the "
           "kernels)", flush=True)
-    ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=tp_rank, args=(r, f"{tmp}/store", tmp), daemon=True)
-                 for r in range(TP_RANKS)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(max(1.0, t0 + TP_TIMEOUT_S - time.perf_counter()))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
-        wall = time.perf_counter() - t0
-        sm.expect(not hung, f"tp: ranks {hung} still running after {TP_TIMEOUT_S} s (killed)")
-        codes = [p.exitcode for p in procs]
-        sm.expect(codes == [0] * TP_RANKS, f"tp: rank exit codes {codes}")
-        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP_RANKS)]
+        ranks, wall = spawn_ranks(sm, "tp", tp_rank, TP_RANKS, TP_TIMEOUT_S, tmp)
     r0 = ranks[0]
     sm.expect(all(r["same_bytes"] for r in ranks), "tp: the ranks' trees differ")
     sm.expect(torch.equal(tree_digest(torch, params), r0["digest"]),
@@ -4048,6 +4236,379 @@ def check_pp_cp(sm: Smoke, main, ranks) -> dict:
 SPEC_DRAFT = 4    # n_draft: 3 drafts and the target's verify of 4 tokens a round
 SPEC_NEW = 64
 SPEC_FORCED = (3, 0)  # _force_accept in the turns: every draft, then none
+
+
+# -- the mesh's ep and dp axes: MoE under tp and over ep, MultiHostServer ------
+
+# Mixtral-8x7B at its published widths cut to 8 of 32 layers (each rank makes
+# the whole cut, 5.7 GB of weights, and keeps its shards).
+MOE_TP_CUT = dict(num_layers=8)
+MOE_TP_RANKS, MOE_TP_STEPS, MOE_TP_TIMED = 2, 16, 4
+# MultiHostServer on make_hybrid_mesh(dcn_dp=2, tp=2): main's 8b-w4a8 tree,
+# prompts of mixed lengths (two rounds of one length each, the second padded
+# by a copy of its real row) whose caches of 128 and 256 positions take row
+# 6 on the layer route's one-token steps. 12 new tokens a request keep the
+# phase inside the script's budget (28 took 73.6 s of an 871.9-s run on an
+# H100 host about 28% slower than the one before).
+MH_RANKS, MH_BATCH, MH_NEW = 4, 2, 12
+MH_PROMPT_LENS = (116, 116, 244)
+MH_TIMEOUT_S = 420
+
+
+def moe_tp_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase tp-moe, a process of its own. It joins the gloo
+    group, makes the seeded Mixtral cut (`make_mixtral`, MOE_TP_CUT) on the
+    card, checks that every rank holds the same bytes, shards it for (a) tp
+    2 and (b) ep 2 (`shard_params`) and frees the whole tree. (a): one
+    greedy step (`tp_greedy`) and `generate` for MOE_TP_STEPS steps through
+    `tp_decode_forward_fn` (MoE on the tensor-parallel decode: the indexed
+    matvec at F/tp). (b): the same through the forward the engine picks for
+    an ep mesh (`spmd_forward_fn`: the sharded layer route), and its
+    prefill's routing recorded (`recorded_routing`) in one more prefill.
+    `generate` runs first, so that `tp_greedy`'s prefill and MOE_TP_TIMED
+    steps are timed warm. Saves what it saw to ``out_dir/rank{rank}.pt``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    import importlib
+
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.parallel import (
+        initialize,
+        make_mesh,
+        shard_cache,
+        shard_params,
+        shutdown,
+        spmd_forward_fn,
+        tp_decode_forward_fn,
+    )
+
+    gm = importlib.import_module("metalchat_tpu_torch.engine.generate")
+    initialize(f"file://{store}", MOE_TP_RANKS, rank, backend=TP_BACKEND,
+               timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    try:
+        meshes = {"tp": make_mesh(tp=MOE_TP_RANKS), "ep": make_mesh(tp=1, ep=MOE_TP_RANKS)}
+        dev = torch.device("cuda")
+        t0 = time.perf_counter()
+        cfg, full = make_mixtral(Smoke(torch), "cuda", **MOE_TP_CUT)
+        out = same_tree(torch, full)
+        local = {n: shard_params(full, cfg, m) for n, m in meshes.items()}
+        del full
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        out.update(setup_s=time.perf_counter() - t0, memory=torch.cuda.memory_allocated(),
+                   local_bytes={n: weight_bytes(p) for n, p in local.items()})
+        prompt = seeded_prompt(torch, cfg, dev)
+        out["prompt"] = prompt.cpu()
+        for name, mesh in meshes.items():
+            params = local[name]
+            fwd = (tp_decode_forward_fn if name == "tp" else spmd_forward_fn)(params, cfg, mesh)
+
+            def cache():
+                return shard_cache(QuantizedKVCache.create(cfg, 1, cfg.max_seq_len, device=dev),
+                                   mesh)
+
+            before = dict(mesh.counts)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ids = gm.generate(params, cfg, prompt, max_new_tokens=MOE_TP_STEPS + 1,
+                              cache=cache(), forward_fn=fwd)
+            torch.cuda.synchronize()
+            res = {"route": fwd.__qualname__.split(".")[0], "generate_ids": ids[0].cpu(),
+                   "generate_counts": launch_counts(), "generate_s": time.perf_counter() - t,
+                   "collectives": {k: v - before.get(k, 0) for k, v in mesh.counts.items()}}
+            res["greedy"] = tp_greedy(torch, fwd, params, cache(), prompt, MOE_TP_TIMED)
+            if name == "ep":
+                with recorded_routing(torch, []) as calls:
+                    fwd(params, cache(), prompt, 0)
+                res["routing"] = calls
+            out[name] = res
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        shutdown()
+
+
+def layer_route_parting(sm: Smoke, what: str, ref, got, held_prefill=None) -> str:
+    """``got`` (ids [n]) against the one-process layer route's run ``ref``
+    (`tp_greedy`): identical, or parted first at an
+    index j where the one-process route's top two logits are ``ref``'s id
+    and ``got``'s, within `check_logits`' limit of each other (a near tie
+    that the expert sum's order breaks apart), or at the prefill's token
+    where the one-process prefill given the sharded run's routing
+    (``held_prefill``, its logits [S, V]) picks ``got``'s. Otherwise the
+    phase fails."""
+    torch = sm.torch
+    ids = ref["ids"]
+    diff = [i for i, (a, b) in enumerate(zip(got.tolist(), ids.tolist())) if a != b]
+    if not diff:
+        return "identical"
+    j = diff[0]
+    if j == 0 and held_prefill is not None and int(held_prefill[-1].argmax()) == int(got[0]):
+        return ("parted at the prefill's token, which the one-process prefill given the "
+                "sharded run's routing picks too")
+    row = ref["last"][j]
+    top = torch.topk(row, 2)
+    gap = (top.values[0] - top.values[1]).item()
+    limit = RTOL["bfloat16"] * top.values[0].abs().item() + LOGIT_SHARE * row.abs().max().item()
+    sm.expect(top.indices.tolist() == [int(ids[j]), int(got[j])] and gap <= limit,
+              f"{what}: ids part at index {j} (got {int(got[j])}, the one-process layer route "
+              f"{int(ids[j])}; its top two {top.indices.tolist()}, gap {gap}, limit {limit}): "
+              "not a near tie")
+    return f"parted at index {j} of {len(ids)}, a near tie (top-2 gap {gap:.4g}, limit {limit:.4g})"
+
+
+def moe_tp_launches(cfg, run: str, steps: int, prefills: int) -> dict:
+    """The launches of `steps` one-token steps and `prefills` prompt windows
+    of over 16 tokens on one rank: flash a layer a prefill; a step of (a)
+    the tensor-parallel decode's matvec calls (`matvec_calls`: wqkv, wo and
+    the lm_head at host indices, each routed (row, choice)'s three experts
+    at a device index) and row 3 a layer, or of (b) the layer route row 6 a
+    layer and no matvec."""
+    from metalchat_tpu_torch.ops import launch_counts
+
+    L = cfg.num_layers
+    want = {**dict.fromkeys(launch_counts(), 0), "flash_attention": L * prefills}
+    if run == "tp":
+        want.update({k: n * steps for k, n in matvec_calls(cfg, 1).items()},
+                    decode_attention_update=L * steps)
+    else:
+        want["decode_attention_layer"] = L * steps
+    return want
+
+
+def phase_tp_moe(sm: Smoke, smi: str):
+    """MoE on the mesh, `MOE_TP_RANKS` ranks on one card over `TP_BACKEND`
+    (`moe_tp_rank`), Mixtral-8x7B's widths cut as MOE_TP_CUT, W4A8, int8 KV,
+    held against one-process runs of the same tree here (every rank's tree
+    digest must equal it). (a) tp 2, MoE on the tensor-parallel decode: the
+    512-token prefill's logits within `check_logits`' limit of the
+    one-process fast route's (and whether bit-equal), layer 0's K/V codes
+    and scales after the first step bit-equal, the first step's logits
+    within relative L2 `TP_STEP_REL_L2`, `generate`'s ids equal on both
+    ranks (and to the greedy loop's first MOE_TP_TIMED + 1). (b) ep 2, the
+    sharded layer route: layer 0's K/V after the first step bit-equal to the
+    one-process layer route's; the prefill within the limit of the
+    one-process layer route's, or, where the ranks routed a token to other
+    experts (a router near tie), of the one-process prefill given their
+    routing (each such token printed with its gap); `generate`'s ids equal
+    on both ranks and to a one-process loop of `forward(fast_decode=False)`,
+    or parted at a near tie (`layer_route_parting`). Launches exact per
+    rank (`moe_tp_launches`)."""
+    torch = sm.torch
+    import tempfile
+
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.models.transformer import forward
+
+    cfg, params = make_mixtral(sm, "cuda", **MOE_TP_CUT)
+    L = cfg.num_layers
+    print(f"tp-moe: {MOE_TP_RANKS} ranks over {TP_BACKEND} on one card; each rank makes the "
+          f"{L}-layer cut on the card, shards it for tp {MOE_TP_RANKS} and ep {MOE_TP_RANKS} "
+          "and frees the whole tree", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, wall = spawn_ranks(sm, "tp-moe", moe_tp_rank, MOE_TP_RANKS, TP_TIMEOUT_S, tmp)
+    r0 = ranks[0]
+    sm.expect(all(r["same_bytes"] for r in ranks), "tp-moe: the ranks' trees differ")
+    sm.expect(torch.equal(tree_digest(torch, params), r0["digest"]),
+              "tp-moe: the ranks' tree differs from this process's")
+    prompt = seeded_prompt(torch, cfg, torch.device("cuda"))
+    sm.expect(torch.equal(r0["prompt"], prompt.cpu()), "tp-moe: the prompt differs")
+
+    def one_process(fast: bool):
+        return tp_greedy(torch, lambda p, c, t, s: forward(p, c, t, s, cfg, fast_decode=fast),
+                         params, QuantizedKVCache.create(cfg, 1, cfg.max_seq_len, device="cuda"),
+                         prompt, MOE_TP_STEPS)
+
+    forward(params, QuantizedKVCache.create(cfg, 1, cfg.max_seq_len, device="cuda"), prompt, 0,
+            cfg)  # a warm-up, so that the times below are warm
+    refs = {"tp": one_process(True)}
+    with recorded_routing(torch, []) as ref_calls:
+        refs["ep"] = one_process(False)
+    out = {}
+    for name, ref in refs.items():
+        got = r0[name]["greedy"]
+        label = f"tp-moe ({name} {MOE_TP_RANKS})"
+        want, flips = ref["prefill"], []
+        if name == "ep":  # a token the sharded run routed to other experts
+            flips, held = held_to_routing(
+                sm, f"{label} prefill", ref_calls[:L], r0[name]["routing"], L,
+                lambda: forward(params, QuantizedKVCache.create(
+                    cfg, 1, cfg.max_seq_len, device="cuda"), prompt, 0, cfg,
+                    fast_decode=False)[0][0].float().cpu(), ("the ranks", "one process"))
+            want = want if held is None else held
+        share = check_logits(sm, f"{label} prefill logits", got["prefill"], want)
+        bit_equal = bool(torch.equal(got["prefill"], want))
+        ids = r0[name]["generate_ids"]
+        for r in ranks:
+            sm.exact(r[name]["generate_ids"], ids, f"{label}: generate's ids rank 0 vs another")
+            sm.exact(r[name]["greedy"]["ids"], ids[:MOE_TP_TIMED + 1],
+                     f"{label}: the greedy loop's ids vs generate's")
+            sm.exact(r[name]["greedy"]["prefill"], got["prefill"],
+                     f"{label}: prefill logits rank 0 vs another")
+            g = r[name]["greedy"]
+            sm.expect(g["prefill_counts"] == moe_tp_launches(cfg, name, 0, 1),
+                      f"{label}: prefill launches {g['prefill_counts']}")
+            sm.expect(g["step_counts"] == moe_tp_launches(cfg, name, MOE_TP_TIMED, 0),
+                      f"{label}: step launches {g['step_counts']}")
+            sm.expect(r[name]["generate_counts"] == moe_tp_launches(cfg, name, MOE_TP_STEPS, 1),
+                      f"{label}: generate launches {r[name]['generate_counts']}")
+        rel = ((got["step1"] - ref["step1"]).norm() / ref["step1"].norm()).item()
+        if name == "tp":
+            sm.expect(r0[name]["route"] == "tp_decode_forward_fn", f"{label}: route")
+            whole0 = {n: torch.cat([r[name]["greedy"]["layer0"][n] for r in ranks], dim=0)
+                      for n in ("k", "v", "k_scale", "v_scale")}
+            for n, t in whole0.items():
+                sm.exact(t, ref["layer0"][n], f"{label} layer 0 {n} after the first step")
+            sm.expect(rel < TP_STEP_REL_L2, f"{label}: first step's logits relative L2 "
+                      f"{rel:.4g} >= {TP_STEP_REL_L2}")
+            same = int((ids == ref["ids"]).sum())
+            against = f"{same} of {len(ids)} ids equal to the one-process fast route's"
+        else:
+            sm.expect(r0[name]["route"] == "layer_route_forward_fn", f"{label}: route")
+            for n, t in got["layer0"].items():  # the heads are whole on an ep mesh
+                sm.exact(t, ref["layer0"][n], f"{label} layer 0 {n} after the first step")
+            against = ("against the one-process layer route: "
+                       + layer_route_parting(sm, label, ref, ids, want if flips else None))
+        print(f"{label} ({MIXTRAL_LABEL} widths cut to {L} layers, W4A8, int8 KV; each rank "
+              f"{r0['local_bytes'][name] / 1e9:.3f} GB of local weights, set-up "
+              f"{r0['setup_s']:.1f} s for both meshes): prefill logits {share:.4f} of "
+              f"check_logits' limit, bit-equal {bit_equal}, routing flips {len(flips)}; first "
+              f"step's logits relative L2 {rel:.4g}; ranks' ids equal, {against}; generate "
+              f"{1e3 * r0[name]['generate_s']:.2f} ms for the prefill and {MOE_TP_STEPS} eager "
+              f"steps; timed warm: the prefill {1e3 * got['prefill_s']:.2f} ms (one process "
+              f"{1e3 * ref['prefill_s']:.2f}), {1e3 * got['steps_s'] / MOE_TP_TIMED:.2f} ms a "
+              f"step (the one-process loop {1e3 * ref['steps_s'] / MOE_TP_STEPS:.2f}); "
+              f"launches a rank: generate {r0[name]['generate_counts']}; collectives a rank "
+              f"over generate {r0[name]['collectives']}", flush=True)
+        out[name] = r0[name]["generate_counts"]
+    del params
+    torch.cuda.empty_cache()
+    print(f"tp-moe: phase wall {wall:.1f} s for the ranks ({TP_LABEL}; {smi.splitlines()[0]}); "
+          "these times are functional numbers, not a tensor- or expert-parallel speed figure",
+          flush=True)
+    return out
+
+
+def mh_prompts(torch, cfg) -> list:
+    """MultiHostServer's requests: one prompt of each MH_PROMPT_LENS length
+    from a generator seeded 2 (token lists)."""
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in MH_PROMPT_LENS]
+
+
+def multihost_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase multihost, a process of its own: joins the gloo
+    group of MH_RANKS, builds `make_hybrid_mesh(dcn_dp=2, tp=2)`, makes the
+    seeded 8b-w4a8 tree (`make_8b`) on the card, checks that every rank holds
+    the same bytes, builds `MultiHostServer` on it (which shards it; the
+    whole tree is then freed) and serves `mh_prompts` (rank 0's; the others
+    pass None). Saves what it saw to ``out_dir/rank{rank}.pt``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.parallel import (
+        MultiHostServer,
+        initialize,
+        make_hybrid_mesh,
+        shutdown,
+    )
+
+    initialize(f"file://{store}", MH_RANKS, rank, backend=TP_BACKEND,
+               timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    try:
+        mesh = make_hybrid_mesh(dcn_dp=2, tp=2)
+        t0 = time.perf_counter()
+        cfg, full = make_8b(Smoke(torch), f"multihost rank {rank}: 8b-w4a8", **W4A8)
+        out = same_tree(torch, full)
+        server = MultiHostServer(full, cfg, mesh, batch_size=MH_BATCH, max_new_tokens=MH_NEW,
+                                 quantized_kv=True)
+        del full
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        out.update(setup_s=time.perf_counter() - t0, local_bytes=weight_bytes(server.params),
+                   place={a: mesh.index(a) for a in ("dp", "tp")}, shape=mesh.shape)
+        before = dict(mesh.counts)
+        reset_launch_counts()
+        t = time.perf_counter()
+        results = server.serve(mh_prompts(torch, cfg) if rank == 0 else None)
+        torch.cuda.synchronize()
+        out.update(results=results, counts=launch_counts(), s=time.perf_counter() - t,
+                   collectives={k: v - before.get(k, 0) for k, v in mesh.counts.items()})
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        shutdown()
+
+
+def phase_multihost(sm: Smoke, main, smi: str):
+    """`MultiHostServer` on `make_hybrid_mesh(dcn_dp=2, tp=2)`, MH_RANKS ranks
+    on one card over `TP_BACKEND` (`multihost_rank`), on main's 8b-w4a8 tree
+    (every rank's digest must equal it): requests of mixed prompt lengths
+    (MH_PROMPT_LENS, two rounds), MH_NEW greedy tokens each on the sharded
+    layer route. Rank 0's ids equal, request by request, to a one-process
+    loop of `forward(fast_decode=False)` on a cache of the same length (the
+    layer route under tp is the single device's function); the other ranks
+    return nothing; launches exact per rank (flash a layer a round's
+    prefill, row 6 a layer a step)."""
+    torch = sm.torch
+    import tempfile
+
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.ops import launch_counts
+
+    cfg, params = main[0], main[1]
+    L = cfg.num_layers
+    print(f"multihost: {MH_RANKS} ranks over {TP_BACKEND} on one card, make_hybrid_mesh("
+          "dcn_dp=2, tp=2); each rank makes the 8b-w4a8 tree on the card and frees it after "
+          "MultiHostServer shards it", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, wall = spawn_ranks(sm, "multihost", multihost_rank, MH_RANKS, MH_TIMEOUT_S, tmp)
+    r0 = ranks[0]
+    sm.expect(all(r["same_bytes"] for r in ranks), "multihost: the ranks' trees differ")
+    sm.expect(torch.equal(tree_digest(torch, params), r0["digest"]),
+              "multihost: the ranks' tree differs from main's 8b-w4a8 params")
+    prompts = mh_prompts(torch, cfg)
+    want, ref_s = [], 0.0
+    for p in prompts:
+        prompt = torch.tensor([p], device="cuda")
+        cache = QuantizedKVCache.create(cfg, 1, len(p) + MH_NEW, device="cuda")
+        ref = tp_greedy(torch, lambda q, c, t, s: forward(q, c, t, s, cfg, fast_decode=False),
+                        params, cache, prompt, MH_NEW - 1)
+        want.append(ref["ids"].tolist())
+        ref_s += ref["prefill_s"] + ref["steps_s"]
+    sm.expect(r0["results"] == want, "multihost: rank 0's ids differ from the one-process "
+              f"layer route's: {[sum(a == b for a, b in zip(g, w)) for g, w in zip(r0['results'], want)]} "
+              "equal of each")
+    rounds = len(set(MH_PROMPT_LENS))
+    expected = {**dict.fromkeys(launch_counts(), 0), "flash_attention": L * rounds,
+                "decode_attention_layer": L * rounds * (MH_NEW - 1)}
+    for r, res in enumerate(ranks):
+        if r:
+            sm.expect(res["results"] == [], f"multihost: rank {r} returned {res['results']}")
+        sm.expect(res["counts"] == expected, f"multihost: rank {r} launches {res['counts']} "
+                  f"!= {expected}")
+        sm.expect(res["place"] == {"dp": r // 2, "tp": r % 2},
+                  f"multihost: rank {r} at {res['place']}")
+    tokens = len(prompts) * MH_NEW
+    print(f"multihost ({MH_RANKS} ranks over {TP_BACKEND} on one card; 8b-w4a8, all {L} layers, "
+          f"mesh {r0['shape']}, each rank {r0['local_bytes'] / 1e9:.3f} GB of local weights, "
+          f"set-up {r0['setup_s']:.1f} s; {len(prompts)} requests of {list(MH_PROMPT_LENS)} "
+          f"prompt tokens in {rounds} rounds of batch {MH_BATCH}, {MH_NEW} greedy tokens each, "
+          f"int8 KV): rank 0's ids equal to the one-process layer route's, request by request; "
+          f"{tokens / r0['s']:.2f} tok/s over {r0['s']:.2f} s (the one-process layer-route loop "
+          f"{ref_s:.2f} s for the same requests one by one); launches a rank {r0['counts']}; "
+          f"collectives a rank {r0['collectives']}; phase wall {wall:.1f} s for the ranks "
+          f"({smi.splitlines()[0]}); functional numbers, not a parallel speed figure", flush=True)
+    return r0["counts"]
 
 
 def a8_calls_a_window(params, cfg) -> int:
@@ -6456,6 +7017,7 @@ def main() -> int:
     spec_counts = spec_fixture = None
     gpt2 = gpt2_fixture = ppl_counts = serve_gpt2 = gpt2_times = None
     qlora = gptq_run = qlora_times = train_counts = tp_counts = None
+    tp_moe_counts = multihost_counts = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -6477,6 +7039,8 @@ def main() -> int:
             stream_counts = sm.phase("stream", lambda: phase_stream(sm, main_run))
             chat_counts = sm.phase("chat", lambda: phase_chat(sm, main_run))
             tp_counts = sm.phase("tp", lambda: phase_tp(sm, main_run, smi))
+            multihost_counts = sm.phase("multihost", lambda: phase_multihost(sm, main_run, smi))
+        tp_moe_counts = sm.phase("tp-moe", lambda: phase_tp_moe(sm, smi))
         # Before the larger models load: GPTQ's f64 Hessians and their
         # factorization take tens of GB for a while.
         qlora = sm.phase("qlora-1b", lambda: phase_qlora_1b(sm, dev_name))
@@ -6557,7 +7121,8 @@ def main() -> int:
     if (sm.failures or not smi or rows is None or None in (
             stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b, spec_counts,
             spec_fixture, gpt2, gpt2_fixture, ppl_counts, serve_gpt2, gpt2_times, qlora,
-            gptq_run, qlora_times, train_counts, tp_counts)):
+            gptq_run, qlora_times, train_counts, tp_counts, tp_moe_counts,
+            multihost_counts)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -6583,7 +7148,12 @@ def main() -> int:
                "pp 8b-w4a8 generate (a stage)": tp_counts["pp_generate"],
                "pp 8b-w4a8 serve dense int8 (a stage)": tp_counts["pp_serve"],
                "cp 8b-w4a8 generate (a rank)": tp_counts["cp_generate"],
-               "cp 8b-w4a8 serve dense int8 (a rank)": tp_counts["cp_serve"]}
+               "cp 8b-w4a8 serve dense int8 (a rank)": tp_counts["cp_serve"],
+               f"tp-moe {MIXTRAL_LABEL} {MOE_TP_CUT['num_layers']} layers generate (a rank)":
+                   tp_moe_counts["tp"],
+               f"ep {MIXTRAL_LABEL} {MOE_TP_CUT['num_layers']} layers generate (a rank)":
+                   tp_moe_counts["ep"],
+               "multihost 8b-w4a8 MultiHostServer (a rank)": multihost_counts}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

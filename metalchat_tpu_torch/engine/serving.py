@@ -33,10 +33,11 @@ supplies a dense cache, ``context_parallel_mesh`` prefills each prompt of
 ``context_parallel_threshold`` tokens or more whole through
 `parallel.context.context_parallel_prefill` (dense cache modes; every rank
 of the mesh runs the same loop), and ``spmd_mesh`` (a `parallel.mesh.Mesh`
-of tp > 1) makes the engine one rank of a tensor-parallel group: it takes
-the rank's local params (`parallel.mesh.shard_params`), builds its local
-cache (the rank's kv-heads) and routes every model call through
-`parallel.tp_decode.tp_decode_forward_fn`; every rank runs the same loop
+of tp > 1 or ep > 1, dp 1) makes the engine one rank of a sharded group:
+it takes the rank's local params (`parallel.mesh.shard_params`), builds its
+local cache (the rank's kv-heads) and routes every model call through
+`parallel.tp_decode.spmd_forward_fn`'s forward (the tensor-parallel decode,
+or for MoE over ep the sharded layer route); every rank runs the same loop
 (`parallel.multihost.MultiHostEngine`). A forward with collectives between
 its kernels (``collectives`` set on the function, as the tensor-parallel one
 has) runs its bursts eagerly on every backend.
@@ -189,16 +190,16 @@ class ContinuousBatchingEngine:
         self.device = params["final_norm"].device
         # SPMD mode: this process is one rank of a tensor-parallel group;
         # its cache holds the rank's kv-heads.
-        self.spmd_mesh = spmd_mesh if spmd_mesh is not None and spmd_mesh.tp > 1 else None
+        self.spmd_mesh = spmd_mesh if spmd_mesh is not None and spmd_mesh.size > 1 else None
         cache_config = config
         if self.spmd_mesh is not None:
-            from metalchat_tpu_torch.parallel.tp_decode import _local_config, tp_refusal
+            from metalchat_tpu_torch.parallel.tp_decode import _local_config, spmd_forward_fn
 
-            reason = None if forward_fn is not None else tp_refusal(params, config,
-                                                                   self.spmd_mesh)
-            if reason is not None:
-                raise ValueError(f"spmd_mesh: {reason}; the port has no partitioned "
-                                 "route for such a model")
+            if self.spmd_mesh.dp > 1:
+                raise ValueError("spmd_mesh: a mesh with dp > 1 is not ported for the engine "
+                                 "(MultiHostServer splits rounds over dp)")
+            if forward_fn is None:
+                forward_fn = spmd_forward_fn(params, config, self.spmd_mesh)
             cache_config = _local_config(config, self.spmd_mesh.tp)
         if cache is not None and self.paged:
             raise ValueError("an external cache is for the dense modes")
@@ -222,10 +223,6 @@ class ContinuousBatchingEngine:
             # KV dtype follows the activation dtype (params' final norm).
             self.cache = KVCache.create(cache_config, max_slots, self.max_seq_len,
                                         dtype=params["final_norm"].dtype, device=self.device)
-        if self.spmd_mesh is not None and forward_fn is None:
-            from metalchat_tpu_torch.parallel.tp_decode import tp_decode_forward_fn
-
-            forward_fn = tp_decode_forward_fn(params, config, self.spmd_mesh)
         # forward_fn(params, cache, tokens, start_pos) -> (logits, cache), or
         # None for `forward` with this engine's ffn_block.
         self.forward_fn = forward_fn

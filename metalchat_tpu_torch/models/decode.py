@@ -56,7 +56,11 @@
   lm_head over the rank's vocabulary columns and the whole logits gathered
   on every rank (`parallel.tp_decode`). Row-parallel matvecs quantize their
   local slice (per shard, as JAX's ``shard_map`` body). Biases are refused
-  and the merged FFN block is off, as in JAX.
+  and the merged FFN block is off, as in JAX. MoE (a mesh whose ep is 1):
+  every rank routes alike on the whole router, each routed expert runs at
+  the rank's FFN width F/tp through the same matvec calls (the indexed
+  entry at w1/w3 ``[F/tp, H]`` and w2 ``[H, F/tp]``, w2's act-quant on the
+  rank's slice), and the post-FFN ``all_reduce`` joins w2's partial sums.
 
 Dense linear leaves take a plain product. The TPU-only gates of the JAX
 path (Mosaic head-dim rules, block choice, lane alignment) do not apply.
@@ -168,7 +172,9 @@ def _moe_ffn_decode(h: torch.Tensor, layers: Dict[str, Any], l: int,
                     config: ModelConfig) -> torch.Tensor:
     """Sparse-MoE FFN of the decode rows ``h [T, H]`` at layer ``l``: sparse
     (one call a routed (row, choice), T·K ≤ E/2) or dense over experts,
-    accumulated in the JAX package's order and dtypes."""
+    accumulated in the JAX package's order and dtypes. Under tp the expert
+    stacks are the rank's FFN columns and the result is its partial sum
+    (the caller's ``all_reduce`` completes it)."""
     t = h.shape[0]
     e = config.num_experts
     _, gate_vals, idx = route(h, layers["router"][l], config)

@@ -22,6 +22,19 @@ Switch-transformer load-balancing loss beside the output; training adds it
 to the objective (``forward(with_aux=True)``, `load_balancing_loss`).
 ``kernels=False`` keeps quantized experts off the dequant-matmul kernel
 (the differentiable route).
+
+On a mesh (``mesh``, a `parallel.mesh.Mesh`; the JAX package's GSPMD
+route on sharded experts): the rank holds E/ep experts, those of global
+index ``ep place · E/ep + local index``, each at FFN width F/tp. Every rank
+routes alike on the whole router, over all E experts, and runs its own:
+w1/w3 column-parallel, w2 row-parallel over tp as `linear_row_parallel`
+runs it (act8 codes from the whole row, exact int32 sums; dense f32
+partial products), and the gated sum of its experts stays f32 until it is
+summed over ep, then takes the single device's one rounding to the
+activation dtype. The f32 sum's order is not the single device's: f32
+agrees to rounding, and in bf16 a value may land one step off, after which
+a token whose router gap is near a tie may take other experts in a later
+layer, as two devices of the JAX package may.
 """
 
 from __future__ import annotations
@@ -33,7 +46,7 @@ import torch.nn.functional as F
 
 from metalchat_tpu_torch.config import ModelConfig
 from metalchat_tpu_torch.ops import reference as ops
-from metalchat_tpu_torch.quant.quantize import QuantizedTensor, linear
+from metalchat_tpu_torch.quant.quantize import QuantizedTensor, linear, linear_row_parallel
 
 # Up to this many tokens the dense (exact) scheme runs: the expert weights
 # are read whole either way, so dropping tokens saves nothing.
@@ -50,12 +63,24 @@ def _expert_linear(xin: torch.Tensor, leaf, kernels: bool = True) -> torch.Tenso
 
 
 def _expert_mlp(xin: torch.Tensor, layer: Dict[str, Any], config: ModelConfig,
-                kernels: bool = True) -> torch.Tensor:
-    """SwiGLU over every expert at once: xin ``[E, C, H]`` → ``[E, C, H]``."""
+                kernels: bool = True, mesh=None) -> torch.Tensor:
+    """SwiGLU over every expert at once: xin ``[E, C, H]`` → ``[E, C, H]``;
+    on a mesh of tp > 1, w2 row-parallel."""
     act = ops.activation(config.hidden_act)(_expert_linear(xin, layer["w1"], kernels))
     if "w3" in layer:
         act = act * _expert_linear(xin, layer["w3"], kernels)
+    if mesh is not None and mesh.tp > 1:
+        return linear_row_parallel(act, layer["w2"], mesh)
     return _expert_linear(act, layer["w2"], kernels)
+
+
+def _rank_experts(layer: Dict[str, Any], mesh) -> slice:
+    """The global indices of the experts this rank holds (all without a
+    mesh)."""
+    w1 = layer["w1"]
+    n = (w1.q if isinstance(w1, QuantizedTensor) else w1).shape[0]
+    lo = 0 if mesh is None else mesh.index("ep") * n
+    return slice(lo, lo + n)
 
 
 def route(xt: torch.Tensor, router: torch.Tensor, config: ModelConfig):
@@ -73,14 +98,26 @@ def _aux_loss(probs: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
     return e * (fraction * probs.mean(dim=0)).sum()
 
 
+def _gated_sum(spec: str, gates: torch.Tensor, outs: torch.Tensor, mesh) -> torch.Tensor:
+    """The gate-weighted sum of the experts' outputs, in their dtype (one
+    rounding of an f32-accumulated product). Over ep the rank's partial sum
+    stays f32 and is summed over ep before that one rounding, so the result
+    differs from the single device's only by the f32 sum's order."""
+    if mesh is None or mesh.ep == 1:
+        return torch.einsum(spec, gates, outs)
+    part = torch.einsum(spec, gates.float(), outs.float())
+    return mesh.all_reduce(part, axis="ep").to(outs.dtype)
+
+
 def _moe_dense(xt: torch.Tensor, layer: Dict[str, Any], config: ModelConfig,
-               kernels: bool = True):
+               kernels: bool = True, mesh=None):
     e = config.num_experts
+    mine = _rank_experts(layer, mesh)
     probs, gate_vals, idx = route(xt, layer["router"], config)
-    gates = torch.zeros_like(probs).scatter(1, idx, gate_vals)  # [T, E]
-    outs = _expert_mlp(xt[None].expand(e, *xt.shape), layer, config, kernels)  # [E, T, H]
-    y = torch.einsum("te,eth->th", gates.to(xt.dtype), outs)
-    return y, _aux_loss(probs, idx, e)
+    gates = torch.zeros_like(probs).scatter(1, idx, gate_vals)[:, mine]  # [T, E_local]
+    outs = _expert_mlp(xt[None].expand(gates.shape[1], *xt.shape), layer, config, kernels,
+                       mesh)  # [E_local, T, H]
+    return _gated_sum("te,eth->th", gates.to(xt.dtype), outs, mesh), _aux_loss(probs, idx, e)
 
 
 def capacity(t: int, config: ModelConfig) -> int:
@@ -104,32 +141,33 @@ def dispatch_slots(idx: torch.Tensor, e: int, cap: int):
 
 
 def _moe_dispatch(xt: torch.Tensor, layer: Dict[str, Any], config: ModelConfig,
-                  kernels: bool = True):
+                  kernels: bool = True, mesh=None):
     t, _ = xt.shape
     e = config.num_experts
     cap = capacity(t, config)
     probs, gate_vals, idx = route(xt, layer["router"], config)
-    slot, kept = dispatch_slots(idx, e, cap)
+    slot, kept = dispatch_slots(idx, e, cap)  # over all E: every rank alike
     dt = xt.dtype
     sel = F.one_hot(idx, e).to(dt) * kept[..., None].to(dt)          # [T, K, E]
+    sel = sel[..., _rank_experts(layer, mesh)]                      # [T, K, E_local]
     slot_oh = F.one_hot(slot, cap + 1)[..., :cap].to(dt)            # [T, K, C]; dropped: 0
     dispatch = torch.einsum("tke,tkc->tec", sel, slot_oh)            # 0/1 [T, E, C]
     xin = torch.einsum("tec,th->ech", dispatch, xt)
-    out = _expert_mlp(xin, layer, config, kernels)                   # [E, C, H]
+    out = _expert_mlp(xin, layer, config, kernels, mesh)             # [E, C, H]
     combine = torch.einsum("tke,tkc,tk->tec", sel, slot_oh, gate_vals.to(dt))
-    y = torch.einsum("tec,ech->th", combine, out)
-    return y, _aux_loss(probs, idx, e)
+    return _gated_sum("tec,ech->th", combine, out, mesh), _aux_loss(probs, idx, e)
 
 
 def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], config: ModelConfig, *,
-            kernels: bool = True):
-    """Sparse-MoE FFN of x ``[B, S, H]`` → (y, load-balancing loss)."""
+            kernels: bool = True, mesh=None):
+    """Sparse-MoE FFN of x ``[B, S, H]`` → (y, load-balancing loss); on a
+    ``mesh``, this rank's experts and FFN width (the module docstring)."""
     b, s, h = x.shape
     xt = x.reshape(b * s, h)
     if b * s <= DENSE_TOKEN_CUTOFF:
-        yt, aux = _moe_dense(xt, layer, config, kernels)
+        yt, aux = _moe_dense(xt, layer, config, kernels, mesh)
     else:
-        yt, aux = _moe_dispatch(xt, layer, config, kernels)
+        yt, aux = _moe_dispatch(xt, layer, config, kernels, mesh)
     return yt.reshape(b, s, h).to(x.dtype), aux
 
 

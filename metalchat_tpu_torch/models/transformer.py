@@ -162,12 +162,13 @@ def biased(y: torch.Tensor, tree: Params, name: str, config: ModelConfig,
 
 
 def _tp_lookup_embedding(tokens: torch.Tensor, embed, mesh) -> torch.Tensor:
-    """Lookup in a vocabulary-split embedding: each rank holds rows
-    ``[rank·V_l, (rank+1)·V_l)``; an id outside them reads row 0 and is
-    zeroed, then one ``all_reduce`` assembles the rows (exact: one rank adds
-    each value to zeros), in the lookup's dtype, as JAX's ``psum``."""
+    """Lookup in a vocabulary-split embedding: the rank at tp place i holds
+    rows ``[i·V_l, (i+1)·V_l)``; an id outside them reads row 0 and is
+    zeroed, then one ``all_reduce`` over tp assembles the rows (exact: one
+    rank adds each value to zeros), in the lookup's dtype, as JAX's
+    ``psum``."""
     v_local = (embed.q if isinstance(embed, QuantizedTensor) else embed).shape[0]
-    local = tokens - mesh.rank * v_local
+    local = tokens - mesh.index("tp") * v_local
     valid = (local >= 0) & (local < v_local)
     x = lookup_embedding(local.clamp(0, v_local - 1), embed)
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -300,17 +301,18 @@ def attention_residual(x, attn, layers: Params, l: int, config: ModelConfig, row
 
 
 def ffn_residual(x, layers: Params, l: int, config: ModelConfig, lin=linear, row=linear,
-                 kernels: bool = True):
+                 kernels: bool = True, moe_mesh=None):
     """``x`` plus layer ``l``'s feed-forward block of its pre-norm (MoE,
     fused w13, GPT-2's MLP or SwiGLU; Gemma-3's post-norm), and the MoE
-    load-balancing loss (None on a dense layer). ``row`` runs w2."""
+    load-balancing loss (None on a dense layer). ``row`` runs w2; MoE runs
+    on ``moe_mesh``'s experts and FFN width (`models.moe.moe_ffn`)."""
     h = norm(x, layers, "ffn_norm", config, l)
     aux = None
     if config.num_experts:
         from metalchat_tpu_torch.models.moe import moe_ffn
 
         ffn, aux = moe_ffn(h, {n: layer_leaf(layers[n], l) for n in MOE_LEAVES if n in layers},
-                           config, kernels=kernels)
+                           config, kernels=kernels, mesh=moe_mesh)
     elif "w13" in layers:
         fused = biased(lin(h, layer_leaf(layers["w13"], l)), layers, "w13_b", config, l)
         ffn = row(act_gate(fused, config.hidden_act, getattr(layers["w13"], "fuse_tp", 1)),
@@ -331,12 +333,14 @@ def ffn_residual(x, layers: Params, l: int, config: ModelConfig, lin=linear, row
 
 def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
                 rope, positions, offsets, start_pos, kv_end: int, paged_at=None,
-                differentiable: bool = False, tp=None, layer_id: Optional[int] = None):
+                differentiable: bool = False, tp=None, layer_id: Optional[int] = None,
+                moe_mesh=None):
     """One layer: (x after it, the layer's MoE load-balancing loss or None
     on a dense layer). ``l`` indexes the stacked leaves and the cache,
     ``layer_id`` (default ``l``) is the layer's place in the model, which
     picks its window and rope table. Under ``tp`` (config: the rank's
-    shard) wo and w2 are row-parallel (`linear_row_parallel`)."""
+    shard) wo and w2 are row-parallel (`linear_row_parallel`); MoE runs on
+    ``moe_mesh``'s experts."""
     layer_id = l if layer_id is None else layer_id
     s = x.shape[1]
     kernels = not differentiable
@@ -386,7 +390,7 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
                                    None if window < 0 else window)
             attn = ops.attention(q, keys, values, mask, scale=config.attention_scale())
     x = attention_residual(x, attn, layers, l, config, row)
-    return ffn_residual(x, layers, l, config, lin, row, kernels)
+    return ffn_residual(x, layers, l, config, lin, row, kernels, moe_mesh)
 
 
 def layer_inputs(tokens: torch.Tensor, start_pos, cache: Cache) -> Dict[str, Any]:
@@ -416,20 +420,21 @@ def layer_inputs(tokens: torch.Tensor, start_pos, cache: Cache) -> Dict[str, Any
 def run_layers(x: torch.Tensor, layers: Params, cache: Cache, *, config: ModelConfig,
                rope, positions, offsets, start_pos, kv_end: int, paged_at=None,
                first_layer: int = 0, remat: bool = False, differentiable: bool = False,
-               tp=None):
+               tp=None, moe_mesh=None):
     """Run a stack of layers over ``x`` (the JAX package's ``run_layers``,
     the layer loop that `forward` and a pipeline stage share): ``layers``'
     stacked leaves ``[L_local, ...]`` and the matching layers of ``cache``,
     written in place, one `_layer_step` each. Local layer ``l`` is layer
     ``first_layer + l`` of the model, which picks its window and rope
-    table. Returns (x, the MoE layers' load-balancing losses, a list)."""
+    table. ``tp`` and ``moe_mesh`` are `_layer_step`'s. Returns (x, the MoE
+    layers' load-balancing losses, a list)."""
     aux = []
     for l in range(layers["attn_norm"].shape[0]):
         step = functools.partial(_layer_step, layers=layers, l=l, cache=cache, config=config,
                                  rope=rope, positions=positions, offsets=offsets,
                                  start_pos=start_pos, kv_end=kv_end, paged_at=paged_at,
                                  differentiable=differentiable, tp=tp,
-                                 layer_id=first_layer + l)
+                                 layer_id=first_layer + l, moe_mesh=moe_mesh)
         x, layer_aux = checkpoint(step, x, use_reentrant=False) if remat else step(x)
         if layer_aux is not None:
             aux.append(layer_aux)
@@ -482,23 +487,29 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
 
-    ``tp`` (a `parallel.mesh.Mesh` of tp > 1) is the tensor-parallel
-    prefill: ``params`` and ``cache`` are this rank's local ones
-    (`parallel.mesh.shard_params`, `shard_cache`), ``config`` the whole
-    model's. Every window takes the layer route at the rank's heads, and the
-    result is the single device's function (JAX's GSPMD prefill): the
-    embedding split by vocabulary, wo and w2 row-parallel
-    (`linear_row_parallel`: act8 codes from the whole row, exact int32
-    sums), the lm_head split by vocabulary and the whole logits on every
-    rank. One-token steps go to `decode_step(..., tp=)` through
-    `parallel.tp_decode.tp_decode_forward_fn`, as in JAX."""
+    ``tp`` (a `parallel.mesh.Mesh` of tp > 1 or ep > 1) is the sharded
+    layer route, JAX's GSPMD forward on sharded params: ``params`` and
+    ``cache`` are this rank's local ones (`parallel.mesh.shard_params`,
+    `shard_cache`), ``config`` the whole model's. Every window, one token
+    included, takes the layer route at the rank's heads. Without experts
+    over ep the result is the single device's function: the embedding
+    split by vocabulary, wo and w2 row-parallel (`linear_row_parallel`:
+    act8 codes from the whole row, exact int32 sums), the lm_head split by
+    vocabulary and the whole logits on every rank. MoE runs the rank's
+    experts at its FFN width and sums them over ep
+    (`models.moe.moe_ffn`), whose order is not the single device's.
+    `parallel.tp_decode.tp_decode_forward_fn` sends one-token steps to
+    `decode_step(..., tp=)` where the fast decode takes the mesh, as in
+    JAX."""
     from metalchat_tpu_torch.models.decode import decode_step, supports_fast_decode
 
-    config, tp = tp_config(config, tp)
-    if tp is not None and (remat or differentiable):
+    mesh = tp
+    config, tp = tp_config(config, mesh)
+    sharded = mesh is not None and (mesh.tp > 1 or mesh.ep > 1)
+    if sharded and (remat or differentiable):
         raise ValueError("forward(tp=...) is the inference route: no remat or "
                          "differentiable")
-    if tp is None and fast_decode and not remat and not differentiable \
+    if not sharded and fast_decode and not remat and not differentiable \
             and supports_fast_decode(params, cache, config, tokens):
         logits, cache = decode_step(params, cache, tokens, start_pos, config,
                                     ffn_block=ffn_block)
@@ -508,7 +519,8 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     where = layer_inputs(tokens, start_pos, cache)
     x = embed_tokens(params, tokens, where["positions"], config, tp)
     x, aux = run_layers(x, params["layers"], cache, config=config, rope=params["rope"],
-                        remat=remat, differentiable=differentiable, tp=tp, **where)
+                        remat=remat, differentiable=differentiable, tp=tp,
+                        moe_mesh=mesh if sharded else None, **where)
     logits = final_logits(params, x, config, kernels=not differentiable, tp=tp)
     if with_aux:  # the mean over layers: a dense layer adds 0
         mean = torch.stack(aux).sum() / config.num_layers if aux \

@@ -1,13 +1,19 @@
 """Parallelism over ``torch.distributed`` (port of the JAX package's
-``parallel/``): ``distributed``, ``mesh`` (its tp axis, and `GridMesh`
-for the pipeline's ("dp", "pp") and context parallelism's ("sp",) grids),
-``tp_decode``, ``multihost``'s engine, ``pipeline``, ``context`` and
-``ring_attention``. One process runs per rank and every rank runs the same
-program in lockstep; the dp axis of the tp mesh, ``make_hybrid_mesh`` and
-``MultiHostServer`` are not ported yet."""
+``parallel/``): ``distributed`` (``initialize``, ``make_hybrid_mesh``),
+``mesh`` (the ("dp", "ep", "tp") mesh and its sharding rules, and
+`GridMesh` for the pipeline's ("dp", "pp") and context parallelism's
+("sp",) grids), ``tp_decode``, ``multihost`` (``MultiHostServer``,
+``MultiHostEngine``), ``pipeline``, ``context`` and ``ring_attention``. One
+process runs per rank and every rank runs the same program in lockstep.
+The names the JAX package's ``parallel/__init__.py`` exports are here, and
+beside them the port's own entry points of those modules."""
 
 from metalchat_tpu_torch.parallel.context import context_parallel_prefill  # noqa: F401
-from metalchat_tpu_torch.parallel.distributed import initialize, shutdown  # noqa: F401
+from metalchat_tpu_torch.parallel.distributed import (  # noqa: F401
+    initialize,
+    make_hybrid_mesh,
+    shutdown,
+)
 from metalchat_tpu_torch.parallel.mesh import (  # noqa: F401
     GridMesh,
     Mesh,
@@ -19,6 +25,7 @@ from metalchat_tpu_torch.parallel.mesh import (  # noqa: F401
 from metalchat_tpu_torch.parallel.multihost import (  # noqa: F401
     MultiHostEngine,
     MultiHostRoundError,
+    MultiHostServer,
 )
 from metalchat_tpu_torch.parallel.pipeline import (  # noqa: F401
     make_pipeline_forward,
@@ -27,7 +34,9 @@ from metalchat_tpu_torch.parallel.pipeline import (  # noqa: F401
     shard_params_pp,
 )
 from metalchat_tpu_torch.parallel.tp_decode import (  # noqa: F401
+    layer_route_forward_fn,
     make_tp_decode_step,
+    spmd_forward_fn,
     supports_tp_fast_decode,
     tp_decode_forward_fn,
     tp_refusal,

@@ -11,6 +11,12 @@ process.
 The backend is an explicit choice: ``nccl`` by default for the card, ``gloo``
 for the CPU. Nothing switches it silently: a caller that wants gloo on the
 card (two ranks on one card, which NCCL refuses) asks for it.
+
+`make_hybrid_mesh` is the JAX package's DCN-aware mesh: dp across hosts,
+tp inside one host. A "host" here is the group of ranks on one machine
+(torchrun's ``LOCAL_WORLD_SIZE``), and ranks are numbered host by host, so
+rank r sits at dp row ``r // tp`` and tp place ``r % tp``: the tp
+collectives, the ones on every token's path, stay inside a machine.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional
 import torch.distributed as dist
 
 from metalchat_tpu_torch.device import resolve_device
+from metalchat_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -67,3 +74,22 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
 
+
+
+def make_hybrid_mesh(dcn_dp: Optional[int] = None, tp: Optional[int] = None) -> Mesh:
+    """The ("dp", "tp") mesh with dp across hosts and tp inside one host (the
+    JAX package's ``make_hybrid_mesh``) over the default process group.
+    Weights are whole over dp and the batch splits over it. The defaults
+    follow JAX's arithmetic with hosts for processes: ``dcn_dp`` the
+    number of hosts, ``tp`` the ranks of one host (``LOCAL_WORLD_SIZE``,
+    else every rank; at most the world over ``dcn_dp``). Without a process
+    group up, a mesh of one rank."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    local = _env_int("LOCAL_WORLD_SIZE") or world
+    dcn_dp = dcn_dp or max(1, world // local)
+    per_dp = world // dcn_dp
+    tp = tp or (per_dp // max(1, per_dp // local) or local)
+    per_host_dp = world // (dcn_dp * tp)
+    if dcn_dp * per_host_dp * tp != world:
+        raise ValueError(f"dcn_dp={dcn_dp} × tp={tp} incompatible with {world} devices")
+    return make_mesh(tp=tp, dp=dcn_dp * per_host_dp)

@@ -1,5 +1,5 @@
-"""Tensor-parallel mesh and sharding rules (port of the JAX package's
-``parallel/mesh.py``, its ``tp`` axis).
+"""Device mesh and sharding rules (port of the JAX package's
+``parallel/mesh.py``: its ("dp", "ep", "tp") mesh).
 
 The JAX package places a global array on a device mesh and lets XLA (or
 ``shard_map``) work on the shards. Here every rank is a process of its own
@@ -7,27 +7,31 @@ that holds only its shard: `shard_params` and `shard_cache` return THIS
 rank's local tree, the tree JAX's ``shard_map`` body sees after
 ``_localize_quant_metadata``.
 
-Layout, the JAX package's ``param_shardings`` on a ``tp`` axis:
+Layout, the JAX package's ``param_shardings``:
 
-* column-parallel (out-features split): wq, wk, wv, w1, w3 and the fused
-  wqkv / w13 (quantized fused leaves block-permuted first, so that each
-  rank's chunk is a standard fused leaf of its own heads and columns);
-* row-parallel (in-features split): wo, w2 (int4 act8 leaves repacked per
-  chunk first, so that each rank's byte shard decodes to its own rows);
+* column-parallel over tp (out-features split): wq, wk, wv, w1, w3 and the
+  fused wqkv / w13 (quantized fused leaves block-permuted first, so that
+  each rank's chunk is a standard fused leaf of its own heads and columns);
+* row-parallel over tp (in-features split): wo, w2 (int4 act8 leaves
+  repacked per chunk first, so that each rank's byte shard decodes to its
+  own rows);
 * the embedding split by vocabulary rows, the lm_head by vocabulary
   columns; wk/wv (and the KV cache) whole when the kv-heads do not divide
   by tp, the embedding and lm_head whole when the vocabulary does not;
+* MoE expert stacks (w1/w3 ``[L, E, H, F]``, w2 ``[L, E, F, H]``): the
+  experts split over ep, the FFN width F over tp as above; the router whole;
 * every other leaf (norms, rope tables, biases, a LoRA leaf's adaptors)
-  whole on every rank.
+  whole on every rank, and every dense leaf whole over dp and ep.
 
-`Mesh` is one rank's view of its group: the process group, the rank, tp,
-and the collectives the tensor-parallel code calls (counted by kind).
+`GridMesh` is one rank's view of a named grid of ranks (the pipeline's
+("dp", "pp"), context parallelism's ("sp",), the mesh's ("dp", "ep", "tp")):
+its place on each axis, the sub-group of the ranks along each axis through
+it, and the point-to-point and collective moves that JAX's ``shard_map``
+bodies make with ``ppermute``, ``psum`` and gathers (counted by kind).
 
-`GridMesh` is one rank's view of a named grid of ranks, the pipeline's
-("dp", "pp") and context parallelism's ("sp",): its place on each axis,
-the sub-group of the ranks along each axis through it, and the
-point-to-point and collective moves that JAX's ``shard_map`` bodies make
-with ``ppermute``, ``psum`` and gathers (counted by kind, as `Mesh`'s).
+`Mesh` is one rank's view of the ("dp", "ep", "tp") mesh: a `GridMesh` for
+the layout and the dp and ep axes, and the tensor-parallel collectives the
+sharded model code calls on its tp axis.
 """
 
 from __future__ import annotations
@@ -45,67 +49,9 @@ from metalchat_tpu_torch.config import ModelConfig
 from metalchat_tpu_torch.models.fuse import fused_segments, permute_fused_tp
 from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor, repack_int4_chunks
 
+MESH_AXES = ("dp", "ep", "tp")
+EXPERT_LEAVES = ("w1", "w3", "w2")
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
-
-
-@dataclass
-class Mesh:
-    """One rank's view of a tensor-parallel group of ``tp`` processes.
-    ``group`` None is the default process group. A mesh of tp > 1 with no
-    process group up describes a rank without talking to the others:
-    `shard_params` and `shard_cache` work on it, collectives raise.
-    ``counts`` tallies the collectives called, by kind."""
-
-    tp: int = 1
-    rank: int = 0
-    group: Any = None
-    counts: Counter = field(default_factory=Counter)
-
-    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` reduced over the group (``"sum"`` or ``"max"``), in ``t``'s
-        own dtype, in place on a contiguous ``t``; returns it."""
-        if self.tp == 1:
-            return t
-        t = t.contiguous()
-        dist.all_reduce(t, op=_REDUCE_OPS[op], group=self.group)
-        self.counts[f"all_reduce_{op}"] += 1
-        return t
-
-    def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """Every rank's ``t`` concatenated along ``dim`` in rank order (the
-        same tensor on every rank)."""
-        if self.tp == 1:
-            return t
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.tp)]
-        dist.all_gather(parts, t, group=self.group)
-        self.counts["all_gather"] += 1
-        return torch.cat(parts, dim=dim)
-
-    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
-        """Rank ``src``'s ``obj`` (any picklable value) on every rank."""
-        if self.tp == 1:
-            return obj
-        box = [obj]
-        dist.broadcast_object_list(box, src=src, group=self.group)
-        self.counts["broadcast"] += 1
-        return box[0]
-
-
-def make_mesh(tp: Optional[int] = None, group: Any = None) -> Mesh:
-    """This process's mesh over ``group`` (None: the default group). ``tp``
-    defaults to the group's size and must equal it: only the tp axis is
-    ported. Without a process group up, a mesh of one rank."""
-    if not dist.is_initialized():
-        if tp not in (None, 1):
-            raise ValueError(f"tp={tp} needs a process group of {tp} ranks "
-                             "(parallel.distributed.initialize)")
-        return Mesh(tp=1, rank=0, group=group)
-    size = dist.get_world_size(group)
-    tp = size if tp is None else tp
-    if tp != size:
-        raise ValueError(f"tp={tp} != {size} processes in the group (only tp is ported)")
-    return Mesh(tp=tp, rank=dist.get_rank(group), group=group)
 
 
 @dataclass
@@ -113,15 +59,17 @@ class GridMesh:
     """One rank's view of a grid of ranks with named axes, laid out row-major
     over ``shape`` as JAX's ``np.asarray(devices).reshape(...)``: on the
     pipeline's ``{"dp": D, "pp": P}`` rank r is stage ``r % P`` of dp row
-    ``r // P``. ``groups`` holds, for each axis longer than one, the
-    process group of the ranks along that axis through this rank (its
-    pipeline for "pp", the ranks of its stage for "dp"). A grid of one rank
-    needs no process group; a mesh built by hand with a rank and no groups
-    describes that rank for the sharding functions, and its moves raise.
+    ``r // P``. ``rank`` is the rank in the grid's process group ``group``
+    (None: the default group). ``groups`` holds, for each axis longer than
+    one, the process group of the ranks along that axis through this rank
+    (its pipeline for "pp", the ranks of its stage for "dp"). A grid of one
+    rank needs no process group; a mesh built by hand with a rank and no
+    groups describes that rank for the sharding functions, and its moves
+    raise.
 
     Every move counts one under its kind and axis in ``counts``: ``shift``
-    ("handoff" or "rotate"), ``broadcast``, ``all_gather``, and
-    ``broadcast_object`` over the whole grid. On gloo, which moves only
+    ("handoff" or "rotate"), ``broadcast``, ``all_gather``, ``all_reduce``,
+    and ``broadcast_object`` over the whole grid. On gloo, which moves only
     host memory point to point, a CUDA tensor crosses through the host:
     ``backend`` (the process group's, recorded at `make_grid_mesh`) decides
     it, and each such move also counts one under "host_staged"."""
@@ -131,6 +79,7 @@ class GridMesh:
     groups: Dict[str, Any] = field(default_factory=dict)
     backend: str = ""
     counts: Counter = field(default_factory=Counter)
+    group: Any = None
 
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -146,7 +95,7 @@ class GridMesh:
         return self._coords(self.rank).get(axis, 0)
 
     def peers(self, axis: str):
-        """The global ranks along ``axis`` through this rank, in axis order."""
+        """The grid's ranks along ``axis`` through this rank, in axis order."""
         axes = list(self.shape)
         if axis not in self.shape:
             return [self.rank]
@@ -155,6 +104,10 @@ class GridMesh:
             stride *= self.shape[a]
         base = self.rank - self.index(axis) * stride
         return [base + i * stride for i in range(self.shape[axis])]
+
+    def _global(self, rank: int) -> int:
+        """The default group's rank of the grid's ``rank``."""
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as handed to torch.distributed: contiguous, and in host
@@ -170,7 +123,7 @@ class GridMesh:
     def _group(self, axis: str):
         if axis not in self.groups:
             raise ValueError(f"axis {axis!r} of this mesh has no process group "
-                             "(parallel.mesh.make_grid_mesh after initialize)")
+                             "(parallel.mesh.make_mesh or make_grid_mesh after initialize)")
         return self.groups[axis]
 
     def shift(self, t: torch.Tensor, axis: str, *, wrap: bool) -> torch.Tensor:
@@ -185,11 +138,12 @@ class GridMesh:
         peers, group = self.peers(axis), self._group(axis)
         ops, recv = [], None
         if wrap or i + 1 < n:
-            ops.append(dist.P2POp(dist.isend, self._wire(t), peers[(i + 1) % n], group))
+            ops.append(dist.P2POp(dist.isend, self._wire(t), self._global(peers[(i + 1) % n]),
+                                  group))
         if wrap or i > 0:
             staged = self.backend == "gloo" and t.is_cuda
             recv = torch.empty(t.shape, dtype=t.dtype, device="cpu" if staged else t.device)
-            ops.append(dist.P2POp(dist.irecv, recv, peers[(i - 1) % n], group))
+            ops.append(dist.P2POp(dist.irecv, recv, self._global(peers[(i - 1) % n]), group))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         self._count("rotate" if wrap else "handoff", axis, t)
@@ -201,7 +155,7 @@ class GridMesh:
         if self.size(axis) == 1:
             return t
         w = self._wire(t)
-        dist.broadcast(w, src=self.peers(axis)[src], group=self._group(axis))
+        dist.broadcast(w, src=self._global(self.peers(axis)[src]), group=self._group(axis))
         self._count("broadcast", axis, t)
         return w.to(t.device)
 
@@ -217,22 +171,35 @@ class GridMesh:
         self._count("all_gather", axis, t)
         return torch.cat(parts, dim=dim).to(t.device)
 
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over ``axis`` (``"sum"`` or ``"max"``) in its own
+        dtype, the same on every rank along it."""
+        if self.size(axis) == 1:
+            return t
+        w = self._wire(t)
+        dist.all_reduce(w, op=_REDUCE_OPS[op], group=self._group(axis))
+        self._count(f"all_reduce_{op}", axis, t)
+        return w.to(t.device)
+
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
-        """Rank ``src``'s ``obj`` (picklable) on every rank of the grid."""
+        """The grid's rank ``src``'s ``obj`` (picklable) on every rank of the
+        grid."""
         if all(n == 1 for n in self.shape.values()):
             return obj
         box = [obj]
-        dist.broadcast_object_list(box, src=src)
+        dist.broadcast_object_list(box, src=self._global(src), group=self.group)
         self.counts["broadcast_object"] += 1
         return box[0]
 
 
-def make_grid_mesh(shape: Dict[str, int]) -> GridMesh:
+def make_grid_mesh(shape: Dict[str, int], group: Any = None) -> GridMesh:
     """This process's view of the grid ``shape`` (axis name → size, in
-    order) over the default process group, whose size must be the grid's.
-    Every rank creates every axis's sub-groups, in one order (which
-    ``torch.distributed.new_group`` requires). Without a process group up,
-    a grid of one rank."""
+    order) over ``group`` (None: the default group), whose size must be the
+    grid's. An axis as long as the grid takes ``group`` itself; every rank
+    creates the sub-groups of the shorter axes, in one order (which
+    ``torch.distributed.new_group`` requires of every rank of the default
+    group, so such an axis needs the default group). Without a process
+    group up, a grid of one rank."""
     total = 1
     for n in shape.values():
         total *= n
@@ -241,21 +208,124 @@ def make_grid_mesh(shape: Dict[str, int]) -> GridMesh:
             raise ValueError(f"a {shape} mesh needs a process group of {total} ranks "
                              "(parallel.distributed.initialize)")
         return GridMesh(dict(shape))
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
     if world != total:
         desc = " * ".join(f"{a}={n}" for a, n in shape.items())
         raise ValueError(f"{desc} = {total} != {world} processes in the group")
-    mesh = GridMesh(dict(shape), rank=dist.get_rank(), backend=dist.get_backend())
+    short = [a for a, n in shape.items() if 1 < n < total]
+    if short and group is not None:
+        raise ValueError(f"axis {short[0]!r} of {shape} needs sub-groups, which every rank "
+                         "of the default group must create: build this mesh on the default "
+                         "group")
+    mesh = GridMesh(dict(shape), rank=dist.get_rank(group), backend=dist.get_backend(group),
+                    group=group)
     for axis, n in shape.items():
-        if n == 1:
-            continue
-        lines = sorted({tuple(GridMesh(dict(shape), rank=r).peers(axis))
-                        for r in range(total)})
-        for line in lines:
-            group = dist.new_group(list(line))
-            if mesh.rank in line:
+        if axis not in short:
+            if n > 1:  # the whole grid
                 mesh.groups[axis] = group
+            continue
+        for line in sorted({tuple(GridMesh(shape, rank=r).peers(axis)) for r in range(total)}):
+            sub = dist.new_group(list(line))
+            if mesh.rank in line:
+                mesh.groups[axis] = sub
     return mesh
+
+
+@dataclass
+class Mesh:
+    """One rank's view of a ("dp", "ep", "tp") grid of ``dp·ep·tp`` processes,
+    laid out row-major as JAX's ``np.asarray(devices).reshape(dp, ep, tp)``:
+    rank r sits at dp row ``r // (ep·tp)``, ep place ``(r // tp) % ep`` and
+    tp place ``r % tp``. ``grid`` (a `GridMesh` over those axes, sharing
+    ``counts``) owns the layout (`index`), each axis's process group and
+    the dp and ep axes' collectives; ``group`` is the tp axis's process
+    group (None: the default group), where the tensor-parallel code's
+    collectives run, counted by kind alone. A mesh built by hand with a rank
+    and no process group describes that rank: `shard_params` and
+    `shard_cache` work on it, collectives raise."""
+
+    tp: int = 1
+    rank: int = 0
+    group: Any = None
+    counts: Counter = field(default_factory=Counter)
+    dp: int = 1
+    ep: int = 1
+    grid: Optional[GridMesh] = None
+
+    def __post_init__(self):
+        if self.grid is None:
+            self.grid = GridMesh(dict(zip(MESH_AXES, (self.dp, self.ep, self.tp))),
+                                 rank=self.rank)
+        self.grid.counts = self.counts
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """The axes and their sizes, as JAX's ``mesh.shape`` (ep left out
+        when it is 1)."""
+        if self.ep > 1:
+            return {"dp": self.dp, "ep": self.ep, "tp": self.tp}
+        return {"dp": self.dp, "tp": self.tp}
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.ep * self.tp
+
+    def index(self, axis: str) -> int:
+        """This rank's place along ``axis``: "dp", "ep" or "tp"."""
+        return self.grid.index(axis)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum", axis: str = "tp") -> torch.Tensor:
+        """``t`` reduced over ``axis`` (``"sum"`` or ``"max"``), in ``t``'s
+        own dtype; on tp in place on a contiguous ``t``. Returns it."""
+        if axis != "tp":
+            return self.grid.all_reduce(t, axis, op)
+        if self.tp == 1:
+            return t
+        t = t.contiguous()
+        dist.all_reduce(t, op=_REDUCE_OPS[op], group=self.group)
+        self.counts[f"all_reduce_{op}"] += 1
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = -1, axis: str = "tp") -> torch.Tensor:
+        """Every rank's ``t`` along ``axis`` concatenated along ``dim`` in
+        axis order (the same tensor on every rank along it)."""
+        if axis != "tp":
+            return self.grid.all_gather(t, axis, dim)
+        if self.tp == 1:
+            return t
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.tp)]
+        dist.all_gather(parts, t, group=self.group)
+        self.counts["all_gather"] += 1
+        return torch.cat(parts, dim=dim)
+
+    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+        """The grid's rank ``src``'s ``obj`` (any picklable value) on every
+        rank of the grid."""
+        return self.grid.broadcast_object(obj, src)
+
+
+def make_mesh(tp: Optional[int] = None, dp: int = 1, ep: int = 1, group: Any = None) -> Mesh:
+    """This process's view of a ("dp", "ep", "tp") mesh over ``group`` (None:
+    the default group), the JAX package's ``make_mesh``: ``tp`` defaults to
+    the group's size over dp·ep, and dp·ep·tp must be that size. The axes'
+    process groups are `make_grid_mesh`'s (an axis shorter than the grid
+    needs the default group). Without a process group up, a mesh of one
+    rank."""
+    up = dist.is_initialized()
+    n = dist.get_world_size(group) if up else 1
+    if tp is None:
+        tp = n // (dp * ep)
+    if dp * ep * tp != n:
+        msg = f"dp*ep*tp = {dp}*{ep}*{tp} != {n} devices"
+        if not up:
+            msg += " (no process group: parallel.distributed.initialize)"
+        raise ValueError(msg)
+    if not up:
+        return Mesh(tp=1, rank=0, group=group)
+    grid = make_grid_mesh(dict(zip(MESH_AXES, (dp, ep, tp))), group)
+    return Mesh(tp=tp, dp=dp, ep=ep, rank=grid.rank, group=grid.groups.get("tp", group),
+                grid=grid)
 
 
 def _check_divisibility(config: ModelConfig, tp: int) -> None:
@@ -265,8 +335,15 @@ def _check_divisibility(config: ModelConfig, tp: int) -> None:
             raise ValueError(f"{name}={value} not divisible by tp={tp}")
 
 
+def _check_ep(config: ModelConfig, ep: int) -> None:
+    if not config.num_experts:
+        raise ValueError("mesh has an ep axis but the model has no experts")
+    if config.num_experts % ep:
+        raise ValueError(f"num_experts={config.num_experts} not divisible by ep={ep}")
+
+
 def _rules(config: ModelConfig, tp: int) -> Dict[str, Optional[str]]:
-    """Which logical axis each leaf splits on: "out" (column-parallel),
+    """Which logical axis each leaf splits on over tp: "out" (column-parallel),
     "in" (row-parallel: for the embedding, its vocabulary rows), or absent
     (whole)."""
     kv = "out" if config.num_kv_heads % tp == 0 else None
@@ -276,19 +353,31 @@ def _rules(config: ModelConfig, tp: int) -> Dict[str, Optional[str]]:
             "wk": kv, "wv": kv, "wo": "in", "w2": "in"}
 
 
-def _local(t: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
-    """This rank's contiguous 1/tp of ``t`` along ``axis``, a copy of its own
-    (so that the whole tensor can be freed)."""
+def _split(t: torch.Tensor, axis: int, parts: int, index: int) -> torch.Tensor:
+    """Part ``index`` of ``t`` cut into ``parts`` contiguous parts along
+    ``axis``, a copy of its own (so that the whole tensor can be freed)."""
     n = t.shape[axis]
-    if n % mesh.tp:
-        raise ValueError(f"axis {axis} of {tuple(t.shape)} not divisible by tp={mesh.tp}")
-    part = n // mesh.tp
-    return t.narrow(axis, mesh.rank * part, part).clone(memory_format=torch.contiguous_format)
+    if n % parts:
+        raise ValueError(f"axis {axis} of {tuple(t.shape)} not divisible into {parts} parts")
+    part = n // parts
+    return t.narrow(axis, index * part, part).clone(memory_format=torch.contiguous_format)
+
+
+def _local(t: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's contiguous 1/tp of ``t`` along ``axis``, at its tp place."""
+    return _split(t, axis, mesh.tp, mesh.index("tp"))
 
 
 def _shard_quantized(leaf: QuantizedTensor, rule: str, name: str, config: ModelConfig,
                      mesh: Mesh) -> QuantizedTensor:
     tp = mesh.tp
+    if leaf.bits == 4 and leaf.act_bits == 8 and rule == "in" and leaf.q.ndim > 2:
+        # One leading entry (layer, expert) at a time: the repack's unpacked
+        # copy stays the size of one entry, not of the whole stack.
+        parts = [_shard_quantized(leaf.layer(i), rule, name, config, mesh)
+                 for i in range(leaf.q.shape[0])]
+        return replace(parts[0], q=torch.stack([p.q for p in parts]),
+                       scales=torch.stack([p.scales for p in parts]))
     if name in ("wqkv", "w13"):
         segs = fused_segments(name, config)
         if not any(s % tp for s in segs):
@@ -310,13 +399,22 @@ def _shard_quantized(leaf: QuantizedTensor, rule: str, name: str, config: ModelC
 
 def _shard_leaf(leaf: Any, rule: Optional[str], name: str, config: ModelConfig,
                 mesh: Mesh) -> Any:
-    if rule is None:
+    if rule is None or mesh.tp == 1:
         return leaf
     if isinstance(leaf, LoraLinear):  # adaptors whole, as JAX replicates them
         return replace(leaf, base=_shard_leaf(leaf.base, rule, name, config, mesh))
     if isinstance(leaf, QuantizedTensor):
         return _shard_quantized(leaf, rule, name, config, mesh)
     return _local(leaf, -1 if rule == "out" else -2, mesh)
+
+
+def _local_experts(leaf: Any, mesh: Mesh) -> Any:
+    """This rank's experts (axis 1 of an ``[L, E, ...]`` stack) at its ep
+    place; a quantized stack's codes and scales alike."""
+    if isinstance(leaf, QuantizedTensor):
+        return replace(leaf, q=_split(leaf.q, 1, mesh.ep, mesh.index("ep")),
+                       scales=_split(leaf.scales, 1, mesh.ep, mesh.index("ep")))
+    return _split(leaf, 1, mesh.ep, mesh.index("ep"))
 
 
 def shard_params(params: Dict[str, Any], config: ModelConfig, mesh: Mesh) -> Dict[str, Any]:
@@ -326,35 +424,53 @@ def shard_params(params: Dict[str, Any], config: ModelConfig, mesh: Mesh) -> Dic
     ``group_size`` its local in-features): the bytes of the JAX package's
     ``shard_params`` shard on device ``rank``. Split leaves are copies, so
     the caller may free the whole tree; whole leaves are shared with it."""
-    if mesh.tp == 1:
+    if mesh.tp == 1 and mesh.ep == 1:
         return params
-    _check_divisibility(config, mesh.tp)
+    if mesh.tp > 1:
+        _check_divisibility(config, mesh.tp)
+    if mesh.ep > 1:
+        _check_ep(config, mesh.ep)
     rules = _rules(config, mesh.tp)
     out = {k: _shard_leaf(v, rules.get(k), k, config, mesh) for k, v in params.items()
            if k != "layers"}
-    out["layers"] = {k: _shard_leaf(v, rules.get(k), k, config, mesh)
-                     for k, v in params["layers"].items()}
+    layers = {}
+    for k, v in params["layers"].items():
+        if mesh.ep > 1 and k in EXPERT_LEAVES:  # the experts first: less to repack
+            v = _local_experts(v, mesh)
+        layers[k] = _shard_leaf(v, rules.get(k), k, config, mesh)
+    out["layers"] = layers
     return out
 
 
 def shard_cache(cache, mesh: Mesh):
-    """This rank's local cache: its kv-heads of a dense or int8 cache
-    (``[L, B, nkv, S, hd]``), or of a paged cache's pools (``[L, nkv, P,
-    ps, hd]``, scales ``[L, P, nkv, ps]``) with the page table whole, as the
-    JAX package's tp decode shards them. Whole when the kv-heads do not
-    divide by tp. The local tensors are copies."""
-    if mesh.tp == 1:
-        return cache
+    """This rank's local cache, as the JAX package's ``cache_partition_specs``
+    and ``paged_cache_partition_specs`` shard it: a dense or int8 cache
+    (``[L, B, nkv, S, hd]``, scales ``[L, B, nkv, S]``) its batch rows over
+    dp and its kv-heads over tp; a paged cache its pools' kv-heads over tp
+    (``[L, nkv, P, ps, hd]``, scales ``[L, P, nkv, ps]``) and its page
+    table's rows over dp. The kv-heads stay whole when they do not divide by
+    tp. Split tensors are copies; a cache with nothing to split is returned
+    as it is."""
     if isinstance(cache, PagedKVCache):
-        nkv, axes = cache.k_pages.shape[1], {"k_pages": 1, "v_pages": 1, "k_scale": 2,
-                                              "v_scale": 2}
+        nkv = cache.k_pages.shape[1]
+        heads, rows = {"k_pages": 1, "v_pages": 1, "k_scale": 2, "v_scale": 2}, \
+            {"page_table": 0}
     elif isinstance(cache, (KVCache, QuantizedKVCache)):
-        nkv, axes = cache.k.shape[2], {"k": 2, "v": 2, "k_scale": 2, "v_scale": 2}
+        nkv = cache.k.shape[2]
+        heads = {"k": 2, "v": 2, "k_scale": 2, "v_scale": 2}
+        rows = dict.fromkeys(heads, 1)
     else:
         raise TypeError(f"not a cache: {type(cache).__name__}")
-    if nkv % mesh.tp:
+    tp = mesh.tp if nkv % mesh.tp == 0 else 1
+    if tp == 1 and mesh.dp == 1:
         return cache
-    return type(cache)(**{
-        f.name: (_local(getattr(cache, f.name), axes[f.name], mesh) if f.name in axes
-                 else getattr(cache, f.name).clone())
-        for f in dataclasses.fields(cache)})
+
+    def local(name, t):
+        if name in rows and mesh.dp > 1:
+            t = _split(t, rows[name], mesh.dp, mesh.index("dp"))
+        if name in heads and tp > 1:
+            t = _split(t, heads[name], tp, mesh.index("tp"))
+        return t.clone() if t is getattr(cache, name) else t
+
+    return type(cache)(**{f.name: local(f.name, getattr(cache, f.name))
+                          for f in dataclasses.fields(cache)})

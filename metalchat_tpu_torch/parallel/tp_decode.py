@@ -23,6 +23,13 @@ every window that is not one token take the tensor-parallel layer route
 (`models.transformer.forward(..., tp=mesh)`), which computes the single
 device's function (JAX's GSPMD prefill).
 
+MoE rides the step on a mesh whose ep is 1 (JAX's ``moe_ok``): every rank
+routes alike on the whole router and runs each routed expert at its FFN
+width F/tp (the indexed matvec entry over the flattened ``[L·E]`` stack),
+and the post-FFN ``all_reduce`` joins w2's partial sums. A mesh with ep > 1
+is refused: its experts live on other ranks, and every window takes the
+layer route (`layer_route_forward_fn`), as JAX's GSPMD path does.
+
 The step runs collectives between its kernels: `engine.generate.DecodeStep`
 and the serving engine's bursts run it eagerly (`tp_decode_forward_fn` marks
 its function ``collectives = True``), on every backend.
@@ -41,9 +48,10 @@ from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor
 def tp_refusal(params: Dict[str, Any], config: ModelConfig, mesh: Mesh) -> Optional[str]:
     """Why the tensor-parallel decode cannot run this model on ``mesh``, or
     None when it can: the JAX package's gates (tp > 1; heads, kv-heads, FFN
-    width and vocabulary divisible by tp; no biases; quantized leaves act8
-    per-channel; a fused leaf quantized, so that `shard_params` blocks it,
-    or already blocked for this tp), and two of the port's own: no MoE and
+    width and vocabulary divisible by tp; no biases; MoE experts stacked
+    ``[L, E, ...]`` beside a router, on a mesh whose ep is 1; quantized
+    leaves act8 per-channel; a fused leaf quantized, so that `shard_params`
+    blocks it, or already blocked for this tp), and one of the port's own:
     no LoRA leaf (not ported under tp). ``params`` is the whole tree or a
     rank's local one."""
     tp = mesh.tp
@@ -56,7 +64,13 @@ def tp_refusal(params: Dict[str, Any], config: ModelConfig, mesh: Mesh) -> Optio
     if config.use_bias:
         return "biases are added once after the all_reduce; use_bias is not supported"
     if config.num_experts:
-        return "MoE under tp is not ported"
+        from metalchat_tpu_torch.models.decode import _moe_ok
+
+        if not _moe_ok(params, config):
+            return "MoE experts must be stacked [L, E, ...] beside a router"
+        if mesh.ep > 1:
+            return (f"ep={mesh.ep}: an expert-parallel mesh takes the layer route (the fast "
+                    "decode holds every expert's tp-shard)")
     for name in ("wqkv", "w13"):
         leaf = layers.get(name)
         if leaf is not None and not (isinstance(leaf, QuantizedTensor)
@@ -126,3 +140,35 @@ def tp_decode_forward_fn(params: Dict[str, Any], config: ModelConfig, mesh: Mesh
 
     fwd.collectives = True
     return fwd
+
+
+def layer_route_forward_fn(config: ModelConfig, mesh: Mesh):
+    """The ``forward_fn`` of the sharded layer route: every window, one
+    token included, through ``forward(..., tp=mesh)`` (JAX's GSPMD forward
+    on sharded params, whose ``supports_fast_decode`` is false). It carries
+    ``collectives = True``."""
+    from metalchat_tpu_torch.models.transformer import forward
+
+    def fwd(p, cache, tokens, start_pos):
+        return forward(p, cache, tokens, start_pos, config, tp=mesh)
+
+    fwd.collectives = True
+    return fwd
+
+
+def spmd_forward_fn(params: Dict[str, Any], config: ModelConfig, mesh: Mesh):
+    """The forward a rank of ``mesh`` runs, as the JAX engine picks it:
+    `tp_decode_forward_fn` where the tensor-parallel decode takes the model,
+    `layer_route_forward_fn` for MoE over an expert-parallel mesh (JAX's
+    GSPMD route); any other refusal raises ``ValueError`` with the reason
+    (the port has no partitioned route for such a model)."""
+    reason = tp_refusal(params, config, mesh)
+    if reason is None:
+        return tp_decode_forward_fn(params, config, mesh)
+    if mesh.ep > 1 and config.num_experts:
+        # The layer route's tp half needs what the tensor-parallel step does.
+        reason = None if mesh.tp == 1 else tp_refusal(params, config, replace(mesh, ep=1))
+        if reason is None:
+            return layer_route_forward_fn(config, mesh)
+    raise ValueError(f"spmd_mesh: {reason}; the port has no partitioned route for such "
+                     "a model")

@@ -312,17 +312,25 @@ def linear_row_parallel(x: torch.Tensor, w, mesh) -> torch.Tensor:
     single device's, and sums the exact int32 products (one ``all_reduce``
     sum) before the scales apply; while every partial sum stays below
     2**24, the f32 result is the single device's bit for bit. A dense leaf
-    sums f32 partial products, then rounds to x's dtype."""
+    sums f32 partial products, then rounds to x's dtype. A stack of leaves
+    (MoE experts: ``w`` ``[E, in/tp, out]`` or quantized ``q [E, ...]``)
+    takes ``x [E, T, in/tp]``, entry by entry, with the same two
+    collectives for the whole stack."""
     lead = x.shape[:-1]
     if isinstance(w, QuantizedTensor):
-        if not (w.act_bits == 8 and w.group_size == w.in_features and w.q.ndim == 2):
+        if not (w.act_bits == 8 and w.group_size == w.in_features and w.q.ndim in (2, 3)):
             raise ValueError("a row-parallel quantized leaf must be act8 per-channel")
         w = standard_packing(w)
-        x2 = x.reshape(-1, x.shape[-1])
-        absmax = mesh.all_reduce(x2.float().abs().amax(dim=-1, keepdim=True), "max")
-        xq, sx = act_quantize(x2, absmax)
-        acc = mesh.all_reduce(_a8_int_acc(xq, w)).float()
-        s_col = w.scales.reshape(w.out_features).float()
+        if w.q.ndim == 2:
+            x = x.reshape(-1, x.shape[-1])
+        absmax = mesh.all_reduce(x.float().abs().amax(dim=-1, keepdim=True), "max")
+        xq, sx = act_quantize(x, absmax)
+        if w.q.ndim == 2:
+            acc = _a8_int_acc(xq, w)
+        else:
+            acc = torch.stack([_a8_int_acc(xq[e], w.layer(e)) for e in range(w.q.shape[0])])
+        acc = mesh.all_reduce(acc).float()
+        s_col = w.scales.reshape(*w.q.shape[:-2], 1, w.out_features).float()
         return (acc * sx * s_col).to(x.dtype).reshape(*lead, w.out_features)
     if isinstance(w, LoraLinear):
         raise ValueError("LoRA leaves under tp are not ported")

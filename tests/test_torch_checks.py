@@ -28,6 +28,14 @@ cross pages: reading a chunk's rows all from its first page must fail. Flash att
 with P split into two bf16 parts (hi + lo) must pass; with P rounded to one
 bf16, as FlashAttention-2 usually does, it must fail: the check's limit is
 why the kernel splits P.
+
+mixtral-fixture's routing check (`chip_smoke.check_routed_logits`): one
+token routed to another expert on the "card" side (a forced flip of its
+K-th and (K+1)-th choices at a router near tie, as two sum orders can flip
+them) fails the plain logit check; the routing check names that step,
+layer and token and passes; with an expert's output wrong as well it
+fails, and so does a flip at a router gap above `chip_smoke.ROUTER_TIE_GAP`
+(the token's first choice dropped), which no drift explains.
 """
 
 import importlib
@@ -699,3 +707,118 @@ A8_INT4 = [c for c in chip_smoke.A8_FIXTURE if c[3] == 4]
 def test_a8_check_fails_a_planted_fault(monkeypatch, fault, case, rows):
     with pytest.raises(AssertionError, match="not bit-exact"):
         _run_a8(monkeypatch, fault, case, rows)
+
+
+# -- mixtral-fixture's routing check (a router near tie that flips) -------------
+
+def _tiny_moe():
+    from metalchat_tpu_torch.config import MixtralConfig
+    from metalchat_tpu_torch.models.transformer import init_random_params
+
+    cfg = MixtralConfig(vocab_size=128, hidden_size=64, intermediate_size=128, num_layers=2,
+                        num_heads=4, num_kv_heads=2, head_dim=16, max_seq_len=64,
+                        tie_word_embeddings=False, num_experts=4, num_experts_per_tok=2)
+    params = init_random_params(cfg, seed=3, dtype=torch.float32, device=CPU)
+    # Routers whose K-th and (K+1)-th choices carry weight, and experts that
+    # move the logits: a flip at a near tie then shows.
+    params["layers"]["router"] = params["layers"]["router"] * 3
+    for name in ("w1", "w3", "w2"):
+        params["layers"][name] = params["layers"][name] * 10
+    prompt = torch.randint(0, cfg.vocab_size, (1, 12), generator=torch.Generator().manual_seed(5))
+    return cfg, params, prompt
+
+
+def _cpu_run(cfg, params, prompt, steps: int = 4):
+    with chip_smoke.recorded_routing(torch, []) as cpu_calls:
+        ids, want = chip_smoke.greedy_logits(params, cfg, prompt, steps)
+    assert len(cpu_calls) == steps * cfg.num_layers
+    return ids, want, cpu_calls
+
+
+def _flip(cpu_calls, call: int, near: bool):
+    """Routing ``call``'s expert ids with its first token's K-th choice
+    (``near``: a near tie on this draw, CPU gap 0.0025) or its first choice
+    (not a tie) swapped for the CPU's (K+1)-th."""
+    idx, probs = cpu_calls[call]
+    idx, order = idx.clone(), probs[0].argsort(descending=True).tolist()
+    k = idx.shape[1]
+    out = order[k - 1] if near else order[0]
+    idx[0] = torch.where(idx[0] == out, torch.tensor(order[k]), idx[0])
+    return idx
+
+
+def _card_run(cfg, params, prompt, ids, call: int, idx):
+    """A stand-in for the card: the teacher-forced run with routing ``call``
+    taking the expert ids ``idx``."""
+    with chip_smoke.recorded_routing(torch, [], {call: idx}) as card_calls:
+        got = chip_smoke.teacher_forced_logits(params, cfg, prompt, ids)
+    return got, card_calls
+
+
+def test_routed_logits_check_names_a_flip_and_passes(capsys):
+    """A token routed to its (K+1)-th expert in place of its K-th on one side
+    (decode step 2, layer 0, a near tie): the plain logit check fails
+    there, the routing check names that step, layer and token with its
+    router gap and passes, holding the step to the CPU run given that
+    routing."""
+    cfg, params, prompt = _tiny_moe()
+    with torch.no_grad():
+        ids, want, cpu_calls = _cpu_run(cfg, params, prompt)
+        call = 2 * cfg.num_layers
+        got, card_calls = _card_run(cfg, params, prompt, ids, call, _flip(cpu_calls, call, True))
+        sm = chip_smoke.Smoke(torch)
+        with pytest.raises(AssertionError, match="beyond the limit"):
+            chip_smoke.check_logits(sm, "plain", got, want)
+        share, flips, held = chip_smoke.check_routed_logits(
+            sm, "routed", cfg, params, prompt, ids, want, cpu_calls, got, card_calls)
+    assert share <= 1.0
+    assert [(f["step"], f["layer"], f["row"]) for f in flips] == [(2, 0, 0)]
+    assert 0 <= flips[0]["gap"] <= chip_smoke.ROUTER_TIE_GAP
+    assert torch.equal(held[:2], want[:2]) and not torch.equal(held[2], want[2])
+    assert "routed: step 2 layer 0 token 0: the card routed to experts" in capsys.readouterr().out
+    out = held.argmax(-1).T  # the card's greedy ids from its own logits
+    assert chip_smoke.check_routed_ids(sm, "ids", out, ids, flips, held) in (
+        "identical", "parted at step 2, after the routing flip at step 2",
+        "parted at step 3, after the routing flip at step 2")
+
+
+def test_routed_logits_check_fails_a_wrong_expert_output():
+    """The same flip with the card's expert outputs wrong: in the last layer
+    (no routing reads its output, so the card routes as before), an expert
+    that the card takes for that step's token has its w2 scaled by 1.5.
+    The routing check still fails, at the logit limit."""
+    cfg, params, prompt = _tiny_moe()
+    with torch.no_grad():
+        ids, want, cpu_calls = _cpu_run(cfg, params, prompt)
+        call = 2 * cfg.num_layers
+        idx = _flip(cpu_calls, call, True)
+        _, card_calls = _card_run(cfg, params, prompt, ids, call, idx)
+        last = cfg.num_layers - 1
+        expert = int(card_calls[call + last][0][0, 0])
+        wrong = {**params, "layers": dict(params["layers"])}
+        w2 = wrong["layers"]["w2"].clone()
+        w2[last, expert] *= 1.5
+        wrong["layers"]["w2"] = w2
+        got, wrong_calls = _card_run(cfg, wrong, prompt, ids, call, idx)
+        assert all(torch.equal(a[0], b[0]) for a, b in zip(card_calls, wrong_calls))
+        with pytest.raises(AssertionError, match="beyond the limit"):
+            chip_smoke.check_routed_logits(chip_smoke.Smoke(torch), "routed", cfg, params,
+                                           prompt, ids, want, cpu_calls, got, wrong_calls)
+
+
+def test_routed_logits_check_fails_a_flip_at_a_large_gap():
+    """A token whose first choice the card dropped for the CPU's (K+1)-th:
+    its CPU router gap is above ROUTER_TIE_GAP, no drift between the card's
+    and the CPU's router explains it, and the routing check fails, although
+    the logits agree with the CPU given that routing."""
+    cfg, params, prompt = _tiny_moe()
+    with torch.no_grad():
+        ids, want, cpu_calls = _cpu_run(cfg, params, prompt)
+        call = 2 * cfg.num_layers
+        got, card_calls = _card_run(cfg, params, prompt, ids, call,
+                                    _flip(cpu_calls, call, False))
+        flip = chip_smoke.routing_flips(cpu_calls, card_calls, cfg.num_layers)[0]
+        assert flip["call"] == call and flip["gap"] > chip_smoke.ROUTER_TIE_GAP
+        with pytest.raises(AssertionError, match="not a near tie"):
+            chip_smoke.check_routed_logits(chip_smoke.Smoke(torch), "routed", cfg, params,
+                                           prompt, ids, want, cpu_calls, got, card_calls)

@@ -1,10 +1,11 @@
 """Structural rules of the PyTorch port.
 
-* No file of `metalchat_tpu_torch/` (its `parallel/` included: the
-  pipeline, context-parallel and ring-attention modules too), nor
-  `chip_smoke.py`, nor the parallel tests' rank workers
-  (`tests/torch_tp_worker.py`, `tests/torch_pp_cp_worker.py`) imports jax
-  or the JAX package `metalchat_tpu`.
+* No file of `metalchat_tpu_torch/` (its `parallel/` included: the mesh,
+  distributed, tensor-parallel, multi-host, pipeline, context-parallel and
+  ring-attention modules too), nor `chip_smoke.py`, nor the parallel
+  tests' rank workers (`tests/torch_tp_worker.py`,
+  `tests/torch_pp_cp_worker.py`, `tests/torch_mesh_axes_worker.py`)
+  imports jax or the JAX package `metalchat_tpu`.
 * An entry point asked for the card without one raises, and a kernel
   wrapper given a tensor that is not on the CPU or a card raises: neither
   falls back to the plain version.
@@ -22,13 +23,15 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "metalchat_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py",
-    ROOT / "tests" / "torch_pp_cp_worker.py"]
-PARALLEL_MODULES = ("pipeline", "context", "ring_attention")
+    ROOT / "tests" / "torch_pp_cp_worker.py", ROOT / "tests" / "torch_mesh_axes_worker.py"]
+PARALLEL_MODULES = ("pipeline", "context", "ring_attention", "mesh", "distributed",
+                    "tp_decode", "multihost")
 
 
 def test_parallel_modules_are_checked():
-    """The pipeline, context-parallel and ring-attention modules exist and
-    are among the files `test_port_imports_no_jax` reads."""
+    """The parallel modules (the mesh, distributed, tensor-parallel,
+    multi-host, pipeline, context-parallel and ring-attention ones) exist
+    and are among the files `test_port_imports_no_jax` reads."""
     for name in PARALLEL_MODULES:
         assert ROOT / "metalchat_tpu_torch" / "parallel" / f"{name}.py" in PORT_FILES
 

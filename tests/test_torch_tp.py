@@ -45,6 +45,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from metalchat_tpu import config as jconfig
 from metalchat_tpu.cache import KVCache as JKVCache
 from metalchat_tpu.cache import PagedKVCache as JPagedKVCache
 from metalchat_tpu.cache import QuantizedKVCache as JQKVCache
@@ -348,8 +349,10 @@ def test_multihost_engine_same_streams(runs):
 def test_gating_refuses_what_jax_refuses():
     """``supports_tp_fast_decode`` on tests/test_tp_decode.py's cases (a
     dense model; a dense fused leaf; kv-heads that tp=4 does not divide)
-    and a grouped weight-only model: the JAX package's answers. The port
-    also refuses MoE and LoRA leaves (not ported under tp); JAX takes MoE."""
+    and a grouped weight-only model: the JAX package's answers. MoE as
+    JAX answers it: stacked experts on a tp-only mesh are taken, a mesh
+    with ep > 1 is refused with the reason (and so is a tree without its
+    router). The port also refuses LoRA leaves (not ported under tp)."""
     cfg = port_config(CFG)
     params = jinit(CFG, seed=0, dtype=jnp.float32)
     tparams = params_from_numpy(jax_tree_to_numpy(params), CPU)
@@ -368,8 +371,17 @@ def test_gating_refuses_what_jax_refuses():
     assert [supports_tp_fast_decode(c[1], cfg, Mesh(tp=c[2])) for c in cases] == [
         True, False, False, False]
     assert "not divisible" in tp_refusal(tparams, cfg, Mesh(tp=4))
-    moe = dataclasses.replace(cfg, num_experts=4, num_experts_per_tok=2)
-    assert "MoE" in tp_refusal(tparams, moe, Mesh(tp=TP))
+    jmoe_cfg = jconfig.MixtralConfig(**{**{f.name: getattr(CFG, f.name)
+                                           for f in dataclasses.fields(CFG)},
+                                        "num_experts": 4, "num_experts_per_tok": 2})
+    jmoe = jinit(jmoe_cfg, seed=0, dtype=jnp.float32)
+    moe, tmoe = port_config(jmoe_cfg), params_from_numpy(jax_tree_to_numpy(jmoe), CPU)
+    for tp, ep in ((TP, 1), (TP, 2)):
+        want = jtp.supports_tp_fast_decode(jmoe, jmoe_cfg, jmesh.make_mesh(
+            tp=tp, ep=ep, devices=jax.devices()[:tp * ep]))
+        assert supports_tp_fast_decode(tmoe, moe, Mesh(tp=tp, ep=ep)) == want == (ep == 1)
+    assert "ep=2" in tp_refusal(tmoe, moe, Mesh(tp=TP, ep=2))
+    assert "MoE" in tp_refusal(tparams, moe, Mesh(tp=TP))  # no router in the tree
     lora = dict(tparams, layers=dict(tparams["layers"], wq=tq.LoraLinear(
         base=tparams["layers"]["wq"], a=torch.zeros(2, 512, 4), b=torch.zeros(2, 4, 512))))
     assert "LoRA" in tp_refusal(lora, cfg, Mesh(tp=TP))
