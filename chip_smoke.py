@@ -57,7 +57,9 @@ Phases (any failure makes the script exit non-zero without a result line):
    1600 and 6400 and at the odd vocabulary, out 50257). Row 1 at the 8B's
    tensor-parallel local shapes over two ranks (``A8_8B_TP2``: wqkv 3072,
    wo K 2048, w13 14336, w2 K 7168, the lm_head's 64128 rows) at 1 and 8
-   rows.
+   rows. Row 11 at phase tp-leaves' local shapes (``QMM_8B_INT4_TP2``,
+   ``QMM_QLORA_1B_TP2``) at 1 and 8 rows, and the row-parallel ones in the
+   f32-output mode within the f32 limit.
 4. The trained fixture end to end, W4A8 + int8 KV, 3 requests through
    ``generate``: kernels on the card against the plain path on the CPU; the
    first 16 greedy tokens of each request must agree. fixture-int: the same
@@ -191,7 +193,21 @@ Phases (any failure makes the script exit non-zero without a result line):
    requests of 116, 116 and 244 tokens in two rounds, 12 greedy tokens each
    on the sharded layer route, rank 0's ids equal, request by request, to a
    one-process loop of ``forward(fast_decode=False)``; per rank 32 flash a
-   round and 32 row-6 launches a step. tp-moe (``phase_tp_moe``):
+   round and 32 row-6 launches a step; then ``MultiHostEngine`` on the same
+   mesh and tree (an int8 cache of 4 slots, 2 a dp row, the
+   tensor-parallel decode): streams equal on every rank, rank 0's ids equal
+   to the one-process engine's or parted at a near tie, each prompt window
+   run only on the dp row that owns its slots, launches exact per rank.
+   tp-leaves (after tp-moe, ``phase_tp_leaves``): the sharded layer route
+   on two ranks (``leaves_rank``) for the trees the tensor-parallel decode
+   refuses: 8b-int4 (group-wise int4, fused; row 11 at the tp-local
+   shapes, the row-parallel leaves in its f32-output mode), qlora-1b (int8
+   bases with LoRA adaptors, from a reference file the phase writes) and
+   GPT-2 large (W8A8, non-zero biases, an odd vocabulary); a 128-token
+   prompt and 8 greedy tokens each, held against one process's
+   ``forward(fast_decode=False)``: the prefill's last logits within
+   ``check_logits``' limit, ids equal or parted at a near tie, launches
+   exact per rank. tp-moe (``phase_tp_moe``):
    Mixtral-8x7B's widths cut to 8 layers, W4A8, int8 KV, two ranks
    (``moe_tp_rank``): (a) tp 2, MoE on the tensor-parallel decode (each
    routed expert through row 1's indexed entry at F/tp): the 512-token
@@ -203,7 +219,7 @@ Phases (any failure makes the script exit non-zero without a result line):
    ids equal on both ranks and to a one-process ``forward(fast_decode=
    False)`` loop or parted at a near tie, launches exact (8 flash a
    prefill, 8 row 6 a step, no row 1). gptq-1b: random dense
-   bf16 weights at the same widths, the first ``GPTQ_LAYERS`` (8) of 16
+   bf16 weights at the same widths, the first ``GPTQ_LAYERS`` (4) of 16
    layers, ``gptq_quantize_params`` (W4A8, AWQ α
    ``GPTQ_AWQ_ALPHA``, two refits) on 8 x 512 calibration tokens, no
    factorization fallback, the AWQ fold's layer 0 byte for byte against the
@@ -979,10 +995,13 @@ def check_paged(sm: Smoke, B, nh, nkv, hd, psize, mp, cases, gen, dev, dtype=Non
             torch.cuda.synchronize()
 
 
-def check_qmm(sm: Smoke, shapes, rows: int, gen, dev, dtype=None, scales_dtype=None):
+def check_qmm(sm: Smoke, shapes, rows: int, gen, dev, dtype=None, scales_dtype=None,
+              out_dtype=None):
     """The dequant-matmul kernel (row 11) against its plain version. Each
     shape is (name, out, in, bits, group, transposed); random packed bytes,
-    positive scales in ``scales_dtype`` (bf16 by default), x in ``dtype``."""
+    positive scales in ``scales_dtype`` (bf16 by default), x in ``dtype``;
+    ``out_dtype`` f32 is the row-parallel mode (the f32 sums not rounded to
+    x's dtype), held to the f32 plain version within the f32 limit."""
     torch = sm.torch
     dtype = dtype or torch.bfloat16
     scales_dtype = scales_dtype or torch.bfloat16
@@ -998,11 +1017,13 @@ def check_qmm(sm: Smoke, shapes, rows: int, gen, dev, dtype=None, scales_dtype=N
         s = (torch.rand(s_shape, generator=gen, device=dev) * 0.01 + 0.001).to(scales_dtype)
         x = torch.randn((rows, in_f), generator=gen, device=dev).to(dtype)
         kw = dict(bits=bits, group_size=group, transposed=transposed)
+        if out_dtype is not None:
+            kw["out_dtype"] = out_dtype
         sm.close("quant_matmul", m.dequant_matmul(x, q, s, **kw),
                  m.dequant_matmul_plain(x, q, s, **kw),
                  f"quant_matmul {name} {out_f}x{in_f} w{bits} g{group} "
                  f"{'transposed' if transposed else 'natural'} B={rows} {dtype} "
-                 f"scales {scales_dtype}")
+                 f"scales {scales_dtype} out {out_dtype or dtype}")
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
@@ -1164,6 +1185,21 @@ QMM_1B_INT8 = [("wqkv", 3072, 2048, 8, 32, True), ("wo", 2048, 2048, 8, 32, Fals
 QMM_QLORA_1B = [("wq", 2048, 2048, 8, 32, False), ("wk/wv", 512, 2048, 8, 32, False),
                 ("wo", 2048, 2048, 8, 32, False), ("w1/w3", 8192, 2048, 8, 32, True),
                 ("w2", 2048, 8192, 8, 32, False), ("lm_head", 128256, 2048, 8, 32, False)]
+# Row 11 at a tp-2 rank's local shapes (phase tp-leaves): 8b-int4 fused as
+# `make_8b` builds it (wqkv and w13 at half their rows, wo and w2 at half
+# their in-features, the lm_head's 64128 vocabulary rows) and qlora-1b's
+# (int8, f32 scales, every projection unfused, the tied head natural at
+# 64128 columns). The row-parallel leaves (wo, w2) also in the f32-output
+# mode, with one transposed leaf for the tensor-core route's store.
+QMM_8B_INT4_TP2 = [("wqkv tp2", 3072, 4096, 4, 32, True), ("wo tp2", 4096, 2048, 4, 32, False),
+                   ("w13 tp2", 14336, 4096, 4, 32, True), ("w2 tp2", 4096, 7168, 4, 32, False),
+                   ("lm_head tp2", 64128, 4096, 4, 32, True)]
+QMM_QLORA_1B_TP2 = [("wq tp2", 1024, 2048, 8, 32, False), ("wk/wv tp2", 256, 2048, 8, 32, False),
+                    ("wo tp2", 2048, 1024, 8, 32, False), ("w1/w3 tp2", 4096, 2048, 8, 32, True),
+                    ("w2 tp2", 2048, 4096, 8, 32, False),
+                    ("lm_head tp2", 64128, 2048, 8, 32, False)]
+QMM_ROW_PARALLEL_TP2 = [QMM_8B_INT4_TP2[1], QMM_8B_INT4_TP2[3], QMM_8B_INT4_TP2[2]]
+QMM_QLORA_ROW_PARALLEL_TP2 = [QMM_QLORA_1B_TP2[2], QMM_QLORA_1B_TP2[4], QMM_QLORA_1B_TP2[3]]
 # The fixture's widths, per-channel and group scales, both orientations.
 QMM_FIXTURE = [("wqkv", 768, 384, 4, 32, True), ("wo", 384, 384, 4, 32, False),
                ("w13", 2048, 384, 8, 32, True), ("w2", 384, 1024, 8, 32, False),
@@ -1370,6 +1406,14 @@ def phase_kernels(sm: Smoke):
     gen_tp.manual_seed(19)
     for rows in (1, 8):
         check_a8(sm, A8_8B_TP2, rows, gen_tp, dev)
+    gen_leaves = torch.Generator(device=dev)  # phase tp-leaves' shapes, a generator of their own
+    gen_leaves.manual_seed(23)
+    for rows in (1, 8):
+        check_qmm(sm, QMM_8B_INT4_TP2, rows, gen_leaves, dev)
+        check_qmm(sm, QMM_QLORA_1B_TP2, rows, gen_leaves, dev, scales_dtype=torch.float32)
+        check_qmm(sm, QMM_ROW_PARALLEL_TP2, rows, gen_leaves, dev, out_dtype=torch.float32)
+        check_qmm(sm, QMM_QLORA_ROW_PARALLEL_TP2, rows, gen_leaves, dev,
+                  scales_dtype=torch.float32, out_dtype=torch.float32)
     for rows in FFN_ROWS:
         check_ffn_block(sm, 4096, 14336, rows, FFN_CASES, gen, dev)
     check_graph_replay(sm, 2, 32, 8, 1024, 128, gen, dev)
@@ -2392,11 +2436,11 @@ GPTQ_AWQ_ALPHA = 0.5
 # 8192 channels make its CPU side the costly one: 15.9 s at 64 columns on the
 # H100 machine's host, so 32).
 GPTQ_COMPARE = {"wk": 256, "wo": 256, "w1": 256, "w2": 32}
-# gptq-1b runs Llama-3.2-1B's widths cut to its first 8 of 16 layers (GPTQ
+# gptq-1b runs Llama-3.2-1B's widths cut to its first 4 of 16 layers (GPTQ
 # took 68.8 s at full depth on an NVIDIA H100 80GB HBM3 at 700 W, about 4.3 s
-# a layer), so that the script, with its train phase, stays inside its time
-# limit.
-GPTQ_LAYERS = 8
+# a layer; 8 layers until the tp-leaves phase was added), so that the
+# script, with its train and parallel phases, stays inside its time limit.
+GPTQ_LAYERS = 4
 # Greedy steps compared bit for bit after a native export and reload.
 ROUNDTRIP_STEPS = 16
 
@@ -3576,13 +3620,16 @@ def tree_digest(torch, params):
     """One int64 a tensor of the tree (in a fixed walk): its bytes, each
     weighted by its position mod 65521 plus 1, summed; equal trees give
     equal digests."""
-    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+    from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor
 
     leaves = []
 
     def walk(node):
         if isinstance(node, QuantizedTensor):
             leaves.extend((node.q, node.scales))
+        elif isinstance(node, LoraLinear):
+            walk(node.base)
+            leaves.extend((node.a, node.b))
         elif isinstance(node, dict):
             for k in sorted(node):
                 walk(node[k])
@@ -4253,6 +4300,11 @@ MOE_TP_RANKS, MOE_TP_STEPS, MOE_TP_TIMED = 2, 16, 4
 MH_RANKS, MH_BATCH, MH_NEW = 4, 2, 12
 MH_PROMPT_LENS = (116, 116, 244)
 MH_TIMEOUT_S = 420
+# Then MultiHostEngine on the same mesh and tree: the tensor-parallel decode
+# (W4A8 takes it), an int8 dense cache of 4 slots (2 a dp row), bursts of 4,
+# the same requests.
+MH_ENGINE = dict(max_slots=4, max_seq_len=256, quantized_kv=True, decode_burst=4,
+                 prefill_chunk=256)
 
 
 def moe_tp_rank(rank: int, store: str, out_dir: str) -> None:
@@ -4506,16 +4558,20 @@ def multihost_rank(rank: int, store: str, out_dir: str) -> None:
     """One rank of phase multihost, a process of its own: joins the gloo
     group of MH_RANKS, builds `make_hybrid_mesh(dcn_dp=2, tp=2)`, makes the
     seeded 8b-w4a8 tree (`make_8b`) on the card, checks that every rank holds
-    the same bytes, builds `MultiHostServer` on it (which shards it; the
-    whole tree is then freed) and serves `mh_prompts` (rank 0's; the others
-    pass None). Saves what it saw to ``out_dir/rank{rank}.pt``."""
+    the same bytes, builds `MultiHostServer` on it (which shards it) and
+    serves `mh_prompts` (rank 0's; the others pass None), then builds
+    `MultiHostEngine` (MH_ENGINE) on the same tree, frees the whole tree and
+    serves the same requests through the engine. Saves what it saw to
+    ``out_dir/rank{rank}.pt``."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.engine import Request
     from metalchat_tpu_torch.parallel import (
+        MultiHostEngine,
         MultiHostServer,
         initialize,
         make_hybrid_mesh,
@@ -4531,7 +4587,6 @@ def multihost_rank(rank: int, store: str, out_dir: str) -> None:
         out = same_tree(torch, full)
         server = MultiHostServer(full, cfg, mesh, batch_size=MH_BATCH, max_new_tokens=MH_NEW,
                                  quantized_kv=True)
-        del full
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         out.update(setup_s=time.perf_counter() - t0, local_bytes=weight_bytes(server.params),
@@ -4543,6 +4598,26 @@ def multihost_rank(rank: int, store: str, out_dir: str) -> None:
         torch.cuda.synchronize()
         out.update(results=results, counts=launch_counts(), s=time.perf_counter() - t,
                    collectives={k: v - before.get(k, 0) for k, v in mesh.counts.items()})
+        del server
+        engine = MultiHostEngine(full, cfg, mesh, **MH_ENGINE)
+        del full
+        torch.cuda.empty_cache()
+        requests = None
+        if rank == 0:
+            requests = [Request(prompt=p, max_new_tokens=MH_NEW) for p in mh_prompts(torch, cfg)]
+        before = dict(mesh.counts)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        done = engine.run(requests)
+        torch.cuda.synchronize()
+        e = engine.engine
+        out["engine"] = dict(
+            streams=[(c.tokens, c.finished, c.error) for c in done.values()],
+            counts=launch_counts(), s=time.perf_counter() - t, counters=dict(e.counters),
+            shapes=dict(e.prefill_shapes), route=e.forward_fn.__qualname__.split(".")[0],
+            local_slots=int(e.cache.k.shape[1]), captures=len(e._graphs),
+            collectives={k: v - before.get(k, 0) for k, v in mesh.counts.items()})
         torch.save(out, f"{out_dir}/rank{rank}.pt")
     finally:
         shutdown()
@@ -4557,7 +4632,13 @@ def phase_multihost(sm: Smoke, main, smi: str):
     loop of `forward(fast_decode=False)` on a cache of the same length (the
     layer route under tp is the single device's function); the other ranks
     return nothing; launches exact per rank (flash a layer a round's
-    prefill, row 6 a layer a step)."""
+    prefill, row 6 a layer a step). Then `MultiHostEngine` (MH_ENGINE: 2
+    slots a dp row, the tensor-parallel decode) on the same requests:
+    every rank's streams the same, rank 0's ids equal to the one-process
+    engine's or parted at a near tie (`engine_parting`), each rank's cache
+    its dp row's 2 slots, launches exact per rank (row 1 and row 3 on every
+    step of every burst, flash only for the prompt windows its dp row
+    owns)."""
     torch = sm.torch
     import tempfile
 
@@ -4606,9 +4687,292 @@ def phase_multihost(sm: Smoke, main, smi: str):
           f"int8 KV): rank 0's ids equal to the one-process layer route's, request by request; "
           f"{tokens / r0['s']:.2f} tok/s over {r0['s']:.2f} s (the one-process layer-route loop "
           f"{ref_s:.2f} s for the same requests one by one); launches a rank {r0['counts']}; "
-          f"collectives a rank {r0['collectives']}; phase wall {wall:.1f} s for the ranks "
-          f"({smi.splitlines()[0]}); functional numbers, not a parallel speed figure", flush=True)
-    return r0["counts"]
+          f"collectives a rank {r0['collectives']}", flush=True)
+    engine = multihost_engine_check(sm, main, ranks, prompts)
+    print(f"multihost: phase wall {wall:.1f} s for the ranks ({smi.splitlines()[0]}); "
+          "functional numbers, not a parallel speed figure", flush=True)
+    return {"server": r0["counts"], "engine": engine}
+
+
+def engine_parting(sm: Smoke, what: str, params, cfg, prompt, ids, got) -> str:
+    """``got`` (a request's ids) against the one-process engine's ``ids``:
+    identical, or parted first at an index j where the one-process greedy
+    route (the prompt's prefill, then one-token steps over ids[:j] on an
+    int8 cache) has ``ids[j]`` and ``got[j]`` as its top two logits within
+    `check_logits`' limit of each other. Otherwise the phase fails."""
+    torch = sm.torch
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.models.transformer import forward
+
+    diff = [i for i, (a, b) in enumerate(zip(got, ids)) if a != b]
+    if not diff:
+        return "identical"
+    j, m, dev = diff[0], len(prompt), "cuda"
+    cache = QuantizedKVCache.create(cfg, 1, m + j + 1, device=dev)
+    row = forward(params, cache, torch.tensor([prompt], device=dev), 0, cfg)[0][0, -1]
+    for i in range(j):
+        row = forward(params, cache, torch.tensor([[ids[i]]], device=dev), m + i, cfg)[0][0, -1]
+    row = row.float()
+    top = torch.topk(row, 2)
+    gap = (top.values[0] - top.values[1]).item()
+    limit = RTOL["bfloat16"] * top.values[0].abs().item() + LOGIT_SHARE * row.abs().max().item()
+    sm.expect(sorted(top.indices.tolist()) == sorted([ids[j], got[j]]) and gap <= limit,
+              f"{what}: ids part at index {j} (got {got[j]}, one process {ids[j]}; its top two "
+              f"{top.indices.tolist()}, gap {gap}, limit {limit}): not a near tie")
+    return f"parted at index {j} of {len(ids)}, a near tie (top-2 gap {gap:.4g}, limit {limit:.4g})"
+
+
+def multihost_engine_check(sm: Smoke, main, ranks, prompts) -> dict:
+    """Phase multihost's `MultiHostEngine` run against the one-process
+    engine (MH_ENGINE on main's params, its bursts captured); returns rank
+    0's launches."""
+    torch = sm.torch
+    from metalchat_tpu_torch.engine import ContinuousBatchingEngine, Request
+    from metalchat_tpu_torch.ops import launch_counts
+
+    cfg, params = main[0], main[1]
+    L = cfg.num_layers
+    one = ContinuousBatchingEngine(params, cfg, **MH_ENGINE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = [c.tokens for c in one.run([Request(prompt=p, max_new_tokens=MH_NEW)
+                                       for p in prompts]).values()]
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    e0 = ranks[0]["engine"]
+    streams = e0["streams"]
+    sm.expect(len(streams) == len(prompts) and all(
+        f and err is None and len(t) == MH_NEW for t, f, err in streams),
+        f"multihost engine: unfinished or short completions "
+        f"{[(len(t), f, err) for t, f, err in streams]}")
+    partings = [engine_parting(sm, f"multihost engine request {i}", params, cfg, p, w, t)
+                for i, (p, w, (t, _, _)) in enumerate(zip(prompts, want, streams))]
+    zero = dict.fromkeys(launch_counts(), 0)
+    for r, res in enumerate(ranks):
+        e = res["engine"]
+        sm.expect(e["streams"] == streams, f"multihost engine: rank {r}'s streams differ")
+        sm.expect(e["route"] == "tp_decode_forward_fn" and e["captures"] == 0,
+                  f"multihost engine: rank {r} route {e['route']}, captures {e['captures']}")
+        sm.expect(e["local_slots"] == MH_ENGINE["max_slots"] // 2,
+                  f"multihost engine: rank {r} holds {e['local_slots']} slots")
+        steps = e["counters"]["decode_steps"]
+        windows = sum(n for (b, s_), n in e["shapes"].items() if s_ > 16)
+        expect = {**zero, **tp_launches(cfg, steps, windows, "decode_attention_update")}
+        sm.expect(e["counts"] == expect,
+                  f"multihost engine: rank {r} launches {e['counts']} != {expect}")
+    owners = {r: dict(res["engine"]["shapes"]) for r, res in enumerate(ranks)}
+    rows = [sum(b * n for (b, _), n in owners[r].items()) for r in range(0, len(ranks), 2)]
+    sm.expect(all(owners[r] == owners[r + 1] for r in range(0, len(ranks), 2))
+              and sum(rows) == sum(b * n for (b, _), n in one.prefill_shapes.items()),
+              f"multihost engine: prompt rows by rank {owners}, one process "
+              f"{dict(one.prefill_shapes)}: a prompt ran off its dp row or twice")
+    tokens = len(prompts) * MH_NEW
+    print(f"multihost engine (MultiHostEngine on the same mesh and tree, {MH_ENGINE}; "
+          f"the tensor-parallel decode, every burst eager): streams equal on every rank; "
+          f"rank 0 against the one-process engine: {partings}; {tokens / e0['s']:.2f} tok/s "
+          f"over {e0['s']:.2f} s (the one-process engine {one_s:.2f} s, its bursts "
+          f"captured); counters {e0['counters']}; prompt windows by rank (each its dp row's "
+          f"own) {owners}; launches a rank {e0['counts']}; collectives a rank "
+          f"{e0['collectives']}", flush=True)
+    del one
+    torch.cuda.empty_cache()
+    return e0["counts"]
+
+
+# -- the sharded layer route on every leaf kind: phase tp-leaves -----------------
+
+# Three trees that the tensor-parallel decode refuses, through the forward the
+# engine picks for them on make_mesh(tp=2) (`spmd_forward_fn`: the sharded
+# layer route), two ranks on the card: a prompt, then greedy tokens, on an
+# int8 cache of LEAVES_CACHE positions (row 6 at one token).
+LEAVES_RANKS, LEAVES_PROMPT, LEAVES_NEW, LEAVES_CACHE = 2, 128, 8, 256
+LEAVES_TIMEOUT_S = 420
+LEAVES_TREES = ("8b-int4", QLORA_LABEL, "gpt2-large-w8a8")
+# openai-community/gpt2-large's config.json: 36 layers of 20 heads of 64,
+# hidden 1280, intermediate 5120, 1024 positions, vocabulary 50257 (odd: the
+# embedding and the tied head stay whole on each rank).
+GPT2_LARGE_JSON = {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2", "n_embd": 1280,
+                   "n_head": 20, "n_layer": 36, "n_positions": 1024, "n_ctx": 1024,
+                   "vocab_size": 50257, "layer_norm_epsilon": 1e-5,
+                   "activation_function": "gelu_new", "bos_token_id": 50256,
+                   "eos_token_id": 50256}
+
+
+def leaves_tree(torch, name: str, tmp: str):
+    """(config, whole tree on the card, weight-only linears a window) of
+    phase tp-leaves' tree ``name``: 8b-int4 as `make_8b` builds it (group
+    32, wqkv and w13 fused), qlora-1b from the reference-dialect file the
+    phase wrote to ``tmp`` (int8 group 32, f32 scales, rank-16 adaptors on
+    every projection, the head tied), GPT-2 large W8A8 with non-zero biases
+    and wqkv fused (`make_gpt2_params`)."""
+    from metalchat_tpu_torch.config import config_from_dict
+    from metalchat_tpu_torch.io.safetensors import open_safetensors
+    from metalchat_tpu_torch.quant.checkpoint import load_reference_qlora
+
+    if name == "8b-int4":
+        cfg, params = make_8b(Smoke(torch), "tp-leaves 8b-int4", bits=4, group_size=32)
+        return cfg, params, 4 * cfg.num_layers + 1
+    if name == QLORA_LABEL:
+        cfg = config_from_dict(LLAMA32_1B_CONFIG).replace(max_seq_len=1024)
+        params = load_reference_qlora(open_safetensors(f"{tmp}/qlora.safetensors"), cfg,
+                                      device="cuda", max_seq_len=1024)
+        return cfg, params, 7 * cfg.num_layers + 1
+    cfg = config_from_dict(GPT2_LARGE_JSON)
+    return cfg, make_gpt2_params(cfg, "cuda"), 0
+
+
+def leaves_prompt(torch, cfg):
+    """A prompt of LEAVES_PROMPT tokens from a generator seeded 0 on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return torch.randint(0, cfg.vocab_size, (1, LEAVES_PROMPT), generator=gen, device="cuda")
+
+
+def leaves_launches(cfg, weight_only: int, steps: int, prefills: int) -> dict:
+    """The sharded layer route's launches: flash a layer a prompt window, row
+    6 a layer a one-token step, row 11 once a weight-only linear a step (a
+    prompt's 128 rows take the plain product), nothing else."""
+    from metalchat_tpu_torch.ops import launch_counts
+
+    L = cfg.num_layers
+    want = {**dict.fromkeys(launch_counts(), 0), "flash_attention": L * prefills,
+            "decode_attention_layer": L * steps}
+    want["quant_matmul"] = weight_only * steps
+    return want
+
+
+def leaves_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase tp-leaves, a process of its own: for each of
+    LEAVES_TREES it makes the tree on the card (`leaves_tree`), checks that
+    every rank holds the same bytes, shards it for tp 2 (`shard_params`),
+    frees the whole tree and runs `tp_greedy` through `spmd_forward_fn`'s
+    forward. Saves what it saw to ``out_dir/rank{rank}.pt``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.parallel import (
+        initialize,
+        make_mesh,
+        shard_cache,
+        shard_params,
+        shutdown,
+        spmd_forward_fn,
+    )
+
+    initialize(f"file://{store}", LEAVES_RANKS, rank, backend=TP_BACKEND,
+               timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    try:
+        mesh = make_mesh(tp=LEAVES_RANKS)
+        out = {}
+        for name in LEAVES_TREES:
+            t0 = time.perf_counter()
+            cfg, full, _ = leaves_tree(torch, name, out_dir)
+            res = same_tree(torch, full)
+            params = shard_params(full, cfg, mesh)
+            del full
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            res.update(setup_s=time.perf_counter() - t0, local_bytes=weight_bytes(params))
+            fwd = spmd_forward_fn(params, cfg, mesh)
+            cache = shard_cache(QuantizedKVCache.create(cfg, 1, LEAVES_CACHE, device="cuda"),
+                                mesh)
+            before = dict(mesh.counts)
+            res["greedy"] = tp_greedy(torch, fwd, params, cache, leaves_prompt(torch, cfg),
+                                      LEAVES_NEW - 1)
+            res.update(route=fwd.__qualname__.split(".")[0],
+                       collectives={k: v - before.get(k, 0) for k, v in mesh.counts.items()})
+            out[name] = res
+            del params, cache
+            torch.cuda.empty_cache()
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        shutdown()
+
+
+def phase_tp_leaves(sm: Smoke, int4_run, smi: str):
+    """The sharded layer route on the leaf kinds the tensor-parallel decode
+    refuses, `LEAVES_RANKS` ranks on one card over `TP_BACKEND`
+    (`leaves_rank`): 8b-int4 at Llama-3.1-8B's width and depth (group-wise
+    int4, fused: row 11 at the tp-local shapes, the row-parallel ones in its
+    f32 mode), qlora-1b at Llama-3.2-1B's (int8 group 32 bases with LoRA
+    adaptors, all 16 layers) and GPT-2 large's published widths (W8A8, non-
+    zero biases, wqkv fused, an odd vocabulary). Each: a 128-token prompt
+    and 8 greedy tokens on an int8 cache, held against one process's
+    `forward(fast_decode=False)` on the same tree (every rank's digest equal
+    to it; 8b-int4's tree is phase main-int4's): the prefill's last logits
+    within `check_logits`' limit, the ids equal or parted at a near tie
+    (`layer_route_parting`), every rank's ids the same, the route the
+    sharded layer route, launches exact per rank (`leaves_launches`)."""
+    torch = sm.torch
+    import tempfile
+    from pathlib import Path
+
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.config import config_from_dict
+    from metalchat_tpu_torch.models.transformer import forward
+
+    print(f"tp-leaves: {LEAVES_RANKS} ranks over {TP_BACKEND} on one card, make_mesh(tp="
+          f"{LEAVES_RANKS}); each rank makes {', '.join(LEAVES_TREES)} in turn on the card, "
+          "shards it and frees the whole tree", flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        nbytes = write_reference_qlora(Path(tmp) / "qlora.safetensors",
+                                       config_from_dict(LLAMA32_1B_CONFIG))
+        print(f"tp-leaves: {QLORA_LABEL}'s reference file, {nbytes / 1e9:.4f} GB, written in "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+        ranks, wall = spawn_ranks(sm, "tp-leaves", leaves_rank, LEAVES_RANKS, LEAVES_TIMEOUT_S,
+                                  tmp)
+        for name in LEAVES_TREES:
+            if name == "8b-int4" and int4_run is not None:
+                cfg, params, n_wo = int4_run[0], int4_run[1], 4 * int4_run[0].num_layers + 1
+            else:
+                cfg, params, n_wo = leaves_tree(torch, name, tmp)
+            label = f"tp-leaves {name}"
+            r0 = ranks[0][name]
+            sm.expect(all(r[name]["same_bytes"] for r in ranks),
+                      f"{label}: the ranks' trees differ")
+            sm.expect(torch.equal(tree_digest(torch, params), r0["digest"]),
+                      f"{label}: the ranks' tree differs from this process's")
+            ref = tp_greedy(torch, lambda p, c, t_, s_: forward(p, c, t_, s_, cfg,
+                                                                 fast_decode=False),
+                            params, QuantizedKVCache.create(cfg, 1, LEAVES_CACHE, device="cuda"),
+                            leaves_prompt(torch, cfg), LEAVES_NEW - 1)
+            got = r0["greedy"]
+            share = check_logits(sm, f"{label} prefill's last logits", got["prefill"][-1:],
+                                 ref["prefill"][-1:])
+            parting = layer_route_parting(sm, label, ref, got["ids"])
+            for r, res in enumerate(ranks):
+                g = res[name]["greedy"]
+                sm.exact(g["ids"], got["ids"], f"{label}: rank {r}'s ids against rank 0's")
+                sm.expect(res[name]["route"] == "layer_route_forward_fn",
+                          f"{label}: rank {r} took {res[name]['route']}")
+                for what, counts, want in (
+                        ("prefill", g["prefill_counts"], leaves_launches(cfg, n_wo, 0, 1)),
+                        ("steps", g["step_counts"],
+                         leaves_launches(cfg, n_wo, LEAVES_NEW - 1, 0))):
+                    sm.expect(counts == want, f"{label}: rank {r}'s {what} launches {counts} "
+                              f"!= {want}")
+            print(f"{label} ({TP_LABEL}; all {cfg.num_layers} layers, each rank "
+                  f"{r0['local_bytes'] / 1e9:.3f} GB of local weights, set-up "
+                  f"{r0['setup_s']:.1f} s): prefill's last logits {share:.4f} of check_logits' "
+                  f"limit (bit-equal {bool(torch.equal(got['prefill'][-1], ref['prefill'][-1]))}); "
+                  f"ranks' ids equal, against one process's forward(fast_decode=False): "
+                  f"{parting}; the prefill {1e3 * got['prefill_s']:.2f} ms (one process "
+                  f"{1e3 * ref['prefill_s']:.2f}), {1e3 * got['steps_s'] / (LEAVES_NEW - 1):.2f} "
+                  f"ms a step (one process {1e3 * ref['steps_s'] / (LEAVES_NEW - 1):.2f}); "
+                  f"launches a rank: prefill {got['prefill_counts']}, steps "
+                  f"{got['step_counts']}; collectives a rank {r0['collectives']}", flush=True)
+            out[name] = got["step_counts"]
+            if name != "8b-int4":
+                del params
+            torch.cuda.empty_cache()
+    print(f"tp-leaves: phase wall {wall:.1f} s for the ranks ({TP_LABEL}; {smi.splitlines()[0]}); "
+          "functional numbers, not a tensor-parallel speed figure", flush=True)
+    return out
 
 
 def a8_calls_a_window(params, cfg) -> int:
@@ -6547,12 +6911,14 @@ def phase_timing_serve(sm: Smoke, main, serve, fixture_counts, one_row, rate: fl
     return rows
 
 
-def qmm_leaf_times(sm: Smoke, name: str, leaf, xin, per_step: int, rate: float) -> dict:
+def qmm_leaf_times(sm: Smoke, name: str, leaf, xin, per_step: int, rate: float,
+                   out_dtype=None) -> dict:
     """Row 11 on one (stacked) weight-only leaf at ``xin``'s rows, a call's
     ms: the kernel (CUDA graph replay over the layers), the plain version
     (eager), as the library yardstick one torch.matmul of x against the
     weights already dequantized to bf16, and the bound (packed weights, the
-    group scales in their dtype, x in and out once)."""
+    group scales in their dtype, x in and out once; ``out_dtype`` f32 is
+    the row-parallel mode, 4 bytes an output)."""
     torch = sm.torch
     from metalchat_tpu_torch.ops import quant_matmul as qm
 
@@ -6560,20 +6926,24 @@ def qmm_leaf_times(sm: Smoke, name: str, leaf, xin, per_step: int, rate: float) 
     n = leaf.q.shape[0] if leaf.q.ndim == 3 else 1
     at = (lambda i: leaf.layer(i % n)) if leaf.q.ndim == 3 else (lambda i: leaf)
     kw = dict(bits=leaf.bits, group_size=leaf.group_size, transposed=leaf.transposed)
-    ms = sm.device_ms(lambda i: qm.dequant_matmul(xin, at(i).q, at(i).scales, **kw), 64)
-    plain = sm.eager_ms(lambda i: qm.dequant_matmul_plain(xin, at(i).q, at(i).scales, **kw), 3)
+    ms = sm.device_ms(lambda i: qm.dequant_matmul(xin, at(i).q, at(i).scales,
+                                                  out_dtype=out_dtype, **kw), 64)
+    plain = sm.eager_ms(lambda i: qm.dequant_matmul_plain(xin, at(i).q, at(i).scales,
+                                                          out_dtype=out_dtype, **kw), 3)
     one = at(0)
     n_lib = max(1, min(n, math.ceil(120e6 / (2 * one.in_features * one.out_features))))
     dense = [qm.dequant_weight(at(i).q, at(i).scales, dtype=torch.bfloat16, **kw)
              for i in range(n_lib)]
     lib = sm.device_ms(lambda i: torch.matmul(xin, dense[i % n_lib]), 32)
     del dense
+    out_bytes = 2 if out_dtype is None else 4
     nbytes = (one.q.numel() + one.scales.numel() * one.scales.element_size()
-              + 2 * rows * (one.in_features + one.out_features))
+              + rows * (2 * one.in_features + out_bytes * one.out_features))
     b_ms, b_by = bound(nbytes, 2 * rows * one.in_features * one.out_features, "bf16", rate)
     print(f"  quant_matmul {name} [{one.out_features}x{one.in_features} w{leaf.bits} "
           f"g{leaf.group_size} {'transposed' if leaf.transposed else 'natural'}, scales "
-          f"{str(one.scales.dtype).removeprefix('torch.')}, {rows} row(s)]: {ms * 1e3:.2f} us "
+          f"{str(one.scales.dtype).removeprefix('torch.')}, {rows} row(s)"
+          f"{', f32 out' if out_dtype is not None else ''}]: {ms * 1e3:.2f} us "
           f"(bound {b_ms * 1e3:.2f} us, {b_by}; plain {plain * 1e3:.1f} us; matmul on bf16 "
           f"weights {lib * 1e3:.2f} us) x{per_step}/token")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms)
@@ -6609,6 +6979,7 @@ def phase_timing_int4(sm: Smoke, run, rate: float):
               f"{step['ms']:.4f} ms (bound {step['bound_ms']:.4f} ms; plain "
               f"{step['plain_ms']:.3f}; matmul on bf16 weights {step['library_ms']:.4f})")
         steps[rows] = step
+    tp2 = qmm_tp2_step(sm, cfg, params, gen, rate)
     s8 = steps[8]
     return [dict(row=11, name="quant_matmul", source="metalchat_tpu_torch/csrc/quant_matmul.cu",
                  replaces="metalchat_tpu/ops/quant_matmul_pallas.py:145", route="cuda",
@@ -6617,7 +6988,44 @@ def phase_timing_int4(sm: Smoke, run, rate: float):
                  unit=f"one 8b-int4 decode step ({4 * L + 1} calls, 1 row); library_ms is "
                       "torch.matmul on weights dequantized to bf16 beforehand; at 8 rows "
                       f"{s8['ms']:.4f} ms (bound {s8['bound_ms']:.4f}, plain "
-                      f"{s8['plain_ms']:.3f}, library {s8['library_ms']:.4f})", **steps[1])]
+                      f"{s8['plain_ms']:.3f}, library {s8['library_ms']:.4f}); a tp-2 rank's "
+                      f"step at its local shapes (phase tp-leaves, 1 row) {tp2['ms']:.4f} ms "
+                      f"(bound {tp2['bound_ms']:.4f}, plain {tp2['plain_ms']:.3f}, library "
+                      f"{tp2['library_ms']:.4f})", **steps[1])]
+
+
+def qmm_tp2_step(sm: Smoke, cfg, params, gen, rate: float) -> dict:
+    """Row 11 at one row over a tp-2 rank's local 8b-int4 leaves (the
+    shards `shard_params` gives rank 0; phase tp-leaves' one-token step):
+    wqkv, w13 and the lm_head at half their outputs, wo and w2 at half
+    their inputs in the f32-output mode (their partials are summed over
+    ranks before they are rounded); the step's 129 calls summed."""
+    torch = sm.torch
+    from metalchat_tpu_torch.parallel import Mesh, shard_params
+
+    L = cfg.num_layers
+    local = shard_params(params, cfg, Mesh(tp=2, rank=0))
+    layers, dev = local["layers"], torch.device("cuda")
+
+    def x(n):
+        return torch.randn((1, n), generator=gen, device=dev).to(torch.bfloat16)
+
+    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    h, half_in = cfg.hidden_size, layers["wo"].in_features
+    for name, leaf, xin, per_step, out_dtype in (
+            ("wqkv tp2", layers["wqkv"], x(h), L, None),
+            ("wo tp2", layers["wo"], x(half_in), L, torch.float32),
+            ("w13 tp2", layers["w13"], x(h), L, None),
+            ("w2 tp2", layers["w2"], x(layers["w2"].in_features), L, torch.float32),
+            ("lm_head tp2", local["lm_head"], x(h), 1, None)):
+        for key, val in qmm_leaf_times(sm, name, leaf, xin, per_step, rate, out_dtype).items():
+            step[key] += per_step * val
+    print(f"  quant_matmul at 1 row, a tp-2 rank's 8b-int4 step at its local shapes "
+          f"({4 * L + 1} calls): {step['ms']:.4f} ms (bound {step['bound_ms']:.4f} ms; plain "
+          f"{step['plain_ms']:.3f}; matmul on bf16 weights {step['library_ms']:.4f})")
+    del local
+    torch.cuda.empty_cache()
+    return step
 
 
 def phase_timing_ffn(sm: Smoke, main, ffn_run, rate: float):
@@ -7017,7 +7425,7 @@ def main() -> int:
     spec_counts = spec_fixture = None
     gpt2 = gpt2_fixture = ppl_counts = serve_gpt2 = gpt2_times = None
     qlora = gptq_run = qlora_times = train_counts = tp_counts = None
-    tp_moe_counts = multihost_counts = None
+    tp_moe_counts = multihost_counts = tp_leaves_counts = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -7041,6 +7449,7 @@ def main() -> int:
             tp_counts = sm.phase("tp", lambda: phase_tp(sm, main_run, smi))
             multihost_counts = sm.phase("multihost", lambda: phase_multihost(sm, main_run, smi))
         tp_moe_counts = sm.phase("tp-moe", lambda: phase_tp_moe(sm, smi))
+        tp_leaves_counts = sm.phase("tp-leaves", lambda: phase_tp_leaves(sm, int4_run, smi))
         # Before the larger models load: GPTQ's f64 Hessians and their
         # factorization take tens of GB for a while.
         qlora = sm.phase("qlora-1b", lambda: phase_qlora_1b(sm, dev_name))
@@ -7122,7 +7531,7 @@ def main() -> int:
             stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b, spec_counts,
             spec_fixture, gpt2, gpt2_fixture, ppl_counts, serve_gpt2, gpt2_times, qlora,
             gptq_run, qlora_times, train_counts, tp_counts, tp_moe_counts,
-            multihost_counts)):
+            multihost_counts, tp_leaves_counts)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -7153,7 +7562,9 @@ def main() -> int:
                    tp_moe_counts["tp"],
                f"ep {MIXTRAL_LABEL} {MOE_TP_CUT['num_layers']} layers generate (a rank)":
                    tp_moe_counts["ep"],
-               "multihost 8b-w4a8 MultiHostServer (a rank)": multihost_counts}
+               "multihost 8b-w4a8 MultiHostServer (a rank)": multihost_counts["server"],
+               "multihost 8b-w4a8 MultiHostEngine (a rank)": multihost_counts["engine"],
+               **{f"tp-leaves {n} steps (a rank)": c for n, c in tp_leaves_counts.items()}}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

@@ -3,6 +3,8 @@
 // Replaces metalchat_tpu/ops/quant_matmul_pallas.py: quant_matmul_pallas
 // (_int8_kernel, _int4_kernel). One C entry, quant_matmul:
 //   x (bf16/f32) [B, in], B <= 32  @  dequant(q, scales)  ->  out [B, out] in x's dtype
+// or, with out_f32, in f32 (the same sums without the last rounding: a
+// row-parallel partial that is summed over ranks before it is rounded).
 // Each weight element is T(float(q) * float(T(s))) in the activation dtype T,
 // x is read as T, products are summed in f32 and the output rounded to T:
 // for bf16 the TPU kernel's rounding (both products are exact in f32, only
@@ -66,6 +68,15 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+
+// Element i of the output: the f32 total itself (out_f32) or rounded to T.
+template <typename T>
+__device__ __forceinline__ void store_out(void* out, int out_f32, size_t i, float v) {
+  if (out_f32)
+    static_cast<float*>(out)[i] = v;
+  else
+    static_cast<T*>(out)[i] = from_f32<T>(v);
+}
 
 // 16 consecutive values of x as f32.
 template <typename T> __device__ __forceinline__ void load16(const T* p, float* v);
@@ -151,8 +162,8 @@ __device__ __forceinline__ int4 ld_stream(const int8_t* p) {
 template <int MAXB, int BITS, typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
 qmm_transposed(const T* __restrict__ x, const int8_t* __restrict__ q,
-               const S* __restrict__ s, T* __restrict__ out, int B, int in_f, int out_f,
-               int g) {
+               const S* __restrict__ s, void* __restrict__ out, int out_f32, int B, int in_f,
+               int out_f, int g) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int half = in_f / 2;
@@ -199,7 +210,7 @@ qmm_transposed(const T* __restrict__ x, const int8_t* __restrict__ q,
     for (int b = 0; b < MAXB; ++b) {
       if (b >= B) break;
       const float total = warp_sum(acc[b]);
-      if (lane == 0) out[(size_t)b * out_f + o] = from_f32<T>(total);
+      if (lane == 0) store_out<T>(out, out_f32, (size_t)b * out_f + o, total);
     }
   }
 }
@@ -244,20 +255,22 @@ __device__ __forceinline__ Bytes<C> load_cols(const int8_t* p, bool vec, int liv
 // One f32 total of a block of the split-K routes: the output itself when k
 // is not split, else the block's partial in the workspace [n_split, B, out].
 template <typename T>
-__device__ __forceinline__ void split_store(T* out, float* ws, int split, int n_split, int B,
-                                            int out_f, int b, int col, float total) {
+__device__ __forceinline__ void split_store(void* out, int out_f32, float* ws, int split,
+                                            int n_split, int B, int out_f, int b, int col,
+                                            float total) {
   if (n_split == 1)
-    out[(size_t)b * out_f + col] = from_f32<T>(total);
+    store_out<T>(out, out_f32, (size_t)b * out_f + col, total);
   else
     ws[((size_t)split * B + b) * out_f + col] = total;
 }
 
 // After every thread of the block has stored its partials: the last block of
 // the strip [col0, col0 + width) to arrive sums the partials in split order,
-// rounds to T and stores (arrive_last resets the strip's counter).
+// rounds to T (unless out_f32) and stores (arrive_last resets the strip's counter).
 template <typename T>
-__device__ __forceinline__ void merge_splits(T* out, const float* ws, int* counter, int n_split,
-                                             int B, int out_f, int col0, int width, int* flag) {
+__device__ __forceinline__ void merge_splits(void* out, int out_f32, const float* ws,
+                                             int* counter, int n_split, int B, int out_f,
+                                             int col0, int width, int* flag) {
   if (n_split == 1 || !arrive_last(counter, n_split, flag)) return;
   const size_t stride = (size_t)B * out_f;
   for (int e = threadIdx.x; e < B * width; e += blockDim.x) {
@@ -267,7 +280,7 @@ __device__ __forceinline__ void merge_splits(T* out, const float* ws, int* count
     float total = 0.f;
 #pragma unroll 16
     for (int sidx = 0; sidx < n_split; ++sidx) total += __ldcg(p + sidx * stride);
-    out[(size_t)b * out_f + col] = from_f32<T>(total);
+    store_out<T>(out, out_f32, (size_t)b * out_f + col, total);
   }
 }
 
@@ -300,8 +313,8 @@ __device__ __forceinline__ void prefetch_groups(const S* s, int out_f, int col, 
 template <int MAXB, int BITS, typename T, typename S>
 __global__ void __launch_bounds__(kThreads, MAXB == 1 ? 2 : 1)
 qmm_natural(const T* __restrict__ x, const int8_t* __restrict__ q, const S* __restrict__ s,
-            T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters, int B,
-            int in_f, int out_f, int g, int per_split) {
+            void* __restrict__ out, int out_f32, float* __restrict__ ws,
+            int* __restrict__ counters, int B, int in_f, int out_f, int g, int per_split) {
   constexpr int C = NatCols<MAXB>::C;
   constexpr int kStrip = 32 * C;
   // The lean bf16x2 dequantization (int4 codes, bf16 activations).
@@ -446,10 +459,11 @@ qmm_natural(const T* __restrict__ x, const int8_t* __restrict__ q, const S* __re
     float total = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) total += red[((size_t)w * B + b) * kStrip + cx];
-    split_store(out, ws, split, n_split, B, out_f, b, col0 + cx, total);
+    split_store<T>(out, out_f32, ws, split, n_split, B, out_f, b, col0 + cx, total);
   }
   // 4. The last block of this strip sums the partials in split order.
-  merge_splits(out, ws, counters + strip, n_split, B, out_f, col0, kStrip, &last_flag);
+  merge_splits<T>(out, out_f32, ws, counters + strip, n_split, B, out_f, col0, kStrip,
+                  &last_flag);
 }
 
 // ---------------------------------------------------------------------------
@@ -516,8 +530,8 @@ __device__ __forceinline__ void row_pairs(int4 raw, S s_lo, S s_hi, uint32_t (&p
 template <int BITS, int NT, typename S>
 __global__ void __launch_bounds__(kThreads, NT == 1 ? 3 : 1)
 qmm_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-        const S* __restrict__ s, __nv_bfloat16* __restrict__ out, int B, int in_f, int out_f,
-        int g) {
+        const S* __restrict__ s, void* __restrict__ out, int out_f32, int B, int in_f,
+        int out_f, int g) {
   constexpr int kU = NT == 1 ? 2 : 1;
   constexpr int NP = BITS == 4 ? 16 : 8;  // pairs a row's 16 bytes
   __shared__ float red[kWarps][NT * 4][32];
@@ -614,7 +628,7 @@ qmm_mma(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     float total = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) total += red[w][j * 4 + i][ln];
-    out[(size_t)b * out_f + o] = __float2bfloat16_rn(total);
+    store_out<__nv_bfloat16>(out, out_f32, (size_t)b * out_f + o, total);
   }
 }
 
@@ -638,27 +652,27 @@ int max_blocks() {
 }
 
 template <int MAXB, int BITS, typename T, typename S>
-int launch(int transposed, const void* x, const void* q, const void* s, void* out, void* ws,
-           void* counters, int B, int in_f, int out_f, int g, int cols, int n_split,
+int launch(int transposed, const void* x, const void* q, const void* s, void* out, int out_f32,
+           void* ws, void* counters, int B, int in_f, int out_f, int g, int cols, int n_split,
            int per_split, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const int8_t* qt = static_cast<const int8_t*>(q);
   const S* st_ = static_cast<const S*>(s);
-  T* ot = static_cast<T*>(out);
   if (transposed) {
     if constexpr (sizeof(T) == 2) {
       const int grid = (out_f + kTileRows - 1) / kTileRows;
       const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(xt);
-      __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(ot);
       if (B <= 8)
-        qmm_mma<BITS, 1, S><<<grid, kThreads, 0, st>>>(xb, qt, st_, ob, B, in_f, out_f, g);
+        qmm_mma<BITS, 1, S><<<grid, kThreads, 0, st>>>(xb, qt, st_, out, out_f32, B, in_f,
+                                                        out_f, g);
       else
-        qmm_mma<BITS, 4, S><<<grid, kThreads, 0, st>>>(xb, qt, st_, ob, B, in_f, out_f, g);
+        qmm_mma<BITS, 4, S><<<grid, kThreads, 0, st>>>(xb, qt, st_, out, out_f32, B, in_f,
+                                                        out_f, g);
     } else {
       int grid = (out_f + kWarps - 1) / kWarps;
       if (grid > max_blocks()) grid = max_blocks();
-      qmm_transposed<MAXB, BITS, T, S><<<grid, kThreads, 0, st>>>(xt, qt, st_, ot, B, in_f,
-                                                                  out_f, g);
+      qmm_transposed<MAXB, BITS, T, S><<<grid, kThreads, 0, st>>>(xt, qt, st_, out, out_f32,
+                                                                  B, in_f, out_f, g);
     }
   } else {
     constexpr int C = NatCols<MAXB>::C;
@@ -672,7 +686,7 @@ int launch(int transposed, const void* x, const void* q, const void* s, void* ou
     const int err = set_smem(kernel, smem);
     if (err) return err;
     dim3 grid((out_f + 32 * C - 1) / (32 * C), n_split);
-    kernel<<<grid, kThreads, smem, st>>>(xt, qt, st_, ot, static_cast<float*>(ws),
+    kernel<<<grid, kThreads, smem, st>>>(xt, qt, st_, out, out_f32, static_cast<float*>(ws),
                                          static_cast<int*>(counters), B, in_f, out_f, g,
                                          per_split);
   }
@@ -680,28 +694,28 @@ int launch(int transposed, const void* x, const void* q, const void* s, void* ou
 }
 
 template <int BITS, typename T, typename S>
-int by_rows(int transposed, const void* x, const void* q, const void* s, void* out, void* ws,
-            void* counters, int B, int in_f, int out_f, int g, int cols, int n_split,
+int by_rows(int transposed, const void* x, const void* q, const void* s, void* out, int out_f32,
+            void* ws, void* counters, int B, int in_f, int out_f, int g, int cols, int n_split,
             int per_split, cudaStream_t st) {
   if (B == 1)
-    return launch<1, BITS, T, S>(transposed, x, q, s, out, ws, counters, B, in_f, out_f, g,
-                                 cols, n_split, per_split, st);
+    return launch<1, BITS, T, S>(transposed, x, q, s, out, out_f32, ws, counters, B, in_f,
+                                 out_f, g, cols, n_split, per_split, st);
   if (B <= 8)
-    return launch<8, BITS, T, S>(transposed, x, q, s, out, ws, counters, B, in_f, out_f, g,
-                                 cols, n_split, per_split, st);
-  return launch<32, BITS, T, S>(transposed, x, q, s, out, ws, counters, B, in_f, out_f, g,
-                                cols, n_split, per_split, st);
+    return launch<8, BITS, T, S>(transposed, x, q, s, out, out_f32, ws, counters, B, in_f,
+                                 out_f, g, cols, n_split, per_split, st);
+  return launch<32, BITS, T, S>(transposed, x, q, s, out, out_f32, ws, counters, B, in_f, out_f,
+                                g, cols, n_split, per_split, st);
 }
 
 template <typename T, typename S>
 int by_bits(int bits, int transposed, const void* x, const void* q, const void* s, void* out,
-            void* ws, void* counters, int B, int in_f, int out_f, int g, int cols, int n_split,
-            int per_split, cudaStream_t st) {
+            int out_f32, void* ws, void* counters, int B, int in_f, int out_f, int g, int cols,
+            int n_split, int per_split, cudaStream_t st) {
   if (bits == 4)
-    return by_rows<4, T, S>(transposed, x, q, s, out, ws, counters, B, in_f, out_f, g, cols,
-                            n_split, per_split, st);
-  return by_rows<8, T, S>(transposed, x, q, s, out, ws, counters, B, in_f, out_f, g, cols,
-                          n_split, per_split, st);
+    return by_rows<4, T, S>(transposed, x, q, s, out, out_f32, ws, counters, B, in_f, out_f, g,
+                            cols, n_split, per_split, st);
+  return by_rows<8, T, S>(transposed, x, q, s, out, out_f32, ws, counters, B, in_f, out_f, g,
+                          cols, n_split, per_split, st);
 }
 
 }  // namespace
@@ -709,28 +723,31 @@ int by_bits(int bits, int transposed, const void* x, const void* q, const void* 
 extern "C" {
 
 // x: [B, in] bf16 (x_bf16=1) or f32; q: int8 as described above; s: f32 or
-// bf16 (s_bf16=1); out: [B, out] in x's dtype. 1 <= B <= 32, in % 32 == 0,
-// g % 16 == 0 and in % g == 0 (checked by the caller). Non-transposed only:
-// the wrapper's plan (ops/quant_matmul.py natural_plan) of `cols` columns a
+// bf16 (s_bf16=1); out: [B, out] in x's dtype, or f32 with out_f32=1 (the
+// sums not rounded to x's dtype). 1 <= B <= 32, in % 32 == 0, g % 16 == 0
+// and in % g == 0 (checked by the caller). Non-transposed only: the
+// wrapper's plan (ops/quant_matmul.py natural_plan) of `cols` columns a
 // thread and n_split blocks of per_split packed rows along k; ws: f32
 // [n_split, B, out] (unused when n_split is 1); counters: one int32 per strip
 // of 32 * cols columns, zero before the first launch (each launch leaves
 // them zero).
 int quant_matmul(const void* x, const void* q, const void* s, void* out, void* ws,
                  void* counters, int B, int in_f, int out_f, int g, int bits, int transposed,
-                 int x_bf16, int s_bf16, int cols, int n_split, int per_split, void* stream) {
+                 int x_bf16, int s_bf16, int out_f32, int cols, int n_split, int per_split,
+                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16 && s_bf16)
-    return by_bits<__nv_bfloat16, __nv_bfloat16>(bits, transposed, x, q, s, out, ws, counters,
-                                                 B, in_f, out_f, g, cols, n_split, per_split, st);
+    return by_bits<__nv_bfloat16, __nv_bfloat16>(bits, transposed, x, q, s, out, out_f32, ws,
+                                                 counters, B, in_f, out_f, g, cols, n_split,
+                                                 per_split, st);
   if (x_bf16)
-    return by_bits<__nv_bfloat16, float>(bits, transposed, x, q, s, out, ws, counters, B, in_f,
-                                         out_f, g, cols, n_split, per_split, st);
+    return by_bits<__nv_bfloat16, float>(bits, transposed, x, q, s, out, out_f32, ws, counters,
+                                         B, in_f, out_f, g, cols, n_split, per_split, st);
   if (s_bf16)
-    return by_bits<float, __nv_bfloat16>(bits, transposed, x, q, s, out, ws, counters, B, in_f,
-                                         out_f, g, cols, n_split, per_split, st);
-  return by_bits<float, float>(bits, transposed, x, q, s, out, ws, counters, B, in_f, out_f, g,
-                               cols, n_split, per_split, st);
+    return by_bits<float, __nv_bfloat16>(bits, transposed, x, q, s, out, out_f32, ws, counters,
+                                         B, in_f, out_f, g, cols, n_split, per_split, st);
+  return by_bits<float, float>(bits, transposed, x, q, s, out, out_f32, ws, counters, B, in_f,
+                               out_f, g, cols, n_split, per_split, st);
 }
 
 }  // extern "C"

@@ -33,14 +33,30 @@ supplies a dense cache, ``context_parallel_mesh`` prefills each prompt of
 ``context_parallel_threshold`` tokens or more whole through
 `parallel.context.context_parallel_prefill` (dense cache modes; every rank
 of the mesh runs the same loop), and ``spmd_mesh`` (a `parallel.mesh.Mesh`
-of tp > 1 or ep > 1, dp 1) makes the engine one rank of a sharded group:
-it takes the rank's local params (`parallel.mesh.shard_params`), builds its
-local cache (the rank's kv-heads) and routes every model call through
-`parallel.tp_decode.spmd_forward_fn`'s forward (the tensor-parallel decode,
-or for MoE over ep the sharded layer route); every rank runs the same loop
-(`parallel.multihost.MultiHostEngine`). A forward with collectives between
-its kernels (``collectives`` set on the function, as the tensor-parallel one
-has) runs its bursts eagerly on every backend.
+of more than one rank) makes the engine one rank of a sharded group: it
+takes the rank's local params (`parallel.mesh.shard_params`), builds its
+local cache and routes every model call through
+`parallel.tp_decode.spmd_forward_fn`'s forward (the tensor-parallel decode
+where it takes the model, the sharded layer route for every other tree);
+every rank runs the same loop (`parallel.multihost.MultiHostEngine`). A
+forward with collectives between its kernels (``collectives`` set on the
+function, as both sharded ones have) runs its bursts eagerly on every
+backend.
+
+Over the mesh's dp axis the engine keeps JAX's layout. A dense or int8
+cache holds ``max_slots / dp`` slots on each dp row (slot s on row ``s //
+(max_slots / dp)``, as `parallel.mesh.shard_cache` splits rows), at the
+rank's kv-heads: a model call runs each dp row's own rows over its tp
+group, and the f32 logits are gathered over dp, so that every rank samples
+the whole batch with the same generator (JAX's replicated step outputs): a
+decode step runs every row of the dp row, a prompt chunk only the rows the
+dp row owns (a dp row with none runs no model and sends zeros, since a
+gather needs equal shapes). A paged cache stays whole over dp, as JAX's
+tensor-parallel decode keeps its pool and rows (a pool has no batch axis:
+rows split over dp would let each dp row's pool diverge), so every dp row
+runs every row and the dp axis needs no collective; `shard_cache`'s split
+of the page table's rows over dp is the GSPMD layout of JAX's forward,
+which the engine does not take.
 """
 
 from __future__ import annotations
@@ -188,19 +204,29 @@ class ContinuousBatchingEngine:
             raise ValueError("context-parallel prefill needs a dense cache mode")
         # The cache lives on the params' device.
         self.device = params["final_norm"].device
-        # SPMD mode: this process is one rank of a tensor-parallel group;
-        # its cache holds the rank's kv-heads.
+        # SPMD mode: this process is one rank of a sharded group; its cache
+        # holds the rank's kv-heads and, split over dp, its dp row's slots
+        # [lo, hi) (`_dp_rows`, None when every rank holds every slot).
         self.spmd_mesh = spmd_mesh if spmd_mesh is not None and spmd_mesh.size > 1 else None
-        cache_config = config
+        self._dp_rows: Optional[Tuple[int, int]] = None
+        cache_config, cache_slots = config, max_slots
         if self.spmd_mesh is not None:
             from metalchat_tpu_torch.parallel.tp_decode import _local_config, spmd_forward_fn
 
-            if self.spmd_mesh.dp > 1:
-                raise ValueError("spmd_mesh: a mesh with dp > 1 is not ported for the engine "
-                                 "(MultiHostServer splits rounds over dp)")
             if forward_fn is None:
                 forward_fn = spmd_forward_fn(params, config, self.spmd_mesh)
             cache_config = _local_config(config, self.spmd_mesh.tp)
+            dp = self.spmd_mesh.dp
+            if dp > 1 and not self.paged:
+                if max_slots % dp:
+                    raise ValueError(f"spmd_mesh: max_slots={max_slots} not divisible by "
+                                     f"dp={dp}")
+                if self.cp_mesh is not None:
+                    raise ValueError("spmd_mesh: context-parallel prefill with slots split "
+                                     "over dp is not supported")
+                cache_slots = max_slots // dp
+                lo = self.spmd_mesh.index("dp") * cache_slots
+                self._dp_rows = (lo, lo + cache_slots)
         if cache is not None and self.paged:
             raise ValueError("an external cache is for the dense modes")
         if cache is not None:
@@ -217,11 +243,11 @@ class ContinuousBatchingEngine:
                 max_slots=max_slots, max_pages_per_seq=mps, device=self.device)
             self._pt_dirty = True
         elif quantized_kv:
-            self.cache = QuantizedKVCache.create(cache_config, max_slots, self.max_seq_len,
+            self.cache = QuantizedKVCache.create(cache_config, cache_slots, self.max_seq_len,
                                                  device=self.device)
         else:
             # KV dtype follows the activation dtype (params' final norm).
-            self.cache = KVCache.create(cache_config, max_slots, self.max_seq_len,
+            self.cache = KVCache.create(cache_config, cache_slots, self.max_seq_len,
                                         dtype=params["final_norm"].dtype, device=self.device)
         # forward_fn(params, cache, tokens, start_pos) -> (logits, cache), or
         # None for `forward` with this engine's ffn_block.
@@ -385,7 +411,27 @@ class ContinuousBatchingEngine:
     def _run_prefill(self, slot_ids: List[int], toks, starts, lasts) -> torch.Tensor:
         """One padded prompt chunk for each slot in ONE model call; returns
         the logits at each row's last real position, ``[k, V]`` on the card.
-        One slot writes at an int offset, several at per-row offsets."""
+        With slots split over dp each dp row runs the slots it owns and the
+        logits are gathered over dp (the module docstring)."""
+        if self._dp_rows is None:
+            return self._prefill_rows(slot_ids, toks, starts, lasts)
+        lo, hi = self._dp_rows
+        owner = [s // (hi - lo) for s in slot_ids]
+        mine = [i for i, s in enumerate(slot_ids) if lo <= s < hi]
+        width = max(Counter(owner).values())
+        part = torch.zeros((width, self.config.vocab_size), dtype=torch.float32,
+                           device=self.device)
+        if mine:
+            part[:len(mine)] = self._prefill_rows(
+                [slot_ids[i] - lo for i in mine], [toks[i] for i in mine],
+                [starts[i] for i in mine], [lasts[i] for i in mine])
+        whole = self.spmd_mesh.all_gather(part, dim=0, axis="dp")
+        place = [owner[i] * width + owner[:i].count(owner[i]) for i in range(len(slot_ids))]
+        return whole[torch.tensor(place, device=self.device)]
+
+    def _prefill_rows(self, slot_ids: List[int], toks, starts, lasts) -> torch.Tensor:
+        """`_run_prefill` on this rank's cache rows ``slot_ids``. One slot
+        writes at an int offset, several at per-row offsets."""
         dev = self.device
         rows = torch.tensor(slot_ids, device=dev)
         tokens = torch.tensor(toks, dtype=torch.long, device=dev)
@@ -414,7 +460,13 @@ class ContinuousBatchingEngine:
         tokens overwritten. It reads nothing back, so a CUDA graph captures
         it."""
         r = self._rows
-        logits = self._forward(self.cache, r["tokens"][:, None], r["positions"])
+        tokens, positions = r["tokens"], r["positions"]
+        if self._dp_rows is not None:  # this dp row's rows, then every row's logits
+            lo, hi = self._dp_rows
+            tokens, positions = tokens[lo:hi], positions[lo:hi]
+        logits = self._forward(self.cache, tokens[:, None], positions)
+        if self._dp_rows is not None:
+            logits = self.spmd_mesh.all_gather(logits, dim=0, axis="dp")
         nxt = sample_batched(logits[:, 0], self._gen, r["temperature"], r["top_k"],
                              r["top_p"], branch)
         self._out.index_copy_(0, r["step"].long(), nxt[None])
@@ -424,11 +476,11 @@ class ContinuousBatchingEngine:
 
     def _graph_route(self) -> bool:
         """Whether bursts replay captured steps: on the card, unless the
-        forward runs collectives between its kernels (the tensor-parallel
-        one: gloo's cannot be captured, and NCCL's capture is untested on a
+        step runs collectives (a sharded forward, or the gather over dp:
+        gloo's cannot be captured, and NCCL's capture is untested on a
         machine with one card), whose bursts run eagerly on every backend."""
-        return self.device.type == "cuda" and not getattr(self.forward_fn, "collectives",
-                                                          False)
+        return (self.device.type == "cuda" and self._dp_rows is None
+                and not getattr(self.forward_fn, "collectives", False))
 
     def _new_graph(self) -> CountedGraph:
         """An empty graph for one burst step in the engine's memory pool,

@@ -245,6 +245,10 @@ def decode_step(params: Dict[str, Any], cache, tokens: torch.Tensor, start_pos,
     ``config`` the whole model's; the module docstring's tensor-parallel
     step, its ``ffn_block`` off."""
     config, tp = tp_config(config, tp)
+    if tp is not None and config.use_bias:
+        raise NotImplementedError("the tp fast decode adds no biases (they would be summed "
+                                  "over ranks); use_bias models take the layer route "
+                                  "(forward(..., tp=mesh))")
     ffn_block = ffn_block and tp is None
     b, s = tokens.shape
     dev = tokens.device

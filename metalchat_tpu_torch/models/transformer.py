@@ -198,11 +198,15 @@ def embed_tokens(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
 
 def final_logits(params: Params, x: torch.Tensor, config: ModelConfig, *,
                  kernels: bool = True, tp=None) -> torch.Tensor:
-    """Final norm + lm head → f32 logits; under ``tp`` the lm_head is this
-    rank's vocabulary columns and the whole logits are gathered."""
+    """Final norm + lm head → f32 logits; under ``tp`` a vocabulary-split
+    lm_head gives this rank's columns and the whole logits are gathered (a
+    whole lm_head, kept so when tp does not divide the vocabulary, gives
+    them all on every rank)."""
     logits = linear(norm(x, params, "final_norm", config), params["lm_head"],
                     kernels=kernels).float()
-    return logits if tp is None else tp.all_gather(logits, dim=-1)
+    if tp is None or logits.shape[-1] == config.vocab_size:
+        return logits
+    return tp.all_gather(logits, dim=-1)
 
 
 def act_gate(fused: torch.Tensor, act: str = "silu", blocks: int = 1) -> torch.Tensor:
@@ -222,13 +226,9 @@ def split_qkv(y: torch.Tensor, leaf, config: ModelConfig):
 
 def tp_config(config: ModelConfig, tp):
     """(the config of this rank's shard, the mesh) under tensor parallelism,
-    (config, None) without it or at tp 1. Biases are refused: they would
-    be added once a rank before the ``all_reduce``, as in JAX's decode."""
+    (config, None) without it or at tp 1."""
     if tp is None or tp.tp == 1:
         return config, None
-    if config.use_bias:
-        raise NotImplementedError("tp adds no biases (they would be summed over ranks); "
-                                  "use_bias models are not supported under tp")
     from metalchat_tpu_torch.parallel.tp_decode import _local_config
 
     return _local_config(config, tp.tp), tp
@@ -492,10 +492,14 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     ``cache`` are this rank's local ones (`parallel.mesh.shard_params`,
     `shard_cache`), ``config`` the whole model's. Every window, one token
     included, takes the layer route at the rank's heads. Without experts
-    over ep the result is the single device's function: the embedding
-    split by vocabulary, wo and w2 row-parallel (`linear_row_parallel`:
-    act8 codes from the whole row, exact int32 sums), the lm_head split by
-    vocabulary and the whole logits on every rank. MoE runs the rank's
+    over ep the result is the single device's function for every leaf
+    kind: the embedding split by vocabulary (or whole), wo and w2
+    row-parallel (`linear_row_parallel`: act8 codes from the whole row and
+    exact int32 sums; weight-only, dense and LoRA products summed in f32,
+    rounded once), a column-parallel leaf's local bias added after its
+    product and a row-parallel one's whole bias after the sum, the lm_head
+    split by vocabulary (or whole) and the whole logits on every rank. MoE
+    runs the rank's
     experts at its FFN width and sums them over ep
     (`models.moe.moe_ffn`), whose order is not the single device's.
     `parallel.tp_decode.tp_decode_forward_fn` sends one-token steps to

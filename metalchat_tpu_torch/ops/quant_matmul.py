@@ -9,8 +9,9 @@ the CUDA source for its design.
 What it computes (the TPU kernel's rounding and the JAX package's XLA
 ``quant_matmul``): each weight element is ``T(float(q) · float(T(s)))`` in
 the activation dtype T, x is read as T, the products are summed in f32 and
-the output is rounded to T. Layouts as in the JAX package, both storage
-orientations:
+the output is rounded to T (with ``out_dtype=torch.float32`` the f32 sums
+are returned as they are: a row-parallel partial, rounded once after its sum
+over ranks). Layouts as in the JAX package, both storage orientations:
 
 * non-transposed: q ``[in, out]`` (int8) or ``[in/2, out]`` (int4),
   scales ``[in/g, out]``;
@@ -40,7 +41,7 @@ MAX_ROWS = 32
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("quant_matmul")
-    lib.quant_matmul.argtypes = [_P] * 6 + [_I] * 11 + [_P]
+    lib.quant_matmul.argtypes = [_P] * 6 + [_I] * 12 + [_P]
     lib.quant_matmul.restype = _I
     return lib
 
@@ -73,11 +74,13 @@ def dequant_weight(q: torch.Tensor, scales: torch.Tensor, *, bits: int, group_si
 
 
 def dequant_matmul_plain(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *,
-                         bits: int, group_size: int, transposed: bool) -> torch.Tensor:
-    """x ``[B, in]`` @ the weight in x's dtype, f32 sums, out in x's dtype."""
+                         bits: int, group_size: int, transposed: bool,
+                         out_dtype=None) -> torch.Tensor:
+    """x ``[B, in]`` @ the weight in x's dtype, f32 sums, out in ``out_dtype``
+    (default x's dtype)."""
     w = dequant_weight(q, scales, bits=bits, group_size=group_size,
                        transposed=transposed, dtype=x.dtype)
-    return (x.float() @ w.float()).to(x.dtype)
+    return (x.float() @ w.float()).to(out_dtype or x.dtype)
 
 
 # -- kernel wrapper -----------------------------------------------------------
@@ -123,12 +126,15 @@ def supported(rows: int, in_f: int, group_size: int) -> bool:
 
 
 def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *, bits: int,
-                   group_size: int, transposed: bool) -> torch.Tensor:
+                   group_size: int, transposed: bool, out_dtype=None) -> torch.Tensor:
     """bf16/f32 rows ``[B, in]`` (B ≤ 32) @ dequant(q, scales) → ``[B, out]``
-    in x's dtype."""
+    in ``out_dtype``: x's dtype (the default) or ``torch.float32``."""
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"quant_matmul: out_dtype x's or f32, got {out_dtype}")
     if x.device.type == "cpu":
         return dequant_matmul_plain(x, q, scales, bits=bits, group_size=group_size,
-                                    transposed=transposed)
+                                    transposed=transposed, out_dtype=out_dtype)
     _build.require_cuda("quant_matmul", x, q, scales)
     b, in_f = x.shape
     pack = 2 if bits == 4 else 1
@@ -153,7 +159,7 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *, bi
                          f"{tuple(scales.shape)} {scales.dtype}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"quant_matmul: activations bf16 or f32, got {x.dtype}")
-    out = torch.empty(b, out_f, dtype=x.dtype, device=x.device)
+    out = torch.empty(b, out_f, dtype=out_dtype, device=x.device)
     cols = n_split = per = 0
     ws = counters = None
     if not transposed:
@@ -166,7 +172,7 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, *, bi
         None if ws is None else ws.data_ptr(),
         None if counters is None else counters.data_ptr(), b, in_f, out_f, group_size, bits,
         int(transposed), int(x.dtype == torch.bfloat16), int(scales.dtype == torch.bfloat16),
-        cols, n_split, per, _build.stream_ptr(x))
+        int(out_dtype == torch.float32), cols, n_split, per, _build.stream_ptr(x))
     _build.check(rc, "quant_matmul")
     _build.count_launch("quant_matmul")
     return out

@@ -10,18 +10,30 @@ rank's local tree, the tree JAX's ``shard_map`` body sees after
 Layout, the JAX package's ``param_shardings``:
 
 * column-parallel over tp (out-features split): wq, wk, wv, w1, w3 and the
-  fused wqkv / w13 (quantized fused leaves block-permuted first, so that
-  each rank's chunk is a standard fused leaf of its own heads and columns);
-* row-parallel over tp (in-features split): wo, w2 (int4 act8 leaves
-  repacked per chunk first, so that each rank's byte shard decodes to its
-  own rows);
+  fused wqkv / w13, dense or quantized (block-permuted first, with their
+  fused biases, so that each rank's chunk is a standard fused leaf of its
+  own heads and columns; segments that tp does not divide are refused);
+  their biases ``<name>_b`` split alike;
+* row-parallel over tp (in-features split): wo, w2 (int4 leaves of either
+  scheme repacked per chunk first, so that each rank's byte shard decodes
+  to its own rows; group scales split with the codes, and a group that
+  would straddle two ranks is refused); their biases whole;
 * the embedding split by vocabulary rows, the lm_head by vocabulary
   columns; wk/wv (and the KV cache) whole when the kv-heads do not divide
   by tp, the embedding and lm_head whole when the vocabulary does not;
+* a LoRA leaf's base as its kind says; its adaptors whole (JAX replicates
+  them), but for ``b``'s columns of a column-parallel leaf and ``a``'s rows
+  of a row-parallel one, which the rank's products need (the same
+  function: `quant.quantize.linear_row_parallel` sums ``x·a`` over tp);
 * MoE expert stacks (w1/w3 ``[L, E, H, F]``, w2 ``[L, E, F, H]``): the
   experts split over ep, the FFN width F over tp as above; the router whole;
-* every other leaf (norms, rope tables, biases, a LoRA leaf's adaptors)
+* every other leaf (norms and their biases, rope tables, ``pos_emb``)
   whole on every rank, and every dense leaf whole over dp and ep.
+
+Unlike JAX's GSPMD, which computes the single device's function on any
+layout, the port's sharded layer route runs local kernels on each rank's
+leaves, so the dense fused leaves and the weight-only int4 leaves are
+laid out as the quantized act8 ones are.
 
 `GridMesh` is one rank's view of a named grid of ranks (the pipeline's
 ("dp", "pp"), context parallelism's ("sp",), the mesh's ("dp", "ep", "tp")):
@@ -46,7 +58,7 @@ import torch.distributed as dist
 
 from metalchat_tpu_torch.cache import KVCache, PagedKVCache, QuantizedKVCache
 from metalchat_tpu_torch.config import ModelConfig
-from metalchat_tpu_torch.models.fuse import fused_segments, permute_fused_tp
+from metalchat_tpu_torch.models.fuse import _blocked_order, fused_segments, permute_fused_tp
 from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor, repack_int4_chunks
 
 MESH_AXES = ("dp", "ep", "tp")
@@ -343,14 +355,40 @@ def _check_ep(config: ModelConfig, ep: int) -> None:
 
 
 def _rules(config: ModelConfig, tp: int) -> Dict[str, Optional[str]]:
-    """Which logical axis each leaf splits on over tp: "out" (column-parallel),
-    "in" (row-parallel: for the embedding, its vocabulary rows), or absent
-    (whole)."""
+    """Which logical axis each leaf splits on over tp: "out" (column-parallel,
+    and a column-parallel leaf's bias), "in" (row-parallel: for the
+    embedding, its vocabulary rows), or absent (whole)."""
     kv = "out" if config.num_kv_heads % tp == 0 else None
     vocab = config.vocab_size % tp == 0
-    return {"embed": "in" if vocab else None, "lm_head": "out" if vocab else None,
-            "wq": "out", "wqkv": "out", "w13": "out", "w1": "out", "w3": "out",
-            "wk": kv, "wv": kv, "wo": "in", "w2": "in"}
+    rules = {"embed": "in" if vocab else None, "lm_head": "out" if vocab else None,
+             "wq": "out", "wqkv": "out", "w13": "out", "w1": "out", "w3": "out",
+             "wk": kv, "wv": kv, "wo": "in", "w2": "in"}
+    rules.update({f"{n}_b": "out" for n, r in list(rules.items()) if r == "out"})
+    return rules
+
+
+def _fused_order(name: str, config: ModelConfig, tp: int) -> torch.Tensor:
+    """The ``fuse_tp`` block order of fused leaf ``name``'s out axis for
+    ``tp`` ranks; segments that tp does not divide are refused."""
+    segs = fused_segments(name, config)
+    if any(s % tp for s in segs):
+        raise ValueError(f"fused {name}: segments {segs} not divisible by tp={tp} (the "
+                         "ranks' chunks would mix q with k rows or gate with up columns)")
+    return torch.from_numpy(_blocked_order(segs, tp))
+
+
+def _check_groups(leaf: QuantizedTensor, name: str, tp: int) -> None:
+    """A row-parallel group-wise leaf: every rank holds whole groups (and an
+    int4 rank's half-split packing whole groups of its own rows)."""
+    if leaf.group_size == leaf.in_features:
+        return
+    local = leaf.in_features // tp
+    need = 2 * leaf.group_size if leaf.bits == 4 else leaf.group_size
+    if leaf.in_features % tp or local % need:
+        raise ValueError(f"{name}: in_features/tp = {leaf.in_features}/{tp} is not a multiple "
+                         f"of {need} (group_size {leaf.group_size}"
+                         f"{', int4 half-split' if leaf.bits == 4 else ''}): a group would "
+                         "straddle two ranks")
 
 
 def _split(t: torch.Tensor, axis: int, parts: int, index: int) -> torch.Tensor:
@@ -371,18 +409,18 @@ def _local(t: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
 def _shard_quantized(leaf: QuantizedTensor, rule: str, name: str, config: ModelConfig,
                      mesh: Mesh) -> QuantizedTensor:
     tp = mesh.tp
-    if leaf.bits == 4 and leaf.act_bits == 8 and rule == "in" and leaf.q.ndim > 2:
+    if rule == "in":
+        _check_groups(leaf, name, tp)
+    if leaf.bits == 4 and rule == "in" and leaf.q.ndim > 2:
         # One leading entry (layer, expert) at a time: the repack's unpacked
         # copy stays the size of one entry, not of the whole stack.
         parts = [_shard_quantized(leaf.layer(i), rule, name, config, mesh)
                  for i in range(leaf.q.shape[0])]
         return replace(parts[0], q=torch.stack([p.q for p in parts]),
                        scales=torch.stack([p.scales for p in parts]))
-    if name in ("wqkv", "w13"):
-        segs = fused_segments(name, config)
-        if not any(s % tp for s in segs):
-            leaf = permute_fused_tp(leaf, segs, tp)
-    if leaf.bits == 4 and leaf.act_bits == 8 and rule == "in":
+    if name in ("wqkv", "w13"):  # refuses segments tp does not divide
+        leaf = permute_fused_tp(leaf, fused_segments(name, config), tp)
+    if leaf.bits == 4 and rule == "in":
         leaf = repack_int4_chunks(leaf, tp)
     per_channel = leaf.group_size == leaf.in_features
     out_axis, in_axis = (-2, -1) if leaf.transposed else (-1, -2)
@@ -401,10 +439,18 @@ def _shard_leaf(leaf: Any, rule: Optional[str], name: str, config: ModelConfig,
                 mesh: Mesh) -> Any:
     if rule is None or mesh.tp == 1:
         return leaf
-    if isinstance(leaf, LoraLinear):  # adaptors whole, as JAX replicates them
-        return replace(leaf, base=_shard_leaf(leaf.base, rule, name, config, mesh))
+    if isinstance(leaf, LoraLinear):  # the adaptors' own rows or columns
+        base = _shard_leaf(leaf.base, rule, name, config, mesh)
+        if rule == "out":
+            return replace(leaf, base=base, b=_local(leaf.b, -1, mesh))
+        return replace(leaf, base=base, a=_local(leaf.a, -2, mesh))
+    if isinstance(leaf, QuantizedTensor) and name == "embed":  # row-quantized: [V, ...] rows
+        return replace(leaf, q=_local(leaf.q, 0, mesh), scales=_local(leaf.scales, 0, mesh))
     if isinstance(leaf, QuantizedTensor):
         return _shard_quantized(leaf, rule, name, config, mesh)
+    if name in ("wqkv", "w13", "wqkv_b", "w13_b"):  # dense fused weights and biases
+        order = _fused_order(name.removesuffix("_b"), config, mesh.tp).to(leaf.device)
+        leaf = leaf.index_select(leaf.ndim - 1, order)
     return _local(leaf, -1 if rule == "out" else -2, mesh)
 
 

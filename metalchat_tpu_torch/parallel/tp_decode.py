@@ -27,8 +27,16 @@ MoE rides the step on a mesh whose ep is 1 (JAX's ``moe_ok``): every rank
 routes alike on the whole router and runs each routed expert at its FFN
 width F/tp (the indexed matvec entry over the flattened ``[L·E]`` stack),
 and the post-FFN ``all_reduce`` joins w2's partial sums. A mesh with ep > 1
-is refused: its experts live on other ranks, and every window takes the
-layer route (`layer_route_forward_fn`), as JAX's GSPMD path does.
+is refused: its experts live on other ranks.
+
+Every tree the step refuses (grouped weight-only leaves, biases, dense
+fused leaves, LoRA leaves, MoE over ep, a vocabulary tp does not divide)
+takes the sharded layer route at every window (`layer_route_forward_fn`),
+as JAX's engine pins ``forward(fast_decode=False)`` on sharded params for
+GSPMD: `spmd_forward_fn` makes that choice. JAX's gate takes a LoRA leaf
+on an act8 base, but its ``shard_map`` body then adds whole adaptors to
+local shapes and raises (a ``TypeError`` on the CPU mesh); the port refuses
+LoRA on the step and serves such trees on the layer route.
 
 The step runs collectives between its kernels: `engine.generate.DecodeStep`
 and the serving engine's bursts run it eagerly (`tp_decode_forward_fn` marks
@@ -41,7 +49,7 @@ from dataclasses import replace
 from typing import Any, Dict, Optional
 
 from metalchat_tpu_torch.config import ModelConfig
-from metalchat_tpu_torch.parallel.mesh import Mesh
+from metalchat_tpu_torch.parallel.mesh import Mesh, _check_divisibility, _check_ep
 from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor
 
 
@@ -52,8 +60,9 @@ def tp_refusal(params: Dict[str, Any], config: ModelConfig, mesh: Mesh) -> Optio
     ``[L, E, ...]`` beside a router, on a mesh whose ep is 1; quantized
     leaves act8 per-channel; a fused leaf quantized, so that `shard_params`
     blocks it, or already blocked for this tp), and one of the port's own:
-    no LoRA leaf (not ported under tp). ``params`` is the whole tree or a
-    rank's local one."""
+    no LoRA leaf (JAX's gate takes one on an act8 base, and its step then
+    raises: the module docstring). ``params`` is the whole tree or a rank's
+    local one."""
     tp = mesh.tp
     layers = params.get("layers", {})
     if tp < 2:
@@ -79,11 +88,32 @@ def tp_refusal(params: Dict[str, Any], config: ModelConfig, mesh: Mesh) -> Optio
                     f"tp={tp} (a dense fused leaf mixes q with k rows across ranks)")
     for name, leaf in layers.items():
         if isinstance(leaf, LoraLinear):
-            return f"LoRA leaf {name}: adaptors under tp are not ported"
+            return (f"LoRA leaf {name}: the fast decode's step would add whole adaptors to "
+                    "local shapes (JAX's raises); LoRA trees take the layer route")
         if isinstance(leaf, QuantizedTensor) and not (
                 leaf.act_bits == 8 and leaf.group_size == leaf.in_features):
             return (f"{name}: only act8 per-channel quantized leaves shard "
                     "(grouped scales run along the split contraction)")
+    return None
+
+
+def layer_route_refusal(config: ModelConfig, mesh: Mesh) -> Optional[str]:
+    """Why the sharded layer route cannot run this model on ``mesh``, or
+    None: where `parallel.mesh.shard_params` refuses the config (heads and
+    FFN width divisible by tp, the experts by ep), and the port's kv-heads,
+    which its layer route splits over tp (JAX's GSPMD replicates kv-heads
+    that tp does not divide; `_local_config` cannot yet). Leaf-level
+    refusals (groups that straddle ranks, fused segments) are
+    `shard_params`' own."""
+    try:
+        if mesh.tp > 1:
+            _check_divisibility(config, mesh.tp)
+        if mesh.ep > 1:
+            _check_ep(config, mesh.ep)
+    except ValueError as err:
+        return str(err)
+    if config.num_kv_heads % mesh.tp:
+        return f"num_kv_heads={config.num_kv_heads} not divisible by tp={mesh.tp}"
     return None
 
 
@@ -159,16 +189,14 @@ def layer_route_forward_fn(config: ModelConfig, mesh: Mesh):
 def spmd_forward_fn(params: Dict[str, Any], config: ModelConfig, mesh: Mesh):
     """The forward a rank of ``mesh`` runs, as the JAX engine picks it:
     `tp_decode_forward_fn` where the tensor-parallel decode takes the model,
-    `layer_route_forward_fn` for MoE over an expert-parallel mesh (JAX's
-    GSPMD route); any other refusal raises ``ValueError`` with the reason
-    (the port has no partitioned route for such a model)."""
-    reason = tp_refusal(params, config, mesh)
-    if reason is None:
+    otherwise `layer_route_forward_fn` (JAX's ``forward(fast_decode=False)``
+    on sharded params): grouped weight-only, biased, dense fused and LoRA
+    trees, MoE over ep, a vocabulary tp does not divide, and a mesh whose
+    tp is 1 (dp or ep only). Raises ``ValueError`` with the reason only where
+    the layer route cannot run the model (`layer_route_refusal`)."""
+    if tp_refusal(params, config, mesh) is None:
         return tp_decode_forward_fn(params, config, mesh)
-    if mesh.ep > 1 and config.num_experts:
-        # The layer route's tp half needs what the tensor-parallel step does.
-        reason = None if mesh.tp == 1 else tp_refusal(params, config, replace(mesh, ep=1))
-        if reason is None:
-            return layer_route_forward_fn(config, mesh)
-    raise ValueError(f"spmd_mesh: {reason}; the port has no partitioned route for such "
-                     "a model")
+    reason = layer_route_refusal(config, mesh)
+    if reason is not None:
+        raise ValueError(f"spmd_mesh: {reason}")
+    return layer_route_forward_fn(config, mesh)

@@ -304,22 +304,51 @@ def _a8_int_acc(xq: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return acc_lo + (acc_hi >> 4)
 
 
+def _weight_only_f32(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """``x [..., in]`` through a 2-D weight-only leaf, the f32 sums not
+    rounded to x's dtype: row 11's f32 mode where `linear` takes the kernel
+    (at most 32 rows), else the weight in x's dtype (`quant_matmul`'s) and
+    an f32 product."""
+    w = standard_packing(w)
+    rows = x.numel() // x.shape[-1]
+    if dequant_kernel_supported(rows, w.in_features, w.group_size):
+        y = dequant_matmul(x.reshape(rows, x.shape[-1]).contiguous(), w.q, w.scales,
+                           bits=w.bits, group_size=w.group_size, transposed=w.transposed,
+                           out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.out_features)
+    wt = dequant_weight(w.q, w.scales, bits=w.bits, group_size=w.group_size,
+                        transposed=w.transposed, dtype=x.dtype)
+    return x.float() @ wt.float()
+
+
 def linear_row_parallel(x: torch.Tensor, w, mesh) -> torch.Tensor:
     """``x [..., in/tp]`` through this rank's rows of a row-parallel leaf,
     summed over ``mesh`` (`parallel.mesh.Mesh`): the single device's
-    `linear` of the whole row. An act8 per-channel leaf quantizes its slice
-    on the whole row's absmax (one ``all_reduce`` max), so its codes are the
-    single device's, and sums the exact int32 products (one ``all_reduce``
-    sum) before the scales apply; while every partial sum stays below
-    2**24, the f32 result is the single device's bit for bit. A dense leaf
-    sums f32 partial products, then rounds to x's dtype. A stack of leaves
-    (MoE experts: ``w`` ``[E, in/tp, out]`` or quantized ``q [E, ...]``)
-    takes ``x [E, T, in/tp]``, entry by entry, with the same two
+    `linear` of the whole row.
+
+    * An act8 per-channel leaf quantizes its slice on the whole row's absmax
+      (one ``all_reduce`` max), so its codes are the single device's, and
+      sums the exact int32 products (one ``all_reduce`` sum) before the
+      scales apply; while every partial sum stays below 2**24, the f32
+      result is the single device's bit for bit.
+    * A weight-only leaf (group-wise or per-channel, its groups whole on
+      the rank) and a dense leaf sum f32 partial products (row 11's f32 mode
+      at up to 32 rows), then round once to x's dtype, as the single
+      device's sum is rounded once.
+    * A `LoraLinear` runs its base so, then adds the adaptor: ``x·a`` of the
+      rank's rows of ``a`` summed over tp in f32 and rounded once, then
+      `add_adaptor`'s product with ``b`` and its scale.
+
+    A stack of leaves (MoE experts: ``w`` ``[E, in/tp, out]`` or quantized
+    ``q [E, ...]``) takes ``x [E, T, in/tp]``, entry by entry, with the same
     collectives for the whole stack."""
     lead = x.shape[:-1]
-    if isinstance(w, QuantizedTensor):
+    if isinstance(w, LoraLinear):
+        return add_adaptor(x, linear_row_parallel(x, w.base, mesh), w.a, w.b, w.scale,
+                           mesh=mesh)
+    if isinstance(w, QuantizedTensor) and w.act_bits is not None:
         if not (w.act_bits == 8 and w.group_size == w.in_features and w.q.ndim in (2, 3)):
-            raise ValueError("a row-parallel quantized leaf must be act8 per-channel")
+            raise ValueError("a row-parallel act8 leaf must be per-channel")
         w = standard_packing(w)
         if w.q.ndim == 2:
             x = x.reshape(-1, x.shape[-1])
@@ -332,9 +361,12 @@ def linear_row_parallel(x: torch.Tensor, w, mesh) -> torch.Tensor:
         acc = mesh.all_reduce(acc).float()
         s_col = w.scales.reshape(*w.q.shape[:-2], 1, w.out_features).float()
         return (acc * sx * s_col).to(x.dtype).reshape(*lead, w.out_features)
-    if isinstance(w, LoraLinear):
-        raise ValueError("LoRA leaves under tp are not ported")
-    return mesh.all_reduce(x.float() @ w.float()).to(x.dtype)
+    if isinstance(w, QuantizedTensor):
+        part = _weight_only_f32(x, w) if w.q.ndim == 2 else torch.stack(
+            [_weight_only_f32(x[e], w.layer(e)) for e in range(w.q.shape[0])])
+    else:
+        part = x.float() @ w.float()
+    return mesh.all_reduce(part).to(x.dtype)
 
 
 def requantize_per_channel(qt: QuantizedTensor, bits: int = 8,
@@ -366,12 +398,17 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 
 def add_adaptor(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                scale: float) -> torch.Tensor:
+                scale: float, mesh=None) -> torch.Tensor:
     """``y + (x·a)·b · scale``, the JAX package's LoRA epilogue: each product
     in the promoted dtype of its operands (rounded there), the scale rounded
-    to y's dtype first, then one product and one sum in the result dtype."""
+    to y's dtype first, then one product and one sum in the result dtype.
+    With ``mesh`` (a row-parallel leaf: ``x`` and ``a`` are this rank's
+    rows) ``x·a`` is summed over tp in f32, then rounded once."""
     t = torch.promote_types(x.dtype, a.dtype)
-    adapt = x.to(t) @ a.to(t)
+    if mesh is None:
+        adapt = x.to(t) @ a.to(t)
+    else:
+        adapt = mesh.all_reduce(x.float() @ a.float()).to(t)
     t = torch.promote_types(adapt.dtype, b.dtype)
     adapt = adapt.to(t) @ b.to(t)
     return y + adapt * torch.tensor(scale, dtype=y.dtype).item()

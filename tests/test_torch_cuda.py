@@ -172,6 +172,30 @@ def test_quant_matmul_kernel(card, dtype, rows):
 
 
 @DTYPES
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_quant_matmul_kernel_f32_output(card, dtype, rows):
+    """Row 11's f32-output mode (a row-parallel partial, its sums not
+    rounded to x's dtype) against its plain version, both storage
+    orientations."""
+    sm, gen, dev = card
+    for scales in ("bfloat16", "float32"):
+        chip_smoke.check_qmm(sm, chip_smoke.QMM_FIXTURE, rows, gen, dev, getattr(torch, dtype),
+                             getattr(torch, scales), out_dtype=torch.float32)
+
+
+def test_quant_matmul_tp_local_shapes(card):
+    """Row 11 at phase tp-leaves' tp-2 local shapes (8b-int4 and qlora-1b),
+    1 and 8 rows, and the row-parallel leaves in the f32-output mode."""
+    sm, gen, dev = card
+    for rows in (1, 8):
+        chip_smoke.check_qmm(sm, chip_smoke.QMM_8B_INT4_TP2, rows, gen, dev)
+        chip_smoke.check_qmm(sm, chip_smoke.QMM_QLORA_1B_TP2, rows, gen, dev,
+                             scales_dtype=torch.float32)
+        chip_smoke.check_qmm(sm, chip_smoke.QMM_ROW_PARALLEL_TP2, rows, gen, dev,
+                             out_dtype=torch.float32)
+
+
+@DTYPES
 @pytest.mark.parametrize("rows", chip_smoke.FFN_ROWS)
 def test_ffn_block_kernel(card, dtype, rows):
     sm, gen, dev = card

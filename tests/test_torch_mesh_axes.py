@@ -28,7 +28,15 @@ Tolerances:
 * (e) tests/test_multihost.py's serving run on ``make_hybrid_mesh(dcn_dp=2,
   tp=2)``: rank 0's ids equal to JAX's single-process ``generate``;
 * (f) test_round_failure_containment: the failed round, the pending
-  indices, the completed ids (JAX's) and the recovery.
+  indices, the completed ids (JAX's) and the recovery;
+* (g) the engine on a dp 2 × tp 2 mesh (tests/test_tp_decode.py's dense,
+  paged and W4A8 engine runs, tests/test_parallel_serving.py's paged one):
+  tokens equal to JAX's single-device engine (W4A8, where JAX asserts only
+  completion: equal to the port's dp 1 × tp 2 engine, since dp only splits
+  rows), and ``MultiHostEngine`` on ``make_hybrid_mesh(dcn_dp=2, tp=2)``
+  (tests/test_multihost_engine.py's run): the greedy requests equal to
+  JAX's single-device engine, the sampled one to the port's one-process
+  engine, every rank's streams the same.
 """
 
 import dataclasses
@@ -52,9 +60,12 @@ from metalchat_tpu.cache import QuantizedKVCache as JQKVCache
 from metalchat_tpu.config import LlamaConfig as JLlamaConfig
 from metalchat_tpu.config import MixtralConfig as JMixtralConfig
 from metalchat_tpu.engine import generate as jgenerate
+from metalchat_tpu.engine.serving import ContinuousBatchingEngine as JEngine
+from metalchat_tpu.engine.serving import Request as JRequest
 from metalchat_tpu.models import forward as jforward
 from metalchat_tpu.models import init_random_params as jinit
 from metalchat_tpu.models.decode import decode_step as jdecode_step
+from metalchat_tpu.models.fuse import fuse_projections as jfuse
 from metalchat_tpu.parallel import distributed as jdist
 from metalchat_tpu.parallel import mesh as jmesh
 from metalchat_tpu.parallel import tp_decode as jtp
@@ -67,6 +78,7 @@ from metalchat_tpu_torch.quant import quantize as tq
 from torch_port_util import jax_tree_to_numpy, port_config
 
 import torch_mesh_axes_worker as worker
+from test_model import TINY_LLAMA
 from test_moe import CFG as EP_CFG
 
 jq = importlib.import_module("metalchat_tpu.quant.quantize")
@@ -84,6 +96,13 @@ MOE_CFG = JMixtralConfig(vocab_size=512, hidden_size=512, intermediate_size=1024
 LLAMA_CFG = JLlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=128, num_layers=2,
                          num_heads=4, num_kv_heads=2, head_dim=16, max_seq_len=64,
                          tie_word_embeddings=False)
+# tests/test_tp_decode.py's CFG, tests/test_parallel_serving.py's model and
+# tests/test_multihost_engine.py's SETUP.
+TP_CFG = JLlamaConfig(vocab_size=512, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=256,
+                      tie_word_embeddings=False)
+TINY_CFG = TINY_LLAMA.replace(max_seq_len=96)
+MH_CFG = LLAMA_CFG.replace(max_seq_len=128)
 
 
 def _trees():
@@ -92,7 +111,40 @@ def _trees():
             "moe_w4a8": jq.quantize_params(moe, bits=4, group_size=None, act_bits=8,
                                            scales_dtype=jnp.float32),
             "ep": jinit(EP_CFG, seed=1, dtype=jnp.float32),
-            "llama": jinit(LLAMA_CFG, dtype=jnp.float32, max_seq_len=64)}
+            "llama": jinit(LLAMA_CFG, dtype=jnp.float32, max_seq_len=64),
+            "dp_dense": jinit(TP_CFG, seed=2, dtype=jnp.float32),
+            "dp_paged": jinit(TP_CFG, seed=3, dtype=jnp.float32),
+            "dp_w4a8": jfuse(jq.quantize_params(jinit(TP_CFG, seed=6, dtype=jnp.float32), bits=4,
+                                                group_size=None, act_bits=8,
+                                                scales_dtype=jnp.float32), TP_CFG),
+            "tiny": jinit(TINY_CFG, seed=11, dtype=jnp.float32),
+            "mh": jinit(MH_CFG, dtype=jnp.float32, max_seq_len=128)}
+
+
+# The JAX trees and configs of the dp engines, by worker.DP_ENGINES' names.
+JAX_CFGS = {"tp": TP_CFG, "tiny": TINY_CFG, "mh": MH_CFG}
+
+
+def _jax_engines(trees):
+    """JAX's single-device engine on the dense, paged and tiny-paged dp cases
+    and on tests/test_multihost_engine.py's requests (its tokens by
+    request)."""
+    out = {}
+    for name, (tree, cfg_name, kw, requests) in worker.DP_ENGINES.items():
+        if name == "w4a8":  # JAX asserts only completion for it
+            continue
+        engine = JEngine(trees[tree], JAX_CFGS[cfg_name], **kw)
+        done = engine.run([JRequest(prompt=p, max_new_tokens=n) for p, n in requests])
+        out[name] = [c.tokens for c in done.values()]
+    engine = JEngine(trees["mh"], MH_CFG, **worker.MH_ENGINE)
+    from metalchat_tpu.sampling import SamplerConfig as JSampler
+
+    done = engine.run([JRequest(prompt=p, max_new_tokens=n, sampler=JSampler.greedy()
+                                if s is None else JSampler(temperature=s[0], top_k=s[1],
+                                                           top_p=s[2]))
+                       for p, n, s in worker.MH_REQUESTS])
+    out["multihost"] = [c.tokens for c in done.values()]
+    return out
 
 
 def _ep_tokens():
@@ -195,7 +247,8 @@ def runs(tmp_path_factory):
     numpy_trees = {k: jax_tree_to_numpy(v) for k, v in trees.items()}
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump({"cfgs": {"moe": _cfg_entry(MOE_CFG), "ep": _cfg_entry(EP_CFG),
-                              "llama": _cfg_entry(LLAMA_CFG)},
+                              "llama": _cfg_entry(LLAMA_CFG),
+                              **{k: _cfg_entry(c) for k, c in JAX_CFGS.items()}},
                      "ep_tokens": _ep_tokens().tolist(), **numpy_trees}, f)
     deadline = time.monotonic() + RANK_TIMEOUT_S
     procs = _launch(tmp)
@@ -204,7 +257,8 @@ def runs(tmp_path_factory):
                 "serve": _jax_generate(trees["llama"], worker.SERVE_PROMPTS,
                                        worker.SERVE_NEW),
                 "fail": _jax_generate(trees["llama"], worker.FAIL_PROMPTS[:1],
-                                      worker.FAIL_NEW)}
+                                      worker.FAIL_NEW),
+                "engines": _jax_engines(trees)}
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("METALCHAT_TPU_PALLAS_INTERPRET", "1")
             jops.use_pallas.cache_clear()
@@ -454,3 +508,61 @@ def test_multihost_round_failure_containment(runs):
             assert len(got["redo"]) == 1 and len(got["redo"][0]) == worker.FAIL_NEW
         else:
             assert got["pending"] == [] and got["completed"] == [] and got["redo"] == []
+
+
+# -- (g) the engine over dp ---------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["dense", "paged", "tiny_paged"])
+def test_dp_engine_token_exact(runs, case):
+    """``ContinuousBatchingEngine(spmd_mesh=make_mesh(tp=2, dp=2))``, dense
+    f32: the tokens of JAX's single-device engine on every rank. A dense
+    cache holds max_slots / dp slots on each dp row, whose logits are
+    gathered over dp once a model call; a paged one stays whole over dp
+    (no dp collective). CFG's vocabulary takes the tensor-parallel decode,
+    TINY_LLAMA's odd one the sharded layer route."""
+    want, ranks, _ = runs
+    kw = worker.DP_ENGINES[case][2]
+    paged = kw.get("cache_mode") == "paged"
+    for res in ranks:
+        got = res["dp_engines"][case]
+        assert all(got["finished"]) and got["tokens"] == want["engines"][case], (
+            case, got["tokens"], want["engines"][case])
+        assert got["route"] == ("layer_route_forward_fn" if case == "tiny_paged"
+                                else "tp_decode_forward_fn")
+        assert got["local_slots"] == kw["max_slots"] // (1 if paged else 2)
+        assert ("all_gather_dp" in got["collectives"]) == (not paged), got["collectives"]
+
+
+def test_dp_engine_w4a8_equals_dp1(runs):
+    """tests/test_tp_decode.py's W4A8 engine (fused, int8 KV) on dp 2 × tp 2:
+    every request completes with its length, as JAX asserts, and the
+    tokens equal the port's engine on dp 1 × tp 2 (dp only splits the
+    rows; the row-parallel act-quant is per shard in both)."""
+    _, ranks, _ = runs
+    lengths = [n for _, n in worker.DP_REQUESTS]
+    for res in ranks:
+        got, dp1 = res["dp_engines"]["w4a8"], res["dp_engines"]["w4a8_tp2"]
+        assert all(got["finished"]) and [len(t) for t in got["tokens"]] == lengths
+        assert got["tokens"] == dp1["tokens"], (got["tokens"], dp1["tokens"])
+
+
+def test_multihost_engine_on_hybrid_mesh(runs):
+    """``MultiHostEngine`` on ``make_hybrid_mesh(dcn_dp=2, tp=2)``: rank 0's
+    four requests (mixed lengths, one past a prefill chunk, one sampled)
+    on every rank; the greedy ones equal to JAX's single-device engine, the
+    sampled one to the port's one-process engine (the same generator
+    draws over the whole batch), and every rank's streams the same."""
+    want, ranks, trees = runs
+    cfg = port_config(MH_CFG)
+    engine = ContinuousBatchingEngine(params_from_numpy(trees["mh"], CPU), cfg,
+                                      **worker.MH_ENGINE)
+    one = [c.tokens for c in engine.run(worker.mh_requests()).values()]
+    got = ranks[0]["multihost_engine"]
+    assert all(got["finished"])
+    for i, (_, _, sampler) in enumerate(worker.MH_REQUESTS):
+        if sampler is None:
+            assert got["tokens"][i] == want["engines"]["multihost"][i], i
+        assert got["tokens"][i] == one[i], i
+    for res in ranks[1:]:
+        assert res["multihost_engine"]["tokens"] == got["tokens"]
+    assert got["local_slots"] == worker.MH_ENGINE["max_slots"] // 2

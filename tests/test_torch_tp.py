@@ -27,7 +27,14 @@ Tolerances:
   within 2e-4 (tests/test_tp_decode.py's GSPMD check);
 * the engine (f): token-exact against the single-device engine, dense f32,
   dense and paged caches; ``MultiHostEngine`` (g): the same streams on both
-  ranks.
+  ranks;
+* the sharded layer route on every leaf kind (i): a dense fused tree,
+  group-wise int4 and int8 in both orientations, fused and not, GPT-2 with
+  non-zero biases and an odd vocabulary, fused and not, and a LoRA tree: a
+  40-token prompt's f32 logits, then one token's, within rtol/atol 2e-5
+  (tests/test_parallel.py's tolerance) of JAX's ``forward(fast_decode=
+  False)`` on one device and on its tp-2 CPU mesh; the engine on the trees
+  the fast decode refuses token-exact to the port's single-device engine.
 """
 
 import dataclasses
@@ -36,6 +43,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -46,15 +54,19 @@ import jax
 import jax.numpy as jnp
 
 from metalchat_tpu import config as jconfig
+from metalchat_tpu.config import config_from_dict as jconfig_from_dict
 from metalchat_tpu.cache import KVCache as JKVCache
 from metalchat_tpu.cache import PagedKVCache as JPagedKVCache
 from metalchat_tpu.cache import QuantizedKVCache as JQKVCache
 from metalchat_tpu.config import LlamaConfig as JLlamaConfig
 from metalchat_tpu.models import fuse as jfusemod
+from metalchat_tpu.models import forward as jforward
 from metalchat_tpu.models import init_random_params as jinit
+from metalchat_tpu.models.transformer import make_rope_tables as jrope_tables
 from metalchat_tpu.models.fuse import fuse_projections as jfuse
 from metalchat_tpu.parallel import mesh as jmesh
 from metalchat_tpu.parallel import tp_decode as jtp
+from metalchat_tpu.train.lora import attach_lora as jattach_lora
 from metalchat_tpu_torch.cache import KVCache, QuantizedKVCache
 from metalchat_tpu_torch.convert import params_from_numpy
 from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine, Request
@@ -84,6 +96,15 @@ TP = 2
 PROMPT_LEN = 40  # over 16 tokens: the prefill's flash route
 RANK_TIMEOUT_S = 150
 CPU = torch.device("cpu")
+LEAF_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_parallel.py's
+# A small GPT-2: heads and FFN width that tp 2 divides, a vocabulary it does
+# not (GPT-2's own 50257 is odd), so the embedding and tied head stay whole.
+GPT2_HF = {"model_type": "gpt2", "n_embd": 128, "n_head": 4, "n_layer": 2, "n_positions": 64,
+           "n_inner": None, "vocab_size": 509, "layer_norm_epsilon": 1e-5,
+           "bos_token_id": 508, "eos_token_id": 508}
+GPT2_CFG = jconfig_from_dict(GPT2_HF)
+LEAF_NAMES = ("dense_fused", "int4", "int4_fused_t", "int8_n", "int8_fused", "gpt2",
+              "gpt2_fused", "lora")
 
 
 def _jmesh():
@@ -98,6 +119,92 @@ def _w4a8(seed):
 def _trees():
     return {"dense": jinit(CFG, seed=0, dtype=jnp.float32), "w4a8": _w4a8(1),
             "fused": jfuse(_w4a8(4), CFG)}
+
+
+def _oriented(tree, transposed: bool):
+    """Every quantized layer leaf stored ``transposed`` (or not)."""
+    layers = {k: jq.with_orientation(v, transposed) if isinstance(v, jq.QuantizedTensor) else v
+              for k, v in tree["layers"].items()}
+    return dict(tree, layers=layers)
+
+
+def _grouped(bits, seed):
+    return jq.quantize_params(jinit(CFG, seed=seed, dtype=jnp.float32), bits=bits,
+                              group_size=32)
+
+
+def _gpt2_tree(seed=0):
+    """GPT-2 f32 parameters from a numpy seed: non-zero norm and projection
+    biases and positions, the head tied."""
+    rng = np.random.default_rng(seed)
+    h, f, L, V, S = 128, 512, 2, GPT2_CFG.vocab_size, GPT2_CFG.max_seq_len
+
+    def w(*shape, fan):
+        return jnp.asarray(rng.standard_normal(shape) * fan ** -0.5, jnp.float32)
+
+    def small(*shape, scale=0.1):
+        return jnp.asarray(rng.standard_normal(shape) * scale, jnp.float32)
+
+    embed = small(V, h, scale=0.3)
+    layers = {"attn_norm": 1 + small(L, h), "attn_norm_b": small(L, h),
+              "ffn_norm": 1 + small(L, h), "ffn_norm_b": small(L, h),
+              "wq": w(L, h, h, fan=h), "wk": w(L, h, h, fan=h), "wv": w(L, h, h, fan=h),
+              "wq_b": small(L, h), "wk_b": small(L, h), "wv_b": small(L, h),
+              "wo": w(L, h, h, fan=h), "wo_b": small(L, h),
+              "w1": w(L, h, f, fan=h), "w1_b": small(L, f), "w2": w(L, f, h, fan=f),
+              "w2_b": small(L, h)}
+    return {"embed": embed, "pos_emb": small(S, h, scale=0.3), "layers": layers,
+            "final_norm": 1 + small(h), "final_norm_b": small(h), "lm_head": embed.T,
+            "rope": jrope_tables(GPT2_CFG, S)}
+
+
+def _lora_tree():
+    """QLoRA's form: int8 group-32 bases with adaptors on every projection
+    (``train.lora``), ``b`` made non-zero so that the adaptors count."""
+    tree = jattach_lora(_grouped(8, 13), rank=4, seed=1)
+    rng = np.random.default_rng(5)
+    layers = {k: dataclasses.replace(v, b=jnp.asarray(
+        rng.standard_normal(v.b.shape) * 0.02, jnp.float32))
+        if isinstance(v, jq.LoraLinear) else v for k, v in tree["layers"].items()}
+    return dict(tree, layers=layers)
+
+
+def _leaf_trees():
+    """The layer route's trees: {name: (JAX config, JAX tree)}."""
+    gpt2 = _gpt2_tree()
+    return {"dense_fused": (CFG, jfuse(jinit(CFG, seed=8, dtype=jnp.float32), CFG)),
+            "int4": (CFG, _grouped(4, 9)),
+            "int4_fused_t": (CFG, jfuse(_oriented(_grouped(4, 10), True), CFG)),
+            "int8_n": (CFG, _oriented(_grouped(8, 11), False)),
+            "int8_fused": (CFG, jfuse(_grouped(8, 12), CFG)),
+            "gpt2": (GPT2_CFG, gpt2), "gpt2_fused": (GPT2_CFG, jfuse(gpt2, GPT2_CFG)),
+            "lora": (CFG, _lora_tree())}
+
+
+def _leaf_prompt(jcfg):
+    return np.random.default_rng(3).integers(0, jcfg.vocab_size, (1, PROMPT_LEN))
+
+
+def _jax_leaf_results(leaves):
+    """JAX's ``forward(fast_decode=False)`` on each leaf tree, on one device
+    and on the tp-2 mesh (GSPMD on ``shard_params``' placement): the
+    prompt's logits, then `worker.STEP_TOKEN`'s."""
+    mesh = _jmesh()
+    fwd = jax.jit(jforward, static_argnames=("config", "fast_decode"))
+    out = {}
+    for name, (jcfg, tree) in leaves.items():
+        prompt = jnp.asarray(_leaf_prompt(jcfg), jnp.int32)
+        res = {}
+        for where, params, place in (("single", tree, lambda c: c),
+                                     ("mesh", jmesh.shard_params(tree, jcfg, mesh),
+                                      lambda c: jmesh.shard_cache(c, mesh))):
+            cache = place(JKVCache.create(jcfg, 1, jcfg.max_seq_len, dtype=jnp.float32))
+            prefill, cache = fwd(params, cache, prompt, 0, config=jcfg, fast_decode=False)
+            step, _ = fwd(params, cache, jnp.asarray(worker.STEP_TOKEN, jnp.int32), PROMPT_LEN,
+                          config=jcfg, fast_decode=False)
+            res[where] = {"prefill": np.asarray(prefill), "step": np.asarray(step)}
+        out[name] = res
+    return out
 
 
 def _jax_cache(cache):
@@ -145,30 +252,39 @@ def runs(tmp_path_factory):
     """(JAX results, the port's per-rank results, numpy trees, port config)."""
     from metalchat_tpu import ops as jops
 
-    trees = _trees()
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("METALCHAT_TPU_PALLAS_INTERPRET", "1")
-        jops.use_pallas.cache_clear()
-        try:
-            want = _jax_results(trees)
-        finally:
-            jops.use_pallas.cache_clear()
+    trees, leaves = _trees(), _leaf_trees()
     numpy_trees = {k: jax_tree_to_numpy(v) for k, v in trees.items()}
+    numpy_leaves = {k: jax_tree_to_numpy(t) for k, (_, t) in leaves.items()}
     prompt = np.random.default_rng(3).integers(0, CFG.vocab_size, (1, PROMPT_LEN))
     tmp = tmp_path_factory.mktemp("tp")
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump({"cfg": {f.name: getattr(CFG, f.name) for f in dataclasses.fields(CFG)},
-                     "prompt": prompt.tolist(), **numpy_trees}, f)
-    env = dict(os.environ, OMP_NUM_THREADS="2")
+                     "prompt": prompt.tolist(), **numpy_trees,
+                     "leaves": {k: {"cfg": _cfg_entry(c), "tree": numpy_leaves[k],
+                                    "prompt": _leaf_prompt(c).tolist()}
+                                for k, (c, _) in leaves.items()}}, f)
+    # MKL's dynamic threading may give a loaded rank fewer threads, which
+    # splits the attention's batched products another way and moves f32
+    # sums by an ulp (enough to move an act8 code): each rank keeps its two.
+    env = dict(os.environ, OMP_NUM_THREADS="2", MKL_DYNAMIC="FALSE", OMP_DYNAMIC="FALSE")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
     procs = [subprocess.Popen(
         [sys.executable, str(HERE / "torch_tp_worker.py"), str(r), str(TP),
          str(tmp / "store"), str(tmp / "inputs.pkl"), str(tmp / f"rank{r}.pkl")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for r in range(TP)]
     logs = []
-    try:
+    try:  # the JAX side while the ranks run
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("METALCHAT_TPU_PALLAS_INTERPRET", "1")
+            jops.use_pallas.cache_clear()
+            try:
+                want = _jax_results(trees)
+            finally:
+                jops.use_pallas.cache_clear()
+        want["leaves"] = _jax_leaf_results(leaves)
         for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
     finally:
         for p in procs:  # a rank that hangs is killed, and the launch fails
             if p.poll() is None:
@@ -180,7 +296,12 @@ def runs(tmp_path_factory):
     for r in range(TP):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
-    return want, ranks, numpy_trees, port_config(CFG), prompt
+    return want, ranks, dict(numpy_trees, leaves=numpy_leaves), port_config(CFG), prompt
+
+
+def _cfg_entry(jcfg):
+    cfg = port_config(jcfg)
+    return type(cfg).__name__, {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
 def _whole_cache(ranks, case):
@@ -352,7 +473,9 @@ def test_gating_refuses_what_jax_refuses():
     and a grouped weight-only model: the JAX package's answers. MoE as
     JAX answers it: stacked experts on a tp-only mesh are taken, a mesh
     with ep > 1 is refused with the reason (and so is a tree without its
-    router). The port also refuses LoRA leaves (not ported under tp)."""
+    router). A LoRA leaf on an act8 base: JAX's gate takes it and its step
+    raises (whole adaptors added to local shapes); the port's gate refuses
+    it, and the engine serves such a tree on the layer route."""
     cfg = port_config(CFG)
     params = jinit(CFG, seed=0, dtype=jnp.float32)
     tparams = params_from_numpy(jax_tree_to_numpy(params), CPU)
@@ -382,17 +505,31 @@ def test_gating_refuses_what_jax_refuses():
         assert supports_tp_fast_decode(tmoe, moe, Mesh(tp=tp, ep=ep)) == want == (ep == 1)
     assert "ep=2" in tp_refusal(tmoe, moe, Mesh(tp=TP, ep=2))
     assert "MoE" in tp_refusal(tparams, moe, Mesh(tp=TP))  # no router in the tree
-    lora = dict(tparams, layers=dict(tparams["layers"], wq=tq.LoraLinear(
-        base=tparams["layers"]["wq"], a=torch.zeros(2, 512, 4), b=torch.zeros(2, 4, 512))))
+    # LoRA on an act8 base: JAX's gate takes it, then its step adds whole
+    # adaptors to local shapes and raises; the port refuses it at the gate.
+    jlora = jattach_lora(jq.quantize_params(params, bits=4, group_size=None, act_bits=8,
+                                            scales_dtype=jnp.float32), rank=4, targets=("wq",))
+    jm = _jmesh()
+    assert jtp.supports_tp_fast_decode(jlora, CFG, jm)
+    sq = jmesh.shard_params(jlora, CFG, jm)
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        jax.jit(jtp.make_tp_decode_step(sq, CFG, jm))(
+            sq, jmesh.shard_cache(JQKVCache.create(CFG, 2, CFG.max_seq_len), jm),
+            jnp.asarray(worker.TOKENS, jnp.int32), jnp.asarray(worker.POSITIONS, jnp.int32))
+    lora = params_from_numpy(jax_tree_to_numpy(jlora), CPU)
     assert "LoRA" in tp_refusal(lora, cfg, Mesh(tp=TP))
     with pytest.raises(ValueError, match="not divisible"):
         make_tp_decode_step(tparams, cfg, Mesh(tp=4))
 
 
-def test_biased_model_raises():
+def test_biased_model_raises(runs):
     """A model with biases: the tensor-parallel step refuses it with the
     reason, and ``decode_step(..., tp=)`` raises as JAX's does
-    (``decode_step(..., tp_axis=)`` on ``use_bias``)."""
+    (``decode_step(..., tp_axis=)`` on ``use_bias``). The sharded layer
+    route takes it: ``forward(..., tp=)`` on the small GPT-2 (non-zero
+    biases, an odd vocabulary: the embedding and the tied head whole) is the
+    port's single-device ``forward`` within 2e-5, the whole logits on every
+    rank with no gather."""
     from metalchat_tpu_torch.models.decode import decode_step
 
     cfg = dataclasses.replace(port_config(CFG), use_bias=True)
@@ -403,8 +540,18 @@ def test_biased_model_raises():
     cache = KVCache.create(cfg, 1, 16, dtype=torch.float32, device=CPU)
     with pytest.raises(NotImplementedError, match="use_bias"):
         decode_step(params, cache, torch.tensor([[5]]), 0, cfg, tp=Mesh(tp=TP))
-    with pytest.raises(NotImplementedError, match="use_bias"):
-        forward(params, cache, torch.tensor([[5, 6]]), 0, cfg, tp=Mesh(tp=TP))
+    _, ranks, trees, _, _ = runs
+    gcfg = port_config(GPT2_CFG)
+    gpt2 = params_from_numpy(trees["leaves"]["gpt2"], CPU)
+    with torch.no_grad():
+        cache = KVCache.create(gcfg, 1, gcfg.max_seq_len, dtype=torch.float32, device=CPU)
+        want, cache = forward(gpt2, cache, torch.from_numpy(_leaf_prompt(GPT2_CFG)), 0, gcfg)
+        step, _ = forward(gpt2, cache, torch.tensor(worker.STEP_TOKEN), PROMPT_LEN, gcfg)
+    for r in ranks:
+        got = r["leaves"]["gpt2"]
+        np.testing.assert_allclose(got["prefill"], want.numpy(), **LEAF_TOL)
+        np.testing.assert_allclose(got["step"], step.numpy(), **LEAF_TOL)
+        assert "all_gather" not in got["collectives"]
 
 
 # -- the layout pieces against the JAX package's ------------------------------------
@@ -532,12 +679,95 @@ def test_forward_fn_and_cache_options(runs):
     assert base._graph_route()
 
 
-def test_engine_spmd_refuses_an_ineligible_model():
-    """``spmd_mesh`` with a model the tensor-parallel decode cannot run: a
-    ``ValueError`` with the reason (the JAX engine falls back to GSPMD,
-    which the port does not have)."""
+def test_engine_spmd_refuses_an_ineligible_model(runs):
+    """``spmd_mesh`` with a tree the tensor-parallel decode refuses (dense
+    fused, group-wise int4, GPT-2's biases, LoRA): the engine takes the
+    sharded layer route, as the JAX engine pins ``forward(fast_decode=
+    False)`` for GSPMD, and its tokens are the single-device engine's.
+    What that route cannot run is still refused with the reason: kv-heads
+    that tp does not divide (JAX's GSPMD replicates them; the port's layer
+    route splits them)."""
+    _, ranks, trees, cfg, _ = runs
+    leaves = _leaf_trees()
+    for name in worker.LEAF_ENGINES:
+        lcfg = port_config(leaves[name][0])
+        engine = ContinuousBatchingEngine(params_from_numpy(trees["leaves"][name], CPU), lcfg,
+                                          **worker.ENGINE)
+        out = engine.run([Request(prompt=p, max_new_tokens=n) for p, n in worker.REQUESTS])
+        want = [c.tokens for c in out.values()]
+        for r in ranks:
+            got = r["engine_leaves"][name]
+            assert all(got["finished"]) and got["route"] == "layer_route_forward_fn", name
+            assert got["tokens"] == want, (name, got["tokens"], want)
+    grouped = params_from_numpy(trees["leaves"]["int4"], CPU)
+    with pytest.raises(ValueError, match="num_kv_heads=1 not divisible by tp=2"):
+        ContinuousBatchingEngine(grouped, dataclasses.replace(cfg, num_kv_heads=1),
+                                 spmd_mesh=Mesh(tp=TP), **worker.ENGINE)
+
+
+@pytest.mark.parametrize("name", LEAF_NAMES)
+def test_layer_route_leaf_kinds_match_jax(runs, name):
+    """``forward(..., tp=mesh)`` on two ranks against JAX's ``forward(
+    fast_decode=False)`` on one device and on its tp-2 mesh, f32 within
+    2e-5: the prompt's logits (flash), then one token's (row 6's plain
+    version on the 256-position cache; GPT-2's 64 take the reference
+    attention). Both ranks hold the same logits; one all_reduce for the
+    embedding and one after each row-parallel product (and its adaptor) a
+    layer, one all_gather where the lm_head is split."""
+    want, ranks, *_ = runs
+    jcfg = GPT2_CFG if name.startswith("gpt2") else CFG
+    per_call = 1 + 2 * jcfg.num_layers * (2 if name == "lora" else 1)
+    gathers = {} if jcfg.vocab_size % TP else {"all_gather": 2}
+    for r in ranks:
+        got = r["leaves"][name]
+        for part in ("prefill", "step"):
+            for where in ("single", "mesh"):
+                np.testing.assert_allclose(got[part], want["leaves"][name][where][part],
+                                           **LEAF_TOL, err_msg=f"{name} {part} vs JAX {where}")
+            np.testing.assert_array_equal(got[part], ranks[0]["leaves"][name][part])
+        assert got["collectives"] == {"all_reduce_sum": 2 * per_call, **gathers}, name
+
+
+def test_shard_params_refuses_straddling_groups_and_segments():
+    """The layouts the sharded layer route cannot run are refused with the
+    reason: a row-parallel group-wise leaf whose rank would hold part of a
+    group, and a fused leaf (dense or quantized) whose segments tp does not
+    divide. A whole embedding (an odd vocabulary) looks ids up on rank 0
+    only: the all_reduce sums one row and zeros."""
+    from metalchat_tpu_torch.models.transformer import _tp_lookup_embedding
+
     cfg = port_config(CFG)
-    grouped = params_from_numpy(jax_tree_to_numpy(jq.quantize_params(
-        jinit(CFG, seed=0, dtype=jnp.float32), bits=4, group_size=32)), CPU)
-    with pytest.raises(ValueError, match="per-channel"):
-        ContinuousBatchingEngine(grouped, cfg, spmd_mesh=Mesh(tp=TP), **worker.ENGINE)
+    w = np.random.default_rng(0).standard_normal((1, 512, 512)).astype(np.float32)
+    wide = tq.quantize(w, bits=8, group_size=256, device=CPU)
+    with pytest.raises(ValueError, match="straddle"):
+        shard_params({"layers": {"wo": wide}}, cfg, Mesh(tp=4, rank=1))
+    int4 = tq.quantize(w, bits=4, group_size=128, device=CPU)
+    with pytest.raises(ValueError, match="int4 half-split"):
+        shard_params({"layers": {"w2": int4}}, cfg, Mesh(tp=4, rank=0))
+    assert shard_params({"layers": {"wo": int4}}, cfg, Mesh(tp=2, rank=1))["layers"][
+        "wo"].group_size == 128
+    odd = dataclasses.replace(cfg, num_kv_heads=1, head_dim=3)
+    for leaf in (torch.zeros(1, 512, 18), tq.quantize(np.zeros((1, 512, 18), np.float32),
+                                                      bits=8, group_size=32, device=CPU)):
+        with pytest.raises(ValueError, match="segments .* not divisible by tp=2"):
+            shard_params({"layers": {"wqkv": leaf}}, odd, Mesh(tp=TP, rank=0))
+
+    class Sum:  # two ranks' all_reduce, each rank's contribution recorded
+        def __init__(self, tp):
+            self.tp, self.seen = tp, []
+
+        def index(self, axis):
+            return self.rank
+
+        def all_reduce(self, t):
+            self.seen.append(t.clone())
+            return t
+
+    table = torch.randn(97, 8)
+    ids = torch.tensor([[0, 5, 96]])
+    parts = []
+    for rank in range(TP):
+        m = Sum(TP)
+        m.rank = rank
+        parts.append(_tp_lookup_embedding(ids, table, m))
+    assert torch.equal(parts[0], table[ids]) and not parts[1].any()

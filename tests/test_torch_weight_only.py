@@ -113,6 +113,28 @@ def test_linear_routes_by_rows(monkeypatch, rows, transposed):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dequant_matmul_f32_output(transposed):
+    """``out_dtype=torch.float32`` (a row-parallel partial): the same f32
+    sums over the weight in x's dtype, not rounded; rounded to x's dtype
+    they are the default output bit for bit. Another dtype is refused."""
+    rng = np.random.default_rng(9)
+    _, tt = _leaf(rng, 128, 96, 4, 32, transposed)
+    x = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32)).to(torch.bfloat16)
+    kw = dict(bits=4, group_size=32, transposed=transposed)
+    got = tqm.dequant_matmul(x, tt.q, tt.scales, out_dtype=torch.float32, **kw)
+    w = tqm.dequant_weight(tt.q, tt.scales, dtype=torch.bfloat16, **kw)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, x.float() @ w.float())
+    assert torch.equal(got.to(torch.bfloat16), tqm.dequant_matmul(x, tt.q, tt.scales, **kw))
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="out_dtype"):
+        tqm.dequant_matmul(torch.empty(8, 128, dtype=torch.bfloat16, **meta),
+                           torch.empty(96, 64, dtype=torch.int8, **meta),
+                           torch.empty(96, 4, dtype=torch.bfloat16, **meta), bits=4,
+                           group_size=32, transposed=True, out_dtype=torch.float16)
+
+
 @pytest.mark.parametrize("bad", ["rows", "in", "group", "scales"])
 def test_dequant_matmul_gate(bad):
     """What the kernel does not take raises before any launch (meta tensors

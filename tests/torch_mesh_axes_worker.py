@@ -26,7 +26,9 @@ from metalchat_tpu_torch.cache import KVCache, QuantizedKVCache  # noqa: E402
 from metalchat_tpu_torch.convert import params_from_numpy  # noqa: E402
 from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine, Request  # noqa: E402
 from metalchat_tpu_torch.models.transformer import forward  # noqa: E402
+from metalchat_tpu_torch.sampling import SamplerConfig  # noqa: E402
 from metalchat_tpu_torch.parallel import (  # noqa: E402
+    MultiHostEngine,
     MultiHostRoundError,
     MultiHostServer,
     initialize,
@@ -56,6 +58,30 @@ SERVE_PROMPTS = [[3, 1, 4, 1, 5, 9, 2], [2, 7, 1, 8, 2, 8, 1], [1, 2, 3]]
 SERVE_NEW = 8
 FAIL_PROMPTS = [[3, 1, 4], [1, 5, 9], [2, 6, 5, 3, 5]]
 FAIL_NEW = 6
+# The engine on the dp 2 x tp 2 mesh: {case: (tree, config, engine arguments,
+# requests)}, tests/test_tp_decode.py's test_tp_engine_spmd_token_exact,
+# ..._paged_token_exact and test_tp_engine_w4a8_quantized_kv, and
+# tests/test_parallel_serving.py's test_engine_spmd_paged.
+DP_REQUESTS = [([1, 2, 3, 4, 5], 6), ([7, 8, 9], 5)]
+DP_ENGINE = dict(max_slots=4, max_seq_len=64, decode_burst=4, prefill_chunk=16)
+DP_ENGINES = {
+    "dense": ("dp_dense", "tp", DP_ENGINE, DP_REQUESTS),
+    "paged": ("dp_paged", "tp", dict(DP_ENGINE, cache_mode="paged", page_size=32), DP_REQUESTS),
+    "w4a8": ("dp_w4a8", "tp", dict(DP_ENGINE, quantized_kv=True), DP_REQUESTS),
+    "tiny_paged": ("tiny", "tiny", dict(max_slots=4, max_seq_len=32, prefill_chunk=16,
+                                        cache_mode="paged", page_size=8, decode_burst=2),
+                   [([1, 2, 3, 4, 5], 5), ([6, 7, 8], 4)]),
+}
+# tests/test_multihost_engine.py's SETUP: (prompt, budget, sampler or None).
+MH_ENGINE = dict(max_slots=2, quantized_kv=True, decode_burst=4, prefill_chunk=16, seed=3)
+MH_REQUESTS = [([3, 1, 4, 1, 5] * 8, 10, None), ([2, 7, 1], 6, None),
+               ([9] * 17, 8, (0.8, 12, 0.9)), ([5, 5], 5, None)]
+
+
+def mh_requests():
+    return [Request(prompt=p, max_new_tokens=n, sampler=SamplerConfig.greedy() if s is None
+                    else SamplerConfig(temperature=s[0], top_k=s[1], top_p=s[2]))
+            for p, n, s in MH_REQUESTS]
 
 
 def _cfg(data, name):
@@ -206,6 +232,42 @@ def case_round_failure(data, meshes):
     return out
 
 
+def _served(engine, done, mesh, before):
+    return {"tokens": [c.tokens for c in done.values()],
+            "finished": [c.finished and c.error is None for c in done.values()],
+            "route": engine.forward_fn.__qualname__.split(".")[0],
+            "local_slots": int(engine.cache.page_table.shape[0] if engine.paged
+                               else engine.cache.k.shape[1]),
+            "collectives": _delta(mesh, before)}
+
+
+def case_dp_engines(data, meshes):
+    """The engine on make_mesh(tp=2, dp=2) for each of DP_ENGINES, and the
+    W4A8 one on a pair's tp 2 mesh (dp 1)."""
+    out = {}
+    for name, (tree, cfg_name, kw, requests) in DP_ENGINES.items():
+        cfg = _cfg(data, cfg_name)
+        runs = [("dp2tp2", name)] + ([("tp2", "w4a8_tp2")] if name == "w4a8" else [])
+        for mesh_name, key in runs:
+            mesh = meshes[mesh_name]
+            engine = ContinuousBatchingEngine(shard_params(_tree(data, tree), cfg, mesh), cfg,
+                                              spmd_mesh=mesh, **kw)
+            before = dict(mesh.counts)
+            done = engine.run([Request(prompt=p, max_new_tokens=n) for p, n in requests])
+            out[key] = _served(engine, done, mesh, before)
+    return out
+
+
+def case_multihost_engine(data, meshes):
+    """tests/test_multihost_engine.py's run: MultiHostEngine on
+    make_hybrid_mesh(dcn_dp=2, tp=2), rank 0's requests only."""
+    mesh = meshes["hybrid"]
+    engine = MultiHostEngine(_tree(data, "mh"), _cfg(data, "mh"), mesh, **MH_ENGINE)
+    before = dict(mesh.counts)
+    done = engine.run(mh_requests() if mesh.rank == 0 else None)
+    return _served(engine.engine, done, mesh, before)
+
+
 CASES = {name[5:]: fn for name, fn in sorted(globals().items()) if name.startswith("case_")}
 
 
@@ -221,7 +283,8 @@ def main(argv) -> int:
         pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
         pair = pairs[rank // 2]
         meshes = {"tp2": make_mesh(tp=2, group=pair), "ep2": make_mesh(tp=1, ep=2, group=pair),
-                  "tp2ep2": make_mesh(tp=2, ep=2), "hybrid": make_hybrid_mesh(dcn_dp=2, tp=2)}
+                  "tp2ep2": make_mesh(tp=2, ep=2), "hybrid": make_hybrid_mesh(dcn_dp=2, tp=2),
+                  "dp2tp2": make_mesh(tp=2, dp=2)}
         with torch.no_grad():
             results = {name: fn(data, meshes) for name, fn in CASES.items()}
         results["places"] = {n: (m.shape, _place(m), m.rank) for n, m in meshes.items()}

@@ -17,6 +17,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import metalchat_tpu_torch.config as tconfig  # noqa: E402
 from metalchat_tpu_torch.cache import KVCache, PagedKVCache, QuantizedKVCache  # noqa: E402
 from metalchat_tpu_torch.config import LlamaConfig  # noqa: E402
 from metalchat_tpu_torch.convert import params_from_numpy  # noqa: E402
@@ -44,6 +45,10 @@ ENGINE = dict(max_slots=4, max_seq_len=64, decode_burst=4, prefill_chunk=16)
 ENGINE_MODES = {"dense": {}, "paged": dict(cache_mode="paged", page_size=32)}
 REQUESTS = [([1, 2, 3, 4, 5], 6), ([7, 8, 9], 5)]
 SAMPLED = SamplerConfig(temperature=0.8, top_k=20, top_p=0.9)
+# The layer route's leaf kinds: a prompt, then this token, through
+# forward(..., tp=mesh); the engine on the trees of LEAF_ENGINES.
+STEP_TOKEN = [[7]]
+LEAF_ENGINES = ("dense_fused", "int4_fused_t", "gpt2_fused", "lora")
 
 
 def _cache_arrays(cache):
@@ -149,6 +154,50 @@ def case_multihost(data, cfg, mesh):
     out = engine.run(requests)
     return {"tokens": [c.tokens for c in out.values()],
             "finished": [c.finished and c.error is None for c in out.values()]}
+
+
+def _leaf_cfg(entry):
+    kind, fields = entry["cfg"]
+    return getattr(tconfig, kind)(**fields)
+
+
+def case_leaves(data, cfg, mesh):
+    """Every tree of ``data["leaves"]`` (dense fused, group-wise int4 and int8
+    in both orientations, fused and not, GPT-2 with biases and an odd
+    vocabulary, LoRA) on the sharded layer route: the prompt's logits, then
+    one token's, and the collectives of the two calls."""
+    out = {}
+    for name, entry in data["leaves"].items():
+        lcfg = _leaf_cfg(entry)
+        params = shard_params(params_from_numpy(entry["tree"], CPU), lcfg, mesh)
+        cache = shard_cache(KVCache.create(lcfg, 1, lcfg.max_seq_len, dtype=torch.float32,
+                                           device=CPU), mesh)
+        prompt = torch.tensor(entry["prompt"])
+        before = dict(mesh.counts)
+        prefill, cache = forward(params, cache, prompt, 0, lcfg, tp=mesh)
+        step, _ = forward(params, cache, torch.tensor(STEP_TOKEN), prompt.shape[1], lcfg,
+                          tp=mesh)
+        out[name] = {"prefill": prefill.numpy().copy(), "step": step.numpy().copy(),
+                     "collectives": {k: v - before.get(k, 0) for k, v in mesh.counts.items()
+                                     if v != before.get(k, 0)}}
+    return out
+
+
+def case_engine_leaves(data, cfg, mesh):
+    """The engine (``spmd_mesh``, dense f32 cache) on the trees the fast
+    decode refuses: tokens and the route `spmd_forward_fn` picked."""
+    out = {}
+    for name in LEAF_ENGINES:
+        entry = data["leaves"][name]
+        lcfg = _leaf_cfg(entry)
+        engine = ContinuousBatchingEngine(
+            shard_params(params_from_numpy(entry["tree"], CPU), lcfg, mesh), lcfg,
+            spmd_mesh=mesh, **ENGINE)
+        done = engine.run([Request(prompt=p, max_new_tokens=n) for p, n in REQUESTS])
+        out[name] = {"tokens": [c.tokens for c in done.values()],
+                     "finished": [c.finished and c.error is None for c in done.values()],
+                     "route": engine.forward_fn.__qualname__.split(".")[0]}
+    return out
 
 
 CASES = {name[5:]: fn for name, fn in sorted(globals().items()) if name.startswith("case_")}
