@@ -305,6 +305,7 @@ JAX package's TPU kernels), the card's name and power limit, and
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -1298,6 +1299,9 @@ PAGED_CASES_GEMMA_P48 = [([600, 1056, 49, 700, 96, 1, 530, 1], W)]
 # and global; a ragged chunk from unaligned starts.
 FLASH_CASES_GEMMA = [(0, W), (0, None), (0, -1), (100, W)]
 FLASH_CASES_GEMMA_RAGGED = [(100, W), (37, 70), (600, W)]
+# Rows 6 and 7 at a tp-2 rank's Gemma-3-1B shape (phase train-tp (b)): the
+# steps' lengths after its 128-token prompt, a sliding and a global layer.
+GEMMA_TP2_ONE_LAYER = [([129], W), ([136], -1)]
 
 
 # Row 1 with a device index at Mixtral-8x7B's expert widths (w1 and w3: 4096
@@ -1356,6 +1360,13 @@ def gemma_kernel_checks(sm: Smoke, gen, dev):
     check_paged(sm, 8, 4, 1, 256, 256, 4, PAGED_CASES_GEMMA, gen, dev)
     check_paged(sm, 8, 4, 1, 256, 48, 22, PAGED_CASES_GEMMA_P48, gen, dev)
     check_paged(sm, 8, 4, 1, 256, 256, 4, PAGED_CASES_GEMMA[:1], gen, dev, torch.float32)
+    # A tp-2 rank's shapes on the sharded layer route (phase train-tp (b)):
+    # 2 query heads over the one kv-head, a 128-token prefill (its keys the
+    # 128 written positions), then one-token steps over an int8 cache of 256,
+    # sliding and global.
+    check_flash(sm, 1, LEAVES_PROMPT, 2, 1, LEAVES_PROMPT, 256, [(0, W), (0, -1)], gen, dev)
+    check_one_layer(sm, 1, 2, 1, LEAVES_CACHE, 256, GEMMA_TP2_ONE_LAYER, LEAVES_CACHE, gen,
+                    dev)
 
 
 def phase_kernels(sm: Smoke):
@@ -4975,6 +4986,286 @@ def phase_tp_leaves(sm: Smoke, int4_run, smi: str):
     return out
 
 
+# phase train-tp (a): the sharded train step on dp 2 × tp 2 (4 ranks on the
+# card over gloo), qlora-1b's tree cut to its first TRAIN_TP_LAYERS layers,
+# TRAIN_TP_STEPS Adam steps (TRAIN_LR, remat) on TRAIN_TP_BATCH against one
+# process's steps on the same cut; (b) Gemma-3-1B W8A8 at tp 2 through
+# `spmd_forward_fn` (its one kv-head whole on both ranks: the sharded layer
+# route) on ranks 0 and 1, at tp-leaves' prompt, tokens and cache.
+TRAIN_TP_DP, TRAIN_TP_TP = 2, 2
+TRAIN_TP_RANKS = TRAIN_TP_DP * TRAIN_TP_TP
+TRAIN_TP_LAYERS = 4
+TRAIN_TP_BATCH = (4, 128)
+TRAIN_TP_STEPS = 3
+TRAIN_TP_SEED = 23
+# grad_norm of the sharded step against one process's: both bf16, the same
+# function; the sums in another order move it by bf16 roundings (2^-9) of
+# the gradients, which the norm averages over millions of elements.
+TRAIN_TP_NORM_RTOL = 1e-3
+TRAIN_TP_TIMEOUT_S = 420
+
+
+def train_tp_config():
+    """qlora-1b's config cut to TRAIN_TP_LAYERS layers."""
+    from metalchat_tpu_torch.config import config_from_dict
+
+    return config_from_dict(LLAMA32_1B_CONFIG).replace(max_seq_len=1024,
+                                                       num_layers=TRAIN_TP_LAYERS)
+
+
+def train_tp_batch(torch, cfg, device):
+    """TRAIN_TP_BATCH's global batch, drawn on the CPU from TRAIN_TP_SEED (the
+    same on every rank), on ``device``."""
+    rows, s = TRAIN_TP_BATCH
+    gen = torch.Generator().manual_seed(TRAIN_TP_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, s + 1), generator=gen)
+    return {"tokens": tokens.to(device), "loss_mask": torch.ones(rows, s, device=device)}
+
+
+def train_tp_steps(torch, cfg, params, batch, mesh=None):
+    """TRAIN_TP_STEPS QLoRA Adam steps on ``params`` (a rank's local tree
+    with ``mesh``): each step's loss, grad_norm and wall ms, the first step's
+    adaptor gradients (gathered whole on a mesh, f32 on the CPU), the
+    launches during the steps, whether the frozen bytes stayed, the state
+    and the partition spec."""
+    from metalchat_tpu_torch import train as tt
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.parallel import gather_leaf
+
+    trainable, frozen, spec = tt.partition(params, tt.trainable_lora)
+    before = tree_digest(torch, {str(i): t for i, t in enumerate(frozen)})
+    init, step = tt.make_train_step(cfg, lambda ps: torch.optim.Adam(ps, lr=TRAIN_LR), spec,
+                                    remat=True, mesh=mesh)
+    state = init(trainable)
+    sync(torch, "cuda")
+    reset_launch_counts()
+    losses, norms, ms, grads = [], [], [], None
+    for _ in range(TRAIN_TP_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, frozen, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if grads is None:
+            grads = [p.grad for p in state.trainable]
+            if mesh is not None:
+                grads = [gather_leaf(g, path, cfg, mesh)
+                         for g, path in zip(grads, state.layout.paths)]
+            grads = [g.float().cpu() for g in grads]
+    counts = launch_counts()
+    same = torch.equal(before, tree_digest(torch, {str(i): t for i, t in enumerate(frozen)}))
+    return {"losses": losses, "norms": norms, "ms": ms, "grads": grads, "counts": counts,
+            "frozen_same": same, "state": state, "spec": spec, "frozen": frozen}
+
+
+def train_tp_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase train-tp, a process of its own: (a) the 4-layer
+    qlora cut from the reference file the parent wrote, sharded for
+    `make_mesh(tp=2, dp=2)`, `train_tp_steps` on it, then the state gathered
+    (`gather_train_state`); (b) on ranks 0 and 1 (a tp-2 mesh on their
+    pair), Gemma-3-1B W8A8 made on the card (`make_gemma`), sharded, and
+    `tp_greedy` through `spmd_forward_fn`'s forward. Saves what it saw to
+    ``out_dir/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    from metalchat_tpu_torch import train as tt
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.io.safetensors import open_safetensors
+    from metalchat_tpu_torch.parallel import (
+        initialize,
+        make_mesh,
+        shard_cache,
+        shard_params,
+        shutdown,
+        spmd_forward_fn,
+    )
+    from metalchat_tpu_torch.quant.checkpoint import load_reference_qlora
+
+    initialize(f"file://{store}", TRAIN_TP_RANKS, rank, backend=TP_BACKEND,
+               timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    try:
+        mesh = make_mesh(tp=TRAIN_TP_TP, dp=TRAIN_TP_DP)
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        t0 = time.perf_counter()
+        cfg = train_tp_config()
+        params = shard_params(load_reference_qlora(open_safetensors(f"{out_dir}/qlora.safetensors"),
+                                                   cfg, device="cuda", max_seq_len=1024),
+                              cfg, mesh)
+        res = {"setup_s": time.perf_counter() - t0}
+        before = dict(mesh.counts)
+        run = train_tp_steps(torch, cfg, params, train_tp_batch(torch, cfg, "cuda"), mesh)
+        res["collectives"] = {k: v - before.get(k, 0) for k, v in mesh.counts.items()
+                              if v != before.get(k, 0)}
+        t0 = time.perf_counter()
+        whole = tt.gather_train_state(run.pop("state"))
+        res["gather_s"] = time.perf_counter() - t0
+        res.update({k: v for k, v in run.items() if k not in ("spec", "frozen")},
+                   trained=[t.detach().cpu() for t in whole.trainable] if rank == 0 else None)
+        del params, run, whole
+        torch.cuda.empty_cache()
+        if rank < 2:
+            t0 = time.perf_counter()
+            pair = make_mesh(tp=2, group=pairs[0])
+            gcfg, full = make_gemma(Smoke(torch), "cuda")
+            digest = tree_digest(torch, full)
+            local = shard_params(full, gcfg, pair)
+            del full
+            torch.cuda.empty_cache()
+            fwd = spmd_forward_fn(local, gcfg, pair)
+            cache = shard_cache(QuantizedKVCache.create(gcfg, 1, LEAVES_CACHE, device="cuda"),
+                                pair)
+            setup = time.perf_counter() - t0
+            before = dict(pair.counts)
+            greedy = tp_greedy(torch, fwd, local, cache, leaves_prompt(torch, gcfg),
+                               LEAVES_NEW - 1)
+            res["gemma"] = dict(greedy=greedy, digest=digest, setup_s=setup,
+                                route=fwd.__qualname__.split(".")[0],
+                                cache_heads=int(cache.k.shape[2]),
+                                collectives={k: v - before.get(k, 0)
+                                             for k, v in pair.counts.items()
+                                             if v != before.get(k, 0)})
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        shutdown()
+
+
+def phase_train_tp(sm: Smoke, gemma_run, smi: str):
+    """train-tp, `TRAIN_TP_RANKS` ranks on one card over `TP_BACKEND`
+    (`train_tp_rank`). (a) The sharded QLoRA step at Llama-3.2-1B's widths
+    (qlora-1b's tree: int8 g32 bases, rank-16 adaptors, the head tied; cut
+    to TRAIN_TP_LAYERS layers) on dp 2 × tp 2, against one process's steps
+    on the same cut and batch: each loss within TRAIN_LOSS_RTOL, each first-
+    step adaptor gradient within TRAIN_GRAD_RTOL (relative L2), grad_norm
+    within TRAIN_TP_NORM_RTOL, no kernel launched, the frozen bytes
+    unchanged, every rank's metrics equal; the gathered tree's greedy ids
+    (`tp_greedy` on the layer route) equal to the one process's tuned
+    tree's, or parted at a near tie (`layer_route_parting`). (b) Gemma-3-1B
+    W8A8 at full width and depth at tp 2 (phase gemma's tree, every rank's
+    digest equal to it): its one kv-head whole on each rank, 2 query heads a
+    rank; a 128-token prompt and 8 greedy tokens against one process's
+    `forward(fast_decode=False)`: the prefill's last logits within
+    `check_logits`' limit, the ids equal or parted at a near tie, the route
+    the sharded layer route, launches exact a rank (rows 4 and 6 at 2 query
+    heads over 1 kv-head, hd 256). Returns (b)'s launches."""
+    torch = sm.torch
+    import tempfile
+    from pathlib import Path
+
+    from metalchat_tpu_torch import train as tt
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.io.safetensors import open_safetensors
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.quant.checkpoint import load_reference_qlora
+
+    label = f"train-tp ({TRAIN_TP_RANKS} ranks over {TP_BACKEND} on one card)"
+    print(f"{label}: (a) {QLORA_LABEL} cut to {TRAIN_TP_LAYERS} layers, make_mesh(tp="
+          f"{TRAIN_TP_TP}, dp={TRAIN_TP_DP}), {TRAIN_TP_STEPS} Adam steps on "
+          f"{TRAIN_TP_BATCH[0]} x {TRAIN_TP_BATCH[1]} inputs; (b) {GEMMA_LABEL} at tp 2 on "
+          "ranks 0 and 1", flush=True)
+
+    def one_layer_route(p, c, t_, s_, cfg):
+        return forward(p, c, t_, s_, cfg, fast_decode=False)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_tp_config()
+        write_reference_qlora(Path(tmp) / "qlora.safetensors", cfg)
+        ranks, wall = spawn_ranks(sm, "train-tp", train_tp_rank, TRAIN_TP_RANKS,
+                                  TRAIN_TP_TIMEOUT_S, tmp)
+        t0 = time.perf_counter()
+        params = load_reference_qlora(open_safetensors(Path(tmp) / "qlora.safetensors"), cfg,
+                                      device="cuda", max_seq_len=1024)
+    one = train_tp_steps(torch, cfg, params, train_tp_batch(torch, cfg, "cuda"))
+    one_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    what = f"train-tp (a) {QLORA_LABEL} {TRAIN_TP_LAYERS} layers"
+    for r, res in enumerate(ranks):
+        sm.expect((res["losses"], res["norms"]) == (r0["losses"], r0["norms"]),
+                  f"{what}: rank {r}'s metrics {res['losses']} {res['norms']} against rank "
+                  f"0's {r0['losses']} {r0['norms']}")
+        sm.expect(not any(res["counts"].values()), f"{what}: rank {r} launched "
+                  f"{res['counts']}")
+        sm.expect(res["frozen_same"], f"{what}: a frozen leaf changed on rank {r}")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"])]
+    norm_rel = abs(r0["norms"][0] - one["norms"][0]) / one["norms"][0]
+    grad_rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(r0["grads"], one["grads"])]
+    sm.expect(max(loss_rel) <= TRAIN_LOSS_RTOL, f"{what}: losses {r0['losses']} against one "
+              f"process's {one['losses']}")
+    sm.expect(norm_rel <= TRAIN_TP_NORM_RTOL, f"{what}: grad_norm {r0['norms'][0]} against "
+              f"{one['norms'][0]}")
+    sm.expect(len(grad_rel) == len(one["grads"]) and max(grad_rel) <= TRAIN_GRAD_RTOL,
+              f"{what}: first-step adaptor gradients against one process's {grad_rel}")
+    sm.expect(not any(one["counts"].values()), f"{what}: one process launched {one['counts']}")
+    frozen, spec = one["frozen"], one["spec"]
+    tuned = tt.combine([t.detach() for t in one["state"].trainable], frozen, spec)
+    gathered = tt.combine([t.to("cuda") for t in r0["trained"]], frozen, spec)
+    prompt = leaves_prompt(torch, cfg)
+    ref = tp_greedy(torch, functools.partial(one_layer_route, cfg=cfg), tuned,
+                    QuantizedKVCache.create(cfg, 1, LEAVES_CACHE, device="cuda"), prompt,
+                    LEAVES_NEW - 1)
+    got = tp_greedy(torch, functools.partial(one_layer_route, cfg=cfg), gathered,
+                    QuantizedKVCache.create(cfg, 1, LEAVES_CACHE, device="cuda"), prompt,
+                    LEAVES_NEW - 1)
+    parting = layer_route_parting(sm, f"{what}: the gathered tree", ref, got["ids"])
+    print(f"{what}: losses {r0['losses']} (one process {one['losses']}, max "
+          f"{max(loss_rel):.3g} apart, limit {TRAIN_LOSS_RTOL}); grad_norm {r0['norms'][0]:.6f} "
+          f"(one process {one['norms'][0]:.6f}, {norm_rel:.3g} apart, limit "
+          f"{TRAIN_TP_NORM_RTOL}); {len(grad_rel)} first-step adaptor gradients, relative L2 "
+          f"max {max(grad_rel):.4g} (limit {TRAIN_GRAD_RTOL}); metrics equal on all "
+          f"{TRAIN_TP_RANKS} ranks, no launch, frozen bytes unchanged; the gathered tree's "
+          f"{LEAVES_NEW} greedy ids against the one process's tuned tree: {parting}", flush=True)
+    print(f"{what}: rank 0 set-up {r0['setup_s']:.2f} s, step wall ms "
+          f"{[round(x, 1) for x in r0['ms']]} (one process "
+          f"{[round(x, 1) for x in one['ms']]}), gather {r0['gather_s']:.2f} s; "
+          f"collectives a rank over the {TRAIN_TP_STEPS} steps and the first step's "
+          f"gradient gather {r0['collectives']}; one "
+          f"process {one_s:.2f} s; gloo moves CUDA tensors through the host, so these are "
+          "functional numbers, not a parallel speed figure", flush=True)
+    del one, tuned, gathered, params, frozen
+    torch.cuda.empty_cache()
+
+    gcfg, gparams = gemma_run[0], gemma_run[1]
+    what = f"train-tp (b) {GEMMA_LABEL} tp 2"
+    g0 = ranks[0]["gemma"]
+    sm.expect(torch.equal(tree_digest(torch, gparams), g0["digest"]) and
+              torch.equal(ranks[1]["gemma"]["digest"], g0["digest"]),
+              f"{what}: the ranks' tree differs from phase gemma's")
+    ref = tp_greedy(torch, functools.partial(one_layer_route, cfg=gcfg), gparams,
+                    QuantizedKVCache.create(gcfg, 1, LEAVES_CACHE, device="cuda"),
+                    leaves_prompt(torch, gcfg), LEAVES_NEW - 1)
+    got = g0["greedy"]
+    share = check_logits(sm, f"{what} prefill's last logits", got["prefill"][-1:],
+                         ref["prefill"][-1:])
+    parting = layer_route_parting(sm, what, ref, got["ids"])
+    want_prefill = leaves_launches(gcfg, 0, 0, 1)
+    want_steps = leaves_launches(gcfg, 0, LEAVES_NEW - 1, 0)
+    for r in (0, 1):
+        g = ranks[r]["gemma"]
+        sm.exact(g["greedy"]["ids"], got["ids"], f"{what}: rank {r}'s ids against rank 0's")
+        sm.expect(g["route"] == "layer_route_forward_fn" and g["cache_heads"] == 1,
+                  f"{what}: rank {r} took {g['route']} over {g['cache_heads']} kv-heads")
+        for part, counts, want in (("prefill", g["greedy"]["prefill_counts"], want_prefill),
+                                   ("steps", g["greedy"]["step_counts"], want_steps)):
+            sm.expect(counts == want, f"{what}: rank {r}'s {part} launches {counts} != {want}")
+    print(f"{what} (all {gcfg.num_layers} layers, 2 query heads over the one kv-head a rank, "
+          f"set-up {g0['setup_s']:.1f} s): prefill's last logits {share:.4f} of check_logits' "
+          f"limit (bit-equal {bool(torch.equal(got['prefill'][-1], ref['prefill'][-1]))}); "
+          f"ranks' ids equal, against one process's forward(fast_decode=False): "
+          f"{parting}; the prefill {1e3 * got['prefill_s']:.2f} ms (one process "
+          f"{1e3 * ref['prefill_s']:.2f}), {1e3 * got['steps_s'] / (LEAVES_NEW - 1):.2f} ms a "
+          f"step (one process {1e3 * ref['steps_s'] / (LEAVES_NEW - 1):.2f}); launches a rank: "
+          f"prefill {({k: v for k, v in got['prefill_counts'].items() if v})}, steps "
+          f"{({k: v for k, v in got['step_counts'].items() if v})}; collectives a rank "
+          f"{g0['collectives']}", flush=True)
+    print(f"train-tp: ranks' wall {wall:.1f} s ({smi.splitlines()[0]}); functional numbers, "
+          "not a parallel speed figure", flush=True)
+    return {"prefill": got["prefill_counts"], "steps": got["step_counts"]}
+
+
 def a8_calls_a_window(params, cfg) -> int:
     """The fused matvec calls of one decode window of a dense Llama: one for
     each act8 linear of a layer, fused or not, and lm_head's where it is
@@ -7425,7 +7716,7 @@ def main() -> int:
     spec_counts = spec_fixture = None
     gpt2 = gpt2_fixture = ppl_counts = serve_gpt2 = gpt2_times = None
     qlora = gptq_run = qlora_times = train_counts = tp_counts = None
-    tp_moe_counts = multihost_counts = tp_leaves_counts = None
+    tp_moe_counts = multihost_counts = tp_leaves_counts = train_tp_counts = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -7458,6 +7749,8 @@ def main() -> int:
         gptq_run = sm.phase("gptq-1b", lambda: phase_gptq_1b(sm, dev_name))
         gemma_run = sm.phase("gemma", lambda: phase_gemma(sm, dev_name))
         sm.phase("gemma-fixture", lambda: phase_gemma_fixture(sm))
+        if gemma_run is not None:
+            train_tp_counts = sm.phase("train-tp", lambda: phase_train_tp(sm, gemma_run, smi))
         sm.phase("mixtral-fixture", lambda: phase_mixtral_fixture(sm))
         mixtral_run = sm.phase("mixtral", lambda: phase_mixtral(sm, dev_name))
         if main_run is not None:
@@ -7531,7 +7824,7 @@ def main() -> int:
             stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b, spec_counts,
             spec_fixture, gpt2, gpt2_fixture, ppl_counts, serve_gpt2, gpt2_times, qlora,
             gptq_run, qlora_times, train_counts, tp_counts, tp_moe_counts,
-            multihost_counts, tp_leaves_counts)):
+            multihost_counts, tp_leaves_counts, train_tp_counts)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -7564,7 +7857,9 @@ def main() -> int:
                    tp_moe_counts["ep"],
                "multihost 8b-w4a8 MultiHostServer (a rank)": multihost_counts["server"],
                "multihost 8b-w4a8 MultiHostEngine (a rank)": multihost_counts["engine"],
-               **{f"tp-leaves {n} steps (a rank)": c for n, c in tp_leaves_counts.items()}}
+               **{f"tp-leaves {n} steps (a rank)": c for n, c in tp_leaves_counts.items()},
+               f"train-tp {GEMMA_LABEL} tp 2 prefill (a rank)": train_tp_counts["prefill"],
+               f"train-tp {GEMMA_LABEL} tp 2 steps (a rank)": train_tp_counts["steps"]}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

@@ -184,9 +184,16 @@ def embed_tokens(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     padded prompt chunk or an idle engine row may run past it: JAX's gather
     clamps, and on the card an index past the table is a device assert).
     Under ``tp`` (a `parallel.mesh.Mesh`) the table is this rank's
-    vocabulary rows (`_tp_lookup_embedding`)."""
-    lookup = lookup_embedding(tokens, params["embed"]) if tp is None \
-        else _tp_lookup_embedding(tokens, params["embed"], tp)
+    vocabulary rows (`_tp_lookup_embedding`); on the differentiable route a
+    whole table is looked up on every rank, so that each holds its whole
+    gradient."""
+    embed = params["embed"]
+    whole = (embed.q if isinstance(embed, QuantizedTensor) else embed).shape[0] \
+        == config.vocab_size
+    if tp is None or tp.differentiable and whole:
+        lookup = lookup_embedding(tokens, embed)
+    else:
+        lookup = _tp_lookup_embedding(tokens, embed, tp)
     x = lookup.to(params["final_norm"].dtype)
     if config.embedding_scale is not None:
         x = x * torch.tensor(config.embedding_scale, dtype=x.dtype).item()
@@ -202,11 +209,15 @@ def final_logits(params: Params, x: torch.Tensor, config: ModelConfig, *,
     lm_head gives this rank's columns and the whole logits are gathered (a
     whole lm_head, kept so when tp does not divide the vocabulary, gives
     them all on every rank)."""
-    logits = linear(norm(x, params, "final_norm", config), params["lm_head"],
-                    kernels=kernels).float()
-    if tp is None or logits.shape[-1] == config.vocab_size:
-        return logits
-    return tp.all_gather(logits, dim=-1)
+    head = params["lm_head"]
+    h = norm(x, params, "final_norm", config)
+    base = head.base if isinstance(head, LoraLinear) else head
+    split = tp is not None and (base.out_features if isinstance(base, QuantizedTensor)
+                                else base.shape[-1]) != config.vocab_size
+    if split:
+        h = tp.sum_grad(h)
+    logits = linear(h, head, kernels=kernels, tp=tp if split else None).float()
+    return tp.all_gather(logits, dim=-1) if split else logits
 
 
 def act_gate(fused: torch.Tensor, act: str = "silu", blocks: int = 1) -> torch.Tensor:
@@ -234,17 +245,38 @@ def tp_config(config: ModelConfig, tp):
     return _local_config(config, tp.tp), tp
 
 
-def _paged_layer(cache: PagedKVCache, l: int):
-    """Layer ``l``'s pages and scales (views)."""
-    return tuple(t[l] for t in (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale))
+def _paged_layer(cache: PagedKVCache, l: int, heads=None):
+    """Layer ``l``'s pages and scales (views; with ``heads``, the kv-heads
+    that `pick_heads` keeps, copies)."""
+    pages = tuple(t[l] for t in (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale))
+    if heads is None:
+        return pages
+    return tuple(pick_heads(t, heads, dim) for t, dim in zip(pages, (0, 0, 1, 1)))
+
+
+def pick_heads(t: torch.Tensor, heads, dim: int = 1) -> torch.Tensor:
+    """The kv-heads (axis ``dim`` of ``t``) that a rank's query heads read,
+    ``heads`` being `parallel.tp_decode.rank_kv_heads` (None: all of them):
+    where its query heads fall into whole groups of the kv-heads they read
+    (CFG at tp 4: one head over one kv-head; Gemma-3-1B at tp 2: two over
+    one), those kv-heads in order, so the attention sees whole GQA groups;
+    otherwise one kv-head for each query head. A copy (contiguous) unless
+    every kv-head is kept."""
+    if heads is None:
+        return t
+    lo, n, local = heads[0], heads[-1] - heads[0] + 1, len(heads)
+    if local % n == 0 and list(heads) == [lo + j // (local // n) for j in range(local)]:
+        return t if n == t.shape[dim] else t.narrow(dim, lo, n).contiguous()
+    return t.index_select(dim, torch.tensor(heads, device=t.device))
 
 
 def _attend_one(q, cache: Cache, l: int, offsets, config: ModelConfig,
-                window: Optional[int] = None):
+                window: Optional[int] = None, heads=None):
     """The one-token scan route's attention kernels (rows 6 and 7) over
     layer ``l`` of the cache, already written, with the model layer's
-    ``window`` (default layer ``l``'s); None where the JAX block conditions
-    leave the step to the reference attention."""
+    ``window`` (default layer ``l``'s) and the kv-heads ``heads`` keeps
+    (`pick_heads`); None where the JAX block conditions leave the step to
+    the reference attention."""
     lengths = (offsets + 1).to(torch.int32)
     kw = dict(scale=config.attention_scale(),
               window=config.layer_window(l) if window is None else window)
@@ -252,36 +284,56 @@ def _attend_one(q, cache: Cache, l: int, offsets, config: ModelConfig,
     if isinstance(cache, PagedKVCache):
         if _choose_block(cache.page_size) != cache.page_size:
             return None
-        return paged_decode_attention(q1, *_paged_layer(cache, l), cache.page_table,
+        return paged_decode_attention(q1, *_paged_layer(cache, l, heads), cache.page_table,
                                       lengths, **kw)[:, None]
     if _choose_block(cache.k.shape[3]) is None:
         return None
+    k, v = pick_heads(cache.k[l], heads), pick_heads(cache.v[l], heads)
     if isinstance(cache, QuantizedKVCache):
-        return decode_attention_quantized(q1, cache.k[l], cache.v[l], cache.k_scale[l],
-                                          cache.v_scale[l], lengths, **kw)[:, None]
-    return decode_attention(q1, cache.k[l], cache.v[l], lengths, **kw)[:, None]
+        return decode_attention_quantized(q1, k, v, pick_heads(cache.k_scale[l], heads),
+                                          pick_heads(cache.v_scale[l], heads), lengths,
+                                          **kw)[:, None]
+    return decode_attention(q1, k, v, lengths, **kw)[:, None]
 
 
 def attention_inputs(x, layers: Params, l: int, config: ModelConfig, rope, positions,
-                     lin=linear, layer_id: Optional[int] = None):
+                     lin=linear, layer_id: Optional[int] = None, tp=None,
+                     kv_whole: bool = False):
     """Layer ``l``'s q ``[B, S, nh, hd]``, k and v ``[B, S, nkv, hd]`` of
     ``x``: the pre-norm, the projections (fused or not, with their biases),
     Gemma-3's q/k norms and rope at ``positions`` with the table of model
-    layer ``layer_id`` (default ``l``). ``lin`` runs the products."""
+    layer ``layer_id`` (default ``l``). ``lin`` runs the products.
+
+    Under ``tp`` (config: the rank's shard) the whole normed input enters
+    the column-parallel products through ``tp.sum_grad``, and so do the
+    q/k norm weights that the rank applies to its own heads only, so that
+    each whole leaf's and activation's gradient is summed over tp on the
+    differentiable route (the identity on the inference route). With
+    ``kv_whole`` (kv-heads that tp does not divide) wk and wv are whole and
+    take the input itself (`_layer_step` sums k's and v's gradients)."""
     layer_id = l if layer_id is None else layer_id
     b, s, _ = x.shape
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    grad = (lambda t: t) if tp is None else tp.sum_grad
+    col = lin if tp is None else functools.partial(lin, tp=tp)
     h = norm(x, layers, "attn_norm", config, l)
+    cols = grad(h)
     if "wqkv" in layers:
-        q, k, v = split_qkv(biased(lin(h, layer_leaf(layers["wqkv"], l)), layers, "wqkv_b",
+        if kv_whole and tp.differentiable:
+            raise ValueError("a fused wqkv with kv-heads that tp does not divide mixes split "
+                             "q with whole k and v columns: train the unfused tree")
+        q, k, v = split_qkv(biased(col(cols, layer_leaf(layers["wqkv"], l)), layers, "wqkv_b",
                                    config, l), layers["wqkv"], config)
     else:
-        q, k, v = (biased(lin(h, layer_leaf(layers[n], l)), layers, n + "_b", config, l)
-                   for n in ("wq", "wk", "wv"))
+        q = biased(col(cols, layer_leaf(layers["wq"], l)), layers, "wq_b", config, l)
+        k, v = (biased(lin(h, layer_leaf(layers[n], l)) if kv_whole
+                       else col(cols, layer_leaf(layers[n], l)), layers, n + "_b", config, l)
+                for n in ("wk", "wv"))
     q, k = q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd)
     if config.use_qk_norm:
-        q = rms_norm(q, layers["q_norm"][l], config)
-        k = rms_norm(k, layers["k_norm"][l], config)
+        q = rms_norm(q, grad(layers["q_norm"][l]), config)
+        k = rms_norm(k, layers["k_norm"][l] if kv_whole else grad(layers["k_norm"][l]),
+                     config)
     if config.position_embedding == "rope":
         cos, sin = layer_rope(rope, config, layer_id)
         q = ops.apply_rope(q, cos, sin, positions)
@@ -301,12 +353,16 @@ def attention_residual(x, attn, layers: Params, l: int, config: ModelConfig, row
 
 
 def ffn_residual(x, layers: Params, l: int, config: ModelConfig, lin=linear, row=linear,
-                 kernels: bool = True, moe_mesh=None):
+                 kernels: bool = True, moe_mesh=None, tp=None):
     """``x`` plus layer ``l``'s feed-forward block of its pre-norm (MoE,
     fused w13, GPT-2's MLP or SwiGLU; Gemma-3's post-norm), and the MoE
     load-balancing loss (None on a dense layer). ``row`` runs w2; MoE runs
-    on ``moe_mesh``'s experts and FFN width (`models.moe.moe_ffn`)."""
+    on ``moe_mesh``'s experts and FFN width (`models.moe.moe_ffn`). Under
+    ``tp`` the normed input enters the column-parallel products through
+    ``tp.sum_grad`` (`attention_inputs`)."""
     h = norm(x, layers, "ffn_norm", config, l)
+    if tp is not None:
+        h, lin = tp.sum_grad(h), functools.partial(lin, tp=tp)
     aux = None
     if config.num_experts:
         from metalchat_tpu_torch.models.moe import moe_ffn
@@ -334,28 +390,42 @@ def ffn_residual(x, layers: Params, l: int, config: ModelConfig, lin=linear, row
 def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
                 rope, positions, offsets, start_pos, kv_end: int, paged_at=None,
                 differentiable: bool = False, tp=None, layer_id: Optional[int] = None,
-                moe_mesh=None):
+                moe_mesh=None, kv_heads=None):
     """One layer: (x after it, the layer's MoE load-balancing loss or None
     on a dense layer). ``l`` indexes the stacked leaves and the cache,
     ``layer_id`` (default ``l``) is the layer's place in the model, which
     picks its window and rope table. Under ``tp`` (config: the rank's
     shard) wo and w2 are row-parallel (`linear_row_parallel`); MoE runs on
-    ``moe_mesh``'s experts."""
+    ``moe_mesh``'s experts; with ``kv_heads`` (`parallel.tp_decode.
+    rank_kv_heads`) the kv-heads are whole, written whole into the cache,
+    and the attention reads those the rank's query heads read
+    (`pick_heads`)."""
     layer_id = l if layer_id is None else layer_id
     s = x.shape[1]
     kernels = not differentiable
     lin = functools.partial(linear, kernels=kernels)
-    row = lin if tp is None else functools.partial(linear_row_parallel, mesh=tp)
-    q, k, v = attention_inputs(x, layers, l, config, rope, positions, lin, layer_id)
+    row = lin if tp is None else functools.partial(linear_row_parallel, mesh=tp,
+                                                   kernels=kernels)
+    q, k, v = attention_inputs(x, layers, l, config, rope, positions, lin, layer_id, tp,
+                               kv_heads is not None)
+    pick = functools.partial(pick_heads, heads=kv_heads)
 
     paged = isinstance(cache, PagedKVCache)
     window = config.layer_window(layer_id)
     attn = None
     if differentiable:
         keys, values = _differentiable_kv(cache, l, k, v, start_pos)
+        cache_dtype = values.dtype
+        if kv_heads is not None:
+            # Whole kv-heads, each rank's queries reading some: their f32
+            # gradients summed over tp before the cache dtype's rounding,
+            # which the single device applies once to the whole sum.
+            keys, values = tp.sum_grad(keys.float()), tp.sum_grad(values.float())
+        keys, values = pick(keys), pick(values)
         mask = ops.causal_mask(positions, keys.shape[2], (offsets + s)[:, None, None],
                                None if window < 0 else window)
-        attn = ops.attention(q, keys, values, mask, scale=config.attention_scale())
+        attn = ops.attention(q, keys, values, mask, scale=config.attention_scale(),
+                             weights_dtype=cache_dtype)
     elif paged:
         write_paged_layer(*_paged_layer(cache, l), k, v, *paged_at)
     elif isinstance(cache, QuantizedKVCache):
@@ -364,7 +434,7 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
     else:
         update_layer_cache(cache.k[l], cache.v[l], k, v, start_pos)
     if s == 1 and attn is None:
-        attn = _attend_one(q, cache, l, offsets, config, window)
+        attn = _attend_one(q, cache, l, offsets, config, window, kv_heads)
     if attn is None:
         if paged:  # each row's whole page table, gathered and dequantized
             kp, vp, ksc, vsc = _paged_layer(cache, l)
@@ -382,6 +452,7 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
         else:
             keys = cache.k[l][:, :, :kv_end].contiguous()
             values = cache.v[l][:, :, :kv_end].contiguous()
+        keys, values = pick(keys), pick(values)
         if s > DECODE_MAX_TOKENS:
             attn = flash_attention(q.contiguous(), keys, values, start_pos,
                                    scale=config.attention_scale(), window=window)
@@ -390,7 +461,7 @@ def _layer_step(x, layers: Params, l: int, cache: Cache, config: ModelConfig,
                                    None if window < 0 else window)
             attn = ops.attention(q, keys, values, mask, scale=config.attention_scale())
     x = attention_residual(x, attn, layers, l, config, row)
-    return ffn_residual(x, layers, l, config, lin, row, kernels, moe_mesh)
+    return ffn_residual(x, layers, l, config, lin, row, kernels, moe_mesh, tp)
 
 
 def layer_inputs(tokens: torch.Tensor, start_pos, cache: Cache) -> Dict[str, Any]:
@@ -420,21 +491,22 @@ def layer_inputs(tokens: torch.Tensor, start_pos, cache: Cache) -> Dict[str, Any
 def run_layers(x: torch.Tensor, layers: Params, cache: Cache, *, config: ModelConfig,
                rope, positions, offsets, start_pos, kv_end: int, paged_at=None,
                first_layer: int = 0, remat: bool = False, differentiable: bool = False,
-               tp=None, moe_mesh=None):
+               tp=None, moe_mesh=None, kv_heads=None):
     """Run a stack of layers over ``x`` (the JAX package's ``run_layers``,
     the layer loop that `forward` and a pipeline stage share): ``layers``'
     stacked leaves ``[L_local, ...]`` and the matching layers of ``cache``,
     written in place, one `_layer_step` each. Local layer ``l`` is layer
     ``first_layer + l`` of the model, which picks its window and rope
-    table. ``tp`` and ``moe_mesh`` are `_layer_step`'s. Returns (x, the MoE
-    layers' load-balancing losses, a list)."""
+    table. ``tp``, ``moe_mesh`` and ``kv_heads`` are `_layer_step`'s.
+    Returns (x, the MoE layers' load-balancing losses, a list)."""
     aux = []
     for l in range(layers["attn_norm"].shape[0]):
         step = functools.partial(_layer_step, layers=layers, l=l, cache=cache, config=config,
                                  rope=rope, positions=positions, offsets=offsets,
                                  start_pos=start_pos, kv_end=kv_end, paged_at=paged_at,
                                  differentiable=differentiable, tp=tp,
-                                 layer_id=first_layer + l, moe_mesh=moe_mesh)
+                                 layer_id=first_layer + l, moe_mesh=moe_mesh,
+                                 kv_heads=kv_heads)
         x, layer_aux = checkpoint(step, x, use_reentrant=False) if remat else step(x)
         if layer_aux is not None:
             aux.append(layer_aux)
@@ -491,7 +563,15 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     layer route, JAX's GSPMD forward on sharded params: ``params`` and
     ``cache`` are this rank's local ones (`parallel.mesh.shard_params`,
     `shard_cache`), ``config`` the whole model's. Every window, one token
-    included, takes the layer route at the rank's heads. Without experts
+    included, takes the layer route at the rank's heads; kv-heads that tp
+    does not divide are whole on every rank and each rank attends over
+    those its query heads read (`pick_heads`). With ``differentiable``
+    the route runs on the mesh's differentiable view (`parallel.mesh.
+    DifferentiableMesh`): every rank's gradients are those of its leaves
+    under the single device's loss (a whole leaf's the whole gradient on
+    every rank), `remat` recomputing each layer's collectives in the
+    backward pass on every rank alike; MoE on a mesh is refused there.
+    Without experts
     over ep the result is the single device's function for every leaf
     kind: the embedding split by vocabulary (or whole), wo and w2
     row-parallel (`linear_row_parallel`: act8 codes from the whole row and
@@ -506,13 +586,18 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     `decode_step(..., tp=)` where the fast decode takes the mesh, as in
     JAX."""
     from metalchat_tpu_torch.models.decode import decode_step, supports_fast_decode
+    from metalchat_tpu_torch.parallel.tp_decode import rank_kv_heads
 
     mesh = tp
-    config, tp = tp_config(config, mesh)
     sharded = mesh is not None and (mesh.tp > 1 or mesh.ep > 1)
-    if sharded and (remat or differentiable):
-        raise ValueError("forward(tp=...) is the inference route: no remat or "
-                         "differentiable")
+    if sharded and differentiable:
+        if config.num_experts:
+            raise ValueError("forward(tp=..., differentiable=True): MoE on a mesh has no "
+                             "differentiable route yet (the experts' all_reduce over ep "
+                             "and their routing carry no gradient)")
+        mesh = mesh.differentiable_view()
+    kv_heads = rank_kv_heads(config, mesh if sharded else None)
+    config, tp = tp_config(config, mesh)
     if not sharded and fast_decode and not remat and not differentiable \
             and supports_fast_decode(params, cache, config, tokens):
         logits, cache = decode_step(params, cache, tokens, start_pos, config,
@@ -524,7 +609,7 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     x = embed_tokens(params, tokens, where["positions"], config, tp)
     x, aux = run_layers(x, params["layers"], cache, config=config, rope=params["rope"],
                         remat=remat, differentiable=differentiable, tp=tp,
-                        moe_mesh=mesh if sharded else None, **where)
+                        moe_mesh=mesh if sharded else None, kv_heads=kv_heads, **where)
     logits = final_logits(params, x, config, kernels=not differentiable, tp=tp)
     if with_aux:  # the mean over layers: a dense layer adds 0
         mean = torch.stack(aux).sum() / config.num_layers if aux \

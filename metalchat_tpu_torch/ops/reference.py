@@ -91,12 +91,13 @@ def apply_rope_rows(x: torch.Tensor, cos: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              mask: torch.Tensor, *, scale: float) -> torch.Tensor:
+              mask: torch.Tensor, *, scale: float, weights_dtype=None) -> torch.Tensor:
     """GQA attention over a (padded) head-major KV buffer.
 
     q ``[B, S, nh, hd]``; k, v ``[B, n_kv, T, hd]``; mask ``[B or 1, S, T]``
     boolean, True where attention is allowed. Softmax weights are cast to
-    ``v.dtype`` before the PV product, as in the JAX reference.
+    ``v.dtype`` (or ``weights_dtype``: that of a cache whose k and v come
+    here already in f32) before the PV product, as in the JAX reference.
     """
     b, s, nh, hd = q.shape
     n_kv, t = k.shape[1], k.shape[2]
@@ -106,7 +107,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores * scale
     scores = torch.where(mask[:, None, None, :, :], scores, MASK_VALUE)
     weights = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,bktd->bskgd", weights.to(v.dtype).float(), v.float())
+    out = torch.einsum("bkgst,bktd->bskgd", weights.to(weights_dtype or v.dtype).float(),
+                       v.float())
     return out.reshape(b, s, nh, hd).to(q.dtype)
 
 

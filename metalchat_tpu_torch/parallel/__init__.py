@@ -15,11 +15,15 @@ from metalchat_tpu_torch.parallel.distributed import (  # noqa: F401
     shutdown,
 )
 from metalchat_tpu_torch.parallel.mesh import (  # noqa: F401
+    DifferentiableMesh,
     GridMesh,
     Mesh,
+    gather_leaf,
+    leaf_tp_axis,
     make_grid_mesh,
     make_mesh,
     shard_cache,
+    shard_leaf,
     shard_params,
 )
 from metalchat_tpu_torch.parallel.multihost import (  # noqa: F401
@@ -35,7 +39,9 @@ from metalchat_tpu_torch.parallel.pipeline import (  # noqa: F401
 )
 from metalchat_tpu_torch.parallel.tp_decode import (  # noqa: F401
     layer_route_forward_fn,
+    layer_route_refusal,
     make_tp_decode_step,
+    rank_kv_heads,
     spmd_forward_fn,
     supports_tp_fast_decode,
     tp_decode_forward_fn,

@@ -12,8 +12,9 @@ Layout, the JAX package's ``param_shardings``:
 * column-parallel over tp (out-features split): wq, wk, wv, w1, w3 and the
   fused wqkv / w13, dense or quantized (block-permuted first, with their
   fused biases, so that each rank's chunk is a standard fused leaf of its
-  own heads and columns; segments that tp does not divide are refused);
-  their biases ``<name>_b`` split alike;
+  own heads and columns; segments that tp does not divide are refused; a
+  wqkv whose kv-heads tp does not divide keeps the rank's query columns
+  and every k and v column); their biases ``<name>_b`` split alike;
 * row-parallel over tp (in-features split): wo, w2 (int4 leaves of either
   scheme repacked per chunk first, so that each rank's byte shard decodes
   to its own rows; group scales split with the codes, and a group that
@@ -43,7 +44,19 @@ bodies make with ``ppermute``, ``psum`` and gathers (counted by kind).
 
 `Mesh` is one rank's view of the ("dp", "ep", "tp") mesh: a `GridMesh` for
 the layout and the dp and ep axes, and the tensor-parallel collectives the
-sharded model code calls on its tp axis.
+sharded model code calls on its tp axis. Its collectives work in place and
+carry no gradient; `Mesh.differentiable_view` gives the train step's mesh
+(`DifferentiableMesh`), whose tp collectives are autograd functions at the
+three places where the sharded route meets whole activations: a sum over tp
+whose gradient passes unchanged (row-parallel outputs, the vocabulary-split
+embedding), a gather whose gradient is this rank's slice (the
+vocabulary-split logits), and `Mesh.sum_grad`, the identity whose gradient
+is summed over tp (a whole activation entering column-parallel work, and a
+whole leaf or activation whose gradient each rank sees only in part).
+
+`leaf_tp_axis`, `gather_leaf` and `shard_leaf` place one trainable leaf
+(named by its path in the parameter tree, `train.tree`) between its whole
+form and a rank's part: the train state's gather and its files.
 """
 
 from __future__ import annotations
@@ -51,18 +64,21 @@ from __future__ import annotations
 import dataclasses
 from collections import Counter
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Optional
+from typing import Any, ClassVar, Dict, Optional
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
 
 from metalchat_tpu_torch.cache import KVCache, PagedKVCache, QuantizedKVCache
 from metalchat_tpu_torch.config import ModelConfig
-from metalchat_tpu_torch.models.fuse import _blocked_order, fused_segments, permute_fused_tp
+from metalchat_tpu_torch.models.fuse import _blocked_order, fused_segments
 from metalchat_tpu_torch.quant.quantize import LoraLinear, QuantizedTensor, repack_int4_chunks
 
 MESH_AXES = ("dp", "ep", "tp")
 EXPERT_LEAVES = ("w1", "w3", "w2")
+FUSED_LEAVES = ("wqkv", "w13", "wqkv_b", "w13_b")
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -263,6 +279,7 @@ class Mesh:
     dp: int = 1
     ep: int = 1
     grid: Optional[GridMesh] = None
+    differentiable: ClassVar[bool] = False
 
     def __post_init__(self):
         if self.grid is None:
@@ -286,6 +303,19 @@ class Mesh:
         """This rank's place along ``axis``: "dp", "ep" or "tp"."""
         return self.grid.index(axis)
 
+    def _reduce_tp(self, t: torch.Tensor, op: str, kind: str) -> torch.Tensor:
+        t = t.contiguous()
+        dist.all_reduce(t, op=_REDUCE_OPS[op], group=self.group)
+        self.counts[kind] += 1
+        return t
+
+    def _gather_tp(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.tp)]
+        dist.all_gather(parts, t, group=self.group)
+        self.counts["all_gather"] += 1
+        return torch.cat(parts, dim=dim)
+
     def all_reduce(self, t: torch.Tensor, op: str = "sum", axis: str = "tp") -> torch.Tensor:
         """``t`` reduced over ``axis`` (``"sum"`` or ``"max"``), in ``t``'s
         own dtype; on tp in place on a contiguous ``t``. Returns it."""
@@ -293,10 +323,7 @@ class Mesh:
             return self.grid.all_reduce(t, axis, op)
         if self.tp == 1:
             return t
-        t = t.contiguous()
-        dist.all_reduce(t, op=_REDUCE_OPS[op], group=self.group)
-        self.counts[f"all_reduce_{op}"] += 1
-        return t
+        return self._reduce_tp(t, op, f"all_reduce_{op}")
 
     def all_gather(self, t: torch.Tensor, dim: int = -1, axis: str = "tp") -> torch.Tensor:
         """Every rank's ``t`` along ``axis`` concatenated along ``dim`` in
@@ -305,16 +332,105 @@ class Mesh:
             return self.grid.all_gather(t, axis, dim)
         if self.tp == 1:
             return t
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.tp)]
-        dist.all_gather(parts, t, group=self.group)
-        self.counts["all_gather"] += 1
-        return torch.cat(parts, dim=dim)
+        return self._gather_tp(t, dim)
+
+    def sum_grad(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` itself: the inference route carries no gradient (the
+        differentiable view sums ``t``'s gradient over tp)."""
+        return t
+
+    def differentiable_view(self) -> "DifferentiableMesh":
+        """This mesh (its groups and ``counts`` shared) with tp collectives
+        that autograd differentiates: `DifferentiableMesh`."""
+        return DifferentiableMesh(**{f.name: getattr(self, f.name)
+                                     for f in dataclasses.fields(self)})
 
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """The grid's rank ``src``'s ``obj`` (any picklable value) on every
         rank of the grid."""
         return self.grid.broadcast_object(obj, src)
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity; backward, the gradient summed over tp."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._reduce_tp(g.clone(), "sum", "all_reduce_sum_backward"), None
+
+
+class _AllReduceTp(torch.autograd.Function):
+    """The sum (or max) over tp; backward, the gradient unchanged (a max's
+    to the ranks that hold it, shared evenly among them)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, op):
+        ctx.mesh, ctx.op = mesh, op
+        out = mesh._reduce_tp(t.clone(), op, f"all_reduce_{op}")
+        if op == "max":
+            ctx.save_for_backward(t, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.op == "sum":
+            return g, None, None
+        t, out = ctx.saved_tensors
+        hit = (t == out).to(g.dtype)
+        ranks = ctx.mesh._reduce_tp(hit.clone(), "sum", "all_reduce_sum_backward")
+        return g * hit / ranks.clamp_min(1.0), None, None
+
+
+class _AllGatherTp(torch.autograd.Function):
+    """Every rank's part along ``dim``; backward, this rank's slice of the
+    gradient (every rank computes the same function of the gathered whole)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.index, ctx.dim, ctx.size = mesh.index("tp"), dim % t.ndim, t.shape[dim]
+        return mesh._gather_tp(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
+
+
+class DifferentiableMesh(Mesh):
+    """The train step's view of a `Mesh` (`Mesh.differentiable_view`): its
+    tp collectives are autograd functions (the module docstring); on the
+    dp and ep axes it is the mesh itself, carrying no gradient. Every rank
+    runs the same backward pass, so the backward collectives (counted as
+    ``all_reduce_sum_backward``) meet in one order, a layer recomputed
+    under remat included.
+
+    A row's act8 absmax (a ``"max"``) sends its gradient to the ranks whose
+    part holds the maximum, shared evenly among them and then among the
+    rank's own tied elements: the single device's even share among every
+    tied element of the row whenever the maximum is unique."""
+
+    differentiable: ClassVar[bool] = True
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum", axis: str = "tp") -> torch.Tensor:
+        if axis != "tp" or self.tp == 1:
+            return super().all_reduce(t, op, axis)
+        return _AllReduceTp.apply(t, self, op)
+
+    def all_gather(self, t: torch.Tensor, dim: int = -1, axis: str = "tp") -> torch.Tensor:
+        if axis != "tp" or self.tp == 1:
+            return super().all_gather(t, dim, axis)
+        return _AllGatherTp.apply(t, self, dim)
+
+    def sum_grad(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, whose gradient is summed over tp in the backward pass."""
+        return t if self.tp == 1 else _SumGrad.apply(t, self)
+
+    def differentiable_view(self) -> "DifferentiableMesh":
+        return self
 
 
 def make_mesh(tp: Optional[int] = None, dp: int = 1, ep: int = 1, group: Any = None) -> Mesh:
@@ -367,14 +483,24 @@ def _rules(config: ModelConfig, tp: int) -> Dict[str, Optional[str]]:
     return rules
 
 
-def _fused_order(name: str, config: ModelConfig, tp: int) -> torch.Tensor:
-    """The ``fuse_tp`` block order of fused leaf ``name``'s out axis for
-    ``tp`` ranks; segments that tp does not divide are refused."""
+def _fused_columns(name: str, config: ModelConfig, tp: int, rank: int) -> torch.Tensor:
+    """The whole fused leaf ``name``'s out-axis columns that the rank at tp
+    place ``rank`` holds, in its local order: its chunk of the ``fuse_tp``
+    block order (a standard fused leaf of its own heads or FFN columns;
+    segments that tp does not divide are refused), or, for a ``wqkv`` whose
+    kv-heads tp does not divide, its own query heads' columns followed by
+    every k and v column (wk and wv whole)."""
     segs = fused_segments(name, config)
+    if name == "wqkv" and config.num_kv_heads % tp:
+        q = segs[0] // tp
+        return torch.cat([torch.arange(rank * q, (rank + 1) * q),
+                          torch.arange(segs[0], sum(segs))])
     if any(s % tp for s in segs):
         raise ValueError(f"fused {name}: segments {segs} not divisible by tp={tp} (the "
                          "ranks' chunks would mix q with k rows or gate with up columns)")
-    return torch.from_numpy(_blocked_order(segs, tp))
+    order = torch.from_numpy(_blocked_order(segs, tp))
+    n = order.numel() // tp
+    return order[rank * n:(rank + 1) * n]
 
 
 def _check_groups(leaf: QuantizedTensor, name: str, tp: int) -> None:
@@ -418,17 +544,26 @@ def _shard_quantized(leaf: QuantizedTensor, rule: str, name: str, config: ModelC
                  for i in range(leaf.q.shape[0])]
         return replace(parts[0], q=torch.stack([p.q for p in parts]),
                        scales=torch.stack([p.scales for p in parts]))
-    if name in ("wqkv", "w13"):  # refuses segments tp does not divide
-        leaf = permute_fused_tp(leaf, fused_segments(name, config), tp)
-    if leaf.bits == 4 and rule == "in":
-        leaf = repack_int4_chunks(leaf, tp)
     per_channel = leaf.group_size == leaf.in_features
     out_axis, in_axis = (-2, -1) if leaf.transposed else (-1, -2)
-    q = _local(leaf.q, out_axis if rule == "out" else in_axis, mesh)
-    if per_channel:  # scales [.., 1, out]
-        scales = _local(leaf.scales, -1, mesh) if rule == "out" else leaf.scales
-    else:            # [.., out, in/g] transposed, [.., in/g, out] not
-        scales = _local(leaf.scales, out_axis if rule == "out" else in_axis, mesh)
+    if name in ("wqkv", "w13") and leaf.fuse_tp != tp or \
+            name == "wqkv" and config.num_kv_heads % tp:  # the rank's columns
+        if leaf.fuse_tp != 1:
+            raise ValueError(f"fused {name} blocked for tp={leaf.fuse_tp}: re-blocking is "
+                             "not supported")
+        cols = _fused_columns(name, config, tp, mesh.index("tp")).to(leaf.q.device)
+        q = leaf.q.index_select(leaf.q.ndim + out_axis, cols)
+        # scales [.., 1, out], [.., out, in/g] transposed, [.., in/g, out] not
+        scales = leaf.scales.index_select(leaf.scales.ndim + (-1 if per_channel else out_axis),
+                                          cols)
+    else:
+        if leaf.bits == 4 and rule == "in":
+            leaf = repack_int4_chunks(leaf, tp)
+        q = _local(leaf.q, out_axis if rule == "out" else in_axis, mesh)
+        if per_channel:  # scales [.., 1, out]
+            scales = _local(leaf.scales, -1, mesh) if rule == "out" else leaf.scales
+        else:            # [.., out, in/g] transposed, [.., in/g, out] not
+            scales = _local(leaf.scales, out_axis if rule == "out" else in_axis, mesh)
     local = replace(leaf, q=q, scales=scales, pack_chunks=1, fuse_tp=1)
     if per_channel:
         local = replace(local, group_size=local.in_features)
@@ -448,9 +583,9 @@ def _shard_leaf(leaf: Any, rule: Optional[str], name: str, config: ModelConfig,
         return replace(leaf, q=_local(leaf.q, 0, mesh), scales=_local(leaf.scales, 0, mesh))
     if isinstance(leaf, QuantizedTensor):
         return _shard_quantized(leaf, rule, name, config, mesh)
-    if name in ("wqkv", "w13", "wqkv_b", "w13_b"):  # dense fused weights and biases
-        order = _fused_order(name.removesuffix("_b"), config, mesh.tp).to(leaf.device)
-        leaf = leaf.index_select(leaf.ndim - 1, order)
+    if name in FUSED_LEAVES:  # dense fused weights and biases: the rank's columns
+        cols = _fused_columns(name.removesuffix("_b"), config, mesh.tp, mesh.index("tp"))
+        return leaf.index_select(leaf.ndim - 1, cols.to(leaf.device))
     return _local(leaf, -1 if rule == "out" else -2, mesh)
 
 
@@ -520,3 +655,62 @@ def shard_cache(cache, mesh: Mesh):
 
     return type(cache)(**{f.name: local(f.name, getattr(cache, f.name))
                           for f in dataclasses.fields(cache)})
+
+
+def _path_keys(path) -> list:
+    return [getattr(k, "key", getattr(k, "name", None)) for k in path]
+
+
+def leaf_tp_axis(path, config: ModelConfig, tp: int) -> Optional[int]:
+    """The axis (negative) along which `shard_params` splits the dense leaf
+    at ``path`` (a `train.tree` path: ``['layers']['wq']``,
+    ``['layers']['wo'].a``, ``['embed']``) over ``tp`` ranks, or None where
+    every rank holds it whole: a column-parallel leaf and its bias on their
+    out axis, a row-parallel one on its in axis, the embedding on its
+    vocabulary rows, a LoRA leaf's ``b`` (column-parallel) or ``a``
+    (row-parallel). A quantized payload (``q``, ``scales``) is refused: it
+    is frozen, never trained."""
+    keys = _path_keys(path)
+    if keys[-1] in ("q", "scales"):
+        raise ValueError(f"{''.join(map(str, path))}: a quantized payload has no trained "
+                         "layout")
+    if tp == 1:
+        return None
+    name = keys[1] if keys[0] == "layers" else keys[0]
+    rule = _rules(config, tp).get(name)
+    attr = getattr(path[-1], "name", None)  # a LoRA leaf's field
+    if rule is None or attr == "a" and rule == "out" or attr == "b" and rule == "in":
+        return None
+    return -1 if rule == "out" else -2
+
+
+def shard_leaf(t: torch.Tensor, path, config: ModelConfig, mesh: Mesh) -> torch.Tensor:
+    """This rank's part of the whole dense leaf ``t`` at ``path``, as
+    `shard_params` cuts it (a fused leaf's columns `_fused_columns`)."""
+    axis = leaf_tp_axis(path, config, mesh.tp)
+    if axis is None:
+        return t
+    name = _path_keys(path)[1] if _path_keys(path)[0] == "layers" else None
+    if name in FUSED_LEAVES:
+        cols = _fused_columns(name.removesuffix("_b"), config, mesh.tp, mesh.index("tp"))
+        return t.index_select(t.ndim - 1, cols.to(t.device))
+    return _local(t, axis, mesh)
+
+
+def gather_leaf(t: torch.Tensor, path, config: ModelConfig, mesh: Mesh) -> torch.Tensor:
+    """The whole dense leaf at ``path`` from every rank's part ``t`` (one
+    ``all_gather`` over tp where it is split; `shard_leaf` undone, a fused
+    leaf's columns put back in place). Every rank along tp must call it."""
+    axis = leaf_tp_axis(path, config, mesh.tp)
+    if axis is None:
+        return t
+    parts = mesh.all_gather(t, dim=axis)
+    name = _path_keys(path)[1] if _path_keys(path)[0] == "layers" else None
+    if name not in FUSED_LEAVES:
+        return parts
+    base = name.removesuffix("_b")
+    cols = torch.cat([_fused_columns(base, config, mesh.tp, r) for r in range(mesh.tp)])
+    whole = parts.new_empty(*parts.shape[:-1], sum(fused_segments(base, config)))
+    whole[..., cols.to(parts.device)] = parts
+    return whole
+

@@ -23,6 +23,11 @@ every window that is not one token take the tensor-parallel layer route
 (`models.transformer.forward(..., tp=mesh)`), which computes the single
 device's function (JAX's GSPMD prefill).
 
+The step needs kv-heads that tp divides (JAX's fast-decode gate); the
+layer route keeps kv-heads that tp does not divide whole on every rank, as
+JAX's GSPMD replicates wk, wv and the cache, and each rank's query heads
+read theirs (`rank_kv_heads`).
+
 MoE rides the step on a mesh whose ep is 1 (JAX's ``moe_ok``): every rank
 routes alike on the whole router and runs each routed expert at its FFN
 width F/tp (the indexed matvec entry over the flattened ``[L·E]`` stack),
@@ -100,11 +105,10 @@ def tp_refusal(params: Dict[str, Any], config: ModelConfig, mesh: Mesh) -> Optio
 def layer_route_refusal(config: ModelConfig, mesh: Mesh) -> Optional[str]:
     """Why the sharded layer route cannot run this model on ``mesh``, or
     None: where `parallel.mesh.shard_params` refuses the config (heads and
-    FFN width divisible by tp, the experts by ep), and the port's kv-heads,
-    which its layer route splits over tp (JAX's GSPMD replicates kv-heads
-    that tp does not divide; `_local_config` cannot yet). Leaf-level
-    refusals (groups that straddle ranks, fused segments) are
-    `shard_params`' own."""
+    FFN width divisible by tp, the experts by ep). kv-heads that tp does not
+    divide stay whole on every rank, as JAX's GSPMD replicates them
+    (`rank_kv_heads`). Leaf-level refusals (groups that straddle ranks,
+    fused segments) are `shard_params`' own."""
     try:
         if mesh.tp > 1:
             _check_divisibility(config, mesh.tp)
@@ -112,8 +116,6 @@ def layer_route_refusal(config: ModelConfig, mesh: Mesh) -> Optional[str]:
             _check_ep(config, mesh.ep)
     except ValueError as err:
         return str(err)
-    if config.num_kv_heads % mesh.tp:
-        return f"num_kv_heads={config.num_kv_heads} not divisible by tp={mesh.tp}"
     return None
 
 
@@ -125,11 +127,27 @@ def supports_tp_fast_decode(params: Dict[str, Any], config: ModelConfig,
 
 
 def _local_config(config: ModelConfig, tp: int) -> ModelConfig:
-    """The config of one rank's shard: heads, kv-heads and FFN width over tp
-    (the vocabulary and the hidden width stay)."""
+    """The config of one rank's shard: heads and FFN width over tp, the
+    kv-heads over tp where tp divides them and whole where it does not (the
+    vocabulary and the hidden width stay)."""
+    nkv = config.num_kv_heads
     return replace(config, num_heads=config.num_heads // tp,
-                   num_kv_heads=config.num_kv_heads // tp,
+                   num_kv_heads=nkv if nkv % tp else nkv // tp,
                    intermediate_size=config.intermediate_size // tp)
+
+
+def rank_kv_heads(config: ModelConfig, mesh) -> Optional[tuple]:
+    """The kv-head that each of this rank's query heads reads, where tp does
+    not divide the kv-heads (they stay whole on every rank), or None where
+    the rank's kv-heads are its own. The rank at tp place i holds query
+    heads ``[i·H/tp, (i+1)·H/tp)``; head h reads kv-head ``h // (H/nkv)``."""
+    tp = 1 if mesh is None else mesh.tp
+    if config.num_kv_heads % tp == 0:
+        return None
+    local = config.num_heads // tp
+    group = config.num_heads // config.num_kv_heads
+    first = mesh.index("tp") * local
+    return tuple((first + j) // group for j in range(local))
 
 
 def make_tp_decode_step(params: Dict[str, Any], config: ModelConfig, mesh: Mesh):

@@ -304,14 +304,14 @@ def _a8_int_acc(xq: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return acc_lo + (acc_hi >> 4)
 
 
-def _weight_only_f32(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+def _weight_only_f32(x: torch.Tensor, w: QuantizedTensor, kernels: bool = True) -> torch.Tensor:
     """``x [..., in]`` through a 2-D weight-only leaf, the f32 sums not
     rounded to x's dtype: row 11's f32 mode where `linear` takes the kernel
-    (at most 32 rows), else the weight in x's dtype (`quant_matmul`'s) and
-    an f32 product."""
+    (at most 32 rows; never with ``kernels=False``), else the weight in x's
+    dtype (`quant_matmul`'s) and an f32 product."""
     w = standard_packing(w)
     rows = x.numel() // x.shape[-1]
-    if dequant_kernel_supported(rows, w.in_features, w.group_size):
+    if kernels and dequant_kernel_supported(rows, w.in_features, w.group_size):
         y = dequant_matmul(x.reshape(rows, x.shape[-1]).contiguous(), w.q, w.scales,
                            bits=w.bits, group_size=w.group_size, transposed=w.transposed,
                            out_dtype=torch.float32)
@@ -321,10 +321,13 @@ def _weight_only_f32(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     return x.float() @ wt.float()
 
 
-def linear_row_parallel(x: torch.Tensor, w, mesh) -> torch.Tensor:
+def linear_row_parallel(x: torch.Tensor, w, mesh, kernels: bool = True) -> torch.Tensor:
     """``x [..., in/tp]`` through this rank's rows of a row-parallel leaf,
     summed over ``mesh`` (`parallel.mesh.Mesh`): the single device's
-    `linear` of the whole row.
+    `linear` of the whole row. On the differentiable route (``kernels``
+    False, ``mesh`` a `parallel.mesh.DifferentiableMesh`) the sums are
+    autograd's: the gradient of the summed output passes to every rank's
+    part, and the act8 absmax's to the rank that holds it.
 
     * An act8 per-channel leaf quantizes its slice on the whole row's absmax
       (one ``all_reduce`` max), so its codes are the single device's, and
@@ -344,8 +347,8 @@ def linear_row_parallel(x: torch.Tensor, w, mesh) -> torch.Tensor:
     collectives for the whole stack."""
     lead = x.shape[:-1]
     if isinstance(w, LoraLinear):
-        return add_adaptor(x, linear_row_parallel(x, w.base, mesh), w.a, w.b, w.scale,
-                           mesh=mesh)
+        return add_adaptor(x, linear_row_parallel(x, w.base, mesh, kernels), w.a, w.b,
+                           w.scale, mesh=mesh)
     if isinstance(w, QuantizedTensor) and w.act_bits is not None:
         if not (w.act_bits == 8 and w.group_size == w.in_features and w.q.ndim in (2, 3)):
             raise ValueError("a row-parallel act8 leaf must be per-channel")
@@ -362,8 +365,8 @@ def linear_row_parallel(x: torch.Tensor, w, mesh) -> torch.Tensor:
         s_col = w.scales.reshape(*w.q.shape[:-2], 1, w.out_features).float()
         return (acc * sx * s_col).to(x.dtype).reshape(*lead, w.out_features)
     if isinstance(w, QuantizedTensor):
-        part = _weight_only_f32(x, w) if w.q.ndim == 2 else torch.stack(
-            [_weight_only_f32(x[e], w.layer(e)) for e in range(w.q.shape[0])])
+        part = _weight_only_f32(x, w, kernels) if w.q.ndim == 2 else torch.stack(
+            [_weight_only_f32(x[e], w.layer(e), kernels) for e in range(w.q.shape[0])])
     else:
         part = x.float() @ w.float()
     return mesh.all_reduce(part).to(x.dtype)
@@ -414,9 +417,12 @@ def add_adaptor(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor, b: torch.Tens
     return y + adapt * torch.tensor(scale, dtype=y.dtype).item()
 
 
-def linear(x: torch.Tensor, w, *, kernels: bool = True) -> torch.Tensor:
+def linear(x: torch.Tensor, w, *, kernels: bool = True, tp=None) -> torch.Tensor:
     """Linear dispatch on the leaf type: dense ``[in, out]``, quantized, or
     `LoraLinear` (its base through this dispatch, then `add_adaptor`).
+    ``tp`` (a `parallel.mesh.Mesh`) marks ``w`` as this rank's columns of a
+    column-parallel leaf: a LoRA leaf's whole ``a`` then enters through
+    ``tp.sum_grad`` (each rank's ``b`` columns see part of its gradient).
 
     A weight-only 2-D leaf with at most 32 rows of x (leading dims
     flattened) goes to the dequant-matmul kernel, as the JAX package's
@@ -425,7 +431,8 @@ def linear(x: torch.Tensor, w, *, kernels: bool = True) -> torch.Tensor:
     PyTorch that autograd differentiates (the JAX package's training route:
     its `_maybe_pallas` is off there)."""
     if isinstance(w, LoraLinear):
-        return add_adaptor(x, linear(x, w.base, kernels=kernels), w.a, w.b, w.scale)
+        a = w.a if tp is None else tp.sum_grad(w.a)
+        return add_adaptor(x, linear(x, w.base, kernels=kernels), a, w.b, w.scale)
     if not isinstance(w, QuantizedTensor):
         return x @ w
     w = standard_packing(w)

@@ -10,6 +10,19 @@ with its Pallas kernels off. The optimizer is PyTorch's own, made by a
 factory over the trainable list. The loss's tail and the optimizer's
 update run under ``record_function`` ranges ("loss", "optimizer") that a
 profiler can read.
+
+With ``mesh`` (a `parallel.mesh.Mesh` over dp and tp) the step is the JAX
+package's one program over the ("dp", "tp") mesh, one process a rank:
+every rank holds its local tree (`parallel.mesh.shard_params`) and the
+global batch; each dp row trains on its contiguous rows of it (JAX's
+``NamedSharding(P("dp"))``), the forward runs the sharded differentiable
+route (`models.transformer.forward(..., tp=mesh, differentiable=True)`), the
+loss is the global mean (each dp row's sum over the global mask count), the
+gradients are summed over dp, and the optimizer updates each rank's local
+leaves: Adam, AdamW and SGD are elementwise, so a rank holds the single
+device's slice. The metrics are the same on every rank. The state records
+where its leaves sit (`TrainLayout`); `gather_train_state` puts the whole
+leaves and moments back together.
 """
 
 from __future__ import annotations
@@ -22,11 +35,15 @@ from torch.profiler import record_function
 
 from metalchat_tpu_torch.cache import KVCache
 from metalchat_tpu_torch.config import ModelConfig
+from metalchat_tpu_torch.convert import optimizer_state_leaves, set_optimizer_state
 from metalchat_tpu_torch.models.transformer import forward
+from metalchat_tpu_torch.parallel.mesh import gather_leaf, leaf_tp_axis
+from metalchat_tpu_torch.parallel.tp_decode import _local_config
 from metalchat_tpu_torch.train.tree import (
     GetAttrKey,
     tree_flatten_with_path,
     tree_unflatten,
+    treedef_paths,
 )
 
 PartitionSpec = Tuple[Any, Tuple[bool, ...]]  # (treedef, per-leaf trainable flag)
@@ -65,7 +82,7 @@ def combine(trainable: List, frozen: List, spec: PartitionSpec) -> Dict[str, Any
 
 def causal_lm_loss(params: Dict[str, Any], tokens: torch.Tensor, loss_mask: torch.Tensor,
                    config: ModelConfig, *, remat: bool = True,
-                   moe_aux_weight: float = 0.0) -> torch.Tensor:
+                   moe_aux_weight: float = 0.0, mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy (f32) over masked positions.
 
     tokens int ``[B, S]`` (inputs; the labels are tokens shifted by one),
@@ -73,20 +90,41 @@ def causal_lm_loss(params: Dict[str, Any], tokens: torch.Tensor, loss_mask: torc
     `KVCache` of S-1 positions, as the JAX package's loss does, so attention
     reads them rounded to bf16 whatever the parameters' dtype.
     ``moe_aux_weight > 0`` adds the router load-balancing loss (MoE models;
-    Switch-transformer's default is about 0.01)."""
+    Switch-transformer's default is about 0.01).
+
+    With ``mesh`` the params are this rank's local tree, the rows this dp
+    row's, and the loss this dp row's part of the global mean: its masked
+    sum over the mask count of every dp row (the parts sum over dp to the
+    single device's loss)."""
     b, s = tokens.shape
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    cache = KVCache.create(config, b, s - 1, device=tokens.device)
+    cache_config = config if mesh is None else _local_config(config, mesh.tp)
+    cache = KVCache.create(cache_config, b, s - 1, device=tokens.device)
     logits, _, aux = forward(params, cache, inputs, 0, config, remat=remat, with_aux=True,
-                             differentiable=True)
+                             differentiable=True, tp=mesh)
     with record_function("loss"):
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -logp.gather(-1, labels[..., None].long())[..., 0]
         mask = loss_mask.float()
-        loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        count = mask.sum()
+        if mesh is not None:
+            count = mesh.all_reduce(count.detach().clone(), axis="dp")
+        loss = (nll * mask).sum() / count.clamp_min(1.0)
         if moe_aux_weight:
             loss = loss + moe_aux_weight * aux
     return loss
+
+
+@dataclass
+class TrainLayout:
+    """Where a sharded state's trainable leaves sit: the whole model's
+    ``config``, the ``mesh``, each leaf's path in the parameter tree
+    (`parallel.mesh.leaf_tp_axis` reads its split from it) and the
+    optimizer factory (for the gathered state's optimizer)."""
+    config: ModelConfig
+    mesh: Any
+    paths: List[tuple]
+    optimizer: Callable
 
 
 @dataclass
@@ -94,11 +132,86 @@ class TrainState:
     trainable: List[torch.Tensor]  # flat list of trainable leaves (owned by the state)
     opt_state: torch.optim.Optimizer
     step: torch.Tensor             # int32, 0-d
+    layout: Optional[TrainLayout] = None  # a sharded state's; None on one device
+
+
+def moment_paths(n_moments: int, paths: List[tuple]) -> List[Optional[tuple]]:
+    """The path of each optimizer-state leaf (`convert.optimizer_state_leaves`:
+    Adam's count, then a first and a second moment a leaf; SGD's momentum a
+    leaf; none for plain SGD), None for the count."""
+    n = len(paths)
+    if n_moments == 2 * n + 1:
+        return [None, *paths, *paths]
+    if n_moments == n:
+        return list(paths)
+    if n_moments:
+        raise ValueError(f"{n_moments} optimizer-state leaves over {n} tensors")
+    return []
+
+
+def gather_train_state(state: TrainState) -> TrainState:
+    """The whole train state of a sharded one (`make_train_step(mesh=...)`):
+    every trainable leaf and optimizer moment put back together over tp
+    (`parallel.mesh.gather_leaf`: the split and the fused permutation
+    undone), a new optimizer of the same kind over the whole leaves holding
+    the gathered moments, the step count. Every rank of the mesh must call
+    it, and every rank gets the same state; a state without a layout is
+    returned as it is. The whole leaves combine with the whole tree's
+    frozen partition (`combine`) for `merge_lora`, `quant.checkpoint`'s
+    export and `save_train_state`."""
+    lay = state.layout
+    if lay is None:
+        return state
+
+    def gather(t, path):
+        t = t.detach()
+        return t.clone() if path is None else gather_leaf(t, path, lay.config, lay.mesh).clone()
+
+    leaves = [gather(t, p).requires_grad_(True) for t, p in zip(state.trainable, lay.paths)]
+    moments = optimizer_state_leaves(state.opt_state, state.trainable)
+    moments = [gather(m, p) for m, p in zip(moments, moment_paths(len(moments), lay.paths))]
+    opt = lay.optimizer(leaves)
+    set_optimizer_state(opt, leaves, moments)
+    return TrainState(leaves, opt, state.step.clone())
+
+
+def _dp_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This dp row's contiguous rows of the global batch ``t``."""
+    b = t.shape[0]
+    if b % mesh.dp:
+        raise ValueError(f"a batch of {b} rows does not divide over dp={mesh.dp}")
+    n = b // mesh.dp
+    return t[mesh.index("dp") * n:(mesh.index("dp") + 1) * n]
+
+
+def _sum_over_dp(grads: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Every gradient summed over dp: one all_reduce of them all in f32, each
+    rounded back to its dtype (for two rows, a bf16 sum's own rounding)."""
+    if mesh.dp == 1:
+        return grads
+    flat = mesh.all_reduce(torch.cat([g.float().reshape(-1) for g in grads]), axis="dp")
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
+        at += g.numel()
+    return out
+
+
+def _global_norm(grads: List[torch.Tensor], split: Optional[List[bool]], mesh) -> torch.Tensor:
+    """optax's ``global_norm``: the squared sums of the leaves split over tp
+    summed over tp, a whole leaf's counted once."""
+    sq = [g.float().square().sum() for g in grads]
+    if split is None or mesh.tp == 1:
+        return torch.sqrt(sum(sq))
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    parts = sum((x for x, f in zip(sq, split) if f), zero)
+    parts = mesh.all_reduce(parts.clone())
+    return torch.sqrt(parts + sum((x for x, f in zip(sq, split) if not f), zero))
 
 
 def make_train_step(config: ModelConfig, optimizer: Callable[[List[torch.Tensor]], Any],
                     spec: PartitionSpec, *, remat: bool = True,
-                    loss_fn: Optional[Callable] = None):
+                    loss_fn: Optional[Callable] = None, mesh=None):
     """Build (init_state, step_fn).
 
     ``optimizer`` makes a ``torch.optim`` optimizer over a list of tensors,
@@ -115,29 +228,52 @@ def make_train_step(config: ModelConfig, optimizer: Callable[[List[torch.Tensor]
     "loss_mask" ``[B, S-1]`` (tensors or numpy arrays). The step updates
     the state's leaves in place; metrics are "loss", "grad_norm" (the
     global norm of the gradients) and "step". A trainable leaf the loss
-    does not reach gets a zero gradient, as ``jax.grad`` gives it."""
+    does not reach gets a zero gradient, as ``jax.grad`` gives it.
+
+    ``mesh`` (a `parallel.mesh.Mesh` of dp × tp; the module docstring)
+    makes the sharded step: ``spec`` and the leaves are this rank's local
+    tree's, the batch the global one (its rows divisible by dp), and
+    ``loss_fn`` (if given) takes ``mesh=``. MoE models are refused on a
+    mesh (the experts' routing and sums over ep have no differentiable
+    route yet)."""
     loss_of_params = loss_fn or causal_lm_loss
+    paths = split = None
+    if mesh is not None:
+        if config.num_experts:
+            raise ValueError("make_train_step(mesh=...): MoE models have no sharded train "
+                             "step yet")
+        paths = [p for p, f in zip(treedef_paths(spec[0]), spec[1]) if f]
+        split = [leaf_tp_axis(p, config, mesh.tp) is not None for p in paths]
 
     def init_state(trainable: List[torch.Tensor]) -> TrainState:
         leaves = [t.detach().clone().requires_grad_(True) for t in trainable]
+        layout = None if mesh is None else TrainLayout(config, mesh, paths, optimizer)
         return TrainState(trainable=leaves, opt_state=optimizer(leaves),
-                          step=torch.zeros((), dtype=torch.int32))
+                          step=torch.zeros((), dtype=torch.int32), layout=layout)
 
     def step_fn(state: TrainState, frozen: List, batch: Dict[str, Any]):
         dev = state.trainable[0].device
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
         mask = torch.as_tensor(batch["loss_mask"]).to(dev)
+        on_mesh = {}
+        if mesh is not None:
+            tokens, mask, on_mesh = _dp_rows(tokens, mesh), _dp_rows(mask, mesh), {"mesh": mesh}
         with torch.enable_grad():
             params = combine(state.trainable, frozen, spec)
-            loss = loss_of_params(params, tokens, mask, config, remat=remat)
+            loss = loss_of_params(params, tokens, mask, config, remat=remat, **on_mesh)
             grads = torch.autograd.grad(loss, state.trainable, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(state.trainable, grads)]
+        loss = loss.detach()
+        if mesh is not None:
+            grads = _sum_over_dp(grads, mesh)
+            loss = mesh.all_reduce(loss.clone(), axis="dp")
         for p, g in zip(state.trainable, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
-        grad_norm = torch.sqrt(sum(p.grad.float().square().sum() for p in state.trainable))
+            p.grad = g
+        grad_norm = _global_norm(grads, split, mesh)
         with record_function("optimizer"):
             state.opt_state.step()
         step = state.step + 1
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "step": step}
-        return TrainState(state.trainable, state.opt_state, step), metrics
+        metrics = {"loss": loss, "grad_norm": grad_norm, "step": step}
+        return TrainState(state.trainable, state.opt_state, step, state.layout), metrics
 
     return init_state, step_fn

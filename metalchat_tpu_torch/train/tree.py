@@ -92,5 +92,28 @@ def tree_unflatten(treedef, leaves):
     return tree
 
 
+def treedef_paths(treedef) -> List[tuple]:
+    """The leaf paths of ``treedef`` (`tree_flatten_with_path`'s), in
+    flattening order."""
+    out: List[tuple] = []
+
+    def walk(d, path):
+        kind = d[0]
+        if kind == "leaf":
+            out.append(path)
+        elif kind == "dict":
+            for k, c in zip(d[1], d[2]):
+                walk(c, path + (DictKey(k),))
+        elif kind == "fields":
+            for f, c in zip(d[2], d[3]):
+                walk(c, path + (GetAttrKey(f),))
+        elif kind != "none":
+            for i, c in enumerate(d[1]):
+                walk(c, path + (SequenceKey(i),))
+
+    walk(treedef, ())
+    return out
+
+
 def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_flatten_with_path(tree)[0]]

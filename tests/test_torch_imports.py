@@ -4,8 +4,9 @@
   distributed, tensor-parallel, multi-host, pipeline, context-parallel and
   ring-attention modules too), nor `chip_smoke.py`, nor the parallel
   tests' rank workers (`tests/torch_tp_worker.py`,
-  `tests/torch_pp_cp_worker.py`, `tests/torch_mesh_axes_worker.py`)
-  imports jax or the JAX package `metalchat_tpu`.
+  `tests/torch_pp_cp_worker.py`, `tests/torch_mesh_axes_worker.py`,
+  `tests/torch_train_worker.py`) imports jax or the JAX package
+  `metalchat_tpu`.
 * An entry point asked for the card without one raises, and a kernel
   wrapper given a tensor that is not on the CPU or a card raises: neither
   falls back to the plain version.
@@ -23,7 +24,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "metalchat_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py",
-    ROOT / "tests" / "torch_pp_cp_worker.py", ROOT / "tests" / "torch_mesh_axes_worker.py"]
+    ROOT / "tests" / "torch_pp_cp_worker.py", ROOT / "tests" / "torch_mesh_axes_worker.py",
+    ROOT / "tests" / "torch_train_worker.py"]
 PARALLEL_MODULES = ("pipeline", "context", "ring_attention", "mesh", "distributed",
                     "tp_decode", "multihost")
 

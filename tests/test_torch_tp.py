@@ -470,7 +470,10 @@ def test_multihost_engine_same_streams(runs):
 def test_gating_refuses_what_jax_refuses():
     """``supports_tp_fast_decode`` on tests/test_tp_decode.py's cases (a
     dense model; a dense fused leaf; kv-heads that tp=4 does not divide)
-    and a grouped weight-only model: the JAX package's answers. MoE as
+    and a grouped weight-only model: the JAX package's answers. kv-heads
+    that tp does not divide, refused by the fast decode as by JAX's gate,
+    take the sharded layer route (`spmd_forward_fn`), whose kv-heads stay
+    whole, as JAX's GSPMD replicates them. MoE as
     JAX answers it: stacked experts on a tp-only mesh are taken, a mesh
     with ep > 1 is refused with the reason (and so is a tree without its
     router). A LoRA leaf on an act8 base: JAX's gate takes it and its step
@@ -494,6 +497,11 @@ def test_gating_refuses_what_jax_refuses():
     assert [supports_tp_fast_decode(c[1], cfg, Mesh(tp=c[2])) for c in cases] == [
         True, False, False, False]
     assert "not divisible" in tp_refusal(tparams, cfg, Mesh(tp=4))
+    from metalchat_tpu_torch.parallel import layer_route_refusal, spmd_forward_fn
+
+    assert layer_route_refusal(cfg, Mesh(tp=4)) is None
+    assert spmd_forward_fn(tparams, cfg, Mesh(tp=4)).__qualname__.startswith(
+        "layer_route_forward_fn")
     jmoe_cfg = jconfig.MixtralConfig(**{**{f.name: getattr(CFG, f.name)
                                            for f in dataclasses.fields(CFG)},
                                         "num_experts": 4, "num_experts_per_tok": 2})
@@ -684,9 +692,11 @@ def test_engine_spmd_refuses_an_ineligible_model(runs):
     fused, group-wise int4, GPT-2's biases, LoRA): the engine takes the
     sharded layer route, as the JAX engine pins ``forward(fast_decode=
     False)`` for GSPMD, and its tokens are the single-device engine's.
-    What that route cannot run is still refused with the reason: kv-heads
-    that tp does not divide (JAX's GSPMD replicates them; the port's layer
-    route splits them)."""
+    What that route cannot run is still refused with the reason: an FFN
+    width that tp does not divide (`shard_params` refuses it, as JAX's
+    ``_check_divisibility`` does). kv-heads that tp does not divide are no
+    longer refused: the layer route keeps them whole
+    (tests/test_torch_train_sharded.py holds it to JAX)."""
     _, ranks, trees, cfg, _ = runs
     leaves = _leaf_trees()
     for name in worker.LEAF_ENGINES:
@@ -700,8 +710,8 @@ def test_engine_spmd_refuses_an_ineligible_model(runs):
             assert all(got["finished"]) and got["route"] == "layer_route_forward_fn", name
             assert got["tokens"] == want, (name, got["tokens"], want)
     grouped = params_from_numpy(trees["leaves"]["int4"], CPU)
-    with pytest.raises(ValueError, match="num_kv_heads=1 not divisible by tp=2"):
-        ContinuousBatchingEngine(grouped, dataclasses.replace(cfg, num_kv_heads=1),
+    with pytest.raises(ValueError, match="intermediate_size=1023 not divisible by tp=2"):
+        ContinuousBatchingEngine(grouped, dataclasses.replace(cfg, intermediate_size=1023),
                                  spmd_mesh=Mesh(tp=TP), **worker.ENGINE)
 
 
@@ -731,10 +741,14 @@ def test_layer_route_leaf_kinds_match_jax(runs, name):
 def test_shard_params_refuses_straddling_groups_and_segments():
     """The layouts the sharded layer route cannot run are refused with the
     reason: a row-parallel group-wise leaf whose rank would hold part of a
-    group, and a fused leaf (dense or quantized) whose segments tp does not
-    divide. A whole embedding (an odd vocabulary) looks ids up on rank 0
-    only: the all_reduce sums one row and zeros."""
+    group, and a fused leaf whose segments tp does not divide. A fused wqkv
+    whose kv-heads tp does not divide (dense or quantized) is no longer
+    refused: each rank holds its query heads' columns and every k and v
+    column (its kv-heads whole, as JAX's GSPMD replicates them). A whole
+    embedding (an odd vocabulary) looks ids up on rank 0 only: the
+    all_reduce sums one row and zeros."""
     from metalchat_tpu_torch.models.transformer import _tp_lookup_embedding
+    from metalchat_tpu_torch.parallel.mesh import _fused_columns
 
     cfg = port_config(CFG)
     w = np.random.default_rng(0).standard_normal((1, 512, 512)).astype(np.float32)
@@ -746,11 +760,19 @@ def test_shard_params_refuses_straddling_groups_and_segments():
         shard_params({"layers": {"w2": int4}}, cfg, Mesh(tp=4, rank=0))
     assert shard_params({"layers": {"wo": int4}}, cfg, Mesh(tp=2, rank=1))["layers"][
         "wo"].group_size == 128
-    odd = dataclasses.replace(cfg, num_kv_heads=1, head_dim=3)
-    for leaf in (torch.zeros(1, 512, 18), tq.quantize(np.zeros((1, 512, 18), np.float32),
-                                                      bits=8, group_size=32, device=CPU)):
-        with pytest.raises(ValueError, match="segments .* not divisible by tp=2"):
-            shard_params({"layers": {"wqkv": leaf}}, odd, Mesh(tp=TP, rank=0))
+    with pytest.raises(ValueError, match="segments .* not divisible by tp=2"):
+        _fused_columns("w13", dataclasses.replace(cfg, intermediate_size=7), TP, 0)
+    odd = dataclasses.replace(cfg, num_kv_heads=1, head_dim=3)  # wqkv: 12 | 3 | 3
+    dense = torch.randn(1, 512, 18)
+    quant = tq.quantize(dense.numpy(), bits=8, group_size=32, device=CPU)
+    for rank in range(TP):
+        cols = [*range(6 * rank, 6 * rank + 6), *range(12, 18)]
+        got = shard_params({"layers": {"wqkv": dense}}, odd, Mesh(tp=TP, rank=rank))
+        assert torch.equal(got["layers"]["wqkv"], dense[..., cols])
+        got = shard_params({"layers": {"wqkv": quant}}, odd, Mesh(tp=TP, rank=rank))
+        leaf = got["layers"]["wqkv"]
+        assert leaf.fuse_tp == 1 and torch.equal(leaf.q, quant.q[..., cols])
+        assert torch.equal(leaf.scales, quant.scales[..., cols])
 
     class Sum:  # two ranks' all_reduce, each rank's contribution recorded
         def __init__(self, tp):
