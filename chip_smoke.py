@@ -5022,40 +5022,51 @@ def train_tp_batch(torch, cfg, device):
     return {"tokens": tokens.to(device), "loss_mask": torch.ones(rows, s, device=device)}
 
 
-def train_tp_steps(torch, cfg, params, batch, mesh=None):
-    """TRAIN_TP_STEPS QLoRA Adam steps on ``params`` (a rank's local tree
-    with ``mesh``): each step's loss, grad_norm and wall ms, the first step's
-    adaptor gradients (gathered whole on a mesh, f32 on the CPU), the
-    launches during the steps, whether the frozen bytes stayed, the state
-    and the partition spec."""
+def train_tp_steps(torch, cfg, params, batch, mesh=None, full=False, aux=0.0, keep=False,
+                   steps=TRAIN_TP_STEPS):
+    """``steps`` Adam steps on ``params`` (a rank's local tree with
+    ``mesh``), QLoRA's (`trainable_lora`) or with ``full`` every float leaf
+    (`trainable_full`), ``aux`` the loss's ``moe_aux_weight``: each step's
+    loss, grad_norm and wall ms, the first step's gradients (gathered whole
+    on a mesh, f32 on the CPU), the launches during the steps, whether the
+    frozen bytes stayed, the state and the partition spec; with ``keep``
+    the trained leaves before each step after the first (whole, on the
+    CPU) under "leaves"."""
     from metalchat_tpu_torch import train as tt
     from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
     from metalchat_tpu_torch.parallel import gather_leaf
 
-    trainable, frozen, spec = tt.partition(params, tt.trainable_lora)
+    trainable, frozen, spec = tt.partition(params, tt.trainable_full if full
+                                           else tt.trainable_lora)
     before = tree_digest(torch, {str(i): t for i, t in enumerate(frozen)})
+    loss_fn = functools.partial(tt.causal_lm_loss, moe_aux_weight=aux) if aux else None
     init, step = tt.make_train_step(cfg, lambda ps: torch.optim.Adam(ps, lr=TRAIN_LR), spec,
-                                    remat=True, mesh=mesh)
+                                    remat=True, mesh=mesh, loss_fn=loss_fn)
     state = init(trainable)
     sync(torch, "cuda")
     reset_launch_counts()
-    losses, norms, ms, grads = [], [], [], None
-    for _ in range(TRAIN_TP_STEPS):
+    losses, norms, ms, grads, kept = [], [], [], None, []
+    paths = [None] * len(trainable) if mesh is None else state.layout.paths
+
+    def whole(t, path):
+        return t if mesh is None else gather_leaf(t, path, cfg, mesh)
+
+    for i in range(steps):
+        if keep and i:
+            kept.append([whole(t.detach(), p).to("cpu", copy=True)
+                         for t, p in zip(state.trainable, paths)])
         t0 = time.perf_counter()
         state, m = step(state, frozen, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         ms.append(1e3 * (time.perf_counter() - t0))
         if grads is None:
-            grads = [p.grad for p in state.trainable]
-            if mesh is not None:
-                grads = [gather_leaf(g, path, cfg, mesh)
-                         for g, path in zip(grads, state.layout.paths)]
-            grads = [g.float().cpu() for g in grads]
+            grads = [whole(t.grad, p).float().cpu() for t, p in zip(state.trainable, paths)]
     counts = launch_counts()
     same = torch.equal(before, tree_digest(torch, {str(i): t for i, t in enumerate(frozen)}))
     return {"losses": losses, "norms": norms, "ms": ms, "grads": grads, "counts": counts,
-            "frozen_same": same, "state": state, "spec": spec, "frozen": frozen}
+            "frozen_same": same, "state": state, "spec": spec, "frozen": frozen,
+            "leaves": kept}
 
 
 def train_tp_rank(rank: int, store: str, out_dir: str) -> None:
@@ -5264,6 +5275,284 @@ def phase_train_tp(sm: Smoke, gemma_run, smi: str):
     print(f"train-tp: ranks' wall {wall:.1f} s ({smi.splitlines()[0]}); functional numbers, "
           "not a parallel speed figure", flush=True)
     return {"prefill": got["prefill_counts"], "steps": got["step_counts"]}
+
+
+# phase train-moe: the sharded train step on an MoE tree, dp 2 × ep 2 (4
+# ranks on the card over gloo): Mixtral-8x7B's widths cut to
+# TRAIN_MOE_LAYERS layers (`make_train_moe`: random bf16 weights quantized
+# as the JAX package trains an MoE on a mesh, int8 in groups of 32, every
+# linear, the experts included), `trainable_full` (router, norms, embedding,
+# head), TRAIN_TP_STEPS Adam steps (TRAIN_LR, remat, moe_aux_weight
+# TRAIN_MOE_AUX) on TRAIN_TP_BATCH, each step held to one process's step on
+# the leaves the ranks held before it, within train-tp (a)'s limits. Two
+# free-running bf16 trajectories part by step 3 here (the loss falls from
+# 11.2 to 1.1 in three steps: 2.6% apart on an H100, with the first loss
+# bit-equal and the first gradients 0.14-0.9% apart), so the free run is
+# printed, not held.
+TRAIN_MOE_DP, TRAIN_MOE_EP = 2, 2
+TRAIN_MOE_RANKS = TRAIN_MOE_DP * TRAIN_MOE_EP
+TRAIN_MOE_LAYERS = 2
+TRAIN_MOE_AUX = 0.01
+TRAIN_MOE_SEED = 24
+TRAIN_MOE_TIMEOUT_S = 420
+TRAIN_MOE_LABEL = f"mixtral-8x7b int8 g32, {TRAIN_MOE_LAYERS} layers"
+# the first-step gradients held to one process's (the issue's list): the
+# router, the norms and the head
+TRAIN_MOE_HELD = ("router", "norm", "lm_head")
+
+
+def quantize_on_card(torch, w, group_size: int = 32):
+    """`quant.quantize.quantize(w, bits=8, group_size=group_size)` of a dense
+    ``[..., in, out]`` weight on its own device, in `quantize_params`'
+    storage (`auto_orient`: transposed where out > in; f32 scales): each
+    group of ``group_size`` input rows' absmax over 127, codes ``w · (1 /
+    scale)`` rounded half to even and clipped to ±127, the same f32 steps as
+    that function's numpy ones (`make_train_moe` holds the bytes equal)."""
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor
+
+    in_f, out_f = w.shape[-2:]
+    g = w.float().reshape(*w.shape[:-2], in_f // group_size, group_size, out_f)
+    # true divisions by tensors: on the card PyTorch divides by a Python
+    # scalar as a product with its reciprocal, a last-ulp apart
+    scales = g.abs().amax(dim=-2, keepdim=True) / torch.tensor(127.0, device=g.device)
+    inv = torch.where(scales == 0.0, torch.zeros_like(scales),
+                      torch.ones_like(scales) / scales)
+    q = (g * inv).round().clamp(-127.0, 127.0).to(torch.int8).reshape(w.shape)
+    sc = scales.squeeze(-2)
+    transposed = out_f > in_f
+    if transposed:
+        q, sc = q.transpose(-1, -2).contiguous(), sc.transpose(-1, -2).contiguous()
+    return QuantizedTensor(q=q, scales=sc, bits=8, group_size=group_size,
+                           transposed=transposed, act_bits=None)
+
+
+def make_train_moe(torch, device, check: bool = False):
+    """(config, tree): `MixtralConfig.mixtral_8x7b` cut to TRAIN_MOE_LAYERS
+    layers (context 1024) with random bf16 weights, N(0, 0.02) from
+    TRAIN_MOE_SEED (`init_random_params`' draw for everything but the
+    experts; each expert matrix from a generator of its own, layer by layer,
+    so the f32 draw of one stack never sits whole on the card), every
+    linear quantized int8 in groups of 32 by `quantize_on_card`; the router,
+    norms, embedding and head dense bf16. With ``check`` the codes, scales
+    and orientation of a slice of layer 0's first expert of each stack are
+    held to `quantize_params`' (the port's numpy quantizer) byte for
+    byte."""
+    from metalchat_tpu_torch.config import MixtralConfig
+    from metalchat_tpu_torch.models.transformer import init_random_params
+    from metalchat_tpu_torch.quant.quantize import QuantizedTensor, quantize_params
+
+    cfg = MixtralConfig.mixtral_8x7b().replace(max_seq_len=1024, num_layers=TRAIN_MOE_LAYERS)
+    L, E, H, F = cfg.num_layers, cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    params = init_random_params(cfg.replace(num_experts=0), seed=TRAIN_MOE_SEED,
+                                dtype=torch.bfloat16, device=device)
+    layers = params["layers"]
+    for name in ("wq", "wk", "wv", "wo"):
+        layers[name] = quantize_on_card(torch, layers[name])
+    for name in EXPERT_LEAVES:  # the dense FFN's leaves
+        del layers[name]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(TRAIN_MOE_SEED + 1)
+    layers["router"] = (torch.randn((L, H, E), generator=gen, device=device) * 0.02).to(
+        torch.bfloat16)
+    dense = {}
+    for name, (in_f, out_f) in zip(EXPERT_LEAVES, ((H, F), (H, F), (F, H))):
+        parts = []
+        for l in range(L):
+            for e in range(E):
+                w = (torch.randn((in_f, out_f), generator=gen, device=device) * 0.02).to(
+                    torch.bfloat16)
+                if check and l == e == 0:  # a slice stored as the whole leaf is
+                    dense[name] = w[:256] if in_f < out_f else w[:, :256]
+                parts.append(quantize_on_card(torch, w))
+        q = torch.stack([p.q for p in parts]).reshape(L, E, *parts[0].q.shape)
+        sc = torch.stack([p.scales for p in parts]).reshape(L, E, *parts[0].scales.shape)
+        layers[name] = QuantizedTensor(q=q, scales=sc, bits=8, group_size=32,
+                                       transposed=parts[0].transposed, act_bits=None)
+        del parts
+    if check:  # the port's quantize_params on the CPU against the card's codes
+        for name, w in dense.items():
+            want = quantize_params({"layers": {name: w.cpu()}}, bits=8,
+                                   group_size=32)["layers"][name]
+            got = quantize_on_card(torch, w)
+            if not (torch.equal(got.q.cpu(), want.q) and torch.equal(got.scales.cpu(), want.scales)
+                    and got.transposed == want.transposed):
+                raise AssertionError(f"make_train_moe: {name}'s codes differ from quantize_params'")
+    return cfg, params
+
+
+@contextlib.contextmanager
+def recorded_drops(drops: list):
+    """Inside the block, every dispatch (`models.moe.dispatch_slots`) appends
+    to ``drops`` the count of (token, choice) pairs it dropped (on this
+    rank's rows)."""
+    from metalchat_tpu_torch.models import moe
+
+    plain = moe.dispatch_slots
+
+    def counted(*args, **kw):
+        slot, kept = plain(*args, **kw)
+        drops.append(int((~kept).sum()))
+        return slot, kept
+
+    moe.dispatch_slots = counted
+    try:
+        yield drops
+    finally:
+        moe.dispatch_slots = plain
+
+
+def train_moe_run(torch, cfg, params, mesh=None, keep=False, leaves=None):
+    """`train_tp_steps` with every float leaf trained and the load-balancing
+    loss, the dispatch's dropped pairs a layer of the first step's forward,
+    the memory held before the steps and their peak above it (GB) beside
+    its result; ``keep`` its.
+    With ``leaves`` (the trained leaves in partition order) one step from
+    them in place of the tree's own."""
+    sync(torch, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    if leaves is not None:
+        from metalchat_tpu_torch import train as tt
+
+        _, frozen, spec = tt.partition(params, tt.trainable_full)
+        params = tt.combine([t.to(frozen[0].device) for t in leaves], frozen, spec)
+    drops = []
+    with recorded_drops(drops):
+        run = train_tp_steps(torch, cfg, params, train_tp_batch(torch, cfg, "cuda"), mesh,
+                             full=True, aux=TRAIN_MOE_AUX, keep=keep,
+                             steps=TRAIN_TP_STEPS if leaves is None else 1)
+    sync(torch, "cuda")
+    run.update(drops=drops[:cfg.num_layers], held_gb=held / 1e9,
+               peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9)
+    return run
+
+
+def train_moe_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase train-moe, a process of its own: `make_train_moe` on
+    the card (every rank draws the same tree), `shard_params` for
+    `make_mesh(dp=2, ep=2)` (the rank's 4 experts), `train_moe_run` on it.
+    Saves what it saw to ``out_dir/rank{rank}.pt``: rank 0 also its first
+    step's gradients and the leaves before each later step."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    from metalchat_tpu_torch.parallel import initialize, make_mesh, shard_params, shutdown
+
+    initialize(f"file://{store}", TRAIN_MOE_RANKS, rank, backend=TP_BACKEND,
+               timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    try:
+        mesh = make_mesh(dp=TRAIN_MOE_DP, ep=TRAIN_MOE_EP)
+        t0 = time.perf_counter()
+        cfg, full = make_train_moe(torch, "cuda")
+        digest = tree_digest(torch, full)
+        params = shard_params(full, cfg, mesh)
+        del full
+        torch.cuda.empty_cache()
+        res = {"setup_s": time.perf_counter() - t0, "digest": digest,
+               "local_experts": int(params["layers"]["w1"].q.shape[1])}
+        before = dict(mesh.counts)
+        run = train_moe_run(torch, cfg, params, mesh, keep=rank == 0)
+        res["collectives"] = {k: v - before.get(k, 0) for k, v in mesh.counts.items()
+                              if v != before.get(k, 0)}
+        drop = ("spec", "frozen", "state") + (("grads", "leaves") if rank else ())
+        res.update({k: v for k, v in run.items() if k not in drop},
+                   paths=["".join(map(str, p)) for p in run["state"].layout.paths])
+        torch.save(res, f"{out_dir}/rank{rank}.pt")  # rank 0's gradients and leaves
+    finally:
+        shutdown()
+
+
+def phase_train_moe(sm: Smoke, smi: str):
+    """train-moe, `TRAIN_MOE_RANKS` ranks on one card over `TP_BACKEND`
+    (`train_moe_rank`): the sharded step of an MoE tree at Mixtral-8x7B's
+    widths (`make_train_moe`: int8 g32 every linear, the experts included)
+    on dp 2 × ep 2, the experts over ep and the batch's rows over dp with
+    the whole batch's routing, each step against one process's step on the
+    same batch and the leaves the ranks held before it (the first: the
+    tree's own): each loss within TRAIN_LOSS_RTOL and grad_norm within
+    TRAIN_TP_NORM_RTOL, the first step's gradients of the router, norms and
+    head within TRAIN_GRAD_RTOL (relative L2); no kernel launched, the
+    frozen bytes unchanged, every rank's metrics equal and its tree the one
+    process's. One process's free-running steps are printed beside them.
+    Returns a rank's launches (none)."""
+    torch = sm.torch
+    import tempfile
+
+    label = f"train-moe ({TRAIN_MOE_RANKS} ranks over {TP_BACKEND} on one card)"
+    print(f"{label}: {TRAIN_MOE_LABEL}, make_mesh(dp={TRAIN_MOE_DP}, ep={TRAIN_MOE_EP}), "
+          f"{TRAIN_TP_STEPS} Adam steps (lr {TRAIN_LR}, remat, moe_aux_weight "
+          f"{TRAIN_MOE_AUX}) of trainable_full on {TRAIN_TP_BATCH[0]} x {TRAIN_TP_BATCH[1]} "
+          "inputs", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, wall = spawn_ranks(sm, "train-moe", train_moe_rank, TRAIN_MOE_RANKS,
+                                  TRAIN_MOE_TIMEOUT_S, tmp)
+    t0 = time.perf_counter()
+    cfg, params = make_train_moe(torch, "cuda", check=True)
+    setup = time.perf_counter() - t0
+    digest = tree_digest(torch, params)
+    one = train_moe_run(torch, cfg, params)
+    r0 = ranks[0]
+    what = f"train-moe {TRAIN_MOE_LABEL}"
+    # each later step from the leaves rank 0 held before it, in one process
+    forced = [(one["losses"][0], one["norms"][0])]
+    for leaves in r0["leaves"]:
+        f = train_moe_run(torch, cfg, params, leaves=leaves)
+        forced.append((f["losses"][0], f["norms"][0]))
+    free_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"])]
+    loss_rel = [abs(a - f[0]) / abs(f[0]) for a, f in zip(r0["losses"], forced)]
+    norm_rel = [abs(a - f[1]) / f[1] for a, f in zip(r0["norms"], forced)]
+    grad_rel = {p: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for p, a, b in zip(r0["paths"], r0["grads"], one["grads"])}
+    held = {p: v for p, v in grad_rel.items() if any(n in p for n in TRAIN_MOE_HELD)}
+    # each dp row's dropped pairs: its ep place 0 rank's
+    rows = [ranks[d * TRAIN_MOE_EP]["drops"] for d in range(TRAIN_MOE_DP)]
+    drops = [sum(row[l] for row in rows) for l in range(cfg.num_layers)]
+    print(f"{what}: losses {r0['losses']} against one process's step on the same leaves "
+          f"{[f[0] for f in forced]} ({[float(f'{x:.3g}') for x in loss_rel]} apart, limit "
+          f"{TRAIN_LOSS_RTOL}); grad_norms {r0['norms']} against {[f[1] for f in forced]} "
+          f"({[float(f'{x:.3g}') for x in norm_rel]} apart, limit {TRAIN_TP_NORM_RTOL}); one "
+          f"process free-running: losses {one['losses']} ({[float(f'{x:.3g}') for x in free_rel]}"
+          f" apart, not held), grad_norms {one['norms']}; first-step gradients, relative L2 "
+          f"{ {p: round(v, 5) for p, v in grad_rel.items()} } (held: the router, norms and "
+          f"head, limit {TRAIN_GRAD_RTOL}); metrics equal on all {TRAIN_MOE_RANKS} ranks, no "
+          f"launch, frozen bytes unchanged; dropped (token, choice) pairs a layer of the first "
+          f"forward: ranks {drops} (dp rows {rows}), one process {one['drops']}", flush=True)
+    print(f"{what}: rank 0 set-up {r0['setup_s']:.2f} s, step wall ms "
+          f"{[round(x, 1) for x in r0['ms']]} (one process "
+          f"{[round(x, 1) for x in one['ms']]}), the steps' peak memory above what was held a "
+          f"rank {[round(r['peak_gb'], 2) for r in ranks]} GB (held "
+          f"{[round(r['held_gb'], 2) for r in ranks]}; one process {one['peak_gb']:.2f} above "
+          f"{one['held_gb']:.2f}, the earlier phases' trees included); "
+          f"one process's set-up {setup:.2f} s; collectives a rank over the "
+          f"{TRAIN_TP_STEPS} steps and the first step's gradient gather {r0['collectives']}; "
+          f"ranks' wall {wall:.1f} s ({smi.splitlines()[0]}); gloo moves CUDA tensors through "
+          "the host, so these are functional numbers, not a parallel speed figure", flush=True)
+    for r, res in enumerate(ranks):
+        sm.expect(torch.equal(res["digest"], digest), f"{what}: rank {r}'s tree differs from "
+                  "the one process's")
+        sm.expect(res["local_experts"] == cfg.num_experts // TRAIN_MOE_EP,
+                  f"{what}: rank {r} holds {res['local_experts']} experts")
+        sm.expect((res["losses"], res["norms"]) == (r0["losses"], r0["norms"]),
+                  f"{what}: rank {r}'s metrics {res['losses']} {res['norms']} against rank "
+                  f"0's {r0['losses']} {r0['norms']}")
+        sm.expect(not any(res["counts"].values()), f"{what}: rank {r} launched "
+                  f"{res['counts']}")
+        sm.expect(res["frozen_same"], f"{what}: a frozen leaf changed on rank {r}")
+    sm.expect(not any(one["counts"].values()), f"{what}: one process launched {one['counts']}")
+    sm.expect(one["frozen_same"], f"{what}: a frozen leaf changed in one process")
+    sm.expect(len(r0["grads"]) == len(one["grads"]) and len(held) == 5,
+              f"{what}: gradients of {list(grad_rel)}")
+    sm.expect(max(loss_rel) <= TRAIN_LOSS_RTOL, f"{what}: losses {r0['losses']} against one "
+              f"process's on the same leaves {forced}")
+    sm.expect(max(norm_rel) <= TRAIN_TP_NORM_RTOL, f"{what}: grad_norms {r0['norms']} against "
+              f"one process's on the same leaves {forced}")
+    sm.expect(max(held.values()) <= TRAIN_GRAD_RTOL,
+              f"{what}: first-step gradients against one process's {grad_rel}")
+    del one, params
+    torch.cuda.empty_cache()
+    return r0["counts"]
 
 
 def a8_calls_a_window(params, cfg) -> int:
@@ -7717,6 +8006,7 @@ def main() -> int:
     gpt2 = gpt2_fixture = ppl_counts = serve_gpt2 = gpt2_times = None
     qlora = gptq_run = qlora_times = train_counts = tp_counts = None
     tp_moe_counts = multihost_counts = tp_leaves_counts = train_tp_counts = None
+    train_moe_counts = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -7751,6 +8041,7 @@ def main() -> int:
         sm.phase("gemma-fixture", lambda: phase_gemma_fixture(sm))
         if gemma_run is not None:
             train_tp_counts = sm.phase("train-tp", lambda: phase_train_tp(sm, gemma_run, smi))
+        train_moe_counts = sm.phase("train-moe", lambda: phase_train_moe(sm, smi))
         sm.phase("mixtral-fixture", lambda: phase_mixtral_fixture(sm))
         mixtral_run = sm.phase("mixtral", lambda: phase_mixtral(sm, dev_name))
         if main_run is not None:
@@ -7824,7 +8115,7 @@ def main() -> int:
             stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b, spec_counts,
             spec_fixture, gpt2, gpt2_fixture, ppl_counts, serve_gpt2, gpt2_times, qlora,
             gptq_run, qlora_times, train_counts, tp_counts, tp_moe_counts,
-            multihost_counts, tp_leaves_counts, train_tp_counts)):
+            multihost_counts, tp_leaves_counts, train_tp_counts, train_moe_counts)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -7859,7 +8150,8 @@ def main() -> int:
                "multihost 8b-w4a8 MultiHostEngine (a rank)": multihost_counts["engine"],
                **{f"tp-leaves {n} steps (a rank)": c for n, c in tp_leaves_counts.items()},
                f"train-tp {GEMMA_LABEL} tp 2 prefill (a rank)": train_tp_counts["prefill"],
-               f"train-tp {GEMMA_LABEL} tp 2 steps (a rank)": train_tp_counts["steps"]}
+               f"train-tp {GEMMA_LABEL} tp 2 steps (a rank)": train_tp_counts["steps"],
+               f"train-moe {TRAIN_MOE_LABEL} dp 2 x ep 2 steps (a rank)": train_moe_counts}
     for r in rows:
         counter = r.get("counter", r["name"])
         r["launches_by_path"] = {path: c[counter] for path, c in by_path.items()}

@@ -357,11 +357,13 @@ def ffn_residual(x, layers: Params, l: int, config: ModelConfig, lin=linear, row
     """``x`` plus layer ``l``'s feed-forward block of its pre-norm (MoE,
     fused w13, GPT-2's MLP or SwiGLU; Gemma-3's post-norm), and the MoE
     load-balancing loss (None on a dense layer). ``row`` runs w2; MoE runs
-    on ``moe_mesh``'s experts and FFN width (`models.moe.moe_ffn`). Under
-    ``tp`` the normed input enters the column-parallel products through
-    ``tp.sum_grad`` (`attention_inputs`)."""
+    on ``moe_mesh``'s experts and FFN width (`models.moe.moe_ffn`: the
+    router whole on every rank, the experts' input summing its gradient
+    over tp and ep there). Under ``tp`` a dense block's normed input enters
+    the column-parallel products through ``tp.sum_grad``
+    (`attention_inputs`)."""
     h = norm(x, layers, "ffn_norm", config, l)
-    if tp is not None:
+    if tp is not None and not config.num_experts:
         h, lin = tp.sum_grad(h), functools.partial(lin, tp=tp)
     aux = None
     if config.num_experts:
@@ -570,8 +572,14 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     DifferentiableMesh`): every rank's gradients are those of its leaves
     under the single device's loss (a whole leaf's the whole gradient on
     every rank), `remat` recomputing each layer's collectives in the
-    backward pass on every rank alike; MoE on a mesh is refused there.
-    Without experts
+    backward pass on every rank alike. There MoE runs its experts over ep
+    and tp with their gradients, and on a mesh with dp > 1 (any ep and tp)
+    routes the whole batch as the JAX package's one program does
+    (`models.moe`): ``tokens`` are then this dp row's rows, and the third
+    value ``with_aux`` returns is this dp row's share of the whole batch's
+    load-balancing loss (the shares sum over dp to it). A `LoraLinear` on
+    an expert stack is refused on every route, naming the leaf (the JAX
+    package's MoE fails on it). Without experts
     over ep the result is the single device's function for every leaf
     kind: the embedding split by vocabulary (or whole), wo and w2
     row-parallel (`linear_row_parallel`: act8 codes from the whole row and
@@ -588,14 +596,17 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     from metalchat_tpu_torch.models.decode import decode_step, supports_fast_decode
     from metalchat_tpu_torch.parallel.tp_decode import rank_kv_heads
 
+    if config.num_experts:
+        from metalchat_tpu_torch.models.moe import refuse_lora_experts
+
+        refuse_lora_experts(n for n in ("w1", "w3", "w2")
+                            if isinstance(params["layers"].get(n), LoraLinear))
     mesh = tp
     sharded = mesh is not None and (mesh.tp > 1 or mesh.ep > 1)
-    if sharded and differentiable:
-        if config.num_experts:
-            raise ValueError("forward(tp=..., differentiable=True): MoE on a mesh has no "
-                             "differentiable route yet (the experts' all_reduce over ep "
-                             "and their routing carry no gradient)")
+    if mesh is not None and differentiable:
         mesh = mesh.differentiable_view()
+    # MoE on the train step's mesh routes the whole batch over dp (models.moe)
+    moe_mesh = mesh if sharded or differentiable and mesh is not None and mesh.dp > 1 else None
     kv_heads = rank_kv_heads(config, mesh if sharded else None)
     config, tp = tp_config(config, mesh)
     if not sharded and fast_decode and not remat and not differentiable \
@@ -609,7 +620,7 @@ def forward(params: Params, cache: Cache, tokens: torch.Tensor, start_pos,
     x = embed_tokens(params, tokens, where["positions"], config, tp)
     x, aux = run_layers(x, params["layers"], cache, config=config, rope=params["rope"],
                         remat=remat, differentiable=differentiable, tp=tp,
-                        moe_mesh=mesh if sharded else None, kv_heads=kv_heads, **where)
+                        moe_mesh=moe_mesh, kv_heads=kv_heads, **where)
     logits = final_logits(params, x, config, kernels=not differentiable, tp=tp)
     if with_aux:  # the mean over layers: a dense layer adds 0
         mean = torch.stack(aux).sum() / config.num_layers if aux \

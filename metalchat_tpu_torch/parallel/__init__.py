@@ -19,6 +19,7 @@ from metalchat_tpu_torch.parallel.mesh import (  # noqa: F401
     GridMesh,
     Mesh,
     gather_leaf,
+    leaf_ep_axis,
     leaf_tp_axis,
     make_grid_mesh,
     make_mesh,

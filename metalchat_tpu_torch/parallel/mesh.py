@@ -46,17 +46,20 @@ bodies make with ``ppermute``, ``psum`` and gathers (counted by kind).
 the layout and the dp and ep axes, and the tensor-parallel collectives the
 sharded model code calls on its tp axis. Its collectives work in place and
 carry no gradient; `Mesh.differentiable_view` gives the train step's mesh
-(`DifferentiableMesh`), whose tp collectives are autograd functions at the
-three places where the sharded route meets whole activations: a sum over tp
-whose gradient passes unchanged (row-parallel outputs, the vocabulary-split
-embedding), a gather whose gradient is this rank's slice (the
-vocabulary-split logits), and `Mesh.sum_grad`, the identity whose gradient
-is summed over tp (a whole activation entering column-parallel work, and a
-whole leaf or activation whose gradient each rank sees only in part).
+(`DifferentiableMesh`), whose tp and ep collectives are autograd functions
+at the places where the sharded route meets whole activations: a sum over
+tp or ep whose gradient passes unchanged (row-parallel outputs, the
+vocabulary-split embedding, the experts' gated sum over ep), a gather whose
+gradient is this rank's slice (the vocabulary-split logits), and
+`Mesh.sum_grad`, the identity whose gradient is summed over tp or ep (a
+whole activation entering column-parallel work or the rank's experts, and a
+whole leaf or activation, such as the router's gates, whose gradient each
+rank sees only in part).
 
-`leaf_tp_axis`, `gather_leaf` and `shard_leaf` place one trainable leaf
-(named by its path in the parameter tree, `train.tree`) between its whole
-form and a rank's part: the train state's gather and its files.
+`leaf_tp_axis`, `leaf_ep_axis`, `gather_leaf` and `shard_leaf` place one
+trainable leaf (named by its path in the parameter tree, `train.tree`)
+between its whole form and a rank's part: the train state's gather and its
+files.
 """
 
 from __future__ import annotations
@@ -199,14 +202,16 @@ class GridMesh:
         self._count("all_gather", axis, t)
         return torch.cat(parts, dim=dim).to(t.device)
 
-    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum",
+                   kind: Optional[str] = None) -> torch.Tensor:
         """``t`` reduced over ``axis`` (``"sum"`` or ``"max"``) in its own
-        dtype, the same on every rank along it."""
+        dtype, the same on every rank along it; counted under ``kind``
+        (default ``all_reduce_<op>``) and the axis."""
         if self.size(axis) == 1:
             return t
         w = self._wire(t)
         dist.all_reduce(w, op=_REDUCE_OPS[op], group=self._group(axis))
-        self._count(f"all_reduce_{op}", axis, t)
+        self._count(kind or f"all_reduce_{op}", axis, t)
         return w.to(t.device)
 
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
@@ -334,9 +339,10 @@ class Mesh:
             return t
         return self._gather_tp(t, dim)
 
-    def sum_grad(self, t: torch.Tensor) -> torch.Tensor:
+    def sum_grad(self, t: torch.Tensor, axis: str = "tp") -> torch.Tensor:
         """``t`` itself: the inference route carries no gradient (the
-        differentiable view sums ``t``'s gradient over tp)."""
+        differentiable view sums ``t``'s gradient over ``axis``, "tp" or
+        "ep")."""
         return t
 
     def differentiable_view(self) -> "DifferentiableMesh":
@@ -352,16 +358,33 @@ class Mesh:
 
 
 class _SumGrad(torch.autograd.Function):
-    """The identity; backward, the gradient summed over tp."""
+    """The identity; backward, the gradient summed over ``axis`` (counted
+    ``all_reduce_sum_backward``, and ``_ep`` after it over ep)."""
 
     @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh._reduce_tp(g.clone(), "sum", "all_reduce_sum_backward"), None
+        if ctx.axis == "tp":
+            return ctx.mesh._reduce_tp(g.clone(), "sum", "all_reduce_sum_backward"), None, None
+        return ctx.mesh.grid.all_reduce(g.clone(), ctx.axis, kind="all_reduce_sum_backward"), \
+            None, None
+
+
+class _AllReduceEp(torch.autograd.Function):
+    """The sum over ep; backward, the gradient unchanged (every ep rank's
+    graph after the sum is the same, so each holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return mesh.grid.all_reduce(t.clone(), "ep")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _AllReduceTp(torch.autograd.Function):
@@ -402,10 +425,13 @@ class _AllGatherTp(torch.autograd.Function):
 
 class DifferentiableMesh(Mesh):
     """The train step's view of a `Mesh` (`Mesh.differentiable_view`): its
-    tp collectives are autograd functions (the module docstring); on the
-    dp and ep axes it is the mesh itself, carrying no gradient. Every rank
-    runs the same backward pass, so the backward collectives (counted as
-    ``all_reduce_sum_backward``) meet in one order, a layer recomputed
+    tp collectives, its sum over ep and `sum_grad` over tp or ep are
+    autograd functions (the module docstring; the experts' route is
+    `models.moe`'s); on the dp axis it is the mesh itself, carrying no
+    gradient (the loss's parts and gradients are summed over dp outside
+    autograd, `train.step`). Every rank runs the same backward pass, so the
+    backward collectives (counted as ``all_reduce_sum_backward``, over ep
+    ``all_reduce_sum_backward_ep``) meet in one order, a layer recomputed
     under remat included.
 
     A row's act8 absmax (a ``"max"``) sends its gradient to the ranks whose
@@ -416,6 +442,8 @@ class DifferentiableMesh(Mesh):
     differentiable: ClassVar[bool] = True
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum", axis: str = "tp") -> torch.Tensor:
+        if axis == "ep" and op == "sum" and self.ep > 1:
+            return _AllReduceEp.apply(t, self)
         if axis != "tp" or self.tp == 1:
             return super().all_reduce(t, op, axis)
         return _AllReduceTp.apply(t, self, op)
@@ -425,9 +453,10 @@ class DifferentiableMesh(Mesh):
             return super().all_gather(t, dim, axis)
         return _AllGatherTp.apply(t, self, dim)
 
-    def sum_grad(self, t: torch.Tensor) -> torch.Tensor:
-        """``t``, whose gradient is summed over tp in the backward pass."""
-        return t if self.tp == 1 else _SumGrad.apply(t, self)
+    def sum_grad(self, t: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+        """``t``, whose gradient is summed over ``axis`` ("tp" or "ep") in
+        the backward pass."""
+        return t if getattr(self, axis) == 1 else _SumGrad.apply(t, self, axis)
 
     def differentiable_view(self) -> "DifferentiableMesh":
         return self
@@ -684,9 +713,25 @@ def leaf_tp_axis(path, config: ModelConfig, tp: int) -> Optional[int]:
     return -1 if rule == "out" else -2
 
 
+def leaf_ep_axis(path, config: ModelConfig, ep: int) -> Optional[int]:
+    """The axis (negative) along which `shard_params` splits the leaf at
+    ``path`` over ``ep`` ranks: an MoE expert stack's expert axis (w1/w3
+    ``[L, E, H, F]``, w2 ``[L, E, F, H]``: JAX's ``P(None, "ep", ...)``), or
+    None (every other leaf, the router included, is whole over ep)."""
+    keys = _path_keys(path)
+    if ep == 1 or not config.num_experts or keys[0] != "layers" or len(keys) != 2 \
+            or keys[1] not in EXPERT_LEAVES:
+        return None
+    return -3
+
+
 def shard_leaf(t: torch.Tensor, path, config: ModelConfig, mesh: Mesh) -> torch.Tensor:
     """This rank's part of the whole dense leaf ``t`` at ``path``, as
-    `shard_params` cuts it (a fused leaf's columns `_fused_columns`)."""
+    `shard_params` cuts it: an expert stack's experts at the rank's ep place
+    first, then its tp part (a fused leaf's columns `_fused_columns`)."""
+    ep_axis = leaf_ep_axis(path, config, mesh.ep)
+    if ep_axis is not None:
+        t = _split(t, ep_axis, mesh.ep, mesh.index("ep"))
     axis = leaf_tp_axis(path, config, mesh.tp)
     if axis is None:
         return t
@@ -699,18 +744,20 @@ def shard_leaf(t: torch.Tensor, path, config: ModelConfig, mesh: Mesh) -> torch.
 
 def gather_leaf(t: torch.Tensor, path, config: ModelConfig, mesh: Mesh) -> torch.Tensor:
     """The whole dense leaf at ``path`` from every rank's part ``t`` (one
-    ``all_gather`` over tp where it is split; `shard_leaf` undone, a fused
-    leaf's columns put back in place). Every rank along tp must call it."""
+    ``all_gather`` over tp where it is split, then one over ep for an
+    expert stack; `shard_leaf` undone, a fused leaf's columns put back in
+    place). Every rank along those axes must call it."""
+    ep_axis = leaf_ep_axis(path, config, mesh.ep)
     axis = leaf_tp_axis(path, config, mesh.tp)
-    if axis is None:
-        return t
-    parts = mesh.all_gather(t, dim=axis)
+    if axis is not None:
+        t = mesh.all_gather(t, dim=axis)
+    if ep_axis is not None:
+        t = mesh.all_gather(t, dim=ep_axis, axis="ep")
     name = _path_keys(path)[1] if _path_keys(path)[0] == "layers" else None
-    if name not in FUSED_LEAVES:
-        return parts
+    if axis is None or name not in FUSED_LEAVES:
+        return t
     base = name.removesuffix("_b")
     cols = torch.cat([_fused_columns(base, config, mesh.tp, r) for r in range(mesh.tp)])
-    whole = parts.new_empty(*parts.shape[:-1], sum(fused_segments(base, config)))
-    whole[..., cols.to(parts.device)] = parts
+    whole = t.new_empty(*t.shape[:-1], sum(fused_segments(base, config)))
+    whole[..., cols.to(t.device)] = t
     return whole
-

@@ -13,7 +13,8 @@ A sharded state (``make_train_step(..., mesh=)``) writes the whole state's
 file, the JAX package's for the same training on one device: every rank
 gathers (`train.step.gather_train_state`), the mesh's rank 0 writes, and
 the ranks wait for it. Loaded into a sharded template, a file is cut into
-each rank's part again (`parallel.mesh.shard_leaf`).
+each rank's part again (`parallel.mesh.shard_leaf`: an expert stack over
+ep and tp).
 """
 
 from __future__ import annotations

@@ -11,18 +11,22 @@ factory over the trainable list. The loss's tail and the optimizer's
 update run under ``record_function`` ranges ("loss", "optimizer") that a
 profiler can read.
 
-With ``mesh`` (a `parallel.mesh.Mesh` over dp and tp) the step is the JAX
-package's one program over the ("dp", "tp") mesh, one process a rank:
-every rank holds its local tree (`parallel.mesh.shard_params`) and the
-global batch; each dp row trains on its contiguous rows of it (JAX's
-``NamedSharding(P("dp"))``), the forward runs the sharded differentiable
-route (`models.transformer.forward(..., tp=mesh, differentiable=True)`), the
-loss is the global mean (each dp row's sum over the global mask count), the
-gradients are summed over dp, and the optimizer updates each rank's local
-leaves: Adam, AdamW and SGD are elementwise, so a rank holds the single
-device's slice. The metrics are the same on every rank. The state records
-where its leaves sit (`TrainLayout`); `gather_train_state` puts the whole
-leaves and moments back together.
+With ``mesh`` (a `parallel.mesh.Mesh` over dp, ep and tp) the step is the
+JAX package's one program over the ("dp", "ep", "tp") mesh, one process a
+rank: every rank holds its local tree (`parallel.mesh.shard_params`: an MoE
+model's experts over ep, their FFN width over tp) and the global batch;
+each dp row trains on its contiguous rows of it (JAX's
+``NamedSharding(P("dp"))``: the ep and tp ranks of a row take the same
+rows), the forward runs the sharded differentiable route
+(`models.transformer.forward(..., tp=mesh, differentiable=True)`; MoE routes
+the whole batch, as the JAX package's one program does), the loss is the
+global mean (each dp row's sum over the global mask count, and its share of
+the load-balancing loss), the gradients are summed over dp, and the
+optimizer updates each rank's local leaves: Adam, AdamW and SGD are
+elementwise, so a rank holds the single device's slice. The metrics are
+the same on every rank. The state records where its leaves sit
+(`TrainLayout`); `gather_train_state` puts the whole leaves and moments
+back together.
 """
 
 from __future__ import annotations
@@ -36,10 +40,17 @@ from torch.profiler import record_function
 from metalchat_tpu_torch.cache import KVCache
 from metalchat_tpu_torch.config import ModelConfig
 from metalchat_tpu_torch.convert import optimizer_state_leaves, set_optimizer_state
+from metalchat_tpu_torch.models.moe import refuse_lora_experts
 from metalchat_tpu_torch.models.transformer import forward
-from metalchat_tpu_torch.parallel.mesh import gather_leaf, leaf_tp_axis
+from metalchat_tpu_torch.parallel.mesh import (
+    EXPERT_LEAVES,
+    gather_leaf,
+    leaf_ep_axis,
+    leaf_tp_axis,
+)
 from metalchat_tpu_torch.parallel.tp_decode import _local_config
 from metalchat_tpu_torch.train.tree import (
+    DictKey,
     GetAttrKey,
     tree_flatten_with_path,
     tree_unflatten,
@@ -94,8 +105,10 @@ def causal_lm_loss(params: Dict[str, Any], tokens: torch.Tensor, loss_mask: torc
 
     With ``mesh`` the params are this rank's local tree, the rows this dp
     row's, and the loss this dp row's part of the global mean: its masked
-    sum over the mask count of every dp row (the parts sum over dp to the
-    single device's loss)."""
+    sum over the mask count of every dp row, plus ``moe_aux_weight`` times
+    the forward's load-balancing term, which on such a mesh is this dp
+    row's share of the whole batch's (`models.moe`), so that the term is
+    counted once when the parts sum over dp to the single device's loss."""
     b, s = tokens.shape
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     cache_config = config if mesh is None else _local_config(config, mesh.tp)
@@ -119,8 +132,8 @@ def causal_lm_loss(params: Dict[str, Any], tokens: torch.Tensor, loss_mask: torc
 class TrainLayout:
     """Where a sharded state's trainable leaves sit: the whole model's
     ``config``, the ``mesh``, each leaf's path in the parameter tree
-    (`parallel.mesh.leaf_tp_axis` reads its split from it) and the
-    optimizer factory (for the gathered state's optimizer)."""
+    (`parallel.mesh.leaf_tp_axis` and `leaf_ep_axis` read its split from
+    it) and the optimizer factory (for the gathered state's optimizer)."""
     config: ModelConfig
     mesh: Any
     paths: List[tuple]
@@ -151,10 +164,10 @@ def moment_paths(n_moments: int, paths: List[tuple]) -> List[Optional[tuple]]:
 
 def gather_train_state(state: TrainState) -> TrainState:
     """The whole train state of a sharded one (`make_train_step(mesh=...)`):
-    every trainable leaf and optimizer moment put back together over tp
-    (`parallel.mesh.gather_leaf`: the split and the fused permutation
-    undone), a new optimizer of the same kind over the whole leaves holding
-    the gathered moments, the step count. Every rank of the mesh must call
+    every trainable leaf and optimizer moment put back together over tp and,
+    for an expert stack, ep (`parallel.mesh.gather_leaf`: the split and the
+    fused permutation undone), a new optimizer of the same kind over the
+    whole leaves holding the gathered moments, the step count. Every rank of the mesh must call
     it, and every rank gets the same state; a state without a layout is
     returned as it is. The whole leaves combine with the whole tree's
     frozen partition (`combine`) for `merge_lora`, `quant.checkpoint`'s
@@ -197,16 +210,28 @@ def _sum_over_dp(grads: List[torch.Tensor], mesh) -> List[torch.Tensor]:
     return out
 
 
-def _global_norm(grads: List[torch.Tensor], split: Optional[List[bool]], mesh) -> torch.Tensor:
+def _leaf_axes(path, config: ModelConfig, mesh) -> Tuple[str, ...]:
+    """The mesh axes the leaf at ``path`` is split over: ("ep", "tp") for an
+    expert stack split both ways, ("tp",), ("ep",) or () (whole)."""
+    return tuple(a for a, f in (("ep", leaf_ep_axis), ("tp", leaf_tp_axis))
+                 if f(path, config, getattr(mesh, a)) is not None)
+
+
+def _global_norm(grads: List[torch.Tensor], axes: Optional[List[tuple]], mesh) -> torch.Tensor:
     """optax's ``global_norm``: the squared sums of the leaves split over tp
-    summed over tp, a whole leaf's counted once."""
+    summed over tp, an expert stack's over ep (and tp) too, a whole leaf's
+    counted once."""
     sq = [g.float().square().sum() for g in grads]
-    if split is None or mesh.tp == 1:
+    if axes is None or mesh.tp == 1 and mesh.ep == 1:
         return torch.sqrt(sum(sq))
     zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    parts = sum((x for x, f in zip(sq, split) if f), zero)
-    parts = mesh.all_reduce(parts.clone())
-    return torch.sqrt(parts + sum((x for x, f in zip(sq, split) if not f), zero))
+
+    def total(want):
+        return sum((x for x, a in zip(sq, axes) if a == want), zero)
+
+    tp_only, both = mesh.all_reduce(torch.stack([total(("tp",)), total(("ep", "tp"))])).unbind()
+    ep_part = mesh.all_reduce((total(("ep",)) + both).clone(), axis="ep")
+    return torch.sqrt(tp_only + ep_part + total(()))
 
 
 def make_train_step(config: ModelConfig, optimizer: Callable[[List[torch.Tensor]], Any],
@@ -230,20 +255,23 @@ def make_train_step(config: ModelConfig, optimizer: Callable[[List[torch.Tensor]
     global norm of the gradients) and "step". A trainable leaf the loss
     does not reach gets a zero gradient, as ``jax.grad`` gives it.
 
-    ``mesh`` (a `parallel.mesh.Mesh` of dp × tp; the module docstring)
-    makes the sharded step: ``spec`` and the leaves are this rank's local
-    tree's, the batch the global one (its rows divisible by dp), and
-    ``loss_fn`` (if given) takes ``mesh=``. MoE models are refused on a
-    mesh (the experts' routing and sums over ep have no differentiable
-    route yet)."""
+    ``mesh`` (a `parallel.mesh.Mesh` of dp × ep × tp; the module
+    docstring) makes the sharded step: ``spec`` and the leaves are this
+    rank's local tree's, the batch the global one (its rows divisible by
+    dp), and ``loss_fn`` (if given) takes ``mesh=``. An MoE model trains
+    with its experts over ep and their FFN width over tp; a `LoraLinear`
+    on an expert stack is refused, naming the leaf (the JAX package's MoE
+    fails on it)."""
     loss_of_params = loss_fn or causal_lm_loss
-    paths = split = None
+    paths = axes = None
     if mesh is not None:
-        if config.num_experts:
-            raise ValueError("make_train_step(mesh=...): MoE models have no sharded train "
-                             "step yet")
-        paths = [p for p, f in zip(treedef_paths(spec[0]), spec[1]) if f]
-        split = [leaf_tp_axis(p, config, mesh.tp) is not None for p in paths]
+        all_paths = treedef_paths(spec[0])
+        if config.num_experts:  # a LoraLinear's fields under an expert stack's key
+            refuse_lora_experts(p[1].key for p in all_paths if len(p) > 2
+                                and p[0] == DictKey("layers") and p[1].key in EXPERT_LEAVES
+                                and getattr(p[2], "name", None) in ("base", "a", "b"))
+        paths = [p for p, f in zip(all_paths, spec[1]) if f]
+        axes = [_leaf_axes(p, config, mesh) for p in paths]
 
     def init_state(trainable: List[torch.Tensor]) -> TrainState:
         leaves = [t.detach().clone().requires_grad_(True) for t in trainable]
@@ -269,7 +297,7 @@ def make_train_step(config: ModelConfig, optimizer: Callable[[List[torch.Tensor]
             loss = mesh.all_reduce(loss.clone(), axis="dp")
         for p, g in zip(state.trainable, grads):
             p.grad = g
-        grad_norm = _global_norm(grads, split, mesh)
+        grad_norm = _global_norm(grads, axes, mesh)
         with record_function("optimizer"):
             state.opt_state.step()
         step = state.step + 1

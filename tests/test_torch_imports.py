@@ -5,7 +5,8 @@
   ring-attention modules too), nor `chip_smoke.py`, nor the parallel
   tests' rank workers (`tests/torch_tp_worker.py`,
   `tests/torch_pp_cp_worker.py`, `tests/torch_mesh_axes_worker.py`,
-  `tests/torch_train_worker.py`) imports jax or the JAX package
+  `tests/torch_train_worker.py`, `tests/torch_train_moe_worker.py`)
+  imports jax or the JAX package
   `metalchat_tpu`.
 * An entry point asked for the card without one raises, and a kernel
   wrapper given a tensor that is not on the CPU or a card raises: neither
@@ -25,7 +26,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "metalchat_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py",
     ROOT / "tests" / "torch_pp_cp_worker.py", ROOT / "tests" / "torch_mesh_axes_worker.py",
-    ROOT / "tests" / "torch_train_worker.py"]
+    ROOT / "tests" / "torch_train_worker.py", ROOT / "tests" / "torch_train_moe_worker.py"]
 PARALLEL_MODULES = ("pipeline", "context", "ring_attention", "mesh", "distributed",
                     "tp_decode", "multihost")
 

@@ -595,24 +595,31 @@ def test_leaf_layout_round_trip():
 # -- refusals --------------------------------------------------------------------
 
 def test_refusals():
-    """MoE on a mesh in the differentiable route, and a batch whose rows dp
-    does not divide, are refused with the reason (before any collective)."""
+    """A `LoraLinear` on an MoE expert stack, which the JAX package's forward
+    fails on (JAX's ``attach_lora`` wraps w1/w2/w3 with its default targets,
+    and its ``_expert_linear`` calls ``astype`` on the leaf), is refused
+    with a ``ValueError`` naming the leaf, in one-device ``forward`` and in
+    ``make_train_step(mesh=)``; a batch whose rows dp does not divide is
+    refused with the reason (before any collective)."""
     moe_cfg = JMixtralConfig(vocab_size=128, hidden_size=32, intermediate_size=64,
                              num_layers=1, num_heads=4, num_kv_heads=2, head_dim=8,
                              max_seq_len=32, tie_word_embeddings=False, num_experts=4,
                              num_experts_per_tok=2)
     tmoe = port_config(moe_cfg)
-    moe = params_from_numpy(jax_tree_to_numpy(jinit(moe_cfg, seed=0, dtype=jnp.float32)), CPU)
-    local = shard_params(moe, tmoe, Mesh(tp=2, rank=0))
+    jp = jt.attach_lora(jinit(moe_cfg, seed=0, dtype=jnp.float32), rank=4)
+    assert isinstance(jp["layers"]["w1"], JLoraLinear)
+    with pytest.raises(AttributeError, match="'LoraLinear' object has no attribute 'astype'"):
+        jforward(jp, JKVCache.create(moe_cfg, 1, 8), jnp.zeros((1, 4), jnp.int32), 0, moe_cfg,
+                 fast_decode=False)
+    moe = params_from_numpy(jax_tree_to_numpy(jp), CPU)
     from metalchat_tpu_torch.cache import KVCache
 
-    cache = KVCache.create(_local_config(tmoe, 2), 1, 8, device=CPU)
-    with pytest.raises(ValueError, match="MoE on a mesh"):
-        forward(local, cache, torch.zeros((1, 4), dtype=torch.long), 0, tmoe,
-                differentiable=True, tp=Mesh(tp=2, rank=0))
-    t, f, spec = tt.partition(local, tt.trainable_full)
-    with pytest.raises(ValueError, match="MoE models"):
-        tt.make_train_step(tmoe, worker.OPTIMIZERS["sgd"], spec, mesh=Mesh(tp=2, rank=0))
+    with pytest.raises(ValueError, match=r"\['layers'\]\['w1'\]: LoRA on an MoE expert stack"):
+        forward(moe, KVCache.create(tmoe, 1, 8, device=CPU), torch.zeros((1, 4), dtype=torch.long),
+                0, tmoe)
+    t, f, spec = tt.partition(moe, tt.trainable_lora)
+    with pytest.raises(ValueError, match=r"\['layers'\]\['w1'\]: LoRA on an MoE expert stack"):
+        tt.make_train_step(tmoe, worker.OPTIMIZERS["sgd"], spec, mesh=Mesh(ep=2, rank=0))
     cfg = port_config(CFG)
     params = params_from_numpy(jax_tree_to_numpy(jinit(CFG, seed=0, dtype=jnp.float32)), CPU)
     t, f, spec = tt.partition(params, tt.trainable_full)

@@ -11,6 +11,7 @@ make (dp 2, tp 2) and, on the pairs {0, 1} and {2, 3}, tp 2 alone. It
 imports torch, numpy and the port only.
 """
 
+import functools
 import pickle
 import sys
 from pathlib import Path
@@ -47,6 +48,13 @@ def _cfg(entry):
     return getattr(tconfig, kind)(**fields)
 
 
+def loss_fn(case):
+    """``causal_lm_loss`` with the case's ``moe_aux_weight`` (key "aux"), or
+    None (the step's default loss) without one."""
+    aux = case.get("aux")
+    return None if not aux else functools.partial(tt.causal_lm_loss, moe_aux_weight=aux)
+
+
 def _counts(mesh, before):
     return {k: v - before.get(k, 0) for k, v in mesh.counts.items() if v != before.get(k, 0)}
 
@@ -59,7 +67,8 @@ def run_steps(case, mesh):
     cfg = _cfg(case["cfg"])
     params = shard_params(params_from_numpy(case["tree"], CPU), cfg, mesh)
     trainable, frozen, spec = tt.partition(params, PREDICATES[case["pred"]])
-    init, step = tt.make_train_step(cfg, OPTIMIZERS[case["opt"]], spec, mesh=mesh)
+    init, step = tt.make_train_step(cfg, OPTIMIZERS[case["opt"]], spec, mesh=mesh,
+                                    loss_fn=loss_fn(case))
     state = init(trainable)
     metrics, grads = [], None
     for batch in case["batches"]:
@@ -87,7 +96,8 @@ def run_save(case, mesh, state, frozen, step):
     tt.save_train_state(case["path"], state)
     params = shard_params(params_from_numpy(case["tree"], CPU), cfg, mesh)
     trainable, _, spec = tt.partition(params, PREDICATES[case["pred"]])
-    init, _ = tt.make_train_step(cfg, OPTIMIZERS[case["opt"]], spec, mesh=mesh)
+    init, _ = tt.make_train_step(cfg, OPTIMIZERS[case["opt"]], spec, mesh=mesh,
+                                 loss_fn=loss_fn(case))
     restored = tt.load_train_state(case["path"], init(trainable))
     same = all(torch.equal(a, b) for a, b in zip(restored.trainable, state.trainable))
     same_moments = all(torch.equal(a, b) for a, b in zip(
