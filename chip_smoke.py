@@ -3840,6 +3840,10 @@ def tp_rank(rank: int, store: str, out_dir: str) -> None:
 PP_STEPS = TP_STEPS
 CP_PROMPT, CP_CACHE, CP_THRESHOLD = 1536, 2048, 512
 PP_CP_SERVE = dict(max_slots=8, prefill_chunk=256, decode_burst=8)
+# Both at once on the same two ranks (`pp_x_cp_rank`): the CP_PROMPT-token
+# prompt (the ring prefill) and two under CP_THRESHOLD (chunked through the
+# stages), PP_X_CP_NEW greedy tokens each.
+PP_X_CP_SHORT, PP_X_CP_NEW = (300, 100), 16
 
 
 def timed_run(torch, fn, mesh=None):
@@ -3968,6 +3972,10 @@ def pp_cp_rank(torch, cfg, full, rank: int, prompt) -> dict:
                                for n in ("k", "v", "k_scale", "v_scale")}
         del ref_cache
     out["cp_prefill"] = res
+    # The first layers' codes and scales over the prompt, for the pp × cp
+    # sub-phase (`pp_x_cp_rank`).
+    whole_cp = {n: getattr(cache, n)[:SERVE_LAYERS["serve"], 0, :, :CP_PROMPT].clone()
+                for n in ("k", "v", "k_scale", "v_scale")}
     del cache
     captures = []
     with timed_captures(torch, gm, captures):
@@ -3986,7 +3994,78 @@ def pp_cp_rank(torch, cfg, full, rank: int, prompt) -> dict:
                        "counters": dict(engine.counters), "shapes": dict(engine.prefill_shapes),
                        "cp_shapes": dict(engine.cp_prefill_shapes),
                        "captures": len(engine._graphs)}
+    del engine
+    out["pp_x_cp"] = pp_x_cp_rank(torch, ccfg, cfull, rank, cprompt, whole_cp)
     return out
+
+
+def pp_x_cp_requests(torch, cfg, prompt) -> list:
+    """The pp × cp sub-phase's requests: ``prompt`` (CP_PROMPT tokens), then
+    prompts of PP_X_CP_SHORT tokens from a generator seeded 2, greedy,
+    PP_X_CP_NEW tokens each."""
+    from metalchat_tpu_torch.engine import Request
+
+    gen = torch.Generator().manual_seed(2)
+    prompts = [prompt[0].tolist()] + [
+        torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist() for n in PP_X_CP_SHORT]
+    return [Request(prompt=p, max_new_tokens=PP_X_CP_NEW) for p in prompts]
+
+
+def pp_x_cp_rank(torch, cfg, full, rank: int, prompt, whole_cp) -> dict:
+    """pp 2 × cp 2 on this rank and the other (`pp_cp_rank`), through the
+    CLI's engine build (`cli.main.build_serve_engine`: the pipeline forward,
+    the stage's dense int8 cache of CP_CACHE positions, the cp mesh) on
+    ``full`` (the CP_CACHE-row rope tree) cut to SERVE_LAYERS["serve"]
+    layers. The stage-aware ring prefill of ``prompt`` alone first (its
+    last logits, the stage's cache layers against ``whole_cp``: the whole
+    tree's cp prefill's first layers over the same ranks, and the layer
+    hand-offs), then the engine on `pp_x_cp_requests` (rank 0's,
+    broadcast): streams, launches, collectives, and the long prompt's slot
+    of the stage's cache against ``whole_cp``. Seconds of each and of the
+    whole sub-phase."""
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.cli.main import build_serve_engine
+    from metalchat_tpu_torch.parallel import context_parallel_prefill, shard_cache_pp
+    from metalchat_tpu_torch.parallel.multihost import broadcast_requests
+
+    t0 = time.perf_counter()
+    cfg8, full8 = first_layers((cfg, full), SERVE_LAYERS["serve"], "pp x cp", quiet=True)
+    engine, grid = build_serve_engine(
+        full8, cfg8, pp=2, cp=2, slots=PP_CP_SERVE["max_slots"], max_seq_len=CP_CACHE,
+        quantized_kv=True, burst=PP_CP_SERVE["decode_burst"])
+    del full8
+    stages, sp = engine.forward_fn.stages, engine.cp_mesh
+    stage, per = stages.index("pp"), cfg8.num_layers // 2
+    mine = slice(stage * per, (stage + 1) * per)
+    names = ("k", "v", "k_scale", "v_scale")
+    n = prompt.shape[1]
+    cache = shard_cache_pp(QuantizedKVCache.create(cfg8, 1, CP_CACHE, device=prompt.device),
+                           stages)
+    (logits, _), counts, secs, moves = timed_run(torch, lambda: context_parallel_prefill(
+        engine.params, cache, prompt, cfg8, sp, stages=stages), sp)
+    res = {"last": logits[0].float().cpu(), "counts": counts, "s": secs, "moves": moves,
+           "cache_equal": {k: bool(torch.equal(getattr(cache, k)[:, 0, :, :n],
+                                               whole_cp[k][mine])) for k in names},
+           "stage_layers": {k: getattr(v, "q", v).shape[0]
+                            for k, v in engine.params["layers"].items()}}
+    del cache, logits
+    reqs = broadcast_requests(grid, pp_x_cp_requests(torch, cfg8, prompt.cpu())
+                              if rank == 0 else None)
+    before = dict(stages.counts)
+    done, counts, secs, moves = timed_run(torch, lambda: engine.run(reqs), sp)
+    for k, v in stages.counts.items():  # the pipeline's moves beside the ring's
+        if v != before.get(k, 0):
+            moves[k] = moves.get(k, 0) + v - before.get(k, 0)
+    slot = PP_CP_SERVE["max_slots"] - 1  # the first request admitted (`_admit`)
+    res["serve"] = {"streams": [(c.tokens, c.finished, c.error) for c in done.values()],
+                    "counts": counts, "s": secs, "moves": moves,
+                    "counters": dict(engine.counters), "shapes": dict(engine.prefill_shapes),
+                    "cp_shapes": dict(engine.cp_prefill_shapes), "captures": len(engine._graphs),
+                    "cache_equal": {k: bool(torch.equal(
+                        getattr(engine.cache, k)[:, slot, :, :n], whole_cp[k][mine]))
+                        for k in names}}
+    res["sub_phase_s"] = time.perf_counter() - t0
+    return res
 
 
 def tp_launches(cfg, steps: int, prefill_calls: int, attention: str):
@@ -4287,12 +4366,99 @@ def check_pp_cp(sm: Smoke, main, ranks) -> dict:
           f"other windows {sv['shapes']}; counters {sv['counters']}; "
           f"captured bursts {sv['captures']}; launches a rank {sv['counts']}; collectives "
           f"{sv['moves']}", flush=True)
+    x = check_pp_x_cp(sm, cparams, ccfg, cprompt, ranks)
     return {"pp_generate": r0["pp_generate"]["counts"], "pp_serve": r0["pp_serve"]["counts"],
-            "cp_generate": r0["cp_generate"]["counts"], "cp_serve": r0["cp_serve"]["counts"]}
+            "cp_generate": r0["cp_generate"]["counts"], "cp_serve": r0["cp_serve"]["counts"],
+            "pp_x_cp_serve": x}
+
+
+def check_pp_x_cp(sm: Smoke, cparams, ccfg, cprompt, ranks) -> dict:
+    """Phase tp's pp 2 × cp 2 sub-phase (`pp_x_cp_rank`), held against one
+    process's layer-route engine on the same tree (main's, CP_CACHE rope
+    rows, SERVE_LAYERS["serve"] layers): the ring prefill's last logits
+    within `check_logits`' limit of one process's `forward(fast_decode=
+    False)` and equal on both ranks; each stage's cache layers (the direct
+    prefill's and the engine's slot) bit for bit those layers of the
+    whole-tree cp prefill over the same ranks; one layer hand-off a layer;
+    each rank left with its stage's layers only; the engine's streams
+    equal on both stages and to the one-process engine's (`eager_burst_
+    engine` with that forward) or parted at a near tie (`engine_parting` on
+    the layer route); the long prompt through one ring prefill; launches
+    exact a stage (row 6 a layer a step, row 4 a layer a chunked window,
+    nothing in the ring). Returns rank 0's engine launches."""
+    torch = sm.torch
+    from metalchat_tpu_torch.cache import QuantizedKVCache
+    from metalchat_tpu_torch.models.transformer import forward
+    from metalchat_tpu_torch.ops import launch_counts
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    cfg8, params8 = first_layers((ccfg, cparams), SERVE_LAYERS["serve"], "pp x cp")
+    L, per = cfg8.num_layers, cfg8.num_layers // 2
+    dev = cprompt.device
+
+    def layer_route(p, c, t, s):
+        return forward(p, c, t, s, cfg8, fast_decode=False)
+
+    ref = layer_route(params8, QuantizedKVCache.create(cfg8, 1, CP_CACHE, device=dev), cprompt,
+                      0)[0][0, -1].float().cpu()
+    reqs = pp_x_cp_requests(torch, cfg8, cprompt.cpu())
+    one = eager_burst_engine(params8, cfg8, quantized_kv=True, max_seq_len=CP_CACHE,
+                             forward_fn=layer_route, **PP_CP_SERVE)
+    t = time.perf_counter()
+    done = one.run(reqs)
+    one_s = time.perf_counter() - t
+    want = [c.tokens for c in done.values()]
+    r0 = ranks[0]["pp_x_cp"]
+    for stage, r in enumerate(ranks):
+        x = r["pp_x_cp"]
+        sv = x["serve"]
+        sm.exact(x["last"], r0["last"], f"pp x cp stage {stage}: the ring prefill's last logits")
+        sm.expect(all(x["cache_equal"].values()) and all(sv["cache_equal"].values()),
+                  f"pp x cp stage {stage}: its cache layers against the whole-tree cp "
+                  f"prefill's: the prefill {x['cache_equal']}, the engine {sv['cache_equal']}")
+        sm.expect(x["counts"] == zero, f"pp x cp stage {stage}: prefill launches {x['counts']}")
+        sm.expect(x["moves"].get("layer_broadcast_sp") == L,
+                  f"pp x cp stage {stage}: layer hand-offs {x['moves']}, {L} layers")
+        sm.expect(set(x["stage_layers"].values()) == {per},
+                  f"pp x cp stage {stage}: layers held after the prefill {x['stage_layers']}")
+        sm.expect(sv["cp_shapes"] == {(1, CP_PROMPT): 1} and sv["captures"] == 0,
+                  f"pp x cp stage {stage}: ring prefills {sv['cp_shapes']}, captures "
+                  f"{sv['captures']}")
+        sm.expect(sv["streams"] == r0["serve"]["streams"],
+                  "pp x cp serve: streams differ across stages")
+        launches = pp_cp_serve_launches(cfg8, sv, per, "decode_attention_layer", matvec=False)
+        sm.expect(sv["counts"] == launches,
+                  f"pp x cp serve stage {stage}: launches {sv['counts']} != {launches}")
+    streams = r0["serve"]["streams"]
+    sm.expect(len(streams) == len(reqs) and all(
+        f and e is None and len(t_) == PP_X_CP_NEW for t_, f, e in streams),
+        "pp x cp serve: unfinished or short completions "
+        f"{[(len(t_), f, e) for t_, f, e in streams]}")
+    share = check_logits(sm, "pp x cp prefill's last logits", r0["last"], ref)
+    partings = [engine_parting(sm, f"pp x cp request {i}", params8, cfg8, list(req.prompt), w,
+                               got, fast_decode=False)
+                for i, (req, w, (got, _, _)) in enumerate(zip(reqs, want, streams))]
+    sv = r0["serve"]
+    print(f"tp pp x cp ({TP_LABEL}; pp 2 x cp 2 on the same two ranks through "
+          f"cli.main.build_serve_engine, {L} layers, {per} a stage, int8 KV of {CP_CACHE}; "
+          f"functional numbers over gloo): the {CP_PROMPT}-token ring prefill over the stages' "
+          f"layers in {1e3 * r0['s']:.2f} ms, its last logits {share:.4f} of check_logits' "
+          f"limit (max abs err {(r0['last'] - ref).abs().max().item()}) of one process's "
+          f"layer route, each stage's cache layers bit-equal to the whole-tree cp prefill's; "
+          f"collectives a rank {r0['moves']} (layer hand-offs "
+          f"{r0['moves'].get('layer_broadcast_sp')}); the engine on {len(reqs)} requests of "
+          f"{[len(q.prompt) for q in reqs]} tokens, {PP_X_CP_NEW} greedy each: "
+          f"{sum(len(t_) for t_, _, _ in streams) / sv['s']:.2f} tok/s over {sv['s']:.2f} s (one "
+          f"process's layer-route engine {one_s:.2f} s); streams equal on both stages, against "
+          f"one process: {partings}; ring prefills {sv['cp_shapes']}, other windows "
+          f"{sv['shapes']}; counters {sv['counters']}; launches a stage {sv['counts']}; "
+          f"collectives {sv['moves']}; the sub-phase {r0['sub_phase_s']:.2f} s a rank",
+          flush=True)
+    return sv["counts"]
 
 
 SPEC_DRAFT = 4    # n_draft: 3 drafts and the target's verify of 4 tokens a round
-SPEC_NEW = 64
+SPEC_NEW = 32
 SPEC_FORCED = (3, 0)  # _force_accept in the turns: every draft, then none
 
 
@@ -4705,12 +4871,14 @@ def phase_multihost(sm: Smoke, main, smi: str):
     return {"server": r0["counts"], "engine": engine}
 
 
-def engine_parting(sm: Smoke, what: str, params, cfg, prompt, ids, got) -> str:
+def engine_parting(sm: Smoke, what: str, params, cfg, prompt, ids, got,
+                   fast_decode: bool = True) -> str:
     """``got`` (a request's ids) against the one-process engine's ``ids``:
     identical, or parted first at an index j where the one-process greedy
     route (the prompt's prefill, then one-token steps over ids[:j] on an
-    int8 cache) has ``ids[j]`` and ``got[j]`` as its top two logits within
-    `check_logits`' limit of each other. Otherwise the phase fails."""
+    int8 cache; with ``fast_decode=False`` the layer route) has ``ids[j]``
+    and ``got[j]`` as its top two logits within `check_logits`' limit of
+    each other. Otherwise the phase fails."""
     torch = sm.torch
     from metalchat_tpu_torch.cache import QuantizedKVCache
     from metalchat_tpu_torch.models.transformer import forward
@@ -4720,9 +4888,11 @@ def engine_parting(sm: Smoke, what: str, params, cfg, prompt, ids, got) -> str:
         return "identical"
     j, m, dev = diff[0], len(prompt), "cuda"
     cache = QuantizedKVCache.create(cfg, 1, m + j + 1, device=dev)
-    row = forward(params, cache, torch.tensor([prompt], device=dev), 0, cfg)[0][0, -1]
+    row = forward(params, cache, torch.tensor([prompt], device=dev), 0, cfg,
+                  fast_decode=fast_decode)[0][0, -1]
     for i in range(j):
-        row = forward(params, cache, torch.tensor([[ids[i]]], device=dev), m + i, cfg)[0][0, -1]
+        row = forward(params, cache, torch.tensor([[ids[i]]], device=dev), m + i, cfg,
+                      fast_decode=fast_decode)[0][0, -1]
     row = row.float()
     top = torch.topk(row, 2)
     gap = (top.values[0] - top.values[1]).item()
@@ -5667,18 +5837,20 @@ def near_tie(sm: Smoke, what: str, params, cfg, prompt, ids, got,
             f"move the target's choice")
 
 
-def phase_speculative(sm: Smoke, main):
+def phase_speculative(sm: Smoke, main, smi: str):
     """Speculative decoding at full width: the main phase's 8b-w4a8 params as
     the target, Llama-3.2-1B W8A8 as the draft, dense bf16 caches, the main
-    prompt (512 tokens), 64 new tokens at n_draft 4. The graph route's
+    prompt (512 tokens), SPEC_NEW new tokens at n_draft 4. The graph route's
     launches held exactly (`spec_launches`), one host read a round, three
     captures; its ids and both caches equal the JAX loop's (`_windows=False`,
     eager, a host read a draft) bit for bit; its ids equal `generate`'s
     greedy ids on a dense bf16 cache but at a near tie (`near_tie`). Then
     decode tok/s in turns (speculative, generate, generate, speculative) at
-    ``_force_accept`` 3 and 0, 64 / (t(65) - t(1)) each; each captured
-    step's device ms (20 replays between CUDA events); the draft check
-    (`measure_step_ratio`, `breakeven_accept_rate`)."""
+    ``_force_accept`` 3 and 0, SPEC_NEW / (t(SPEC_NEW + 1) - t(1)) each;
+    each captured step's device ms (20 replays between CUDA events); the
+    CLI's draft check (`measure_step_ratio`, `measure_verify_ratio`,
+    `breakeven_accept_rate` at the measured verify cost), printed with the
+    card's name and power limit."""
     torch = sm.torch
     import importlib
 
@@ -5791,9 +5963,15 @@ def phase_speculative(sm: Smoke, main):
                                   + ["verify"])}
     print(f"speculative round, device ms a replay: {step_ms}", flush=True)
     ratio = spec.measure_step_ratio(tparams, tcfg, dparams, dcfg)
-    alpha = spec.breakeven_accept_rate(ratio, n_draft=SPEC_DRAFT)
-    print(f"speculative draft check: measure_step_ratio(8b-w4a8, 1b-w8a8) = {ratio:.4f}, "
-          f"breakeven_accept_rate(n_draft={SPEC_DRAFT}) = {alpha}", flush=True)
+    verify = spec.measure_verify_ratio(tparams, tcfg, n_draft=SPEC_DRAFT)
+    alpha = spec.breakeven_accept_rate(ratio, n_draft=SPEC_DRAFT, verify_rel=verify)
+    jax_alpha = spec.breakeven_accept_rate(ratio, n_draft=SPEC_DRAFT)
+    sm.expect(verify > 0, f"speculative: measure_verify_ratio = {verify}")
+    print(f"speculative draft check ({smi.splitlines()[0]}): measure_step_ratio(8b-w4a8, "
+          f"1b-w8a8) = {ratio:.4f}, measure_verify_ratio(8b-w4a8, n_draft={SPEC_DRAFT}) = "
+          f"{verify:.4f} target steps (the CLI's verify_rel; the JAX package's default 1.16), "
+          f"breakeven_accept_rate(n_draft={SPEC_DRAFT}) = {alpha} (at verify_rel 1.16: "
+          f"{jax_alpha})", flush=True)
     return counts
 
 
@@ -8046,7 +8224,7 @@ def main() -> int:
         mixtral_run = sm.phase("mixtral", lambda: phase_mixtral(sm, dev_name))
         if main_run is not None:
             scan_run = sm.phase("scan", lambda: phase_scan(sm, main_run))
-            spec_counts = sm.phase("speculative", lambda: phase_speculative(sm, main_run))
+            spec_counts = sm.phase("speculative", lambda: phase_speculative(sm, main_run, smi))
         spec_fixture = sm.phase("speculative-fixture", lambda: phase_speculative_fixture(sm))
         gpt2 = sm.phase("gpt2", lambda: phase_gpt2(sm, dev_name))
         gpt2_fixture = sm.phase("gpt2-fixture", lambda: phase_gpt2_fixture(sm))
@@ -8142,6 +8320,7 @@ def main() -> int:
                "pp 8b-w4a8 serve dense int8 (a stage)": tp_counts["pp_serve"],
                "cp 8b-w4a8 generate (a rank)": tp_counts["cp_generate"],
                "cp 8b-w4a8 serve dense int8 (a rank)": tp_counts["cp_serve"],
+               "pp x cp 8b-w4a8 serve dense int8 (a stage)": tp_counts["pp_x_cp_serve"],
                f"tp-moe {MIXTRAL_LABEL} {MOE_TP_CUT['num_layers']} layers generate (a rank)":
                    tp_moe_counts["tp"],
                f"ep {MIXTRAL_LABEL} {MOE_TP_CUT['num_layers']} layers generate (a rank)":

@@ -28,7 +28,11 @@ by ``torchrun --nproc-per-node N``): each joins the process group
 (`parallel.distributed.initialize`, NCCL on the card, gloo on the CPU),
 rank 0 reads the requests and broadcasts them, and rank 0 alone writes the
 JSONL. ``--pp`` serves through `parallel.pipeline`'s stages, ``--cp``
-prefills prompts of 512 tokens or more through `parallel.context`.
+prefills prompts of 512 tokens or more through `parallel.context`; both at
+once (N each, on the same N ranks) prefill such prompts through the ring
+over the stages' own layers. With ``--http`` rank 0 serves the HTTP API
+and the other ranks follow its scheduler round by round
+(`engine.http.follow`).
 """
 
 from __future__ import annotations
@@ -176,26 +180,31 @@ def _prompt_speculative(args, session) -> int:
 
 
 def _warn_futile_speculation(args, session, draft) -> None:
-    """Measure t_draft / t_target (`measure_step_ratio`) and warn when the
-    breakeven accept rate it implies is above 0.85, where speculation is
-    likely to slow decode down. A failed measurement raises: on the card it
-    would be a kernel's fault. ``--no-draft-check`` skips it."""
+    """Measure t_draft / t_target (`measure_step_ratio`) and the verify
+    window's cost in target steps (`measure_verify_ratio`) on the running
+    device, and warn when the breakeven accept rate they imply is above
+    0.85, where speculation is likely to slow decode down. A failed
+    measurement raises: on the card it would be a kernel's fault.
+    ``--no-draft-check`` skips it."""
     from metalchat_tpu_torch.engine.speculative import (
         breakeven_accept_rate,
         measure_step_ratio,
+        measure_verify_ratio,
     )
 
     ratio = measure_step_ratio(session.params, session.config, draft.params, draft.config)
-    alpha = breakeven_accept_rate(ratio, n_draft=args.n_draft)
+    verify = measure_verify_ratio(session.params, session.config, n_draft=args.n_draft)
+    alpha = breakeven_accept_rate(ratio, n_draft=args.n_draft, verify_rel=verify)
     if alpha is None or alpha > 0.85:
         need = "unattainable" if alpha is None else f"{alpha:.2f}"
         sys.stderr.write(
-            f"[speculative] WARNING: draft step costs {ratio:.2f}x the target step — "
+            f"[speculative] WARNING: draft step costs {ratio:.2f}x the target step and "
+            f"the verify {verify:.2f} target steps — "
             f"breakeven accept rate {need} (> 0.85); this configuration is likely "
             f"to SLOW decode down. Use a much smaller draft or drop --draft.\n")
     else:
-        sys.stderr.write(f"[speculative] step ratio {ratio:.2f}, breakeven accept rate "
-                         f"{alpha:.2f}\n")
+        sys.stderr.write(f"[speculative] step ratio {ratio:.2f}, verify {verify:.2f} target "
+                         f"steps, breakeven accept rate {alpha:.2f}\n")
 
 
 def _cmd_checkout(args) -> int:
@@ -243,16 +252,18 @@ def _join_ranks(args, n: int) -> bool:
 def _cmd_serve(args) -> int:
     """Batch-serve prompts: JSONL in → JSONL out through the
     continuous-batching engine (one line: {"prompt": "...", "max_tokens": N,
-    "temperature": T, "top_k": K, "top_p": P}). With ``--pp N`` or ``--cp
-    N`` every one of N processes runs this command in lockstep: rank 0 reads
-    the requests and broadcasts them, every rank serves them, rank 0 alone
-    writes the JSONL."""
+    "temperature": T, "top_k": K, "top_p": P}), or an HTTP API. With
+    ``--pp N`` and/or ``--cp N`` every one of N processes runs this command
+    in lockstep: rank 0 reads the requests and broadcasts them (or serves
+    HTTP and broadcasts what its handlers queue), every rank serves them,
+    rank 0 alone writes the JSONL."""
     ranks = max(args.pp, args.cp)
-    if args.pp > 1 and args.cp > 1:
-        raise SystemExit("serve: --pp and --cp each take every process; give one of them")
-    if ranks > 1 and args.http is not None:
-        raise SystemExit("serve --http with --pp/--cp: the ranks run in lockstep on one "
-                         "request list; give it with --input or on stdin")
+    if args.pp > 1 and args.cp > 1 and args.pp != args.cp:
+        raise SystemExit(
+            f"serve --pp {args.pp} --cp {args.cp}: the context-parallel prefill runs over "
+            "the pipeline's own ranks, so give --cp equal to --pp (the JAX CLI fails on the "
+            "first prompt of 512 tokens or more: its cp mesh holds other devices than the "
+            "pipeline's)")
     started = _join_ranks(args, ranks) if ranks > 1 else False
     try:
         return _serve(args)
@@ -263,21 +274,20 @@ def _cmd_serve(args) -> int:
             shutdown()
 
 
-def _serve(args) -> int:
-    import json as _json
+def build_serve_engine(params, config, *, pp: int = 0, cp: int = 0, slots: int = 8,
+                       max_seq_len: Optional[int] = None, paged: bool = False,
+                       quantized_kv: bool = False, burst: int = 1):
+    """``serve``'s engine on the whole tree ``params``: with ``pp`` > 1 this
+    rank's pipeline stage (`parallel.pipeline`: its layers, the pipeline
+    forward and the stage's dense cache), with ``cp`` > 1 a context-parallel
+    mesh over the same ranks (prompts of 512 tokens or more through the ring
+    prefill, over the stages' own layers under pp). Returns (the engine, the
+    grid whose rank 0 reads the requests, or None in one process)."""
+    from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine
 
-    from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine, Request
-    from metalchat_tpu_torch.sampling import SamplerConfig
-    from metalchat_tpu_torch.text.tokenizer import TokenKind
-
-    params, config, tokenizer, _, _ = _load_model(args.model, args)
-    specials = getattr(tokenizer, "specials", None)
-    stop_kinds = TokenKind.END_TEXT | TokenKind.END_TURN | TokenKind.END_MESSAGE
-    eos_ids = tuple(specials.ids_with_kind(stop_kinds)) if specials else ()
-
-    max_seq = args.max_seq_len or config.max_seq_len
+    max_seq = max_seq_len or config.max_seq_len
     mesh = forward_fn = ext_cache = cp_mesh = None
-    if args.pp > 1:
+    if pp > 1:
         # Pipeline-parallel serving: this rank's layer stage.
         from metalchat_tpu_torch.cache import KVCache, QuantizedKVCache
         from metalchat_tpu_torch.parallel import (
@@ -287,38 +297,63 @@ def _serve(args) -> int:
             shard_params_pp,
         )
 
-        mesh = make_pp_mesh(pp=args.pp)
+        mesh = make_pp_mesh(pp=pp)
         params = shard_params_pp(params, mesh)
         forward_fn = make_pipeline_forward(config, mesh, n_microbatches=1)
         device = params["final_norm"].device
-        whole = (QuantizedKVCache.create(config, args.slots, max_seq, device=device)
-                 if args.quantized_kv else
-                 KVCache.create(config, args.slots, max_seq, dtype=params["final_norm"].dtype,
+        whole = (QuantizedKVCache.create(config, slots, max_seq, device=device)
+                 if quantized_kv else
+                 KVCache.create(config, slots, max_seq, dtype=params["final_norm"].dtype,
                                 device=device))
         ext_cache = shard_cache_pp(whole, mesh)
-    if args.cp > 1:
+    if cp > 1:
         # Context-parallel prefill: long prompts through ring attention.
         from metalchat_tpu_torch.parallel import make_grid_mesh
 
-        mesh = cp_mesh = make_grid_mesh({"sp": args.cp})
-
+        cp_mesh = make_grid_mesh({"sp": cp})
+        if mesh is None:
+            mesh = cp_mesh
     engine = ContinuousBatchingEngine(
         params, config,
-        max_slots=args.slots, max_seq_len=max_seq,
-        cache_mode="paged" if args.paged else "dense",
-        quantized_kv=args.quantized_kv,
-        decode_burst=args.burst,
+        max_slots=slots, max_seq_len=max_seq,
+        cache_mode="paged" if paged else "dense",
+        quantized_kv=quantized_kv,
+        decode_burst=burst,
         forward_fn=forward_fn, cache=ext_cache,
         context_parallel_mesh=cp_mesh,
     )
+    return engine, mesh
+
+
+def _serve(args) -> int:
+    import json as _json
+
+    from metalchat_tpu_torch.engine.serving import Request
+    from metalchat_tpu_torch.sampling import SamplerConfig
+    from metalchat_tpu_torch.text.tokenizer import TokenKind
+
+    params, config, tokenizer, _, _ = _load_model(args.model, args)
+    specials = getattr(tokenizer, "specials", None)
+    stop_kinds = TokenKind.END_TEXT | TokenKind.END_TURN | TokenKind.END_MESSAGE
+    eos_ids = tuple(specials.ids_with_kind(stop_kinds)) if specials else ()
+
+    engine, mesh = build_serve_engine(
+        params, config, pp=args.pp, cp=args.cp, slots=args.slots,
+        max_seq_len=args.max_seq_len, paged=args.paged, quantized_kv=args.quantized_kv,
+        burst=args.burst)
+    del params
     if args.http is not None:
         import time as _time
 
-        from metalchat_tpu_torch.engine.http import InferenceServer
+        from metalchat_tpu_torch.engine.http import InferenceServer, follow
 
+        if mesh is not None and mesh.rank != 0:
+            # Rank 0 serves HTTP; this rank steps its engine in lockstep.
+            follow(engine, mesh)
+            return 0
         server = InferenceServer(engine, tokenizer, model_name=args.model,
                                  default_max_tokens=args.max_tokens,
-                                 eos_ids=eos_ids)
+                                 eos_ids=eos_ids, mesh=mesh)
         port = server.start(host=args.host, port=args.http)
         print(f"listening on http://{args.host}:{port}", file=sys.stderr)
         try:

@@ -228,8 +228,9 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
     forward takes the rank's local cache). ``context_parallel_mesh`` (a
     `parallel.mesh.GridMesh` with the axis ``context_parallel_axis``) sends
     the prompt through `parallel.context.context_parallel_prefill`, every
-    rank of the axis calling together; decode then runs on the rank's whole
-    cache with no collective, captured on the card as without it."""
+    rank of the axis calling together (with the pipeline forward, over its
+    stages' own layers); decode then runs on the rank's cache as without
+    it."""
     device = params["final_norm"].device
     prompt = prompt.to(device)
     b, s = prompt.shape
@@ -245,7 +246,8 @@ def generate(params: Params, config: ModelConfig, prompt: torch.Tensor, *,
         from metalchat_tpu_torch.parallel.context import context_parallel_prefill
 
         logits, cache = context_parallel_prefill(params, cache, prompt, config,
-                                                 context_parallel_mesh, context_parallel_axis)
+                                                 context_parallel_mesh, context_parallel_axis,
+                                                 getattr(forward_fn, "stages", None))
         state = _first_state(cache, sample(logits, generator, sampler), s, generator, eos_ids)
     out = torch.empty((b, max_new_tokens), dtype=torch.int64, device=device)
     step = DecodeStep(config, sampler, eos_ids, ffn_block, forward_fn)

@@ -18,6 +18,15 @@ too. The handler threads run Python only (tokenizer, queues, the engine's
 host-side `submit`, `completion` and `metrics`) and make no CUDA call, so
 the capture keeps `torch.cuda.graph`'s default, process-wide error mode. Streaming uses `text.tokenizer.StreamingDecoder` so multi-byte
 UTF-8 split across tokens renders correctly chunk by chunk.
+
+Over ranks (``mesh``: a `parallel.mesh.GridMesh` whose ranks each hold an
+engine that must step in lockstep, as pipeline and context parallelism
+need) rank 0 runs this server, and each scheduler round it first
+broadcasts what its handlers submitted and what it cancels since the last
+round (a stop at the end); the other ranks run `follow`, which applies the
+same submissions and cancels in the same order and steps their engine, so
+every rank makes the same model calls and collectives. Those ranks serve
+no HTTP.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import time
 import uuid
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 from metalchat_tpu_torch.engine.serving import ContinuousBatchingEngine, Request
 from metalchat_tpu_torch.sampling import SamplerConfig
@@ -63,8 +72,13 @@ class InferenceServer:
         default_max_tokens: int = 256,
         eos_ids: Sequence[int] = (),
         request_timeout: Optional[float] = None,
+        mesh=None,
     ):
         self.engine = engine
+        # Ranks in lockstep (the module docstring): rank 0's requests
+        # submitted since the last scheduler round.
+        self.mesh = mesh
+        self._submitted: List[Request] = []
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.chat_formatter = chat_formatter or default_chat_formatter
@@ -94,13 +108,12 @@ class InferenceServer:
     def submit(self, prompt_ids, max_tokens: int, sampler: SamplerConfig,
                stop_ids: Sequence[int]) -> int:
         q: "queue.Queue" = queue.Queue()
+        request = Request(prompt=list(prompt_ids), max_new_tokens=max_tokens,
+                          sampler=sampler, eos_ids=tuple(stop_ids) or self.eos_ids)
         with self._lock:
-            rid = self.engine.submit(Request(
-                prompt=list(prompt_ids),
-                max_new_tokens=max_tokens,
-                sampler=sampler,
-                eos_ids=tuple(stop_ids) or self.eos_ids,
-            ))
+            rid = self.engine.submit(request)
+            if self.mesh is not None:
+                self._submitted.append(request)
             completion = self.engine.completion(rid)
             self._streams[rid] = q
             if completion.finished:  # rejected at submit (validation)
@@ -112,8 +125,13 @@ class InferenceServer:
     def _scheduler(self) -> None:
         while self._running:
             with self._lock:
+                cancels = []
                 while self._cancels:
-                    rid, reason = self._cancels.popleft()
+                    cancels.append(self._cancels.popleft())
+                if self.mesh is not None:
+                    self.mesh.broadcast_object((self._submitted, cancels))
+                    self._submitted = []
+                for rid, reason in cancels:
                     cancelled = self.engine.cancel(rid, reason=reason)
                     if cancelled and rid not in self._done:
                         self._done.add(rid)
@@ -139,6 +157,8 @@ class InferenceServer:
                 # handler threads, and a streaming client then receives its
                 # first token only after the whole generation finishes.
                 time.sleep(0)
+        if self.mesh is not None:
+            self.mesh.broadcast_object(None)  # the other ranks' `follow` returns
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -319,6 +339,25 @@ class InferenceServer:
 
     def collect(self, rid: int):
         return list(self.iter_tokens(rid))
+
+
+def follow(engine: ContinuousBatchingEngine, mesh) -> None:
+    """The loop of a rank beside rank 0's `InferenceServer` over ``mesh``:
+    each round, rank 0's broadcast (the requests its handlers submitted and
+    the cancels it applied since the last round), applied in rank 0's
+    order, then one engine step when there is work; returns at rank 0's
+    stop. It serves no HTTP."""
+    while True:
+        round_ = mesh.broadcast_object(None)
+        if round_ is None:
+            return
+        submitted, cancels = round_
+        for request in submitted:
+            engine.submit(request)
+        for rid, reason in cancels:
+            engine.cancel(rid, reason=reason)
+        if engine.has_work:
+            engine.step()
 
 
 def _openai_payload(model, rid, text, finish_reason, chat) -> Dict[str, Any]:

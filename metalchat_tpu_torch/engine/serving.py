@@ -32,7 +32,8 @@ Every CUDA call of an engine happens on the thread that calls `step`.
 supplies a dense cache, ``context_parallel_mesh`` prefills each prompt of
 ``context_parallel_threshold`` tokens or more whole through
 `parallel.context.context_parallel_prefill` (dense cache modes; every rank
-of the mesh runs the same loop), and ``spmd_mesh`` (a `parallel.mesh.Mesh`
+of the mesh runs the same loop; with the pipeline forward, over the
+stages' own layers into the stage's cache), and ``spmd_mesh`` (a `parallel.mesh.Mesh`
 of more than one rank) makes the engine one rank of a sharded group: it
 takes the rank's local params (`parallel.mesh.shard_params`), builds its
 local cache and routes every model call through
@@ -648,7 +649,9 @@ class ContinuousBatchingEngine:
     @torch.no_grad()
     def _cp_prefill(self, slot_id: int) -> List[Tuple[int, int]]:
         """The slot's whole prompt in one context-parallel prefill, written
-        into its stripe of the cache (views: in place); its first token."""
+        into its stripe of the cache (views: in place); its first token.
+        Under the pipeline forward (its ``stages``) the cache is the stage's
+        and the prefill runs over the stages' own layers."""
         from metalchat_tpu_torch.parallel.context import context_parallel_prefill
 
         self.counters["prefill_dispatches"] += 1
@@ -659,7 +662,8 @@ class ContinuousBatchingEngine:
                                   for f in dataclasses.fields(self.cache)})
         with trace("cp prefill"):
             logits, _ = context_parallel_prefill(self.params, sub, tokens, self.config,
-                                                 self.cp_mesh, self.cp_axis)
+                                                 self.cp_mesh, self.cp_axis,
+                                                 getattr(self.forward_fn, "stages", None))
         first = self._sample_first([slot_id], [len(prompt)], logits)
         return self._apply_prefill([slot_id], [len(prompt)], first.tolist())
 

@@ -76,8 +76,10 @@ def breakeven_accept_rate(step_ratio: float, n_draft: int = 4, verify_rel: float
     Costs in units of one target decode step: a round costs (n_draft − 1)·
     (step_ratio + sync_rel) + verify_rel + sync_rel and emits E(α) =
     Σ_{i<n_draft} α^i tokens; plain decode pays 1 + sync_rel a token.
-    ``verify_rel`` is the verify window's cost in target steps (the JAX
-    package's default). Returns None when even α = 1 loses."""
+    ``verify_rel`` is the verify window's cost in target steps: the
+    default 1.16 is the JAX package's default, measured on a TPU;
+    `measure_verify_ratio` measures it on the running device. Returns None
+    when even α = 1 loses."""
     cost = (n_draft - 1) * (step_ratio + sync_rel) + verify_rel + sync_rel
     need = cost / (1.0 + sync_rel)   # emitted tokens a round to break even
     if need >= n_draft:              # E(1) = n_draft is the ceiling
@@ -223,6 +225,33 @@ def _timed(step: DecodeStep, params, state: DecodeState, steps: int) -> float:
     return start.elapsed_time(end) / 1e3
 
 
+def _step_time(params, config: ModelConfig, seq_len: int, steps_lo: int, steps_hi: int,
+               forward_fn=None) -> float:
+    """One greedy step's marginal seconds (`measure_step_ratio`):
+    `engine.generate.DecodeStep` (with ``forward_fn`` in place of `forward`)
+    on a dense cache of ``seq_len`` in the activation dtype, the argmax fed
+    back, run ``steps_lo`` and ``steps_hi`` times in a row after one warm-up
+    run of each; the median of three marginals."""
+    dev = params["final_norm"].device
+    state = DecodeState(
+        cache=KVCache.create(config, 1, seq_len, dtype=params["final_norm"].dtype,
+                             device=dev),
+        last_tokens=torch.zeros(1, dtype=torch.int64, device=dev),
+        pos=torch.zeros((), dtype=torch.int32, device=dev),
+        generator=torch.Generator(device=dev),
+        done=torch.zeros(1, dtype=torch.bool, device=dev))
+    step = DecodeStep(config, SamplerConfig.greedy(), forward_fn=forward_fn)
+    _timed(step, params, state, steps_lo)   # warm up (and capture) before timing
+    _timed(step, params, state, steps_hi)
+    marginals = []
+    for _ in range(3):
+        lo = _timed(step, params, state, steps_lo)
+        hi = _timed(step, params, state, steps_hi)
+        marginals.append((hi - lo) / (steps_hi - steps_lo))
+    # The median: a single negative marginal would make a ratio meaningless.
+    return max(sorted(marginals)[1], 1e-9)
+
+
 @torch.no_grad()
 def measure_step_ratio(target_params, target_config: ModelConfig, draft_params,
                        draft_config: ModelConfig, *, seq_len: int = 256, steps_lo: int = 2,
@@ -236,30 +265,26 @@ def measure_step_ratio(target_params, target_config: ModelConfig, draft_params,
     steps_lo`` is one marginal, and the median of three marginals is the
     step time. On the card the step is a captured CUDA graph timed with
     CUDA events; on the CPU it runs eagerly under the host clock."""
-
-    def step_time(params, config: ModelConfig) -> float:
-        dev = params["final_norm"].device
-        state = DecodeState(
-            cache=KVCache.create(config, 1, seq_len, dtype=params["final_norm"].dtype,
-                                 device=dev),
-            last_tokens=torch.zeros(1, dtype=torch.int64, device=dev),
-            pos=torch.zeros((), dtype=torch.int32, device=dev),
-            generator=torch.Generator(device=dev),
-            done=torch.zeros(1, dtype=torch.bool, device=dev))
-        step = DecodeStep(config, SamplerConfig.greedy())
-        _timed(step, params, state, steps_lo)   # warm up (and capture) before timing
-        _timed(step, params, state, steps_hi)
-        marginals = []
-        for _ in range(3):
-            lo = _timed(step, params, state, steps_lo)
-            hi = _timed(step, params, state, steps_hi)
-            marginals.append((hi - lo) / (steps_hi - steps_lo))
-        # The median: a single negative marginal would make a ratio meaningless.
-        return max(sorted(marginals)[1], 1e-9)
-
-    t_target = step_time(target_params, target_config)
-    t_draft = step_time(draft_params, draft_config)
+    t_target = _step_time(target_params, target_config, seq_len, steps_lo, steps_hi)
+    t_draft = _step_time(draft_params, draft_config, seq_len, steps_lo, steps_hi)
     return t_draft / t_target
+
+
+@torch.no_grad()
+def measure_verify_ratio(target_params, target_config: ModelConfig, n_draft: int = 4, *,
+                         seq_len: int = 256, steps_lo: int = 2, steps_hi: int = 10) -> float:
+    """Measured t_verify / t_target: the target's ``n_draft``-token verify
+    window (`forward` at a device position, the route `GreedyWindows`
+    verifies on) over its one-token step, both timed as
+    `measure_step_ratio` times a step; the ``verify_rel`` of
+    `breakeven_accept_rate` on the running device."""
+    def window(params, cache, tokens, start_pos):
+        return forward(params, cache, tokens.repeat(1, n_draft), start_pos, target_config)
+
+    t_target = _step_time(target_params, target_config, seq_len, steps_lo, steps_hi)
+    t_verify = _step_time(target_params, target_config, seq_len, steps_lo, steps_hi,
+                          forward_fn=window)
+    return t_verify / t_target
 
 
 def _host_round(target, draft, prev_last: int, last: int, pos: int, n_draft: int,

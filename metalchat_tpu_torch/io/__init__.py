@@ -10,4 +10,5 @@ from metalchat_tpu_torch.io.safetensors import (  # noqa: F401
     SafetensorsDocument,
     open_safetensors,
     save_safetensors,
+    save_sharded_safetensors,
 )

@@ -4,7 +4,8 @@ package's ``io/safetensors.py``, no native fast path).
 Tensors come back as numpy views of the mmap; ``torch_tensor`` gives a CPU
 torch tensor with the checkpoint's dtype (bf16 is read as raw 16-bit words
 and reinterpreted, so numpy needs no bf16 type). `save_safetensors` writes
-torch tensors (bf16 as its raw 16-bit words). ``rename`` and
+torch tensors (bf16 as its raw 16-bit words), `save_sharded_safetensors`
+a sharded checkpoint with its index. ``rename`` and
 ``alias_if_missing`` rename tensors by regex and expose a tied weight under
 a second name (the Meta-format loader's surgery).
 """
@@ -233,3 +234,34 @@ def save_safetensors(path: str | Path, tensors: Mapping[str, torch.Tensor],
         f.write(blob)
         for arr in arrays:
             f.write(arr.tobytes())
+
+
+def save_sharded_safetensors(directory: str | Path, tensors: Mapping[str, torch.Tensor], *,
+                             max_shard_bytes: int = 5 * 1024**3,
+                             metadata: Optional[Mapping[str, str]] = None) -> Path:
+    """Write a sharded checkpoint and ``model.safetensors.index.json``, as the
+    JAX package's writer does: tensors in the order given, a new shard once
+    the next tensor would take a non-empty shard past ``max_shard_bytes``,
+    shards named ``model-<i>-of-<n>.safetensors``. Returns the index path."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    shards: list = [{}]
+    sizes = [0]
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        if sizes[-1] and sizes[-1] + nbytes > max_shard_bytes:
+            shards.append({})
+            sizes.append(0)
+        shards[-1][name] = t
+        sizes[-1] += nbytes
+    n = len(shards)
+    weight_map: Dict[str, str] = {}
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{n:05d}.safetensors"
+        save_safetensors(directory / fname, shard, metadata)
+        for name in shard:
+            weight_map[name] = fname
+    index = {"metadata": {"total_size": int(sum(sizes))}, "weight_map": weight_map}
+    index_path = directory / "model.safetensors.index.json"
+    index_path.write_text(json.dumps(index, indent=2))
+    return index_path

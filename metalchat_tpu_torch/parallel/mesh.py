@@ -180,14 +180,16 @@ class GridMesh:
         self._count("rotate" if wrap else "handoff", axis, t)
         return torch.zeros_like(t) if recv is None else recv.to(t.device)
 
-    def broadcast(self, t: torch.Tensor, axis: str, src: int) -> torch.Tensor:
+    def broadcast(self, t: torch.Tensor, axis: str, src: int,
+                  kind: str = "broadcast") -> torch.Tensor:
         """The ``t`` of the rank at place ``src`` along ``axis``, on every
-        rank along it (a new tensor on ``t``'s device)."""
+        rank along it (a new tensor on ``t``'s device); counted under
+        ``kind`` and the axis."""
         if self.size(axis) == 1:
             return t
         w = self._wire(t)
         dist.broadcast(w, src=self._global(self.peers(axis)[src]), group=self._group(axis))
-        self._count("broadcast", axis, t)
+        self._count(kind, axis, t)
         return w.to(t.device)
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import replace
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
 import torch.distributed as dist
@@ -52,13 +52,15 @@ def _stage(t: torch.Tensor, stage: int, n: int, rows: slice = slice(None)) -> to
     return t[stage * part:(stage + 1) * part, rows].clone()
 
 
-def _stage_leaf(leaf: Any, stage: int, n: int) -> Any:
+def map_leaf(leaf: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
+    """``leaf`` (a tensor, `QuantizedTensor` or `LoraLinear`) with ``fn``
+    applied to each of its tensors, in one fixed order (q before scales;
+    base, a, b)."""
     if isinstance(leaf, QuantizedTensor):
-        return replace(leaf, q=_stage(leaf.q, stage, n), scales=_stage(leaf.scales, stage, n))
+        return replace(leaf, q=fn(leaf.q), scales=fn(leaf.scales))
     if isinstance(leaf, LoraLinear):
-        return replace(leaf, base=_stage_leaf(leaf.base, stage, n), a=_stage(leaf.a, stage, n),
-                       b=_stage(leaf.b, stage, n))
-    return _stage(leaf, stage, n)
+        return replace(leaf, base=map_leaf(leaf.base, fn), a=fn(leaf.a), b=fn(leaf.b))
+    return fn(leaf)
 
 
 def shard_params_pp(params: Dict[str, Any], mesh: GridMesh) -> Dict[str, Any]:
@@ -69,7 +71,7 @@ def shard_params_pp(params: Dict[str, Any], mesh: GridMesh) -> Dict[str, Any]:
     if pp == 1:
         return params
     stage = mesh.index("pp")
-    return {**params, "layers": {k: _stage_leaf(v, stage, pp)
+    return {**params, "layers": {k: map_leaf(v, lambda t: _stage(t, stage, pp))
                                  for k, v in params["layers"].items()}}
 
 
@@ -173,4 +175,7 @@ def make_pipeline_forward(config: ModelConfig, mesh: GridMesh, *, n_microbatches
         return logits, cache
 
     fn.collectives = True
+    # The stages' grid: a context-parallel prefill (`parallel.context`) given
+    # this forward's params and cache runs over the stages' own layers.
+    fn.stages = mesh
     return fn

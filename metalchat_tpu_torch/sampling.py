@@ -194,3 +194,19 @@ def sample_batched(logits: torch.Tensor, generator: Optional[torch.Generator],
     u = torch.rand(scaled.shape, generator=generator, device=logits.device)
     drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
     return torch.where(greedy, argmax, drawn)
+
+
+def multinomial(probs: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+                uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-CDF draw over probabilities ``probs [..., V]`` (the JAX
+    package's ``multinomial``): int32 ids ``[...]``, each the count of
+    cumulative sums below ``u`` times the row's total, ``u`` uniform in
+    [0, 1) in the probabilities' dtype, drawn from ``generator`` or given
+    as ``uniforms [..., 1]``. Provided for parity; `sample` draws by
+    ``argmax(p / q)``."""
+    cum = torch.cumsum(probs, dim=-1)
+    if uniforms is None:
+        uniforms = torch.rand(probs.shape[:-1] + (1,), generator=generator,
+                              dtype=probs.dtype, device=probs.device)
+    u = uniforms * cum[..., -1:]
+    return (cum < u).sum(dim=-1).to(torch.int32)

@@ -3,6 +3,9 @@
 
 * `trace` / `named_scope`: a named region in a ``torch.profiler`` trace
   (``record_function``), so the engine's model calls show up by name.
+* `profile_to`: a ``torch.profiler`` trace of a region (the host, and the
+  card where there is one) written under a directory for TensorBoard or
+  Perfetto.
 * `Meter`: tokens/s and TTFT percentiles for serving loops, fed by the
   engine's per-request completions.
 * `get_logger`: stdlib logging with a shared format.
@@ -16,7 +19,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional
 
-from torch.profiler import record_function
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
 
 _FORMAT = "%(asctime)s %(name)s %(levelname)s %(message)s"
 
@@ -40,6 +44,20 @@ def trace(name: str) -> Iterator[None]:
 
 
 named_scope = trace
+
+
+@contextlib.contextmanager
+def profile_to(logdir: str) -> Iterator[None]:
+    """Trace the region under ``torch.profiler`` (the host's operators, and
+    the card's kernels when CUDA is available) and write the trace under
+    ``logdir`` as a ``*.pt.trace.json`` file (TensorBoard's profiler
+    plugin, Perfetto), as the JAX package's ``profile_to`` writes its
+    device trace there."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
 
 
 @dataclass

@@ -36,17 +36,37 @@ Tolerances:
   equal to JAX's runs and to the port's one-process runs, on every rank;
 * ``serve --pp 2`` and ``serve --cp 4`` on tests/fixtures/pyllama_10m, the
   ranks in the port's CLI: rank 0's text is the fixture's GOLDEN[:20], as
-  JAX's ``test_cli_serve_pp_and_cp`` asserts; the other ranks write nothing.
+  JAX's ``test_cli_serve_pp_and_cp`` asserts; the other ranks write nothing;
+* pipeline and context parallelism at once (pp 2 × cp 2 on the same two
+  ranks): the stage-aware ``context_parallel_prefill`` against the
+  whole-tree one over the same ranks, logits and the stage's cache layers
+  bit for bit on the int8 cache and within 1e-5 in f32 (and the logits
+  within 2e-4 of JAX's, as above); no rank keeps a borrowed layer past its
+  turn or after the prefill; ``generate`` and the engine with the pipeline
+  forward and the cp mesh: tokens equal to JAX's same runs; ``serve --pp 2
+  --cp 2`` on PROMPT and on a fixture prompt over the 512-token cp
+  threshold (`LONG_PROMPT`): rank 0's text the JAX CLI's, the long prompt
+  in one prefill dispatch on both sides; the same pairing with ``--http``:
+  rank 0's answers the JAX server's, and rank 0's server beside rank 1's
+  ``follow`` ending with the same completions on both ranks, a cancel
+  included; ``--pp 2 --cp 4``: refused by the
+  port before any rank starts, where the JAX CLI fails on the long
+  prompt with JAX's own error (pinned).
 """
 
+import ast
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -88,7 +108,12 @@ PIPE_CFG = JLlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=128, n
 # tests/test_parallel_serving.py's model at 4 layers (pp 2 needs an even count).
 SERVE_CFG = TINY_LLAMA.replace(max_seq_len=96, num_layers=4)
 WORLDS = (2, 4)
-RANK_TIMEOUT_S = 100
+RANK_TIMEOUT_S = 150
+# A fixture prompt over the engine's 512-token cp threshold: the bytes of
+# eval_tokens[1000:1700] (those below 256), 12 greedy tokens.
+LONG_PROMPT = bytes(int(t) for t in np.load(FIXTURE / "eval_tokens.npy")[1000:1700]
+                    if t < 256).decode()
+LONG_NEW, SHORT_NEW = 12, 20
 
 
 def _jax_cache(cache):
@@ -180,6 +205,80 @@ def _jax_results(trees, data):
         JEngine(pparams, SERVE_CFG, max_slots=2, max_seq_len=worker.SERVE_CACHE,
                 forward_fn=pf, cache=jpipe.shard_cache_pp(dense(2), pmesh)),
         worker.PP_ENGINE_PROMPTS, worker.PP_ENGINE_NEW)
+    sp2 = _sp_mesh(2)
+    out["pp_cp_generate"] = np.asarray(jgenerate(
+        pparams, SERVE_CFG, jnp.asarray([worker.CP_PROMPT], jnp.int32),
+        max_new_tokens=worker.CP_NEW, cache=jpipe.shard_cache_pp(dense(1), pmesh),
+        forward_fn=pf, context_parallel_mesh=sp2)).tolist()
+    out["pp_cp_engine"] = engine_tokens(
+        JEngine(pparams, SERVE_CFG, max_slots=2, max_seq_len=worker.SERVE_CACHE,
+                forward_fn=pf, cache=jpipe.shard_cache_pp(dense(2), pmesh),
+                context_parallel_mesh=sp2, context_parallel_threshold=worker.CP_THRESHOLD),
+        worker.CP_ENGINE_PROMPTS, worker.CP_ENGINE_NEW)
+    return out
+
+
+def _jax_cli(home: Path, argv):
+    """The JAX CLI in this process: (exit code or the exception it raised,
+    its JSONL lines, its served-requests summary)."""
+    from metalchat_tpu.cli.main import main
+
+    out, err = io.StringIO(), io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("METALCHAT_TPU_HOME", str(home))
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                rc = main(argv)
+            except Exception as e:  # noqa: BLE001 — the failure is the result
+                rc = e
+    summary = re.search(r"served \d+ requests: (\{.*\})", err.getvalue())
+    return (rc, [json.loads(line) for line in out.getvalue().splitlines() if line.strip()],
+            ast.literal_eval(summary.group(1)) if summary else None)
+
+
+def _jax_http(home: Path, argv, prompts):
+    """The JAX CLI's ``serve --http`` in this process: once it sleeps behind
+    its server, each (prompt, max_tokens) is posted to /v1/completions and
+    the sleep ends as a Ctrl-C would end it. (exit code, the answers)."""
+    from metalchat_tpu.engine.http import InferenceServer as JServer
+
+    real_start, real_sleep, box, answers = JServer.start, time.sleep, {}, []
+
+    def start(self, host="127.0.0.1", port=0):
+        box["port"] = real_start(self, host, port)
+        return box["port"]
+
+    def sleep(seconds):
+        if seconds != 3600:  # the server's own threads
+            return real_sleep(seconds)
+        for prompt, n in prompts:
+            body = json.dumps({"prompt": prompt, "max_tokens": n, "temperature": 0.0}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{box['port']}/v1/completions",
+                                         data=body, headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                answers.append(json.loads(r.read())["choices"][0]["text"])
+        raise KeyboardInterrupt
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JServer, "start", start)
+        mp.setattr(time, "sleep", sleep)
+        rc, _, _ = _jax_cli(home, argv)
+    return rc, answers
+
+
+def _jax_cli_results(data):
+    """The JAX CLI with ``--pp 2 --cp 2`` (JSONL and HTTP) and ``--pp 2
+    --cp 4`` on the fixture, on the CPU mesh."""
+    home, args = Path(data["cli_home"]), ["--slots", "2", "--max-seq-len", "1024"]
+    out = {}
+    for name, path in (("short", data["cli_input"]), ("long", data["cli_long_input"])):
+        out[f"cli_pp_cp_{name}"] = _jax_cli(home, ["serve", "pyllama", "--input", path, *args,
+                                                  "--pp", "2", "--cp", "2"])
+    out["cli_pp2_cp4_long"] = _jax_cli(home, ["serve", "pyllama", "--input",
+                                              data["cli_long_input"], *args, "--pp", "2",
+                                              "--cp", "4"])
+    out["http_pp_cp"] = _jax_http(home, ["serve", "pyllama", *args, "--pp", "2", "--cp", "2",
+                                         "--http", "0"], data["http_prompts"])
     return out
 
 
@@ -240,16 +339,20 @@ def runs(tmp_path_factory):
                      (("q", (2, 32, 8, 16)), ("k", (2, 4, 32, 16)), ("v", (2, 4, 32, 16)))},
             "cp_tokens": rng.integers(0, SERVE_CFG.vocab_size, (2, 40)).tolist(),
             "cli_home": str(tmp / "home"), "cli_input": str(tmp / "reqs.jsonl"),
+            "cli_long_input": str(tmp / "long.jsonl"),
+            "http_prompts": [(LONG_PROMPT, LONG_NEW), (PROMPT.decode(), SHORT_NEW)],
             **{k: jax_tree_to_numpy(v) for k, v in trees.items()}}
     _pull_fixture(tmp / "home")
     (tmp / "reqs.jsonl").write_text(json.dumps(
-        {"prompt": PROMPT.decode(), "max_tokens": 20, "temperature": 0.0}) + "\n")
+        {"prompt": PROMPT.decode(), "max_tokens": SHORT_NEW, "temperature": 0.0}) + "\n")
+    (tmp / "long.jsonl").write_text(json.dumps(
+        {"prompt": LONG_PROMPT, "max_tokens": LONG_NEW, "temperature": 0.0}) + "\n")
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump(data, f)
     deadline = time.monotonic() + RANK_TIMEOUT_S
     launches = {world: _launch(tmp, world) for world in WORLDS}
     try:
-        want = _jax_results(trees, data)
+        want = {**_jax_results(trees, data), **_jax_cli_results(data)}
     finally:
         ranks = {world: _collect(procs, tmp, world, deadline)
                  for world, procs in launches.items()}
@@ -395,10 +498,117 @@ def test_pp_generate_and_engine(runs):
         assert r["pp_serving"]["engine"] == want["pp_engine"]
 
 
-@pytest.mark.parametrize("world", WORLDS, ids=["pp2", "cp4"])
-def test_cli_serve_pp_and_cp(runs, world):
-    _, ranks, _ = runs
-    root, *others = (r["cli"] for r in ranks[world])
+CLI_CASES = {"pp2": (2, "cli"), "cp4": (4, "cli"), "pp2-cp2-short": (2, "cli_pp_cp_short"),
+             "pp2-cp2-long": (2, "cli_pp_cp_long")}
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_cli_serve_pp_and_cp(runs, case):
+    """Rank 0's text: the fixture's GOLDEN[:20] for PROMPT (JAX's
+    ``test_cli_serve_pp_and_cp``), and with ``--pp 2 --cp 2`` the JAX CLI's
+    own text; the long prompt in one (context-parallel) prefill dispatch on
+    both sides."""
+    want, ranks, _ = runs
+    world, name = CLI_CASES[case]
+    root, *others = (r[name] for r in ranks[world])
     assert root["rc"] == 0 and len(root["lines"]) == 1
-    assert root["lines"][0]["text"] == bytes(GOLDEN[:20]).decode()
     assert all(o["rc"] == 0 and o["lines"] == [] for o in others)
+    if name == "cli":
+        assert root["lines"][0]["text"] == bytes(GOLDEN[:20]).decode()
+        return
+    rc, lines, summary = want[name]
+    assert rc == 0 and len(lines) == 1
+    assert root["lines"][0]["text"] == lines[0]["text"]
+    if name == "cli_pp_cp_short":
+        assert lines[0]["text"] == bytes(GOLDEN[:20]).decode()
+    else:
+        assert root["summary"]["prefill_dispatches"] == summary["prefill_dispatches"] == 1
+
+
+@pytest.mark.parametrize("world", WORLDS[:1])
+@pytest.mark.parametrize("quantized", [False, True], ids=["dense", "int8"])
+def test_pp_cp_prefill(runs, world, quantized):
+    """The stage-aware ring prefill against the whole-tree one over the
+    same ranks: bit for bit on the int8 cache, within 1e-5 in f32; within
+    2e-4 of JAX's logits; one layer hand-off a layer; no rank keeps a
+    borrowed layer past its turn, or any after the prefill, and each keeps
+    only its stage's layers."""
+    want, ranks, data = runs
+    s = len(data["cp_tokens"][0])
+    per = SERVE_CFG.num_layers // 2
+    for r in ranks[world]:
+        got = r[f"pp_cp_prefill_{quantized}"]
+        if quantized:
+            np.testing.assert_array_equal(got["logits"], got["whole_logits"])
+            for n in ("k", "v", "k_scale", "v_scale"):
+                np.testing.assert_array_equal(got["cache"][n][..., :s],
+                                              got["whole_stage"][n][..., :s])
+        else:
+            np.testing.assert_allclose(got["logits"], got["whole_logits"], rtol=1e-5, atol=1e-5)
+            for n in ("k", "v"):
+                np.testing.assert_allclose(got["cache"][n][..., :s, :],
+                                           got["whole_stage"][n][..., :s, :], rtol=1e-5,
+                                           atol=1e-5)
+        np.testing.assert_allclose(got["logits"], want[f"cp_prefill_{world}_{quantized}"]["logits"],
+                                   rtol=2e-4, atol=2e-4)
+        n_layers = SERVE_CFG.num_layers
+        assert got["collectives"] == {"rotate_sp": n_layers * (world - 1),
+                                      "all_gather_sp": n_layers, "broadcast_sp": 1,
+                                      "layer_broadcast_sp": n_layers}
+        assert got["borrowed"] == n_layers
+        assert got["alive_at_next"] == [0] * n_layers and got["alive_after"] == 0
+        assert set(got["stage_layers"].values()) == {per}
+
+
+def test_pp_cp_generate_and_engine(runs):
+    """`generate` and the engine with the pipeline forward and the cp mesh
+    over the same two ranks: JAX's tokens on every rank, the long prompt
+    through one ring prefill."""
+    want, ranks, _ = runs
+    for r in ranks[2]:
+        got = r["pp_cp_serving"]
+        assert got["generate"] == want["pp_cp_generate"]
+        assert got["engine"] == want["pp_cp_engine"]
+        assert got["engine_cp_prefills"] == {(1, len(worker.CP_ENGINE_PROMPTS[0])): 1}
+
+
+def test_cli_serve_pp_cp_http(runs):
+    """``serve --pp 2 --cp 2 --http 0``: rank 0's answers to the long
+    prompt and to PROMPT are the JAX server's; both ranks exit 0 once rank
+    0's server stops."""
+    want, ranks, _ = runs
+    rc, answers = want["http_pp_cp"]
+    assert rc == 0 and len(answers) == 2 and answers[1] == bytes(GOLDEN[:20]).decode()
+    root, other = (r["http_pp_cp"] for r in ranks[2])
+    assert root["rc"] == 0 and other["rc"] == 0
+    assert root["answers"] == answers
+
+
+def test_http_follow_lockstep(runs):
+    """Rank 0's `InferenceServer(mesh=)` and rank 1's `follow`: the same
+    completions on both ranks, the cancel included (applied in the same
+    round on both); the short request's tokens JAX's pipeline `generate`'s,
+    the cancelled one cut short."""
+    want, ranks, _ = runs
+    root, other = (r["http_follow"] for r in ranks[2])
+    assert root == other
+    (long_tokens, long_reason), (short_tokens, short_reason) = root
+    assert long_reason == "cancelled" and 2 <= len(long_tokens) < worker.HTTP_LONG_NEW
+    assert short_reason == "length" and short_tokens == want["pp_generate"][0]
+
+
+def test_cli_serve_pp_cp_unequal(runs, monkeypatch):
+    """``--pp 2 --cp 4``: the JAX CLI serves short prompts but fails on the
+    first one over its cp threshold (its cp mesh holds devices the
+    pipeline's params are not on); the port refuses the pairing before
+    any rank starts."""
+    from metalchat_tpu_torch.cli.main import main
+
+    want, _, data = runs
+    rc, lines, _ = want["cli_pp2_cp4_long"]
+    assert isinstance(rc, ValueError) and lines == []
+    assert "Received incompatible devices for jitted computation" in str(rc)
+    monkeypatch.setenv("METALCHAT_TPU_HOME", data["cli_home"])
+    with pytest.raises(SystemExit, match=r"--pp 2 --cp 4: .* give --cp equal to --pp"):
+        main(["serve", "pyllama", "--input", data["cli_long_input"], "--pp", "2", "--cp", "4",
+              "--device", "cpu"])

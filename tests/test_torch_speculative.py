@@ -6,8 +6,8 @@ Inputs are the JAX package's own random or trained parameters (taken to
 numpy, `convert.params_from_numpy`) and prompts made with numpy from a seed.
 Tolerances: ids and stats are held exactly (f32 activations and caches:
 the JAX CPU backend has no bf16 dot); `breakeven_accept_rate` within 1e-12
-over a grid; `measure_step_ratio` exactly, with the timer stubbed (no
-wall-clock assertion); cache bytes exactly. Sampled draws are the port's own
+over a grid; `measure_step_ratio` and `measure_verify_ratio` exactly, with
+the timer stubbed (no wall-clock assertion); cache bytes exactly. Sampled draws are the port's own
 (a ``torch.Generator``), so they are held to the target's distribution, not
 to the JAX package's draws: total variation of the first token under 0.35
 over 300 fixed seeds (tests/test_speculative.py's bound). On the CPU the
@@ -300,6 +300,43 @@ def test_measure_step_ratio_runs_the_step():
     the host clock of a loaded machine says little)."""
     _, _, pt, pd = tiny(0, 99)
     r = spec.measure_step_ratio(pt, TARGET, pd, DRAFT, seq_len=32, steps_lo=1, steps_hi=3)
+    assert np.isfinite(r) and r > 0
+
+
+def test_measure_verify_ratio_with_a_stubbed_timer(monkeypatch):
+    """The verify window's steps cost ``overhead + steps · t_v`` on the
+    stub's clock and the target's one-token step ``overhead + steps · t``
+    (powers of two): the ratio is t_v / t exactly. The window step really
+    ran: `forward` on ``n_draft`` tokens at a device position (the route
+    `GreedyWindows` verifies on), the one-token step on one."""
+    _, _, pt, _ = tiny(0, 99)
+    cost = {True: 2.0 ** -8, False: 2.0 ** -10}
+    calls, fed = [], []
+    real_timed, real_forward = spec._timed, spec.forward
+
+    def timed(step, params, state, steps):
+        window = step.forward_fn is not None
+        calls.append((window, steps))
+        real_timed(step, params, state, steps)
+        return 0.5 + steps * cost[window]
+
+    def forward(params, cache, tokens, start_pos, config, **kw):
+        fed.append((tuple(tokens.shape), torch.is_tensor(start_pos)))
+        return real_forward(params, cache, tokens, start_pos, config, **kw)
+
+    monkeypatch.setattr(spec, "_timed", timed)
+    monkeypatch.setattr(spec, "forward", forward)
+    r = spec.measure_verify_ratio(pt, TARGET, n_draft=3, seq_len=64, steps_lo=2, steps_hi=10)
+    assert r == 4.0
+    assert calls == [(False, 2), (False, 10)] * 4 + [(True, 2), (True, 10)] * 4
+    assert set(fed) == {((1, 3), True)}
+
+
+def test_measure_verify_ratio_runs_the_window():
+    """Unstubbed on the CPU: a positive finite ratio (no bound on its value:
+    the host clock of a loaded machine says little)."""
+    _, _, pt, _ = tiny(0, 99)
+    r = spec.measure_verify_ratio(pt, TARGET, n_draft=4, seq_len=32, steps_lo=1, steps_hi=3)
     assert np.isfinite(r) and r > 0
 
 
