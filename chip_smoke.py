@@ -6,9 +6,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases (any failure makes the script exit non-zero without a result line):
 
 1. The card's name and power limit (``nvidia-smi``).
-2. Build every CUDA kernel from ``metalchat_tpu_torch/csrc`` (one ``nvcc``
-   per source, all at once) and print the build time, registers and
-   spills (each instance of the redesigned kernels on a line).
+2. Build the host's native library (``metalchat_tpu_torch/native``: the
+   mmap data plane and the BPE merge loop) with ``g++``, its seconds
+   printed (a missing or failing compiler fails the phase), then every CUDA
+   kernel from ``metalchat_tpu_torch/csrc`` (one ``nvcc`` per source, all
+   at once) and print the build time, registers and spills (each instance
+   of the redesigned kernels on a line).
 3. Hold each kernel against its plain PyTorch version on the card, at the
    Llama-3.1-8B shapes of the main path, at the fixture's (hd=64) and at
    Gemma-3-1B's (hd=256, windows of 512 that drop positions; row 1 at its
@@ -150,6 +153,13 @@ Phases (any failure makes the script exit non-zero without a result line):
    the CPU from the same bf16 weights, its codes card against CPU within
    ``GPTQ_TOLERANCE``'s share, and for plain GPTQ where they part:
    ``gptq_cause``), card against CPU within ``PPL_RTOL``, the table printed.
+   quality (after ppl, ``phase_quality``): the port's quality gate
+   (``tools/quality_gate.py``) on the card at ``--batches 4 --batch 4
+   --seq 128``, phase ppl's eval batches and calibration rows: the AWQ α
+   search, three GPTQ trees, twelve schemes, the long-context tiebreak,
+   ``headline_int8kv``; every scheme's perplexity within ``PPL_RTOL`` of
+   the CPU's (phase ppl's number where it scores the scheme, else computed
+   on the CPU here); α, the headline and the record printed.
    qlora-1b (run after chat, before the larger models load): a
    reference-dialect QLoRA checkpoint at Llama-3.2-1B's widths
    (``write_reference_qlora``: int8 g32 with f32 scales, rank-16 adaptors,
@@ -169,7 +179,11 @@ Phases (any failure makes the script exit non-zero without a result line):
    reloaded and served by ``generate`` (ids equal to the in-memory tree's,
    rows 11, 3 and 4 launched as qlora-1b counts them); then the fixture
    fine-tuned whole in f32, card against CPU, and remat against none on the
-   card. tp (after chat, ``phase_tp``): tensor-parallel decode and serving,
+   card; then ``tools/train_fixture.py`` at its 10m widths (batch 32 x 512)
+   for the first 20 steps of its schedule (``train_fixture_tool``): the
+   loss descends, no launch, the fixture it writes reloads through the
+   native mapping bit for bit and ``generate`` from it gives the CPU's 16
+   ids. tp (after chat, ``phase_tp``): tensor-parallel decode and serving,
    two ranks (``tp_rank``, processes started with ``spawn``) on the one card
    over gloo (NCCL refuses two ranks on one device), a ``file://``
    rendezvous, the kernels loaded from phase build's libraries. Each rank
@@ -186,7 +200,10 @@ Phases (any failure makes the script exit non-zero without a result line):
    48-640 tokens, 48 greedy tokens each, 8 slots, chunks of 256): every
    stream finished and equal on both ranks, row-8 and row-1 launches exact.
    Its times are labelled "2 ranks over gloo on one card": functional
-   numbers, not a tensor-parallel speed figure. multihost (after tp,
+   numbers, not a tensor-parallel speed figure. Last, ``quality_tp_check``:
+   ``tools/quality_tp.py`` at batch 4 x 128 (its own two gloo ranks): the
+   one-process decode-path perplexity within ``PPL_RTOL`` of the CPU's, the
+   tp-2 change printed. multihost (after tp,
    ``phase_multihost``): ``MultiHostServer`` on ``make_hybrid_mesh(dcn_dp=2,
    tp=2)``, four ranks (``multihost_rank``) on the one card over gloo, each
    making the 8b-w4a8 tree (digest equal to main's) that the server shards:
@@ -245,7 +262,7 @@ Phases (any failure makes the script exit non-zero without a result line):
    of ``bench.py --mode serve`` (24 requests at once, prompts of 48-640
    tokens, 96 greedy tokens each, 8 slots, bursts of 32, chunks of 256),
    paged (pages of 256) then dense int8: the graph route and the eager
-   burst loop in turns (graph, eager, eager, graph), each engine after a
+   burst loop in turns (graph, eager, graph), each engine after a
    2-request warm-up: tok/s, TTFT and service TTFT p50/p99, the share of
    the full-slot decode roofline, every turn's launch counts held exactly
    to its engine's counters and prompt-chunk shapes (a8_quantize once per
@@ -281,8 +298,11 @@ Phases (any failure makes the script exit non-zero without a result line):
    of its own with two lines on stdin.
    cli-1b: a checkout at Llama-3.2-1B's published widths written to disk
    (random bf16 weights, 2.47 GB), ``model pull``, ``prompt --quantize
-   w8a8``: load and quantize time, tokenize time, TTFT, tok/s, launches
-   exact; the checkout is deleted afterwards.
+   w8a8``: load and quantize time and its parts (``load_split``: mapping
+   and header, host reads and stacking, upload, quantize), tokenize time,
+   TTFT, tok/s, launches exact; the checkout opened through the native
+   mapping and the message encoded through the native merge loop, its ids
+   equal to the Python merge's; the checkout is deleted afterwards.
 9. Each kernel timed with CUDA events at its path's shapes beside its bound,
    its plain version and one PyTorch library call as a yardstick: timing at
    the generate path's shapes (and row 3 at lengths 64 and 1024, row 4 at
@@ -474,8 +494,18 @@ def phase_device():
 
 
 def phase_build():
+    from metalchat_tpu_torch.native import build as native_build
     from metalchat_tpu_torch.ops import _build
 
+    # The host's native library (mmap data plane, BPE merge loop) with g++:
+    # a missing or failing compiler fails the phase.
+    built = native_build.library_path().exists()
+    t0 = time.perf_counter()
+    lib = native_build.build()
+    print(f"build: native host library {lib.name} "
+          + ("(already built)" if built else
+             f"built by {native_build.CXX} {' '.join(native_build.CXX_FLAGS)} in "
+             f"{time.perf_counter() - t0:.2f} s"), flush=True)
     seconds = _build.build_all()
     print(f"build: {seconds:.1f} s for {', '.join(_build.KERNELS)} (parallel nvcc)")
     for name in _build.KERNELS:
@@ -1591,12 +1621,20 @@ def drive_generate(sm: Smoke, dev_name: str, label: str, cfg, params, per_step,
     return cfg, params, cache, counts, prompt_len + new, prompt
 
 
+# The eager turns of `graph_vs_eager` decode new / 2 tokens: the loop is 5-10x
+# slower than the graph route, and its rate past the first step is steady
+# (halved for the script's time limit: 2 x 64 eager tokens took 0.8-12.7 s a
+# phase on an H100, about 45 s over the eight phases).
+EAGER_TURN_DIVISOR = 2
+
+
 def graph_vs_eager(sm: Smoke, label: str, cfg, params, prompt, out, cache, ffn_block: bool,
                    ctx: int, new: int):
     """The graph route against `eager_generate` on the card: the same ids
     and the same cache, bit for bit. Then decode tok/s of the two routes in
-    turns (graph, eager, eager, graph; 64 / (t(65) - t(1)) each, the graph
-    route's warm-up step and capture inside its t(65)), the capture alone
+    turns (graph, eager, eager, graph; the graph route's 64 / (t(65) -
+    t(1)), its warm-up step and capture inside its t(65); the eager loop's
+    32 / (t(33) - t(1)), `EAGER_TURN_DIVISOR`), the capture alone
     (`CountedGraph.capture`, timed), and the decode rate of replays alone:
     63 replays of a step captured by `make_decode_step`, enqueued with no
     host read between them."""
@@ -1634,9 +1672,10 @@ def graph_vs_eager(sm: Smoke, label: str, cfg, params, prompt, out, cache, ffn_b
 
     turns = []
     for route in ("graph", "eager", "eager", "graph"):
+        n = new if route == "graph" else new // EAGER_TURN_DIVISOR
         first = timed(route, 1)
-        total = timed(route, new + 1)
-        turns.append((route, new / (total - first), first, total))
+        total = timed(route, n + 1)
+        turns.append((route, n / (total - first), first, total, n))
 
     captures = []
     base = gm.CountedGraph
@@ -1670,8 +1709,8 @@ def graph_vs_eager(sm: Smoke, label: str, cfg, params, prompt, out, cache, ffn_b
     torch.cuda.synchronize()
     replay_ms = 1e3 * (time.perf_counter() - t) / (new - 1)
     print(f"{label}: decode tok/s in turns: "
-          + ", ".join(f"{r} {v:.2f} (t(1) {1e3 * a:.1f} ms, t({new + 1}) {1e3 * b:.1f} ms)"
-                      for r, v, a, b in turns)
+          + ", ".join(f"{r} {v:.2f} (t(1) {1e3 * a:.1f} ms, t({n + 1}) {1e3 * b:.1f} ms)"
+                      for r, v, a, b, n in turns)
           + f"; capture {1e3 * captures[0]:.3f} ms (first step call {first_ms:.3f} ms: an "
           f"eager step, then the capture); {new - 1} replays {replay_ms:.4f} ms a step "
           f"({1e3 / replay_ms:.2f} tok/s); ids and cache equal to the eager loop's")
@@ -2227,9 +2266,11 @@ PPL_BATCHES, PPL_ROWS, PPL_LEN = 4, 4, 128
 # The calibrated modes' batch: the quality gate's shape, 8 rows of PPL_LEN
 # (tools/quality_gate.py:67), the eval tokens after the scored ones.
 PPL_CALIB_ROWS = 8
-# AWQ's α: the one the quality gate's grid picks on this fixture
-# (QUALITY.json "awq_alpha"), fixed here so card and CPU fold alike.
-PPL_AWQ_ALPHA = 0.1
+# AWQ's α: the one the quality gate's grid picks at these sizes (phase
+# quality on an NVIDIA H100, PR 26: calibration NLL 1.2889 at 0.2, 1.2989 at
+# 0.1), fixed here so card and CPU fold alike and phase quality reuses these
+# trees' CPU perplexities.
+PPL_AWQ_ALPHA = 0.2
 # A mode is `quantize_params` keywords (quantized once on the host: the
 # same bytes for card and CPU), or a calibrated scheme quantized once on the
 # card and once on the CPU: {"awq": α} (`awq_quantize_params`) or {"gptq":
@@ -2376,6 +2417,7 @@ def phase_ppl(sm: Smoke):
     cpu_reference = cpu_perplexity(ref)  # once: the same tree for every mode
     reset_launch_counts()
     table, worst, codes, cause = [], 0.0, {}, None
+    cpu_trees, cpu_ppl = {}, {}
     for mode, quant in PPL_MODES.items():
         t0 = time.perf_counter()
         calibrated = "awq" in quant or "gptq" in quant
@@ -2399,6 +2441,7 @@ def phase_ppl(sm: Smoke):
         t0 = time.perf_counter()
         cpu_cand = cpu_perplexity(cand)
         cpu_s = time.perf_counter() - t0
+        cpu_trees[mode], cpu_ppl[mode] = cand, cpu_cand
         want = {"reference": cpu_reference, "candidate": cpu_cand,
                 "delta_pct": 100.0 * (cpu_cand - cpu_reference) / cpu_reference}
         for key in ("reference", "candidate"):
@@ -2426,6 +2469,91 @@ def phase_ppl(sm: Smoke):
             "flash_attention": 2 * len(PPL_MODES) * PPL_BATCHES * cfg.num_layers}
     sm.expect(counts == want, f"ppl: launches {counts} != {want}")
     print(f"ppl launches {counts}")
+    return {"counts": counts, "cfg": cfg, "ref": ref, "reference": cpu_reference,
+            "trees": cpu_trees, "ppl": cpu_ppl, "batches": batches, "calib": calib}
+
+
+# The quality gate's schemes that phase ppl scores too (its mode names), the
+# AWQ ones only where the gate's α search picks PPL_AWQ_ALPHA.
+GATE_PPL_MODES = {"int4_g32": "int4 g32", "int4_g32_clip": "int4 g32 clip_search",
+                  "w8a8": "w8a8", "w4a8": "w4a8", "w4a8_clip": "w4a8 clip_search",
+                  "w4a8_awq": "w4a8 awq", "w4a8_gptq": "w4a8 gptq",
+                  "w4a8_gptq_refit": "w4a8 gptq refit", "w4a8_awq_gptq": "w4a8 awq gptq"}
+
+
+def phase_quality(sm: Smoke, ppl):
+    """The port's quality gate (`tools.quality_gate.run_gate`) on the card at
+    ``--batches 4 --batch 4 --seq 128`` in bf16: the same eval batches and
+    calibration rows as phase ppl (checked equal), the AWQ α searched, the
+    three GPTQ trees, the twelve schemes, the long-context tiebreak over
+    4 x 4 x 1024 later tokens, ``headline_int8kv``. Every scheme's
+    perplexity within PPL_RTOL of the CPU's: phase ppl's CPU number where
+    the two share the scheme, else computed here on the CPU from phase
+    ppl's CPU trees (int8 g32 without the row-quantized embedding, the
+    int8-KV rows, AWQ at another α). Prints the table, α, the headline,
+    the record and the seconds."""
+    torch = sm.torch
+    from pathlib import Path
+
+    import numpy as np
+
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.quant.awq import awq_quantize_params
+    from metalchat_tpu_torch.quant.gptq import gptq_quantize_params
+    from metalchat_tpu_torch.quant.quantize import quantize_params
+    from metalchat_tpu_torch.tools import quality_gate as qg
+
+    fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / "pyllama_10m"
+    t0 = time.perf_counter()
+    params, cfg, ev, long_seq = qg.load_fixture(fixture, PPL_LEN, torch.device("cuda"))
+    cut = qg.slices(ev, PPL_BATCHES, PPL_ROWS, PPL_LEN, long_seq)
+    sm.expect(np.array_equal(cut.data, np.stack(ppl["batches"]))
+              and np.array_equal(cut.calib, ppl["calib"].numpy()),
+              "quality: the gate's eval batches or calibration rows differ from phase ppl's")
+    reset_launch_counts()
+    logs = []
+    gate = qg.run_gate(params, cfg, cut, log=logs.append)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    card_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ref, calib, trees = ppl["ref"], ppl["calib"], dict(ppl["trees"])
+    if gate.awq_alpha != PPL_AWQ_ALPHA:  # phase ppl's AWQ trees are at another α
+        trees["w4a8 awq"] = awq_quantize_params(ref, cfg, calib, alpha=gate.awq_alpha)
+        trees["w4a8 awq gptq"] = gptq_quantize_params(ref, cfg, calib, bits=4, act_bits=8,
+                                                      awq_alpha=gate.awq_alpha)
+    cpu_tree = {name: trees[mode] for name, mode in GATE_PPL_MODES.items()}
+    cpu_tree["bf16"] = ref
+    cpu_tree["int8_g32"] = quantize_params(ref, bits=8, group_size=32)
+    cpu_tree["w4a8_awq_int8kv"] = cpu_tree["w4a8_awq"]
+    cpu_tree["headline_int8kv"] = cpu_tree[gate.headline]
+    rows, worst = [], 0.0
+    for name, (_, qkv) in gate.schemes.items():
+        shared = name == "bf16" or (name in GATE_PPL_MODES and (
+            gate.awq_alpha == PPL_AWQ_ALPHA or "awq" not in name))
+        if not shared:
+            want = qg.perplexity_over(cpu_tree[name], cfg, cut.data, qkv)
+        else:
+            want = ppl["reference"] if name == "bf16" else ppl["ppl"][GATE_PPL_MODES[name]]
+        got = gate.results[name]
+        rel = abs(got - want) / want
+        worst = max(worst, rel)
+        rows.append((name, got, want, rel, "phase ppl" if shared else "here"))
+        sm.expect(rel <= PPL_RTOL, f"quality {name}: ppl {got} on the card against {want} "
+                  f"on the CPU ({rel:.3g} relative)")
+    cpu_s = time.perf_counter() - t0
+    sm.expect(counts["flash_attention"] > 0, f"quality: launches {counts}")
+    print(f"quality: the port's gate (tools/quality_gate.py) on the card, {PPL_BATCHES} "
+          f"batches of {PPL_ROWS} x {PPL_LEN} (phase ppl's), bf16; AWQ alpha "
+          f"{gate.awq_alpha} (calibration NLL {gate.alpha_nll}); headline {gate.headline}; "
+          f"worst card/CPU relative difference {worst:.3g} (limit {PPL_RTOL}); card "
+          f"{card_s:.2f} s, CPU {cpu_s:.2f} s; launches {counts}", flush=True)
+    for name, got, want, rel, where in rows:
+        print(f"  {name}: card {got:.5f} ({gate.deltas[name]:+.4f}%) CPU {want:.5f} "
+              f"({rel:.3g} apart; CPU number from {where})")
+    print(f"quality record: {json.dumps(qg.record(gate, 'tests/fixtures/pyllama_10m'))}",
+          flush=True)
     return counts
 
 
@@ -2898,6 +3026,7 @@ def phase_train(sm: Smoke, qlora, smi: str):
     if cuda:
         torch.cuda.empty_cache()
     train_fixture(sm, dev)
+    train_fixture_tool(sm, dev)
     return serve_counts
 
 
@@ -2980,6 +3109,105 @@ def train_fixture(sm: Smoke, dev):
     print(f"train-fixture: the card's gradients with and without remat {worst:.3g} apart "
           "(limit 1e-5)", flush=True)
     sm.expect(worst <= 1e-5, f"train-fixture: remat gradients {worst} apart")
+
+
+# The fixture trainer's sub-phase: the tool's 10m widths, batch and sequence
+# length, its first TOOL_TRAIN_STEPS steps (the default 3000-step schedule's
+# warmup), on TOOL_TRAIN_CORPUS_MB of its corpus.
+TOOL_TRAIN_STEPS, TOOL_TRAIN_SCHEDULE, TOOL_TRAIN_CORPUS_MB = 20, 3000, 16
+TOOL_GENERATE = 16
+
+
+def train_fixture_tool(sm: Smoke, dev):
+    """train-fixture-tool: `tools.train_fixture` on the card at its real
+    widths (10m, batch 32, seq 512, lr 3e-4, AdamW under its schedule), the
+    first TOOL_TRAIN_STEPS steps into a temporary directory: every loss
+    finite, the last five's mean at least 0.1 below the first five's, no
+    kernel launched; `save_fixture`'s five files; the written fixture read
+    back through the native mapping (one mapping opened), every leaf the
+    trained one rounded to bf16 bit for bit, then `generate` of
+    TOOL_GENERATE greedy ids from it in f32 on the card and on the CPU:
+    equal."""
+    torch = sm.torch
+    import argparse
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from metalchat_tpu_torch import native
+    from metalchat_tpu_torch.config import load_config
+    from metalchat_tpu_torch.engine.generate import generate
+    from metalchat_tpu_torch.io.loaders import load_params
+    from metalchat_tpu_torch.io.safetensors import open_safetensors
+    from metalchat_tpu_torch.models.transformer import init_random_params
+    from metalchat_tpu_torch.ops import launch_counts, reset_launch_counts
+    from metalchat_tpu_torch.tools import train_fixture as tf
+
+    t0 = time.perf_counter()
+    args = tf.parse_args(["--out", "unused", "--steps", str(TOOL_TRAIN_SCHEDULE)])
+    train_bytes, eval_bytes = tf.harvest_corpus(TOOL_TRAIN_CORPUS_MB, 1)
+    # The first rows of the schedule's crops: `batches` draws row by row.
+    data = tf.batches(np.frombuffer(train_bytes, np.uint8).astype(np.int32), args.batch,
+                      args.seq, TOOL_TRAIN_STEPS)
+    cfg = tf.make_config(args.size)
+    params = init_random_params(cfg, seed=0, dtype=torch.float32, max_seq_len=args.seq,
+                                device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trained, losses = tf.train_steps(params, cfg, data, lr=args.lr, steps=args.steps,
+                                     chunk=10, remat=args.remat, log=None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    counts = launch_counts()
+    del params
+    tmp = Path(tempfile.mkdtemp(prefix="metalchat_fixture_"))
+    try:
+        args.out = str(tmp)
+        tf.save_fixture(trained, cfg, np.frombuffer(eval_bytes, np.uint8).astype(np.int32),
+                        losses, argparse.Namespace(**{**vars(args), "steps": TOOL_TRAIN_STEPS}))
+        files = sorted(p.name for p in tmp.iterdir())
+        native.reset_calls()
+        rcfg = load_config(tmp / "config.json")
+        card = load_params(open_safetensors(tmp), rcfg, dtype=torch.float32, max_seq_len=64,
+                           device=dev)
+        opened = native.CALLS["mmap_open"]
+        # The written leaves are the trained ones rounded to bf16, bit for bit.
+        written = [(k, card[k], trained[k]) for k in ("embed", "final_norm", "lm_head")]
+        written += [(k, card["layers"][k], v) for k, v in trained["layers"].items()]
+        unequal = [k for k, got_w, w in written
+                   if not torch.equal(got_w, w.to(torch.bfloat16).float())]
+        cpu = load_params(open_safetensors(tmp), rcfg, dtype=torch.float32, max_seq_len=64,
+                          device="cpu")
+        prompt = torch.tensor([list(FIXTURE_PROMPT.encode())])
+        got = generate(card, rcfg, prompt.to(dev), max_new_tokens=TOOL_GENERATE)[0].tolist()
+        want = generate(cpu, rcfg, prompt, max_new_tokens=TOOL_GENERATE)[0].tolist()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    last_lr = tf.lr_schedule(args.lr, args.steps)(TOOL_TRAIN_STEPS - 1)
+    print(f"train-fixture-tool: tools/train_fixture.py at its {args.size} widths, batch "
+          f"{args.batch} x seq {args.seq}, the first {TOOL_TRAIN_STEPS} steps of its "
+          f"{args.steps}-step schedule (lr 0 to {last_lr:.3g}, "
+          f"remat {args.remat}): losses {[round(x, 4) for x in losses]} (first five's mean "
+          f"{head:.4f}, last five's {tail:.4f}); {train_s:.2f} s for the steps "
+          f"({1e3 * train_s / TOOL_TRAIN_STEPS:.1f} ms a step); wrote {files}; reloaded "
+          f"through {opened} native mapping, {len(written) - len(unequal)} of {len(written)} "
+          f"leaves the trained ones in bf16 bit for bit; generate {TOOL_GENERATE} ids f32 "
+          f"card {got}, CPU {want}; launches during the steps {sum(counts.values())}; the "
+          f"sub-phase {time.perf_counter() - t0:.1f} s", flush=True)
+    sm.expect(all(math.isfinite(x) for x in losses), f"train-fixture-tool: losses {losses}")
+    sm.expect(tail < head - 0.1, f"train-fixture-tool: the loss did not descend: {losses}")
+    sm.expect(not any(counts.values()), f"train-fixture-tool: the steps launched {counts}")
+    sm.expect(files == ["config.json", "eval_tokens.npy", "model.safetensors",
+                        "tokenizer.model", "train_meta.json"], f"train-fixture-tool: {files}")
+    sm.expect(opened == 1, f"train-fixture-tool: {opened} native mappings for one file")
+    sm.expect(not unequal, f"train-fixture-tool: reloaded leaves {unequal} differ from the "
+              "trained ones in bf16")
+    sm.expect(got == want, "train-fixture-tool: the reloaded fixture's ids differ card "
+              "against CPU")
 
 
 def unpack_codes(leaf, l: int):
@@ -4189,10 +4417,46 @@ def phase_tp(sm: Smoke, main, smi: str):
           f"{r0['serve_counts']}; collectives a rank over the phase {r0['collectives']}",
           flush=True)
     pp_cp = check_pp_cp(sm, main, ranks)
+    quality_tp_check(sm)
     print(f"tp: phase wall {wall:.1f} s for the ranks ({TP_LABEL}; {smi.splitlines()[0]}); "
           "these times are functional numbers, not a tensor-parallel, pipeline or "
           "context-parallel speed figure", flush=True)
     return {"generate": r0["generate_counts"], "serve": r0["serve_counts"], **pp_cp}
+
+
+QTP_BATCH, QTP_SEQ, QTP_WINDOW = 4, 128, 16
+
+
+def quality_tp_check(sm: Smoke) -> None:
+    """quality-tp: `tools.quality_tp` on the card at ``--batch 4 --seq 128``
+    (the fixture's kv-heads repeated for tp 2): the one-process decode-path
+    perplexity (W4A8, f32) within PPL_RTOL of the CPU's, then the tool's two
+    gloo ranks on the one card and the tp-2 change printed (functional
+    numbers, as for every gloo phase)."""
+    import numpy as np
+    from pathlib import Path
+
+    from metalchat_tpu_torch.tools import quality_tp as qt
+
+    fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / "pyllama_10m"
+    t0 = time.perf_counter()
+    logs = []
+    got = qt.measure(fixture, QTP_BATCH, QTP_SEQ, QTP_WINDOW, "cuda", log=logs.append)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, cfg, ev = qt.load_w4a8(fixture, QTP_SEQ, "cpu")
+    want = float(np.exp(qt.single_nll(qparams, cfg, qt.eval_batch(ev, QTP_BATCH, QTP_SEQ),
+                                      QTP_WINDOW)))
+    cpu_s = time.perf_counter() - t0
+    rel = abs(got["decode_path_ppl_single"] - want) / want
+    print(f"quality-tp (tools/quality_tp.py, batch {QTP_BATCH} x seq {QTP_SEQ}, windows of "
+          f"{QTP_WINDOW}, W4A8 f32, {cfg.num_kv_heads} kv-heads after the repeat): one "
+          f"process {got['decode_path_ppl_single']:.5f} on the card, CPU {want:.5f} "
+          f"({rel:.3g} apart, limit {PPL_RTOL}); tp 2 (2 gloo ranks on one card) "
+          f"{got['decode_path_ppl_tp2']:.5f}, {got['tp2_vs_single_pct']:+.4f}% against one "
+          f"process; {logs[-1]}; card {card_s:.1f} s, CPU {cpu_s:.1f} s", flush=True)
+    sm.expect(rel <= PPL_RTOL, f"quality-tp: one process's ppl {got} against the CPU's {want}")
+    sm.expect(math.isfinite(got["decode_path_ppl_tp2"]), f"quality-tp: {got}")
 
 
 def pp_cp_serve_launches(cfg, run: dict, per_rank_layers: int, attention: str,
@@ -6454,7 +6718,12 @@ SERVE_MODES = {"paged": dict(cache_mode="paged", page_size=256),
                "dense": dict(quantized_kv=True)}
 
 
-SERVE_TURNS = ("graph", "eager", "eager", "graph")
+# One eager turn between two graph turns: Mixtral's eager-loop engine takes
+# about 47 s for the workload (833 matvec launches a step from the host),
+# GPT-2 XL's about 22 s (48 layers of eager glue), and serve's and
+# serve-gemma's second eager turn (3.6-4.4 s a cache mode on an H100) was cut
+# for the script's time limit.
+SERVE_TURNS = ("graph", "eager", "graph")
 # Each serve phase's depth: its generate phase's model cut to the first
 # layers (`first_layers`), so that the script stays inside its time limit
 # (serve-mixtral took 141 s and serve 93 s at full depth on an H100; at 8 and
@@ -6462,10 +6731,6 @@ SERVE_TURNS = ("graph", "eager", "eager", "graph")
 # were halved again). Widths, the workload and the turns are unchanged
 # (Gemma's 7 layers hold a global one); the generate phases run every layer.
 SERVE_LAYERS = {"serve": 8, "serve-gemma": 7, "serve-mixtral": 4, "serve-gpt2": 8}
-# Mixtral's eager-loop engine takes about 47 s for the workload (833 matvec
-# launches a step from the host), GPT-2 XL's about 22 s (48 layers of eager
-# glue): one eager turn between two graph turns.
-MIXTRAL_SERVE_TURNS = ("graph", "eager", "graph")
 
 
 def first_layers(run, n: int, what: str, quiet: bool = False):
@@ -7145,6 +7410,58 @@ def phase_cli_fixture(sm: Smoke):
     return out
 
 
+@contextlib.contextmanager
+def load_split(torch):
+    """Times the CLI's model load by part, on the host clock, each part
+    ending in ``synchronize``: "mmap and header" (the repository's
+    `open_safetensors`: the native mapping, the header parse, WILLNEED),
+    "host reads and stacking" (`load_params` on the CPU: each tensor read
+    from the mapping, cast and stacked), "upload" (the stacked tree copied
+    to the card, the rope tables made there as `load_params` makes them)
+    and "quantize" (`quantize_params` on the card). The tree is the one
+    `load_params` builds on the card. Yields the dict of seconds."""
+    import importlib
+
+    repo_mod = importlib.import_module("metalchat_tpu_torch.io.repository")
+    loaders = importlib.import_module("metalchat_tpu_torch.io.loaders")
+    quant = importlib.import_module("metalchat_tpu_torch.quant.quantize")
+    split = {}
+    retrieve, load, quantize = (repo_mod.FilesystemRepository.retrieve_weights,
+                                loaders.load_params, quant.quantize_params)
+
+    def timed_retrieve(self):
+        t = time.perf_counter()
+        doc = retrieve(self)
+        split["mmap and header"] = time.perf_counter() - t
+        return doc
+
+    def timed_load(doc, config, *, dtype=torch.bfloat16, device=None, **kw):
+        t = time.perf_counter()
+        host = load(doc, config, dtype=dtype, device="cpu", **kw)
+        split["host reads and stacking"] = time.perf_counter() - t
+        t = time.perf_counter()
+        card = to_device({k: v for k, v in host.items() if k != "rope"}, device)
+        card["rope"] = loaders.make_rope_tables(config, kw.get("max_seq_len"), device=device)
+        torch.cuda.synchronize()
+        split["upload"] = time.perf_counter() - t
+        return card
+
+    def timed_quantize(params, **kw):
+        t = time.perf_counter()
+        out = quantize(params, **kw)
+        torch.cuda.synchronize()
+        split["quantize"] = time.perf_counter() - t
+        return out
+
+    repo_mod.FilesystemRepository.retrieve_weights = timed_retrieve
+    loaders.load_params, quant.quantize_params = timed_load, timed_quantize
+    try:
+        yield split
+    finally:
+        repo_mod.FilesystemRepository.retrieve_weights = retrieve
+        loaders.load_params, quant.quantize_params = load, quantize
+
+
 def phase_cli_1b(sm: Smoke):
     """The CLI at Llama-3.2-1B's published widths: a checkout written here
     (its config.json, random bf16 weights from a seeded torch.Generator
@@ -7152,11 +7469,17 @@ def phase_cli_1b(sm: Smoke):
     layout), ``model pull``, then ``prompt --quantize w8a8 --max-tokens 64``
     with a greedy manifest: row 1 (bits 8) each decode step for the seven
     linears of each layer, row 5 at hd 64, flash for the prompt. Prints the
-    time to load and quantize, to tokenize the message, the TTFT and the
-    decode tok/s; launches exact. The checkout is deleted afterwards."""
+    time to load and quantize (and its parts, `load_split`), to tokenize the
+    message, the TTFT and the decode tok/s; launches exact. The checkout
+    opens through the native mapping and the message encodes through the
+    native merge loop (`native.CALLS`), its ids equal to the Python merge's
+    (`encode_piece_plain`). The checkout is deleted afterwards."""
     torch = sm.torch
+    import copy
+
     import numpy as np
 
+    from metalchat_tpu_torch import native
     from metalchat_tpu_torch.config import load_config
     from metalchat_tpu_torch.io.loaders import save_params
     from metalchat_tpu_torch.io.safetensors import save_safetensors
@@ -7183,24 +7506,45 @@ def phase_cli_1b(sm: Smoke):
         greedy_manifest("llama-3.2-1b")
 
         reset_launch_counts()
+        native.reset_calls()
         tokenizer_s = time.perf_counter()
         tok = load_tiktoken_model(ckpt / "tokenizer.model")
         tokenizer_s = time.perf_counter() - tokenizer_s
         content = chat_text(tok, 200, np.random.default_rng(2))
         t = time.perf_counter()
-        n_ids = len(tok.encode(content, allow_special=True))
+        ids = tok.encode(content, allow_special=True)
         encode_s = time.perf_counter() - t
-        stdout, _, sessions = run_cli(["prompt", "llama-3.2-1b", "-c", content, "--quantize",
-                                       "w8a8", "--max-tokens", 64])
+        n_ids, pieces = len(ids), native.CALLS["encode_piece"]
+        plain = copy.copy(tok)
+        plain._native = None  # the Python merge loop alone
+        t = time.perf_counter()
+        plain_ids = plain.encode(content, allow_special=True)
+        plain_s = time.perf_counter() - t
+        sm.expect(ids == plain_ids, "cli-1b: the native merge's ids differ from the Python "
+                  "merge's")
+        sm.expect(pieces > 0 and native.CALLS["encode_piece"] == pieces,
+                  f"cli-1b: native encode calls {native.CALLS}")
+        with load_split(torch) as split:
+            stdout, _, sessions = run_cli(["prompt", "llama-3.2-1b", "-c", content,
+                                           "--quantize", "w8a8", "--max-tokens", 64])
         counts = launch_counts()
+        sm.expect(native.CALLS["mmap_open"] >= 1 and native.CALLS["encode_piece"] > pieces,
+                  f"cli-1b: the checkout did not open through the native mapping or the "
+                  f"session did not encode natively: {native.CALLS}")
+        sm.expect(set(split) == {"mmap and header", "host reads and stacking", "upload",
+                                 "quantize"}, f"cli-1b: load split {split}")
         session, load_s = sessions[0]
         turn = session.turns[0]
         want = chat_launches(counts, cfg, session.turns,
                              {"a8_matvec": 7 * L, "a8_quantize": 7 * L, "decode_attention": L})
         print(f"cli 1b-w8a8 (Llama-3.2-1B widths, checkout {size / 1e9:.3f} GB written in "
-              f"{write_s:.1f} s): load and quantize {load_s:.2f} s (its tokenizer load "
+              f"{write_s:.1f} s): load and quantize {load_s:.2f} s ("
+              + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+              + f"; the rest {load_s - sum(split.values()):.3f} s; its tokenizer load "
               f"{tokenizer_s:.2f} s alone); tokenize the {n_ids}-token message "
-              f"{1e3 * encode_s:.2f} ms; TTFT {1e3 * turn.ttft_s:.2f} ms (prefill "
+              f"{1e3 * encode_s:.2f} ms through the native merge ({pieces} pieces; the "
+              f"Python merge {1e3 * plain_s:.2f} ms, ids equal); native calls "
+              f"{native.CALLS}; TTFT {1e3 * turn.ttft_s:.2f} ms (prefill "
               f"{turn.prefill_tokens} tokens); {turn.decode_steps} tokens at "
               f"{turn.decode_tok_s or 0:.2f} tok/s; cache {session.cache.max_seq_len} "
               f"positions; {len(stdout)} characters out; launches {counts}", flush=True)
@@ -8184,7 +8528,7 @@ def main() -> int:
     gpt2 = gpt2_fixture = ppl_counts = serve_gpt2 = gpt2_times = None
     qlora = gptq_run = qlora_times = train_counts = tp_counts = None
     tp_moe_counts = multihost_counts = tp_leaves_counts = train_tp_counts = None
-    train_moe_counts = None
+    train_moe_counts = quality_counts = None
     smi = sm.phase("device", phase_device)
     dev_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {dev_name}, "
@@ -8228,7 +8572,11 @@ def main() -> int:
         spec_fixture = sm.phase("speculative-fixture", lambda: phase_speculative_fixture(sm))
         gpt2 = sm.phase("gpt2", lambda: phase_gpt2(sm, dev_name))
         gpt2_fixture = sm.phase("gpt2-fixture", lambda: phase_gpt2_fixture(sm))
-        ppl_counts = sm.phase("ppl", lambda: phase_ppl(sm))
+        ppl_run = sm.phase("ppl", lambda: phase_ppl(sm))
+        ppl_counts = None if ppl_run is None else ppl_run["counts"]
+        if ppl_run is not None:
+            quality_counts = sm.phase("quality", lambda: phase_quality(sm, ppl_run))
+        ppl_run = None
         with timed_captures(torch):  # the engines' captures, timed
             fixture_counts = sm.phase("serve-fixture", lambda: phase_serve_fixture(sm))
             serve = None
@@ -8244,11 +8592,11 @@ def main() -> int:
                 serve_mixtral = sm.phase("serve-mixtral", lambda: phase_serve(
                     sm, first_layers(mixtral_run, SERVE_LAYERS["serve-mixtral"],
                                      "serve-mixtral"),
-                    hbm_rate(dev_name), MIXTRAL_LABEL, ("paged",), MIXTRAL_SERVE_TURNS))
+                    hbm_rate(dev_name), MIXTRAL_LABEL, ("paged",)))
             if gpt2 is not None:
                 serve_gpt2 = sm.phase("serve-gpt2", lambda: phase_serve(
                     sm, first_layers(gpt2[0], SERVE_LAYERS["serve-gpt2"], "serve-gpt2"),
-                    hbm_rate(dev_name), GPT2_LABEL, ("paged",), MIXTRAL_SERVE_TURNS))
+                    hbm_rate(dev_name), GPT2_LABEL, ("paged",)))
             sm.phase("http", lambda: phase_http(sm))
         cli_counts = sm.phase("cli-fixture", lambda: phase_cli_fixture(sm))
         cli_1b = sm.phase("cli-1b", lambda: phase_cli_1b(sm))
@@ -8293,7 +8641,8 @@ def main() -> int:
             stream_counts, serve_mixtral, chat_counts, cli_counts, cli_1b, spec_counts,
             spec_fixture, gpt2, gpt2_fixture, ppl_counts, serve_gpt2, gpt2_times, qlora,
             gptq_run, qlora_times, train_counts, tp_counts, tp_moe_counts,
-            multihost_counts, tp_leaves_counts, train_tp_counts, train_moe_counts)):
+            multihost_counts, tp_leaves_counts, train_tp_counts, train_moe_counts,
+            quality_counts)):
         print(f"chip_smoke: FAILED phases: {sm.failures}", file=sys.stderr)
         return 1
     by_path = {"generate 8b-w4a8": main_run[3], "generate 8b-w4a8 ffn_block": ffn_run[3],
@@ -8311,7 +8660,7 @@ def main() -> int:
                f"generate {GPT2_LABEL}": gpt2[0][3],
                f"generate {GPT2_LABEL} bf16 cache": gpt2[1],
                f"serve {GPT2_LABEL} paged": serve_gpt2["paged"]["counts"],
-               "gpt2-fixture": gpt2_fixture, "ppl": ppl_counts,
+               "gpt2-fixture": gpt2_fixture, "ppl": ppl_counts, "quality": quality_counts,
                f"generate {QLORA_LABEL}": qlora[3], f"generate {GPTQ_LABEL}": gptq_run[3],
                f"generate {TRAIN_LABEL}": train_counts,
                "tp 8b-w4a8 generate (a rank)": tp_counts["generate"],

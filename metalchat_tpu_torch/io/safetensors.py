@@ -1,7 +1,11 @@
 """Zero-copy safetensors reader and a writer (a trimmed copy of the JAX
-package's ``io/safetensors.py``, no native fast path).
+package's ``io/safetensors.py``).
 
-Tensors come back as numpy views of the mmap; ``torch_tensor`` gives a CPU
+A document maps its file through the native library
+(`metalchat_tpu_torch.native.NativeMmap`: mmap, the header scan, then
+WILLNEED over the whole file, so the kernel pages a checkpoint in ahead of
+the reads that stack it for the upload). Tensors come back as numpy views
+of the mapping; ``torch_tensor`` gives a CPU
 torch tensor with the checkpoint's dtype (bf16 is read as raw 16-bit words
 and reinterpreted, so numpy needs no bf16 type). `save_safetensors` writes
 torch tensors (bf16 as its raw 16-bit words), `save_sharded_safetensors`
@@ -13,7 +17,6 @@ a second name (the Meta-format loader's surgery).
 from __future__ import annotations
 
 import json
-import mmap
 import re
 from dataclasses import dataclass
 from pathlib import Path
@@ -21,6 +24,8 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from metalchat_tpu_torch.native import NativeMmap
 
 # safetensors dtype tag → numpy storage dtype (BF16 as raw int16 words).
 _DTYPES: Dict[str, np.dtype] = {
@@ -96,16 +101,22 @@ class SafetensorsDocument:
         self._data = data
         self.metadata: Dict[str, Any] = dict(metadata or {})
         self._aliases: Dict[str, str] = {}
-        self._owner = _owner  # keeps the mmap/file alive
+        self._owner = _owner  # the mapping behind ``data``
 
     @classmethod
     def open(cls, path: str | Path) -> "SafetensorsDocument":
-        with Path(path).open("rb") as f:
-            mapped = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
-        view = memoryview(mapped)
-        metadata, entries = parse_header(view)
-        header_len = int.from_bytes(bytes(view[:8]), "little")
-        return cls(entries, view[8 + header_len:], metadata, _owner=mapped)
+        """Map the file (`NativeMmap`), parse its header, advise WILLNEED.
+        The mapping is never unmapped on garbage collection, so the numpy
+        views `tensor` hands out stay valid after the document is gone."""
+        mapped = NativeMmap(path)
+        try:
+            view = mapped.view()
+            metadata, entries = parse_header(view)
+            mapped.advise("willneed")
+        except BaseException:
+            mapped.close()
+            raise
+        return cls(entries, view[8 + mapped.header_len:], metadata, _owner=mapped)
 
     def keys(self) -> Iterator[str]:
         yield from self._entries

@@ -95,7 +95,16 @@ class _Factor:
             H = torch.take_along_dim(H, self.perm[..., None, :], dim=-1)
         diag = H.diagonal(dim1=-2, dim2=-1)
         diag.add_(damp * diag.mean(dim=-1, keepdim=True))
-        hinv, info_inv = torch.linalg.inv_ex(H)
+        if H.device.type == "cpu":
+            # torch's CPU build with MKL 2024.2 never returns from a batched
+            # f64 inverse of 1024-wide matrices on more than one thread; one
+            # matrix at a time it does (on one thread with the batched
+            # call's bits).
+            pairs = [torch.linalg.inv_ex(h) for h in H.reshape(-1, n, n)]
+            hinv = torch.stack([p[0] for p in pairs]).reshape(H.shape)
+            info_inv = torch.stack([p[1] for p in pairs]).reshape(H.shape[:-2])
+        else:
+            hinv, info_inv = torch.linalg.inv_ex(H)
         del H
         lower, info_chol = torch.linalg.cholesky_ex(hinv)
         del hinv

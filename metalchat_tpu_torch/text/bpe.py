@@ -16,8 +16,10 @@ Two unit modes:
   * ``char``: initial symbols are unicode characters (SentencePiece-style),
     with ``<0xNN>`` byte fallback.
 
-The merge loop is Python only: the JAX package's C++ merge loop
-(``metalchat_tpu/native``) is not ported.
+In tiktoken-rank byte mode the merge runs in the native library
+(`metalchat_tpu_torch.native.NativeBPE`, as the JAX package's does);
+explicit-merge and char-unit modes keep the Python loop. `_merge` stays as
+the plain version the tests hold the library to.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from metalchat_tpu_torch.native import NativeBPE
 from metalchat_tpu_torch.text.pretokenize import LLAMA3_SPLIT_PATTERN, compile_split
 from metalchat_tpu_torch.text.tokenizer import SpecialTokenRegistry, TokenKind
 
@@ -52,6 +55,9 @@ class BytePairEncoder:
         self.specials = specials or SpecialTokenRegistry()
         self._special_split = None
         self._rebuild_special_split()
+        # The native merge loop in tiktoken-rank byte mode (the JAX
+        # package's rule); it raises if the library cannot be built.
+        self._native = NativeBPE(vocab) if merges is None and unit == "byte" else None
 
         self._id_to_bytes: Dict[int, bytes] = {}
         for tok, tid in vocab.items():
@@ -129,6 +135,19 @@ class BytePairEncoder:
         raise ValueError(f"unencodable symbol {sym!r}")
 
     def encode_piece(self, piece: bytes) -> List[int]:
+        if self._native is not None:
+            ids = self._native.encode_piece(piece)
+            if ids is not None:
+                return ids
+            # A symbol the vocabulary lacks: the JAX package sends this one
+            # piece to the Python path below, whose byte-fallback handling
+            # gives its ids or raises. That is the reference's semantics,
+            # not a way around the library.
+        return self.encode_piece_plain(piece)
+
+    def encode_piece_plain(self, piece: bytes) -> List[int]:
+        """`encode_piece` through the Python merge loop (`_merge`) alone:
+        the plain version the native merge is held to."""
         tid = self._vocab.get(piece)
         if tid is not None:
             return [tid]

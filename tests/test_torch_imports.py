@@ -183,3 +183,85 @@ def test_text_chat_cli_import_no_optional_packages(module):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, check=True, timeout=120)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+NATIVE_AND_TOOLS = ("native/__init__.py", "native/build.py", "tools/__init__.py",
+                    "tools/quality_gate.py", "tools/quality_tp.py", "tools/train_fixture.py")
+
+
+def test_native_and_tools_are_checked():
+    """The native runtime and the tools are among the files
+    `test_port_imports_no_jax` reads."""
+    for name in NATIVE_AND_TOOLS:
+        assert ROOT / "metalchat_tpu_torch" / name in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["metalchat_tpu_torch.native",
+                                    "metalchat_tpu_torch.native.build",
+                                    "metalchat_tpu_torch.tools.quality_gate",
+                                    "metalchat_tpu_torch.tools.quality_tp",
+                                    "metalchat_tpu_torch.tools.train_fixture"])
+def test_native_and_tools_import_neither_jax_nor_the_jax_package(module):
+    """In a fresh interpreter: neither jax nor metalchat_tpu is imported, and
+    the native runtime imports no torch."""
+    import subprocess
+    import sys
+
+    code = (f"import sys, {module}\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'jax', 'jaxlib', 'metalchat_tpu', 'torch'}))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, check=True, timeout=120)
+    want = "[]" if ".native" in module else "['torch']"
+    assert out.stdout.strip() == want, out.stdout
+
+
+def test_native_loader_opens_nothing_of_the_jax_package(monkeypatch):
+    """The library loaded is the port's own build under
+    metalchat_tpu_torch/build/, compiled from metalchat_tpu_torch/native/
+    sources; no path under metalchat_tpu/ is loaded or compiled."""
+    import ctypes
+
+    from metalchat_tpu_torch import native
+    from metalchat_tpu_torch.native import build
+
+    loaded, real = [], ctypes.CDLL
+
+    def recording(path, *args, **kwargs):
+        loaded.append(str(path))
+        return real(path, *args, **kwargs)
+
+    monkeypatch.setattr(native.ctypes, "CDLL", recording)
+    monkeypatch.setattr(native, "_LIB", None)
+    native.library()
+    assert loaded == [str(build.library_path())]
+    assert build.library_path().parent == ROOT / "metalchat_tpu_torch" / "build"
+    jax_pkg = ROOT / "metalchat_tpu"
+    for path in [*loaded, *(str(build.SRC_DIR / s) for s in build.SOURCES)]:
+        assert not path.startswith(str(jax_pkg) + "/"), path
+    assert build.SRC_DIR == ROOT / "metalchat_tpu_torch" / "native"
+
+
+@pytest.mark.parametrize("tool", ["quality_gate", "quality_tp", "train_fixture"])
+def test_tools_on_the_card_without_one_raise(tool, tmp_path):
+    """``--device cuda`` (each tool's default) on a machine without a card
+    fails with CUDA's message before it reads or writes anything: no
+    fallback to the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool would run")
+    argv = [sys.executable, "-m", f"metalchat_tpu_torch.tools.{tool}", "--device", "cuda"]
+    if tool == "train_fixture":
+        argv += ["--out", str(tmp_path / "out")]
+    if tool == "quality_gate":
+        argv += ["--out", str(tmp_path / "QUALITY_x")]
+    before = sorted(p.name for p in ROOT.iterdir())
+    out = subprocess.run(argv, capture_output=True, text=True, cwd=ROOT, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr, out.stderr[-2000:]
+    assert sorted(p.name for p in ROOT.iterdir()) == before
+    assert list(tmp_path.iterdir()) == []
